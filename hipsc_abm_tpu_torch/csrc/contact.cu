@@ -1,0 +1,142 @@
+// JKR contact substep over per-row stencil runs (id-list bonds).
+//
+// Replaces: hipsc_abm_tpu/ops/pallas_contact.py `_contact_kernel` via
+// `contact_substep_pallas` (B6), which computes the same physics as
+// hipsc_abm_tpu/ops/jkr.py `jkr_substep`.
+//
+// What it computes, per sorted row i (alive): walk the three stencil runs
+// r = 0..2, sorted positions p in [lo_r, hi_r) ascending. A candidate p
+// counts if its id differs from the row's id and it is a fresh contact
+// (dist^2 <= radius^2) or already in the row's partner list. The JKR pair
+// law gives the force and a survival flag (nondimensional overlap d >
+// break_d). Survivors add their force and are appended to the new partner
+// list in walk order; the list keeps the first K and the returned degree is
+// the untruncated count (the bond-capacity overflow probe).
+//
+// What bounds it on the card: at reference colony density a row walks ~30
+// candidates of 20 bytes each, all inside a few neighbouring bins, so the
+// kernel is bound by load latency and L1/L2 traffic, not arithmetic: one
+// substep at 100k rows reads ~60 MB of mostly cached data. The TPU kernel
+// DMA'd 128-aligned spans into VMEM and tested every lane of a span against
+// every row of a block; on Hopper each thread reads only its own run slices
+// (the rows of a warp are neighbours in the sorted order, so their runs
+// overlap and the reads hit L1), and the per-row bond membership test is a
+// short loop over the row's K partner ids that runs only for candidates
+// outside the search radius. The partner lists stay in global memory (no
+// K-sized register array), so any K up to the engine's guard works.
+//
+// One thread per row rather than one warp per row: a row has ~10 candidates
+// per run, too few to keep 32 lanes busy, and a thread per row keeps the
+// first-K compaction a plain sequential append.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+struct PairLaw {
+  float radius2;      // fresh-contact radius squared
+  float break_d;      // bond-break threshold on the nondimensional overlap
+  int uniform;        // 1: every radius equals `two_r / 2` (fast path)
+  float two_r;        // uniform path: r_i + r_j
+  float inv_scale;    // uniform path: 1 / (1e6 * overlap scale)
+  float fpre;         // uniform path: pi * adhesion_const * r_hat
+  float scale_c;      // general path: ((pi * adhesion_const) / e_hat)^(2/3)
+  float pi_f;         // general path: pi
+  float adhesion;     // general path: adhesion_const
+};
+
+__global__ void contact_substep_kernel(
+    const float4* __restrict__ xyzr, const int* __restrict__ ids,
+    const unsigned char* __restrict__ alive, const int* __restrict__ bounds,
+    const int* __restrict__ partners, float* __restrict__ force,
+    int* __restrict__ degree, int* __restrict__ new_partners, int C, int K,
+    PairLaw law) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= C) return;
+  const int* my_partners = partners + (size_t)row * K;
+  int* out_partners = new_partners + (size_t)row * K;
+
+  float fx = 0.f, fy = 0.f, fz = 0.f;
+  int count = 0;
+  if (alive[row]) {
+    const float4 me = xyzr[row];
+    const int my_id = ids[row];
+    for (int r = 0; r < 3; ++r) {
+      const int lo = bounds[row * 6 + 2 * r];
+      const int hi = bounds[row * 6 + 2 * r + 1];
+      for (int p = lo; p < hi; ++p) {
+        const int cid = ids[p];
+        if (cid == my_id) continue;
+        const float4 c = xyzr[p];
+        const float dx = me.x - c.x;
+        const float dy = me.y - c.y;
+        const float dz = me.z - c.z;
+        const float dist2 = dx * dx + dy * dy + dz * dz;
+        bool eligible = dist2 <= law.radius2;
+        for (int k = 0; k < K && !eligible; ++k) {
+          eligible = my_partners[k] == cid;
+        }
+        if (!eligible) continue;
+
+        const float mag = dist2 > 0.f ? sqrtf(dist2) : 0.f;
+        float d, fmag;
+        if (law.uniform) {
+          d = (law.two_r - mag) * law.inv_scale;
+          fmag = 0.f;
+          if (d > law.break_d) {
+            const float f = ((-0.0204f * d + 0.4942f) * d + 1.0801f) * d - 1.324f;
+            fmag = f * law.fpre;
+          }
+        } else {
+          const float ri = me.w, rj = c.w;
+          const float overlap = (ri + rj - mag) / 1e6f;
+          const float r_hat = (ri * rj) / (1e6f * fmaxf(ri + rj, 1e-12f));
+          const float scale = r_hat > 0.f ? law.scale_c * powf(r_hat, 1.0f / 3.0f) : 0.f;
+          d = overlap / fmaxf(scale, 1e-30f);
+          fmag = 0.f;
+          if (d > law.break_d) {
+            const float dc = fminf(fmaxf(d, -1e8f), 1e8f);
+            const float f = ((-0.0204f * dc + 0.4942f) * dc + 1.0801f) * dc - 1.324f;
+            fmag = f * law.pi_f * law.adhesion * r_hat;
+          }
+        }
+        if (!(d > law.break_d)) continue;  // the bond breaks: no force, no entry
+        if (mag > 0.f) {
+          fx += fmag * (dx / mag);
+          fy += fmag * (dy / mag);
+          fz += fmag * (dz / mag);
+        }
+        if (count < K) out_partners[count] = cid;
+        ++count;
+      }
+    }
+  }
+  for (int k = count < K ? count : K; k < K; ++k) out_partners[k] = -1;
+  force[(size_t)row * 3 + 0] = fx;
+  force[(size_t)row * 3 + 1] = fy;
+  force[(size_t)row * 3 + 2] = fz;
+  degree[row] = count;
+}
+
+}  // namespace
+
+extern "C" int hipsc_contact_substep(
+    const void* xyzr, const void* ids, const void* alive, const void* bounds,
+    const void* partners, void* force, void* degree, void* new_partners, int C,
+    int K, float radius2, float break_d, int uniform, float two_r,
+    float inv_scale, float fpre, float scale_c, float pi_f, float adhesion,
+    void* stream) {
+  if (C <= 0) return (int)cudaSuccess;
+  PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
+  const int threads = 128;
+  const int blocks = (C + threads - 1) / threads;
+  contact_substep_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float4*)xyzr, (const int*)ids, (const unsigned char*)alive,
+      (const int*)bounds, (const int*)partners, (float*)force, (int*)degree,
+      (int*)new_partners, C, K, law);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* hipsc_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,605 @@
+"""The fused hiPSC step over a fixed-capacity struct-of-arrays state, in
+PyTorch (port of ``hipsc_abm_tpu/engine.py``'s single-device 2D path).
+
+``hipsc_step`` runs the reference's per-step loop body
+(``cell_simulation.py:85-123``) in the same phase order as the JAX engine:
+the canonical ``(flat bin, id)`` sort that makes the state sorted-resident,
+the neighbour-moment pass for division and death, the pathway and
+differentiation phases, FGF4 secretion and FTCS diffusion, motility, and
+11 JKR-contact + Stokes substeps. Dynamic population lives in an ``alive``
+mask over preallocated slots; ``HipscEngine.safe_step`` re-executes a step
+from its unmodified input after growing whichever capacity overflowed, so
+results are never silently truncated.
+
+The engine has an explicit ``device``. On a CUDA device the neighbour
+moments, the contact substep and the FTCS subcycles run the hand-written
+kernels of ``ops.bio_moments``, ``ops.contact`` and ``ops.ftcs``; on the CPU
+the same wrappers run their plain versions. There is no other switch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from hipsc_abm_tpu_torch.models import biology
+from hipsc_abm_tpu_torch.ops import diffusion as diffusion_ops
+from hipsc_abm_tpu_torch.ops import neighbors as nbr_ops
+from hipsc_abm_tpu_torch.ops import rng
+from hipsc_abm_tpu_torch.ops.bio_moments import bio_moments_cuda
+from hipsc_abm_tpu_torch.ops.contact import contact_substep_cuda
+from hipsc_abm_tpu_torch.ops.ftcs import ftcs_diffuse_cuda
+from hipsc_abm_tpu_torch.ops.integrate import stokes_integrate
+from hipsc_abm_tpu_torch.ops.jkr import BondState, clear_bond_rows, pack_physics
+from hipsc_abm_tpu_torch.ops.neighbors import GridSpec
+from hipsc_abm_tpu_torch.params import (
+    BiologyParams,
+    DiffusionParams,
+    ExperimentalParams,
+    GeneralParams,
+)
+
+
+class CellState(NamedTuple):
+    """Complete simulation state.
+
+    ``arrays["ids"]`` holds stable, never-recycled agent ids: all randomness
+    is id-keyed and bonds store partner ids, so dynamics do not depend on
+    slot layout. ``key`` is the raw threefry step key, (2,) int64 on the
+    host (the key schedule does not depend on the colony). ``next_id`` is
+    the id the next daughter born will receive."""
+
+    arrays: Dict[str, torch.Tensor]  # per-agent slot arrays (SoA)
+    alive: torch.Tensor  # (C,) bool slot occupancy
+    bonds: BondState  # persistent JKR bond graph
+    gradients: Dict[str, torch.Tensor]  # morphogen lattices
+    key: torch.Tensor  # (2,) int64 uint32 words, host
+    step: int  # current step counter
+    next_id: torch.Tensor  # () int32, first unassigned agent id
+
+    @property
+    def capacity(self) -> int:
+        return self.alive.shape[0]
+
+    def num_agents(self) -> int:
+        return int(self.alive.sum())
+
+
+# per-agent arrays of the hiPSC model: dtype and vector width (reference
+# ``cell_simulation.py:136-149``; "ids" is the stable agent identity). Every
+# integer lane is int32 — none rides a float lane, so ids are exact to 2^31.
+HIPSC_ARRAY_SPECS: Dict[str, Tuple[torch.dtype, Optional[int]]] = {
+    "ids": (torch.int32, None),
+    "locations": (torch.float32, 3),
+    "radii": (torch.float32, None),
+    "FGF4": (torch.int32, None),
+    "FGFR": (torch.int32, None),
+    "ERK": (torch.int32, None),
+    "GATA6": (torch.int32, None),
+    "NANOG": (torch.int32, None),
+    "states": (torch.int32, None),
+    "death_counters": (torch.int32, None),
+    "diff_counters": (torch.int32, None),
+    "div_counters": (torch.int32, None),
+    "fds_counters": (torch.int32, None),
+    "motility_forces": (torch.float32, 3),
+    "jkr_forces": (torch.float32, 3),
+}
+
+# capacities are multiples of this: the JAX engine's quantum, so both
+# engines hold the same free slots and defer the same divisions
+_CAPACITY_QUANTUM = 256
+
+# Largest bond capacity growth may reach. ~160 bonds per agent is ~21x the
+# reference colony's contact degree; no physical hiPSC packing comes near,
+# so reaching it means broken force constants or box size, and the engine
+# stops with an error instead of growing without bound.
+MAX_BOND_CAP = 128
+
+_BOND_CAP_GUARD_MSG = (
+    "contact degree {deg} requires bond_cap {need}, past the guarded limit "
+    "of {limit}: that is ~21x the reference colony's contact degree, far "
+    "outside any physical hiPSC workload — check force constants / box size."
+)
+
+
+def _round_up(x, m: int) -> int:
+    return ((int(x) + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static capacities and phase switches of one step."""
+
+    capacity: int
+    nbr_spec: GridSpec  # biology neighbour graph, radius 15
+    jkr_spec: GridSpec  # contact graph, bin = contact reach + Verlet skin
+    bond_cap: int
+    two_d: bool
+    # static cap on divisions per step (sizes the daughter tables; grown on
+    # the num_dividing probe)
+    div_cap: int = 0
+    # Verlet skin (um): the contact runs are built over bins of (search
+    # radius + 2 break bands + skin) and reused across substeps until an
+    # agent drifts more than skin/2; contacts are re-tested at the true
+    # radius every substep, so the skin only decides how often to re-sort
+    verlet_skin: float = 14.0
+    enable_diffusion: bool = False
+    # equal radii for every agent (growth off): the contact kernel's
+    # scalar-radius pair law
+    uniform_radius: Optional[float] = None
+
+    @classmethod
+    def create(
+        cls,
+        size: Tuple[float, float, float],
+        capacity: int,
+        bio: BiologyParams,
+        bond_cap: int = 8,
+        verlet_skin: float = 14.0,
+        **flags,
+    ) -> "EngineConfig":
+        capacity = _round_up(capacity, _CAPACITY_QUANTUM)
+        # run_cap is 0: the kernels walk exact run bounds and the plain
+        # versions size their windows from the data, so nothing overflows
+        nbr_spec = GridSpec.from_box(size, bio.neighbor_radius, 0)
+        jkr_spec = GridSpec.from_box(
+            size, bio.jkr_radius + 2.0 * bio.jkr_break_band + verlet_skin, 0
+        )
+        flags.setdefault("div_cap", max(128, _round_up(capacity // 32, 128)))
+        flags["div_cap"] = min(int(flags["div_cap"]), capacity)
+        return cls(
+            capacity=capacity,
+            nbr_spec=nbr_spec,
+            jkr_spec=jkr_spec,
+            bond_cap=int(bond_cap),
+            two_d=size[2] == 0,
+            verlet_skin=float(verlet_skin),
+            **flags,
+        )
+
+
+class StepInfo(NamedTuple):
+    """Per-step diagnostics and overflow probes (0-d tensors from
+    ``hipsc_step``; Python numbers from ``safe_step``). The span probes of
+    the JAX engine have no meaning here and report 0."""
+
+    num_agents: object
+    num_added: object
+    num_removed: object
+    num_deferred: object  # divisions deferred for lack of free slots
+    num_dividing: object  # division attempts (div_cap growth probe)
+    nbr_max_in_bin: object  # widest radius-15 stencil run
+    jkr_max_in_bin: object  # widest contact stencil run
+    jkr_max_degree: object  # bond_cap growth probe
+    jkr_span_needed: object
+    nbr_span_needed: object
+    max_id: object
+    max_substep_move: object  # max per-agent move per physics substep (um)
+    max_window_drift: object
+
+
+_FLOAT_PROBES = ("max_substep_move", "max_window_drift")
+
+
+def _physics_dts(bio: BiologyParams) -> np.ndarray:
+    """Substep schedule: divmod(step_dt, move_dt) full substeps + remainder
+    substep, which runs even when the remainder is zero and still updates the
+    bond graph (reference ``cell_methods.py:394-399``)."""
+    steps, last_dt = divmod(bio.step_dt, bio.move_dt)
+    return np.array([bio.move_dt] * int(steps) + [last_dt], dtype=np.float32)
+
+
+def _max_run(bounds: torch.Tensor) -> torch.Tensor:
+    """Widest stencil run of a (C, 6) bounds table (dead rows are empty)."""
+    return torch.clamp(bounds[:, 1::2] - bounds[:, 0::2], min=0).max()
+
+
+def _sort_state_rows(arrays, alive, bonds, order):
+    """Move the whole per-agent state into ``order``."""
+    out = {k: v[order] for k, v in arrays.items()}
+    return out, alive[order], BondState(bonds.partners[order], bonds.mask[order])
+
+
+def hipsc_step(
+    state: CellState,
+    cfg: EngineConfig,
+    gen: GeneralParams,
+    xp: ExperimentalParams,
+    bio: BiologyParams,
+    diff: Optional[DiffusionParams],
+) -> Tuple[CellState, StepInfo]:
+    """One full simulation step, in the phase order of the JAX engine's
+    ``hipsc_step``. The output state is in this step's canonical sorted
+    layout; agent identity rides the stable ids."""
+    arrays = dict(state.arrays)
+    alive = state.alive
+    bonds = state.bonds
+    gradients = dict(state.gradients)
+    device = alive.device
+    key, k_div, k_path, k_diff, _k_stoch, k_mot = rng.split(state.key, 6)
+    size = torch.tensor(gen.size, dtype=torch.float32, device=device)
+    capacity = alive.shape[0]
+
+    # --- get_neighbors("neighbor_graph", 15) and the sorted-resident state ---
+    nbr_grid = nbr_ops.build_grid(cfg.nbr_spec, arrays["locations"], arrays["ids"], alive)
+    arrays, alive, bonds = _sort_state_rows(arrays, alive, bonds, nbr_grid.order)
+    loc0 = arrays["locations"]
+    nbr_flat0 = nbr_grid.sorted_flat.to(torch.int32)
+    nbr_sentinel = torch.full_like(nbr_flat0, nbr_ops.dead_sentinel(cfg.nbr_spec))
+    nbr_bounds = nbr_ops.run_bounds(cfg.nbr_spec, nbr_grid.sorted_flat)
+    zero_f = torch.zeros((capacity,), dtype=torch.float32, device=device)
+
+    def bio_moments(curr_loc, f0, f1, f2, alive_now, mode):
+        # build-time flat ids re-sentineled by the CURRENT liveness: the
+        # graph stays the build window, but agents killed earlier in the
+        # step stop contributing (cell_methods.py:47)
+        flat = torch.where(alive_now, nbr_flat0, nbr_sentinel)
+        pack = torch.stack(
+            [loc0[:, 0], loc0[:, 1], curr_loc[:, 0], curr_loc[:, 1],
+             f0.to(torch.float32), f1.to(torch.float32), f2.to(torch.float32),
+             zero_f], dim=1)
+        return bio_moments_cuda(pack, flat, nbr_bounds,
+                                num_bins=cfg.nbr_spec.num_bins,
+                                radius=bio.neighbor_radius, mode=mode)
+
+    zero_i = torch.zeros((capacity,), dtype=torch.int32, device=device)
+    m1 = bio_moments(loc0, zero_i, zero_i, zero_i, alive, "count")
+    nbr_count = m1[:, 0].to(torch.int32)
+
+    # --- cell_division (daughter ids by the mothers' canonical rank) ---
+    (arrays, alive, daughter_mask, num_added, num_deferred,
+     num_dividing) = biology.cell_division(
+        arrays, alive, nbr_count, k_div, bio, cfg.two_d, canon_order=None,
+        next_id=state.next_id, div_cap=cfg.div_cap or cfg.capacity,
+    )
+    bonds = clear_bond_rows(bonds, daughter_mask)  # fresh vertices, no edges
+    nbr_count = torch.where(daughter_mask, torch.zeros_like(nbr_count), nbr_count)
+
+    # --- cell_death (dead partners' bond entries drop at compaction) ---
+    arrays["death_counters"], removed, num_removed = biology.cell_death(
+        arrays["states"], arrays["death_counters"], alive, nbr_count,
+        xp.lonely_thresh, bio.death_thresh,
+    )
+    alive = alive & ~removed
+
+    # --- cell_pathway (post-death liveness, post-division locations) ---
+    m2 = bio_moments(arrays["locations"], arrays["FGF4"], zero_i, zero_i, alive,
+                     "pathway")
+    count2 = m2[:, 0].to(torch.int32)
+    field_fgf4 = None
+    if (cfg.enable_diffusion and diff is not None and diff.field_coupling
+            and "fgf4_values" in gradients):
+        field_fgf4 = diffusion_ops.sample_concentration(
+            gradients["fgf4_values"], arrays["locations"], diff.spat_res)
+    (
+        arrays["FGF4"], arrays["FGFR"], arrays["ERK"],
+        arrays["GATA6"], arrays["NANOG"], arrays["fds_counters"],
+    ) = biology.cell_pathway(
+        arrays["FGF4"], arrays["FGFR"], arrays["ERK"], arrays["GATA6"],
+        arrays["NANOG"], arrays["fds_counters"], arrays["ids"], alive, count2,
+        m2[:, 1], m2[:, 2], k_path, state.step, xp, bio, field_fgf4=field_fgf4,
+    )
+
+    # --- cell_differentiate ---
+    arrays["NANOG"], arrays["states"], arrays["diff_counters"] = biology.cell_differentiate(
+        arrays["GATA6"], arrays["NANOG"], arrays["states"], arrays["diff_counters"],
+        arrays["ids"], alive, k_diff, bio,
+    )
+
+    # --- FGF4 secretion and FTCS diffusion ---
+    if cfg.enable_diffusion and diff is not None:
+        np_dts = diffusion_ops.diffusion_dts(bio.step_dt, diff.diffuse_dt)
+        for gname in sorted(gradients):
+            grid = gradients[gname]
+            if gname == "fgf4_values" and (
+                diff.release_amount > 0.0 or diff.uptake_amount > 0.0
+            ):
+                secreting = alive & (arrays["NANOG"] > arrays["GATA6"])
+                amounts = torch.where(secreting, diff.release_amount, 0.0)
+                amounts = amounts - torch.where(alive, diff.uptake_amount, 0.0)
+                grid = diffusion_ops.deposit_morphogen(
+                    grid, arrays["locations"], amounts.to(torch.float32), diff.spat_res
+                )
+            gradients[gname] = ftcs_diffuse_cuda(
+                grid, np_dts, diff.diffuse_const, diff.spat_res2,
+                diff.max_concentration, diff.degradation,
+            )
+
+    # --- cell_motility (post-fate moments, post-division locations) ---
+    m3 = bio_moments(arrays["locations"], arrays["GATA6"], arrays["NANOG"],
+                     arrays["states"], alive, "motility")
+    arrays["motility_forces"] = biology.cell_motility(
+        arrays["locations"], arrays["GATA6"], arrays["NANOG"], arrays["states"],
+        arrays["motility_forces"], arrays["ids"], alive, count2,
+        m3[:, 3].to(torch.int32), m3[:, 4:7], m3[:, 7].to(torch.int32), m3[:, 8:11],
+        k_mot, xp, bio, cfg.two_d,
+    )
+
+    # --- apply_forces: 11 physics substeps (cell_methods.py:386-439) ---
+    locations, bonds, j_bins, j_deg, max_move = _physics_scan(
+        cfg, bio, arrays, alive, bonds, size, _physics_dts(bio)
+    )
+    arrays["locations"] = locations
+    # the reference leaves both force arrays zeroed after the step
+    arrays["jkr_forces"] = torch.zeros_like(arrays["jkr_forces"])
+    arrays["motility_forces"] = torch.zeros_like(arrays["motility_forces"])
+
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    info = StepInfo(
+        num_agents=alive.sum(),
+        num_added=num_added,
+        num_removed=num_removed,
+        num_deferred=num_deferred,
+        num_dividing=num_dividing,
+        nbr_max_in_bin=_max_run(nbr_bounds),
+        jkr_max_in_bin=j_bins,
+        jkr_max_degree=j_deg,
+        jkr_span_needed=zero,
+        nbr_span_needed=zero,
+        max_id=torch.where(alive, arrays["ids"], torch.zeros_like(arrays["ids"])).max(),
+        max_substep_move=max_move,
+        max_window_drift=torch.zeros((), dtype=torch.float32, device=device),
+    )
+    new_state = CellState(
+        arrays=arrays,
+        alive=alive,
+        bonds=bonds,
+        gradients=gradients,
+        key=key,
+        step=state.step + 1,
+        next_id=(state.next_id + num_added).to(torch.int32),
+    )
+    return new_state, info
+
+
+def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts):
+    """The contact substeps over Verlet-cached stencil runs.
+
+    At entry, and whenever an agent has drifted more than skin/2 from where
+    the runs were built, the physics rows are re-sorted into the contact
+    grid's canonical order and the per-row run bounds rebuilt. The drift
+    test is one host read per substep. Each substep is one contact-kernel
+    launch (forces, degrees and the new partner lists) and one Stokes
+    update; the rows go back to the state's layout at the end. Returns
+    ``(locations, bonds, widest run, max degree, max substep move)``."""
+    device = alive.device
+    capacity = alive.shape[0]
+    rows = {
+        "loc": arrays["locations"], "rad": arrays["radii"],
+        "mot": arrays["motility_forces"], "ids": arrays["ids"], "alive": alive,
+        "partners": bonds.ids(),
+        "perm": torch.arange(capacity, dtype=torch.int64, device=device),
+    }
+    law = dict(radius=bio.jkr_radius, adhesion_const=bio.adhesion_const,
+               poisson=bio.poisson, youngs=bio.youngs, break_d=bio.jkr_break_d,
+               uniform_radius=cfg.uniform_radius)
+    half_skin2 = (cfg.verlet_skin * 0.5) ** 2
+    bounds = ref = None
+    j_bins, j_degs, moves2 = [], [], []
+    for dt in dts:
+        if bounds is None or float(_masked_max(
+                ((rows["loc"] - ref) ** 2).sum(dim=1), rows["alive"])) > half_skin2:
+            grid = nbr_ops.build_grid(cfg.jkr_spec, rows["loc"], rows["ids"], rows["alive"])
+            rows = {k: v[grid.order] for k, v in rows.items()}
+            bounds = nbr_ops.run_bounds(cfg.jkr_spec, grid.sorted_flat)
+            ref = rows["loc"]
+            j_bins.append(_max_run(bounds))
+        force, degree, rows["partners"] = contact_substep_cuda(
+            pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
+            bounds, rows["partners"], **law,
+        )
+        new_loc = stokes_integrate(rows["loc"], rows["rad"], force, rows["mot"],
+                                   rows["alive"], bio.stokes, size, float(dt))
+        moves2.append(_masked_max(((new_loc - rows["loc"]) ** 2).sum(dim=1),
+                                  rows["alive"]))
+        j_degs.append(degree.max())
+        rows["loc"] = new_loc
+
+    perm = rows["perm"]
+    locations = torch.empty_like(rows["loc"])
+    locations[perm] = rows["loc"]
+    partners = torch.empty_like(rows["partners"])
+    partners[perm] = rows["partners"]
+    return (locations, BondState.from_ids(partners), torch.stack(j_bins).max(),
+            torch.stack(j_degs).max(), torch.sqrt(torch.stack(moves2).max()))
+
+
+def _masked_max(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, values, torch.zeros_like(values)).max()
+
+
+class HipscEngine:
+    """Host side of the engine: state construction, stepping and capacity growth.
+
+    ``device`` is never inferred: ``"cuda"`` (the default) runs the kernels
+    and raises when CUDA is absent; ``"cpu"`` runs the plain versions.
+    Growth, stochastic updates, diff_surround and 3D boxes are not ported
+    yet and raise."""
+
+    def __init__(
+        self,
+        gen: GeneralParams,
+        xp: ExperimentalParams,
+        bio: Optional[BiologyParams] = None,
+        diff: Optional[DiffusionParams] = None,
+        cfg: Optional[EngineConfig] = None,
+        enable_diffusion: bool = False,
+        enable_growth: bool = False,
+        enable_stochastic: bool = False,
+        enable_diff_surround: bool = False,
+        device="cuda",
+    ):
+        for flag, on in (("enable_growth", enable_growth),
+                         ("enable_stochastic", enable_stochastic),
+                         ("enable_diff_surround", enable_diff_surround)):
+            if on:
+                raise NotImplementedError(f"{flag} is not ported yet")
+        if gen.size[2] != 0:
+            raise NotImplementedError("3D boxes are not ported yet")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("HipscEngine(device='cuda') needs a CUDA device")
+        self.gen = gen
+        self.xp = xp
+        self.bio = bio or BiologyParams()
+        self.diff = diff
+        if cfg is None:
+            n0 = gen.num_to_start + xp.num_gata6
+            capacity = max(_round_up(int(n0 * 1.3), _CAPACITY_QUANTUM), _CAPACITY_QUANTUM)
+            cfg = EngineConfig.create(
+                gen.size, capacity=capacity, bio=self.bio,
+                enable_diffusion=enable_diffusion,
+                uniform_radius=self.bio.max_radius,
+            )
+        self.cfg = cfg
+
+    # -- state construction -------------------------------------------------
+
+    def init_state(self, seed: int = 0, locations: Optional[np.ndarray] = None) -> CellState:
+        """The initial colony (reference ``agent_initials``,
+        ``cell_simulation.py:128-157``), drawn with numpy exactly as the JAX
+        engine draws it, so both start from identical states."""
+        gen, xp, bio, cfg = self.gen, self.xp, self.bio, self.cfg
+        n = gen.num_to_start + xp.num_gata6
+        if n > cfg.capacity:
+            raise ValueError(f"initial population {n} exceeds capacity {cfg.capacity}")
+        C = cfg.capacity
+        rs = np.random.default_rng(seed)
+
+        arrays: Dict[str, np.ndarray] = {}
+        for name, (dtype, vec) in HIPSC_ARRAY_SPECS.items():
+            shape = (C,) if vec is None else (C, vec)
+            np_dtype = np.int32 if dtype == torch.int32 else np.float32
+            arrays[name] = np.zeros(shape, dtype=np_dtype)
+
+        if locations is None:
+            locations = rs.random((n, 3)) * np.asarray(gen.size)
+        arrays["ids"][:n] = np.arange(n, dtype=np.int32)
+        arrays["locations"][:n] = locations
+        arrays["radii"][:n] = bio.max_radius
+        for fds in ("FGF4", "FGFR", "ERK", "NANOG"):
+            arrays[fds][:n] = rs.integers(0, bio.field, n)
+        arrays["death_counters"][:n] = rs.integers(0, bio.death_thresh, n)
+        arrays["diff_counters"][:n] = rs.integers(0, bio.pluri_to_diff, n)
+        arrays["div_counters"][:n] = rs.integers(0, bio.pluri_div_thresh, n)
+        if bio.fds_thresh > 1:
+            arrays["fds_counters"][:n] = rs.integers(0, bio.fds_thresh, n)
+        g0 = gen.num_to_start
+        if xp.num_gata6 > 0:
+            arrays["GATA6"][g0:n] = rs.integers(1, max(bio.field, 2), xp.num_gata6)
+            arrays["NANOG"][g0:n] = 0
+
+        alive = np.zeros((C,), dtype=bool)
+        alive[:n] = True
+
+        gradients: Dict[str, np.ndarray] = {}
+        if cfg.enable_diffusion and self.diff is not None:
+            gradients["fgf4_values"] = np.zeros(self.diff.grid_size(gen.size),
+                                                dtype=np.float32)
+
+        dev = self.device
+        return CellState(
+            arrays={k: torch.from_numpy(v).to(dev) for k, v in arrays.items()},
+            alive=torch.from_numpy(alive).to(dev),
+            bonds=BondState.empty(C, cfg.bond_cap, device=dev),
+            gradients={k: torch.from_numpy(v).to(dev) for k, v in gradients.items()},
+            key=rng.prng_key(seed),
+            step=1,
+            next_id=torch.tensor(n, dtype=torch.int32, device=dev),
+        )
+
+    # -- stepping -----------------------------------------------------------
+
+    def _cfg_for_state(self, state: CellState) -> EngineConfig:
+        """A config whose static shapes match the given state (``self.cfg``
+        is a template that growth may have moved past an older state)."""
+        cfg = self.cfg
+        bond_cap = state.bonds.partners.shape[1]
+        if cfg.capacity != state.capacity or cfg.bond_cap != bond_cap:
+            cfg = dataclasses.replace(cfg, capacity=state.capacity, bond_cap=bond_cap)
+        return cfg
+
+    def step(self, state: CellState) -> Tuple[CellState, StepInfo]:
+        """Raw step (no overflow handling)."""
+        return hipsc_step(state, self._cfg_for_state(state), self.gen, self.xp,
+                          self.bio, self.diff)
+
+    def safe_step(self, state: CellState) -> Tuple[CellState, StepInfo]:
+        """Step with exact capacity-overflow recovery: if a static capacity
+        (bond degree, daughter table, free slots) overflowed, re-execute from
+        the same input state with that capacity grown. The probes come to the
+        host in one transfer per attempt."""
+        for _ in range(16):
+            cfg = self._cfg_for_state(state)
+            new_state, info = hipsc_step(state, cfg, self.gen, self.xp, self.bio,
+                                         self.diff)
+            values = torch.stack([torch.as_tensor(v).to(torch.float64).reshape(())
+                                  for v in info]).tolist()
+            info = StepInfo(*(v if name in _FLOAT_PROBES else int(v)
+                              for name, v in zip(StepInfo._fields, values)))
+            if info.max_id >= (1 << 31) - 2:
+                raise RuntimeError("agent id space exhausted (2^31 agents ever "
+                                   "created); id recycling is not implemented")
+            grown_cfg = self._grown_cfg(cfg, info)
+            if grown_cfg is None:
+                return new_state, info
+            self.cfg = grown_cfg
+            state = self.repad_state(state, grown_cfg)
+        raise RuntimeError("capacity growth failed to converge")
+
+    def _grown_cfg(self, cfg: EngineConfig, info: StepInfo) -> Optional[EngineConfig]:
+        """The config the step's overflow probes demand, or None."""
+        changed = False
+        bond_cap, capacity, div_cap = cfg.bond_cap, cfg.capacity, cfg.div_cap
+        if int(info.jkr_max_degree) > bond_cap:
+            bond_cap = _round_up(int(info.jkr_max_degree) * 2, 8)
+            if bond_cap > MAX_BOND_CAP:
+                raise RuntimeError(_BOND_CAP_GUARD_MSG.format(
+                    deg=int(info.jkr_max_degree), need=bond_cap, limit=MAX_BOND_CAP))
+            changed = True
+        if div_cap and int(info.num_dividing) > div_cap:
+            # daughter-table overflow: grow the tables; the re-execution
+            # reveals any true free-slot shortage separately
+            div_cap = min(_round_up(int(info.num_dividing) * 2, 128), capacity)
+            changed = True
+        elif int(info.num_deferred) > 0:
+            capacity = _round_up(capacity * 2, _CAPACITY_QUANTUM)
+            changed = True
+        if not changed:
+            return None
+        return dataclasses.replace(cfg, bond_cap=bond_cap, capacity=capacity,
+                                   div_cap=min(div_cap, capacity) if div_cap else div_cap)
+
+    @staticmethod
+    def repad_state(state: CellState, cfg: EngineConfig) -> CellState:
+        """Re-pad a state to a (larger) capacity / bond capacity."""
+        C, K = cfg.capacity, cfg.bond_cap
+
+        def pad_rows(a):
+            if a.shape[0] == C:
+                return a
+            pad = torch.zeros((C - a.shape[0],) + tuple(a.shape[1:]), dtype=a.dtype,
+                              device=a.device)
+            return torch.cat([a, pad], dim=0)
+
+        partners = pad_rows(state.bonds.partners)
+        mask = pad_rows(state.bonds.mask)
+        if K != partners.shape[1]:
+            if K < partners.shape[1]:
+                raise ValueError("bond capacity cannot shrink")
+            extra = (C, K - partners.shape[1])
+            partners = torch.cat([partners, partners.new_zeros(extra)], dim=1)
+            mask = torch.cat([mask, mask.new_zeros(extra)], dim=1)
+        return CellState(
+            arrays={k: pad_rows(v) for k, v in state.arrays.items()},
+            alive=pad_rows(state.alive),
+            bonds=BondState(partners=partners, mask=mask),
+            gradients=state.gradients,
+            key=state.key,
+            step=state.step,
+            next_id=state.next_id,
+        )

@@ -1,0 +1,98 @@
+"""The contact substep: CUDA kernel (``csrc/contact.cu``) and its plain
+version.
+
+Port of ``hipsc_abm_tpu/ops/pallas_contact.py`` ``contact_substep_pallas``
+(B6), the id-list contact substep: per sorted row, walk the three stencil
+runs of the build-time window, test each candidate (fresh contact within the
+search radius or already bonded), apply the JKR pair law, and emit the summed
+force, the untruncated degree and the first K survivors in walk order as the
+new partner list. The plain version is the windowed ``ops.jkr.jkr_substep``
+over the same runs.
+
+Inputs are in sorted-row order: ``xyzr`` (C, 4) float32 ``[x, y, z, r]``,
+``ids`` (C,) int32, ``alive`` (C,) bool, ``bounds`` (C, 6) int32 per-row run
+bounds (``neighbors.run_bounds``) and ``partners`` (C, K) int32 partner ids,
+``NO_BOND`` empty.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from hipsc_abm_tpu_torch import kernels
+from hipsc_abm_tpu_torch.ops import jkr as jkr_ops
+from hipsc_abm_tpu_torch.ops.neighbors import bounds_window
+
+
+def contact_substep_plain(
+    xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
+    youngs, break_d, uniform_radius: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch contact substep: returns ``(force (C, 3) float32,
+    degree (C,) int32, new partners (C, K) int32)``. ``uniform_radius`` is
+    accepted for signature parity; the general pair law gives the same
+    physics for equal radii."""
+    del uniform_radius
+    pos, valid = bounds_window(bounds)
+    force, new_partners, degree = jkr_ops.jkr_substep(
+        partners, xyzr, ids, alive, None, pos, valid, radius,
+        adhesion_const, poisson, youngs, break_d,
+    )
+    return force, degree, new_partners
+
+
+def _pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
+                   uniform_radius):
+    """The kernel's pair-law constants, rounded to float32 as the plain
+    version rounds them."""
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    r = np.float32(radius)
+    radius2 = float(r * r)
+    e_hat = 1.0 / (2.0 * (1.0 - poisson**2) / youngs)
+    scale_c = ((math.pi * adhesion_const) / e_hat) ** (2.0 / 3.0)
+    if uniform_radius is not None:
+        u_r_hat = (uniform_radius * uniform_radius) / (1e6 * 2.0 * uniform_radius)
+        u_scale = scale_c * u_r_hat ** (1.0 / 3.0)
+        uni = (1, f32(2.0 * uniform_radius), f32(1.0 / (1e6 * u_scale)),
+               f32(math.pi * adhesion_const * u_r_hat))
+    else:
+        uni = (0, 0.0, 0.0, 0.0)
+    return (radius2, f32(break_d), *uni, f32(scale_c), f32(math.pi),
+            f32(adhesion_const))
+
+
+def contact_substep_cuda(
+    xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
+    youngs, break_d, uniform_radius: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The contact substep. A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel (or raises)."""
+    kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
+              youngs=youngs, break_d=break_d, uniform_radius=uniform_radius)
+    if xyzr.device.type == "cpu":
+        return contact_substep_plain(xyzr, ids, alive, bounds, partners, **kw)
+    C, K = partners.shape
+    kernels.check_cuda("xyzr", xyzr, torch.float32, (C, 4))
+    kernels.check_cuda("ids", ids, torch.int32, (C,))
+    kernels.check_cuda("alive", alive, torch.bool, (C,))
+    kernels.check_cuda("bounds", bounds, torch.int32, (C, 6))
+    kernels.check_cuda("partners", partners, torch.int32, (C, K))
+    if K < 1:
+        raise ValueError("contact_substep_cuda: bond capacity must be >= 1")
+    force = torch.empty((C, 3), dtype=torch.float32, device=xyzr.device)
+    degree = torch.empty((C,), dtype=torch.int32, device=xyzr.device)
+    new_partners = torch.empty((C, K), dtype=torch.int32, device=xyzr.device)
+    kernels.launch(
+        "hipsc_contact_substep",
+        xyzr.data_ptr(), ids.data_ptr(), alive.data_ptr(), bounds.data_ptr(),
+        partners.data_ptr(), force.data_ptr(), degree.data_ptr(),
+        new_partners.data_ptr(), C, K,
+        *_pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
+                        uniform_radius),
+    )
+    kernels.launch_counts["contact_substep"] += 1
+    return force, degree, new_partners

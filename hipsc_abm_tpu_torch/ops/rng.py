@@ -1,0 +1,135 @@
+"""Layout-independent per-agent randomness (port of ``hipsc_abm_tpu/ops/rng.py``).
+
+Every per-agent draw is a pure function of ``(step key, agent id, salt)``
+through two keyed murmur3 ``fmix32`` rounds, bit-identical to the JAX
+package. PyTorch has few uint32 operations, so the uint32 arithmetic runs in
+int64 and is masked back to 32 bits after every step that can carry past
+them; products are split into 16-bit halves so that no int64 product
+overflows.
+
+The step key is a raw threefry2x32 key, ``(2,)`` int64 holding two uint32
+words, as ``jax.random.PRNGKey`` makes it. ``split`` follows JAX's
+partitionable counter layout (``jax_threefry_partitionable = True``, the
+default of the JAX release the reference is pinned to): key ``i`` of a split
+is ``threefry2x32(key, (0, i))``. The key schedule does not depend on the
+colony, so it is derived on the host; the per-agent hashes run wherever the
+ids lie.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+_MASK = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9  # 2^32 / golden ratio, the classic stream separator
+_TWO_PI_F32 = float(torch.tensor(2.0 * math.pi, dtype=torch.float32))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2^32`` for uint32 values held in int64, without an
+    int64 overflow: the constant is applied in two 16-bit halves."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer: full-avalanche 32-bit mixer (bijective)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return x
+
+
+def _key_words(key) -> tuple:
+    """The two uint32 words of a raw key as Python ints."""
+    if isinstance(key, torch.Tensor):
+        key = key.tolist()
+    return int(key[0]) & _MASK, int(key[1]) & _MASK
+
+
+def hash_bits(key, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
+    """uint32 random bits (as int64) per agent id, keyed by a raw key and a
+    small static ``salt`` separating streams within one phase."""
+    k0, k1 = _key_words(key)
+    x = ids.to(torch.int64) & _MASK
+    h = _fmix32(x ^ k0)
+    return _fmix32(h ^ ((k1 + ((_GOLDEN * (salt + 1)) & _MASK)) & _MASK))
+
+
+def uniform(key, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
+    """U[0, 1) in float32 with 24-bit resolution."""
+    return (hash_bits(key, ids, salt) >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def coin_flips(key, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
+    """Per-agent randint(0, 1) increments (int32)."""
+    return (hash_bits(key, ids, salt) & 1).to(torch.int32)
+
+
+def normal(key, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
+    """N(0, 1) in float32 via Box-Muller on two independent hash streams."""
+    u1 = uniform(key, ids, salt) + (1.0 / (1 << 25))  # (0, 1]
+    u2 = uniform(key, ids, salt + 17)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI_F32 * u2)
+
+
+def unit_vectors(key, ids: torch.Tensor, two_d: bool, salt: int = 0) -> torch.Tensor:
+    """Id-keyed batch of the reference's ``random_vector``: a point on the
+    unit circle in 2D, else its (non-uniform) sphere parameterization."""
+    theta = uniform(key, ids, salt) * _TWO_PI_F32
+    if two_d:
+        return torch.stack(
+            [torch.cos(theta), torch.sin(theta), torch.zeros_like(theta)], dim=-1
+        )
+    phi = uniform(key, ids, salt + 29) * _TWO_PI_F32
+    radius = torch.cos(phi)
+    return torch.stack(
+        [radius * torch.cos(theta), radius * torch.sin(theta), torch.sin(phi)], dim=-1
+    )
+
+
+# ---------------------------------------------------------------------------
+# threefry2x32 step keys
+# ---------------------------------------------------------------------------
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl32(x: torch.Tensor, d: int) -> torch.Tensor:
+    return ((x << d) & _MASK) | (x >> (32 - d))
+
+
+def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor):
+    """The Threefry-2x32 block cipher (20 rounds) as JAX implements it,
+    on uint32 words held in int64. Returns the two output words."""
+    k0, k1 = _key_words(key)
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0.to(torch.int64) + ks[0]) & _MASK
+    x1 = (x1.to(torch.int64) + ks[1]) & _MASK
+    for i in range(5):
+        for rot in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl32(x1, rot) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def prng_key(seed: int) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` with JAX's default 32-bit integers: the
+    seed is taken mod 2^32 and padded with a zero high word."""
+    return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64)
+
+
+def split(key, num: int = 2) -> Sequence[torch.Tensor]:
+    """``jax.random.split(key, num)`` in the partitionable layout: key ``i``
+    is ``threefry2x32(key, (0, i))``. Returns ``num`` (2,) int64 keys."""
+    counts = torch.arange(num, dtype=torch.int64)
+    b0, b1 = threefry2x32(key, torch.zeros_like(counts), counts)
+    return list(torch.stack([b0, b1], dim=1).unbind(0))

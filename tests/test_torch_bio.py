@@ -1,0 +1,128 @@
+"""PyTorch port: the neighbourhood-moment reduction's plain version (the
+kernel itself is in test_torch_cuda.py) vs the JAX package's
+``bio_reduce_pallas`` (interpret mode) and its XLA twin
+``make_bio_moments_xla``.
+
+Count lanes (0, 3, 7) and the FGF4 moments (lanes 1, 2: sums of small
+integers) are exact in float32 and must be equal; the displacement sums are
+float32 sums in another order (rtol 1e-6, atol 1e-5 um).
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hipsc_abm_tpu.engine import make_bio_moments_xla
+from hipsc_abm_tpu.ops import neighbors as jnbr
+from hipsc_abm_tpu.ops.pallas_bio import bio_reduce_pallas
+from hipsc_abm_tpu_torch import kernels
+from hipsc_abm_tpu_torch.ops import bio_moments as tbio
+from hipsc_abm_tpu_torch.ops import neighbors as tnbr
+
+MODES = ["count", "pathway", "motility", "full"]
+# lanes each mode defines (the others are zero in the kernel layout)
+LANES = {"count": [0], "pathway": [0, 1, 2], "motility": [0, 3, 4, 5, 7, 8, 9],
+         "full": [0, 1, 2, 3, 4, 5, 7, 8, 9]}
+EXACT = [0, 1, 2, 3, 7]
+BOX = (140.0, 120.0, 0.0)
+RADIUS = 15.0
+
+
+def _setup(seed=0, C=256, n=240):
+    """Sorted rows of a dense colony: build-time positions, moved current
+    positions, three integer features, and a current liveness that kills a
+    few build-time agents (daughters are dead at build and stay out)."""
+    rs = np.random.default_rng(seed)
+    loc0 = np.zeros((C, 3), np.float32)
+    loc0[:n, :2] = rs.random((n, 2)).astype(np.float32) * np.asarray(BOX[:2], np.float32)
+    alive = np.zeros(C, bool)
+    alive[:n] = True
+    ids = rs.permutation(C).astype(np.int32)
+    jspec = jnbr.GridSpec.from_box(BOX, RADIUS, run_cap=48)
+    g = jnbr.build_grid(jspec, jnp.asarray(loc0), jnp.asarray(ids), jnp.asarray(alive))
+    o = np.asarray(g.order)
+    loc0, ids, alive = loc0[o], ids[o], alive[o]
+    curr = loc0.copy()
+    curr[:, :2] += rs.normal(0.0, 0.7, (C, 2)).astype(np.float32)
+    alive_now = alive.copy()
+    alive_now[rs.choice(n, 15, replace=False)] = False
+    feats = [rs.integers(0, 3, C).astype(np.int32) for _ in range(3)]
+    feats[2][rs.random(C) < 0.6] = 0
+    return dict(loc0=loc0, curr=curr, ids=ids, alive=alive, alive_now=alive_now,
+                f=feats, flat=np.asarray(g.sorted_flat), jspec=jspec)
+
+
+def _port_inputs(s):
+    tspec = tnbr.GridSpec(**dataclasses.asdict(s["jspec"]))
+    flat = np.where(s["alive_now"], s["flat"], tnbr.dead_sentinel(tspec)).astype(np.int32)
+    pack = np.stack([s["loc0"][:, 0], s["loc0"][:, 1], s["curr"][:, 0], s["curr"][:, 1],
+                     *[f.astype(np.float32) for f in s["f"]], np.zeros(len(flat), np.float32)],
+                    axis=1)
+    bounds = tnbr.run_bounds(tspec, torch.from_numpy(s["flat"].astype(np.int64)))
+    return (torch.from_numpy(pack), torch.from_numpy(flat), bounds), tspec.num_bins
+
+
+def _assert_moments(got, want, lanes, rows=slice(None)):
+    exact = [l for l in lanes if l in EXACT]
+    np.testing.assert_array_equal(got[rows][:, exact], want[rows][:, exact])
+    np.testing.assert_allclose(got[rows][:, lanes], want[rows][:, lanes], rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_matches_pallas_interpret(mode):
+    s = _setup(seed=0)
+    C = len(s["ids"])
+    jspec = s["jspec"]
+    sentinel = np.float32(jnbr.dead_sentinel(jspec))
+    flat_lane = np.where(s["alive_now"], s["flat"].astype(np.float32), sentinel)
+    jpack = np.stack([s["loc0"][:, 0], s["loc0"][:, 1], s["curr"][:, 0], s["curr"][:, 1],
+                      *[f.astype(np.float32) for f in s["f"]], flat_lane], axis=1)
+    sflat = jnp.asarray(s["flat"])
+    _, _, span_needed, _ = jnbr.block_span_plan(jspec, sflat, 128, span=C, capacity=C,
+                                                chunk=C)
+    span = min(-(-int(span_needed) // 128) * 128, C)
+    starts, needs, _, _ = jnbr.block_span_plan(jspec, sflat, 128, span=span, capacity=C,
+                                               chunk=128)
+    want = np.asarray(bio_reduce_pallas(
+        jnp.asarray(jpack), starts, needs, block=128, span=span, ny=jspec.ny,
+        num_bins=jspec.num_bins, radius=RADIUS, chunk=128, mode=mode, interpret=True))
+    args, num_bins = _port_inputs(s)
+    got = tbio.bio_moments_plain(*args, num_bins=num_bins, radius=RADIUS, mode=mode).numpy()
+    assert got[:, 0].sum() > C  # a real neighbourhood, not an empty one
+    _assert_moments(got, want, list(range(16)))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_matches_xla_twin(mode):
+    """``make_bio_moments_xla`` masks rows by build-time liveness, the kernel
+    by current liveness: they agree on every row alive now (the only rows
+    the biology phases read)."""
+    s = _setup(seed=1)
+    C = len(s["ids"])
+    jspec = s["jspec"]
+    ident = jnbr.Grid(order=jnp.arange(C, dtype=jnp.int32),
+                      sorted_flat=jnp.asarray(s["flat"]),
+                      coords=jnbr._bin_coords(jspec, jnp.asarray(s["loc0"])))
+    pos, valid, max_run = jnbr.window_from_grid(jspec, ident)
+    assert int(max_run) <= jspec.run_cap
+    fn = make_bio_moments_xla(ident, pos, valid, jnp.asarray(s["loc0"]),
+                              jnp.asarray(s["ids"]), jnp.asarray(s["alive"]), RADIUS)
+    want = np.asarray(fn(jnp.asarray(s["curr"]), *[jnp.asarray(f) for f in s["f"]],
+                         jnp.asarray(s["alive_now"]), mode=mode))
+    args, num_bins = _port_inputs(s)
+    got = tbio.bio_moments_plain(*args, num_bins=num_bins, radius=RADIUS, mode=mode).numpy()
+    _assert_moments(got, want, LANES[mode], rows=s["alive_now"])
+
+
+def test_cpu_wrapper_runs_plain_and_counts_no_launch():
+    args, num_bins = _port_inputs(_setup(seed=2))
+    before = kernels.launch_counts["bio_moments"]
+    got = tbio.bio_moments_cuda(*args, num_bins=num_bins, radius=RADIUS, mode="full")
+    want = tbio.bio_moments_plain(*args, num_bins=num_bins, radius=RADIUS, mode="full")
+    assert torch.equal(got, want)
+    assert kernels.launch_counts["bio_moments"] == before
+    with pytest.raises(ValueError):
+        tbio.bio_moments_cuda(*args, num_bins=num_bins, radius=RADIUS, mode="bogus")

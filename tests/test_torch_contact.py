@@ -1,0 +1,197 @@
+"""PyTorch port: the contact substep's plain version (the CPU path of the
+CUDA kernel's wrapper; the kernel itself is in test_torch_cuda.py) vs the
+JAX package's ``contact_substep_pallas`` (interpret mode) and ``jkr_substep``.
+
+Tolerances: forces are float32 sums over a row's partners taken in another
+order and with another pair-law rounding (the Pallas kernel uses rsqrt), so
+they agree to rtol 1e-5 and atol 1e-6 x max|F|; bond sets and degrees are
+integer bookkeeping and must be equal.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hipsc_abm_tpu.models.params import BiologyParams
+from hipsc_abm_tpu.ops import jkr as jjkr
+from hipsc_abm_tpu.ops import neighbors as jnbr
+from hipsc_abm_tpu.ops.pallas_contact import contact_substep_pallas
+from hipsc_abm_tpu_torch import kernels
+from hipsc_abm_tpu_torch.ops import contact as tcontact
+from hipsc_abm_tpu_torch.ops import jkr as tjkr
+from hipsc_abm_tpu_torch.ops import neighbors as tnbr
+
+BIO = BiologyParams()
+BOX = (150.0, 150.0, 0.0)
+CELL = BIO.jkr_radius + 2 * BIO.jkr_break_band + 2.0
+LAW = dict(radius=BIO.jkr_radius, adhesion_const=BIO.adhesion_const,
+           poisson=BIO.poisson, youngs=BIO.youngs, break_d=BIO.jkr_break_d)
+
+
+def _setup(K, C=256, n=230, seed=0):
+    """A packed colony (slot == id) with bonds from one JAX substep at
+    slightly different positions, so some bonds lie beyond the search radius
+    and some break."""
+    rs = np.random.default_rng(seed)
+    locs = np.zeros((C, 3), np.float32)
+    locs[:n] = rs.random((n, 3)).astype(np.float32) * np.asarray(BOX, np.float32)
+    locs[:, 2] = 0.0
+    alive = np.zeros(C, bool)
+    alive[:n] = True
+    alive[rs.choice(n, 10, replace=False)] = False
+    ids = np.arange(C, dtype=np.int32)
+    jspec = jnbr.GridSpec.from_box(BOX, CELL, run_cap=64)
+    radii = np.full(C, BIO.max_radius, np.float32)
+
+    earlier = locs.copy()
+    earlier[:n, :2] -= rs.normal(0.0, 1.2, (n, 2)).astype(np.float32)
+    g0, pos0, valid0, _ = jnbr.sorted_window(
+        jspec, jnp.asarray(earlier), jnp.asarray(ids), jnp.asarray(alive))
+    packed0 = jjkr.pack_physics(jnp.asarray(earlier), jnp.asarray(radii),
+                                jnp.asarray(ids), jnp.asarray(alive))
+    _, bonds, _ = jjkr.jkr_substep(jjkr.BondState.empty(C, K), packed0, g0.order,
+                                   pos0, valid0, **LAW)
+    partner_ids = np.where(np.asarray(bonds.mask), np.asarray(bonds.partners), -1)
+    return locs, radii, ids, alive, partner_ids.astype(np.int32), jspec
+
+
+def _sorted_inputs(locs, radii, ids, alive, partner_ids, jspec):
+    tspec = tnbr.GridSpec(**dataclasses.asdict(jspec))
+    grid = tnbr.build_grid(tspec, torch.from_numpy(locs), torch.from_numpy(ids),
+                           torch.from_numpy(alive))
+    o = grid.order
+    args = (tjkr.pack_physics(torch.from_numpy(locs)[o], torch.from_numpy(radii)[o]),
+            torch.from_numpy(ids)[o].contiguous(), torch.from_numpy(alive)[o].contiguous(),
+            tnbr.run_bounds(tspec, grid.sorted_flat),
+            torch.from_numpy(partner_ids)[o].contiguous())
+    return grid, args
+
+
+def _unsort(order, *tensors):
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel())
+    return [t[inv].numpy() for t in tensors]
+
+
+def _assert_sets_equal(got, want):
+    for i in range(got.shape[0]):
+        assert set(got[i][got[i] >= 0].tolist()) == set(want[i][want[i] >= 0].tolist()), i
+
+
+@pytest.mark.parametrize("K", [8, 40])
+def test_plain_matches_pallas_interpret(K):
+    locs, radii, ids, alive, partner_ids, jspec = _setup(K)
+    C = locs.shape[0]
+    jgrid = jnbr.build_grid(jspec, jnp.asarray(locs), jnp.asarray(ids), jnp.asarray(alive))
+    packed = jjkr.pack_physics(jnp.asarray(locs), jnp.asarray(radii), jnp.asarray(ids),
+                               jnp.asarray(alive))
+    srt_pack = packed[jgrid.order].at[:, 6].set(jgrid.sorted_flat.astype(jnp.float32))
+    srt_bonds = jnp.asarray(partner_ids.astype(np.float32))[jgrid.order]
+    _, _, span_needed, _ = jnbr.block_span_plan(jspec, jgrid.sorted_flat, 128, span=C,
+                                                capacity=C, chunk=C)
+    span = min(-(-int(span_needed) // 128) * 128, C)
+    starts, needs, _, _ = jnbr.block_span_plan(jspec, jgrid.sorted_flat, 128, span=span,
+                                               capacity=C, chunk=128)
+    force_deg, new_bonds = contact_substep_pallas(
+        srt_pack, srt_bonds, starts, needs, block=128, span=span,
+        run_offs=jspec.flat_run_offsets, chunk=128,
+        uniform_radius=BIO.max_radius, interpret=True, **LAW)
+
+    grid, args = _sorted_inputs(locs, radii, ids, alive, partner_ids, jspec)
+    np.testing.assert_array_equal(grid.order.numpy(), np.asarray(jgrid.order))
+    force, degree, new_partners = tcontact.contact_substep_plain(
+        *args, uniform_radius=BIO.max_radius, **LAW)
+
+    want_f = np.asarray(force_deg[:, :3])
+    scale = np.abs(want_f).max()
+    assert scale > 0 and int((new_partners >= 0).sum()) > C
+    np.testing.assert_allclose(force.numpy(), want_f, rtol=1e-5, atol=1e-6 * scale)
+    np.testing.assert_array_equal(degree.numpy(), np.asarray(force_deg[:, 3]).astype(np.int32))
+    _assert_sets_equal(new_partners.numpy(), np.asarray(new_bonds).astype(np.int64))
+
+
+@pytest.mark.parametrize("K", [8, 40])
+def test_plain_matches_jkr_substep(K):
+    locs, radii, ids, alive, partner_ids, jspec = _setup(K, seed=1)
+    C = locs.shape[0]
+    g, pos, valid, _ = jnbr.sorted_window(jspec, jnp.asarray(locs), jnp.asarray(ids),
+                                          jnp.asarray(alive))
+    packed = jjkr.pack_physics(jnp.asarray(locs), jnp.asarray(radii), jnp.asarray(ids),
+                               jnp.asarray(alive))
+    jbonds = jjkr.BondState(partners=jnp.asarray(np.maximum(partner_ids, 0)),
+                            mask=jnp.asarray(partner_ids >= 0))
+    jf, jb, jdeg = jjkr.jkr_substep(jbonds, packed, g.order, pos, valid, **LAW)
+
+    grid, args = _sorted_inputs(locs, radii, ids, alive, partner_ids, jspec)
+    force, degree, new_partners = tcontact.contact_substep_plain(*args, **LAW)
+    force, degree, new_partners = _unsort(grid.order, force, degree, new_partners)
+
+    want_f = np.asarray(jf)
+    np.testing.assert_allclose(force, want_f, rtol=1e-5, atol=1e-6 * np.abs(want_f).max())
+    want = np.where(np.asarray(jb.mask), np.asarray(jb.partners), -1)
+    _assert_sets_equal(new_partners, want)
+    np.testing.assert_array_equal(np.minimum(degree, K), np.asarray(jb.mask).sum(1))
+    assert int(degree.max()) == int(jdeg)
+    assert new_partners.shape == (C, K)
+
+
+def test_port_jkr_substep_matches_jax_on_one_window():
+    """The port's slot-space ``jkr_substep`` on the JAX window itself."""
+    locs, radii, ids, alive, partner_ids, jspec = _setup(8, seed=2)
+    g, pos, valid, _ = jnbr.sorted_window(jspec, jnp.asarray(locs), jnp.asarray(ids),
+                                          jnp.asarray(alive))
+    packed = jjkr.pack_physics(jnp.asarray(locs), jnp.asarray(radii), jnp.asarray(ids),
+                               jnp.asarray(alive))
+    jbonds = jjkr.BondState(partners=jnp.asarray(np.maximum(partner_ids, 0)),
+                            mask=jnp.asarray(partner_ids >= 0))
+    jf, jb, _ = jjkr.jkr_substep(jbonds, packed, g.order, pos, valid, **LAW)
+    tf, tp, tdeg = tjkr.jkr_substep(
+        torch.from_numpy(partner_ids), tjkr.pack_physics(torch.from_numpy(locs),
+                                                         torch.from_numpy(radii)),
+        torch.from_numpy(ids), torch.from_numpy(alive),
+        torch.from_numpy(np.asarray(g.order).astype(np.int64)),
+        torch.from_numpy(np.asarray(pos).astype(np.int64)),
+        torch.from_numpy(np.array(valid)), **LAW)
+    want_f = np.asarray(jf)
+    np.testing.assert_allclose(tf.numpy(), want_f, rtol=1e-5, atol=1e-6 * np.abs(want_f).max())
+    # same window, same compaction order: the lists are equal entry by entry
+    want = np.where(np.asarray(jb.mask), np.asarray(jb.partners), -1)
+    np.testing.assert_array_equal(tp.numpy(), want)
+
+
+def test_bond_persists_beyond_search_radius():
+    """A bonded pair outside the fresh-contact radius but inside the break
+    distance still pulls; unbonded, the same pair feels nothing."""
+    C = 8
+    locs = np.zeros((C, 3), np.float32)
+    locs[0] = [50.0, 50.0, 0.0]
+    locs[1] = [60.2, 50.0, 0.0]
+    radii = np.full(C, BIO.max_radius, np.float32)
+    alive = np.zeros(C, bool)
+    alive[:2] = True
+    ids = np.arange(C, dtype=np.int32)
+    jspec = jnbr.GridSpec.from_box(BOX, CELL, run_cap=16)
+    empty = np.full((C, 8), -1, np.int32)
+    _, args = _sorted_inputs(locs, radii, ids, alive, empty, jspec)
+    f0, d0, _ = tcontact.contact_substep_cuda(*args, **LAW)
+    assert float(f0.abs().max()) == 0.0 and int(d0.sum()) == 0
+    bonded = empty.copy()
+    bonded[0, 0], bonded[1, 0] = 1, 0
+    grid, args = _sorted_inputs(locs, radii, ids, alive, bonded, jspec)
+    f1, d1, p1 = _unsort(grid.order, *tcontact.contact_substep_cuda(*args, **LAW))
+    assert f1[0, 0] > 0 > f1[1, 0]
+    assert p1[0, 0] == 1 and p1[1, 0] == 0 and d1[0] == 1
+
+
+def test_cpu_wrapper_runs_plain_and_counts_no_launch():
+    locs, radii, ids, alive, partner_ids, jspec = _setup(8, seed=3)
+    _, args = _sorted_inputs(locs, radii, ids, alive, partner_ids, jspec)
+    before = kernels.launch_counts["contact_substep"]
+    got = tcontact.contact_substep_cuda(*args, uniform_radius=5.0, **LAW)
+    want = tcontact.contact_substep_plain(*args, uniform_radius=5.0, **LAW)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert kernels.launch_counts["contact_substep"] == before

@@ -1,0 +1,163 @@
+"""PyTorch port on the card: each CUDA kernel against its plain version, and
+one engine step on the card against the same step on the CPU.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
+imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: the contact kernel's scalar-radius pair law rounds differently
+from the plain version's general law (forces rtol 1e-5, atol 1e-6 x max|F|);
+moment counts and bond sets are exact; FTCS keeps the plain version's
+association without FMA contraction (atol 1e-6, in practice bit-equal).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hipsc_abm_tpu_torch import convert, kernels
+from hipsc_abm_tpu_torch.engine import HipscEngine
+from hipsc_abm_tpu_torch.ops import bio_moments, contact, diffusion, ftcs
+from hipsc_abm_tpu_torch.ops import neighbors as nbr
+from hipsc_abm_tpu_torch.ops.jkr import pack_physics
+from hipsc_abm_tpu_torch.params import (
+    BiologyParams, DiffusionParams, ExperimentalParams, GeneralParams)
+
+pytestmark = pytest.mark.cuda
+BIO = BiologyParams()
+LAW = dict(radius=BIO.jkr_radius, adhesion_const=BIO.adhesion_const,
+           poisson=BIO.poisson, youngs=BIO.youngs, break_d=BIO.jkr_break_d)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run on the card)")
+    return torch.device("cuda")
+
+
+def _contact_inputs(K, seed=0, C=2048, n=1900, box=(420.0, 420.0, 0.0)):
+    """Sorted contact inputs with bonds from one plain substep at earlier
+    positions (some bonds now beyond the search radius, some breaking)."""
+    rs = np.random.default_rng(seed)
+    locs = np.zeros((C, 3), np.float32)
+    locs[:n, :2] = rs.random((n, 2)).astype(np.float32) * np.float32(box[0])
+    alive = np.zeros(C, bool)
+    alive[:n] = True
+    alive[rs.choice(n, 40, replace=False)] = False
+    ids = rs.permutation(10 * C)[:C].astype(np.int32)
+    spec = nbr.GridSpec.from_box(box, BIO.jkr_radius + 2 * BIO.jkr_break_band + 2.0, 0)
+    radii = torch.full((C,), BIO.max_radius)
+
+    def sorted_args(xy, partners):
+        t_loc = torch.from_numpy(xy)
+        g = nbr.build_grid(spec, t_loc, torch.from_numpy(ids), torch.from_numpy(alive))
+        o = g.order
+        return g, [pack_physics(t_loc[o], radii[o]), torch.from_numpy(ids)[o].contiguous(),
+                   torch.from_numpy(alive)[o].contiguous(),
+                   nbr.run_bounds(spec, g.sorted_flat), partners[o].contiguous()]
+
+    earlier = locs.copy()
+    earlier[:n, :2] -= rs.normal(0.0, 1.2, (n, 2)).astype(np.float32)
+    g0, args0 = sorted_args(earlier, torch.full((C, K), -1, dtype=torch.int32))
+    _, _, p0 = contact.contact_substep_plain(*args0, **LAW)
+    partners = torch.empty_like(p0)
+    partners[g0.order] = p0
+    return sorted_args(locs, partners)[1]
+
+
+@pytest.mark.parametrize("K", [8, 40])
+@pytest.mark.parametrize("uniform", [None, BIO.max_radius])
+def test_contact_kernel_matches_plain(dev, K, uniform):
+    args = [a.to(dev) for a in _contact_inputs(K)]
+    before = kernels.launch_counts["contact_substep"]
+    fk, dk, pk = contact.contact_substep_cuda(*args, uniform_radius=uniform, **LAW)
+    fp, dp, pp = contact.contact_substep_plain(*args, uniform_radius=uniform, **LAW)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["contact_substep"] == before + 1
+    scale = float(fp.abs().max())
+    assert scale > 0 and int((pp >= 0).sum()) > args[0].shape[0]
+    torch.testing.assert_close(fk, fp, rtol=1e-5, atol=1e-6 * scale)
+    assert torch.equal(dk, dp)
+    for a, b in zip(pk.cpu().numpy(), pp.cpu().numpy()):
+        assert set(a[a >= 0].tolist()) == set(b[b >= 0].tolist())
+
+
+def test_contact_kernel_rejects_bad_operands(dev):
+    args = [a.to(dev) for a in _contact_inputs(8, C=256, n=200, box=(150.0, 150.0, 0.0))]
+    bad = list(args)
+    bad[1] = bad[1].to(torch.int64)
+    with pytest.raises(TypeError):
+        contact.contact_substep_cuda(*bad, **LAW)
+    bad = list(args)
+    bad[3] = bad[3][:, :4]
+    with pytest.raises(ValueError):
+        contact.contact_substep_cuda(*bad, **LAW)
+
+
+@pytest.mark.parametrize("mode", ["count", "pathway", "motility", "full"])
+def test_bio_kernel_matches_plain(dev, mode):
+    rs = np.random.default_rng(1)
+    C, n, box = 4096, 3800, (520.0, 460.0, 0.0)
+    loc = np.zeros((C, 3), np.float32)
+    loc[:n, :2] = rs.random((n, 2)).astype(np.float32) * np.asarray(box[:2], np.float32)
+    alive = np.zeros(C, bool)
+    alive[:n] = True
+    spec = nbr.GridSpec.from_box(box, BIO.neighbor_radius, 0)
+    g = nbr.build_grid(spec, torch.from_numpy(loc), torch.arange(C, dtype=torch.int32),
+                       torch.from_numpy(alive))
+    o = g.order
+    l0 = torch.from_numpy(loc)[o]
+    l1 = l0 + torch.from_numpy(rs.normal(0, 0.7, (C, 3)).astype(np.float32))
+    feats = [torch.from_numpy(rs.integers(0, 3, C).astype(np.float32)) for _ in range(3)]
+    now = torch.from_numpy(alive)[o] & torch.from_numpy(rs.random(C) > 0.05)
+    flat = torch.where(now, g.sorted_flat, nbr.dead_sentinel(spec)).to(torch.int32)
+    pack = torch.stack([l0[:, 0], l0[:, 1], l1[:, 0], l1[:, 1], *feats,
+                        torch.zeros(C)], dim=1)
+    args = [t.contiguous().to(dev) for t in (pack, flat, nbr.run_bounds(spec, g.sorted_flat))]
+    kw = dict(num_bins=spec.num_bins, radius=BIO.neighbor_radius, mode=mode)
+    got = bio_moments.bio_moments_cuda(*args, **kw)
+    want = bio_moments.bio_moments_plain(*args, **kw)
+    assert float(want[:, 0].sum()) > C
+    assert torch.equal(got[:, [0, 1, 2, 3, 7]], want[:, [0, 1, 2, 3, 7]])
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
+def test_ftcs_kernel_matches_plain(dev):
+    rs = np.random.default_rng(2)
+    g = torch.from_numpy(rs.random((97, 131)).astype(np.float32) * 2.4 - 0.2).to(dev)
+    dts = diffusion.diffusion_dts(1800.0, 6.0)
+    args = (dts, 2.0, 400.0, 2.0, 0.1)
+    before = kernels.launch_counts["ftcs_subcycle"]
+    got = ftcs.ftcs_diffuse_cuda(g, *args)
+    want = diffusion.ftcs_diffuse(g, *args)
+    assert kernels.launch_counts["ftcs_subcycle"] == before + len(dts)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_engine_step_on_card_matches_cpu(dev):
+    n = 3000
+    side = 2000.0 * (n / 5000.0) ** 0.5
+    gen = GeneralParams(num_to_start=n, end_step=20, size=(side, side, 0.0))
+    xp = ExperimentalParams(num_gata6=n // 10, dox_step=1)
+    diff = DiffusionParams(spat_res=20.0, diffuse_dt=6.0, diffuse_const=2.0,
+                           max_concentration=2.0, degradation=0.1, release_amount=0.01)
+    cpu = HipscEngine(gen, xp, diff=diff, enable_diffusion=True, device="cpu")
+    gpu = HipscEngine(gen, xp, diff=diff, enable_diffusion=True, device=dev)
+    s, _ = cpu.safe_step(cpu.init_state(seed=1))
+    d = convert.state_to_numpy(s)
+    a = convert.state_to_numpy(cpu.step(convert.state_from_numpy(d))[0])
+    b = convert.state_to_numpy(gpu.step(convert.state_from_numpy(d, dev))[0])
+
+    def by_id(x):
+        ids = x["arrays"]["ids"][x["alive"]]
+        o = np.argsort(ids)
+        return {k: v[x["alive"]][o] for k, v in x["arrays"].items()}
+
+    a, b = by_id(a), by_id(b)
+    np.testing.assert_array_equal(b["ids"], a["ids"])
+    for k in ("FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states", "death_counters",
+              "diff_counters", "div_counters", "fds_counters"):
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    np.testing.assert_allclose(b["locations"], a["locations"], rtol=0, atol=1e-3)
