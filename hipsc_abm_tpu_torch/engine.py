@@ -11,10 +11,18 @@ mask over preallocated slots; ``HipscEngine.safe_step`` re-executes a step
 from its unmodified input after growing whichever capacity overflowed, so
 results are never silently truncated.
 
+The contact substeps have two designs, chosen by ``EngineConfig.contact_path``
+(the counterpart of the JAX engine's ``use_pallas`` physics choice):
+``"id_list"`` (``_physics_scan``, the JAX ``_physics_scan_xla`` design: bonds
+as (C, K) partner ids, one ``ops.contact`` launch per substep) and
+``"span_mask"`` (``_physics_scan_span_mask``, the JAX ``_physics_scan_pallas``
+design: bonds as a keep mask over the frozen window, ``ops.span_mask``).
+Both give the same physics.
+
 The engine has an explicit ``device``. On a CUDA device the neighbour
-moments, the contact substep and the FTCS subcycles run the hand-written
-kernels of ``ops.bio_moments``, ``ops.contact`` and ``ops.ftcs``; on the CPU
-the same wrappers run their plain versions. There is no other switch.
+moments, the contact substeps and the FTCS subcycles run the hand-written
+kernels of ``ops.bio_moments``, ``ops.contact`` or ``ops.span_mask`` and
+``ops.ftcs``; on the CPU the same wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import torch
 from hipsc_abm_tpu_torch.models import biology
 from hipsc_abm_tpu_torch.ops import diffusion as diffusion_ops
 from hipsc_abm_tpu_torch.ops import neighbors as nbr_ops
-from hipsc_abm_tpu_torch.ops import rng
+from hipsc_abm_tpu_torch.ops import rng, span_mask
 from hipsc_abm_tpu_torch.ops.bio_moments import bio_moments_cuda
 from hipsc_abm_tpu_torch.ops.contact import contact_substep_cuda
 from hipsc_abm_tpu_torch.ops.ftcs import ftcs_diffuse_cuda
@@ -131,6 +139,14 @@ class EngineConfig:
     # equal radii for every agent (growth off): the contact kernel's
     # scalar-radius pair law
     uniform_radius: Optional[float] = None
+    # contact-substep design: "id_list" or "span_mask" (see the module
+    # docstring); the default is to be settled by a benchmark
+    contact_path: str = "id_list"
+
+    def __post_init__(self):
+        if self.contact_path not in _PHYSICS_SCANS:
+            raise ValueError(f"contact_path must be one of {sorted(_PHYSICS_SCANS)}, "
+                             f"got {self.contact_path!r}")
 
     @classmethod
     def create(
@@ -180,6 +196,7 @@ class StepInfo(NamedTuple):
     max_id: object
     max_substep_move: object  # max per-agent move per physics substep (um)
     max_window_drift: object
+    jkr_rebuilds: object  # contact-window rebuilds after the scan's entry build
 
 
 _FLOAT_PROBES = ("max_substep_move", "max_window_drift")
@@ -320,7 +337,7 @@ def hipsc_step(
     )
 
     # --- apply_forces: 11 physics substeps (cell_methods.py:386-439) ---
-    locations, bonds, j_bins, j_deg, max_move = _physics_scan(
+    locations, bonds, j_bins, j_deg, max_move, rebuilds = _PHYSICS_SCANS[cfg.contact_path](
         cfg, bio, arrays, alive, bonds, size, _physics_dts(bio)
     )
     arrays["locations"] = locations
@@ -343,6 +360,7 @@ def hipsc_step(
         max_id=torch.where(alive, arrays["ids"], torch.zeros_like(arrays["ids"])).max(),
         max_substep_move=max_move,
         max_window_drift=torch.zeros((), dtype=torch.float32, device=device),
+        jkr_rebuilds=torch.tensor(rebuilds, dtype=torch.int64, device=device),
     )
     new_state = CellState(
         arrays=arrays,
@@ -356,8 +374,63 @@ def hipsc_step(
     return new_state, info
 
 
+def _scan_rows(arrays, alive, bonds):
+    """The per-agent rows the contact scan carries and re-sorts; ``perm``
+    maps each row back to its slot."""
+    capacity = alive.shape[0]
+    return {
+        "loc": arrays["locations"], "rad": arrays["radii"],
+        "mot": arrays["motility_forces"], "ids": arrays["ids"], "alive": alive,
+        "partners": bonds.ids(),
+        "perm": torch.arange(capacity, dtype=torch.int64, device=alive.device),
+    }
+
+
+def _contact_law(cfg, bio):
+    return dict(radius=bio.jkr_radius, adhesion_const=bio.adhesion_const,
+                poisson=bio.poisson, youngs=bio.youngs, break_d=bio.jkr_break_d,
+                uniform_radius=cfg.uniform_radius)
+
+
+def _window_stale(cfg, rows, ref) -> bool:
+    """The drift test (one host read): has an agent moved more than skin/2
+    since the window was built?"""
+    drift2 = _masked_max(((rows["loc"] - ref) ** 2).sum(dim=1), rows["alive"])
+    return float(drift2) > (cfg.verlet_skin * 0.5) ** 2
+
+
+def _build_window(cfg, rows):
+    """Re-sort the rows into the contact grid's canonical order and build
+    their run bounds."""
+    grid = nbr_ops.build_grid(cfg.jkr_spec, rows["loc"], rows["ids"], rows["alive"])
+    rows = {k: v[grid.order] for k, v in rows.items()}
+    return rows, nbr_ops.run_bounds(cfg.jkr_spec, grid.sorted_flat)
+
+
+def _move(bio, rows, force, size, dt, moves2):
+    """The Stokes update of the rows' locations; records the largest move."""
+    new_loc = stokes_integrate(rows["loc"], rows["rad"], force, rows["mot"],
+                               rows["alive"], bio.stokes, size, float(dt))
+    moves2.append(_masked_max(((new_loc - rows["loc"]) ** 2).sum(dim=1), rows["alive"]))
+    rows["loc"] = new_loc
+
+
+def _scan_result(rows, j_bins, j_degs, moves2):
+    """The rows back in slot order: ``(locations, bonds, widest run, max
+    degree, max substep move, rebuilds after the entry build)``."""
+    perm = rows["perm"]
+    locations = torch.empty_like(rows["loc"])
+    locations[perm] = rows["loc"]
+    partners = torch.empty_like(rows["partners"])
+    partners[perm] = rows["partners"]
+    return (locations, BondState.from_ids(partners), torch.stack(j_bins).max(),
+            torch.stack(j_degs).max(), torch.sqrt(torch.stack(moves2).max()),
+            len(j_bins) - 1)
+
+
 def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts):
-    """The contact substeps over Verlet-cached stencil runs.
+    """The contact substeps over Verlet-cached stencil runs, bonds as (C, K)
+    partner-id lists (``contact_path="id_list"``).
 
     At entry, and whenever an agent has drifted more than skin/2 from where
     the runs were built, the physics rows are re-sorted into the contact
@@ -365,47 +438,67 @@ def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts):
     test is one host read per substep. Each substep is one contact-kernel
     launch (forces, degrees and the new partner lists) and one Stokes
     update; the rows go back to the state's layout at the end. Returns
-    ``(locations, bonds, widest run, max degree, max substep move)``."""
-    device = alive.device
-    capacity = alive.shape[0]
-    rows = {
-        "loc": arrays["locations"], "rad": arrays["radii"],
-        "mot": arrays["motility_forces"], "ids": arrays["ids"], "alive": alive,
-        "partners": bonds.ids(),
-        "perm": torch.arange(capacity, dtype=torch.int64, device=device),
-    }
-    law = dict(radius=bio.jkr_radius, adhesion_const=bio.adhesion_const,
-               poisson=bio.poisson, youngs=bio.youngs, break_d=bio.jkr_break_d,
-               uniform_radius=cfg.uniform_radius)
-    half_skin2 = (cfg.verlet_skin * 0.5) ** 2
+    ``_scan_result``'s tuple."""
+    rows = _scan_rows(arrays, alive, bonds)
+    law = _contact_law(cfg, bio)
     bounds = ref = None
     j_bins, j_degs, moves2 = [], [], []
     for dt in dts:
-        if bounds is None or float(_masked_max(
-                ((rows["loc"] - ref) ** 2).sum(dim=1), rows["alive"])) > half_skin2:
-            grid = nbr_ops.build_grid(cfg.jkr_spec, rows["loc"], rows["ids"], rows["alive"])
-            rows = {k: v[grid.order] for k, v in rows.items()}
-            bounds = nbr_ops.run_bounds(cfg.jkr_spec, grid.sorted_flat)
+        if bounds is None or _window_stale(cfg, rows, ref):
+            rows, bounds = _build_window(cfg, rows)
             ref = rows["loc"]
             j_bins.append(_max_run(bounds))
         force, degree, rows["partners"] = contact_substep_cuda(
             pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
             bounds, rows["partners"], **law,
         )
-        new_loc = stokes_integrate(rows["loc"], rows["rad"], force, rows["mot"],
-                                   rows["alive"], bio.stokes, size, float(dt))
-        moves2.append(_masked_max(((new_loc - rows["loc"]) ** 2).sum(dim=1),
-                                  rows["alive"]))
         j_degs.append(degree.max())
-        rows["loc"] = new_loc
+        _move(bio, rows, force, size, dt, moves2)
+    return _scan_result(rows, j_bins, j_degs, moves2)
 
-    perm = rows["perm"]
-    locations = torch.empty_like(rows["loc"])
-    locations[perm] = rows["loc"]
-    partners = torch.empty_like(rows["partners"])
-    partners[perm] = rows["partners"]
-    return (locations, BondState.from_ids(partners), torch.stack(j_bins).max(),
-            torch.stack(j_degs).max(), torch.sqrt(torch.stack(moves2).max()))
+
+def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts):
+    """The contact substeps with the bond set as a keep mask over the frozen
+    window (``contact_path="span_mask"``; the JAX engine's
+    ``_physics_scan_pallas`` design).
+
+    At entry the rows are sorted, the run bounds built and the mask seeded
+    from the (C, K) partner ids (``span_mask.contact_seed``, which also
+    evaluates substep 0). Before each later substep the drift test of
+    ``_physics_scan`` runs: while the window holds, the substep is one
+    ``contact_masked`` launch that reads and rewrites the mask in place;
+    when it fires, the mask is compacted to partner ids (``mask_compact``,
+    the only bond form that survives a re-sort), the rows (ids riding along)
+    are re-sorted, and the new window is seeded. At exit the mask is
+    compacted once more and the rows go back to slot order. Host reads: the
+    drift test per substep and the mask width per seed. Returns
+    ``_scan_result``'s tuple."""
+    rows = _scan_rows(arrays, alive, bonds)
+    law = _contact_law(cfg, bio)
+    K = rows["partners"].shape[1]
+    bounds = ref = mask = None
+    j_bins, j_degs, moves2 = [], [], []
+    for dt in dts:
+        if bounds is None or _window_stale(cfg, rows, ref):
+            if bounds is not None:
+                rows["partners"] = span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K)
+            rows, bounds = _build_window(cfg, rows)
+            ref = rows["loc"]
+            j_bins.append(_max_run(bounds))
+            force, degree, mask = span_mask.contact_seed_cuda(
+                pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
+                bounds, rows["partners"], **law)
+        else:
+            force, degree, mask = span_mask.contact_masked_cuda(
+                pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
+                bounds, mask, **law)
+        j_degs.append(degree.max())
+        _move(bio, rows, force, size, dt, moves2)
+    rows["partners"] = span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K)
+    return _scan_result(rows, j_bins, j_degs, moves2)
+
+
+_PHYSICS_SCANS = {"id_list": _physics_scan, "span_mask": _physics_scan_span_mask}
 
 
 def _masked_max(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -417,6 +510,8 @@ class HipscEngine:
 
     ``device`` is never inferred: ``"cuda"`` (the default) runs the kernels
     and raises when CUDA is absent; ``"cpu"`` runs the plain versions.
+    ``contact_path`` picks the contact-substep design (``EngineConfig``);
+    when a ``cfg`` is given as well, it overrides that config's choice.
     Growth, stochastic updates, diff_surround and 3D boxes are not ported
     yet and raise."""
 
@@ -432,6 +527,7 @@ class HipscEngine:
         enable_stochastic: bool = False,
         enable_diff_surround: bool = False,
         device="cuda",
+        contact_path: Optional[str] = None,
     ):
         for flag, on in (("enable_growth", enable_growth),
                          ("enable_stochastic", enable_stochastic),
@@ -454,7 +550,10 @@ class HipscEngine:
                 gen.size, capacity=capacity, bio=self.bio,
                 enable_diffusion=enable_diffusion,
                 uniform_radius=self.bio.max_radius,
+                contact_path=contact_path or "id_list",
             )
+        elif contact_path is not None:
+            cfg = dataclasses.replace(cfg, contact_path=contact_path)
         self.cfg = cfg
 
     # -- state construction -------------------------------------------------

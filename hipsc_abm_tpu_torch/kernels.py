@@ -1,10 +1,11 @@
-"""Build, load and bind the package's CUDA kernels (``csrc/*.cu``).
+"""Build, load and bind the package's CUDA kernels (``csrc/*.cu``, which
+share ``csrc/*.cuh`` headers).
 
 The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
 library with a plain C interface, loaded with ``ctypes``. The build happens
 at first use, into ``_build/`` inside the package (listed in ``.gitignore``),
-keyed by a hash of the sources and flags, so a fresh checkout builds itself
-and an unchanged one reuses its library. Nothing here runs at import time:
+keyed by a hash of every file under ``csrc/`` and the flags, so a fresh
+checkout builds itself and an unchanged one reuses its library. Nothing here runs at import time:
 the CPU tests import every module on a machine without ``nvcc``.
 
 Each wrapper in ``ops`` that launches a kernel adds one to
@@ -49,6 +50,11 @@ _SIGNATURES = {
                               _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
     "hipsc_bio_moments": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     "hipsc_ftcs_subcycle": (_P, _P, _I, _I, _F, _F, _P),
+    "hipsc_contact_seed": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
+    "hipsc_contact_masked": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
+    "hipsc_mask_compact": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -65,13 +71,17 @@ def nvcc() -> str:
 
 
 def sources() -> list:
+    """The translation units ``nvcc`` compiles."""
     return sorted(SRC_DIR.glob("*.cu"))
 
 
 def library_path() -> Path:
+    """The library's path, keyed by the flags and every file under
+    ``csrc/`` (headers included, so an edited header never reuses a stale
+    library)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        digest.update(src.name.encode())
+    for src in sorted(p for p in SRC_DIR.rglob("*") if p.is_file()):
+        digest.update(src.relative_to(SRC_DIR).as_posix().encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libhipsc_kernels_{digest.hexdigest()[:16]}.so"
 

@@ -45,10 +45,10 @@ def contact_substep_plain(
     return force, degree, new_partners
 
 
-def _pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
-                   uniform_radius):
-    """The kernel's pair-law constants, rounded to float32 as the plain
-    version rounds them."""
+def pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
+                  uniform_radius):
+    """The contact kernels' pair-law constants (``csrc/jkr_pair.cuh``
+    ``PairLaw``), rounded to float32 as the plain versions round them."""
     f32 = lambda v: float(np.float32(v))  # noqa: E731
     r = np.float32(radius)
     radius2 = float(r * r)
@@ -91,8 +91,8 @@ def contact_substep_cuda(
         xyzr.data_ptr(), ids.data_ptr(), alive.data_ptr(), bounds.data_ptr(),
         partners.data_ptr(), force.data_ptr(), degree.data_ptr(),
         new_partners.data_ptr(), C, K,
-        *_pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
-                        uniform_radius),
+        *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
+                       uniform_radius),
     )
     kernels.launch_counts["contact_substep"] += 1
     return force, degree, new_partners

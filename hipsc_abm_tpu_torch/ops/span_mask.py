@@ -1,0 +1,232 @@
+"""The span-mask contact substeps: CUDA kernels (``csrc/contact_mask.cu``)
+and their plain versions.
+
+Port of the span-mask section of ``hipsc_abm_tpu/ops/pallas_contact.py``:
+``contact_substep_ids_to_mask`` (B2, the seed), ``contact_substep_masked``
+(B1) and ``compact_mask_bonds`` (B3). The physics is that of the id-list
+substep (``ops.contact``); what changes is where the bond set lives while the
+Verlet window is frozen.
+
+**The mask.** The window is the per-row run bounds (``neighbors.run_bounds``,
+(C, 6) int32) that the contact kernels walk. Candidate ``j`` of sorted row
+``i`` is the ``j``-th agent of the concatenation of its three runs, in run
+order and ascending sorted position (the row itself included, so that ``j``
+depends on the bounds alone). The mask holds one bit per (row, candidate):
+"this pair was kept by the last substep". It is ``(W, C)`` int32, word-major
+(bit ``j & 31`` of ``mask[j >> 5, i]``), with ``W = ceil(M / 32)`` words
+where ``M`` is the widest row's candidate count at the window's build. It is
+valid only while the bounds it was seeded over are frozen; bits beyond a
+row's candidates are zero. Bytes: ``4 W C``, so 0.57 MB per word at 100k
+cells (C = 143,104 slots) and 2.9 MB per word at 500k (C = 715,008), against
+the TPU layout's ``n_runs * span`` int8 bytes per row (1.5 KB at the default
+512-lane span: 220 MB and 1.1 GB).
+
+**The three operations**, all on sorted rows:
+
+- ``contact_seed`` (B2): membership from the (C, K) partner-id lists, the
+  only bond form that survives a re-sort; returns force, degree and a fresh
+  mask. Runs at the scan's entry and at every rebuild. It reads ``M`` from
+  the bounds to size the mask: one host read per call.
+- ``contact_masked`` (B1): membership from the mask; the new keep set is
+  written back into the same mask tensor (in place, on both paths).
+- ``mask_compact`` (B3): the mask back to (C, K) partner ids, the first K
+  set bits in candidate order, ``NO_BOND`` padded. Runs before each re-sort
+  and at the scan's exit. More set bits than K truncate; the degree probe of
+  the substeps then exceeds K and ``HipscEngine.safe_step`` grows K and
+  re-executes the step before any result depends on the truncation.
+
+Each wrapper runs the plain version for a CPU tensor and launches the kernel
+for a CUDA tensor (or raises); ``kernels.launch_counts`` counts launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from hipsc_abm_tpu_torch import kernels
+from hipsc_abm_tpu_torch.ops import jkr as jkr_ops
+from hipsc_abm_tpu_torch.ops.contact import pair_law_args
+from hipsc_abm_tpu_torch.ops.neighbors import bounds_window
+
+
+def candidate_counts(bounds: torch.Tensor) -> torch.Tensor:
+    """(C,) int64 candidate count of each row: the summed widths of its runs."""
+    b = bounds.to(torch.int64).view(bounds.shape[0], -1, 2)
+    return torch.clamp(b[..., 1] - b[..., 0], min=0).sum(dim=1)
+
+
+def mask_words(bounds: torch.Tensor) -> int:
+    """Words per row of a mask over these bounds (at least 1; a host read)."""
+    widest = int(candidate_counts(bounds).max()) if bounds.shape[0] else 0
+    return max(1, -(-widest // 32))
+
+
+def _window(bounds: torch.Tensor):
+    """The padded window of the bounds (``bounds_window``) with each entry's
+    candidate index: ``(pos, valid, j)``, all (C, 3 * widest run)."""
+    pos, valid = bounds_window(bounds)
+    b = bounds.to(torch.int64).view(bounds.shape[0], -1, 2)
+    counts = torch.clamp(b[..., 1] - b[..., 0], min=0)
+    first = torch.cumsum(counts, dim=1) - counts  # (C, 3) index of each run's first candidate
+    width = pos.shape[1] // b.shape[1]
+    k = torch.arange(width, dtype=torch.int64, device=bounds.device)
+    j = (first[:, :, None] + k).reshape(pos.shape)
+    return pos, valid, j
+
+
+def _unpack(mask: torch.Tensor, j: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(C, T) bool: bit ``j`` of each row's words, False where not valid."""
+    words = mask.t().to(torch.int64) & 0xFFFFFFFF  # (C, W)
+    w = torch.clamp(j >> 5, max=mask.shape[0] - 1)
+    bits = (torch.gather(words, 1, w) >> (j & 31)) & 1
+    return (bits == 1) & valid
+
+
+def _pack(keep: torch.Tensor, j: torch.Tensor, n_words: int) -> torch.Tensor:
+    """(W, C) int32 words with bit ``j`` set for every kept entry."""
+    vals = torch.where(keep, torch.ones_like(j) << (j & 31), torch.zeros_like(j))
+    w = torch.where(keep, j >> 5, torch.zeros_like(j))
+    words = torch.zeros((keep.shape[0], n_words), dtype=torch.int64, device=keep.device)
+    words.scatter_add_(1, w, vals)  # distinct bits per word: the sum is the OR
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.to(torch.int32).t().contiguous()
+
+
+def _substep(xyzr, ids, alive, pos, valid, bonded, law):
+    force, keep = jkr_ops.jkr_substep_aligned(
+        bonded, xyzr, ids, alive, None, pos, valid, law["radius"],
+        law["adhesion_const"], law["poisson"], law["youngs"], law["break_d"],
+    )
+    return force, keep.sum(dim=1, dtype=torch.int32), keep
+
+
+def contact_seed_plain(
+    xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
+    youngs, break_d, uniform_radius: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain seed substep: returns ``(force (C, 3) float32, degree (C,)
+    int32, mask (W, C) int32)``. ``uniform_radius`` is accepted for
+    signature parity; the general pair law gives the same physics."""
+    del uniform_radius
+    law = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
+               youngs=youngs, break_d=break_d)
+    pos, valid, j = _window(bounds)
+    bonded = jkr_ops._is_bonded(partners, ids[pos])
+    force, degree, keep = _substep(xyzr, ids, alive, pos, valid, bonded, law)
+    return force, degree, _pack(keep, j, mask_words(bounds))
+
+
+def contact_masked_plain(
+    xyzr, ids, alive, bounds, mask, *, radius, adhesion_const, poisson,
+    youngs, break_d, uniform_radius: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain masked substep: returns ``(force, degree, mask)``, the mask
+    being the given tensor with the new keep set written into it."""
+    del uniform_radius
+    law = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
+               youngs=youngs, break_d=break_d)
+    pos, valid, j = _window(bounds)
+    force, degree, keep = _substep(xyzr, ids, alive, pos, valid,
+                                   _unpack(mask, j, valid), law)
+    mask.copy_(_pack(keep, j, mask.shape[0]))
+    return force, degree, mask
+
+
+def mask_compact_plain(ids, bounds, mask, bond_cap: int) -> torch.Tensor:
+    """Plain compaction: (C, bond_cap) int32 partner ids, the first
+    ``bond_cap`` set bits in candidate order, ``NO_BOND`` padded."""
+    pos, valid, j = _window(bounds)
+    out, _ = jkr_ops._compact_bonds(ids[pos], _unpack(mask, j, valid), bond_cap)
+    return out
+
+
+def _check_rows(xyzr, ids, alive, bounds):
+    C = xyzr.shape[0]
+    kernels.check_cuda("xyzr", xyzr, torch.float32, (C, 4))
+    kernels.check_cuda("ids", ids, torch.int32, (C,))
+    kernels.check_cuda("alive", alive, torch.bool, (C,))
+    kernels.check_cuda("bounds", bounds, torch.int32, (C, 6))
+    return C
+
+
+def _check_mask(mask, C):
+    if mask.dim() != 2 or mask.shape[0] < 1:
+        raise ValueError(f"mask: expected (W >= 1, {C}) words, got {tuple(mask.shape)}")
+    kernels.check_cuda("mask", mask, torch.int32, (mask.shape[0], C))
+    return mask.shape[0]
+
+
+def contact_seed_cuda(
+    xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
+    youngs, break_d, uniform_radius: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The seed substep. A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel (or raises)."""
+    kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
+              youngs=youngs, break_d=break_d, uniform_radius=uniform_radius)
+    if xyzr.device.type == "cpu":
+        return contact_seed_plain(xyzr, ids, alive, bounds, partners, **kw)
+    C = _check_rows(xyzr, ids, alive, bounds)
+    K = partners.shape[1] if partners.dim() == 2 else 0
+    kernels.check_cuda("partners", partners, torch.int32, (C, K))
+    if K < 1:
+        raise ValueError("contact_seed_cuda: bond capacity must be >= 1")
+    W = mask_words(bounds)
+    mask = torch.empty((W, C), dtype=torch.int32, device=xyzr.device)
+    force = torch.empty((C, 3), dtype=torch.float32, device=xyzr.device)
+    degree = torch.empty((C,), dtype=torch.int32, device=xyzr.device)
+    kernels.launch(
+        "hipsc_contact_seed",
+        xyzr.data_ptr(), ids.data_ptr(), alive.data_ptr(), bounds.data_ptr(),
+        partners.data_ptr(), mask.data_ptr(), force.data_ptr(), degree.data_ptr(),
+        C, K, W, *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
+                                uniform_radius),
+    )
+    kernels.launch_counts["contact_seed"] += 1
+    return force, degree, mask
+
+
+def contact_masked_cuda(
+    xyzr, ids, alive, bounds, mask, *, radius, adhesion_const, poisson,
+    youngs, break_d, uniform_radius: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The masked substep; the mask is updated in place and returned. A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel (or
+    raises)."""
+    kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
+              youngs=youngs, break_d=break_d, uniform_radius=uniform_radius)
+    if xyzr.device.type == "cpu":
+        return contact_masked_plain(xyzr, ids, alive, bounds, mask, **kw)
+    C = _check_rows(xyzr, ids, alive, bounds)
+    W = _check_mask(mask, C)
+    force = torch.empty((C, 3), dtype=torch.float32, device=xyzr.device)
+    degree = torch.empty((C,), dtype=torch.int32, device=xyzr.device)
+    kernels.launch(
+        "hipsc_contact_masked",
+        xyzr.data_ptr(), ids.data_ptr(), alive.data_ptr(), bounds.data_ptr(),
+        mask.data_ptr(), force.data_ptr(), degree.data_ptr(), C, W,
+        *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
+                       uniform_radius),
+    )
+    kernels.launch_counts["contact_masked"] += 1
+    return force, degree, mask
+
+
+def mask_compact_cuda(ids, bounds, mask, bond_cap: int) -> torch.Tensor:
+    """The compaction. A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel (or raises)."""
+    if ids.device.type == "cpu":
+        return mask_compact_plain(ids, bounds, mask, bond_cap)
+    C = ids.shape[0]
+    kernels.check_cuda("ids", ids, torch.int32, (C,))
+    kernels.check_cuda("bounds", bounds, torch.int32, (C, 6))
+    W = _check_mask(mask, C)
+    if bond_cap < 1:
+        raise ValueError("mask_compact_cuda: bond capacity must be >= 1")
+    out = torch.empty((C, bond_cap), dtype=torch.int32, device=ids.device)
+    kernels.launch("hipsc_mask_compact", ids.data_ptr(), bounds.data_ptr(),
+                   mask.data_ptr(), out.data_ptr(), C, int(bond_cap), W)
+    kernels.launch_counts["mask_compact"] += 1
+    return out

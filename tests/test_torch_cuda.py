@@ -6,9 +6,9 @@ imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: the contact kernel's scalar-radius pair law rounds differently
-from the plain version's general law (forces rtol 1e-5, atol 1e-6 x max|F|);
-moment counts and bond sets are exact; FTCS keeps the plain version's
+Tolerances: the contact kernels' scalar-radius pair law rounds differently
+from the plain versions' general law (forces rtol 1e-5, atol 1e-6 x max|F|);
+moment counts, bond sets, degrees and span-mask words are exact; FTCS keeps the plain version's
 association without FMA contraction (atol 1e-6, in practice bit-equal).
 """
 
@@ -18,7 +18,7 @@ import torch
 
 from hipsc_abm_tpu_torch import convert, kernels
 from hipsc_abm_tpu_torch.engine import HipscEngine
-from hipsc_abm_tpu_torch.ops import bio_moments, contact, diffusion, ftcs
+from hipsc_abm_tpu_torch.ops import bio_moments, contact, diffusion, ftcs, span_mask
 from hipsc_abm_tpu_torch.ops import neighbors as nbr
 from hipsc_abm_tpu_torch.ops.jkr import pack_physics
 from hipsc_abm_tpu_torch.params import (
@@ -37,9 +37,11 @@ def dev():
     return torch.device("cuda")
 
 
-def _contact_inputs(K, seed=0, C=2048, n=1900, box=(420.0, 420.0, 0.0)):
+def _contact_inputs(K, seed=0, C=2048, n=1900, box=(420.0, 420.0, 0.0), skin=2.0):
     """Sorted contact inputs with bonds from one plain substep at earlier
-    positions (some bonds now beyond the search radius, some breaking)."""
+    positions (some bonds now beyond the search radius, some breaking). The
+    engine's default Verlet skin (14 um) widens the bins so that rows have
+    more than 32 candidates and the span masks more than one word."""
     rs = np.random.default_rng(seed)
     locs = np.zeros((C, 3), np.float32)
     locs[:n, :2] = rs.random((n, 2)).astype(np.float32) * np.float32(box[0])
@@ -47,7 +49,7 @@ def _contact_inputs(K, seed=0, C=2048, n=1900, box=(420.0, 420.0, 0.0)):
     alive[:n] = True
     alive[rs.choice(n, 40, replace=False)] = False
     ids = rs.permutation(10 * C)[:C].astype(np.int32)
-    spec = nbr.GridSpec.from_box(box, BIO.jkr_radius + 2 * BIO.jkr_break_band + 2.0, 0)
+    spec = nbr.GridSpec.from_box(box, BIO.jkr_radius + 2 * BIO.jkr_break_band + skin, 0)
     radii = torch.full((C,), BIO.max_radius)
 
     def sorted_args(xy, partners):
@@ -82,6 +84,66 @@ def test_contact_kernel_matches_plain(dev, K, uniform):
     assert torch.equal(dk, dp)
     for a, b in zip(pk.cpu().numpy(), pp.cpu().numpy()):
         assert set(a[a >= 0].tolist()) == set(b[b >= 0].tolist())
+
+
+def _moved(args, seed=5):
+    """The same sorted rows one substep later (the window stays frozen)."""
+    rs = np.random.default_rng(seed)
+    xyzr = args[0].clone()
+    noise = rs.normal(0.0, 0.4, (xyzr.shape[0], 2)).astype(np.float32)
+    xyzr[:, :2] += torch.from_numpy(noise).to(xyzr.device)
+    return xyzr
+
+
+def _check_contact(f_k, d_k, f_p, d_p):
+    scale = float(f_p.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(f_k, f_p, rtol=1e-5, atol=1e-6 * scale)
+    assert torch.equal(d_k, d_p)
+
+
+@pytest.mark.parametrize("K", [8, 40])
+def test_contact_seed_kernel_matches_plain(dev, K):
+    args = [a.to(dev) for a in _contact_inputs(K, skin=14.0)]
+    law = dict(uniform_radius=BIO.max_radius, **LAW)
+    before = kernels.launch_counts["contact_seed"]
+    f_k, d_k, m_k = span_mask.contact_seed_cuda(*args, **law)
+    f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **law)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["contact_seed"] == before + 1
+    _check_contact(f_k, d_k, f_p, d_p)
+    assert m_k.shape == m_p.shape and m_p.shape[0] >= 2 and torch.equal(m_k, m_p)
+    assert int(d_p.sum()) > args[0].shape[0]
+
+
+@pytest.mark.parametrize("K", [8, 40])
+def test_contact_masked_kernel_matches_plain(dev, K):
+    args = [a.to(dev) for a in _contact_inputs(K, skin=14.0)]
+    law = dict(uniform_radius=BIO.max_radius, **LAW)
+    _, _, mask = span_mask.contact_seed_plain(*args, **law)
+    rows = (_moved(args), *args[1:4])
+    m_k, m_p = mask.clone(), mask.clone()
+    before = kernels.launch_counts["contact_masked"]
+    f_k, d_k, out = span_mask.contact_masked_cuda(*rows, m_k, **law)
+    f_p, d_p, _ = span_mask.contact_masked_plain(*rows, m_p, **law)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["contact_masked"] == before + 1
+    assert out is m_k  # in place
+    _check_contact(f_k, d_k, f_p, d_p)
+    assert torch.equal(m_k, m_p) and not torch.equal(m_k, mask)
+
+
+@pytest.mark.parametrize("K", [8, 40])
+def test_mask_compact_kernel_matches_plain(dev, K):
+    args = [a.to(dev) for a in _contact_inputs(K, skin=14.0)]
+    _, degree, mask = span_mask.contact_seed_plain(*args, **LAW)
+    before = kernels.launch_counts["mask_compact"]
+    got = span_mask.mask_compact_cuda(args[1], args[3], mask, K)
+    want = span_mask.mask_compact_plain(args[1], args[3], mask, K)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["mask_compact"] == before + 1
+    assert torch.equal(got, want)  # same first-K walk order, entry by entry
+    assert torch.equal((got >= 0).sum(dim=1, dtype=torch.int32), degree.clamp(max=K))
 
 
 def test_contact_kernel_rejects_bad_operands(dev):
@@ -136,15 +198,18 @@ def test_ftcs_kernel_matches_plain(dev):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
-def test_engine_step_on_card_matches_cpu(dev):
+@pytest.mark.parametrize("contact_path", ["id_list", "span_mask"])
+def test_engine_step_on_card_matches_cpu(dev, contact_path):
     n = 3000
     side = 2000.0 * (n / 5000.0) ** 0.5
     gen = GeneralParams(num_to_start=n, end_step=20, size=(side, side, 0.0))
     xp = ExperimentalParams(num_gata6=n // 10, dox_step=1)
     diff = DiffusionParams(spat_res=20.0, diffuse_dt=6.0, diffuse_const=2.0,
                            max_concentration=2.0, degradation=0.1, release_amount=0.01)
-    cpu = HipscEngine(gen, xp, diff=diff, enable_diffusion=True, device="cpu")
-    gpu = HipscEngine(gen, xp, diff=diff, enable_diffusion=True, device=dev)
+    cpu = HipscEngine(gen, xp, diff=diff, enable_diffusion=True, device="cpu",
+                      contact_path=contact_path)
+    gpu = HipscEngine(gen, xp, diff=diff, enable_diffusion=True, device=dev,
+                      contact_path=contact_path)
     s, _ = cpu.safe_step(cpu.init_state(seed=1))
     d = convert.state_to_numpy(s)
     a = convert.state_to_numpy(cpu.step(convert.state_from_numpy(d))[0])

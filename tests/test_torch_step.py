@@ -180,13 +180,13 @@ def _by_id(d):
     return out
 
 
-def _assert_same_colony(jstate, tstate, label):
+def _assert_same_colony(jstate, tstate, label, atol=1e-3):
     a = _by_id(convert.numpy_from_jax_state(jstate))
     b = _by_id(convert.state_to_numpy(tstate))
     np.testing.assert_array_equal(b["ids"], a["ids"], err_msg=f"{label}: ids")
     for k in INT_FIELDS:
         np.testing.assert_array_equal(b[k], a[k], err_msg=f"{label}: {k}")
-    np.testing.assert_allclose(b["locations"], a["locations"], rtol=0, atol=1e-3,
+    np.testing.assert_allclose(b["locations"], a["locations"], rtol=0, atol=atol,
                                err_msg=f"{label}: locations")
     assert b["bonds"] == a["bonds"], f"{label}: bond sets"
     assert int(tstate.next_id) == int(jstate.next_id)
@@ -305,9 +305,14 @@ def test_numpy_round_trip_is_lossless():
 
 
 def test_port_never_imports_jax():
-    code = ("import sys\n"
-            "import hipsc_abm_tpu_torch, hipsc_abm_tpu_torch.engine, hipsc_abm_tpu_torch.convert\n"
-            "import hipsc_abm_tpu_torch.kernels, hipsc_abm_tpu_torch.ops.ftcs, chip_smoke\n"
+    """Every module of the port, and chip_smoke, imported in a fresh process
+    without JAX pulls in neither JAX nor the JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import hipsc_abm_tpu_torch as pkg, chip_smoke\n"
+            "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+            "for name in mods:\n"
+            "    importlib.import_module(name)\n"
+            "assert 'hipsc_abm_tpu_torch.ops.span_mask' in mods, mods\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'hipsc_abm_tpu.')))\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
