@@ -1,32 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code != 0):
 
 1. card and toolchain: ``nvidia-smi`` name and power limit, ``nvcc
-   --version``, and the build of the CUDA kernels from ``csrc/``;
+   --version``, and the build of the CUDA kernels from ``csrc/`` (one
+   ``nvcc`` per source, all started together);
 2. kernels: each kernel against its plain PyTorch version on the card, on
-   the inputs the main path gives it (the 100k-cell bench colony after
-   ``init_state(seed=0)`` and one ``safe_step``), with times of both and the
-   least time the card could take for the same work (``bound_ms``);
-   the span-mask kernels run as the scan runs them: seed, then a masked
-   substep at the positions the seed's forces move the rows to, then the
-   compaction;
-3. step: one ``step`` of the port from the same 20k-cell state on the CPU
-   (plain versions) and on the card (kernels), compared by agent id, for
+   the inputs the main path gives it, with times of both and the least time
+   the card could take for the same work (``bound_ms``): the 2D forms at
+   the 100k-cell bench colony after ``init_state(seed=0)`` and one
+   ``safe_step``, the 3D (9-run) forms at the 99k-cell spheroid after the
+   same; the span-mask kernels run as the scan runs them: seed, then a
+   masked substep at the positions the seed's forces move the rows to, then
+   the compaction;
+3. probes: each mode of the window probes P1 and P2 against its plain
+   version at NBLK = 4096, the kernel's own device time per launch under
+   ``torch.profiler``, then each probe's entry point
+   (``hipsc_abm_tpu_torch.tools.dynslice_probe[2].main``) per mode, with the
+   launch counts set to 0 just before it;
+4. step: one ``step`` of the port from the same 20k-cell 2D state on the
+   CPU (plain versions) and on the card (kernels), compared by agent id, for
    each contact path, and the span-mask step against the id-list step on
-   the card;
-4. main paths: the bench configuration at 100k cells, ``init_state(seed=0)``,
-   3 ``safe_step`` warm-ups and 5 timed ``step``s, twice per contact path
-   in turns (``contact_path="id_list"``, ``"span_mask"``, ``"span_mask"``,
-   ``"id_list"``); steps/s, agents, peak
-   memory, window rebuilds per step, the launch counts of every kernel
-   (each kernel of the path must have launched), and the device time per
-   step, in all and of each contact kernel, over 2 more steps under
-   ``torch.profiler``;
-5. the same timed runs at 500k cells.
+   the card; then 4 ``safe_step``s of the 3,300-cell spheroid (the 3D
+   example's configuration) on the CPU and on the card, both paths;
+5. main paths: the bench configuration at 100k and 500k cells (2D) and the
+   spheroid at 99k cells (3D), ``init_state(seed=0)``, 3 ``safe_step``
+   warm-ups and 5 timed ``step``s, twice per contact path in turns
+   (``"id_list"``, ``"span_mask"``, ``"span_mask"``, ``"id_list"``);
+   steps/s, agents, peak memory, window rebuilds per step, the launch
+   counts of every kernel (each kernel of the path must have launched), and
+   the device time per step, in all and of the contact kernels, over 2 more
+   steps under ``torch.profiler``.
 
 The last lines are one JSON object with each kernel's numbers, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -45,14 +52,24 @@ import torch
 N_MAIN = 100_000
 N_LARGE = 500_000
 N_STEP_CHECK = 20_000
+# the 3D spheroid (examples/spheroid_3d.py: 3,000 + 300 cells in a 600 um
+# box, seeded as a ball of 110 um) and its realistic size, 90,000 + 9,000
+# cells with box and ball grown by (99,000 / 3,300)^(1/3)
+N_SPHEROID = 3_300
+N_MAIN_3D = 99_000
 SEED = 0
 PATHS = ("id_list", "span_mask")
-# the kernels each contact path launches (counted from its own main-path run)
+# the kernels each contact path launches in 2D and in 3D (counted from its
+# own main-path run)
 PATH_KERNELS = {
-    "id_list": ("contact_substep", "bio_moments", "ftcs_subcycle"),
-    "span_mask": ("contact_seed", "contact_masked", "mask_compact", "bio_moments",
-                  "ftcs_subcycle"),
+    (2, "id_list"): ("contact_substep", "bio_moments", "ftcs_subcycle"),
+    (2, "span_mask"): ("contact_seed", "contact_masked", "mask_compact", "bio_moments",
+                       "ftcs_subcycle"),
+    (3, "id_list"): ("contact_substep_3d", "bio_moments_3d"),
+    (3, "span_mask"): ("contact_seed_3d", "contact_masked_3d", "mask_compact_3d",
+                       "bio_moments_3d"),
 }
+SPAN_MASK_KERNELS = ("contact_seed", "contact_masked", "mask_compact")
 # the card's published peaks (H100 SXM: HBM3 rate, float32 outside the
 # tensor cores), for bound_ms
 PEAK_BYTES_PER_S = 3.35e12
@@ -61,6 +78,16 @@ PEAK_F32_PER_S = 67e12
 # per kept pair (pair law, normal, force sum)
 DIST_FLOPS = 8
 PAIR_FLOPS = 20
+# per (row, lane) pair: P1 two differences, two squares, a sum, the test,
+# dx * d2 and the accumulation; P2 the 23 operations of its body every pair
+# needs and 4 more (two products, two sums) per kept pair
+P1_FLOPS = 8
+P2_FLOPS, P2_KEPT_FLOPS = 23, 4
+# kernel names as the profiler shows them: the contact kernels, then the
+# others whose device time per step is reported beside them
+CONTACT_KERNELS = ("contact_substep_kernel", "contact_mask_kernel<true",
+                   "contact_mask_kernel<false", "mask_compact_kernel")
+OTHER_KERNELS = ("bio_moments_kernel", "ftcs_subcycle_kernel")
 
 
 def bench_engine(n_cells: int, device: str, contact_path: str = "id_list"):
@@ -81,6 +108,37 @@ def bench_engine(n_cells: int, device: str, contact_path: str = "id_list"):
                        contact_path=contact_path)
 
 
+def spheroid_engine(n_cells: int, device: str, contact_path: str = "id_list"):
+    """The 3D spheroid example's configuration at ``n_cells`` (10:1 with
+    GATA6-high cells, dox at step 2, guye_move off): a cubic box of
+    600 * s um and a seeding ball of 110 * s um at its centre, with
+    s = (n_cells / 3300)^(1/3). Returns the engine and the ball (numpy
+    ``default_rng(SEED)``, drawn as the example draws it)."""
+    from hipsc_abm_tpu_torch.engine import HipscEngine
+    from hipsc_abm_tpu_torch.params import ExperimentalParams, GeneralParams
+
+    s = (n_cells / 3300.0) ** (1.0 / 3.0)
+    box, radius = 600.0 * s, 110.0 * s
+    n_gata6 = n_cells // 11
+    gen = GeneralParams(num_to_start=n_cells - n_gata6, end_step=200, size=(box, box, box))
+    xp = ExperimentalParams(num_gata6=n_gata6, dox_step=2, guye_move=False)
+    rng = np.random.default_rng(SEED)
+    direction = rng.normal(size=(n_cells, 3))
+    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    r = radius * rng.random(n_cells) ** (1.0 / 3.0)
+    ball = (box / 2.0 + direction * r[:, None]).astype(np.float32)
+    return HipscEngine(gen, xp, device=device, contact_path=contact_path), ball
+
+
+def engine_for(dims: int, n_cells: int, device: str, path: str):
+    """``(engine, initial state)`` of the 2D bench or the 3D spheroid."""
+    if dims == 2:
+        eng = bench_engine(n_cells, device, path)
+        return eng, eng.init_state(seed=SEED)
+    eng, ball = spheroid_engine(n_cells, device, path)
+    return eng, eng.init_state(seed=SEED, locations=ball)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -90,16 +148,9 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call on the card (CUDA events, after a warm-up)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from hipsc_abm_tpu_torch.tools import time_ms
+
+    return time_ms(fn, reps, torch.device("cuda"))
 
 
 def bound(bytes_moved: float, flops: float) -> dict:
@@ -144,7 +195,9 @@ def by_id(d: dict) -> dict:
 
 
 def kernel_phase(eng, state):
-    """Each kernel against its plain version on the main path's inputs."""
+    """Each run-bounds kernel (and, in 2D, FTCS) against its plain version
+    on the main path's inputs. Entries are named as ``launch_counts`` names
+    them (``_3d`` for the 9-run forms)."""
     from hipsc_abm_tpu_torch import kernels
     from hipsc_abm_tpu_torch.ops import bio_moments, contact, diffusion, ftcs, span_mask
     from hipsc_abm_tpu_torch.ops import neighbors as nbr
@@ -153,7 +206,15 @@ def kernel_phase(eng, state):
 
     cfg, bio, diff = eng.cfg, eng.bio, eng.diff
     a, alive = state.arrays, state.alive
+    n_runs = len(cfg.jkr_spec.flat_run_offsets)
+    label = f"{3 if n_runs == 9 else 2}D"
     results = []
+
+    def entry(name, source, replaces, **nums):
+        results.append(dict(name=kernels.counted_name(name, n_runs), route="cuda",
+                            source=f"hipsc_abm_tpu_torch/csrc/{source}",
+                            replaces=replaces, library_ms=None, **nums))
+        return results[-1]["name"]
 
     # B6 contact substep: the physics scan's first substep of the next step
     grid = nbr.build_grid(cfg.jkr_spec, a["locations"], a["ids"], alive)
@@ -174,20 +235,18 @@ def kernel_phase(eng, state):
     bad = sum(x != y for x, y in zip(sets_k, sets_p))
     if bad:
         raise AssertionError(f"contact: bond sets differ on {bad} rows")
-    row_bytes = 16 + 4 + 1 + 24  # xyzr, id, alive, bounds
-    results.append(dict(
-        name="contact_substep", route="cuda",
-        source="hipsc_abm_tpu_torch/csrc/contact.cu",
-        replaces="hipsc_abm_tpu/ops/pallas_contact.py:79",
+    row_bytes = 16 + 4 + 1 + 8 * n_runs  # xyzr, id, alive, bounds
+    name = entry(
+        "contact_substep", "contact.cu", "hipsc_abm_tpu/ops/pallas_contact.py:79",
         max_abs_err=f_err,
         ms=cuda_ms(lambda: contact.contact_substep_cuda(*args, **law), 50),
         plain_ms=cuda_ms(lambda: contact.contact_substep_plain(*args, **law), 10),
-        **bound(C * (row_bytes + 8 * K + 16), contact_flops(args[3], args[2], d_p)),
-        library_ms=None,
-    ))
-    print(f"kernel contact_substep: rows={C} K={K} "
-          f"bonds={int((p_k >= 0).sum())} max|F|={f_scale:.6e} N "
-          f"max_abs_err={f_err:.3e} N")
+        **bound(C * (row_bytes + 8 * K + 16), contact_flops(args[3], args[2], d_p)))
+    live = max(1, int(args[2].sum()))
+    print(f"kernel {name}: rows={C} runs={n_runs} K={K} mean candidates per live row "
+          f"{int(span_mask.candidate_counts(args[3])[args[2]].sum()) / live:.2f}, "
+          f"mean degree {float(d_p.sum()) / live:.3f}, max degree={int(d_p.max())} "
+          f"bonds={int((p_k >= 0).sum())} max|F|={f_scale:.6e} N max_abs_err={f_err:.3e} N")
 
     # B2 seed, B1 masked, B3 compact: the span-mask scan's first two substeps
     # on the same rows (the masked substep at the positions the seed's forces
@@ -200,17 +259,13 @@ def kernel_phase(eng, state):
         raise AssertionError("contact_seed: mask words differ")
     W = m_p.shape[0]
     seed_mask = m_p.clone()
-    results.append(dict(
-        name="contact_seed", route="cuda",
-        source="hipsc_abm_tpu_torch/csrc/contact_mask.cu",
-        replaces="hipsc_abm_tpu/ops/pallas_contact.py:697",
+    name = entry(
+        "contact_seed", "contact_mask.cu", "hipsc_abm_tpu/ops/pallas_contact.py:697",
         max_abs_err=f_err,
         ms=cuda_ms(lambda: span_mask.contact_seed_cuda(*args, **law), 50),
         plain_ms=cuda_ms(lambda: span_mask.contact_seed_plain(*args, **law), 10),
-        **bound(C * (row_bytes + 4 * K + 16 + 4 * W), contact_flops(args[3], args[2], d_p)),
-        library_ms=None,
-    ))
-    print(f"kernel contact_seed: rows={C} K={K} widest row "
+        **bound(C * (row_bytes + 4 * K + 16 + 4 * W), contact_flops(args[3], args[2], d_p)))
+    print(f"kernel {name}: rows={C} K={K} widest row M="
           f"{int(span_mask.candidate_counts(args[3]).max())} candidates -> W={W} words "
           f"({4 * W * C / 1e6:.3f} MB mask) max|F|={f_scale:.6e} N max_abs_err={f_err:.3e} N")
 
@@ -226,17 +281,13 @@ def kernel_phase(eng, state):
     if not torch.equal(m_k, m_p):
         raise AssertionError("contact_masked: mask words differ")
     m_time = seed_mask.clone()
-    results.append(dict(
-        name="contact_masked", route="cuda",
-        source="hipsc_abm_tpu_torch/csrc/contact_mask.cu",
-        replaces="hipsc_abm_tpu/ops/pallas_contact.py:481",
+    name = entry(
+        "contact_masked", "contact_mask.cu", "hipsc_abm_tpu/ops/pallas_contact.py:481",
         max_abs_err=f_err,
         ms=cuda_ms(lambda: span_mask.contact_masked_cuda(*margs, m_time, **law), 50),
         plain_ms=cuda_ms(lambda: span_mask.contact_masked_plain(*margs, m_time, **law), 10),
-        **bound(C * (row_bytes + 16 + 8 * W), contact_flops(args[3], args[2], d_p)),
-        library_ms=None,
-    ))
-    print(f"kernel contact_masked: rows={C} W={W} kept pairs {int(d_p.sum())} "
+        **bound(C * (row_bytes + 16 + 8 * W), contact_flops(args[3], args[2], d_p)))
+    print(f"kernel {name}: rows={C} W={W} kept pairs {int(d_p.sum())} "
           f"(seed {int(seed_mask.ne(0).sum())} nonzero words) max|F|={f_scale:.6e} N "
           f"max_abs_err={f_err:.3e} N")
 
@@ -246,17 +297,13 @@ def kernel_phase(eng, state):
     if not torch.equal(c_k, c_p):
         raise AssertionError(f"mask_compact: ids differ on "
                              f"{int((c_k != c_p).any(dim=1).sum())} rows")
-    results.append(dict(
-        name="mask_compact", route="cuda",
-        source="hipsc_abm_tpu_torch/csrc/contact_mask.cu",
-        replaces="hipsc_abm_tpu/ops/pallas_contact.py:877",
+    name = entry(
+        "mask_compact", "contact_mask.cu", "hipsc_abm_tpu/ops/pallas_contact.py:877",
         max_abs_err=0.0,
         ms=cuda_ms(lambda: span_mask.mask_compact_cuda(args[1], args[3], m_p, K), 50),
         plain_ms=cuda_ms(lambda: span_mask.mask_compact_plain(args[1], args[3], m_p, K), 10),
-        **bound(C * (4 + 24 + 4 * W + 4 * K), 0.0),
-        library_ms=None,
-    ))
-    print(f"kernel mask_compact: rows={C} K={K} W={W} bonds={int((c_k >= 0).sum())}, "
+        **bound(C * (4 + 8 * n_runs + 4 * W + 4 * K), 0.0))
+    print(f"kernel {name}: rows={C} K={K} W={W} bonds={int((c_k >= 0).sum())}, "
           f"ids equal row for row")
 
     # B4 bio moments: the step's radius-15 graph, all four modes
@@ -264,10 +311,8 @@ def kernel_phase(eng, state):
     o = grid.order
     loc = a["locations"][o]
     flat = grid.sorted_flat.to(torch.int32).contiguous()
-    pack = torch.stack([loc[:, 0], loc[:, 1], loc[:, 0], loc[:, 1],
-                        a["GATA6"][o].float(), a["NANOG"][o].float(),
-                        a["states"][o].float(), torch.zeros_like(loc[:, 0])],
-                       dim=1).contiguous()
+    pack = bio_moments.make_pack(loc, loc, a["GATA6"][o], a["NANOG"][o], a["states"][o],
+                                 cfg.two_d)
     bounds = nbr.run_bounds(cfg.nbr_spec, grid.sorted_flat)
     kw = dict(num_bins=cfg.nbr_spec.num_bins, radius=bio.neighbor_radius)
     err = 0.0
@@ -279,53 +324,137 @@ def kernel_phase(eng, state):
             raise AssertionError(f"bio_moments[{mode}]: count lanes differ")
         torch.testing.assert_close(m_k, m_p, rtol=1e-5, atol=1e-4)
         err = max(err, float((m_k - m_p).abs().max()))
-    # operations in mode full: a distance test per candidate (6), and per
-    # neighbour the pathway sums (3) and motility sums (10)
+    # operations in mode full: a distance test per candidate (6 in 2D, 9 in
+    # 3D), and per neighbour the pathway sums (3) and motility sums (10 in
+    # 2D, 13 in 3D)
     candidates = int(span_mask.candidate_counts(bounds)[alive[o]].sum())
-    results.append(dict(
-        name="bio_moments", route="cuda",
-        source="hipsc_abm_tpu_torch/csrc/bio_moments.cu",
-        replaces="hipsc_abm_tpu/ops/pallas_bio.py:58",
+    dist_ops, nbr_ops = (6, 13) if cfg.two_d else (9, 16)
+    name = entry(
+        "bio_moments", "bio_moments.cu", "hipsc_abm_tpu/ops/pallas_bio.py:58",
         max_abs_err=err,
         ms=cuda_ms(lambda: bio_moments.bio_moments_cuda(pack, flat, bounds, mode="full", **kw), 50),
         plain_ms=cuda_ms(lambda: bio_moments.bio_moments_plain(pack, flat, bounds, mode="full", **kw), 10),
-        **bound(C * (32 + 4 + 24 + 4 * bio_moments.OUT_LANES),
-                6 * candidates + 13 * float(m_p[:, 0].sum())),
-        library_ms=None,
-    ))
-    print(f"kernel bio_moments: rows={pack.shape[0]} "
-          f"mean neighbours={float(m_k[:, 0].sum()) / max(1, int(alive.sum())):.3f} "
+        **bound(C * (4 * pack.shape[1] + 4 + 8 * n_runs + 4 * bio_moments.OUT_LANES),
+                dist_ops * candidates + nbr_ops * float(m_p[:, 0].sum())))
+    live = max(1, int(alive.sum()))
+    print(f"kernel {name}: rows={pack.shape[0]} pack lanes={pack.shape[1]} "
+          f"mean candidates per live row {candidates / live:.2f}, "
+          f"mean neighbours={float(m_k[:, 0].sum()) / live:.3f} "
           f"max_abs_err={err:.3e} (all four modes)")
 
-    # B5 FTCS: one step's subcycles on the step's lattice
-    lattice = state.gradients["fgf4_values"]
-    dts = diffusion.diffusion_dts(bio.step_dt, diff.diffuse_dt)
-    fargs = (lattice, dts, diff.diffuse_const, diff.spat_res2,
-             diff.max_concentration, diff.degradation)
-    g_k = ftcs.ftcs_diffuse_cuda(*fargs)
-    g_p = diffusion.ftcs_diffuse(*fargs)
-    torch.testing.assert_close(g_k, g_p, rtol=0.0, atol=1e-6)
-    g_err = float((g_k - g_p).abs().max())
-    steps = len(dts)
-    results.append(dict(
-        name="ftcs_subcycle", route="cuda",
-        source="hipsc_abm_tpu_torch/csrc/ftcs.cu",
-        replaces="hipsc_abm_tpu/ops/pallas_diffusion.py:135",
-        max_abs_err=g_err,
-        ms=cuda_ms(lambda: ftcs.ftcs_diffuse_cuda(*fargs), 5) / steps,
-        plain_ms=cuda_ms(lambda: diffusion.ftcs_diffuse(*fargs), 3) / steps,
-        # per subcycle: the lattice read once and written once; 9 operations
-        # per cell (four differences, two scaled sums, the update)
-        **bound(2 * 4 * lattice.numel(), 9 * lattice.numel()),
-        library_ms=None,
-    ))
-    print(f"kernel ftcs_subcycle: lattice={tuple(lattice.shape)} subcycles={steps} "
-          f"max_abs_err={g_err:.3e} bit-equal={bool(torch.equal(g_k, g_p))}")
+    # B5 FTCS: one step's subcycles on the step's lattice (2D bench only)
+    if "fgf4_values" in state.gradients:
+        lattice = state.gradients["fgf4_values"]
+        dts = diffusion.diffusion_dts(bio.step_dt, diff.diffuse_dt)
+        fargs = (lattice, dts, diff.diffuse_const, diff.spat_res2,
+                 diff.max_concentration, diff.degradation)
+        g_k = ftcs.ftcs_diffuse_cuda(*fargs)
+        g_p = diffusion.ftcs_diffuse(*fargs)
+        torch.testing.assert_close(g_k, g_p, rtol=0.0, atol=1e-6)
+        g_err = float((g_k - g_p).abs().max())
+        steps = len(dts)
+        results.append(dict(
+            name="ftcs_subcycle", route="cuda",
+            source="hipsc_abm_tpu_torch/csrc/ftcs.cu",
+            replaces="hipsc_abm_tpu/ops/pallas_diffusion.py:135",
+            max_abs_err=g_err,
+            ms=cuda_ms(lambda: ftcs.ftcs_diffuse_cuda(*fargs), 5) / steps,
+            plain_ms=cuda_ms(lambda: diffusion.ftcs_diffuse(*fargs), 3) / steps,
+            # per subcycle: the lattice read once and written once; 9
+            # operations per cell (four differences, two scaled sums, the
+            # update)
+            **bound(2 * 4 * lattice.numel(), 9 * lattice.numel()),
+            library_ms=None,
+        ))
+        print(f"kernel ftcs_subcycle: lattice={tuple(lattice.shape)} subcycles={steps} "
+              f"max_abs_err={g_err:.3e} bit-equal={bool(torch.equal(g_k, g_p))}")
     for r in results:
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        print(f"  {r['name']} ({label}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
               + (" (per subcycle)" if r["name"] == "ftcs_subcycle" else ""))
     kernels.launch_counts.clear()
+    return results
+
+
+def _window_lanes(off: torch.Tensor, width: int) -> int:
+    """Lanes in the union of each program's windows ``[off, off + width)``
+    (``off`` is (groups, nblk))."""
+    off = torch.sort(off, dim=0).values
+    gap = torch.clamp(off[1:] - off[:-1], max=width)
+    return int(width * off.shape[1] + gap.sum())
+
+
+def probe_phase() -> list:
+    """P1 and P2: every mode against its plain version at NBLK = 4096, then
+    through the probe's entry point, one mode at a time, with the launch
+    counts set to 0 just before; the entry point's time is the entry's
+    ``ms``."""
+    from hipsc_abm_tpu_torch import kernels
+    from hipsc_abm_tpu_torch.tools import dynslice_probe as p1
+    from hipsc_abm_tpu_torch.tools import dynslice_probe2 as p2
+
+    results = []
+    for probe in (p1, p2):
+        name = probe.__name__.rsplit(".", 1)[1]
+        src_line = 34 if probe is p1 else 42
+        inputs = probe.make_inputs(probe.NBLK, "cuda")
+        offs, rows, span = inputs
+        nblk = probe.NBLK
+        for mode in probe.MODES:
+            got = probe.probe_cuda(*inputs, mode)
+            want = probe.probe_plain(*inputs, mode)
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            if probe is p1:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+                width, span_rows, row_bytes = p1.W, 2, 8
+                pairs = p1.lanes(nblk)
+                flops = P1_FLOPS * pairs  # the data never fails d2 < 100
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+                width, span_rows, row_bytes = p2.GROUPS[mode][1], 4, 16
+                pairs = p2.lanes(mode, nblk)
+                # the (row, lane) pairs this run's data keeps: one pass
+                # over the body's test
+                kept = sum(int(p2.pair_terms(r, c)[0].sum())
+                           for _, _, r, c in p2.blocks(*inputs, mode))
+                flops = P2_FLOPS * pairs + P2_KEPT_FLOPS * kept
+            err = float((got - want).abs().max())
+            # compulsory bytes: the rows' used columns, each program's
+            # window lanes of the span rows read, the offsets where the
+            # window depends on them, and the output
+            span_lanes = _window_lanes(probe.window_offsets(mode, offs), width)
+            uses_offs = mode not in ("static", "full")
+            moved = (rows.shape[0] * (row_bytes + 4) + 4 * span_rows * span_lanes
+                     + (offs.numel() * 4 if uses_offs else 0))
+            plain_ms = cuda_ms(lambda: probe.probe_plain(*inputs, mode), 3)
+            # the kernel's own device time per launch: the entry point's
+            # CUDA-event time also holds the host's launch path
+            kname = f"{name}_kernel"
+            _, prof = profile_device(lambda: probe.probe_cuda(*inputs, mode), 10, (kname,))
+            kernel_ms = prof[kname][0] / prof[kname][1] if kname in prof else None
+            kernels.launch_counts.clear()
+            (run,) = probe.main([mode])
+            launches = kernels.launch_counts[name]
+            if launches != probe.REPS + 1:
+                raise AssertionError(f"{name}[{mode}]: {launches} launches, "
+                                     f"expected {probe.REPS + 1}")
+            results.append(dict(
+                name=f"{name}[{mode}]", route="cuda",
+                source="hipsc_abm_tpu_torch/csrc/dynslice_probe.cu",
+                replaces=f"tools/{name}.py:{src_line}", launches=launches,
+                max_abs_err=err, ms=run["ms"], plain_ms=plain_ms,
+                **bound(moved, flops), library_ms=None))
+            r = results[-1]
+            alone = "not measured" if kernel_ms is None else f"{kernel_ms:.4f} ms"
+            print(f"probe {r['name']}: max|out|={scale:.6e} max_abs_err={err:.3e}; "
+                  f"{r['ms']:.4f} ms ({run['glanes_per_s']:.1f} Glanes/s), kernel alone "
+                  f"{alone} per launch (profiler), plain "
+                  f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+                  f"{moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+        del inputs, offs, rows, span
+    kernels.launch_counts.clear()
+    torch.cuda.empty_cache()
     return results
 
 
@@ -342,14 +471,17 @@ def compare_colonies(a: dict, b: dict, label: str, bond_rows_allowed: int) -> st
             raise AssertionError(f"{label}: {k} differs")
     loc_err = float(np.abs(ia["locations"] - ib["locations"]).max())
     np.testing.assert_allclose(ia["locations"], ib["locations"], rtol=0, atol=1e-3)
-    lat_err = float(np.abs(a["gradients"]["fgf4_values"] - b["gradients"]["fgf4_values"]).max())
-    np.testing.assert_allclose(a["gradients"]["fgf4_values"], b["gradients"]["fgf4_values"],
-                               rtol=0, atol=1e-6)
+    summary = f"{len(ia['ids'])} agents, ints equal, max|dloc|={loc_err:.3e} um"
+    if "fgf4_values" in a["gradients"]:
+        lat_err = float(np.abs(a["gradients"]["fgf4_values"]
+                               - b["gradients"]["fgf4_values"]).max())
+        np.testing.assert_allclose(a["gradients"]["fgf4_values"],
+                                   b["gradients"]["fgf4_values"], rtol=0, atol=1e-6)
+        summary += f", max|dlattice|={lat_err:.3e}"
     bond_rows = sum(x != y for x, y in zip(ia["bonds"], ib["bonds"]))
     if bond_rows > bond_rows_allowed:
         raise AssertionError(f"{label}: bond sets differ on {bond_rows} rows")
-    return (f"{len(ia['ids'])} agents, ints equal, max|dloc|={loc_err:.3e} um, "
-            f"max|dlattice|={lat_err:.3e}, bond rows differing={bond_rows}")
+    return summary + f", bond rows differing={bond_rows}"
 
 
 def step_phase():
@@ -385,14 +517,46 @@ def step_phase():
     print(f"step phase span_mask vs id_list on the card: {summary}")
 
 
-def timed_run(n_cells: int, path: str):
+def step_phase_3d(steps: int = 4):
+    """The spheroid example's configuration (3,000 + 300 cells): ``steps``
+    ``safe_step``s on the CPU and on the card from the same seeded ball, for
+    each contact path (bond sets held equal), and the two paths against each
+    other on the card."""
+    from hipsc_abm_tpu_torch import convert
+
+    on_card = {}
+    for path in PATHS:
+        out, k_grown = {}, {}
+        for device in ("cpu", "cuda"):
+            eng, state = engine_for(3, N_SPHEROID, device, path)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, info = eng.safe_step(state)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            out[device] = (convert.state_to_numpy(state), time.perf_counter() - t0)
+            k_grown[device] = state.bonds.partners.shape[1]
+        on_card[path] = out["cuda"][0]
+        summary = compare_colonies(out["cpu"][0], out["cuda"][0],
+                                   f"3D step[{path}] card vs CPU", 0)
+        print(f"step phase 3D [{path}] card vs CPU after {steps} safe_steps: {summary}, "
+              f"bond_cap {k_grown['cpu']}/{k_grown['cuda']}, cpu {out['cpu'][1]:.2f} s, "
+              f"card {out['cuda'][1]:.2f} s")
+    a, b = by_id(on_card["id_list"]), by_id(on_card["span_mask"])
+    same_ids = np.array_equal(a["ids"], b["ids"])
+    dloc = float(np.abs(a["locations"] - b["locations"]).max()) if same_ids else float("nan")
+    bond_rows = sum(x != y for x, y in zip(a["bonds"], b["bonds"])) if same_ids else -1
+    print(f"step phase 3D span_mask vs id_list on the card: same agents {same_ids}, "
+          f"max|dloc|={dloc:.3e} um, bond rows differing={bond_rows}")
+
+
+def timed_run(dims: int, n_cells: int, path: str):
     """init_state(seed=0), 3 safe_step warm-ups, 5 timed steps; returns the
     engine, the final state and its numbers (warm-up s, steps/s, peak bytes,
     contact-window rebuilds per timed step)."""
-    eng = bench_engine(n_cells, "cuda", path)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state = eng.init_state(seed=SEED)
+    eng, state = engine_for(dims, n_cells, "cuda", path)
     for _ in range(3):
         state, _ = eng.safe_step(state)
     torch.cuda.synchronize()
@@ -409,16 +573,15 @@ def timed_run(n_cells: int, path: str):
                             rebuilds_per_step=float(sum(int(r) for r in rebuilds)) / steps)
 
 
-def device_ms_per_step(eng, state, steps: int = 2) -> dict:
-    """Device time per step under ``torch.profiler`` over ``steps`` more
-    steps: ``{"all": ms, "contact": ms, "by_kernel": {short name: [ms,
-    launches]}}``, the contact entries the contact kernels' own time and
-    launches per step; empty where the profiler saw no device time."""
+def profile_device(fn, calls: int, names) -> tuple:
+    """Device time per call of ``fn`` under ``torch.profiler`` over
+    ``calls`` calls: ``(all ms, {short name: (ms, launches)})``, the second
+    for each kernel whose name contains one of ``names``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            state, _ = eng.step(state)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     total, by_kernel = 0.0, {}
     for e in prof.key_averages():
@@ -426,42 +589,68 @@ def device_ms_per_step(eng, state, steps: int = 2) -> dict:
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0.0)
         total += t
-        for short in ("contact_substep_kernel", "contact_mask_kernel<true>",
-                      "contact_mask_kernel<false>", "mask_compact_kernel"):
+        for short in names:
             if short in e.key:
                 ms, n = by_kernel.get(short, (0.0, 0.0))
-                by_kernel[short] = (ms + t / 1e3 / steps, n + e.count / steps)
+                by_kernel[short] = (ms + t / 1e3 / calls, n + e.count / calls)
+    return total / 1e3 / calls, by_kernel
+
+
+def device_ms_per_step(eng, state, steps: int = 2) -> dict:
+    """Device time per step under ``torch.profiler`` over ``steps`` more
+    steps: ``{"all": ms, "contact": ms, "by_kernel": {short name: [ms,
+    launches]}}``, ``by_kernel`` each hand-written kernel's own time and
+    launches per step and ``contact`` the contact kernels' sum; empty where
+    the profiler saw no device time."""
+    carry = [state]
+
+    def step():
+        carry[0], _ = eng.step(carry[0])
+
+    total, by_kernel = profile_device(step, steps, CONTACT_KERNELS + OTHER_KERNELS)
     if total <= 0:
         return {}
-    return {"all": total / 1e3 / steps, "contact": sum(v[0] for v in by_kernel.values()),
+    return {"all": total,
+            "contact": sum(v[0] for k, v in by_kernel.items() if k in CONTACT_KERNELS),
             "by_kernel": by_kernel}
 
 
-def main_path(n_cells: int, path: str) -> dict:
-    """The bench configuration through the engine API on one contact path,
-    with the launch counts set to 0 just before and read just after."""
+def main_path(dims: int, n_cells: int, path: str) -> dict:
+    """One main path (the 2D bench or the 3D spheroid) through the engine
+    API on one contact path, with the launch counts set to 0 just before
+    and read just after."""
     from hipsc_abm_tpu_torch import kernels
 
     kernels.launch_counts.clear()
-    eng, state, nums = timed_run(n_cells, path)
+    eng, state, nums = timed_run(dims, n_cells, path)
     counts = dict(kernels.launch_counts)
     agents = state.num_agents()
     loc = state.arrays["locations"][state.alive]
-    lattice = state.gradients["fgf4_values"]
     size = torch.tensor(eng.gen.size, device=loc.device)
-    label = f"main path [{path}, {n_cells}]"
+    label = f"main path [{dims}D, {path}, {n_cells}]"
     if not (n_cells < agents < 2 * n_cells):
         raise AssertionError(f"{label}: implausible population {agents}")
     if not bool(torch.isfinite(loc).all()) or bool((loc < 0).any()) or bool((loc > size).any()):
         raise AssertionError(f"{label}: locations not finite or outside the box")
-    if not bool(torch.isfinite(lattice).all()) or float(lattice.min()) < 0 or float(lattice.max()) <= 0:
-        raise AssertionError(f"{label}: morphogen lattice not finite/positive")
+    if dims == 2:
+        lattice = state.gradients["fgf4_values"]
+        if (not bool(torch.isfinite(lattice).all()) or float(lattice.min()) < 0
+                or float(lattice.max()) <= 0):
+            raise AssertionError(f"{label}: morphogen lattice not finite/positive")
+    else:
+        extent = loc.max(dim=0).values - loc.min(dim=0).values
+        if float(extent.min()) < float(size[0]) / 10:
+            raise AssertionError(f"{label}: colony collapsed to a sheet ({extent.tolist()})")
     ids = state.arrays["ids"][state.alive]
     if ids.unique().numel() != agents:
         raise AssertionError(f"{label}: duplicate agent ids")
-    for name in PATH_KERNELS[path]:
+    for name in PATH_KERNELS[(dims, path)]:
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"{label}: kernel {name} was never launched")
+    other = {n for key, names in PATH_KERNELS.items() if key[0] != dims for n in names}
+    stray = sorted(n for n in other if counts.get(n, 0))
+    if stray:
+        raise AssertionError(f"{label}: kernels of the other dimensionality ran: {stray}")
     dev = device_ms_per_step(eng, state)
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
     print(f"{label}: {n_cells} cells start, {agents} agents after 8 steps, "
@@ -483,6 +672,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from hipsc_abm_tpu_torch import kernels
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -498,28 +688,36 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
-    eng = bench_engine(N_MAIN, "cuda")
-    state = eng.init_state(seed=SEED)
-    state, _ = eng.safe_step(state)
-    results = kernel_phase(eng, state)
-    del eng, state
-    torch.cuda.empty_cache()
+    results = []
+    for dims, n in ((2, N_MAIN), (3, N_MAIN_3D)):
+        eng, state = engine_for(dims, n, "cuda", "id_list")
+        state, _ = eng.safe_step(state)
+        results += kernel_phase(eng, state)
+        del eng, state
+        torch.cuda.empty_cache()
+    results += probe_phase()
 
     step_phase()
-    # each size runs the paths in turns (id_list, span_mask, span_mask,
-    # id_list) so that neither gains from running second in the process
-    runs = [(n, path, main_path(n, path)) for n in (N_MAIN, N_LARGE)
+    step_phase_3d()
+    # each main path runs the contact paths in turns (id_list, span_mask,
+    # span_mask, id_list) so that neither gains from running second
+    runs = [(dims, n, path, main_path(dims, n, path))
+            for dims, n in ((2, N_MAIN), (2, N_LARGE), (3, N_MAIN_3D))
             for path in PATHS + PATHS[::-1]]
     print(json.dumps({"paths": [
-        dict(cells=n, contact_path=path, **{k: v for k, v in r.items() if k != "counts"})
-        for n, path, r in runs]}))
+        dict(dims=dims, cells=n, contact_path=path,
+             **{k: v for k, v in r.items() if k != "counts"})
+        for dims, n, path, r in runs]}))
     for r in results:
-        # each kernel's launches come from the first 100k main-path run of
-        # its path
-        path = "span_mask" if r["name"] in ("contact_seed", "contact_masked",
-                                            "mask_compact") else "id_list"
-        first = next(c for n, p, c in runs if (n, p) == (N_MAIN, path))
+        if "launches" in r:  # the probes count their own entry points
+            continue
+        # each kernel's launches come from the first main-path run of its
+        # dimensionality (100k in 2D) and contact path
+        dims = 3 if r["name"].endswith("_3d") else 2
+        path = "span_mask" if r["name"].startswith(SPAN_MASK_KERNELS) else "id_list"
+        first = next(c for d, n, p, c in runs if (d, p) == (dims, path) and n != N_LARGE)
         r["launches"] = first["counts"][r["name"]]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": results}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@
 // While the Verlet window is frozen (sort order and per-row run bounds
 // unchanged between rebuilds), the bond set is a keep mask over each row's
 // candidates instead of a (C, K) partner-id list. Candidate j of sorted row
-// i is the j-th agent of the concatenation of its three runs [lo_r, hi_r),
+// i is the j-th agent of the concatenation of its runs [lo_r, hi_r) (N_RUNS
+// = 3 in 2D, 9 in 3D, a template parameter of every kernel here),
 // in run order and ascending sorted position (the walk order of contact.cu,
 // self included so that j is a pure function of the bounds). The mask holds
 // bit (j & 31) of word (j >> 5) per row, stored word-major as W x C uint32
@@ -36,13 +37,15 @@
 // are those of contact.cu's kernel for the same bond set.
 //
 // What bounds them on the card: bytes. A row reads its 16-byte pack, id,
-// liveness and 24 bytes of bounds and writes 16 bytes of force and degree
-// plus 4 bytes per mask word; its candidates are neighbours in the
+// liveness and 8 bytes of bounds per run and writes 16 bytes of force and
+// degree plus 4 bytes per mask word; its candidates are neighbours in the
 // sorted order whose loads hit L1/L2, and the pair law is ~20 float32
 // operations per kept pair, far below the card's float32 rate. The masked
 // substep is where the design pays: membership is one bit test in a
 // register instead of the seed's loop over K partner ids per candidate
-// beyond the search radius, and no first-K compaction runs. The TPU kernels
+// beyond the search radius, and no first-K compaction runs. In 3D, where
+// most of a row's ~220 candidates lie beyond the search radius, that loop
+// makes the seed ten times the masked substep's time (PERF.md). The TPU kernels
 // DMA'd 128-aligned spans plus chunk-major int8 mask slabs into VMEM
 // (~1.5 KB of mask per row); here each thread reads only its own run
 // slices and 4 bytes per 32 candidates of mask. The words are read and
@@ -56,7 +59,7 @@ namespace {
 
 using hipsc::PairLaw;
 
-template <bool kSeed>
+template <bool kSeed, int N_RUNS>
 __global__ void contact_mask_kernel(
     const float4* __restrict__ xyzr, const int* __restrict__ ids,
     const unsigned char* __restrict__ alive, const int* __restrict__ bounds,
@@ -70,16 +73,16 @@ __global__ void contact_mask_kernel(
 
   float fx = 0.f, fy = 0.f, fz = 0.f;
   int count = 0;
-  int j = 0;              // candidate index along the row's three runs
+  int j = 0;              // candidate index along the row's runs
   unsigned in_word = 0;   // masked: the current word of the old keep set
   unsigned out_word = 0;  // the current word of the new keep set
   if (alive[row]) {
     const float4 me = xyzr[row];
     const int my_id = ids[row];
     const int* my_partners = kSeed ? partners + (size_t)row * K : nullptr;
-    for (int r = 0; r < 3; ++r) {
-      const int lo = bounds[row * 6 + 2 * r];
-      const int hi = bounds[row * 6 + 2 * r + 1];
+    for (int r = 0; r < N_RUNS; ++r) {
+      const int lo = bounds[row * 2 * N_RUNS + 2 * r];
+      const int hi = bounds[row * 2 * N_RUNS + 2 * r + 1];
       for (int p = lo; p < hi; ++p, ++j) {
         const int bit = j & 31;
         if (bit == 0) {
@@ -120,24 +123,30 @@ __global__ void contact_mask_kernel(
   degree[row] = count;
 }
 
+template <int N_RUNS>
 __global__ void mask_compact_kernel(const int* __restrict__ ids,
                                     const int* __restrict__ bounds,
                                     const unsigned* __restrict__ mask,
                                     int* __restrict__ out, int C, int K, int W) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= C) return;
-  const int* b = bounds + row * 6;
-  const int n0 = max(b[1] - b[0], 0);
-  const int n01 = n0 + max(b[3] - b[2], 0);
+  const int* b = bounds + row * 2 * N_RUNS;
   int* dst = out + (size_t)row * K;
   int count = 0;
+  // bits come in ascending j, so the run holding bit j only moves forward:
+  // run r spans candidates [first, first + width)
+  int r = 0, first = 0, width = max(b[1] - b[0], 0);
   for (int w = 0; w < W && count < K; ++w) {
     unsigned bits = mask[(size_t)w * C + row];
     while (bits != 0u && count < K) {
       const int j = (w << 5) + (__ffs((int)bits) - 1);
       bits &= bits - 1u;
-      const int p = j < n0 ? b[0] + j : (j < n01 ? b[2] + (j - n0) : b[4] + (j - n01));
-      dst[count++] = ids[p];
+      while (j >= first + width && r + 1 < N_RUNS) {
+        first += width;
+        ++r;
+        width = max(b[2 * r + 1] - b[2 * r], 0);
+      }
+      dst[count++] = ids[b[2 * r] + (j - first)];
     }
   }
   for (; count < K; ++count) dst[count] = -1;
@@ -152,12 +161,14 @@ int blocks_for(int C) { return (C + kThreads - 1) / kThreads; }
 extern "C" int hipsc_contact_seed(
     const void* xyzr, const void* ids, const void* alive, const void* bounds,
     const void* partners, void* mask, void* force, void* degree, int C, int K,
-    int W, float radius2, float break_d, int uniform, float two_r,
+    int W, int n_runs, float radius2, float break_d, int uniform, float two_r,
     float inv_scale, float fpre, float scale_c, float pi_f, float adhesion,
     void* stream) {
   if (C <= 0) return (int)cudaSuccess;
+  if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
   PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
-  contact_mask_kernel<true><<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = n_runs == 3 ? contact_mask_kernel<true, 3> : contact_mask_kernel<true, 9>;
+  kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)xyzr, (const int*)ids, (const unsigned char*)alive,
       (const int*)bounds, (const int*)partners, nullptr, (unsigned*)mask,
       (float*)force, (int*)degree, C, K, W, law);
@@ -166,12 +177,14 @@ extern "C" int hipsc_contact_seed(
 
 extern "C" int hipsc_contact_masked(
     const void* xyzr, const void* ids, const void* alive, const void* bounds,
-    void* mask, void* force, void* degree, int C, int W, float radius2,
-    float break_d, int uniform, float two_r, float inv_scale, float fpre,
-    float scale_c, float pi_f, float adhesion, void* stream) {
+    void* mask, void* force, void* degree, int C, int W, int n_runs,
+    float radius2, float break_d, int uniform, float two_r, float inv_scale,
+    float fpre, float scale_c, float pi_f, float adhesion, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
+  if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
   PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
-  contact_mask_kernel<false><<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = n_runs == 3 ? contact_mask_kernel<false, 3> : contact_mask_kernel<false, 9>;
+  kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)xyzr, (const int*)ids, (const unsigned char*)alive,
       (const int*)bounds, nullptr, (const unsigned*)mask, (unsigned*)mask,
       (float*)force, (int*)degree, C, 0, W, law);
@@ -180,9 +193,11 @@ extern "C" int hipsc_contact_masked(
 
 extern "C" int hipsc_mask_compact(const void* ids, const void* bounds,
                                   const void* mask, void* out, int C, int K,
-                                  int W, void* stream) {
+                                  int W, int n_runs, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
-  mask_compact_kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
+  if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
+  auto kernel = n_runs == 3 ? mask_compact_kernel<3> : mask_compact_kernel<9>;
+  kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)ids, (const int*)bounds, (const unsigned*)mask, (int*)out, C,
       K, W);
   return (int)cudaGetLastError();

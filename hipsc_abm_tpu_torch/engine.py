@@ -1,5 +1,6 @@
 """The fused hiPSC step over a fixed-capacity struct-of-arrays state, in
-PyTorch (port of ``hipsc_abm_tpu/engine.py``'s single-device 2D path).
+PyTorch (port of ``hipsc_abm_tpu/engine.py``'s single-device path, in 2D
+and 3D boxes).
 
 ``hipsc_step`` runs the reference's per-step loop body
 (``cell_simulation.py:85-123``) in the same phase order as the JAX engine:
@@ -23,6 +24,11 @@ The engine has an explicit ``device``. On a CUDA device the neighbour
 moments, the contact substeps and the FTCS subcycles run the hand-written
 kernels of ``ops.bio_moments``, ``ops.contact`` or ``ops.span_mask`` and
 ``ops.ftcs``; on the CPU the same wrappers run their plain versions.
+
+A box with ``size[2] > 0`` runs the same step in 3D: nine stencil runs per
+row instead of three (``neighbors.run_bounds``), the 3D bio-moment pack
+(``bio_moments.make_pack``), and the kernels' 9-run forms. The morphogen
+lattice stays 2D (x, y), as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from hipsc_abm_tpu_torch.models import biology
 from hipsc_abm_tpu_torch.ops import diffusion as diffusion_ops
 from hipsc_abm_tpu_torch.ops import neighbors as nbr_ops
 from hipsc_abm_tpu_torch.ops import rng, span_mask
-from hipsc_abm_tpu_torch.ops.bio_moments import bio_moments_cuda
+from hipsc_abm_tpu_torch.ops.bio_moments import bio_moments_cuda, make_pack
 from hipsc_abm_tpu_torch.ops.contact import contact_substep_cuda
 from hipsc_abm_tpu_torch.ops.ftcs import ftcs_diffuse_cuda
 from hipsc_abm_tpu_torch.ops.integrate import stokes_integrate
@@ -211,7 +217,8 @@ def _physics_dts(bio: BiologyParams) -> np.ndarray:
 
 
 def _max_run(bounds: torch.Tensor) -> torch.Tensor:
-    """Widest stencil run of a (C, 6) bounds table (dead rows are empty)."""
+    """Widest stencil run of a (C, 2 * n_runs) bounds table (dead rows are
+    empty)."""
     return torch.clamp(bounds[:, 1::2] - bounds[:, 0::2], min=0).max()
 
 
@@ -248,17 +255,13 @@ def hipsc_step(
     nbr_flat0 = nbr_grid.sorted_flat.to(torch.int32)
     nbr_sentinel = torch.full_like(nbr_flat0, nbr_ops.dead_sentinel(cfg.nbr_spec))
     nbr_bounds = nbr_ops.run_bounds(cfg.nbr_spec, nbr_grid.sorted_flat)
-    zero_f = torch.zeros((capacity,), dtype=torch.float32, device=device)
 
     def bio_moments(curr_loc, f0, f1, f2, alive_now, mode):
         # build-time flat ids re-sentineled by the CURRENT liveness: the
         # graph stays the build window, but agents killed earlier in the
         # step stop contributing (cell_methods.py:47)
         flat = torch.where(alive_now, nbr_flat0, nbr_sentinel)
-        pack = torch.stack(
-            [loc0[:, 0], loc0[:, 1], curr_loc[:, 0], curr_loc[:, 1],
-             f0.to(torch.float32), f1.to(torch.float32), f2.to(torch.float32),
-             zero_f], dim=1)
+        pack = make_pack(loc0, curr_loc, f0, f1, f2, cfg.two_d)
         return bio_moments_cuda(pack, flat, nbr_bounds,
                                 num_bins=cfg.nbr_spec.num_bins,
                                 radius=bio.neighbor_radius, mode=mode)
@@ -512,8 +515,8 @@ class HipscEngine:
     and raises when CUDA is absent; ``"cpu"`` runs the plain versions.
     ``contact_path`` picks the contact-substep design (``EngineConfig``);
     when a ``cfg`` is given as well, it overrides that config's choice.
-    Growth, stochastic updates, diff_surround and 3D boxes are not ported
-    yet and raise."""
+    A box with ``size[2] > 0`` is 3D. Growth, stochastic updates and
+    diff_surround are not ported yet and raise."""
 
     def __init__(
         self,
@@ -534,8 +537,6 @@ class HipscEngine:
                          ("enable_diff_surround", enable_diff_surround)):
             if on:
                 raise NotImplementedError(f"{flag} is not ported yet")
-        if gen.size[2] != 0:
-            raise NotImplementedError("3D boxes are not ported yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("HipscEngine(device='cuda') needs a CUDA device")

@@ -46,16 +46,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "hipsc_contact_substep": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+    "hipsc_contact_substep": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
-    "hipsc_bio_moments": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    "hipsc_bio_moments": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     "hipsc_ftcs_subcycle": (_P, _P, _I, _I, _F, _F, _P),
-    "hipsc_contact_seed": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+    "hipsc_contact_seed": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
-    "hipsc_contact_masked": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
+    "hipsc_contact_masked": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
-    "hipsc_mask_compact": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "hipsc_mask_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "hipsc_dynslice_probe": (_P, _P, _P, _P, _I, _I, _P),
+    "hipsc_dynslice_probe2": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
+# stencil runs per row: 3 in 2D, 9 in 3D (the kernels' N_RUNS)
+RUN_COUNTS = (3, 9)
 
 
 def nvcc() -> str:
@@ -87,19 +91,36 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library of the same sources exists.
-    The compiler's resource report (registers, spills) goes to
+    """Compile the kernels unless a library of the same sources exists: one
+    ``nvcc -c`` per source, all started together, then one link. The
+    compiler's resource report (registers, spills) goes to
     ``<library>.log``."""
     target = library_path()
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    target.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    stem = target.with_suffix(f".{os.getpid()}")
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objects = [Path(f"{stem}.{src.stem}.o") for src in sources()]
+    procs = [subprocess.Popen([nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objects)]
+    logs = [(src.name, p.communicate()[0], p.returncode) for src, p in zip(sources(), procs)]
+    failed = [(name, rc, out) for name, out, rc in logs if rc != 0]
+    if not failed:
+        tmp = Path(f"{stem}.tmp")
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(("link", proc.stdout, proc.returncode))
+        if proc.returncode != 0:
+            failed.append(("link", proc.returncode, proc.stdout))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    target.with_suffix(".log").write_text(
+        "".join(f"== {name} (rc {rc})\n{out}" for name, out, rc in logs))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} ({rc}):\n{out[-4000:]}" for name, rc, out in failed))
     os.replace(tmp, target)
     return target
 
@@ -130,6 +151,21 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         msg = lib.hipsc_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def counted_name(name: str, n_runs: int) -> str:
+    """The ``launch_counts`` key of a run-bounds kernel: its 3D form (9
+    runs) counts apart from its 2D form."""
+    return name if n_runs == 3 else f"{name}_3d"
+
+
+def run_count(bounds: torch.Tensor) -> int:
+    """Stencil runs of a (C, 2 * n_runs) run-bounds table; raises unless
+    n_runs is 3 (2D) or 9 (3D)."""
+    n_runs = bounds.shape[1] // 2 if bounds.dim() == 2 else 0
+    if n_runs not in RUN_COUNTS or bounds.shape[1] != 2 * n_runs:
+        raise ValueError(f"bounds: expected (C, 6) or (C, 18), got {tuple(bounds.shape)}")
+    return n_runs
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:

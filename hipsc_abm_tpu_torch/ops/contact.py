@@ -2,17 +2,17 @@
 version.
 
 Port of ``hipsc_abm_tpu/ops/pallas_contact.py`` ``contact_substep_pallas``
-(B6), the id-list contact substep: per sorted row, walk the three stencil
-runs of the build-time window, test each candidate (fresh contact within the
-search radius or already bonded), apply the JKR pair law, and emit the summed
-force, the untruncated degree and the first K survivors in walk order as the
-new partner list. The plain version is the windowed ``ops.jkr.jkr_substep``
-over the same runs.
+(B6), the id-list contact substep: per sorted row, walk the stencil runs of
+the build-time window (3 in 2D, 9 in 3D), test each candidate (fresh
+contact within the search radius or already bonded), apply the JKR pair
+law, and emit the summed force, the untruncated degree and the first K
+survivors in walk order as the new partner list. The plain version is the
+windowed ``ops.jkr.jkr_substep`` over the same runs.
 
 Inputs are in sorted-row order: ``xyzr`` (C, 4) float32 ``[x, y, z, r]``,
-``ids`` (C,) int32, ``alive`` (C,) bool, ``bounds`` (C, 6) int32 per-row run
-bounds (``neighbors.run_bounds``) and ``partners`` (C, K) int32 partner ids,
-``NO_BOND`` empty.
+``ids`` (C,) int32, ``alive`` (C,) bool, ``bounds`` (C, 6) or (C, 18) int32
+per-row run bounds (``neighbors.run_bounds``) and ``partners`` (C, K) int32
+partner ids, ``NO_BOND`` empty.
 """
 
 from __future__ import annotations
@@ -70,7 +70,8 @@ def contact_substep_cuda(
     youngs, break_d, uniform_radius: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The contact substep. A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel (or raises)."""
+    tensor launches the kernel (or raises). The launch counts as
+    ``contact_substep`` in 2D and ``contact_substep_3d`` in 3D."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius)
     if xyzr.device.type == "cpu":
@@ -79,7 +80,8 @@ def contact_substep_cuda(
     kernels.check_cuda("xyzr", xyzr, torch.float32, (C, 4))
     kernels.check_cuda("ids", ids, torch.int32, (C,))
     kernels.check_cuda("alive", alive, torch.bool, (C,))
-    kernels.check_cuda("bounds", bounds, torch.int32, (C, 6))
+    n_runs = kernels.run_count(bounds)
+    kernels.check_cuda("bounds", bounds, torch.int32, (C, 2 * n_runs))
     kernels.check_cuda("partners", partners, torch.int32, (C, K))
     if K < 1:
         raise ValueError("contact_substep_cuda: bond capacity must be >= 1")
@@ -90,9 +92,9 @@ def contact_substep_cuda(
         "hipsc_contact_substep",
         xyzr.data_ptr(), ids.data_ptr(), alive.data_ptr(), bounds.data_ptr(),
         partners.data_ptr(), force.data_ptr(), degree.data_ptr(),
-        new_partners.data_ptr(), C, K,
+        new_partners.data_ptr(), C, K, n_runs,
         *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
                        uniform_radius),
     )
-    kernels.launch_counts["contact_substep"] += 1
+    kernels.launch_counts[kernels.counted_name("contact_substep", n_runs)] += 1
     return force, degree, new_partners

@@ -4,11 +4,12 @@
 Agents are sorted by row-major flat bin id with the agent id as tie-break
 (the canonical ``(flat bin, id)`` order; dead slots carry a sentinel bin id
 and sort last). With the last spatial axis minor in the flat id, the 3x3
-stencil around a bin is three runs of consecutive flat ids, so each run's
-members are one contiguous slice ``[lo, hi)`` of the sorted order. The
-per-row run bounds (``sorted_run_bounds_from_flat``) are what the CUDA
-kernels walk; the padded candidate windows (``_run_windows``) serve the
-plain versions and the parity tests.
+stencil around a bin is three runs of consecutive flat ids in 2D (the 3x3x3
+stencil nine runs in 3D), so each run's members are one contiguous slice
+``[lo, hi)`` of the sorted order. The per-row run bounds
+(``sorted_run_bounds_from_flat``) are what the CUDA kernels walk; the
+padded candidate windows (``_run_windows``) serve the plain versions and
+the parity tests.
 """
 
 from __future__ import annotations
@@ -133,37 +134,43 @@ def _bin_table(spec: GridSpec, sorted_flat: torch.Tensor) -> torch.Tensor:
 
 def sorted_run_bounds_from_flat(spec: GridSpec,
                                 sorted_flat: torch.Tensor) -> torch.Tensor:
-    """(C, 8) int32 absolute run bounds ``[s0, e0, s1, e1, s2, e2, 0, 0]`` per
-    sorted row (2D: 3 runs). Rows dead at build time get the empty interval
-    ``[capacity, 0)``."""
-    assert spec.two_d, "sorted_run_bounds currently supports 2D lattices"
+    """Absolute run bounds ``[s0, e0, s1, e1, ...]`` per sorted row, int32:
+    run r covers the flat bins ``[f + flat_run_offsets[r] - 1, +3)``. In 2D
+    (3 runs) the table is (C, 8), two zero columns padding it to the JAX
+    package's layout; in 3D (9 runs) it is (C, 18). Rows dead at build time
+    get the empty interval ``[capacity, 0)`` in every run."""
     table = _bin_table(spec, sorted_flat)
     f = sorted_flat
     cols = []
-    for (dx,) in spec.run_offsets:
-        lo = torch.clamp(f + dx * spec.ny - 1, 0, spec.num_bins - 3)
+    for off in spec.flat_run_offsets:
+        lo = torch.clamp(f + off - 1, 0, spec.num_bins - 3)
         cols.append(table[lo])
         cols.append(table[lo + 3])
-    zero = torch.zeros_like(cols[0])
-    bounds = torch.stack(cols + [zero, zero], dim=1).to(torch.int32)
     capacity = sorted_flat.shape[0]
-    empty = torch.tensor([capacity, 0, capacity, 0, capacity, 0, 0, 0],
-                         dtype=torch.int32, device=bounds.device)
+    empty = [capacity, 0] * len(cols[::2])
+    if spec.two_d:
+        zero = torch.zeros_like(cols[0])
+        cols += [zero, zero]
+        empty += [0, 0]
+    bounds = torch.stack(cols, dim=1).to(torch.int32)
+    empty = torch.tensor(empty, dtype=torch.int32, device=bounds.device)
     dead = (f >= spec.num_bins)[:, None]
     return torch.where(dead, empty, bounds)
 
 
 def run_bounds(spec: GridSpec, sorted_flat: torch.Tensor) -> torch.Tensor:
-    """The kernels' (C, 6) int32 view of ``sorted_run_bounds_from_flat``:
-    ``[lo_r, hi_r)`` for runs r = 0..2."""
-    return sorted_run_bounds_from_flat(spec, sorted_flat)[:, :6].contiguous()
+    """The kernels' (C, 2 * n_runs) int32 view of
+    ``sorted_run_bounds_from_flat``: ``[lo_r, hi_r)`` for runs r = 0..2 in
+    2D, 0..8 in 3D."""
+    n = 2 * len(spec.flat_run_offsets)
+    return sorted_run_bounds_from_flat(spec, sorted_flat)[:, :n].contiguous()
 
 
 def bounds_window(bounds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Padded candidate window from per-row run bounds: ``(pos (C, W) int64
     sorted positions, valid (C, W) bool)``, runs in order and ascending
-    position within a run — the kernels' walk order. ``W`` is three times
-    the widest run, so no candidate is ever cut (one host read of the
+    position within a run — the kernels' walk order. ``W`` is the run count
+    times the widest run, so no candidate is ever cut (one host read of the
     widest run)."""
     capacity = bounds.shape[0]
     b = bounds.to(torch.int64).view(capacity, -1, 2)

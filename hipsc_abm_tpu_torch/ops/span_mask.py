@@ -8,8 +8,9 @@ substep (``ops.contact``); what changes is where the bond set lives while the
 Verlet window is frozen.
 
 **The mask.** The window is the per-row run bounds (``neighbors.run_bounds``,
-(C, 6) int32) that the contact kernels walk. Candidate ``j`` of sorted row
-``i`` is the ``j``-th agent of the concatenation of its three runs, in run
+(C, 6) int32 in 2D, (C, 18) in 3D) that the contact kernels walk. Candidate
+``j`` of sorted row ``i`` is the ``j``-th agent of the concatenation of its
+runs (3 in 2D, 9 in 3D), in run
 order and ascending sorted position (the row itself included, so that ``j``
 depends on the bounds alone). The mask holds one bit per (row, candidate):
 "this pair was kept by the last substep". It is ``(W, C)`` int32, word-major
@@ -19,7 +20,10 @@ valid only while the bounds it was seeded over are frozen; bits beyond a
 row's candidates are zero. Bytes: ``4 W C``, so 0.57 MB per word at 100k
 cells (C = 143,104 slots) and 2.9 MB per word at 500k (C = 715,008), against
 the TPU layout's ``n_runs * span`` int8 bytes per row (1.5 KB at the default
-512-lane span: 220 MB and 1.1 GB).
+512-lane span: 220 MB and 1.1 GB). In 3D a row's nine runs hold far more
+candidates: at the 99k-cell spheroid the widest row has M = 297, so W = 10
+and the mask is 5.2 MB (C = 128,768; ``chip_smoke.py`` on an NVIDIA H100
+80GB HBM3, 700.00 W).
 
 **The three operations**, all on sorted rows:
 
@@ -36,7 +40,8 @@ the TPU layout's ``n_runs * span`` int8 bytes per row (1.5 KB at the default
   re-executes the step before any result depends on the truncation.
 
 Each wrapper runs the plain version for a CPU tensor and launches the kernel
-for a CUDA tensor (or raises); ``kernels.launch_counts`` counts launches.
+for a CUDA tensor (or raises); ``kernels.launch_counts`` counts launches,
+the 3D forms under the names with ``_3d`` appended.
 """
 
 from __future__ import annotations
@@ -65,11 +70,11 @@ def mask_words(bounds: torch.Tensor) -> int:
 
 def _window(bounds: torch.Tensor):
     """The padded window of the bounds (``bounds_window``) with each entry's
-    candidate index: ``(pos, valid, j)``, all (C, 3 * widest run)."""
+    candidate index: ``(pos, valid, j)``, all (C, n_runs * widest run)."""
     pos, valid = bounds_window(bounds)
     b = bounds.to(torch.int64).view(bounds.shape[0], -1, 2)
     counts = torch.clamp(b[..., 1] - b[..., 0], min=0)
-    first = torch.cumsum(counts, dim=1) - counts  # (C, 3) index of each run's first candidate
+    first = torch.cumsum(counts, dim=1) - counts  # (C, n_runs) each run's first candidate
     width = pos.shape[1] // b.shape[1]
     k = torch.arange(width, dtype=torch.int64, device=bounds.device)
     j = (first[:, :, None] + k).reshape(pos.shape)
@@ -147,8 +152,9 @@ def _check_rows(xyzr, ids, alive, bounds):
     kernels.check_cuda("xyzr", xyzr, torch.float32, (C, 4))
     kernels.check_cuda("ids", ids, torch.int32, (C,))
     kernels.check_cuda("alive", alive, torch.bool, (C,))
-    kernels.check_cuda("bounds", bounds, torch.int32, (C, 6))
-    return C
+    n_runs = kernels.run_count(bounds)
+    kernels.check_cuda("bounds", bounds, torch.int32, (C, 2 * n_runs))
+    return C, n_runs
 
 
 def _check_mask(mask, C):
@@ -168,7 +174,7 @@ def contact_seed_cuda(
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius)
     if xyzr.device.type == "cpu":
         return contact_seed_plain(xyzr, ids, alive, bounds, partners, **kw)
-    C = _check_rows(xyzr, ids, alive, bounds)
+    C, n_runs = _check_rows(xyzr, ids, alive, bounds)
     K = partners.shape[1] if partners.dim() == 2 else 0
     kernels.check_cuda("partners", partners, torch.int32, (C, K))
     if K < 1:
@@ -181,10 +187,10 @@ def contact_seed_cuda(
         "hipsc_contact_seed",
         xyzr.data_ptr(), ids.data_ptr(), alive.data_ptr(), bounds.data_ptr(),
         partners.data_ptr(), mask.data_ptr(), force.data_ptr(), degree.data_ptr(),
-        C, K, W, *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
-                                uniform_radius),
+        C, K, W, n_runs, *pair_law_args(radius, adhesion_const, poisson, youngs,
+                                        break_d, uniform_radius),
     )
-    kernels.launch_counts["contact_seed"] += 1
+    kernels.launch_counts[kernels.counted_name("contact_seed", n_runs)] += 1
     return force, degree, mask
 
 
@@ -199,18 +205,18 @@ def contact_masked_cuda(
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius)
     if xyzr.device.type == "cpu":
         return contact_masked_plain(xyzr, ids, alive, bounds, mask, **kw)
-    C = _check_rows(xyzr, ids, alive, bounds)
+    C, n_runs = _check_rows(xyzr, ids, alive, bounds)
     W = _check_mask(mask, C)
     force = torch.empty((C, 3), dtype=torch.float32, device=xyzr.device)
     degree = torch.empty((C,), dtype=torch.int32, device=xyzr.device)
     kernels.launch(
         "hipsc_contact_masked",
         xyzr.data_ptr(), ids.data_ptr(), alive.data_ptr(), bounds.data_ptr(),
-        mask.data_ptr(), force.data_ptr(), degree.data_ptr(), C, W,
+        mask.data_ptr(), force.data_ptr(), degree.data_ptr(), C, W, n_runs,
         *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
                        uniform_radius),
     )
-    kernels.launch_counts["contact_masked"] += 1
+    kernels.launch_counts[kernels.counted_name("contact_masked", n_runs)] += 1
     return force, degree, mask
 
 
@@ -221,12 +227,13 @@ def mask_compact_cuda(ids, bounds, mask, bond_cap: int) -> torch.Tensor:
         return mask_compact_plain(ids, bounds, mask, bond_cap)
     C = ids.shape[0]
     kernels.check_cuda("ids", ids, torch.int32, (C,))
-    kernels.check_cuda("bounds", bounds, torch.int32, (C, 6))
+    n_runs = kernels.run_count(bounds)
+    kernels.check_cuda("bounds", bounds, torch.int32, (C, 2 * n_runs))
     W = _check_mask(mask, C)
     if bond_cap < 1:
         raise ValueError("mask_compact_cuda: bond capacity must be >= 1")
     out = torch.empty((C, bond_cap), dtype=torch.int32, device=ids.device)
     kernels.launch("hipsc_mask_compact", ids.data_ptr(), bounds.data_ptr(),
-                   mask.data_ptr(), out.data_ptr(), C, int(bond_cap), W)
-    kernels.launch_counts["mask_compact"] += 1
+                   mask.data_ptr(), out.data_ptr(), C, int(bond_cap), W, n_runs)
+    kernels.launch_counts[kernels.counted_name("mask_compact", n_runs)] += 1
     return out

@@ -1,5 +1,7 @@
-"""PyTorch port on the card: each CUDA kernel against its plain version, and
-one engine step on the card against the same step on the CPU.
+"""PyTorch port on the card: each CUDA kernel against its plain version (the
+2D and 3D forms of the run-bounds kernels, and every mode of the window
+probes), and one engine step on the card against the same step on the CPU,
+in 2D and 3D.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -9,7 +11,10 @@ imports no JAX, so it also runs where JAX is not installed:
 Tolerances: the contact kernels' scalar-radius pair law rounds differently
 from the plain versions' general law (forces rtol 1e-5, atol 1e-6 x max|F|);
 moment counts, bond sets, degrees and span-mask words are exact; FTCS keeps the plain version's
-association without FMA contraction (atol 1e-6, in practice bit-equal).
+association without FMA contraction (atol 1e-6, in practice bit-equal);
+the probes sum their lanes in another order than the plain versions (P1
+rtol 1e-5, atol 1e-5; P2, with the card's rsqrtf against torch.rsqrt, rtol
+1e-4, atol 1e-4 x max|out|).
 """
 
 import numpy as np
@@ -23,6 +28,7 @@ from hipsc_abm_tpu_torch.ops import neighbors as nbr
 from hipsc_abm_tpu_torch.ops.jkr import pack_physics
 from hipsc_abm_tpu_torch.params import (
     BiologyParams, DiffusionParams, ExperimentalParams, GeneralParams)
+from hipsc_abm_tpu_torch.tools import dynslice_probe, dynslice_probe2
 
 pytestmark = pytest.mark.cuda
 BIO = BiologyParams()
@@ -43,8 +49,9 @@ def _contact_inputs(K, seed=0, C=2048, n=1900, box=(420.0, 420.0, 0.0), skin=2.0
     engine's default Verlet skin (14 um) widens the bins so that rows have
     more than 32 candidates and the span masks more than one word."""
     rs = np.random.default_rng(seed)
+    dims = 2 if box[2] == 0 else 3
     locs = np.zeros((C, 3), np.float32)
-    locs[:n, :2] = rs.random((n, 2)).astype(np.float32) * np.float32(box[0])
+    locs[:n, :dims] = rs.random((n, dims)).astype(np.float32) * np.float32(box[0])
     alive = np.zeros(C, bool)
     alive[:n] = True
     alive[rs.choice(n, 40, replace=False)] = False
@@ -61,7 +68,7 @@ def _contact_inputs(K, seed=0, C=2048, n=1900, box=(420.0, 420.0, 0.0), skin=2.0
                    nbr.run_bounds(spec, g.sorted_flat), partners[o].contiguous()]
 
     earlier = locs.copy()
-    earlier[:n, :2] -= rs.normal(0.0, 1.2, (n, 2)).astype(np.float32)
+    earlier[:n, :dims] -= rs.normal(0.0, 1.2, (n, dims)).astype(np.float32)
     g0, args0 = sorted_args(earlier, torch.full((C, K), -1, dtype=torch.int32))
     _, _, p0 = contact.contact_substep_plain(*args0, **LAW)
     partners = torch.empty_like(p0)
@@ -90,8 +97,9 @@ def _moved(args, seed=5):
     """The same sorted rows one substep later (the window stays frozen)."""
     rs = np.random.default_rng(seed)
     xyzr = args[0].clone()
-    noise = rs.normal(0.0, 0.4, (xyzr.shape[0], 2)).astype(np.float32)
-    xyzr[:, :2] += torch.from_numpy(noise).to(xyzr.device)
+    dims = 2 if bool((xyzr[:, 2] == 0).all()) else 3
+    noise = rs.normal(0.0, 0.4, (xyzr.shape[0], dims)).astype(np.float32)
+    xyzr[:, :dims] += torch.from_numpy(noise).to(xyzr.device)
     return xyzr
 
 
@@ -214,6 +222,158 @@ def test_engine_step_on_card_matches_cpu(dev, contact_path):
     d = convert.state_to_numpy(s)
     a = convert.state_to_numpy(cpu.step(convert.state_from_numpy(d))[0])
     b = convert.state_to_numpy(gpu.step(convert.state_from_numpy(d, dev))[0])
+
+    def by_id(x):
+        ids = x["arrays"]["ids"][x["alive"]]
+        o = np.argsort(ids)
+        return {k: v[x["alive"]][o] for k, v in x["arrays"].items()}
+
+    a, b = by_id(a), by_id(b)
+    np.testing.assert_array_equal(b["ids"], a["ids"])
+    for k in ("FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states", "death_counters",
+              "diff_counters", "div_counters", "fds_counters"):
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    np.testing.assert_allclose(b["locations"], a["locations"], rtol=0, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# 3D: the 9-run forms
+# ---------------------------------------------------------------------------
+
+BOX3D = (80.0, 80.0, 80.0)
+
+
+def _contact_inputs_3d(K):
+    """A dense 3D colony (degrees past 8, more than 32 candidates a row)."""
+    return _contact_inputs(K, C=768, n=700, box=BOX3D, skin=14.0)
+
+
+@pytest.mark.parametrize("K", [8, 40])
+def test_contact_kernel_3d_matches_plain(dev, K):
+    args = [a.to(dev) for a in _contact_inputs_3d(K)]
+    assert args[3].shape[1] == 18
+    law = dict(uniform_radius=BIO.max_radius, **LAW)
+    before = dict(kernels.launch_counts)
+    fk, dk, pk = contact.contact_substep_cuda(*args, **law)
+    fp, dp, pp = contact.contact_substep_plain(*args, **law)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["contact_substep_3d"] == before.get("contact_substep_3d", 0) + 1
+    assert kernels.launch_counts["contact_substep"] == before.get("contact_substep", 0)
+    _check_contact(fk, dk, fp, dp)
+    assert int(dp.max()) > 8 and float(fp[:, 2].abs().max()) > 0
+    for a, b in zip(pk.cpu().numpy(), pp.cpu().numpy()):
+        assert set(a[a >= 0].tolist()) == set(b[b >= 0].tolist())
+
+
+@pytest.mark.parametrize("K", [8, 40])
+def test_span_mask_kernels_3d_match_plain(dev, K):
+    """Seed, masked substep and compaction over nine runs, each against its
+    plain version on the same inputs."""
+    args = [a.to(dev) for a in _contact_inputs_3d(K)]
+    law = dict(uniform_radius=BIO.max_radius, **LAW)
+    before = dict(kernels.launch_counts)
+    f_k, d_k, m_k = span_mask.contact_seed_cuda(*args, **law)
+    f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **law)
+    torch.cuda.synchronize()
+    _check_contact(f_k, d_k, f_p, d_p)
+    assert m_p.shape[0] >= 2 and torch.equal(m_k, m_p)
+    rows = (_moved(args), *args[1:4])
+    m_k, m_p = m_p.clone(), m_p.clone()
+    f_k, d_k, _ = span_mask.contact_masked_cuda(*rows, m_k, **law)
+    f_p, d_p, _ = span_mask.contact_masked_plain(*rows, m_p, **law)
+    torch.cuda.synchronize()
+    _check_contact(f_k, d_k, f_p, d_p)
+    assert torch.equal(m_k, m_p)
+    got = span_mask.mask_compact_cuda(args[1], args[3], m_p, K)
+    want = span_mask.mask_compact_plain(args[1], args[3], m_p, K)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for name in ("contact_seed_3d", "contact_masked_3d", "mask_compact_3d"):
+        assert kernels.launch_counts[name] == before.get(name, 0) + 1, name
+
+
+@pytest.mark.parametrize("mode", ["count", "pathway", "motility", "full"])
+def test_bio_kernel_3d_matches_plain(dev, mode):
+    rs = np.random.default_rng(3)
+    C, n, box = 4096, 3900, (150.0, 140.0, 130.0)
+    loc = np.zeros((C, 3), np.float32)
+    loc[:n] = rs.random((n, 3)).astype(np.float32) * np.asarray(box, np.float32)
+    alive = np.zeros(C, bool)
+    alive[:n] = True
+    spec = nbr.GridSpec.from_box(box, BIO.neighbor_radius, 0)
+    g = nbr.build_grid(spec, torch.from_numpy(loc), torch.arange(C, dtype=torch.int32),
+                       torch.from_numpy(alive))
+    o = g.order
+    l0 = torch.from_numpy(loc)[o]
+    l1 = l0 + torch.from_numpy(rs.normal(0, 0.7, (C, 3)).astype(np.float32))
+    feats = [torch.from_numpy(rs.integers(0, 3, C).astype(np.int32)) for _ in range(3)]
+    now = torch.from_numpy(alive)[o] & torch.from_numpy(rs.random(C) > 0.05)
+    flat = torch.where(now, g.sorted_flat, nbr.dead_sentinel(spec)).to(torch.int32)
+    pack = bio_moments.make_pack(l0, l1, *feats, two_d=False)
+    args = [t.contiguous().to(dev) for t in (pack, flat, nbr.run_bounds(spec, g.sorted_flat))]
+    kw = dict(num_bins=spec.num_bins, radius=BIO.neighbor_radius, mode=mode)
+    before = kernels.launch_counts["bio_moments_3d"]
+    got = bio_moments.bio_moments_cuda(*args, **kw)
+    want = bio_moments.bio_moments_plain(*args, **kw)
+    assert kernels.launch_counts["bio_moments_3d"] == before + 1
+    assert float(want[:, 0].sum()) > C
+    assert torch.equal(got[:, [0, 1, 2, 3, 7]], want[:, [0, 1, 2, 3, 7]])
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
+def test_kernels_reject_other_run_counts(dev):
+    args = [a.to(dev) for a in _contact_inputs_3d(8)]
+    bad = list(args)
+    bad[3] = bad[3][:, :12].contiguous()
+    with pytest.raises(ValueError):
+        contact.contact_substep_cuda(*bad, **LAW)
+    with pytest.raises(ValueError):
+        span_mask.contact_seed_cuda(*bad, **LAW)
+
+
+@pytest.mark.parametrize("mode", dynslice_probe.MODES)
+def test_probe1_kernel_matches_plain(dev, mode):
+    inputs = dynslice_probe.make_inputs(64, dev)
+    before = kernels.launch_counts["dynslice_probe"]
+    got = dynslice_probe.probe_cuda(*inputs, mode)
+    want = dynslice_probe.probe_plain(*inputs, mode)
+    assert kernels.launch_counts["dynslice_probe"] == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", dynslice_probe2.MODES)
+def test_probe2_kernel_matches_plain(dev, mode):
+    inputs = dynslice_probe2.make_inputs(64, dev)
+    before = kernels.launch_counts["dynslice_probe2"]
+    got = dynslice_probe2.probe_cuda(*inputs, mode)
+    want = dynslice_probe2.probe_plain(*inputs, mode)
+    assert kernels.launch_counts["dynslice_probe2"] == before + 1
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("contact_path", ["id_list", "span_mask"])
+def test_engine_3d_step_on_card_matches_cpu(dev, contact_path):
+    """One 3D spheroid step (the example's configuration at 1,100 cells,
+    ball packed tighter so K grows) on the card against the CPU."""
+    n, scale = 1100, (1100 / 3300.0) ** (1.0 / 3.0)
+    box, radius = 600.0 * scale, 0.8 * 110.0 * scale
+    gen = GeneralParams(num_to_start=1000, end_step=20, size=(box, box, box))
+    xp = ExperimentalParams(num_gata6=100, dox_step=1, guye_move=False)
+    rs = np.random.default_rng(0)
+    direction = rs.normal(size=(n, 3))
+    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    ball = (box / 2 + direction * (radius * rs.random(n) ** (1 / 3))[:, None]).astype(np.float32)
+    cpu = HipscEngine(gen, xp, device="cpu", contact_path=contact_path)
+    gpu = HipscEngine(gen, xp, device=dev, contact_path=contact_path)
+    s, _ = cpu.safe_step(cpu.init_state(seed=0, locations=ball))
+    assert s.bonds.partners.shape[1] > 8
+    gpu.cfg = cpu.cfg
+    d = convert.state_to_numpy(s)
+    before = dict(kernels.launch_counts)
+    a = convert.state_to_numpy(cpu.step(convert.state_from_numpy(d))[0])
+    b = convert.state_to_numpy(gpu.step(convert.state_from_numpy(d, dev))[0])
+    assert kernels.launch_counts["bio_moments_3d"] == before.get("bio_moments_3d", 0) + 3
 
     def by_id(x):
         ids = x["arrays"]["ids"][x["alive"]]

@@ -284,9 +284,14 @@ def test_engine_device_is_explicit():
             HipscEngine(tgen, txp, device="cuda")
     with pytest.raises(NotImplementedError):
         HipscEngine(tgen, txp, enable_growth=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        HipscEngine(convert.params_from_jax(
-            GeneralParams(num_to_start=50, size=(100.0, 100.0, 100.0))), txp, device="cpu")
+    # a 3D box is ported: the same rules, cuda by default, cpu on request
+    gen3 = convert.params_from_jax(GeneralParams(num_to_start=50, size=(100.0, 100.0, 100.0)))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            HipscEngine(gen3, txp)
+    eng3 = HipscEngine(gen3, txp, device="cpu")
+    assert eng3.device.type == "cpu" and not eng3.cfg.two_d
+    assert len(eng3.cfg.jkr_spec.flat_run_offsets) == 9
 
 
 def test_numpy_round_trip_is_lossless():
@@ -313,7 +318,9 @@ def test_port_never_imports_jax():
             "for name in mods:\n"
             "    importlib.import_module(name)\n"
             "assert 'hipsc_abm_tpu_torch.ops.span_mask' in mods, mods\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'hipsc_abm_tpu.')))\n"
+            "assert 'hipsc_abm_tpu_torch.tools.dynslice_probe2' in mods, mods\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'tools', 'hipsc_abm_tpu')\n"
+            "             or m.startswith(('jax.', 'jaxlib', 'hipsc_abm_tpu.', 'tools.')))\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
