@@ -15,7 +15,7 @@ Phases, each of which raises on failure (exit code != 0):
    ``safe_step``, the 3D (9-run) forms at the 99k-cell spheroid after the
    same; the span-mask kernels run as the scan runs them: seed, then a
    masked substep at the positions the seed's forces move the rows to, then
-   the compaction;
+   the compaction; FTCS also on fixed halos beside the plan's;
 3. probes: each mode of the window probes P1 and P2 against its plain
    version at NBLK = 4096, the kernel's own device time per launch under
    ``torch.profiler``, then each probe's entry point
@@ -28,12 +28,14 @@ Phases, each of which raises on failure (exit code != 0):
    example's configuration) on the CPU and on the card, both paths;
 5. main paths: the bench configuration at 100k and 500k cells (2D) and the
    spheroid at 99k cells (3D), ``init_state(seed=0)``, 3 ``safe_step``
-   warm-ups and 5 timed ``step``s, twice per contact path in turns
+   warm-ups and 20 timed ``step``s, twice per contact path in turns
    (``"id_list"``, ``"span_mask"``, ``"span_mask"``, ``"id_list"``);
-   steps/s, agents, peak memory, window rebuilds per step, the launch
-   counts of every kernel (each kernel of the path must have launched), and
-   the device time per step, in all and of the contact kernels, over 2 more
-   steps under ``torch.profiler``.
+   steps/s with the median and p90 time per step, agents, peak memory,
+   window rebuilds per step, the launch counts of every kernel (each kernel
+   of the path must have launched; in 2D one FTCS launch per step), the
+   device time per step, in all and of the contact kernels, over 2 more
+   steps under ``torch.profiler``, and in 2D the FTCS kernel against its
+   plain version on the path's last lattice.
 
 The last lines are one JSON object with each kernel's numbers, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -62,9 +64,9 @@ PATHS = ("id_list", "span_mask")
 # the kernels each contact path launches in 2D and in 3D (counted from its
 # own main-path run)
 PATH_KERNELS = {
-    (2, "id_list"): ("contact_substep", "bio_moments", "ftcs_subcycle"),
+    (2, "id_list"): ("contact_substep", "bio_moments", "ftcs_diffuse"),
     (2, "span_mask"): ("contact_seed", "contact_masked", "mask_compact", "bio_moments",
-                       "ftcs_subcycle"),
+                       "ftcs_diffuse"),
     (3, "id_list"): ("contact_substep_3d", "bio_moments_3d"),
     (3, "span_mask"): ("contact_seed_3d", "contact_masked_3d", "mask_compact_3d",
                        "bio_moments_3d"),
@@ -87,7 +89,11 @@ P2_FLOPS, P2_KEPT_FLOPS = 23, 4
 # others whose device time per step is reported beside them
 CONTACT_KERNELS = ("contact_substep_kernel", "contact_mask_kernel<true",
                    "contact_mask_kernel<false", "mask_compact_kernel")
-OTHER_KERNELS = ("bio_moments_kernel", "ftcs_subcycle_kernel")
+OTHER_KERNELS = ("bio_moments_kernel", "ftcs_diffuse_kernel")
+# timed steps of a main path (after 3 warm-ups)
+TIMED_STEPS = 20
+# FTCS halos timed beside the plan's own (subcycles per grid barrier)
+FTCS_HALOS = (1, 2, 4, 8, 12, 16)
 
 
 def bench_engine(n_cells: int, device: str, contact_path: str = "id_list"):
@@ -245,6 +251,8 @@ def kernel_phase(eng, state):
     live = max(1, int(args[2].sum()))
     print(f"kernel {name}: rows={C} runs={n_runs} K={K} mean candidates per live row "
           f"{int(span_mask.candidate_counts(args[3])[args[2]].sum()) / live:.2f}, "
+          f"of which survive the break test beyond the search radius (reach the "
+          f"membership test) {break_shell_candidates(args, law) / live:.3f}; "
           f"mean degree {float(d_p.sum()) / live:.3f}, max degree={int(d_p.max())} "
           f"bonds={int((p_k >= 0).sum())} max|F|={f_scale:.6e} N max_abs_err={f_err:.3e} N")
 
@@ -342,38 +350,93 @@ def kernel_phase(eng, state):
           f"mean neighbours={float(m_k[:, 0].sum()) / live:.3f} "
           f"max_abs_err={err:.3e} (all four modes)")
 
-    # B5 FTCS: one step's subcycles on the step's lattice (2D bench only)
+    # B5 FTCS: one step's whole subcycle schedule on the step's lattice (2D
+    # bench only), one launch per call
     if "fgf4_values" in state.gradients:
         lattice = state.gradients["fgf4_values"]
-        dts = diffusion.diffusion_dts(bio.step_dt, diff.diffuse_dt)
-        fargs = (lattice, dts, diff.diffuse_const, diff.spat_res2,
-                 diff.max_concentration, diff.degradation)
-        g_k = ftcs.ftcs_diffuse_cuda(*fargs)
-        g_p = diffusion.ftcs_diffuse(*fargs)
-        torch.testing.assert_close(g_k, g_p, rtol=0.0, atol=1e-6)
-        g_err = float((g_k - g_p).abs().max())
-        steps = len(dts)
+        fargs = ftcs_args(eng, lattice)
+        g_err = check_ftcs(fargs, "kernel ftcs_diffuse")
+        steps = len(fargs[1])
         results.append(dict(
-            name="ftcs_subcycle", route="cuda",
+            name="ftcs_diffuse", route="cuda",
             source="hipsc_abm_tpu_torch/csrc/ftcs.cu",
             replaces="hipsc_abm_tpu/ops/pallas_diffusion.py:135",
             max_abs_err=g_err,
-            ms=cuda_ms(lambda: ftcs.ftcs_diffuse_cuda(*fargs), 5) / steps,
-            plain_ms=cuda_ms(lambda: diffusion.ftcs_diffuse(*fargs), 3) / steps,
-            # per subcycle: the lattice read once and written once; 9
-            # operations per cell (four differences, two scaled sums, the
-            # update)
-            **bound(2 * 4 * lattice.numel(), 9 * lattice.numel()),
+            ms=cuda_ms(lambda: ftcs.ftcs_diffuse_cuda(*fargs), 20),
+            plain_ms=cuda_ms(lambda: diffusion.ftcs_diffuse(*fargs), 3),
+            # per call: the lattice read once and written once; 9 operations
+            # per cell and subcycle (four sums, two products, the update and
+            # the clip and degradation around them)
+            **bound(2 * 4 * lattice.numel(), 9 * lattice.numel() * steps),
             library_ms=None,
         ))
-        print(f"kernel ftcs_subcycle: lattice={tuple(lattice.shape)} subcycles={steps} "
-              f"max_abs_err={g_err:.3e} bit-equal={bool(torch.equal(g_k, g_p))}")
+        # the kernel alone, on the plan's halo and on fixed ones, in turns
+        limits = kernels.device_limits()
+        plan = ftcs.ftcs_plan(*lattice.shape, limits["n_sm"], limits["smem_optin"])
+        alone = {}
+        for halo in (0,) + FTCS_HALOS + FTCS_HALOS[::-1] + (0,):
+            _, prof = profile_device(lambda: ftcs.ftcs_diffuse_cuda(*fargs, halo=halo), 10,
+                                     ("ftcs_diffuse_kernel",))
+            ms, n = prof.get("ftcs_diffuse_kernel", (0.0, 0.0))
+            alone.setdefault(halo, []).append(round(ms / n, 5) if n else None)
+        print(f"kernel ftcs_diffuse: plan {plan} ({plan.ctas} CTAs, {plan.smem_bytes} bytes "
+              f"of shared memory each); kernel alone per launch by halo (profiler, 10 "
+              f"launches, in turns; 0 = the plan's): {alone}")
     for r in results:
         print(f"  {r['name']} ({label}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-              + (" (per subcycle)" if r["name"] == "ftcs_subcycle" else ""))
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     kernels.launch_counts.clear()
     return results
+
+
+def ftcs_args(eng, lattice) -> tuple:
+    """The arguments of the step's FTCS call on ``lattice``."""
+    from hipsc_abm_tpu_torch.ops import diffusion
+
+    diff = eng.diff
+    return (lattice, diffusion.diffusion_dts(eng.bio.step_dt, diff.diffuse_dt),
+            diff.diffuse_const, diff.spat_res2, diff.max_concentration, diff.degradation)
+
+
+def check_ftcs(fargs, label) -> float:
+    """The FTCS kernel against its plain version, bit for bit; returns the
+    max abs error (0)."""
+    from hipsc_abm_tpu_torch.ops import diffusion, ftcs
+
+    g_k = ftcs.ftcs_diffuse_cuda(*fargs)
+    g_p = diffusion.ftcs_diffuse(*fargs)
+    torch.cuda.synchronize()
+    err = float((g_k - g_p).abs().max())
+    equal = bool(torch.equal(g_k, g_p))
+    print(f"{label}: lattice={tuple(fargs[0].shape)} subcycles={len(fargs[1])} "
+          f"max_abs_err={err:.3e} bit-equal={equal}")
+    if not equal:
+        raise AssertionError(f"{label}: not bit-equal to the plain version")
+    return err
+
+
+def break_shell_candidates(args, law, chunk: int = 16384) -> int:
+    """Candidates of live rows (self excluded) that the pair law keeps (d >
+    break_d, the plain pair law) and that lie beyond the search radius: the
+    only ones that reach the contact kernel's bond-membership test."""
+    from hipsc_abm_tpu_torch.ops.jkr import _pair_jkr
+    from hipsc_abm_tpu_torch.ops.neighbors import bounds_window
+
+    xyzr, ids, alive, bounds, _ = args
+    total = 0
+    for lo in range(0, xyzr.shape[0], chunk):
+        rows = slice(lo, lo + chunk)
+        pos, valid = bounds_window(bounds[rows])
+        cand = xyzr[pos]
+        me = xyzr[rows][:, None, :]
+        dist2 = ((me[..., :3] - cand[..., :3]) ** 2).sum(-1)
+        _, survive = _pair_jkr(me[..., :3], cand[..., :3], me[..., 3], cand[..., 3],
+                               law["adhesion_const"], law["poisson"], law["youngs"],
+                               law["break_d"])
+        keep = (valid & alive[rows][:, None] & (ids[pos] != ids[rows][:, None]) & survive
+                & (dist2 > float(np.float32(law["radius"]) ** 2)))
+        total += int(keep.sum())
+    return total
 
 
 def _window_lanes(off: torch.Tensor, width: int) -> int:
@@ -551,9 +614,10 @@ def step_phase_3d(steps: int = 4):
 
 
 def timed_run(dims: int, n_cells: int, path: str):
-    """init_state(seed=0), 3 safe_step warm-ups, 5 timed steps; returns the
-    engine, the final state and its numbers (warm-up s, steps/s, peak bytes,
-    contact-window rebuilds per timed step)."""
+    """init_state(seed=0), 3 safe_step warm-ups, TIMED_STEPS timed steps,
+    each on the host clock up to a synchronise; returns the engine, the
+    final state and its numbers (warm-up s, steps/s, median and p90 ms per
+    step, peak bytes, contact-window rebuilds per timed step)."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng, state = engine_for(dims, n_cells, "cuda", path)
@@ -561,16 +625,20 @@ def timed_run(dims: int, n_cells: int, path: str):
         state, _ = eng.safe_step(state)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    steps = 5
-    rebuilds = []
-    for _ in range(steps):
+    rebuilds, per_step = [], []
+    for _ in range(TIMED_STEPS):
+        t = time.perf_counter()
         state, info = eng.step(state)
+        torch.cuda.synchronize()
+        per_step.append(time.perf_counter() - t)
         rebuilds.append(info.jkr_rebuilds)
-    torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return eng, state, dict(warm_s=t1 - t0, steps_per_s=steps / (t2 - t1),
+    ms = np.asarray(per_step) * 1e3
+    return eng, state, dict(warm_s=t1 - t0, steps_per_s=TIMED_STEPS / (t2 - t1),
+                            median_ms=float(np.median(ms)),
+                            p90_ms=float(np.percentile(ms, 90)),
                             peak_mib=torch.cuda.max_memory_allocated() / 2**20,
-                            rebuilds_per_step=float(sum(int(r) for r in rebuilds)) / steps)
+                            rebuilds_per_step=float(sum(int(r) for r in rebuilds)) / TIMED_STEPS)
 
 
 def profile_device(fn, calls: int, names) -> tuple:
@@ -647,16 +715,24 @@ def main_path(dims: int, n_cells: int, path: str) -> dict:
     for name in PATH_KERNELS[(dims, path)]:
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"{label}: kernel {name} was never launched")
+    # every step attempt runs three bio-moments passes and, in 2D, one FTCS
+    # launch for its whole subcycle schedule
+    if dims == 2 and 3 * counts["ftcs_diffuse"] != counts["bio_moments"]:
+        raise AssertionError(f"{label}: {counts['ftcs_diffuse']} FTCS launches for "
+                             f"{counts['bio_moments'] // 3} steps")
     other = {n for key, names in PATH_KERNELS.items() if key[0] != dims for n in names}
     stray = sorted(n for n in other if counts.get(n, 0))
     if stray:
         raise AssertionError(f"{label}: kernels of the other dimensionality ran: {stray}")
     dev = device_ms_per_step(eng, state)
+    if dims == 2:  # the kernel on the main path's own last lattice
+        check_ftcs(ftcs_args(eng, state.gradients["fgf4_values"]), f"{label}: ftcs_diffuse")
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
-    print(f"{label}: {n_cells} cells start, {agents} agents after 8 steps, "
+    print(f"{label}: {n_cells} cells start, {agents} agents after {3 + TIMED_STEPS} steps, "
           f"capacity {state.capacity}, bond_cap {state.bonds.partners.shape[1]}")
-    print(f"{label}: warm-up (init + 3 safe_step) {nums['warm_s']:.2f} s; 5 steps at "
-          f"{nums['steps_per_s']:.3f} steps/s; peak device memory {nums['peak_mib']:.1f} MiB; "
+    print(f"{label}: warm-up (init + 3 safe_step) {nums['warm_s']:.2f} s; {TIMED_STEPS} steps "
+          f"at {nums['steps_per_s']:.3f} steps/s, per step median {nums['median_ms']:.3f} ms, "
+          f"p90 {nums['p90_ms']:.3f} ms; peak device memory {nums['peak_mib']:.1f} MiB; "
           f"rebuilds/step {nums['rebuilds_per_step']:.2f}; device time/step (profiler, 2 steps): "
           f"contact kernels {fmt(dev.get('contact'))}, all {fmt(dev.get('all'))}; "
           f"by kernel {dev.get('by_kernel')}")

@@ -39,8 +39,9 @@ def numpy_from_jax_state(jstate) -> dict:
     }
 
 
-def state_from_numpy(d: dict, device="cpu") -> CellState:
-    """A port ``CellState`` on ``device`` from the numpy dict."""
+def state_from_numpy(d: dict, device="cuda") -> CellState:
+    """A port ``CellState`` on ``device`` (the card unless the caller asks
+    for the CPU, as ``HipscEngine`` does) from the numpy dict."""
     dev = torch.device(device)
 
     def t(a):

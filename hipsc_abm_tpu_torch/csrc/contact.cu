@@ -7,33 +7,48 @@
 // What it computes, per sorted row i (alive): walk the stencil runs
 // r = 0..N_RUNS-1 (3 in 2D, 9 in 3D: a template parameter, as the TPU
 // kernel's `run_offs` length was static), sorted positions p in [lo_r, hi_r)
-// ascending. A candidate p counts if its id differs from the row's id and it
+// ascending. A candidate p counts if its id differs from the row's id, the
+// JKR pair law lets it survive (nondimensional overlap d > break_d), and it
 // is a fresh contact (dist^2 <= radius^2) or already in the row's partner
-// list. The JKR pair law gives the force and a survival flag
-// (nondimensional overlap d > break_d). Survivors add their force and are
-// appended to the new partner list in walk order; the list keeps the first
-// K and the returned degree is the untruncated count (the bond-capacity
-// overflow probe).
+// list. Survivors add their force and are appended to the new partner list
+// in walk order; the list keeps the first K and the returned degree is the
+// untruncated count (the bond-capacity overflow probe).
 //
 // What bounds it on the card: a row walks its candidates of 20 bytes each,
 // all inside a few neighbouring bins (8.6 per live row at the 2D bench
 // colony's density, 222 over nine runs in the 3D spheroid, chip_smoke.py's
-// 100k and 99k states), so the kernel is bound by load latency and L1/L2
-// traffic, not arithmetic. The TPU kernel DMA'd 128-aligned spans into VMEM
-// and tested every lane of a span against every row of a block; on Hopper
-// each thread reads only its own run slices (the rows of a warp are
-// neighbours in the sorted order, so their runs overlap and the reads hit
-// L1), and the per-row bond membership test is a loop over the row's K
-// partner ids that runs only for candidates outside the search radius. In
-// 3D that loop dominates: most candidates lie beyond the search radius, and
-// each reads all K partner ids (K = 24 there). The partner lists stay in
-// global memory (no K-sized register array), so any K up to the engine's
-// guard works.
+// 100k and 99k states); the compulsory bytes are the rows' own 16-byte
+// packs, ids, bounds and partner lists, so the kernel is bound by load
+// latency and L1/L2 traffic of the walk, not arithmetic. The TPU kernel
+// DMA'd 128-aligned spans into VMEM and tested every lane of a span against
+// every row of a block; on Hopper each thread walks only its own run slices
+// (the rows of a CTA are neighbours in the sorted order, so their runs
+// overlap and the reads hit L1). What the design does about the rest:
+// - The break test comes first. The pair law decides from distance and
+//   radii alone whether a pair survives, and a pair that breaks gives no
+//   force and no entry, bonded or not; so only candidates that survive ask
+//   whether they are eligible, and the membership test over the row's K
+//   partner ids runs only for those beyond the search radius: the thin
+//   shell of about jkr_break_band (0.31 um) past it. In 3D most of a row's
+//   candidates lie beyond the radius (K = 24 there), so a membership test
+//   ahead of the break test would set the kernel's time. Both tests must
+//   pass, so their order changes no output, and the force sum runs in the
+//   same walk order.
+// - The CTA's rows are consecutive, so their partner lists are one
+//   contiguous rows x K block: it is copied into shared memory with
+//   coalesced asynchronous copies (cp.async), and the new lists are staged
+//   there and written back as one coalesced block. Shared rows have an odd
+//   pitch (K | 1), so the per-thread appends do not conflict on banks.
+// - The candidates are read through L1. Staging each run's union of the
+//   CTA's slices in shared memory (cp.async) was tried: it gave the same
+//   output, was 3% faster in 2D and 7% slower at the 99k 3D state, where its
+//   budget costs CTAs per SM (PERF.md section 6), so it was taken out.
 //
 // One thread per row rather than one warp per row: a row has 3 (2D) to 25
 // (3D) candidates per run, too few to keep 32 lanes busy, and a thread per
 // row keeps the first-K compaction a plain sequential append.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "jkr_pair.cuh"
@@ -42,21 +57,39 @@ namespace {
 
 using hipsc::PairLaw;
 
+// rows per CTA (ops/contact.py ROWS_PER_CTA)
+constexpr int kThreads = 128;
+
 template <int N_RUNS>
-__global__ void contact_substep_kernel(
+__global__ void __launch_bounds__(kThreads) contact_substep_kernel(
     const float4* __restrict__ xyzr, const int* __restrict__ ids,
     const unsigned char* __restrict__ alive, const int* __restrict__ bounds,
     const int* __restrict__ partners, float* __restrict__ force,
     int* __restrict__ degree, int* __restrict__ new_partners, int C, int K,
-    PairLaw law) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= C) return;
-  const int* my_partners = partners + (size_t)row * K;
-  int* out_partners = new_partners + (size_t)row * K;
+    int pitch, PairLaw law) {
+  extern __shared__ int in_lists[];              // kThreads x pitch
+  int* out_lists = in_lists + kThreads * pitch;  // kThreads x pitch
+  const int t = threadIdx.x;
+  const int row0 = blockIdx.x * kThreads;
+  const int rows = min(kThreads, C - row0);
+  const int row = row0 + t;
 
+  // the CTA's partner block: rows * K contiguous ids, one shared row each
+  const int n_ids = rows * K;
+  const int* block_in = partners + (size_t)row0 * K;
+  for (int e = t; e < n_ids; e += kThreads) {
+    const int r = e / K;
+    __pipeline_memcpy_async(in_lists + r * pitch + (e - r * K), block_in + e, 4);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  const int* in = in_lists + t * pitch;
+  int* out = out_lists + t * pitch;
   float fx = 0.f, fy = 0.f, fz = 0.f;
   int count = 0;
-  if (alive[row]) {
+  if (t < rows && alive[row]) {
     const float4 me = xyzr[row];
     const int my_id = ids[row];
     for (int r = 0; r < N_RUNS; ++r) {
@@ -70,45 +103,68 @@ __global__ void contact_substep_kernel(
         const float dy = me.y - c.y;
         const float dz = me.z - c.z;
         const float dist2 = dx * dx + dy * dy + dz * dz;
+        // the pair breaks: no force, no entry, whether bonded or not
+        const hipsc::PairOverlap o = hipsc::jkr_overlap(law, me, c, dist2);
+        if (!(o.d > law.break_d)) continue;
         bool eligible = dist2 <= law.radius2;
-        for (int k = 0; k < K && !eligible; ++k) {
-          eligible = my_partners[k] == cid;
-        }
+        for (int k = 0; k < K && !eligible; ++k) eligible = in[k] == cid;
         if (!eligible) continue;
-
-        // the bond breaks: no force, no entry
-        if (!hipsc::jkr_pair(law, me, c, dx, dy, dz, dist2, fx, fy, fz)) continue;
-        if (count < K) out_partners[count] = cid;
+        hipsc::jkr_force(law, o, dx, dy, dz, fx, fy, fz);
+        if (count < K) out[count] = cid;
         ++count;
       }
     }
   }
-  for (int k = count < K ? count : K; k < K; ++k) out_partners[k] = -1;
-  force[(size_t)row * 3 + 0] = fx;
-  force[(size_t)row * 3 + 1] = fy;
-  force[(size_t)row * 3 + 2] = fz;
-  degree[row] = count;
+  if (t < rows) {
+    for (int k = count < K ? count : K; k < K; ++k) out[k] = -1;
+    force[(size_t)row * 3 + 0] = fx;
+    force[(size_t)row * 3 + 1] = fy;
+    force[(size_t)row * 3 + 2] = fz;
+    degree[row] = count;
+  }
+  __syncthreads();
+  int* block_out = new_partners + (size_t)row0 * K;
+  for (int e = t; e < n_ids; e += kThreads) {
+    const int r = e / K;
+    block_out[e] = out_lists[r * pitch + (e - r * K)];
+  }
 }
 
 }  // namespace
 
+// `pitch` (odd, >= K) and `smem_bytes` are the shared-memory layout of
+// ops/contact.py `contact_layout`.
 extern "C" int hipsc_contact_substep(
     const void* xyzr, const void* ids, const void* alive, const void* bounds,
     const void* partners, void* force, void* degree, void* new_partners, int C,
-    int K, int n_runs, float radius2, float break_d, int uniform, float two_r,
-    float inv_scale, float fpre, float scale_c, float pi_f, float adhesion,
-    void* stream) {
+    int K, int n_runs, int pitch, int smem_bytes, float radius2, float break_d,
+    int uniform, float two_r, float inv_scale, float fpre, float scale_c,
+    float pi_f, float adhesion, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
+  if (K < 1 || pitch < K) return (int)cudaErrorInvalidValue;
   PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
-  const int threads = 128;
-  const int blocks = (C + threads - 1) / threads;
   auto kernel = n_runs == 3 ? contact_substep_kernel<3> : contact_substep_kernel<9>;
-  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(C + kThreads - 1) / kThreads, kThreads, smem_bytes, (cudaStream_t)stream>>>(
       (const float4*)xyzr, (const int*)ids, (const unsigned char*)alive,
       (const int*)bounds, (const int*)partners, (float*)force, (int*)degree,
-      (int*)new_partners, C, K, law);
+      (int*)new_partners, C, K, pitch, law);
   return (int)cudaGetLastError();
+}
+
+// The card's SM count and the most dynamic shared memory one block may ask
+// for (after cudaFuncSetAttribute), for the wrappers' plans and checks.
+extern "C" int hipsc_device_limits(int* n_sm, int* smem_optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)err;
 }
 
 extern "C" const char* hipsc_cuda_error_string(int code) {

@@ -27,6 +27,61 @@ struct PairLaw {
   float adhesion;     // general path: adhesion_const
 };
 
+// The pair law in two parts, so that a kernel can drop a pair that breaks
+// before it asks whether the pair is eligible (a breaking pair gives no
+// force and no entry, bonded or not). `jkr_overlap` computes the distance
+// `mag` and the nondimensional overlap `d` (the pair survives iff
+// d > break_d); `jkr_force` adds a survivor's force on the row agent. Each
+// does the float32 operations of the single function they were split from,
+// in the same order, so the forces do not change by a bit.
+struct PairOverlap {
+  float mag;    // |me - c|
+  float d;      // nondimensional overlap
+  float r_hat;  // general path: reduced radius (m)
+};
+
+__device__ __forceinline__ PairOverlap jkr_overlap(const PairLaw& law,
+                                                   const float4& me,
+                                                   const float4& c,
+                                                   float dist2) {
+  PairOverlap o;
+  o.mag = dist2 > 0.f ? sqrtf(dist2) : 0.f;
+  if (law.uniform) {
+    o.d = (law.two_r - o.mag) * law.inv_scale;
+    o.r_hat = 0.f;
+  } else {
+    const float ri = me.w, rj = c.w;
+    const float overlap = (ri + rj - o.mag) / 1e6f;
+    o.r_hat = (ri * rj) / (1e6f * fmaxf(ri + rj, 1e-12f));
+    const float scale = o.r_hat > 0.f ? law.scale_c * powf(o.r_hat, 1.0f / 3.0f) : 0.f;
+    o.d = overlap / fmaxf(scale, 1e-30f);
+  }
+  return o;
+}
+
+// A survivor's force (o.d > law.break_d) on the row agent, added to
+// (fx, fy, fz); (dx, dy, dz) = me - c.
+__device__ __forceinline__ void jkr_force(const PairLaw& law,
+                                          const PairOverlap& o, float dx,
+                                          float dy, float dz, float& fx,
+                                          float& fy, float& fz) {
+  float fmag;
+  if (law.uniform) {
+    const float d = o.d;
+    const float f = ((-0.0204f * d + 0.4942f) * d + 1.0801f) * d - 1.324f;
+    fmag = f * law.fpre;
+  } else {
+    const float dc = fminf(fmaxf(o.d, -1e8f), 1e8f);
+    const float f = ((-0.0204f * dc + 0.4942f) * dc + 1.0801f) * dc - 1.324f;
+    fmag = f * law.pi_f * law.adhesion * o.r_hat;
+  }
+  if (o.mag > 0.f) {
+    fx += fmag * (dx / o.mag);
+    fy += fmag * (dy / o.mag);
+    fz += fmag * (dz / o.mag);
+  }
+}
+
 // One eligible pair (row `me`, candidate `c`, offset (dx, dy, dz) = me - c,
 // squared distance dist2). Returns whether the bond survives; a survivor's
 // force on the row agent is added to (fx, fy, fz).
@@ -34,34 +89,9 @@ __device__ __forceinline__ bool jkr_pair(const PairLaw& law, const float4& me,
                                          const float4& c, float dx, float dy,
                                          float dz, float dist2, float& fx,
                                          float& fy, float& fz) {
-  const float mag = dist2 > 0.f ? sqrtf(dist2) : 0.f;
-  float d, fmag;
-  if (law.uniform) {
-    d = (law.two_r - mag) * law.inv_scale;
-    fmag = 0.f;
-    if (d > law.break_d) {
-      const float f = ((-0.0204f * d + 0.4942f) * d + 1.0801f) * d - 1.324f;
-      fmag = f * law.fpre;
-    }
-  } else {
-    const float ri = me.w, rj = c.w;
-    const float overlap = (ri + rj - mag) / 1e6f;
-    const float r_hat = (ri * rj) / (1e6f * fmaxf(ri + rj, 1e-12f));
-    const float scale = r_hat > 0.f ? law.scale_c * powf(r_hat, 1.0f / 3.0f) : 0.f;
-    d = overlap / fmaxf(scale, 1e-30f);
-    fmag = 0.f;
-    if (d > law.break_d) {
-      const float dc = fminf(fmaxf(d, -1e8f), 1e8f);
-      const float f = ((-0.0204f * dc + 0.4942f) * dc + 1.0801f) * dc - 1.324f;
-      fmag = f * law.pi_f * law.adhesion * r_hat;
-    }
-  }
-  if (!(d > law.break_d)) return false;  // the bond breaks: no force, no entry
-  if (mag > 0.f) {
-    fx += fmag * (dx / mag);
-    fy += fmag * (dy / mag);
-    fz += fmag * (dz / mag);
-  }
+  const PairOverlap o = jkr_overlap(law, me, c, dist2);
+  if (!(o.d > law.break_d)) return false;  // the bond breaks: no force, no entry
+  jkr_force(law, o, dx, dy, dz, fx, fy, fz);
   return true;
 }
 

@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 launch_counts: collections.Counter = collections.Counter()
 
 _lib: Optional[ctypes.CDLL] = None
+_limits: dict = {}
 _lock = threading.Lock()
 
 _P = ctypes.c_void_p
@@ -47,9 +48,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "hipsc_contact_substep": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
+                              _I, _I, _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
     "hipsc_bio_moments": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
-    "hipsc_ftcs_subcycle": (_P, _P, _I, _I, _F, _F, _P),
+    "hipsc_ftcs_diffuse": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _F, _F, _F, _F, _P),
     "hipsc_contact_seed": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
     "hipsc_contact_masked": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -135,6 +137,8 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            lib.hipsc_device_limits.argtypes = (ctypes.POINTER(ctypes.c_int),) * 2
+            lib.hipsc_device_limits.restype = ctypes.c_int
             lib.hipsc_cuda_error_string.argtypes = (ctypes.c_int,)
             lib.hipsc_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -151,6 +155,22 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         msg = lib.hipsc_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def device_limits() -> dict:
+    """The current card's ``n_sm`` (multiprocessors) and ``smem_optin`` (the
+    most dynamic shared memory one block may ask for), read once per
+    device."""
+    dev = torch.cuda.current_device()
+    if dev not in _limits:
+        lib = library()
+        n_sm, smem = ctypes.c_int(0), ctypes.c_int(0)
+        rc = lib.hipsc_device_limits(ctypes.byref(n_sm), ctypes.byref(smem))
+        if rc != 0:
+            raise RuntimeError(f"hipsc_device_limits: CUDA error {rc} "
+                               f"({lib.hipsc_cuda_error_string(rc).decode()})")
+        _limits[dev] = dict(n_sm=n_sm.value, smem_optin=smem.value)
+    return _limits[dev]
 
 
 def counted_name(name: str, n_runs: int) -> str:

@@ -65,12 +65,25 @@ def pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
             f32(adhesion_const))
 
 
+# rows per CTA of the kernel (csrc/contact.cu kThreads)
+ROWS_PER_CTA = 128
+
+
+def contact_layout(K: int) -> dict:
+    """The kernel's dynamic shared memory: the CTA's partner block read in
+    and the new lists written out, ``ROWS_PER_CTA`` rows of an odd ``pitch``
+    each. Returns ``pitch`` and ``smem_bytes``."""
+    pitch = K | 1
+    return dict(pitch=pitch, smem_bytes=2 * ROWS_PER_CTA * pitch * 4)
+
+
 def contact_substep_cuda(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The contact substep. A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel (or raises). The launch counts as
+    tensor launches the kernel (or raises, also when the CTA's partner block
+    does not fit in the card's shared memory). The launch counts as
     ``contact_substep`` in 2D and ``contact_substep_3d`` in 3D."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius)
@@ -85,6 +98,12 @@ def contact_substep_cuda(
     kernels.check_cuda("partners", partners, torch.int32, (C, K))
     if K < 1:
         raise ValueError("contact_substep_cuda: bond capacity must be >= 1")
+    layout = contact_layout(K)
+    smem_limit = kernels.device_limits()["smem_optin"]
+    if layout["smem_bytes"] > smem_limit:
+        raise ValueError(
+            f"contact_substep_cuda: bond capacity K={K} needs {layout['smem_bytes']} bytes "
+            f"of shared memory per {ROWS_PER_CTA} rows, the card allows {smem_limit}")
     force = torch.empty((C, 3), dtype=torch.float32, device=xyzr.device)
     degree = torch.empty((C,), dtype=torch.int32, device=xyzr.device)
     new_partners = torch.empty((C, K), dtype=torch.int32, device=xyzr.device)
@@ -92,7 +111,7 @@ def contact_substep_cuda(
         "hipsc_contact_substep",
         xyzr.data_ptr(), ids.data_ptr(), alive.data_ptr(), bounds.data_ptr(),
         partners.data_ptr(), force.data_ptr(), degree.data_ptr(),
-        new_partners.data_ptr(), C, K, n_runs,
+        new_partners.data_ptr(), C, K, n_runs, layout["pitch"], layout["smem_bytes"],
         *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
                        uniform_radius),
     )

@@ -195,3 +195,27 @@ def test_cpu_wrapper_runs_plain_and_counts_no_launch():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert kernels.launch_counts["contact_substep"] == before
+
+
+@pytest.mark.parametrize("change", [None, "force", "partners", "in4"])
+def test_contact_ab_compare_is_bit_for_bit(tmp_path, change):
+    """``tools/contact_ab.py compare`` passes two dumps only when inputs,
+    forces, degrees and partner lists are equal; a force one ulp away fails."""
+    from hipsc_abm_tpu_torch.tools import contact_ab
+
+    locs, radii, ids, alive, partner_ids, jspec = _setup(8, seed=4)
+    _, args = _sorted_inputs(locs, radii, ids, alive, partner_ids, jspec)
+    force, degree, partners = tcontact.contact_substep_plain(*args, **LAW)
+    a = {f"in{i}": t.numpy() for i, t in enumerate(args)}
+    a.update(force=force.numpy(), degree=degree.numpy(), partners=partners.numpy())
+    b = {k: v.copy() for k, v in a.items()}
+    if change == "force":
+        b["force"].flat[0] = np.nextafter(b["force"].flat[0], np.float32(1.0))
+    elif change == "partners":
+        b["partners"][0, -1] = 12345
+    elif change == "in4":
+        b["in4"][0, 0] = 12345
+    np.savez(tmp_path / "a.npz", **a)
+    np.savez(tmp_path / "b.npz", **b)
+    assert contact_ab.main(["compare", str(tmp_path / "a.npz"), str(tmp_path / "b.npz")]) \
+        == (0 if change is None else 1)

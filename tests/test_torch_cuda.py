@@ -11,7 +11,7 @@ imports no JAX, so it also runs where JAX is not installed:
 Tolerances: the contact kernels' scalar-radius pair law rounds differently
 from the plain versions' general law (forces rtol 1e-5, atol 1e-6 x max|F|);
 moment counts, bond sets, degrees and span-mask words are exact; FTCS keeps the plain version's
-association without FMA contraction (atol 1e-6, in practice bit-equal);
+association without FMA contraction and is held bit-equal;
 the probes sum their lanes in another order than the plain versions (P1
 rtol 1e-5, atol 1e-5; P2, with the card's rsqrtf against torch.rsqrt, rtol
 1e-4, atol 1e-4 x max|out|).
@@ -76,10 +76,29 @@ def _contact_inputs(K, seed=0, C=2048, n=1900, box=(420.0, 420.0, 0.0), skin=2.0
     return sorted_args(locs, partners)[1]
 
 
+def _bond_shells(args):
+    """Bonded partners of live rows by distance: within the search radius,
+    in the break shell (radius < dist <= radius + jkr_break_band), beyond
+    it. The kernel tests the pair law before bond membership, so both outer
+    classes must be present for the tests to hold it to the plain order."""
+    xyzr, ids, alive, _, partners = (a.cpu() for a in args)
+    slot = torch.full((int(ids.max()) + 1,), -1, dtype=torch.int64)
+    slot[ids.long()] = torch.arange(ids.shape[0])
+    bonded = (partners >= 0) & alive[:, None]
+    rows, k = torch.nonzero(bonded, as_tuple=True)
+    other = slot[partners[rows, k].long()]
+    dist = torch.linalg.norm(xyzr[rows, :3] - xyzr[other, :3], dim=1)
+    r, band = BIO.jkr_radius, BIO.jkr_break_band
+    return (int((dist <= r).sum()), int(((dist > r) & (dist <= r + band)).sum()),
+            int((dist > r + band).sum()))
+
+
 @pytest.mark.parametrize("K", [8, 40])
 @pytest.mark.parametrize("uniform", [None, BIO.max_radius])
 def test_contact_kernel_matches_plain(dev, K, uniform):
     args = [a.to(dev) for a in _contact_inputs(K)]
+    _, shell, beyond = _bond_shells(args)
+    assert shell > 0 and beyond > 0
     before = kernels.launch_counts["contact_substep"]
     fk, dk, pk = contact.contact_substep_cuda(*args, uniform_radius=uniform, **LAW)
     fp, dp, pp = contact.contact_substep_plain(*args, uniform_radius=uniform, **LAW)
@@ -91,6 +110,18 @@ def test_contact_kernel_matches_plain(dev, K, uniform):
     assert torch.equal(dk, dp)
     for a, b in zip(pk.cpu().numpy(), pp.cpu().numpy()):
         assert set(a[a >= 0].tolist()) == set(b[b >= 0].tolist())
+
+
+def test_contact_kernel_rejects_a_partner_block_past_shared_memory(dev):
+    limit = kernels.device_limits()["smem_optin"]
+    K = limit // (2 * 4 * contact.ROWS_PER_CTA) + 1
+    assert contact.contact_layout(K)["smem_bytes"] > limit
+    args = [a.to(dev) for a in _contact_inputs(8, C=256, n=200, box=(150.0, 150.0, 0.0))]
+    args[4] = torch.full((256, K), -1, dtype=torch.int32, device=dev)
+    before = kernels.launch_counts["contact_substep"]
+    with pytest.raises(ValueError, match="shared memory"):
+        contact.contact_substep_cuda(*args, **LAW)
+    assert kernels.launch_counts["contact_substep"] == before
 
 
 def _moved(args, seed=5):
@@ -194,16 +225,20 @@ def test_bio_kernel_matches_plain(dev, mode):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
 
 
-def test_ftcs_kernel_matches_plain(dev):
+@pytest.mark.parametrize("shape", [(97, 131), (449, 449), (1001, 1001)])
+@pytest.mark.parametrize("halo", [0, 1, 5])
+def test_ftcs_kernel_matches_plain(dev, shape, halo):
+    """Bit-equal to the plain version, one launch per call, on the planned
+    tiling (halo 0) and on fixed halos."""
     rs = np.random.default_rng(2)
-    g = torch.from_numpy(rs.random((97, 131)).astype(np.float32) * 2.4 - 0.2).to(dev)
+    g = torch.from_numpy(rs.random(shape).astype(np.float32) * 2.4 - 0.2).to(dev)
     dts = diffusion.diffusion_dts(1800.0, 6.0)
     args = (dts, 2.0, 400.0, 2.0, 0.1)
-    before = kernels.launch_counts["ftcs_subcycle"]
-    got = ftcs.ftcs_diffuse_cuda(g, *args)
+    before = kernels.launch_counts["ftcs_diffuse"]
+    got = ftcs.ftcs_diffuse_cuda(g, *args, halo=halo)
     want = diffusion.ftcs_diffuse(g, *args)
-    assert kernels.launch_counts["ftcs_subcycle"] == before + len(dts)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert kernels.launch_counts["ftcs_diffuse"] == before + 1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("contact_path", ["id_list", "span_mask"])
@@ -220,8 +255,8 @@ def test_engine_step_on_card_matches_cpu(dev, contact_path):
                       contact_path=contact_path)
     s, _ = cpu.safe_step(cpu.init_state(seed=1))
     d = convert.state_to_numpy(s)
-    a = convert.state_to_numpy(cpu.step(convert.state_from_numpy(d))[0])
-    b = convert.state_to_numpy(gpu.step(convert.state_from_numpy(d, dev))[0])
+    a = convert.state_to_numpy(cpu.step(convert.state_from_numpy(d, "cpu"))[0])
+    b = convert.state_to_numpy(gpu.step(convert.state_from_numpy(d))[0])
 
     def by_id(x):
         ids = x["arrays"]["ids"][x["alive"]]
@@ -252,6 +287,8 @@ def _contact_inputs_3d(K):
 def test_contact_kernel_3d_matches_plain(dev, K):
     args = [a.to(dev) for a in _contact_inputs_3d(K)]
     assert args[3].shape[1] == 18
+    _, shell, beyond = _bond_shells(args)
+    assert shell > 0 and beyond > 0
     law = dict(uniform_radius=BIO.max_radius, **LAW)
     before = dict(kernels.launch_counts)
     fk, dk, pk = contact.contact_substep_cuda(*args, **law)
@@ -371,8 +408,8 @@ def test_engine_3d_step_on_card_matches_cpu(dev, contact_path):
     gpu.cfg = cpu.cfg
     d = convert.state_to_numpy(s)
     before = dict(kernels.launch_counts)
-    a = convert.state_to_numpy(cpu.step(convert.state_from_numpy(d))[0])
-    b = convert.state_to_numpy(gpu.step(convert.state_from_numpy(d, dev))[0])
+    a = convert.state_to_numpy(cpu.step(convert.state_from_numpy(d, "cpu"))[0])
+    b = convert.state_to_numpy(gpu.step(convert.state_from_numpy(d))[0])
     assert kernels.launch_counts["bio_moments_3d"] == before.get("bio_moments_3d", 0) + 3
 
     def by_id(x):

@@ -94,7 +94,7 @@ def test_deposit_and_sample_match_jax():
 def test_cpu_wrapper_runs_plain_and_counts_no_launch():
     g = torch.from_numpy(_lattice(seed=4))
     dts = tdiff.diffusion_dts(60.0, 6.0)
-    before = kernels.launch_counts["ftcs_subcycle"]
+    before = kernels.launch_counts["ftcs_diffuse"]
     assert torch.equal(tftcs.ftcs_diffuse_cuda(g, dts, *ARGS),
                        tdiff.ftcs_diffuse(g, dts, *ARGS))
-    assert kernels.launch_counts["ftcs_subcycle"] == before
+    assert kernels.launch_counts["ftcs_diffuse"] == before

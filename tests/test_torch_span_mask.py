@@ -224,7 +224,7 @@ def test_scan_matches_physics_scan_pallas(skin):
     jb = jjkr.BondState(partners=jnp.asarray(d["partners"]), mask=jnp.asarray(d["bond_mask"]))
     jout = jeng_mod._physics_scan_pallas(jcfg, BIO, ja, jnp.asarray(d["alive"]), jb,
                                          jnp.asarray(gen.size, jnp.float32), dts)
-    ts = convert.state_from_numpy(d)
+    ts = convert.state_from_numpy(d, "cpu")
     tout = teng_mod._physics_scan_span_mask(
         tcfg, TBIO, ts.arrays, ts.alive, ts.bonds, torch.tensor(gen.size), dts)
     loc, bonds, _, deg, move, rebuilds = tout

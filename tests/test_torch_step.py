@@ -218,7 +218,7 @@ def test_hipsc_step_matches_jax():
                        device="cpu")
     teng.cfg = dataclasses.replace(teng.cfg, capacity=jeng.cfg.capacity,
                                    bond_cap=jeng.cfg.bond_cap, div_cap=jeng.cfg.div_cap)
-    ts = convert.state_from_numpy(convert.numpy_from_jax_state(js))
+    ts = convert.state_from_numpy(convert.numpy_from_jax_state(js), "cpu")
     assert int(ts.bonds.mask.sum()) > 0
     js2, jinfo = jeng.safe_step(js)
     ts2, tinfo = teng.safe_step(ts)
@@ -301,7 +301,7 @@ def test_numpy_round_trip_is_lossless():
                        device="cpu")
     s, _ = teng.safe_step(teng.init_state(seed=4))
     d = convert.state_to_numpy(s)
-    d2 = convert.state_to_numpy(convert.state_from_numpy(d))
+    d2 = convert.state_to_numpy(convert.state_from_numpy(d, "cpu"))
     for k in d["arrays"]:
         np.testing.assert_array_equal(d2["arrays"][k], d["arrays"][k])
     for k in ("alive", "partners", "bond_mask", "key", "step", "next_id"):
