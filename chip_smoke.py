@@ -15,7 +15,11 @@ Phases, each of which raises on failure (exit code != 0):
    ``safe_step``, the 3D (9-run) forms at the 99k-cell spheroid after the
    same; the span-mask kernels run as the scan runs them: seed, then a
    masked substep at the positions the seed's forces move the rows to, then
-   the compaction; FTCS also on fixed halos beside the plan's;
+   the compaction; the seed (with and without its distance cut, which must
+   change no bit) and the masked substep also each alone per launch under
+   ``torch.profiler``, in turns, with the candidates per live row that
+   pass the cut and that reach the membership test; FTCS also on fixed
+   halos beside the plan's;
 3. probes: each mode of the window probes P1 and P2 against its plain
    version at NBLK = 4096, the kernel's own device time per launch under
    ``torch.profiler``, then each probe's entry point
@@ -43,6 +47,7 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -92,6 +97,8 @@ CONTACT_KERNELS = ("contact_substep_kernel", "contact_mask_kernel<true",
 OTHER_KERNELS = ("bio_moments_kernel", "ftcs_diffuse_kernel")
 # timed steps of a main path (after 3 warm-ups)
 TIMED_STEPS = 20
+# launches per turn when a kernel is timed alone under the profiler
+ALONE_LAUNCHES = 20
 # FTCS halos timed beside the plan's own (subcycles per grid barrier)
 FTCS_HALOS = (1, 2, 4, 8, 12, 16)
 
@@ -249,10 +256,14 @@ def kernel_phase(eng, state):
         plain_ms=cuda_ms(lambda: contact.contact_substep_plain(*args, **law), 10),
         **bound(C * (row_bytes + 8 * K + 16), contact_flops(args[3], args[2], d_p)))
     live = max(1, int(args[2].sum()))
+    law_args = contact.pair_law_args(*(law[k] for k in (
+        "radius", "adhesion_const", "poisson", "youngs", "break_d", "uniform_radius")))
+    cut2 = span_mask.break_cut2(law_args)
+    walk = walk_counts(args, law, cut2)
     print(f"kernel {name}: rows={C} runs={n_runs} K={K} mean candidates per live row "
           f"{int(span_mask.candidate_counts(args[3])[args[2]].sum()) / live:.2f}, "
           f"of which survive the break test beyond the search radius (reach the "
-          f"membership test) {break_shell_candidates(args, law) / live:.3f}; "
+          f"membership test) {walk['membership'] / live:.3f}; "
           f"mean degree {float(d_p.sum()) / live:.3f}, max degree={int(d_p.max())} "
           f"bonds={int((p_k >= 0).sum())} max|F|={f_scale:.6e} N max_abs_err={f_err:.3e} N")
 
@@ -275,7 +286,16 @@ def kernel_phase(eng, state):
         **bound(C * (row_bytes + 4 * K + 16 + 4 * W), contact_flops(args[3], args[2], d_p)))
     print(f"kernel {name}: rows={C} K={K} widest row M="
           f"{int(span_mask.candidate_counts(args[3]).max())} candidates -> W={W} words "
-          f"({4 * W * C / 1e6:.3f} MB mask) max|F|={f_scale:.6e} N max_abs_err={f_err:.3e} N")
+          f"({4 * W * C / 1e6:.3f} MB mask) max|F|={f_scale:.6e} N max_abs_err={f_err:.3e} N; "
+          f"per live row, candidates within the distance cut (sqrt(cut2) = "
+          f"{cut2 ** 0.5:.6f} um) {walk['within_cut'] / live:.3f}, reaching the membership "
+          f"test {walk['membership'] / live:.3f} (the same inputs as {kernels.counted_name('contact_substep', n_runs)})")
+    # the distance cut changes no bit
+    f_n, d_n, m_n = span_mask.seed_kernel(*args, law_args, math.inf)
+    torch.cuda.synchronize()
+    if not (torch.equal(f_n.view(torch.int32), f_k.view(torch.int32)) and torch.equal(d_n, d_k)
+            and torch.equal(m_n, m_k)):
+        raise AssertionError("contact_seed: the distance cut changed the output")
 
     size = torch.tensor(eng.gen.size, dtype=torch.float32, device=f_p.device)
     loc1 = stokes_integrate(args[0][:, :3], args[0][:, 3], f_p, torch.zeros_like(f_p),
@@ -298,6 +318,23 @@ def kernel_phase(eng, state):
     print(f"kernel {name}: rows={C} W={W} kept pairs {int(d_p.sum())} "
           f"(seed {int(seed_mask.ne(0).sum())} nonzero words) max|F|={f_scale:.6e} N "
           f"max_abs_err={f_err:.3e} N")
+    # the seed (with and without its distance cut) and the masked substep,
+    # each kernel alone per launch, in turns
+    alone_fns = {
+        "seed": (lambda: span_mask.seed_kernel(*args, law_args, cut2), "contact_mask_kernel<true"),
+        "seed without the distance cut": (
+            lambda: span_mask.seed_kernel(*args, law_args, math.inf), "contact_mask_kernel<true"),
+        "masked": (lambda: span_mask.contact_masked_cuda(*margs, m_time, **law),
+                   "contact_mask_kernel<false"),
+    }
+    alone = {}
+    for key in list(alone_fns) + list(alone_fns)[::-1]:
+        fn, kname = alone_fns[key]
+        _, prof = profile_device(fn, ALONE_LAUNCHES, (kname,))
+        ms, n = prof.get(kname, (0.0, 0.0))
+        alone.setdefault(key, []).append(round(ms / n, 5) if n else None)
+    print(f"kernel {label} span-mask substeps alone per launch (profiler, {ALONE_LAUNCHES} "
+          f"launches, in turns): {alone}")
 
     c_k = span_mask.mask_compact_cuda(args[1], args[3], m_p, K)
     c_p = span_mask.mask_compact_plain(args[1], args[3], m_p, K)
@@ -415,28 +452,38 @@ def check_ftcs(fargs, label) -> float:
     return err
 
 
-def break_shell_candidates(args, law, chunk: int = 16384) -> int:
-    """Candidates of live rows (self excluded) that the pair law keeps (d >
-    break_d, the plain pair law) and that lie beyond the search radius: the
-    only ones that reach the contact kernel's bond-membership test."""
+def walk_counts(args, law, cut2: float, chunk: int = 16384) -> dict:
+    """Candidates of live rows (self excluded) by how far the contact
+    kernels' walk takes them: ``within_cut``, those whose squared distance
+    does not pass the seed's distance cut ``cut2`` (the pair law runs for
+    them); ``membership``, those that the plain pair law keeps (d >
+    break_d) and that lie beyond the search radius, the only ones that
+    reach the bond-membership test of B6 and of the seed."""
     from hipsc_abm_tpu_torch.ops.jkr import _pair_jkr
-    from hipsc_abm_tpu_torch.ops.neighbors import bounds_window
 
     xyzr, ids, alive, bounds, _ = args
-    total = 0
-    for lo in range(0, xyzr.shape[0], chunk):
+    C = xyzr.shape[0]
+    b = bounds.to(torch.int64).view(C, -1, 2)
+    width = int(torch.clamp(b[..., 1] - b[..., 0], min=0).max())
+    k = torch.arange(max(width, 1), device=bounds.device)
+    totals = dict(within_cut=0, membership=0)
+    for lo in range(0, C, chunk):
         rows = slice(lo, lo + chunk)
-        pos, valid = bounds_window(bounds[rows])
+        # each row's runs, padded to the widest; positions index all C rows
+        pos = b[rows, :, :1] + k
+        valid = (pos < b[rows, :, 1:]).flatten(1)
+        pos = pos.clamp(0, C - 1).flatten(1)
         cand = xyzr[pos]
         me = xyzr[rows][:, None, :]
         dist2 = ((me[..., :3] - cand[..., :3]) ** 2).sum(-1)
         _, survive = _pair_jkr(me[..., :3], cand[..., :3], me[..., 3], cand[..., 3],
                                law["adhesion_const"], law["poisson"], law["youngs"],
                                law["break_d"])
-        keep = (valid & alive[rows][:, None] & (ids[pos] != ids[rows][:, None]) & survive
-                & (dist2 > float(np.float32(law["radius"]) ** 2)))
-        total += int(keep.sum())
-    return total
+        pair = valid & alive[rows][:, None] & (ids[pos] != ids[rows][:, None])
+        totals["within_cut"] += int((pair & ~(dist2 > cut2)).sum())
+        totals["membership"] += int(
+            (pair & survive & (dist2 > float(np.float32(law["radius"]) ** 2))).sum())
+    return totals
 
 
 def _window_lanes(off: torch.Tensor, width: int) -> int:

@@ -23,9 +23,8 @@
 // row's mask words, so the in-place update of the masked substep has no
 // races):
 // - seed: the contact.cu walk, with membership taken from the row's K
-//   partner ids (tested only for candidates beyond the search radius); the
-//   keep set is written as W fresh words, zero beyond the row's candidates.
-//   Runs at the scan's entry and at every rebuild.
+//   partner ids; the keep set is written as W fresh words, zero beyond the
+//   row's candidates. Runs at the scan's entry and at every rebuild.
 // - masked: the same walk, with membership taken from bit j of the mask;
 //   the new keep set overwrites the words in place. Runs on every other
 //   substep.
@@ -36,20 +35,51 @@
 // Force and degree (the untruncated keep count, the bond-capacity probe)
 // are those of contact.cu's kernel for the same bond set.
 //
-// What bounds them on the card: bytes. A row reads its 16-byte pack, id,
-// liveness and 8 bytes of bounds per run and writes 16 bytes of force and
-// degree plus 4 bytes per mask word; its candidates are neighbours in the
-// sorted order whose loads hit L1/L2, and the pair law is ~20 float32
-// operations per kept pair, far below the card's float32 rate. The masked
-// substep is where the design pays: membership is one bit test in a
-// register instead of the seed's loop over K partner ids per candidate
-// beyond the search radius, and no first-K compaction runs. In 3D, where
-// most of a row's ~220 candidates lie beyond the search radius, that loop
-// makes the seed ten times the masked substep's time (PERF.md). The TPU kernels
-// DMA'd 128-aligned spans plus chunk-major int8 mask slabs into VMEM
-// (~1.5 KB of mask per row); here each thread reads only its own run
-// slices and 4 bytes per 32 candidates of mask. The words are read and
-// written whole, coalesced across the warp.
+// What bounds the two substeps on the card: neither bytes nor arithmetic,
+// but the instructions the walk issues per candidate. The compulsory bytes
+// are a row's 16-byte pack, liveness, 8 bytes of bounds per run, 16 bytes of
+// force and degree and 4 bytes per mask word (plus K ids for the seed); a
+// row then visits its candidates (8.6 per live row in the 2D bench colony,
+// 222 over nine runs in the 3D spheroid), neighbours in the sorted order
+// whose loads hit L1, and the pair law runs only for the few that are kept.
+// Each visit is a load, the squared distance, two tests and the mask-word
+// bookkeeping, some twenty instructions. What the design does:
+// - The self test is `p == row`: live ids are unique and a row dead at the
+//   window's build has empty runs (ops/neighbors.py), so the only candidate
+//   of a live row's runs that carries its id is the row itself. The walk
+//   reads no ids: the masked substep never does, the seed only at its
+//   membership test. The row itself (distance 0) passes every other test,
+//   so the self test is asked only of the few pairs that do.
+// - The walk streams positions only, loading the float4s of kAhead
+//   candidates of a run before testing any of them (the tail re-reads the
+//   run's last candidate), so each thread has several loads in flight
+//   instead of one dependent load behind each test.
+// - The seed tests the break first, as contact.cu does: a pair that breaks
+//   gives no force and no bit, bonded or not, so the scan over the row's K
+//   partner ids runs only for candidates that survive beyond the search
+//   radius, the thin shell of about jkr_break_band (0.31 um) past it (a
+//   fraction of a candidate per row, PERF.md). Asked first, for every
+//   candidate beyond the radius (most of a row's candidates in 3D), that
+//   scan set the seed's time. Both tests must pass, so their order changes
+//   no output.
+// - On the uniform-radius path the seed also drops, before the square root
+//   of the pair law, every pair whose squared distance exceeds `cut2`
+//   (jkr_pair.cuh `jkr_breaks_beyond`), a bound computed on the host beyond
+//   which the float32 pair law certainly breaks the pair (ops/span_mask.py
+//   `break_cut2`), so no output bit changes; only the row's contacts and
+//   the break shell pass it, a few of its 222 candidates in 3D. The masked
+//   substep asks its mask bit first instead, a register test that few
+//   candidates pass.
+// - The mask words are read and written whole, coalesced across the warp.
+// Tried and dropped (PERF.md section 6): a row shared by G = 2, 4 or 8
+// lanes of a warp, each lane taking every G-th candidate of a run and the
+// row summing the kept forces in walk order through warp shuffles, was 1.8
+// to 3.9 times slower in 3D (most likely because every lane repeats the
+// per-chunk bookkeeping and the groups of one warp diverge); kAhead = 8 was
+// within the run-to-run spread of 4.
+// The TPU kernels DMA'd 128-aligned spans plus chunk-major int8 mask slabs
+// into VMEM (~1.5 KB of mask per row); here each thread reads only its own
+// run slices and 4 bytes per 32 candidates of mask.
 
 #include <cuda_runtime.h>
 
@@ -59,15 +89,19 @@ namespace {
 
 using hipsc::PairLaw;
 
+constexpr int kThreads = 128;
+// candidates of a run whose positions are loaded before the first is tested
+constexpr int kAhead = 4;
+
 template <bool kSeed, int N_RUNS>
-__global__ void contact_mask_kernel(
+__global__ void __launch_bounds__(kThreads) contact_mask_kernel(
     const float4* __restrict__ xyzr, const int* __restrict__ ids,
     const unsigned char* __restrict__ alive, const int* __restrict__ bounds,
     const int* __restrict__ partners,  // seed: (C, K) partner ids
     const unsigned* in_mask,           // masked: (W, C) words, aliased with out_mask
     unsigned* out_mask,                // (W, C) words
     float* __restrict__ force, int* __restrict__ degree, int C, int K, int W,
-    PairLaw law) {
+    PairLaw law, float cut2) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= C) return;
 
@@ -78,37 +112,55 @@ __global__ void contact_mask_kernel(
   unsigned out_word = 0;  // the current word of the new keep set
   if (alive[row]) {
     const float4 me = xyzr[row];
-    const int my_id = ids[row];
+    const int* b = bounds + (size_t)row * 2 * N_RUNS;
     const int* my_partners = kSeed ? partners + (size_t)row * K : nullptr;
     for (int r = 0; r < N_RUNS; ++r) {
-      const int lo = bounds[row * 2 * N_RUNS + 2 * r];
-      const int hi = bounds[row * 2 * N_RUNS + 2 * r + 1];
-      for (int p = lo; p < hi; ++p, ++j) {
-        const int bit = j & 31;
-        if (bit == 0) {
-          if (j > 0) {  // the previous word is complete
-            out_mask[(size_t)((j >> 5) - 1) * C + row] = out_word;
-            out_word = 0;
+      const int lo = b[2 * r];
+      const int hi = b[2 * r + 1];
+      for (int p0 = lo; p0 < hi; p0 += kAhead) {
+        float4 cand[kAhead];
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) cand[u] = xyzr[min(p0 + u, hi - 1)];
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          const int p = p0 + u;
+          if (p >= hi) break;
+          const int bit = j & 31;
+          if (bit == 0) {
+            if (j > 0) {  // the previous word is complete
+              out_mask[(size_t)((j >> 5) - 1) * C + row] = out_word;
+              out_word = 0;
+            }
+            if (!kSeed) in_word = in_mask[(size_t)(j >> 5) * C + row];
           }
-          if (!kSeed) in_word = in_mask[(size_t)(j >> 5) * C + row];
+          ++j;
+          const float4 c = cand[u];
+          const float dx = me.x - c.x;
+          const float dy = me.y - c.y;
+          const float dz = me.z - c.z;
+          const float dist2 = dx * dx + dy * dy + dz * dz;
+          bool keep;
+          if (kSeed) {
+            if (hipsc::jkr_breaks_beyond(dist2, cut2)) continue;
+            // the pair breaks: no force, no bit, whether bonded or not
+            const hipsc::PairOverlap o = hipsc::jkr_overlap(law, me, c, dist2);
+            if (!(o.d > law.break_d)) continue;
+            if (p == row) continue;  // the row itself passes both tests above
+            keep = dist2 <= law.radius2;
+            if (!keep) {
+              const int cid = ids[p];
+              for (int k = 0; k < K && !keep; ++k) keep = my_partners[k] == cid;
+            }
+            if (keep) hipsc::jkr_force(law, o, dx, dy, dz, fx, fy, fz);
+          } else {
+            keep = (dist2 <= law.radius2 || ((in_word >> bit) & 1u)) && p != row &&
+                   hipsc::jkr_pair(law, me, c, dx, dy, dz, dist2, fx, fy, fz);
+          }
+          if (keep) {
+            out_word |= 1u << bit;
+            ++count;
+          }
         }
-        const int cid = ids[p];
-        if (cid == my_id) continue;
-        const float4 c = xyzr[p];
-        const float dx = me.x - c.x;
-        const float dy = me.y - c.y;
-        const float dz = me.z - c.z;
-        const float dist2 = dx * dx + dy * dy + dz * dz;
-        bool eligible = dist2 <= law.radius2;
-        if (kSeed) {
-          for (int k = 0; k < K && !eligible; ++k) eligible = my_partners[k] == cid;
-        } else {
-          eligible = eligible || ((in_word >> bit) & 1u);
-        }
-        if (!eligible) continue;
-        if (!hipsc::jkr_pair(law, me, c, dx, dy, dz, dist2, fx, fy, fz)) continue;
-        out_word |= 1u << bit;
-        ++count;
       }
     }
   }
@@ -152,18 +204,18 @@ __global__ void mask_compact_kernel(const int* __restrict__ ids,
   for (; count < K; ++count) dst[count] = -1;
 }
 
-constexpr int kThreads = 128;
-
 int blocks_for(int C) { return (C + kThreads - 1) / kThreads; }
 
 }  // namespace
 
+// `cut2`: the seed drops pairs with a larger squared distance before the
+// pair law (+inf: none; ops/span_mask.py `break_cut2`).
 extern "C" int hipsc_contact_seed(
     const void* xyzr, const void* ids, const void* alive, const void* bounds,
     const void* partners, void* mask, void* force, void* degree, int C, int K,
     int W, int n_runs, float radius2, float break_d, int uniform, float two_r,
     float inv_scale, float fpre, float scale_c, float pi_f, float adhesion,
-    void* stream) {
+    float cut2, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
   PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
@@ -171,23 +223,23 @@ extern "C" int hipsc_contact_seed(
   kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)xyzr, (const int*)ids, (const unsigned char*)alive,
       (const int*)bounds, (const int*)partners, nullptr, (unsigned*)mask,
-      (float*)force, (int*)degree, C, K, W, law);
+      (float*)force, (int*)degree, C, K, W, law, cut2);
   return (int)cudaGetLastError();
 }
 
 extern "C" int hipsc_contact_masked(
-    const void* xyzr, const void* ids, const void* alive, const void* bounds,
-    void* mask, void* force, void* degree, int C, int W, int n_runs,
-    float radius2, float break_d, int uniform, float two_r, float inv_scale,
-    float fpre, float scale_c, float pi_f, float adhesion, void* stream) {
+    const void* xyzr, const void* alive, const void* bounds, void* mask,
+    void* force, void* degree, int C, int W, int n_runs, float radius2,
+    float break_d, int uniform, float two_r, float inv_scale, float fpre,
+    float scale_c, float pi_f, float adhesion, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
   PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
   auto kernel = n_runs == 3 ? contact_mask_kernel<false, 3> : contact_mask_kernel<false, 9>;
   kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)xyzr, (const int*)ids, (const unsigned char*)alive,
+      (const float4*)xyzr, nullptr, (const unsigned char*)alive,
       (const int*)bounds, nullptr, (const unsigned*)mask, (unsigned*)mask,
-      (float*)force, (int*)degree, C, 0, W, law);
+      (float*)force, (int*)degree, C, 0, W, law, 0.f);
   return (int)cudaGetLastError();
 }
 

@@ -1,35 +1,75 @@
-"""The id-list contact substep (B6) of two checkouts on the same state, bit
-for bit.
+"""The contact kernels of two checkouts on the same state, bit for bit.
 
-    python hipsc_abm_tpu_torch/tools/contact_ab.py dump ROOT OUT.npz [--dims 2|3]
+    python hipsc_abm_tpu_torch/tools/contact_ab.py dump ROOT OUT.npz [--dims 2|3] [--path id_list|span_mask]
     python hipsc_abm_tpu_torch/tools/contact_ab.py compare A.npz B.npz
 
 ``dump`` imports ``hipsc_abm_tpu_torch`` and ``chip_smoke`` from the
 checkout at ROOT, builds the main path's state there (``chip_smoke``'s 3D
 99k spheroid or 2D 100k bench colony after ``init_state(seed=0)`` and one
-``safe_step``, on the card), runs ``contact_substep_cuda`` once on the
-physics scan's first substep inputs, and saves inputs and outputs. Run it
-from two checkouts (for example a change and its parent, unpacked with
-``git archive``), then ``compare``: the inputs must be equal (the earlier
-steps ran the same kernels), and the forces, degrees and partner lists are
-compared element for element.
+``safe_step``, on the card), and runs the contact kernels of one path on the
+physics scan's first substep inputs:
+
+- ``id_list`` (the default): ``contact_substep_cuda`` (B6) once; saves
+  inputs, forces, degrees and partner lists;
+- ``span_mask``: the seed (B2), then the masked substep (B1) at the
+  positions the seed's forces move the rows to, with the seed's mask, then
+  the compaction (B3) of the masked substep's mask, as ``chip_smoke``'s
+  kernel phase runs them; saves inputs, the moved positions, both substeps'
+  forces, degrees and mask words, and the compacted partner ids.
+
+It also times each kernel of the path alone, per launch under
+``torch.profiler`` (20 launches after one warm-up), and saves the times
+with the card's name. Run it from two checkouts (for example a change and
+its parent, unpacked with ``git archive``), then ``compare``: the inputs
+must be equal (the earlier steps ran the same kernels) and every output is
+compared element for element, forces by their float32 bits; the times of
+both are printed side by side.
 """
 
 from __future__ import annotations
 
 import argparse
+import subprocess
 import sys
 
 import numpy as np
 
+# the kernels of each path as the profiler names them, by output prefix
+KERNELS = {
+    "id_list": {"": "contact_substep_kernel"},
+    "span_mask": {"seed_": "contact_mask_kernel<true", "": "contact_mask_kernel<false",
+                  "compact_": "mask_compact_kernel"},
+}
+TIMED_LAUNCHES = 20
 
-def dump(root: str, out: str, dims: int) -> None:
+
+def _kernel_ms(fn, name: str) -> float:
+    """Device time per launch of the kernel whose name contains ``name``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TIMED_LAUNCHES):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if name in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            total += getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+    return total / 1e3 / TIMED_LAUNCHES
+
+
+def dump(root: str, out: str, dims: int, path: str) -> None:
     sys.path.insert(0, root)
     import torch
 
     import chip_smoke
-    from hipsc_abm_tpu_torch.ops import contact
+    from hipsc_abm_tpu_torch.ops import contact, span_mask
     from hipsc_abm_tpu_torch.ops import neighbors as nbr
+    from hipsc_abm_tpu_torch.ops.integrate import stokes_integrate
     from hipsc_abm_tpu_torch.ops.jkr import pack_physics
 
     if not torch.cuda.is_available():
@@ -43,30 +83,81 @@ def dump(root: str, out: str, dims: int) -> None:
     args = (pack_physics(a["locations"][o], a["radii"][o]), a["ids"][o].contiguous(),
             alive[o].contiguous(), nbr.run_bounds(cfg.jkr_spec, grid.sorted_flat),
             state.bonds.ids()[o].contiguous())
-    force, degree, partners = contact.contact_substep_cuda(
-        *args, radius=bio.jkr_radius, adhesion_const=bio.adhesion_const,
-        poisson=bio.poisson, youngs=bio.youngs, break_d=bio.jkr_break_d,
-        uniform_radius=cfg.uniform_radius)
+    law = dict(radius=bio.jkr_radius, adhesion_const=bio.adhesion_const,
+               poisson=bio.poisson, youngs=bio.youngs, break_d=bio.jkr_break_d,
+               uniform_radius=cfg.uniform_radius)
+    saved = {f"in{i}": t for i, t in enumerate(args)}
+    K = args[4].shape[1]
+    if path == "id_list":
+        runs = {"": lambda: contact.contact_substep_cuda(*args, **law)}
+        saved["force"], saved["degree"], saved["partners"] = runs[""]()
+    else:
+        f1, d1, m1 = span_mask.contact_seed_cuda(*args, **law)
+        saved.update(seed_force=f1, seed_degree=d1, seed_mask=m1.clone())
+        size = torch.tensor(eng.gen.size, dtype=torch.float32, device=f1.device)
+        loc1 = stokes_integrate(args[0][:, :3], args[0][:, 3], f1, torch.zeros_like(f1),
+                                args[2], bio.stokes, size, float(bio.move_dt))
+        moved = (pack_physics(loc1, args[0][:, 3]), *args[1:4])
+        saved["moved"] = moved[0]
+        saved["force"], saved["degree"], mask = span_mask.contact_masked_cuda(
+            *moved, m1, **law)
+        saved["mask"] = mask.clone()
+        saved["compact"] = span_mask.mask_compact_cuda(args[1], args[3], mask, K)
+        # the masked substep at fixed positions reaches its fixed point in
+        # one launch, so repeated launches time the same work
+        runs = {"seed_": lambda: span_mask.contact_seed_cuda(*args, **law),
+                "": lambda: span_mask.contact_masked_cuda(*moved, mask, **law),
+                "compact_": lambda: span_mask.mask_compact_cuda(args[1], args[3], mask, K)}
     torch.cuda.synchronize()
-    np.savez(out, **{f"in{i}": t.cpu().numpy() for i, t in enumerate(args)},
-             force=force.cpu().numpy(), degree=degree.cpu().numpy(),
-             partners=partners.cpu().numpy())
-    print(f"contact_ab dump: {root} {dims}D rows={args[0].shape[0]} K={args[4].shape[1]} "
-          f"-> {out}")
+    arrays = {k: v.cpu().numpy() for k, v in saved.items()}
+    times = {f"{prefix}ms": _kernel_ms(fn, KERNELS[path][prefix]) for prefix, fn in runs.items()}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    np.savez(out, path=np.array(path), card=np.array(card), **arrays,
+             **{k: np.float64(v) for k, v in times.items()})
+    timed = ", ".join(f"{KERNELS[path][k[:-2]]} {v:.5f} ms" for k, v in times.items())
+    print(f"contact_ab dump: {root} {dims}D {path} rows={args[0].shape[0]} K={K} "
+          f"-> {out}; kernel alone per launch (profiler, {TIMED_LAUNCHES} launches): "
+          f"{timed} [{card}]")
+
+
+def _bits(x: np.ndarray) -> np.ndarray:
+    return x.view(np.int32) if x.dtype == np.float32 else x
 
 
 def compare(a_path: str, b_path: str) -> bool:
     a, b = np.load(a_path), np.load(b_path)
-    inputs = all(np.array_equal(a[f"in{i}"], b[f"in{i}"]) for i in range(5))
-    force = np.array_equal(a["force"].view(np.int32), b["force"].view(np.int32))
-    degree = np.array_equal(a["degree"], b["degree"])
-    partners = np.array_equal(a["partners"], b["partners"])
-    rows = int((a["partners"] != b["partners"]).any(axis=1).sum()) if not partners else 0
-    df = float(np.abs(a["force"] - b["force"]).max())
-    print(f"contact_ab compare: inputs equal {inputs}, forces bit-equal {force} "
-          f"(max |dF| {df:.3e} N), degrees equal {degree}, partner lists equal {partners} "
-          f"({rows} rows differ)")
-    return inputs and force and degree and partners
+    path = str(a["path"]) if "path" in a.files else "id_list"
+    if path != (str(b["path"]) if "path" in b.files else "id_list"):
+        print("contact_ab compare: the dumps are of different contact paths")
+        return False
+    inputs = [f"in{i}" for i in range(5)] + (["moved"] if path == "span_mask" else [])
+    outputs = (["force", "degree", "partners"] if path == "id_list" else
+               ["seed_force", "seed_degree", "seed_mask", "force", "degree", "mask", "compact"])
+    ok_in = all(a[k].shape == b[k].shape and np.array_equal(_bits(a[k]), _bits(b[k]))
+                for k in inputs)
+    report, ok = [], ok_in
+    for k in outputs:
+        same = a[k].shape == b[k].shape and np.array_equal(_bits(a[k]), _bits(b[k]))
+        ok &= same
+        note = ""
+        if not same and a[k].shape == b[k].shape:
+            if a[k].dtype == np.float32:
+                note = f" (max |d| {float(np.abs(a[k] - b[k]).max()):.3e})"
+            else:  # rows differ: (C,) and (C, K) by row, (W, C) mask words by column
+                diff = a[k] != b[k]
+                n = int((diff.any(axis=0) if k.endswith("mask") else
+                         diff.any(axis=1) if diff.ndim == 2 else diff).sum())
+                note = f" ({n} rows differ)"
+        report.append(f"{k} {'equal' if same else 'DIFFER'}{note}")
+    print(f"contact_ab compare [{path}]: inputs equal {ok_in}; {', '.join(report)}")
+    for prefix, name in KERNELS[path].items():
+        key = f"{prefix}ms"
+        if key in a.files and key in b.files:
+            print(f"  {name} alone per launch: A {float(a[key]):.5f} ms, "
+                  f"B {float(b[key]):.5f} ms")
+    return bool(ok)
 
 
 def main(argv=None) -> int:
@@ -76,12 +167,13 @@ def main(argv=None) -> int:
     d.add_argument("root")
     d.add_argument("out")
     d.add_argument("--dims", type=int, choices=(2, 3), default=3)
+    d.add_argument("--path", choices=tuple(KERNELS), default="id_list")
     c = sub.add_parser("compare")
     c.add_argument("a")
     c.add_argument("b")
     args = p.parse_args(argv)
     if args.cmd == "dump":
-        dump(args.root, args.out, args.dims)
+        dump(args.root, args.out, args.dims, args.path)
         return 0
     return 0 if compare(args.a, args.b) else 1
 

@@ -49,6 +49,7 @@ from hipsc_abm_tpu_torch.ops import jkr as tjkr
 from hipsc_abm_tpu_torch.ops import neighbors as tnbr
 from hipsc_abm_tpu_torch.ops import span_mask
 from hipsc_abm_tpu_torch.ops.integrate import stokes_integrate as tstokes
+from test_torch_span_mask import assert_self_is_row
 from test_torch_step import _assert_same_colony
 
 BIO = BiologyParams()
@@ -370,3 +371,15 @@ def test_spheroid_step_with_diffusion_matches_jax_engine():
     ts, _ = teng.safe_step(ts)
     _assert_same_colony(js, ts, "3D with diffusion", atol=1e-4)
     assert float(ts.gradients["fgf4_values"].max()) > 0
+
+
+def test_spheroid_self_is_the_only_candidate_with_the_row_id():
+    """The 3D spheroid example's configuration at 1,100 cells after one
+    ``safe_step``: over nine runs, the only candidate of a live row with the
+    row's id is the row itself (``test_torch_span_mask.assert_self_is_row``)."""
+    gen, xp, ball = _spheroid(1100)
+    eng = HipscEngine(convert.params_from_jax(gen), convert.params_from_jax(xp),
+                      device="cpu", contact_path="span_mask")
+    state, _ = eng.safe_step(eng.init_state(seed=0, locations=ball))
+    assert not eng.cfg.two_d and int(state.alive.sum()) > 1100
+    assert assert_self_is_row(eng, state) > 0

@@ -197,25 +197,56 @@ def test_cpu_wrapper_runs_plain_and_counts_no_launch():
     assert kernels.launch_counts["contact_substep"] == before
 
 
-@pytest.mark.parametrize("change", [None, "force", "partners", "in4"])
+@pytest.mark.parametrize("change", [None, "force", "partners", "in4", "span_mask",
+                                    "span_mask:seed_force", "span_mask:seed_mask",
+                                    "span_mask:mask", "span_mask:degree", "span_mask:compact",
+                                    "span_mask:moved"])
 def test_contact_ab_compare_is_bit_for_bit(tmp_path, change):
-    """``tools/contact_ab.py compare`` passes two dumps only when inputs,
-    forces, degrees and partner lists are equal; a force one ulp away fails."""
+    """``tools/contact_ab.py compare`` passes two dumps only when inputs and
+    every output are equal: on the id-list path forces, degrees and partner
+    lists; on the span-mask path both substeps' forces, degrees and mask
+    words, the compacted ids and the moved positions. A force one ulp away
+    fails, and so does one flipped mask bit."""
+    from hipsc_abm_tpu_torch.ops import span_mask
     from hipsc_abm_tpu_torch.tools import contact_ab
 
     locs, radii, ids, alive, partner_ids, jspec = _setup(8, seed=4)
     _, args = _sorted_inputs(locs, radii, ids, alive, partner_ids, jspec)
-    force, degree, partners = tcontact.contact_substep_plain(*args, **LAW)
     a = {f"in{i}": t.numpy() for i, t in enumerate(args)}
-    a.update(force=force.numpy(), degree=degree.numpy(), partners=partners.numpy())
+    path, _, field = (change or "").partition(":")
+    if path == "span_mask":
+        law = dict(uniform_radius=BIO.max_radius, **LAW)
+        f1, d1, m1 = span_mask.contact_seed_cuda(*args, **law)
+        moved = args[0].clone()
+        noise = np.random.default_rng(5).normal(0.0, 0.4, (moved.shape[0], 2))
+        moved[:, :2] += torch.from_numpy(noise.astype(np.float32))
+        a.update(path=np.array(path), seed_force=f1.numpy(), seed_degree=d1.numpy(),
+                 seed_mask=m1.numpy().copy(), moved=moved.numpy())
+        f2, d2, m2 = span_mask.contact_masked_cuda(moved, *args[1:4], m1, **law)
+        a.update(force=f2.numpy(), degree=d2.numpy(), mask=m2.numpy(),
+                 compact=span_mask.mask_compact_cuda(args[1], args[3], m2, 8).numpy(),
+                 seed_ms=np.float64(0.01), ms=np.float64(0.02))
+        assert a["mask"].any() and not np.array_equal(a["mask"], a["seed_mask"])
+    else:
+        force, degree, partners = tcontact.contact_substep_plain(*args, **LAW)
+        a.update(force=force.numpy(), degree=degree.numpy(), partners=partners.numpy())
     b = {k: v.copy() for k, v in a.items()}
-    if change == "force":
-        b["force"].flat[0] = np.nextafter(b["force"].flat[0], np.float32(1.0))
+    if change in ("force", "span_mask:seed_force"):
+        key = "force" if change == "force" else "seed_force"
+        b[key].flat[0] = np.nextafter(b[key].flat[0], np.float32(1.0))
     elif change == "partners":
         b["partners"][0, -1] = 12345
     elif change == "in4":
         b["in4"][0, 0] = 12345
+    elif field in ("seed_mask", "mask"):
+        b[field][-1, 3] ^= 1 << 5  # one bit of one word
+    elif field == "degree":
+        b["degree"][7] += 1
+    elif field == "compact":
+        b["compact"][2, 0] = -1
+    elif field == "moved":
+        b["moved"][1, 1] = np.nextafter(b["moved"][1, 1], np.float32(0.0))
     np.savez(tmp_path / "a.npz", **a)
     np.savez(tmp_path / "b.npz", **b)
     assert contact_ab.main(["compare", str(tmp_path / "a.npz"), str(tmp_path / "b.npz")]) \
-        == (0 if change is None else 1)
+        == (0 if change in (None, "span_mask") else 1)

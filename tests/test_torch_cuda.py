@@ -17,6 +17,8 @@ rtol 1e-5, atol 1e-5; P2, with the card's rsqrtf against torch.rsqrt, rtol
 1e-4, atol 1e-4 x max|out|).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -141,10 +143,11 @@ def _check_contact(f_k, d_k, f_p, d_p):
     assert torch.equal(d_k, d_p)
 
 
-@pytest.mark.parametrize("K", [8, 40])
-def test_contact_seed_kernel_matches_plain(dev, K):
+@pytest.mark.parametrize("K", [8, 24, 40])
+@pytest.mark.parametrize("uniform", [None, BIO.max_radius])
+def test_contact_seed_kernel_matches_plain(dev, K, uniform):
     args = [a.to(dev) for a in _contact_inputs(K, skin=14.0)]
-    law = dict(uniform_radius=BIO.max_radius, **LAW)
+    law = dict(uniform_radius=uniform, **LAW)
     before = kernels.launch_counts["contact_seed"]
     f_k, d_k, m_k = span_mask.contact_seed_cuda(*args, **law)
     f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **law)
@@ -155,7 +158,7 @@ def test_contact_seed_kernel_matches_plain(dev, K):
     assert int(d_p.sum()) > args[0].shape[0]
 
 
-@pytest.mark.parametrize("K", [8, 40])
+@pytest.mark.parametrize("K", [8, 24, 40])
 def test_contact_masked_kernel_matches_plain(dev, K):
     args = [a.to(dev) for a in _contact_inputs(K, skin=14.0)]
     law = dict(uniform_radius=BIO.max_radius, **LAW)
@@ -170,6 +173,55 @@ def test_contact_masked_kernel_matches_plain(dev, K):
     assert out is m_k  # in place
     _check_contact(f_k, d_k, f_p, d_p)
     assert torch.equal(m_k, m_p) and not torch.equal(m_k, mask)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_contact_seed_kernel_at_the_break_distance(dev, dims):
+    """Bonded pairs from just inside the break distance to just past the
+    seed's distance cut (``span_mask.break_cut2``), where the cut is
+    tightest: the kernel against its plain version, masks word for word.
+    Offsets within 1e-4 um of the break distance are left out: there the
+    kernel's uniform-radius law and the plain general law may round apart."""
+    law = dict(uniform_radius=BIO.max_radius, **LAW)
+    law_args = contact.pair_law_args(**law)
+    cut = math.sqrt(span_mask.break_cut2(law_args))
+    reach = law_args[3] - law_args[1] / law_args[4]
+    off = np.linspace(-4e-3, cut - reach + 4e-3, 240)
+    off = off[np.abs(off) > 1e-4]
+    assert (off > cut - reach).sum() > 10 and ((off > 0) & (off < cut - reach)).sum() > 10
+    n = len(off)
+    side = int(math.ceil(n ** (1.0 / dims)))
+    box = (40.0 * (side + 1),) * dims + (0.0,) * (3 - dims)
+    rs = np.random.default_rng(11)
+    C, K = 2 * n + 64, 24
+    locs = np.zeros((C, 3), np.float32)
+    for k in range(n):
+        cell = np.unravel_index(k, (side,) * dims)
+        base = np.zeros(3)
+        base[:dims] = 40.0 * (np.asarray(cell) + 1)
+        u = np.zeros(3)
+        u[:dims] = rs.normal(size=dims)
+        locs[2 * k] = base
+        locs[2 * k + 1] = base + (reach + off[k]) * u / np.linalg.norm(u)
+    alive = np.zeros(C, bool)
+    alive[:2 * n] = True
+    ids = rs.permutation(10 * C)[:C].astype(np.int32)
+    partners = np.full((C, K), -1, np.int32)
+    partners[0:2 * n:2, 0], partners[1:2 * n:2, 0] = ids[1:2 * n:2], ids[0:2 * n:2]
+    spec = nbr.GridSpec.from_box(box, BIO.jkr_radius + 2 * BIO.jkr_break_band + 2.0, 0)
+    t_loc = torch.from_numpy(locs)
+    g = nbr.build_grid(spec, t_loc, torch.from_numpy(ids), torch.from_numpy(alive))
+    o = g.order
+    args = [pack_physics(t_loc[o], torch.full((C,), BIO.max_radius)),
+            torch.from_numpy(ids)[o].contiguous(), torch.from_numpy(alive)[o].contiguous(),
+            nbr.run_bounds(spec, g.sorted_flat), torch.from_numpy(partners)[o].contiguous()]
+    args = [a.to(dev) for a in args]
+    f_k, d_k, m_k = span_mask.contact_seed_cuda(*args, **law)
+    f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **law)
+    torch.cuda.synchronize()
+    _check_contact(f_k, d_k, f_p, d_p)
+    assert torch.equal(m_k, m_p)
+    assert int(d_p.sum()) == 2 * int((off < 0).sum())
 
 
 @pytest.mark.parametrize("K", [8, 40])
@@ -302,7 +354,7 @@ def test_contact_kernel_3d_matches_plain(dev, K):
         assert set(a[a >= 0].tolist()) == set(b[b >= 0].tolist())
 
 
-@pytest.mark.parametrize("K", [8, 40])
+@pytest.mark.parametrize("K", [8, 24, 40])
 def test_span_mask_kernels_3d_match_plain(dev, K):
     """Seed, masked substep and compaction over nine runs, each against its
     plain version on the same inputs."""

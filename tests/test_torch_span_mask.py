@@ -14,6 +14,7 @@ integer state are exact.
 """
 
 import dataclasses
+import math
 import shutil
 
 import jax.numpy as jnp
@@ -38,6 +39,7 @@ from hipsc_abm_tpu_torch.engine import HipscEngine
 from hipsc_abm_tpu_torch.ops import jkr as tjkr
 from hipsc_abm_tpu_torch.ops import neighbors as tnbr
 from hipsc_abm_tpu_torch.ops import span_mask
+from hipsc_abm_tpu_torch.ops.contact import pair_law_args
 from test_torch_step import _assert_same_colony
 
 BIO = BiologyParams()
@@ -307,3 +309,142 @@ def test_library_path_hashes_headers(tmp_path, monkeypatch):
     assert kernels.library_path() == before
     headers[0].write_bytes(headers[0].read_bytes() + b"\n// edited\n")
     assert kernels.library_path() != before
+
+
+def assert_self_is_row(eng, state) -> int:
+    """On the contact window the engine builds from ``state``: every live
+    row's runs hold exactly one candidate with the row's id, at sorted
+    position ``row``, and every row dead at the build has no candidates.
+    The kernels' self test (``p == row``, ``csrc/contact_mask.cu``) rests on
+    this. Returns the number of dead rows checked."""
+    spec, a, alive = eng.cfg.jkr_spec, state.arrays, state.alive
+    grid = tnbr.build_grid(spec, a["locations"], a["ids"], alive)
+    sids, salive = a["ids"][grid.order], alive[grid.order]
+    pos, valid = tnbr.bounds_window(tnbr.run_bounds(spec, grid.sorted_flat))
+    same = valid & (sids[pos] == sids[:, None])
+    live = salive.nonzero().squeeze(1)
+    assert torch.equal(same[live].sum(dim=1), torch.ones_like(live))
+    at = pos[live][same[live]]
+    assert torch.equal(at, live)
+    assert int(valid[~salive].sum()) == 0
+    return int((~salive).sum())
+
+
+def test_self_is_the_only_candidate_with_the_row_id():
+    """The 2D bench configuration (reference colony density, diffusion on)
+    at 1,500 cells, after one ``safe_step``."""
+    n = 1500
+    side = 2000.0 * (n / 5000.0) ** 0.5
+    gen = GeneralParams(num_to_start=n, end_step=5, size=(side, side, 0.0))
+    xp = ExperimentalParams(num_gata6=n // 10, dox_step=1)
+    eng = HipscEngine(convert.params_from_jax(gen), convert.params_from_jax(xp),
+                      device="cpu", contact_path="span_mask")
+    state, _ = eng.safe_step(eng.init_state(seed=0))
+    assert int(state.alive.sum()) > n and assert_self_is_row(eng, state) > 0
+
+
+@pytest.mark.parametrize("max_radius, break_d", [(5.0, BIO.jkr_break_d), (3.5, -0.9),
+                                                 (5.0, 0.25)])
+def test_break_cut_drops_only_pairs_that_break(max_radius, break_d):
+    """``break_cut2``, the seed kernel's distance cut, where it is tightest:
+    every pair whose float32 squared distance exceeds it breaks, both under
+    the kernel's uniform-radius float32 arithmetic (``csrc/jkr_pair.cuh``
+    ``jkr_overlap``, emulated in numpy float32) and under the plain pair law
+    (``ops.jkr._pair_jkr``), from the first such distance on; a pair just
+    inside the break distance survives, so the cut drops almost every pair
+    that breaks. The general path has no cut."""
+    law = dict(LAW, radius=2.0 * max_radius, break_d=break_d)
+    args = pair_law_args(uniform_radius=max_radius, **law)
+    assert span_mask.break_cut2(pair_law_args(uniform_radius=None, **law)) == math.inf
+    cut2 = span_mask.break_cut2(args)
+    _, bd, _, two_r, inv_scale = (np.float32(v) for v in args[:5])
+    reach = float(two_r) - float(bd) / float(inv_scale)
+    assert reach < math.sqrt(cut2) < reach * (1 + 3e-4)
+    # the first float32 distance along x whose float32 square passes the cut
+    x = np.float32(math.sqrt(cut2))
+    while np.float32(x * x) > cut2:
+        x = np.nextafter(x, np.float32(0))
+    while not np.float32(x * x) > cut2:
+        x = np.nextafter(x, np.float32(np.inf))
+    near = x + np.arange(4096, dtype=np.float32) * np.spacing(x)
+    xs = np.concatenate([near, np.geomspace(x, 1e4, 2048).astype(np.float32)])
+    dist2 = xs * xs
+    assert dist2.dtype == np.float32 and bool((dist2 > np.float32(cut2)).all())
+    d = (two_r - np.sqrt(dist2)) * inv_scale
+    assert d.dtype == np.float32 and bool((d <= bd).all())
+    inside = np.float32(reach * (1 - 1e-4))
+    xs = torch.from_numpy(np.append(xs, inside))
+    loc_j = torch.stack([xs, torch.zeros_like(xs), torch.zeros_like(xs)], dim=1)
+    rad = torch.full_like(xs, max_radius)
+    _, survive = tjkr._pair_jkr(torch.zeros_like(loc_j), loc_j, rad, rad,
+                                law["adhesion_const"], law["poisson"], law["youngs"], break_d)
+    assert not bool(survive[:-1].any()) and bool(survive[-1])
+    assert float((two_r - np.sqrt(inside * inside)) * inv_scale) > float(bd)
+
+
+def _pallas_seed(locs, radii, ids, alive, partner_ids, jspec):
+    """The JAX seed (``contact_substep_ids_to_mask``, interpret mode) on the
+    sorted rows: ``(order, force and degree (C, 4))``."""
+    C = locs.shape[0]
+    jgrid = jnbr.build_grid(jspec, jnp.asarray(locs), jnp.asarray(ids), jnp.asarray(alive))
+    order = np.asarray(jgrid.order)
+    packed = jjkr.pack_physics(jnp.asarray(locs), jnp.asarray(radii), jnp.asarray(ids),
+                               jnp.asarray(alive))
+    packed = packed[order].at[:, 6].set(jgrid.sorted_flat.astype(jnp.float32))
+    _, _, span_needed, _ = jnbr.block_span_plan(jspec, jgrid.sorted_flat, 128, span=C,
+                                                capacity=C, chunk=C)
+    span = min(-(-int(span_needed) // 128) * 128, C)
+    starts, needs, _, _ = jnbr.block_span_plan(jspec, jgrid.sorted_flat, 128, span=span,
+                                               capacity=C, chunk=128)
+    fd, _ = contact_substep_ids_to_mask(
+        packed, jnp.asarray(partner_ids.astype(np.float32))[order], starts, needs,
+        block=128, span=span, run_offs=jspec.flat_run_offsets, chunk=128,
+        uniform_radius=BIO.max_radius, interpret=True, **LAW)
+    return order, np.asarray(fd)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_seed_keeps_a_bond_beyond_the_search_radius(dims):
+    """Four pairs, far apart: bonded beyond the search radius inside the
+    break distance (kept only through the partner ids: the kernel's
+    membership scan), the same distance unbonded (dropped), bonded beyond
+    the break distance (breaks), and unbonded within the radius (a fresh
+    contact). The port's seed against the JAX seed on the same rows."""
+    C, K = 128, 8
+    r, band = BIO.jkr_radius, BIO.jkr_break_band
+    gaps = (r + 0.6 * band, r + 0.6 * band, r + 1.5 * band, 0.9 * r)
+    box = (150.0, 150.0, 150.0 if dims == 3 else 0.0)
+    locs = np.zeros((C, 3), np.float32)
+    for k, gap in enumerate(gaps):
+        base = np.array([30.0 + 40.0 * (k % 2), 30.0 + 40.0 * (k // 2),
+                         60.0 if dims == 3 else 0.0], np.float32)
+        step = np.array([0.6, 0.0, 0.8] if dims == 3 else [0.6, 0.8, 0.0], np.float32)
+        locs[2 * k], locs[2 * k + 1] = base, base + np.float32(gap) * step
+    alive = np.zeros(C, bool)
+    alive[:8] = True
+    ids = np.random.default_rng(7).permutation(4 * C)[:C].astype(np.int32)
+    radii = np.full(C, BIO.max_radius, np.float32)
+    partner_ids = np.full((C, K), -1, np.int32)
+    for a, b in ((0, 1), (4, 5)):  # the bonded pairs
+        partner_ids[a, 0], partner_ids[b, 0] = ids[b], ids[a]
+    jspec = jnbr.GridSpec.from_box(box, CELL, run_cap=64)
+    order, fd = _pallas_seed(locs, radii, ids, alive, partner_ids, jspec)
+
+    tspec = tnbr.GridSpec(**dataclasses.asdict(jspec))
+    grid = tnbr.build_grid(tspec, torch.from_numpy(locs), torch.from_numpy(ids),
+                           torch.from_numpy(alive))
+    o = grid.order
+    np.testing.assert_array_equal(o.numpy(), order)
+    bounds = tnbr.run_bounds(tspec, grid.sorted_flat)
+    sids = torch.from_numpy(ids)[o].contiguous()
+    f, d, mask = span_mask.contact_seed_cuda(
+        tjkr.pack_physics(torch.from_numpy(locs)[o], torch.from_numpy(radii)[o]), sids,
+        torch.from_numpy(alive)[o].contiguous(), bounds,
+        torch.from_numpy(partner_ids)[o].contiguous(), uniform_radius=BIO.max_radius, **LAW)
+    np.testing.assert_allclose(f.numpy(), fd[:, :3], rtol=1e-4, atol=1e-13)
+    np.testing.assert_array_equal(d.numpy(), fd[:, 3].astype(np.int32))
+    inv = np.argsort(order)
+    np.testing.assert_array_equal(d.numpy()[inv][:8], [1, 1, 0, 0, 0, 0, 1, 1])
+    kept = span_mask.mask_compact_cuda(sids, bounds, mask, K).numpy()[inv]
+    assert kept[0, 0] == ids[1] and kept[1, 0] == ids[0]
+    assert float(np.abs(f.numpy()[inv][0]).max()) > 0  # the kept bond pulls
