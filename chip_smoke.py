@@ -15,11 +15,10 @@ Phases, each of which raises on failure (exit code != 0):
    ``safe_step``, the 3D (9-run) forms at the 99k-cell spheroid after the
    same; the span-mask kernels run as the scan runs them: seed, then a
    masked substep at the positions the seed's forces move the rows to, then
-   the compaction; the seed (with and without its distance cut, which must
-   change no bit) and the masked substep also each alone per launch under
-   ``torch.profiler``, in turns, with the candidates per live row that
-   pass the cut and that reach the membership test; FTCS also on fixed
-   halos beside the plan's;
+   the compaction; the seed and the masked substep also each alone per
+   launch under ``torch.profiler``, in turns, with the candidates per live
+   row that reach the membership test; FTCS also on fixed halos beside the
+   plan's;
 3. probes: each mode of the window probes P1 and P2 against its plain
    version at NBLK = 4096, the kernel's own device time per launch under
    ``torch.profiler``, then each probe's entry point
@@ -47,7 +46,6 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 
 import dataclasses
 import json
-import math
 import os
 import subprocess
 import sys
@@ -248,18 +246,17 @@ def kernel_phase(eng, state):
     bad = sum(x != y for x, y in zip(sets_k, sets_p))
     if bad:
         raise AssertionError(f"contact: bond sets differ on {bad} rows")
-    row_bytes = 16 + 4 + 1 + 8 * n_runs  # xyzr, id, alive, bounds
+    # per row: xyzr, alive, bounds (B6 also reads the row's id; B1 and B2
+    # take the row itself by position)
+    row_bytes = 16 + 1 + 8 * n_runs
     name = entry(
         "contact_substep", "contact.cu", "hipsc_abm_tpu/ops/pallas_contact.py:79",
         max_abs_err=f_err,
         ms=cuda_ms(lambda: contact.contact_substep_cuda(*args, **law), 50),
         plain_ms=cuda_ms(lambda: contact.contact_substep_plain(*args, **law), 10),
-        **bound(C * (row_bytes + 8 * K + 16), contact_flops(args[3], args[2], d_p)))
+        **bound(C * (row_bytes + 4 + 8 * K + 16), contact_flops(args[3], args[2], d_p)))
     live = max(1, int(args[2].sum()))
-    law_args = contact.pair_law_args(*(law[k] for k in (
-        "radius", "adhesion_const", "poisson", "youngs", "break_d", "uniform_radius")))
-    cut2 = span_mask.break_cut2(law_args)
-    walk = walk_counts(args, law, cut2)
+    walk = membership_counts(args, law)
     print(f"kernel {name}: rows={C} runs={n_runs} K={K} mean candidates per live row "
           f"{int(span_mask.candidate_counts(args[3])[args[2]].sum()) / live:.2f}, "
           f"of which survive the break test beyond the search radius (reach the "
@@ -278,24 +275,21 @@ def kernel_phase(eng, state):
         raise AssertionError("contact_seed: mask words differ")
     W = m_p.shape[0]
     seed_mask = m_p.clone()
+    # the seed reads the K partner ids of a row, and a candidate's id, only
+    # where a candidate reaches the membership test
     name = entry(
         "contact_seed", "contact_mask.cu", "hipsc_abm_tpu/ops/pallas_contact.py:697",
         max_abs_err=f_err,
         ms=cuda_ms(lambda: span_mask.contact_seed_cuda(*args, **law), 50),
         plain_ms=cuda_ms(lambda: span_mask.contact_seed_plain(*args, **law), 10),
-        **bound(C * (row_bytes + 4 * K + 16 + 4 * W), contact_flops(args[3], args[2], d_p)))
+        **bound(C * (row_bytes + 16 + 4 * W) + 4 * K * walk["rows"] + 4 * walk["membership"],
+                contact_flops(args[3], args[2], d_p)))
     print(f"kernel {name}: rows={C} K={K} widest row M="
           f"{int(span_mask.candidate_counts(args[3]).max())} candidates -> W={W} words "
           f"({4 * W * C / 1e6:.3f} MB mask) max|F|={f_scale:.6e} N max_abs_err={f_err:.3e} N; "
-          f"per live row, candidates within the distance cut (sqrt(cut2) = "
-          f"{cut2 ** 0.5:.6f} um) {walk['within_cut'] / live:.3f}, reaching the membership "
-          f"test {walk['membership'] / live:.3f} (the same inputs as {kernels.counted_name('contact_substep', n_runs)})")
-    # the distance cut changes no bit
-    f_n, d_n, m_n = span_mask.seed_kernel(*args, law_args, math.inf)
-    torch.cuda.synchronize()
-    if not (torch.equal(f_n.view(torch.int32), f_k.view(torch.int32)) and torch.equal(d_n, d_k)
-            and torch.equal(m_n, m_k)):
-        raise AssertionError("contact_seed: the distance cut changed the output")
+          f"per live row, candidates reaching the membership test "
+          f"{walk['membership'] / live:.3f}, rows with one or more {walk['rows'] / live:.3f} "
+          f"(the same inputs as {kernels.counted_name('contact_substep', n_runs)})")
 
     size = torch.tensor(eng.gen.size, dtype=torch.float32, device=f_p.device)
     loc1 = stokes_integrate(args[0][:, :3], args[0][:, 3], f_p, torch.zeros_like(f_p),
@@ -318,12 +312,9 @@ def kernel_phase(eng, state):
     print(f"kernel {name}: rows={C} W={W} kept pairs {int(d_p.sum())} "
           f"(seed {int(seed_mask.ne(0).sum())} nonzero words) max|F|={f_scale:.6e} N "
           f"max_abs_err={f_err:.3e} N")
-    # the seed (with and without its distance cut) and the masked substep,
-    # each kernel alone per launch, in turns
+    # the seed and the masked substep, each kernel alone per launch, in turns
     alone_fns = {
-        "seed": (lambda: span_mask.seed_kernel(*args, law_args, cut2), "contact_mask_kernel<true"),
-        "seed without the distance cut": (
-            lambda: span_mask.seed_kernel(*args, law_args, math.inf), "contact_mask_kernel<true"),
+        "seed": (lambda: span_mask.contact_seed_cuda(*args, **law), "contact_mask_kernel<true"),
         "masked": (lambda: span_mask.contact_masked_cuda(*margs, m_time, **law),
                    "contact_mask_kernel<false"),
     }
@@ -452,13 +443,12 @@ def check_ftcs(fargs, label) -> float:
     return err
 
 
-def walk_counts(args, law, cut2: float, chunk: int = 16384) -> dict:
-    """Candidates of live rows (self excluded) by how far the contact
-    kernels' walk takes them: ``within_cut``, those whose squared distance
-    does not pass the seed's distance cut ``cut2`` (the pair law runs for
-    them); ``membership``, those that the plain pair law keeps (d >
-    break_d) and that lie beyond the search radius, the only ones that
-    reach the bond-membership test of B6 and of the seed."""
+def membership_counts(args, law, chunk: int = 16384) -> dict:
+    """Candidates of live rows (self excluded) that the plain pair law
+    keeps (d > break_d) and that lie beyond the search radius, the only
+    ones that reach the bond-membership test of B6 and of the seed:
+    ``membership``, their number, and ``rows``, the rows with one or
+    more."""
     from hipsc_abm_tpu_torch.ops.jkr import _pair_jkr
 
     xyzr, ids, alive, bounds, _ = args
@@ -466,7 +456,7 @@ def walk_counts(args, law, cut2: float, chunk: int = 16384) -> dict:
     b = bounds.to(torch.int64).view(C, -1, 2)
     width = int(torch.clamp(b[..., 1] - b[..., 0], min=0).max())
     k = torch.arange(max(width, 1), device=bounds.device)
-    totals = dict(within_cut=0, membership=0)
+    totals = dict(membership=0, rows=0)
     for lo in range(0, C, chunk):
         rows = slice(lo, lo + chunk)
         # each row's runs, padded to the widest; positions index all C rows
@@ -480,9 +470,9 @@ def walk_counts(args, law, cut2: float, chunk: int = 16384) -> dict:
                                law["adhesion_const"], law["poisson"], law["youngs"],
                                law["break_d"])
         pair = valid & alive[rows][:, None] & (ids[pos] != ids[rows][:, None])
-        totals["within_cut"] += int((pair & ~(dist2 > cut2)).sum())
-        totals["membership"] += int(
-            (pair & survive & (dist2 > float(np.float32(law["radius"]) ** 2))).sum())
+        reach = pair & survive & (dist2 > float(np.float32(law["radius"]) ** 2))
+        totals["membership"] += int(reach.sum())
+        totals["rows"] += int(reach.any(dim=1).sum())
     return totals
 
 

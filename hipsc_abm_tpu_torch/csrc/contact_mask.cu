@@ -38,7 +38,8 @@
 // What bounds the two substeps on the card: neither bytes nor arithmetic,
 // but the instructions the walk issues per candidate. The compulsory bytes
 // are a row's 16-byte pack, liveness, 8 bytes of bounds per run, 16 bytes of
-// force and degree and 4 bytes per mask word (plus K ids for the seed); a
+// force and degree and 4 bytes per mask word (plus, for the seed, the K
+// partner ids of a row where a candidate reaches its membership test); a
 // row then visits its candidates (8.6 per live row in the 2D bench colony,
 // 222 over nine runs in the 3D spheroid), neighbours in the sorted order
 // whose loads hit L1, and the pair law runs only for the few that are kept.
@@ -61,22 +62,18 @@
 //   fraction of a candidate per row, PERF.md). Asked first, for every
 //   candidate beyond the radius (most of a row's candidates in 3D), that
 //   scan set the seed's time. Both tests must pass, so their order changes
-//   no output.
-// - On the uniform-radius path the seed also drops, before the square root
-//   of the pair law, every pair whose squared distance exceeds `cut2`
-//   (jkr_pair.cuh `jkr_breaks_beyond`), a bound computed on the host beyond
-//   which the float32 pair law certainly breaks the pair (ops/span_mask.py
-//   `break_cut2`), so no output bit changes; only the row's contacts and
-//   the break shell pass it, a few of its 222 candidates in 3D. The masked
-//   substep asks its mask bit first instead, a register test that few
-//   candidates pass.
+//   no output. The masked substep asks its mask bit first instead, a
+//   register test that few candidates pass.
 // - The mask words are read and written whole, coalesced across the warp.
 // Tried and dropped (PERF.md section 6): a row shared by G = 2, 4 or 8
 // lanes of a warp, each lane taking every G-th candidate of a run and the
 // row summing the kept forces in walk order through warp shuffles, was 1.8
 // to 3.9 times slower in 3D (most likely because every lane repeats the
 // per-chunk bookkeeping and the groups of one warp diverge); kAhead = 8 was
-// within the run-to-run spread of 4.
+// within the run-to-run spread of 4; a host-computed squared-distance cut
+// that dropped certainly-breaking pairs before the pair law's square root
+// took 22% off the 3D seed alone, some 0.05 ms of a 5 ms device step, for
+// a second entry point and its own proof of bit-equality.
 // The TPU kernels DMA'd 128-aligned spans plus chunk-major int8 mask slabs
 // into VMEM (~1.5 KB of mask per row); here each thread reads only its own
 // run slices and 4 bytes per 32 candidates of mask.
@@ -101,7 +98,7 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
     const unsigned* in_mask,           // masked: (W, C) words, aliased with out_mask
     unsigned* out_mask,                // (W, C) words
     float* __restrict__ force, int* __restrict__ degree, int C, int K, int W,
-    PairLaw law, float cut2) {
+    PairLaw law) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= C) return;
 
@@ -141,7 +138,6 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
           const float dist2 = dx * dx + dy * dy + dz * dz;
           bool keep;
           if (kSeed) {
-            if (hipsc::jkr_breaks_beyond(dist2, cut2)) continue;
             // the pair breaks: no force, no bit, whether bonded or not
             const hipsc::PairOverlap o = hipsc::jkr_overlap(law, me, c, dist2);
             if (!(o.d > law.break_d)) continue;
@@ -208,14 +204,12 @@ int blocks_for(int C) { return (C + kThreads - 1) / kThreads; }
 
 }  // namespace
 
-// `cut2`: the seed drops pairs with a larger squared distance before the
-// pair law (+inf: none; ops/span_mask.py `break_cut2`).
 extern "C" int hipsc_contact_seed(
     const void* xyzr, const void* ids, const void* alive, const void* bounds,
     const void* partners, void* mask, void* force, void* degree, int C, int K,
     int W, int n_runs, float radius2, float break_d, int uniform, float two_r,
     float inv_scale, float fpre, float scale_c, float pi_f, float adhesion,
-    float cut2, void* stream) {
+    void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
   PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
@@ -223,7 +217,7 @@ extern "C" int hipsc_contact_seed(
   kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)xyzr, (const int*)ids, (const unsigned char*)alive,
       (const int*)bounds, (const int*)partners, nullptr, (unsigned*)mask,
-      (float*)force, (int*)degree, C, K, W, law, cut2);
+      (float*)force, (int*)degree, C, K, W, law);
   return (int)cudaGetLastError();
 }
 
@@ -239,7 +233,7 @@ extern "C" int hipsc_contact_masked(
   kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)xyzr, nullptr, (const unsigned char*)alive,
       (const int*)bounds, nullptr, (const unsigned*)mask, (unsigned*)mask,
-      (float*)force, (int*)degree, C, 0, W, law, 0.f);
+      (float*)force, (int*)degree, C, 0, W, law);
   return (int)cudaGetLastError();
 }
 

@@ -82,16 +82,6 @@ __device__ __forceinline__ void jkr_force(const PairLaw& law,
   }
 }
 
-// Whether a pair at squared distance dist2 certainly breaks because it lies
-// beyond `cut2`: on the uniform-radius path the overlap d falls as the
-// distance grows, and the host computes `cut2` (ops/span_mask.py
-// `break_cut2`) with a margin far above float32 rounding, so every pair
-// dropped here is one that `jkr_overlap` would give d <= break_d. A NaN
-// distance is not dropped and takes the pair law's own path.
-__device__ __forceinline__ bool jkr_breaks_beyond(float dist2, float cut2) {
-  return dist2 > cut2;
-}
-
 // One eligible pair (row `me`, candidate `c`, offset (dx, dy, dz) = me - c,
 // squared distance dist2). Returns whether the bond survives; a survivor's
 // force on the row agent is added to (fx, fy, fz).

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "hipsc_ftcs_diffuse": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _P),
     "hipsc_contact_seed": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _F, _F, _I, _F, _F, _F, _F, _F, _F, _F, _P),
+                           _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
     "hipsc_contact_masked": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
     "hipsc_mask_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _P),

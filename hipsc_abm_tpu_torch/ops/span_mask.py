@@ -32,21 +32,20 @@ and the mask is 5.2 MB (C = 128,768; ``chip_smoke.py`` on an NVIDIA H100
   mask. Runs at the scan's entry and at every rebuild. It reads ``M`` from
   the bounds to size the mask: one host read per call. The kernel tests the
   pair law's break before membership, so it scans the K partner ids only
-  for pairs that survive beyond the search radius, and on the
-  uniform-radius path drops pairs beyond ``break_cut2`` before the pair law.
+  for pairs that survive beyond the search radius.
 - ``contact_masked`` (B1): membership from the mask; the new keep set is
   written back into the same mask tensor (in place, on both paths).
+- ``mask_compact`` (B3): the mask back to (C, K) partner ids, the first K
+  set bits in candidate order, ``NO_BOND`` padded. Runs before each re-sort
+  and at the scan's exit. More set bits than K truncate; the degree probe of
+  the substeps then exceeds K and ``HipscEngine.safe_step`` grows K and
+  re-executes the step before any result depends on the truncation.
 
 The kernels take a candidate for the row itself when its sorted position
 equals the row's (the plain versions compare ids): live ids are unique, and
 rows dead at the window's build have empty runs (``neighbors.run_bounds``),
 so the two tests agree on every row the engine gives them. The kernels' walk
 therefore reads no ids except at the seed's membership test.
-- ``mask_compact`` (B3): the mask back to (C, K) partner ids, the first K
-  set bits in candidate order, ``NO_BOND`` padded. Runs before each re-sort
-  and at the scan's exit. More set bits than K truncate; the degree probe of
-  the substeps then exceeds K and ``HipscEngine.safe_step`` grows K and
-  re-executes the step before any result depends on the truncation.
 
 Each wrapper runs the plain version for a CPU tensor and launches the kernel
 for a CUDA tensor (or raises); ``kernels.launch_counts`` counts launches,
@@ -55,21 +54,14 @@ the 3D forms under the names with ``_3d`` appended.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from hipsc_abm_tpu_torch import kernels
 from hipsc_abm_tpu_torch.ops import jkr as jkr_ops
 from hipsc_abm_tpu_torch.ops.contact import pair_law_args
 from hipsc_abm_tpu_torch.ops.neighbors import bounds_window
-
-# the seed's distance cut lies this far beyond the break distance, relative
-# to the pair law's terms (``break_cut2``): ~1 nm at the default radii, some
-# 1,000 times float32's rounding of them
-CUT_MARGIN = 1e-4
 
 
 def candidate_counts(bounds: torch.Tensor) -> torch.Tensor:
@@ -163,29 +155,6 @@ def mask_compact_plain(ids, bounds, mask, bond_cap: int) -> torch.Tensor:
     return out
 
 
-def break_cut2(law_args) -> float:
-    """The seed kernel's distance cut: a squared distance beyond which the
-    float32 pair law certainly breaks a pair, from the kernel's constants
-    (``contact.pair_law_args``); ``inf`` (no cut) off the uniform-radius
-    path.
-
-    The uniform law's overlap ``d = (two_r - mag) * inv_scale`` falls as
-    the distance ``mag`` grows and equals ``break_d`` at ``reach = two_r -
-    break_d / inv_scale``. The cut lies ``CUT_MARGIN`` of the terms' scale
-    beyond ``reach`` (computed in double) and is rounded up to float32:
-    float32 rounding of the square root, the difference and the product
-    moves ``d`` by a few units of 2^-24 of that scale, far less, so every
-    pair beyond the cut has ``d <= break_d`` and the cut changes no bit."""
-    _, break_d, uniform, two_r, inv_scale = law_args[:5]
-    if not uniform or not inv_scale > 0:
-        return math.inf
-    reach = two_r - break_d / inv_scale
-    if not reach > 0:
-        return math.inf
-    cut = reach + CUT_MARGIN * (two_r + abs(break_d) / inv_scale)
-    return float(np.nextafter(np.float32(cut * cut), np.float32(np.inf)))
-
-
 def _check_rows(xyzr, ids, alive, bounds):
     C = xyzr.shape[0]
     kernels.check_cuda("xyzr", xyzr, torch.float32, (C, 4))
@@ -208,26 +177,11 @@ def contact_seed_cuda(
     youngs, break_d, uniform_radius: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The seed substep. A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel (or raises), with the distance cut of
-    ``break_cut2``."""
+    launches the kernel (or raises)."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius)
     if xyzr.device.type == "cpu":
         return contact_seed_plain(xyzr, ids, alive, bounds, partners, **kw)
-    law_args = pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
-                             uniform_radius)
-    out = seed_kernel(xyzr, ids, alive, bounds, partners, law_args, break_cut2(law_args))
-    kernels.launch_counts[kernels.counted_name("contact_seed", kernels.run_count(bounds))] += 1
-    return out
-
-
-def seed_kernel(xyzr, ids, alive, bounds, partners, law_args, cut2: float
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One launch of the seed kernel on CUDA tensors, with the pair-law
-    constants ``law_args`` (``contact.pair_law_args``) and an explicit
-    distance cut ``cut2`` (``math.inf``: none). Not counted in
-    ``launch_counts``: ``contact_seed_cuda`` is the entry point, and this
-    lets a measurement time the kernel without the cut."""
     C, n_runs = _check_rows(xyzr, ids, alive, bounds)
     K = partners.shape[1] if partners.dim() == 2 else 0
     kernels.check_cuda("partners", partners, torch.int32, (C, K))
@@ -241,8 +195,10 @@ def seed_kernel(xyzr, ids, alive, bounds, partners, law_args, cut2: float
         "hipsc_contact_seed",
         xyzr.data_ptr(), ids.data_ptr(), alive.data_ptr(), bounds.data_ptr(),
         partners.data_ptr(), mask.data_ptr(), force.data_ptr(), degree.data_ptr(),
-        C, K, W, n_runs, *law_args, float(cut2),
+        C, K, W, n_runs, *pair_law_args(radius, adhesion_const, poisson, youngs,
+                                        break_d, uniform_radius),
     )
+    kernels.launch_counts[kernels.counted_name("contact_seed", n_runs)] += 1
     return force, degree, mask
 
 

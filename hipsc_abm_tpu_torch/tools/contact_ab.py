@@ -18,12 +18,13 @@ physics scan's first substep inputs:
   forces, degrees and mask words, and the compacted partner ids.
 
 It also times each kernel of the path alone, per launch under
-``torch.profiler`` (20 launches after one warm-up), and saves the times
-with the card's name. Run it from two checkouts (for example a change and
-its parent, unpacked with ``git archive``), then ``compare``: the inputs
-must be equal (the earlier steps ran the same kernels) and every output is
-compared element for element, forces by their float32 bits; the times of
-both are printed side by side.
+``torch.profiler`` (``chip_smoke.profile_device``, 20 launches after the
+run whose outputs are saved), and saves the times with the card's name.
+Run it from two checkouts (for example a change and its parent, unpacked
+with ``git archive``), then ``compare``: the inputs must be equal (the
+earlier steps ran the same kernels) and every output is compared element
+for element, forces by their float32 bits; the times of both are printed
+side by side.
 """
 
 from __future__ import annotations
@@ -41,25 +42,6 @@ KERNELS = {
                   "compact_": "mask_compact_kernel"},
 }
 TIMED_LAUNCHES = 20
-
-
-def _kernel_ms(fn, name: str) -> float:
-    """Device time per launch of the kernel whose name contains ``name``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(TIMED_LAUNCHES):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if name in e.key:
-            t = getattr(e, "self_device_time_total", None)
-            total += getattr(e, "self_cuda_time_total", 0.0) if t is None else t
-    return total / 1e3 / TIMED_LAUNCHES
 
 
 def dump(root: str, out: str, dims: int, path: str) -> None:
@@ -110,7 +92,12 @@ def dump(root: str, out: str, dims: int, path: str) -> None:
                 "compact_": lambda: span_mask.mask_compact_cuda(args[1], args[3], mask, K)}
     torch.cuda.synchronize()
     arrays = {k: v.cpu().numpy() for k, v in saved.items()}
-    times = {f"{prefix}ms": _kernel_ms(fn, KERNELS[path][prefix]) for prefix, fn in runs.items()}
+    times = {}
+    for prefix, fn in runs.items():
+        name = KERNELS[path][prefix]
+        _, prof = chip_smoke.profile_device(fn, TIMED_LAUNCHES, (name,))
+        ms, launches = prof.get(name, (0.0, 0.0))
+        times[f"{prefix}ms"] = ms / launches if launches else float("nan")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]

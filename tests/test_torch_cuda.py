@@ -175,25 +175,15 @@ def test_contact_masked_kernel_matches_plain(dev, K):
     assert torch.equal(m_k, m_p) and not torch.equal(m_k, mask)
 
 
-@pytest.mark.parametrize("dims", [2, 3])
-def test_contact_seed_kernel_at_the_break_distance(dev, dims):
-    """Bonded pairs from just inside the break distance to just past the
-    seed's distance cut (``span_mask.break_cut2``), where the cut is
-    tightest: the kernel against its plain version, masks word for word.
-    Offsets within 1e-4 um of the break distance are left out: there the
-    kernel's uniform-radius law and the plain general law may round apart."""
-    law = dict(uniform_radius=BIO.max_radius, **LAW)
-    law_args = contact.pair_law_args(**law)
-    cut = math.sqrt(span_mask.break_cut2(law_args))
-    reach = law_args[3] - law_args[1] / law_args[4]
-    off = np.linspace(-4e-3, cut - reach + 4e-3, 240)
-    off = off[np.abs(off) > 1e-4]
-    assert (off > cut - reach).sum() > 10 and ((off > 0) & (off < cut - reach)).sum() > 10
-    n = len(off)
+def _pair_rows(gaps, bonded, dims, K=24):
+    """Seed inputs, sorted, for pairs far apart: pair k at distance
+    ``gaps[k]`` along a random direction, bonded where ``bonded[k]``, and 64
+    dead slots after them."""
+    n = len(gaps)
     side = int(math.ceil(n ** (1.0 / dims)))
     box = (40.0 * (side + 1),) * dims + (0.0,) * (3 - dims)
     rs = np.random.default_rng(11)
-    C, K = 2 * n + 64, 24
+    C = 2 * n + 64
     locs = np.zeros((C, 3), np.float32)
     for k in range(n):
         cell = np.unravel_index(k, (side,) * dims)
@@ -202,26 +192,63 @@ def test_contact_seed_kernel_at_the_break_distance(dev, dims):
         u = np.zeros(3)
         u[:dims] = rs.normal(size=dims)
         locs[2 * k] = base
-        locs[2 * k + 1] = base + (reach + off[k]) * u / np.linalg.norm(u)
+        locs[2 * k + 1] = base + gaps[k] * u / np.linalg.norm(u)
     alive = np.zeros(C, bool)
     alive[:2 * n] = True
     ids = rs.permutation(10 * C)[:C].astype(np.int32)
     partners = np.full((C, K), -1, np.int32)
-    partners[0:2 * n:2, 0], partners[1:2 * n:2, 0] = ids[1:2 * n:2], ids[0:2 * n:2]
+    first = 2 * np.flatnonzero(bonded)
+    partners[first, 0], partners[first + 1, 0] = ids[first + 1], ids[first]
     spec = nbr.GridSpec.from_box(box, BIO.jkr_radius + 2 * BIO.jkr_break_band + 2.0, 0)
     t_loc = torch.from_numpy(locs)
     g = nbr.build_grid(spec, t_loc, torch.from_numpy(ids), torch.from_numpy(alive))
     o = g.order
-    args = [pack_physics(t_loc[o], torch.full((C,), BIO.max_radius)),
+    return [pack_physics(t_loc[o], torch.full((C,), BIO.max_radius)),
             torch.from_numpy(ids)[o].contiguous(), torch.from_numpy(alive)[o].contiguous(),
             nbr.run_bounds(spec, g.sorted_flat), torch.from_numpy(partners)[o].contiguous()]
+
+
+def _seed_against_plain(dev, args):
+    """The seed kernel against its plain version, masks word for word;
+    returns the plain degrees."""
+    law = dict(uniform_radius=BIO.max_radius, **LAW)
     args = [a.to(dev) for a in args]
     f_k, d_k, m_k = span_mask.contact_seed_cuda(*args, **law)
     f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **law)
     torch.cuda.synchronize()
     _check_contact(f_k, d_k, f_p, d_p)
     assert torch.equal(m_k, m_p)
+    return d_p
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_contact_seed_kernel_at_the_break_distance(dev, dims):
+    """Bonded pairs from just inside to just past the break distance, beyond
+    the search radius: the seed's break test decides each, and only the
+    survivors reach its membership scan. Offsets within 1e-4 um of the
+    break distance are left out: there the kernel's uniform-radius law and
+    the plain general law may round apart."""
+    law_args = contact.pair_law_args(uniform_radius=BIO.max_radius, **LAW)
+    reach = law_args[3] - law_args[1] / law_args[4]
+    assert reach - 4e-3 > BIO.jkr_radius
+    off = np.linspace(-4e-3, 4e-3, 240)
+    off = off[np.abs(off) > 1e-4]
+    assert (off > 0).sum() > 10 and (off < 0).sum() > 10
+    d_p = _seed_against_plain(dev, _pair_rows(reach + off, np.ones(len(off), bool), dims))
     assert int(d_p.sum()) == 2 * int((off < 0).sum())
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_contact_seed_kernel_keeps_a_bond_beyond_the_search_radius(dev, dims):
+    """The four pairs of ``test_torch_span_mask``'s bonded-pair test: bonded
+    beyond the search radius inside the break distance (kept only through
+    the kernel's membership scan), the same unbonded (dropped), bonded
+    beyond the break distance (breaks), unbonded within the radius (kept)."""
+    r, band = BIO.jkr_radius, BIO.jkr_break_band
+    gaps = (r + 0.6 * band, r + 0.6 * band, r + 1.5 * band, 0.9 * r)
+    args = _pair_rows(gaps, np.array([True, False, True, False]), dims)
+    d_p = _seed_against_plain(dev, args)
+    assert int(d_p.sum()) == 4 and int(d_p.max()) == 1
 
 
 @pytest.mark.parametrize("K", [8, 40])

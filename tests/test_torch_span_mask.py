@@ -14,7 +14,6 @@ integer state are exact.
 """
 
 import dataclasses
-import math
 import shutil
 
 import jax.numpy as jnp
@@ -39,7 +38,6 @@ from hipsc_abm_tpu_torch.engine import HipscEngine
 from hipsc_abm_tpu_torch.ops import jkr as tjkr
 from hipsc_abm_tpu_torch.ops import neighbors as tnbr
 from hipsc_abm_tpu_torch.ops import span_mask
-from hipsc_abm_tpu_torch.ops.contact import pair_law_args
 from test_torch_step import _assert_same_colony
 
 BIO = BiologyParams()
@@ -343,45 +341,6 @@ def test_self_is_the_only_candidate_with_the_row_id():
     assert int(state.alive.sum()) > n and assert_self_is_row(eng, state) > 0
 
 
-@pytest.mark.parametrize("max_radius, break_d", [(5.0, BIO.jkr_break_d), (3.5, -0.9),
-                                                 (5.0, 0.25)])
-def test_break_cut_drops_only_pairs_that_break(max_radius, break_d):
-    """``break_cut2``, the seed kernel's distance cut, where it is tightest:
-    every pair whose float32 squared distance exceeds it breaks, both under
-    the kernel's uniform-radius float32 arithmetic (``csrc/jkr_pair.cuh``
-    ``jkr_overlap``, emulated in numpy float32) and under the plain pair law
-    (``ops.jkr._pair_jkr``), from the first such distance on; a pair just
-    inside the break distance survives, so the cut drops almost every pair
-    that breaks. The general path has no cut."""
-    law = dict(LAW, radius=2.0 * max_radius, break_d=break_d)
-    args = pair_law_args(uniform_radius=max_radius, **law)
-    assert span_mask.break_cut2(pair_law_args(uniform_radius=None, **law)) == math.inf
-    cut2 = span_mask.break_cut2(args)
-    _, bd, _, two_r, inv_scale = (np.float32(v) for v in args[:5])
-    reach = float(two_r) - float(bd) / float(inv_scale)
-    assert reach < math.sqrt(cut2) < reach * (1 + 3e-4)
-    # the first float32 distance along x whose float32 square passes the cut
-    x = np.float32(math.sqrt(cut2))
-    while np.float32(x * x) > cut2:
-        x = np.nextafter(x, np.float32(0))
-    while not np.float32(x * x) > cut2:
-        x = np.nextafter(x, np.float32(np.inf))
-    near = x + np.arange(4096, dtype=np.float32) * np.spacing(x)
-    xs = np.concatenate([near, np.geomspace(x, 1e4, 2048).astype(np.float32)])
-    dist2 = xs * xs
-    assert dist2.dtype == np.float32 and bool((dist2 > np.float32(cut2)).all())
-    d = (two_r - np.sqrt(dist2)) * inv_scale
-    assert d.dtype == np.float32 and bool((d <= bd).all())
-    inside = np.float32(reach * (1 - 1e-4))
-    xs = torch.from_numpy(np.append(xs, inside))
-    loc_j = torch.stack([xs, torch.zeros_like(xs), torch.zeros_like(xs)], dim=1)
-    rad = torch.full_like(xs, max_radius)
-    _, survive = tjkr._pair_jkr(torch.zeros_like(loc_j), loc_j, rad, rad,
-                                law["adhesion_const"], law["poisson"], law["youngs"], break_d)
-    assert not bool(survive[:-1].any()) and bool(survive[-1])
-    assert float((two_r - np.sqrt(inside * inside)) * inv_scale) > float(bd)
-
-
 def _pallas_seed(locs, radii, ids, alive, partner_ids, jspec):
     """The JAX seed (``contact_substep_ids_to_mask``, interpret mode) on the
     sorted rows: ``(order, force and degree (C, 4))``."""
@@ -406,10 +365,12 @@ def _pallas_seed(locs, radii, ids, alive, partner_ids, jspec):
 @pytest.mark.parametrize("dims", [2, 3])
 def test_seed_keeps_a_bond_beyond_the_search_radius(dims):
     """Four pairs, far apart: bonded beyond the search radius inside the
-    break distance (kept only through the partner ids: the kernel's
-    membership scan), the same distance unbonded (dropped), bonded beyond
-    the break distance (breaks), and unbonded within the radius (a fresh
-    contact). The port's seed against the JAX seed on the same rows."""
+    break distance (kept only through the partner ids), the same distance
+    unbonded (dropped), bonded beyond the break distance (breaks), and
+    unbonded within the radius (a fresh contact). The plain seed, which the
+    wrapper runs for CPU tensors, against the JAX seed on the same rows; the
+    kernel's membership scan is held to the plain seed on this state in
+    ``test_torch_cuda.py``."""
     C, K = 128, 8
     r, band = BIO.jkr_radius, BIO.jkr_break_band
     gaps = (r + 0.6 * band, r + 0.6 * band, r + 1.5 * band, 0.9 * r)
