@@ -15,10 +15,13 @@ Phases, each of which raises on failure (exit code != 0):
    ``safe_step``, the 3D (9-run) forms at the 99k-cell spheroid after the
    same; the span-mask kernels run as the scan runs them: seed, then a
    masked substep at the positions the seed's forces move the rows to, then
-   the compaction; the seed and the masked substep also each alone per
-   launch under ``torch.profiler``, in turns, with the candidates per live
-   row that reach the membership test; FTCS also on fixed halos beside the
-   plan's;
+   the compaction; the bio moments on the engine's own calls of one more
+   step (recorded, so that deaths and births since the build are present),
+   every mode on the motility call's inputs, and each engine call's device
+   time and device launches, glue included; the seed, the masked substep,
+   the compaction and the bio moments also each alone per launch under
+   ``torch.profiler``, in turns, with the candidates per live row that
+   reach the membership test; FTCS also on fixed halos beside the plan's;
 3. probes: each mode of the window probes P1 and P2 against its plain
    version at NBLK = 4096, the kernel's own device time per launch under
    ``torch.profiler``, then each probe's entry point
@@ -29,6 +32,8 @@ Phases, each of which raises on failure (exit code != 0):
    each contact path, and the span-mask step against the id-list step on
    the card; then 4 ``safe_step``s of the 3,300-cell spheroid (the 3D
    example's configuration) on the CPU and on the card, both paths;
+   then two runs of 20 ``safe_step``s of the 100k bench colony with
+   FGF4 field coupling on, from one seed, equal by agent id;
 5. main paths: the bench configuration at 100k and 500k cells (2D) and the
    spheroid at 99k cells (3D), ``init_state(seed=0)``, 3 ``safe_step``
    warm-ups and 20 timed ``step``s, twice per contact path in turns
@@ -214,6 +219,7 @@ def kernel_phase(eng, state):
     from hipsc_abm_tpu_torch.ops import neighbors as nbr
     from hipsc_abm_tpu_torch.ops.integrate import stokes_integrate
     from hipsc_abm_tpu_torch.ops.jkr import pack_physics
+    from hipsc_abm_tpu_torch.tools.contact_ab import device_kernels, kernel_ms, record_bio_calls
 
     cfg, bio, diff = eng.cfg, eng.bio, eng.diff
     a, alive = state.arrays, state.alive
@@ -312,20 +318,14 @@ def kernel_phase(eng, state):
     print(f"kernel {name}: rows={C} W={W} kept pairs {int(d_p.sum())} "
           f"(seed {int(seed_mask.ne(0).sum())} nonzero words) max|F|={f_scale:.6e} N "
           f"max_abs_err={f_err:.3e} N")
-    # the seed and the masked substep, each kernel alone per launch, in turns
+    # each kernel alone per launch, in turns, after B4 below
     alone_fns = {
         "seed": (lambda: span_mask.contact_seed_cuda(*args, **law), "contact_mask_kernel<true"),
         "masked": (lambda: span_mask.contact_masked_cuda(*margs, m_time, **law),
                    "contact_mask_kernel<false"),
+        "compact": (lambda: span_mask.mask_compact_cuda(args[1], args[3], m_p, K),
+                    "mask_compact_kernel"),
     }
-    alone = {}
-    for key in list(alone_fns) + list(alone_fns)[::-1]:
-        fn, kname = alone_fns[key]
-        _, prof = profile_device(fn, ALONE_LAUNCHES, (kname,))
-        ms, n = prof.get(kname, (0.0, 0.0))
-        alone.setdefault(key, []).append(round(ms / n, 5) if n else None)
-    print(f"kernel {label} span-mask substeps alone per launch (profiler, {ALONE_LAUNCHES} "
-          f"launches, in turns): {alone}")
 
     c_k = span_mask.mask_compact_cuda(args[1], args[3], m_p, K)
     c_p = span_mask.mask_compact_plain(args[1], args[3], m_p, K)
@@ -333,50 +333,72 @@ def kernel_phase(eng, state):
     if not torch.equal(c_k, c_p):
         raise AssertionError(f"mask_compact: ids differ on "
                              f"{int((c_k != c_p).any(dim=1).sum())} rows")
+    # per row its bounds and K ids out; the mask words that hold its
+    # candidates; one id read per id written
+    words = int(torch.clamp((span_mask.candidate_counts(args[3]) + 31) // 32, max=W).sum())
+    bonds = int((c_k >= 0).sum())
     name = entry(
         "mask_compact", "contact_mask.cu", "hipsc_abm_tpu/ops/pallas_contact.py:877",
         max_abs_err=0.0,
         ms=cuda_ms(lambda: span_mask.mask_compact_cuda(args[1], args[3], m_p, K), 50),
         plain_ms=cuda_ms(lambda: span_mask.mask_compact_plain(args[1], args[3], m_p, K), 10),
-        **bound(C * (4 + 8 * n_runs + 4 * W + 4 * K), 0.0))
-    print(f"kernel {name}: rows={C} K={K} W={W} bonds={int((c_k >= 0).sum())}, "
-          f"ids equal row for row")
+        **bound(C * (8 * n_runs + 4 * K) + 4 * words + 4 * bonds, 0.0))
+    print(f"kernel {name}: rows={C} K={K} W={W} mask words read {words} "
+          f"({words / C:.3f} per row) bonds={bonds}, ids equal row for row")
 
-    # B4 bio moments: the step's radius-15 graph, all four modes
-    grid = nbr.build_grid(cfg.nbr_spec, a["locations"], a["ids"], alive)
-    o = grid.order
-    loc = a["locations"][o]
-    flat = grid.sorted_flat.to(torch.int32).contiguous()
-    pack = bio_moments.make_pack(loc, loc, a["GATA6"][o], a["NANOG"][o], a["states"][o],
-                                 cfg.two_d)
-    bounds = nbr.run_bounds(cfg.nbr_spec, grid.sorted_flat)
-    kw = dict(num_bins=cfg.nbr_spec.num_bins, radius=bio.neighbor_radius)
+    # B4 bio moments: the engine's own calls of one more step, recorded (the
+    # motility call's inputs hold the deaths and births since the build),
+    # the motility call's inputs in all four modes
+    calls = record_bio_calls(eng, state)
+    b_args, b_kw = calls[2]
+    pos0, b_alive, bounds = b_args[:3]
     err = 0.0
     for mode in ("count", "pathway", "motility", "full"):
-        m_k = bio_moments.bio_moments_cuda(pack, flat, bounds, mode=mode, **kw)
-        m_p = bio_moments.bio_moments_plain(pack, flat, bounds, mode=mode, **kw)
+        kw = dict(b_kw, mode=mode)
+        b_k = bio_moments.bio_moments_cuda(*b_args, **kw)
+        b_p = bio_moments.bio_moments_plain(*b_args, **kw)
         counts = [0, 3, 7]
-        if not torch.equal(m_k[:, counts], m_p[:, counts]):
+        if not torch.equal(b_k[:, counts], b_p[:, counts]):
             raise AssertionError(f"bio_moments[{mode}]: count lanes differ")
-        torch.testing.assert_close(m_k, m_p, rtol=1e-5, atol=1e-4)
-        err = max(err, float((m_k - m_p).abs().max()))
-    # operations in mode full: a distance test per candidate (6 in 2D, 9 in
-    # 3D), and per neighbour the pathway sums (3) and motility sums (10 in
-    # 2D, 13 in 3D)
-    candidates = int(span_mask.candidate_counts(bounds)[alive[o]].sum())
+        torch.testing.assert_close(b_k, b_p, rtol=1e-5, atol=1e-4)
+        err = max(err, float((b_k - b_p).abs().max()))
+    full = dict(b_kw, mode="full")
+    # bytes in mode full: per row its build-time position, liveness, bounds,
+    # current position, three features and 16 lanes out; operations: a
+    # distance test per candidate (6 in 2D, 9 in 3D), and per neighbour the
+    # pathway sums (3) and motility sums (10 in 2D, 13 in 3D)
+    candidates = int(span_mask.candidate_counts(bounds)[b_alive].sum())
     dist_ops, nbr_ops = (6, 13) if cfg.two_d else (9, 16)
+    C = pos0.shape[0]
     name = entry(
         "bio_moments", "bio_moments.cu", "hipsc_abm_tpu/ops/pallas_bio.py:58",
         max_abs_err=err,
-        ms=cuda_ms(lambda: bio_moments.bio_moments_cuda(pack, flat, bounds, mode="full", **kw), 50),
-        plain_ms=cuda_ms(lambda: bio_moments.bio_moments_plain(pack, flat, bounds, mode="full", **kw), 10),
-        **bound(C * (4 * pack.shape[1] + 4 + 8 * n_runs + 4 * bio_moments.OUT_LANES),
-                dist_ops * candidates + nbr_ops * float(m_p[:, 0].sum())))
-    live = max(1, int(alive.sum()))
-    print(f"kernel {name}: rows={pack.shape[0]} pack lanes={pack.shape[1]} "
-          f"mean candidates per live row {candidates / live:.2f}, "
-          f"mean neighbours={float(m_k[:, 0].sum()) / live:.3f} "
-          f"max_abs_err={err:.3e} (all four modes)")
+        ms=cuda_ms(lambda: bio_moments.bio_moments_cuda(*b_args, **full), 50),
+        plain_ms=cuda_ms(lambda: bio_moments.bio_moments_plain(*b_args, **full), 10),
+        **bound(C * (16 + 1 + 8 * n_runs + 12 + 12 + 4 * bio_moments.OUT_LANES),
+                dist_ops * candidates + nbr_ops * float(b_p[:, 0].sum())))
+    live = max(1, int(b_alive.sum()))
+    print(f"kernel {name}: rows={C} mean candidates per live row {candidates / live:.2f}, "
+          f"mean neighbours={float(b_k[:, 0].sum()) / live:.3f} "
+          f"max_abs_err={err:.3e} (all four modes, on the step's motility call)")
+    # the engine's whole bio-moments work of one step: each call as the
+    # engine makes it (device ms and device launches, glue included) and
+    # the glue made once per step
+    per_call = [device_kernels(lambda a=a, k=k: bio_moments.bio_moments_cuda(*a, **k),
+                               ALONE_LAUNCHES) for a, k in calls]
+    loc0 = pos0[:, :3].contiguous()
+    glue = device_kernels(lambda: bio_moments.positions(loc0), ALONE_LAUNCHES)
+    print(f"kernel {name} engine calls (count, pathway, motility; device ms, device launches "
+          f"per call, profiler): "
+          + ", ".join(f"{ms:.5f} ms / {n:g} {sorted(names)}" for ms, n, names in per_call)
+          + f"; per step: positions {glue[0]:.5f} ms / {glue[1]:g} {sorted(glue[2])}")
+    alone_fns["bio"] = (lambda: bio_moments.bio_moments_cuda(*b_args, **full),
+                        "bio_moments_kernel")
+    alone = {}
+    for key in list(alone_fns) + list(alone_fns)[::-1]:
+        alone.setdefault(key, []).append(round(kernel_ms(*alone_fns[key], ALONE_LAUNCHES), 5))
+    print(f"kernel {label} alone per launch (profiler, {ALONE_LAUNCHES} launches, in turns; "
+          f"bio in mode full): {alone}")
 
     # B5 FTCS: one step's whole subcycle schedule on the step's lattice (2D
     # bench only), one launch per call
@@ -403,10 +425,8 @@ def kernel_phase(eng, state):
         plan = ftcs.ftcs_plan(*lattice.shape, limits["n_sm"], limits["smem_optin"])
         alone = {}
         for halo in (0,) + FTCS_HALOS + FTCS_HALOS[::-1] + (0,):
-            _, prof = profile_device(lambda: ftcs.ftcs_diffuse_cuda(*fargs, halo=halo), 10,
-                                     ("ftcs_diffuse_kernel",))
-            ms, n = prof.get("ftcs_diffuse_kernel", (0.0, 0.0))
-            alone.setdefault(halo, []).append(round(ms / n, 5) if n else None)
+            alone.setdefault(halo, []).append(round(kernel_ms(
+                lambda: ftcs.ftcs_diffuse_cuda(*fargs, halo=halo), "ftcs_diffuse_kernel", 10), 5))
         print(f"kernel ftcs_diffuse: plan {plan} ({plan.ctas} CTAs, {plan.smem_bytes} bytes "
               f"of shared memory each); kernel alone per launch by halo (profiler, 10 "
               f"launches, in turns; 0 = the plan's): {alone}")
@@ -492,6 +512,7 @@ def probe_phase() -> list:
     from hipsc_abm_tpu_torch import kernels
     from hipsc_abm_tpu_torch.tools import dynslice_probe as p1
     from hipsc_abm_tpu_torch.tools import dynslice_probe2 as p2
+    from hipsc_abm_tpu_torch.tools.contact_ab import device_kernels
 
     results = []
     for probe in (p1, p2):
@@ -531,7 +552,7 @@ def probe_phase() -> list:
             # the kernel's own device time per launch: the entry point's
             # CUDA-event time also holds the host's launch path
             kname = f"{name}_kernel"
-            _, prof = profile_device(lambda: probe.probe_cuda(*inputs, mode), 10, (kname,))
+            _, _, prof = device_kernels(lambda: probe.probe_cuda(*inputs, mode), 10, (kname,))
             kernel_ms = prof[kname][0] / prof[kname][1] if kname in prof else None
             kernels.launch_counts.clear()
             (run,) = probe.main([mode])
@@ -650,6 +671,51 @@ def step_phase_3d(steps: int = 4):
           f"max|dloc|={dloc:.3e} um, bond rows differing={bond_rows}")
 
 
+def coupling_phase(steps: int = 20) -> None:
+    """Reproducibility with ``DiffusionParams.field_coupling`` on: two runs
+    of the 2D bench configuration at ``N_MAIN`` cells from one seed,
+    ``steps`` ``safe_step``s each, compared by agent id. With coupling on,
+    the lattice (whose FGF4 deposit sums with atomics in no fixed order)
+    feeds the integer FDS update through ``floor((1 + g) * field)``, so
+    integer state and positions must come out equal. The bench's release
+    (0.01 per cell and step) alone would keep the field far below the
+    floor's first boundary, so both runs start from one lattice drawn
+    uniform in [0, max_concentration) from the seed, with degradation off so
+    that the field stays in that range for all the steps."""
+    from hipsc_abm_tpu_torch import convert
+
+    runs = []
+    for _ in range(2):
+        eng = bench_engine(N_MAIN, "cuda")
+        eng.diff = dataclasses.replace(eng.diff, field_coupling=True, degradation=0.0)
+        state = eng.init_state(seed=SEED)
+        g = state.gradients["fgf4_values"]
+        lattice = (np.random.default_rng(SEED).random(tuple(g.shape), dtype=np.float32)
+                   * np.float32(eng.diff.max_concentration))
+        state = state._replace(gradients={"fgf4_values": torch.from_numpy(lattice).to(g.device)})
+        for _ in range(steps):
+            state, _ = eng.safe_step(state)
+        torch.cuda.synchronize()
+        runs.append(convert.state_to_numpy(state))
+    a, b = by_id(runs[0]), by_id(runs[1])
+    label = f"coupling phase ({N_MAIN} cells, {steps} safe_steps, two runs)"
+    if not np.array_equal(a["ids"], b["ids"]):
+        raise AssertionError(f"{label}: agent id sets differ")
+    ints = [k for k in ("FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states", "death_counters",
+                        "diff_counters", "div_counters", "fds_counters")
+            if not np.array_equal(a[k], b[k])]
+    loc_equal = np.array_equal(a["locations"].view(np.int32), b["locations"].view(np.int32))
+    la, lb = (r["gradients"]["fgf4_values"] for r in runs)
+    lat_diff = int((la.view(np.int32) != lb.view(np.int32)).sum())
+    print(f"{label}: {len(a['ids'])} agents; integer fields differing {ints or 'none'}; "
+          f"positions bit-equal {loc_equal}; lattice points differing in bits {lat_diff} of "
+          f"{la.size} (max |d| {float(np.abs(la - lb).max()):.3e}); lattice mean "
+          f"{float(la.mean()):.4f}, min {float(la.min()):.4f}, max {float(la.max()):.4f}")
+    if ints or not loc_equal:
+        raise AssertionError(f"{label}: the two runs part (integer fields {ints}, positions "
+                             f"bit-equal {loc_equal})")
+
+
 def timed_run(dims: int, n_cells: int, path: str):
     """init_state(seed=0), 3 safe_step warm-ups, TIMED_STEPS timed steps,
     each on the host clock up to a synchronise; returns the engine, the
@@ -678,41 +744,20 @@ def timed_run(dims: int, n_cells: int, path: str):
                             rebuilds_per_step=float(sum(int(r) for r in rebuilds)) / TIMED_STEPS)
 
 
-def profile_device(fn, calls: int, names) -> tuple:
-    """Device time per call of ``fn`` under ``torch.profiler`` over
-    ``calls`` calls: ``(all ms, {short name: (ms, launches)})``, the second
-    for each kernel whose name contains one of ``names``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, by_kernel = 0.0, {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        total += t
-        for short in names:
-            if short in e.key:
-                ms, n = by_kernel.get(short, (0.0, 0.0))
-                by_kernel[short] = (ms + t / 1e3 / calls, n + e.count / calls)
-    return total / 1e3 / calls, by_kernel
-
-
 def device_ms_per_step(eng, state, steps: int = 2) -> dict:
     """Device time per step under ``torch.profiler`` over ``steps`` more
     steps: ``{"all": ms, "contact": ms, "by_kernel": {short name: [ms,
     launches]}}``, ``by_kernel`` each hand-written kernel's own time and
     launches per step and ``contact`` the contact kernels' sum; empty where
     the profiler saw no device time."""
+    from hipsc_abm_tpu_torch.tools.contact_ab import device_kernels
+
     carry = [state]
 
     def step():
         carry[0], _ = eng.step(carry[0])
 
-    total, by_kernel = profile_device(step, steps, CONTACT_KERNELS + OTHER_KERNELS)
+    total, _, by_kernel = device_kernels(step, steps, CONTACT_KERNELS + OTHER_KERNELS)
     if total <= 0:
         return {}
     return {"all": total,
@@ -812,6 +857,7 @@ def main() -> int:
 
     step_phase()
     step_phase_3d()
+    coupling_phase()
     # each main path runs the contact paths in turns (id_list, span_mask,
     # span_mask, id_list) so that neither gains from running second
     runs = [(dims, n, path, main_path(dims, n, path))

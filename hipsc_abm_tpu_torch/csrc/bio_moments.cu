@@ -1,16 +1,14 @@
 // Radius-15 neighbourhood moments for the biology phases.
 //
 // Replaces: hipsc_abm_tpu/ops/pallas_bio.py `_bio_kernel` via
-// `bio_reduce_pallas` (B4), in both of its forms (8-lane pack and 3 runs in
-// 2D, 16-lane pack and 9 runs in 3D); the plain twin is
-// hipsc_abm_tpu/engine.py `make_bio_moments_xla`.
+// `bio_reduce_pallas` (B4), in both of its forms (3 runs in 2D, 9 runs in
+// 3D); the plain twin is hipsc_abm_tpu/engine.py `make_bio_moments_xla`.
 //
 // What it computes, per sorted row i: walk the row's build-time stencil runs
 // [lo_r, hi_r) (sorted positions, ascending; N_RUNS = 3 in 2D, 9 in 3D). A
-// candidate p counts if p != i, its flat bin id is live (< num_bins; the
-// caller re-sentinels agents that died since the build), the row's own flat
-// id is live, and |loc0_p - loc0_i|^2 <= radius^2 on the build-time
-// positions. Output lanes (16 floats per row):
+// candidate p counts if p != i, p and i are both alive now, and
+// |pos0_p - pos0_i|^2 <= radius^2 on the build-time positions. Output lanes
+// (16 floats per row):
 //   0 count, 1 sum f0, 2 sum f0^2,
 //   3 count(f1 > f0), 4-6 sum of (loc1_p - loc1_i) over those,
 //   7 count(f2 != 0), 8-10 sum of (loc1_p - loc1_i) over those, 11-15 zero
@@ -18,131 +16,166 @@
 // `mode` trims the work to the lanes a phase reads: 0 count, 1 pathway
 // (lanes 0-2), 2 motility (lanes 0 and 3-10), 3 full.
 //
-// Pack rows. 2D: 8 floats, two float4 loads, [x0 y0 x1 y1 | f0 f1 f2 0].
-// 3D: 12 floats (48 bytes, so every row starts 16-byte aligned), three
-// float4 loads, [x0 y0 z0 f0 | x1 y1 z1 f1 | f2 0 0 0]. The TPU's 3D pack is
-// 16 lanes because its DMA tiles want a power of two; here the layout
-// follows the modes instead: the distance test needs only the first float4,
-// and the pathway mode finds f0 in the same load, so the count and pathway
-// passes read 16 bytes per candidate and only motility reads all 48.
+// Inputs. The kernel reads what the step already holds: the build-time
+// positions as float4 rows (x, y, z, 0; made once per step), the current
+// liveness (1 byte per row), the run bounds as int2 pairs, and, only in the
+// modes that use them, the current positions (C, 3) and the features as the
+// engine's int32 columns (converted to float32 as the plain version does).
+// Liveness replaces the build-time bin ids the caller used to re-sentinel
+// before every call: run_bounds gives a row dead at the build empty runs,
+// so every candidate inside a run was alive at the build, and "alive now"
+// is exactly "live bin id and not killed since". A daughter born since the
+// build is alive now but has empty runs, so it counts nobody and nobody
+// counts it, as before. No pack and no re-sentineled copy is built per call.
 //
 // What bounds it on the card: a row's candidates lie in a few neighbouring
-// bins (3.8 per live row at the 2D bench colony's density, 53 over the 27
-// bins of the 3D spheroid, chip_smoke.py's 100k and 99k states): load
-// latency and cache traffic, not arithmetic. The TPU kernel DMA'd
-// 128-aligned spans of the sorted pack into VMEM per block of rows; here
-// each thread reads only its own run slices, and the rows of a warp are
-// sorted neighbours whose runs overlap, so the reads are served from L1/L2.
+// bins (3.8 per live row at the 2D bench colony's density, 52 over the 27
+// bins of the 3D spheroid, chip_smoke.py's 100k and 99k states), neighbours
+// in the sorted order whose loads hit L1: the latency of the loads and the
+// instructions issued per candidate, not bytes or arithmetic. In 2D the
+// kernel now runs within 1.5x of its bytes; in 3D it stays ~4.5x, most of
+// it in the motility mode's loads per neighbour (7.8 per live row: three
+// feature columns and the current position, each a load of its own), which
+// take the 3D motility pass to 1.8x the count pass (PERF.md). What the
+// design does:
+// - each row's bounds come in as N_RUNS int2 loads, all issued before the
+//   walk, not two dependent scalar loads at the start of every run;
+// - the walk loads the positions and liveness of kAhead candidates of a
+//   run before testing any of them (the tail re-reads the run's last
+//   candidate), so a thread has several loads in flight instead of one
+//   dependent chain per candidate; the features and current positions are
+//   loaded only for the candidates within the radius, all at once;
+// - the block's rows (contiguous in the output) are staged in shared
+//   memory and written with one coalesced pass of float4 stores (in 2D 15%
+//   faster than four float4 stores per thread at a 64-byte stride, in 3D
+//   the same).
+// Candidate order and every float32 operation are those of the earlier
+// kernel (built with --fmad=false), so the lanes are bit-equal to it.
+// Tried and dropped (PERF.md section 6, each bit-equal): 8 candidates ahead
+// (3D 30-50% slower, 2D 5%); the chunk's neighbours found first and their
+// feature loads issued together (3D 10-30% slower, 2D 8-15%); each run's
+// bounds loaded at its start (within the spread).
+// The TPU kernel DMA'd 128-aligned spans of the sorted pack into VMEM per
+// block of rows; here each thread reads only its own run slices.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kThreads = 128;
+// candidates of a run whose positions are loaded before the first is tested
+constexpr int kAhead = 4;
+
 template <int N_RUNS>
-__global__ void bio_moments_kernel(const float4* __restrict__ pack,
-                                   const int* __restrict__ flat,
-                                   const int* __restrict__ bounds,
-                                   float* __restrict__ out, int C,
-                                   int num_bins, float radius2, int mode) {
+__global__ void __launch_bounds__(kThreads) bio_moments_kernel(
+    const float4* __restrict__ pos0, const unsigned char* __restrict__ alive,
+    const int2* __restrict__ bounds, const float* __restrict__ loc1,
+    const int* __restrict__ f0, const int* __restrict__ f1,
+    const int* __restrict__ f2, float4* __restrict__ out, int C, float radius2,
+    int mode) {
   constexpr bool k3D = N_RUNS == 9;
-  constexpr int kRow = k3D ? 3 : 2;  // float4s per pack row
+  __shared__ float4 stage[kThreads * 4];  // the block's rows, 16 lanes each
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= C) return;
   const bool want_f0 = mode == 1 || mode == 3;
   const bool want_disp = mode == 2 || mode == 3;
 
   float count = 0.f, sf0 = 0.f, sf0sq = 0.f;
   float ca = 0.f, ax = 0.f, ay = 0.f, az = 0.f;
   float cb = 0.f, bx = 0.f, by = 0.f, bz = 0.f;
-  if (flat[row] < num_bins) {
-    // 2D: x0, y0, x1, y1; 3D: x0, y0, z0, f0 and x1, y1, z1, f1
-    const float4 me = pack[kRow * (size_t)row];
-    const float4 me1 = k3D ? pack[kRow * (size_t)row + 1] : me;
+  if (row < C && alive[row]) {
+    int2 b[N_RUNS];
+#pragma unroll
+    for (int r = 0; r < N_RUNS; ++r) b[r] = bounds[(size_t)row * N_RUNS + r];
+    const float4 me = pos0[row];
+    float mx = 0.f, my = 0.f, mz = 0.f;  // the row's current position
+    if (want_disp) {
+      mx = loc1[3 * (size_t)row];
+      my = loc1[3 * (size_t)row + 1];
+      if (k3D) mz = loc1[3 * (size_t)row + 2];
+    }
+#pragma unroll
     for (int r = 0; r < N_RUNS; ++r) {
-      const int lo = bounds[row * 2 * N_RUNS + 2 * r];
-      const int hi = bounds[row * 2 * N_RUNS + 2 * r + 1];
-      for (int p = lo; p < hi; ++p) {
-        if (p == row || flat[p] >= num_bins) continue;
-        const float4 c = pack[kRow * (size_t)p];
-        const float dx0 = c.x - me.x;
-        const float dy0 = c.y - me.y;
-        float dist2 = dx0 * dx0 + dy0 * dy0;
-        if (k3D) {
-          const float dz0 = c.z - me.z;
-          dist2 = dist2 + dz0 * dz0;
+      const int lo = b[r].x;
+      const int hi = b[r].y;
+      for (int p0 = lo; p0 < hi; p0 += kAhead) {
+        float4 c[kAhead];
+        unsigned char live[kAhead];
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          const int q = min(p0 + u, hi - 1);
+          c[u] = pos0[q];
+          live[u] = alive[q];
         }
-        if (dist2 > radius2) continue;
-        count += 1.f;
-        if (!(want_f0 || want_disp)) continue;
-        float f0 = 0.f, f1 = 0.f, f2 = 0.f, ddx = 0.f, ddy = 0.f, ddz = 0.f;
-        if (k3D) {
-          f0 = c.w;
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          const int p = p0 + u;
+          if (p >= hi) break;
+          if (p == row || !live[u]) continue;
+          const float dx0 = c[u].x - me.x;
+          const float dy0 = c[u].y - me.y;
+          float dist2 = dx0 * dx0 + dy0 * dy0;
+          if (k3D) {
+            const float dz0 = c[u].z - me.z;
+            dist2 = dist2 + dz0 * dz0;
+          }
+          if (dist2 > radius2) continue;
+          count += 1.f;
+          if (!(want_f0 || want_disp)) continue;
+          const float g0 = (float)f0[p];
+          if (want_f0) {
+            sf0 += g0;
+            sf0sq += g0 * g0;
+          }
           if (want_disp) {
-            const float4 c1 = pack[3 * (size_t)p + 1];  // x1, y1, z1, f1
-            f1 = c1.w;
-            f2 = pack[3 * (size_t)p + 2].x;
-            ddx = c1.x - me1.x;
-            ddy = c1.y - me1.y;
-            ddz = c1.z - me1.z;
-          }
-        } else {
-          const float4 f = pack[2 * (size_t)p + 1];  // f0, f1, f2, 0
-          f0 = f.x;
-          f1 = f.y;
-          f2 = f.z;
-          ddx = c.z - me.z;
-          ddy = c.w - me.w;
-        }
-        if (want_f0) {
-          sf0 += f0;
-          sf0sq += f0 * f0;
-        }
-        if (want_disp) {
-          if (f1 > f0) {
-            ca += 1.f;
-            ax += ddx;
-            ay += ddy;
-            az += ddz;
-          }
-          if (f2 != 0.f) {
-            cb += 1.f;
-            bx += ddx;
-            by += ddy;
-            bz += ddz;
+            const float g1 = (float)f1[p];
+            const float g2 = (float)f2[p];
+            const float ddx = loc1[3 * (size_t)p] - mx;
+            const float ddy = loc1[3 * (size_t)p + 1] - my;
+            const float ddz = k3D ? loc1[3 * (size_t)p + 2] - mz : 0.f;
+            if (g1 > g0) {
+              ca += 1.f;
+              ax += ddx;
+              ay += ddy;
+              az += ddz;
+            }
+            if (g2 != 0.f) {
+              cb += 1.f;
+              bx += ddx;
+              by += ddy;
+              bz += ddz;
+            }
           }
         }
       }
     }
   }
-  float* o = out + (size_t)row * 16;
-  o[0] = count;
-  o[1] = sf0;
-  o[2] = sf0sq;
-  o[3] = ca;
-  o[4] = ax;
-  o[5] = ay;
-  o[6] = az;
-  o[7] = cb;
-  o[8] = bx;
-  o[9] = by;
-  o[10] = bz;
-#pragma unroll
-  for (int l = 11; l < 16; ++l) o[l] = 0.f;
+  float4* o = stage + 4 * threadIdx.x;
+  o[0] = make_float4(count, sf0, sf0sq, ca);
+  o[1] = make_float4(ax, ay, az, cb);
+  o[2] = make_float4(bx, by, bz, 0.f);
+  o[3] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  // the block's rows are contiguous in out: one coalesced pass of float4s
+  const int first = blockIdx.x * blockDim.x;
+  const int n = 4 * min((int)blockDim.x, C - first);
+  float4* dst = out + 4 * (size_t)first;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = stage[i];
 }
 
 }  // namespace
 
-extern "C" int hipsc_bio_moments(const void* pack, const void* flat,
-                                 const void* bounds, void* out, int C,
-                                 int num_bins, float radius2, int mode,
+extern "C" int hipsc_bio_moments(const void* pos0, const void* alive,
+                                 const void* bounds, const void* loc1,
+                                 const void* f0, const void* f1, const void* f2,
+                                 void* out, int C, float radius2, int mode,
                                  int n_runs, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int blocks = (C + threads - 1) / threads;
+  const int blocks = (C + kThreads - 1) / kThreads;
   auto kernel = n_runs == 3 ? bio_moments_kernel<3> : bio_moments_kernel<9>;
-  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float4*)pack, (const int*)flat, (const int*)bounds, (float*)out,
-      C, num_bins, radius2, mode);
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)pos0, (const unsigned char*)alive, (const int2*)bounds,
+      (const float*)loc1, (const int*)f0, (const int*)f1, (const int*)f2,
+      (float4*)out, C, radius2, mode);
   return (int)cudaGetLastError();
 }

@@ -35,6 +35,19 @@
 // Force and degree (the untruncated keep count, the bond-capacity probe)
 // are those of contact.cu's kernel for the same bond set.
 //
+// What bounds the compaction: its output. A row's K ids are mostly padding
+// (a mean degree of 2.5 against K = 24 in the 3D spheroid, 8 in 2D), and
+// written one int at a time at a stride of 4K bytes they cost a scattered
+// store per id, each touching its own sector. The design: the block's rows
+// are contiguous in the output, so the block fills a shared-memory tile of
+// its rows with NO_BOND, each thread writes only its few ids into its row
+// of the tile, and the block stores the tile with coalesced 16-byte stores.
+// A row reads only the mask words that hold its candidates (the sum of its
+// run widths, from the same int2 loads of its bounds that map bits to runs),
+// not all W words of the widest row: none for a row with empty runs. With
+// that it runs within 1.4x (2D) and 1.8x (3D) of the bytes it must move
+// (PERF.md section 6); no other form was tried.
+//
 // What bounds the two substeps on the card: neither bytes nor arithmetic,
 // but the instructions the walk issues per candidate. The compulsory bytes
 // are a row's 16-byte pack, liveness, 8 bytes of bounds per run, 16 bytes of
@@ -89,6 +102,9 @@ using hipsc::PairLaw;
 constexpr int kThreads = 128;
 // candidates of a run whose positions are loaded before the first is tested
 constexpr int kAhead = 4;
+// the compaction's output tile per block: within the 48 KB of shared memory
+// a block gets without opting in (ops/span_mask.py compact_threads)
+constexpr size_t kCompactTileBytes = 48 * 1024;
 
 template <bool kSeed, int N_RUNS>
 __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
@@ -171,33 +187,67 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
   degree[row] = count;
 }
 
+// One thread per row, blockDim rows per block; the block's output rows are
+// contiguous (blockDim x K ints) and are built in a shared-memory tile of
+// that size (dynamic shared memory, at most kCompactTileBytes).
 template <int N_RUNS>
 __global__ void mask_compact_kernel(const int* __restrict__ ids,
-                                    const int* __restrict__ bounds,
+                                    const int2* __restrict__ bounds,
                                     const unsigned* __restrict__ mask,
                                     int* __restrict__ out, int C, int K, int W) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= C) return;
-  const int* b = bounds + row * 2 * N_RUNS;
-  int* dst = out + (size_t)row * K;
-  int count = 0;
-  // bits come in ascending j, so the run holding bit j only moves forward:
-  // run r spans candidates [first, first + width)
-  int r = 0, first = 0, width = max(b[1] - b[0], 0);
-  for (int w = 0; w < W && count < K; ++w) {
-    unsigned bits = mask[(size_t)w * C + row];
-    while (bits != 0u && count < K) {
-      const int j = (w << 5) + (__ffs((int)bits) - 1);
-      bits &= bits - 1u;
-      while (j >= first + width && r + 1 < N_RUNS) {
-        first += width;
-        ++r;
-        width = max(b[2 * r + 1] - b[2 * r], 0);
+  extern __shared__ int4 tile4[];
+  int* tile = reinterpret_cast<int*>(tile4);
+  const int first_row = blockIdx.x * blockDim.x;
+  const int tile_ints = min((int)blockDim.x, C - first_row) * K;
+  for (int i = threadIdx.x; i < (tile_ints + 3) >> 2; i += blockDim.x)
+    tile4[i] = make_int4(-1, -1, -1, -1);  // NO_BOND
+  __syncthreads();
+
+  const int row = first_row + threadIdx.x;
+  if (row < C) {
+    int2 b[N_RUNS];
+    int n_cand = 0;
+#pragma unroll
+    for (int r = 0; r < N_RUNS; ++r) {
+      b[r] = bounds[(size_t)row * N_RUNS + r];
+      n_cand += max(b[r].y - b[r].x, 0);
+    }
+    // bits past a row's candidates are zero: read only the words that hold
+    // its candidates (none for a row with empty runs)
+    const int n_words = min((n_cand + 31) >> 5, W);
+    int* dst = tile + threadIdx.x * K;
+    int count = 0;
+    // bits come in ascending j, so the run holding bit j only moves forward:
+    // run r spans candidates [first, first + width) from sorted position lo
+    int r = 0, first = 0, lo = b[0].x, width = max(b[0].y - b[0].x, 0);
+    for (int w = 0; w < n_words && count < K; ++w) {
+      unsigned bits = mask[(size_t)w * C + row];
+      while (bits != 0u && count < K) {
+        const int j = (w << 5) + (__ffs((int)bits) - 1);
+        bits &= bits - 1u;
+        while (j >= first + width && r + 1 < N_RUNS) {
+          first += width;
+          ++r;
+#pragma unroll
+          for (int q = 1; q < N_RUNS; ++q) {  // b[r] without indexing b by a variable
+            if (q == r) {
+              lo = b[q].x;
+              width = max(b[q].y - b[q].x, 0);
+            }
+          }
+        }
+        dst[count++] = ids[lo + (j - first)];
       }
-      dst[count++] = ids[b[2 * r] + (j - first)];
     }
   }
-  for (; count < K; ++count) dst[count] = -1;
+  __syncthreads();
+  // the tile out with coalesced 16-byte stores (blockDim and so the tile's
+  // offset are multiples of 4 ints), then the tail of a last partial block
+  int* dst = out + (size_t)first_row * K;
+  const int n4 = tile_ints >> 2;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    reinterpret_cast<int4*>(dst)[i] = tile4[i];
+  for (int i = 4 * n4 + threadIdx.x; i < tile_ints; i += blockDim.x) dst[i] = tile[i];
 }
 
 int blocks_for(int C) { return (C + kThreads - 1) / kThreads; }
@@ -239,12 +289,16 @@ extern "C" int hipsc_contact_masked(
 
 extern "C" int hipsc_mask_compact(const void* ids, const void* bounds,
                                   const void* mask, void* out, int C, int K,
-                                  int W, int n_runs, void* stream) {
+                                  int W, int n_runs, int threads, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
+  const size_t tile_bytes = (size_t)threads * K * sizeof(int);
+  if (threads < 32 || threads > kThreads || threads % 32 != 0 || K < 1 ||
+      tile_bytes > kCompactTileBytes)
+    return (int)cudaErrorInvalidValue;
   auto kernel = n_runs == 3 ? mask_compact_kernel<3> : mask_compact_kernel<9>;
-  kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)ids, (const int*)bounds, (const unsigned*)mask, (int*)out, C,
+  kernel<<<(C + threads - 1) / threads, threads, tile_bytes, (cudaStream_t)stream>>>(
+      (const int*)ids, (const int2*)bounds, (const unsigned*)mask, (int*)out, C,
       K, W);
   return (int)cudaGetLastError();
 }

@@ -26,8 +26,8 @@ kernels of ``ops.bio_moments``, ``ops.contact`` or ``ops.span_mask`` and
 ``ops.ftcs``; on the CPU the same wrappers run their plain versions.
 
 A box with ``size[2] > 0`` runs the same step in 3D: nine stencil runs per
-row instead of three (``neighbors.run_bounds``), the 3D bio-moment pack
-(``bio_moments.make_pack``), and the kernels' 9-run forms. The morphogen
+row instead of three (``neighbors.run_bounds``), the z lanes of the
+neighbour moments, and the kernels' 9-run forms. The morphogen
 lattice stays 2D (x, y), as in the JAX engine.
 """
 
@@ -43,7 +43,8 @@ from hipsc_abm_tpu_torch.models import biology
 from hipsc_abm_tpu_torch.ops import diffusion as diffusion_ops
 from hipsc_abm_tpu_torch.ops import neighbors as nbr_ops
 from hipsc_abm_tpu_torch.ops import rng, span_mask
-from hipsc_abm_tpu_torch.ops.bio_moments import bio_moments_cuda, make_pack
+from hipsc_abm_tpu_torch.ops.bio_moments import bio_moments_cuda
+from hipsc_abm_tpu_torch.ops.bio_moments import positions as bio_positions
 from hipsc_abm_tpu_torch.ops.contact import contact_substep_cuda
 from hipsc_abm_tpu_torch.ops.ftcs import ftcs_diffuse_cuda
 from hipsc_abm_tpu_torch.ops.integrate import stokes_integrate
@@ -246,28 +247,21 @@ def hipsc_step(
     device = alive.device
     key, k_div, k_path, k_diff, _k_stoch, k_mot = rng.split(state.key, 6)
     size = torch.tensor(gen.size, dtype=torch.float32, device=device)
-    capacity = alive.shape[0]
 
     # --- get_neighbors("neighbor_graph", 15) and the sorted-resident state ---
     nbr_grid = nbr_ops.build_grid(cfg.nbr_spec, arrays["locations"], arrays["ids"], alive)
     arrays, alive, bonds = _sort_state_rows(arrays, alive, bonds, nbr_grid.order)
-    loc0 = arrays["locations"]
-    nbr_flat0 = nbr_grid.sorted_flat.to(torch.int32)
-    nbr_sentinel = torch.full_like(nbr_flat0, nbr_ops.dead_sentinel(cfg.nbr_spec))
     nbr_bounds = nbr_ops.run_bounds(cfg.nbr_spec, nbr_grid.sorted_flat)
+    # the graph stays the build window, re-masked by the liveness of each
+    # call: agents killed earlier in the step stop contributing
+    # (cell_methods.py:47); the build-time positions are packed once
+    nbr_pos0 = bio_positions(arrays["locations"])
 
-    def bio_moments(curr_loc, f0, f1, f2, alive_now, mode):
-        # build-time flat ids re-sentineled by the CURRENT liveness: the
-        # graph stays the build window, but agents killed earlier in the
-        # step stop contributing (cell_methods.py:47)
-        flat = torch.where(alive_now, nbr_flat0, nbr_sentinel)
-        pack = make_pack(loc0, curr_loc, f0, f1, f2, cfg.two_d)
-        return bio_moments_cuda(pack, flat, nbr_bounds,
-                                num_bins=cfg.nbr_spec.num_bins,
+    def bio_moments(alive_now, mode, loc1=None, f0=None, f1=None, f2=None):
+        return bio_moments_cuda(nbr_pos0, alive_now, nbr_bounds, loc1, f0, f1, f2,
                                 radius=bio.neighbor_radius, mode=mode)
 
-    zero_i = torch.zeros((capacity,), dtype=torch.int32, device=device)
-    m1 = bio_moments(loc0, zero_i, zero_i, zero_i, alive, "count")
+    m1 = bio_moments(alive, "count")
     nbr_count = m1[:, 0].to(torch.int32)
 
     # --- cell_division (daughter ids by the mothers' canonical rank) ---
@@ -287,8 +281,7 @@ def hipsc_step(
     alive = alive & ~removed
 
     # --- cell_pathway (post-death liveness, post-division locations) ---
-    m2 = bio_moments(arrays["locations"], arrays["FGF4"], zero_i, zero_i, alive,
-                     "pathway")
+    m2 = bio_moments(alive, "pathway", f0=arrays["FGF4"])
     count2 = m2[:, 0].to(torch.int32)
     field_fgf4 = None
     if (cfg.enable_diffusion and diff is not None and diff.field_coupling
@@ -330,8 +323,8 @@ def hipsc_step(
             )
 
     # --- cell_motility (post-fate moments, post-division locations) ---
-    m3 = bio_moments(arrays["locations"], arrays["GATA6"], arrays["NANOG"],
-                     arrays["states"], alive, "motility")
+    m3 = bio_moments(alive, "motility", arrays["locations"], arrays["GATA6"],
+                     arrays["NANOG"], arrays["states"])
     arrays["motility_forces"] = biology.cell_motility(
         arrays["locations"], arrays["GATA6"], arrays["NANOG"], arrays["states"],
         arrays["motility_forces"], arrays["ids"], alive, count2,

@@ -49,14 +49,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "hipsc_contact_substep": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
-    "hipsc_bio_moments": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
+    "hipsc_bio_moments": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P),
     "hipsc_ftcs_diffuse": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _P),
     "hipsc_contact_seed": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
     "hipsc_contact_masked": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
-    "hipsc_mask_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "hipsc_mask_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "hipsc_dynslice_probe": (_P, _P, _P, _P, _I, _I, _P),
     "hipsc_dynslice_probe2": (_P, _P, _P, _P, _I, _I, _I, _P),
 }

@@ -7,15 +7,25 @@ plain version is the twin of ``hipsc_abm_tpu/engine.py``
 from pre-division positions, and every biology phase reads moments of it,
 re-masked by current liveness.
 
-Inputs are in sorted-row order: ``pack`` (``make_pack``: build-time and
-current positions and three per-agent features), ``flat`` (C,) int32
-build-time flat bin ids with agents dead *now* set to the sentinel, and
-``bounds`` per-row run bounds of the build-time grid, (C, 6) int32 in 2D
-(3 runs) or (C, 18) in 3D (9 runs). The pack is (C, 8) float32
-``[x0, y0, x1, y1, f0, f1, f2, 0]`` in 2D and (C, 12)
-``[x0, y0, z0, f0, x1, y1, z1, f1, f2, 0, 0, 0]`` in 3D (the layout and its
-reason are in ``csrc/bio_moments.cu``). Output: (C, 16) float32, lanes as in
-``csrc/bio_moments.cu``; the z displacement lanes 6 and 10 are 0 in 2D.
+Inputs are in sorted-row order, as the step holds them:
+
+- ``pos0``: (C, 4) float32 build-time positions ``[x, y, z, 0]``
+  (``positions``, made once per step);
+- ``alive``: (C,) bool current liveness;
+- ``bounds``: per-row run bounds of the build-time grid, (C, 6) int32 in 2D
+  (3 runs) or (C, 18) in 3D (9 runs);
+- ``loc1``: (C, 3) float32 current positions, read in modes motility and
+  full;
+- ``f0``, ``f1``, ``f2``: (C,) int32 features; pathway reads ``f0``,
+  motility and full all three.
+
+Inputs a mode does not read may be ``None``. A candidate of a row's runs
+counts when both it and the row are alive now: ``neighbors.run_bounds``
+gives rows dead at the build empty runs, so every candidate inside a run
+was alive at the build, agents killed since drop out through ``alive``, and
+daughters born since (alive, empty runs) neither count nor are counted.
+Output: (C, 16) float32, lanes as in ``csrc/bio_moments.cu``; the z
+displacement lanes 6 and 10 are 0 in 2D.
 """
 
 from __future__ import annotations
@@ -28,57 +38,57 @@ from hipsc_abm_tpu_torch.ops.neighbors import bounds_window
 
 OUT_LANES = 16
 MODES = {"count": 0, "pathway": 1, "motility": 2, "full": 3}
-# pack lanes of (build-time position, current position, features) per
-# dimensionality, keyed by the run count of the bounds
-_PACK_LANES = {
-    3: dict(width=8, loc0=(0, 1), loc1=(2, 3), f=(4, 5, 6)),
-    9: dict(width=12, loc0=(0, 1, 2), loc1=(4, 5, 6), f=(3, 7, 8)),
-}
+# the optional inputs each mode reads
+_READS = {"count": (), "pathway": ("f0",), "motility": ("loc1", "f0", "f1", "f2"),
+          "full": ("loc1", "f0", "f1", "f2")}
 
 
-def make_pack(loc0, loc1, f0, f1, f2, two_d: bool) -> torch.Tensor:
-    """The kernel's pack from build-time positions ``loc0`` and current
-    positions ``loc1`` (both (C, 3)) and three (C,) features."""
-    lanes = _PACK_LANES[3 if two_d else 9]
-    dims = len(lanes["loc0"])
-    pack = torch.zeros((loc0.shape[0], lanes["width"]), dtype=torch.float32,
-                       device=loc0.device)
-    pack[:, list(lanes["loc0"])] = loc0[:, :dims]
-    pack[:, list(lanes["loc1"])] = loc1[:, :dims]
-    pack[:, list(lanes["f"])] = torch.stack([f0, f1, f2], dim=1).to(torch.float32)
-    return pack
+def positions(loc0: torch.Tensor) -> torch.Tensor:
+    """The kernel's (C, 4) float32 build-time position rows ``[x, y, z, 0]``
+    from (C, 3) positions."""
+    return torch.nn.functional.pad(loc0.to(torch.float32), (0, 1))
 
 
-def bio_moments_plain(pack, flat, bounds, *, num_bins: int, radius: float,
-                      mode: str = "full") -> torch.Tensor:
-    """Plain PyTorch moments over the padded window of the run bounds."""
+def _inputs(mode, loc1, f0, f1, f2) -> dict:
+    """The optional inputs ``mode`` reads; raises on an unknown mode or a
+    missing input."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    lanes = _PACK_LANES[kernels.run_count(bounds)]
-    C = pack.shape[0]
+    given = dict(loc1=loc1, f0=f0, f1=f1, f2=f2)
+    missing = [k for k in _READS[mode] if given[k] is None]
+    if missing:
+        raise ValueError(f"mode {mode!r} reads {', '.join(missing)}")
+    return {k: given[k] for k in _READS[mode]}
+
+
+def bio_moments_plain(pos0, alive, bounds, loc1=None, f0=None, f1=None, f2=None, *,
+                      radius: float, mode: str = "full") -> torch.Tensor:
+    """Plain PyTorch moments over the padded window of the run bounds."""
+    given = _inputs(mode, loc1, f0, f1, f2)
+    dims = 3 if kernels.run_count(bounds) == 9 else 2
+    C = pos0.shape[0]
     pos, valid = bounds_window(bounds)
-    own = torch.arange(C, device=pack.device)[:, None]
-    cand = pack[pos]  # (C, W, width)
+    own = torch.arange(C, device=pos0.device)[:, None]
+    cand = pos0[pos]  # (C, W, 4)
     dist2 = None
-    for lane in lanes["loc0"]:  # summed in axis order, as the kernel sums
-        d = cand[..., lane] - pack[:, None, lane]
-        dist2 = d * d if dist2 is None else dist2 + d * d
+    for d in range(dims):  # summed in axis order, as the kernel sums
+        dd = cand[..., d] - pos0[:, None, d]
+        dist2 = dd * dd if dist2 is None else dist2 + dd * dd
     r = torch.tensor(radius, dtype=torch.float32)
-    m = (valid & (pos != own) & (flat[pos] < num_bins) & (dist2 <= r * r)
-         & (flat < num_bins)[:, None])
+    m = valid & (pos != own) & alive[pos] & (dist2 <= r * r) & alive[:, None]
     mf = m.to(torch.float32)
-    out = torch.zeros((C, OUT_LANES), dtype=torch.float32, device=pack.device)
+    out = torch.zeros((C, OUT_LANES), dtype=torch.float32, device=pos0.device)
     out[:, 0] = mf.sum(dim=1)
-    cf0, cf1, cf2 = (cand[..., lane] for lane in lanes["f"])
-    if mode in ("pathway", "full"):
-        out[:, 1] = (mf * cf0).sum(dim=1)
-        out[:, 2] = (mf * cf0 * cf0).sum(dim=1)
-    if mode in ("motility", "full"):
-        loc1 = list(lanes["loc1"])
-        disp = cand[..., loc1] - pack[:, None, loc1]
+    if "f0" in given:
+        cf0 = f0.to(torch.float32)[pos]
+        if mode in ("pathway", "full"):
+            out[:, 1] = (mf * cf0).sum(dim=1)
+            out[:, 2] = (mf * cf0 * cf0).sum(dim=1)
+    if "loc1" in given:
+        cf1, cf2 = (f.to(torch.float32)[pos] for f in (f1, f2))
+        disp = loc1[pos][..., :dims] - loc1[:, None, :dims]
         a = mf * (cf1 > cf0).to(torch.float32)
         b = mf * (cf2 != 0).to(torch.float32)
-        dims = len(loc1)
         out[:, 3] = a.sum(dim=1)
         out[:, 4:4 + dims] = (a[..., None] * disp).sum(dim=1)
         out[:, 7] = b.sum(dim=1)
@@ -86,25 +96,31 @@ def bio_moments_plain(pack, flat, bounds, *, num_bins: int, radius: float,
     return out
 
 
-def bio_moments_cuda(pack, flat, bounds, *, num_bins: int, radius: float,
-                     mode: str = "full") -> torch.Tensor:
+def bio_moments_cuda(pos0, alive, bounds, loc1=None, f0=None, f1=None, f2=None, *,
+                     radius: float, mode: str = "full") -> torch.Tensor:
     """The moments. A CPU tensor runs the plain version; a CUDA tensor
     launches the kernel (or raises). The launch counts as ``bio_moments``
     in 2D and ``bio_moments_3d`` in 3D."""
-    if pack.device.type == "cpu":
-        return bio_moments_plain(pack, flat, bounds, num_bins=num_bins,
+    if pos0.device.type == "cpu":
+        return bio_moments_plain(pos0, alive, bounds, loc1, f0, f1, f2,
                                  radius=radius, mode=mode)
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}")
+    given = _inputs(mode, loc1, f0, f1, f2)
     n_runs = kernels.run_count(bounds)
-    C = pack.shape[0]
-    kernels.check_cuda("pack", pack, torch.float32, (C, _PACK_LANES[n_runs]["width"]))
-    kernels.check_cuda("flat", flat, torch.int32, (C,))
+    C = pos0.shape[0]
+    kernels.check_cuda("pos0", pos0, torch.float32, (C, 4))
+    kernels.check_cuda("alive", alive, torch.bool, (C,))
     kernels.check_cuda("bounds", bounds, torch.int32, (C, 2 * n_runs))
-    out = torch.empty((C, OUT_LANES), dtype=torch.float32, device=pack.device)
+    if "loc1" in given:
+        kernels.check_cuda("loc1", loc1, torch.float32, (C, 3))
+    for name in ("f0", "f1", "f2"):
+        if name in given:
+            kernels.check_cuda(name, given[name], torch.int32, (C,))
+    # the inputs the mode does not read go in as null pointers
+    ptrs = [given[k].data_ptr() if k in given else None for k in ("loc1", "f0", "f1", "f2")]
+    out = torch.empty((C, OUT_LANES), dtype=torch.float32, device=pos0.device)
     r = np.float32(radius)
-    kernels.launch("hipsc_bio_moments", pack.data_ptr(), flat.data_ptr(),
-                   bounds.data_ptr(), out.data_ptr(), C, int(num_bins),
-                   float(r * r), MODES[mode], n_runs)
+    kernels.launch("hipsc_bio_moments", pos0.data_ptr(), alive.data_ptr(),
+                   bounds.data_ptr(), *ptrs, out.data_ptr(), C, float(r * r),
+                   MODES[mode], n_runs)
     kernels.launch_counts[kernels.counted_name("bio_moments", n_runs)] += 1
     return out

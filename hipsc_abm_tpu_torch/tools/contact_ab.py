@@ -1,6 +1,7 @@
-"""The contact kernels of two checkouts on the same state, bit for bit.
+"""The contact kernels (and the bio-moments kernel) of two checkouts on the
+same state, bit for bit.
 
-    python hipsc_abm_tpu_torch/tools/contact_ab.py dump ROOT OUT.npz [--dims 2|3] [--path id_list|span_mask]
+    python hipsc_abm_tpu_torch/tools/contact_ab.py dump ROOT OUT.npz [--dims 2|3] [--path id_list|span_mask|bio]
     python hipsc_abm_tpu_torch/tools/contact_ab.py compare A.npz B.npz
 
 ``dump`` imports ``hipsc_abm_tpu_torch`` and ``chip_smoke`` from the
@@ -15,16 +16,27 @@ physics scan's first substep inputs:
   positions the seed's forces move the rows to, with the seed's mask, then
   the compaction (B3) of the masked substep's mask, as ``chip_smoke``'s
   kernel phase runs them; saves inputs, the moved positions, both substeps'
-  forces, degrees and mask words, and the compacted partner ids.
+  forces, degrees and mask words, and the compacted partner ids;
+- ``bio``: the neighbour moments (B4) on the step's real inputs. One more
+  ``step`` runs with the engine's three bio-moments calls recorded (count
+  after the build, pathway after division and death, motility after the
+  fate phases, so deaths and births since the build are present); each
+  call is replayed in its own mode and the motility call's inputs in all
+  four modes. Saves the step's input state, the run bounds and every
+  output. Besides each mode's kernel alone, it times the engine's whole
+  call (device ms and device launches per call, glue included: for a
+  checkout whose engine still builds a pack and a re-sentineled bin-id copy
+  per call, those ops are replayed as its engine ran them) and the glue
+  made once per step.
 
 It also times each kernel of the path alone, per launch under
-``torch.profiler`` (``chip_smoke.profile_device``, 20 launches after the
-run whose outputs are saved), and saves the times with the card's name.
+``torch.profiler`` (``device_kernels``, 20 launches after the run whose
+outputs are saved), and saves the times with the card's name.
 Run it from two checkouts (for example a change and its parent, unpacked
 with ``git archive``), then ``compare``: the inputs must be equal (the
 earlier steps ran the same kernels) and every output is compared element
-for element, forces by their float32 bits; the times of both are printed
-side by side.
+for element, forces and moments by their float32 bits; the times of both
+are printed side by side.
 """
 
 from __future__ import annotations
@@ -42,6 +54,144 @@ KERNELS = {
                   "compact_": "mask_compact_kernel"},
 }
 TIMED_LAUNCHES = 20
+BIO_MODES = ("count", "pathway", "motility", "full")
+BIO_KERNEL = "bio_moments_kernel"
+# the outputs of a bio dump: each engine call in its own mode, then the
+# motility call's inputs in every mode
+BIO_OUTPUTS = ("count_call", "pathway_call") + tuple(f"motility_call_{m}" for m in BIO_MODES)
+BIO_INPUTS = ("in_ids", "in_loc", "in_alive", "in_bounds")
+
+
+def record_bio_calls(eng, state) -> list:
+    """The arguments of the engine's bio-moments calls in one ``step`` from
+    ``state``: ``[(args, kwargs)]``, in call order (count, pathway,
+    motility). The engine calls ``bio_moments_cuda`` by its module-level
+    name, which is wrapped for the step."""
+    from hipsc_abm_tpu_torch import engine as engine_mod
+
+    calls = []
+    real = engine_mod.bio_moments_cuda
+
+    def record(*args, **kw):
+        calls.append((args, dict(kw)))
+        return real(*args, **kw)
+
+    engine_mod.bio_moments_cuda = record
+    try:
+        eng.step(state)
+    finally:
+        engine_mod.bio_moments_cuda = real
+    return calls
+
+
+def device_kernels(fn, calls: int, names=()) -> tuple:
+    """Device time and launches per call of ``fn`` under ``torch.profiler``,
+    over ``calls`` calls after one warm-up call: ``(ms, launches,
+    by_kernel)``. The first two count every device activity with device
+    time (kernels, copies, fills). ``by_kernel`` maps each of ``names`` to
+    the (ms, launches) per call of the kernels whose profiler name contains
+    it, or, with no ``names``, each kernel's full name to its own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, launches, by_kernel = 0.0, 0, {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t <= 0:
+            continue
+        total += t
+        launches += e.count
+        for key in [n for n in names if n in e.key] if names else [e.key]:
+            ms, n = by_kernel.get(key, (0.0, 0.0))
+            by_kernel[key] = (ms + t / 1e3 / calls, n + e.count / calls)
+    return total / 1e3 / calls, launches / calls, by_kernel
+
+
+def kernel_ms(fn, name: str, calls: int = TIMED_LAUNCHES) -> float:
+    """Device ms per launch of the kernel ``name`` names, alone (``fn``
+    called ``calls`` times); nan when it never launched."""
+    ms, launches = device_kernels(fn, calls, (name,))[2].get(name, (0.0, 0.0))
+    return ms / launches if launches else float("nan")
+
+
+def _engine_bio_glue(bio_moments, calls, two_d: bool) -> tuple:
+    """The engine's bio-moments work around the recorded kernel calls:
+    ``(per-call functions, per-step function)``. A checkout whose engine
+    builds a pack and a re-sentineled bin-id copy per call (``make_pack``)
+    gets those ops replayed on tensors of the step's shapes, and its
+    per-step copies of the bin ids and the zero features; one that reads
+    the step's columns gets its calls as they are and its per-step float4
+    positions."""
+    import torch
+
+    fn = bio_moments.bio_moments_cuda
+    if not hasattr(bio_moments, "make_pack"):
+        pos0 = calls[0][0][0]
+        loc0 = pos0[:, :3].contiguous()
+        per_call = [lambda a=a, k=k: fn(*a, **k) for a, k in calls]
+        return per_call, lambda: bio_moments.positions(loc0)
+    per_call = []
+    for (pack, flat, bounds), k in calls:
+        lanes = ((0, 1), (2, 3), (4, 5, 6)) if two_d else ((0, 1, 2), (4, 5, 6), (3, 7, 8))
+        loc0, loc1 = (torch.zeros((pack.shape[0], 3), device=pack.device) for _ in range(2))
+        loc0[:, :len(lanes[0])] = pack[:, list(lanes[0])]
+        loc1[:, :len(lanes[1])] = pack[:, list(lanes[1])]
+        feats = [pack[:, f].to(torch.int32) for f in lanes[2]]
+        alive_now = flat < k["num_bins"]
+        flat0, sentinel = flat.clone(), torch.full_like(flat, k["num_bins"])
+        per_call.append(lambda b=bounds, l0=loc0, l1=loc1, fs=feats, an=alive_now,
+                        f0=flat0, s=sentinel, k=k: fn(
+                            bio_moments.make_pack(l0, l1, *fs, two_d),
+                            torch.where(an, f0, s), b, **k))
+    flat64 = calls[0][0][1].to(torch.int64)
+    C = flat64.shape[0]
+    return per_call, lambda: (flat64.to(torch.int32), torch.full((C,), 7, dtype=torch.int32,
+                                                                 device=flat64.device),
+                              torch.zeros((C,), dtype=torch.int32, device=flat64.device))
+
+
+def bio_outputs(eng, state) -> tuple:
+    """The ``bio`` dump's arrays (``BIO_INPUTS`` and ``BIO_OUTPUTS``, as
+    tensors) for one ``step`` of ``eng`` from ``state``, and the recorded
+    calls."""
+    from hipsc_abm_tpu_torch.ops import bio_moments
+
+    saved = dict(in_ids=state.arrays["ids"], in_loc=state.arrays["locations"],
+                 in_alive=state.alive)
+    calls = record_bio_calls(eng, state)
+    fn = bio_moments.bio_moments_cuda
+    (a1, k1), (a2, k2), (a3, k3) = calls
+    saved.update(in_bounds=a1[2], count_call=fn(*a1, **k1), pathway_call=fn(*a2, **k2))
+    for mode in BIO_MODES:
+        saved[f"motility_call_{mode}"] = fn(*a3, **{**k3, "mode": mode})
+    return saved, calls
+
+
+def _dump_bio(eng, state) -> tuple:
+    """The ``bio`` path of ``dump``: ``(outputs, times)``."""
+    from hipsc_abm_tpu_torch.ops import bio_moments
+
+    saved, calls = bio_outputs(eng, state)
+    times = {}
+    fn = bio_moments.bio_moments_cuda
+    a3, k3 = calls[2]
+    for mode in BIO_MODES:
+        times[f"bio_{mode}_ms"] = kernel_ms(lambda: fn(*a3, **{**k3, "mode": mode}), BIO_KERNEL)
+    per_call, per_step = _engine_bio_glue(bio_moments, calls, eng.cfg.two_d)
+    for name, call in zip(("count", "pathway", "motility"), per_call):
+        times[f"call_{name}_ms"], times[f"call_{name}_launches"], _ = device_kernels(
+            call, TIMED_LAUNCHES)
+    times["step_glue_ms"], times["step_glue_launches"], _ = device_kernels(
+        per_step, TIMED_LAUNCHES)
+    return saved, times
 
 
 def dump(root: str, out: str, dims: int, path: str) -> None:
@@ -59,6 +209,19 @@ def dump(root: str, out: str, dims: int, path: str) -> None:
     n = chip_smoke.N_MAIN_3D if dims == 3 else chip_smoke.N_MAIN
     eng, state = chip_smoke.engine_for(dims, n, "cuda", "id_list")
     state, _ = eng.safe_step(state)
+    if path == "bio":
+        saved, times = _dump_bio(eng, state)
+        torch.cuda.synchronize()
+        _save(out, path, {k: v.cpu().numpy() for k, v in saved.items()}, times)
+        print(f"contact_ab dump: {root} {dims}D bio rows={saved['in_bounds'].shape[0]} -> "
+              f"{out}; {BIO_KERNEL} alone per launch (profiler, {TIMED_LAUNCHES} launches): "
+              + ", ".join(f"{m} {times[f'bio_{m}_ms']:.5f} ms" for m in BIO_MODES)
+              + "; engine call (device ms, launches): "
+              + ", ".join(f"{c} {times[f'call_{c}_ms']:.5f} / {times[f'call_{c}_launches']:g}"
+                          for c in ("count", "pathway", "motility"))
+              + f"; per-step glue {times['step_glue_ms']:.5f} ms / "
+                f"{times['step_glue_launches']:g} [{_card()}]")
+        return
     cfg, bio, a, alive = eng.cfg, eng.bio, state.arrays, state.alive
     grid = nbr.build_grid(cfg.jkr_spec, a["locations"], a["ids"], alive)
     o = grid.order
@@ -94,19 +257,23 @@ def dump(root: str, out: str, dims: int, path: str) -> None:
     arrays = {k: v.cpu().numpy() for k, v in saved.items()}
     times = {}
     for prefix, fn in runs.items():
-        name = KERNELS[path][prefix]
-        _, prof = chip_smoke.profile_device(fn, TIMED_LAUNCHES, (name,))
-        ms, launches = prof.get(name, (0.0, 0.0))
-        times[f"{prefix}ms"] = ms / launches if launches else float("nan")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
-    np.savez(out, path=np.array(path), card=np.array(card), **arrays,
-             **{k: np.float64(v) for k, v in times.items()})
+        times[f"{prefix}ms"] = kernel_ms(fn, KERNELS[path][prefix])
+    _save(out, path, arrays, times)
     timed = ", ".join(f"{KERNELS[path][k[:-2]]} {v:.5f} ms" for k, v in times.items())
     print(f"contact_ab dump: {root} {dims}D {path} rows={args[0].shape[0]} K={K} "
           f"-> {out}; kernel alone per launch (profiler, {TIMED_LAUNCHES} launches): "
-          f"{timed} [{card}]")
+          f"{timed} [{_card()}]")
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _save(out: str, path: str, arrays: dict, times: dict) -> None:
+    np.savez(out, path=np.array(path), card=np.array(_card()), **arrays,
+             **{k: np.float64(v) for k, v in times.items()})
 
 
 def _bits(x: np.ndarray) -> np.ndarray:
@@ -119,9 +286,13 @@ def compare(a_path: str, b_path: str) -> bool:
     if path != (str(b["path"]) if "path" in b.files else "id_list"):
         print("contact_ab compare: the dumps are of different contact paths")
         return False
-    inputs = [f"in{i}" for i in range(5)] + (["moved"] if path == "span_mask" else [])
-    outputs = (["force", "degree", "partners"] if path == "id_list" else
-               ["seed_force", "seed_degree", "seed_mask", "force", "degree", "mask", "compact"])
+    if path == "bio":
+        inputs, outputs = BIO_INPUTS, BIO_OUTPUTS
+    else:
+        inputs = [f"in{i}" for i in range(5)] + (["moved"] if path == "span_mask" else [])
+        outputs = (["force", "degree", "partners"] if path == "id_list" else
+                   ["seed_force", "seed_degree", "seed_mask", "force", "degree", "mask",
+                    "compact"])
     ok_in = all(a[k].shape == b[k].shape and np.array_equal(_bits(a[k]), _bits(b[k]))
                 for k in inputs)
     report, ok = [], ok_in
@@ -139,11 +310,17 @@ def compare(a_path: str, b_path: str) -> bool:
                 note = f" ({n} rows differ)"
         report.append(f"{k} {'equal' if same else 'DIFFER'}{note}")
     print(f"contact_ab compare [{path}]: inputs equal {ok_in}; {', '.join(report)}")
-    for prefix, name in KERNELS[path].items():
-        key = f"{prefix}ms"
+    if path == "bio":
+        timed = [(f"bio_{m}_ms", f"{BIO_KERNEL}[{m}] alone per launch, ms") for m in BIO_MODES]
+        timed += [(f"call_{c}_{u}", f"engine {c} call, device {u}")
+                  for c in ("count", "pathway", "motility") for u in ("ms", "launches")]
+        timed += [(f"step_glue_{u}", f"per-step glue, device {u}") for u in ("ms", "launches")]
+    else:
+        timed = [(f"{prefix}ms", f"{name} alone per launch, ms")
+                 for prefix, name in KERNELS[path].items()]
+    for key, label in timed:
         if key in a.files and key in b.files:
-            print(f"  {name} alone per launch: A {float(a[key]):.5f} ms, "
-                  f"B {float(b[key]):.5f} ms")
+            print(f"  {label}: A {float(a[key]):.5f}, B {float(b[key]):.5f}")
     return bool(ok)
 
 
@@ -154,7 +331,7 @@ def main(argv=None) -> int:
     d.add_argument("root")
     d.add_argument("out")
     d.add_argument("--dims", type=int, choices=(2, 3), default=3)
-    d.add_argument("--path", choices=tuple(KERNELS), default="id_list")
+    d.add_argument("--path", choices=tuple(KERNELS) + ("bio",), default="id_list")
     c = sub.add_parser("compare")
     c.add_argument("a")
     c.add_argument("b")

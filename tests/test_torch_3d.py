@@ -128,6 +128,8 @@ def _bio_setup(seed=0, C=384, n=360, box=(90.0, 90.0, 75.0)):
     curr = loc0 + rs.normal(0.0, 0.7, (C, 3)).astype(np.float32)
     alive_now = alive.copy()
     alive_now[rs.choice(n, 15, replace=False)] = False
+    # daughters: slots dead at the build (sorted last), alive now
+    alive_now[n + rs.choice(C - n, 6, replace=False)] = True
     feats = [rs.integers(0, 3, C).astype(np.int32) for _ in range(3)]
     feats[2][rs.random(C) < 0.6] = 0
     return dict(loc0=loc0, curr=curr, alive_now=alive_now, f=feats,
@@ -136,9 +138,10 @@ def _bio_setup(seed=0, C=384, n=360, box=(90.0, 90.0, 75.0)):
 
 @pytest.mark.parametrize("mode", ["count", "pathway", "motility", "full"])
 def test_bio_plain_3d_matches_pallas_interpret(mode):
-    """The 12-lane 3D pack through the plain moments against
-    ``bio_reduce_pallas`` with its 16-lane pack (9 runs), every mode; the z
-    displacement lanes 6 and 10 included."""
+    """The port's moments (build-time float4 positions, current liveness,
+    int32 feature columns) against ``bio_reduce_pallas`` with its 16-lane
+    pack (9 runs), every mode; the z displacement lanes 6 and 10 included,
+    with agents killed since the build and daughters born after it."""
     s = _bio_setup()
     jspec, tspec = s["jspec"], s["tspec"]
     C = len(s["flat"])
@@ -152,12 +155,11 @@ def test_bio_plain_3d_matches_pallas_interpret(mode):
         jnp.asarray(jpack), starts, needs, ny=jspec.ny, nz=jspec.nz,
         num_bins=jspec.num_bins, radius=15.0, mode=mode, interpret=True, **plan))
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
-    pack = tbio.make_pack(t(s["loc0"]), t(s["curr"]), *(t(f) for f in s["f"]), two_d=False)
-    assert pack.shape == (C, 12)
-    flat = torch.where(t(s["alive_now"]), t(s["flat"]), tnbr.dead_sentinel(tspec)).to(torch.int32)
+    pos0 = tbio.positions(t(s["loc0"]))
+    assert pos0.shape == (C, 4)
     bounds = tnbr.run_bounds(tspec, t(s["flat"].astype(np.int64)))
-    got = tbio.bio_moments_cuda(pack, flat, bounds, num_bins=tspec.num_bins, radius=15.0,
-                                mode=mode).numpy()
+    got = tbio.bio_moments_cuda(pos0, t(s["alive_now"]), bounds, t(s["curr"]),
+                                *(t(f) for f in s["f"]), radius=15.0, mode=mode).numpy()
     assert got[:, 0].sum() > C
     exact = [0, 1, 2, 3, 7]
     np.testing.assert_array_equal(got[:, exact], want[:, exact])

@@ -3,6 +3,12 @@ kernel itself is in test_torch_cuda.py) vs the JAX package's
 ``bio_reduce_pallas`` (interpret mode) and its XLA twin
 ``make_bio_moments_xla``.
 
+The port reads current liveness and the engine's columns (build-time
+positions once per step, current positions, int32 features) where the JAX
+package re-sentinels the build-time bin ids and packs the rows per call; the
+inputs here hold agents killed since the build and daughters born after it,
+so the two formulations are held equal on both.
+
 Count lanes (0, 3, 7) and the FGF4 moments (lanes 1, 2: sums of small
 integers) are exact in float32 and must be equal; the displacement sums are
 float32 sums in another order (rtol 1e-6, atol 1e-5 um).
@@ -34,7 +40,7 @@ RADIUS = 15.0
 def _setup(seed=0, C=256, n=240):
     """Sorted rows of a dense colony: build-time positions, moved current
     positions, three integer features, and a current liveness that kills a
-    few build-time agents (daughters are dead at build and stay out)."""
+    few build-time agents and adds daughters in slots dead at the build."""
     rs = np.random.default_rng(seed)
     loc0 = np.zeros((C, 3), np.float32)
     loc0[:n, :2] = rs.random((n, 2)).astype(np.float32) * np.asarray(BOX[:2], np.float32)
@@ -49,6 +55,9 @@ def _setup(seed=0, C=256, n=240):
     curr[:, :2] += rs.normal(0.0, 0.7, (C, 2)).astype(np.float32)
     alive_now = alive.copy()
     alive_now[rs.choice(n, 15, replace=False)] = False
+    daughters = n + rs.choice(C - n, 8, replace=False)  # dead at the build (sorted last)
+    alive_now[daughters] = True
+    curr[daughters, :2] = curr[rs.choice(n, 8), :2] + 0.5
     feats = [rs.integers(0, 3, C).astype(np.int32) for _ in range(3)]
     feats[2][rs.random(C) < 0.6] = 0
     return dict(loc0=loc0, curr=curr, ids=ids, alive=alive, alive_now=alive_now,
@@ -56,13 +65,11 @@ def _setup(seed=0, C=256, n=240):
 
 
 def _port_inputs(s):
+    """The port's inputs: ``(pos0, alive, bounds, loc1, f0, f1, f2)``."""
     tspec = tnbr.GridSpec(**dataclasses.asdict(s["jspec"]))
-    flat = np.where(s["alive_now"], s["flat"], tnbr.dead_sentinel(tspec)).astype(np.int32)
-    pack = np.stack([s["loc0"][:, 0], s["loc0"][:, 1], s["curr"][:, 0], s["curr"][:, 1],
-                     *[f.astype(np.float32) for f in s["f"]], np.zeros(len(flat), np.float32)],
-                    axis=1)
     bounds = tnbr.run_bounds(tspec, torch.from_numpy(s["flat"].astype(np.int64)))
-    return (torch.from_numpy(pack), torch.from_numpy(flat), bounds), tspec.num_bins
+    return (tbio.positions(torch.from_numpy(s["loc0"])), torch.from_numpy(s["alive_now"]),
+            bounds, torch.from_numpy(s["curr"]), *(torch.from_numpy(f) for f in s["f"]))
 
 
 def _assert_moments(got, want, lanes, rows=slice(None)):
@@ -89,17 +96,18 @@ def test_plain_matches_pallas_interpret(mode):
     want = np.asarray(bio_reduce_pallas(
         jnp.asarray(jpack), starts, needs, block=128, span=span, ny=jspec.ny,
         num_bins=jspec.num_bins, radius=RADIUS, chunk=128, mode=mode, interpret=True))
-    args, num_bins = _port_inputs(s)
-    got = tbio.bio_moments_plain(*args, num_bins=num_bins, radius=RADIUS, mode=mode).numpy()
+    got = tbio.bio_moments_plain(*_port_inputs(s), radius=RADIUS, mode=mode).numpy()
     assert got[:, 0].sum() > C  # a real neighbourhood, not an empty one
     _assert_moments(got, want, list(range(16)))
+    born = s["alive_now"] & ~s["alive"]
+    assert born.sum() == 8 and not got[born].any() and not want[born].any()
 
 
 @pytest.mark.parametrize("mode", MODES)
 def test_plain_matches_xla_twin(mode):
     """``make_bio_moments_xla`` masks rows by build-time liveness, the kernel
     by current liveness: they agree on every row alive now (the only rows
-    the biology phases read)."""
+    the biology phases read), daughters born since the build included."""
     s = _setup(seed=1)
     C = len(s["ids"])
     jspec = s["jspec"]
@@ -112,17 +120,36 @@ def test_plain_matches_xla_twin(mode):
                               jnp.asarray(s["ids"]), jnp.asarray(s["alive"]), RADIUS)
     want = np.asarray(fn(jnp.asarray(s["curr"]), *[jnp.asarray(f) for f in s["f"]],
                          jnp.asarray(s["alive_now"]), mode=mode))
-    args, num_bins = _port_inputs(s)
-    got = tbio.bio_moments_plain(*args, num_bins=num_bins, radius=RADIUS, mode=mode).numpy()
+    got = tbio.bio_moments_plain(*_port_inputs(s), radius=RADIUS, mode=mode).numpy()
+    assert (s["alive_now"] & ~s["alive"]).sum() == 8
     _assert_moments(got, want, LANES[mode], rows=s["alive_now"])
 
 
 def test_cpu_wrapper_runs_plain_and_counts_no_launch():
-    args, num_bins = _port_inputs(_setup(seed=2))
+    args = _port_inputs(_setup(seed=2))
     before = kernels.launch_counts["bio_moments"]
-    got = tbio.bio_moments_cuda(*args, num_bins=num_bins, radius=RADIUS, mode="full")
-    want = tbio.bio_moments_plain(*args, num_bins=num_bins, radius=RADIUS, mode="full")
+    got = tbio.bio_moments_cuda(*args, radius=RADIUS, mode="full")
+    want = tbio.bio_moments_plain(*args, radius=RADIUS, mode="full")
     assert torch.equal(got, want)
     assert kernels.launch_counts["bio_moments"] == before
     with pytest.raises(ValueError):
-        tbio.bio_moments_cuda(*args, num_bins=num_bins, radius=RADIUS, mode="bogus")
+        tbio.bio_moments_cuda(*args, radius=RADIUS, mode="bogus")
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_modes_read_only_their_inputs(mode):
+    """Each mode runs with only the inputs it reads (the engine's calls) and
+    gives the lanes of the same mode with every input given; a mode missing
+    an input it reads raises."""
+    args = _port_inputs(_setup(seed=3))
+    reads = {"count": 3, "pathway": 5, "motility": 7, "full": 7}[mode]
+    trimmed = list(args[:3]) + [None] * 4
+    if reads == 5:
+        trimmed[4] = args[4]
+    elif reads == 7:
+        trimmed = list(args)
+    want = tbio.bio_moments_plain(*args, radius=RADIUS, mode=mode)
+    assert torch.equal(tbio.bio_moments_cuda(*trimmed, radius=RADIUS, mode=mode), want)
+    if mode != "count":
+        with pytest.raises(ValueError, match="reads"):
+            tbio.bio_moments_cuda(*args[:3], radius=RADIUS, mode=mode)

@@ -250,3 +250,38 @@ def test_contact_ab_compare_is_bit_for_bit(tmp_path, change):
     np.savez(tmp_path / "b.npz", **b)
     assert contact_ab.main(["compare", str(tmp_path / "a.npz"), str(tmp_path / "b.npz")]) \
         == (0 if change in (None, "span_mask") else 1)
+
+
+@pytest.mark.parametrize("change", [None, "motility_call_full", "count_call",
+                                    "pathway_call", "in_bounds", "in_alive"])
+def test_contact_ab_bio_compare_is_bit_for_bit(tmp_path, change):
+    """The ``bio`` dump: one step of a small 2D colony with the engine's three
+    bio-moments calls recorded (count, pathway, motility, in that order);
+    ``compare`` passes two dumps only when the step's inputs and every
+    replayed output are equal, a moment one ulp away failing."""
+    from hipsc_abm_tpu_torch.engine import HipscEngine
+    from hipsc_abm_tpu_torch.params import ExperimentalParams, GeneralParams
+    from hipsc_abm_tpu_torch.tools import contact_ab
+
+    eng = HipscEngine(GeneralParams(num_to_start=300, size=(420.0, 420.0, 0.0)),
+                      ExperimentalParams(num_gata6=30, dox_step=1), device="cpu")
+    state, _ = eng.safe_step(eng.init_state(seed=3))
+    saved, calls = contact_ab.bio_outputs(eng, state)
+    assert [k["mode"] for _, k in calls] == ["count", "pathway", "motility"]
+    assert set(saved) == set(contact_ab.BIO_INPUTS + contact_ab.BIO_OUTPUTS)
+    a = {k: v.numpy() for k, v in saved.items()}
+    a.update(path=np.array("bio"), bio_full_ms=np.float64(0.01))
+    assert a["motility_call_full"][:, 0].sum() > 300
+    b = {k: v.copy() for k, v in a.items()}
+    if change in ("motility_call_full", "count_call", "pathway_call"):
+        lane = 4 if change == "motility_call_full" else 0
+        row = int(np.flatnonzero(b[change][:, lane])[0])
+        b[change][row, lane] = np.nextafter(b[change][row, lane], np.float32(1e9))
+    elif change == "in_bounds":
+        b["in_bounds"][0, 0] += 1
+    elif change == "in_alive":
+        b["in_alive"][0] = not b["in_alive"][0]
+    np.savez(tmp_path / "a.npz", **a)
+    np.savez(tmp_path / "b.npz", **b)
+    assert contact_ab.main(["compare", str(tmp_path / "a.npz"), str(tmp_path / "b.npz")]) \
+        == (0 if change is None else 1)

@@ -251,8 +251,11 @@ def test_contact_seed_kernel_keeps_a_bond_beyond_the_search_radius(dev, dims):
     assert int(d_p.sum()) == 4 and int(d_p.max()) == 1
 
 
-@pytest.mark.parametrize("K", [8, 40])
+@pytest.mark.parametrize("K", [5, 8, 40])
 def test_mask_compact_kernel_matches_plain(dev, K):
+    """K = 5: rows of an odd width (a row's ids are not 16-byte aligned in
+    the block's tile), and rows with more set bits than K (truncated to the
+    first K)."""
     args = [a.to(dev) for a in _contact_inputs(K, skin=14.0)]
     _, degree, mask = span_mask.contact_seed_plain(*args, **LAW)
     before = kernels.launch_counts["mask_compact"]
@@ -262,6 +265,40 @@ def test_mask_compact_kernel_matches_plain(dev, K):
     assert kernels.launch_counts["mask_compact"] == before + 1
     assert torch.equal(got, want)  # same first-K walk order, entry by entry
     assert torch.equal((got >= 0).sum(dim=1, dtype=torch.int32), degree.clamp(max=K))
+    assert K > 5 or int(degree.max()) > K
+
+
+@pytest.mark.parametrize("K", [5, 97, 128, 300])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_mask_compact_kernel_edge_cases(dev, K, dims):
+    """Rows past the last full block (C = 2045, not a multiple of the 128,
+    64 or 32 rows a block takes), rows dead at the build (empty runs: no
+    mask word read) and dead since (all-zero words), rows with more set bits
+    than K, and K whose tile needs 64 or 32 rows per block (97, 128, 300)."""
+    box = (420.0, 420.0, 0.0) if dims == 2 else (120.0, 120.0, 120.0)
+    args = [a.to(dev) for a in _contact_inputs(8, C=2045, n=1900, box=box, skin=14.0)]
+    _, degree, mask = span_mask.contact_seed_plain(*args, **LAW)
+    rows_per_block = span_mask.compact_threads(K)
+    assert args[0].shape[0] % rows_per_block != 0
+    assert rows_per_block == {5: 128, 97: 64, 128: 64, 300: 32}[K]
+    dead = ~args[2]
+    assert bool(dead.any()) and bool((span_mask.candidate_counts(args[3])[dead] == 0).any())
+    got = span_mask.mask_compact_cuda(args[1], args[3], mask, K)
+    want = span_mask.mask_compact_plain(args[1], args[3], mask, K)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not bool((got[dead] >= 0).any())
+    assert K > 5 or int(degree.max()) > K
+
+
+def test_mask_compact_kernel_rejects_a_tile_past_shared_memory(dev):
+    args = [a.to(dev) for a in _contact_inputs(8, C=256, n=200, box=(150.0, 150.0, 0.0))]
+    _, _, mask = span_mask.contact_seed_plain(*args, **LAW)
+    K = span_mask.COMPACT_TILE_BYTES // (4 * 32) + 1
+    before = kernels.launch_counts["mask_compact"]
+    with pytest.raises(ValueError, match="bond capacity"):
+        span_mask.mask_compact_cuda(args[1], args[3], mask, K)
+    assert kernels.launch_counts["mask_compact"] == before
 
 
 def test_contact_kernel_rejects_bad_operands(dev):
@@ -276,12 +313,16 @@ def test_contact_kernel_rejects_bad_operands(dev):
         contact.contact_substep_cuda(*bad, **LAW)
 
 
-@pytest.mark.parametrize("mode", ["count", "pathway", "motility", "full"])
-def test_bio_kernel_matches_plain(dev, mode):
-    rs = np.random.default_rng(1)
-    C, n, box = 4096, 3800, (520.0, 460.0, 0.0)
+def _bio_inputs(dims, seed):
+    """Sorted bio-moment inputs ``(pos0, alive, bounds, loc1, f0, f1, f2)``
+    of a dense colony: 5% of the agents killed since the build, and
+    daughters alive now in slots dead at the build (sorted last, empty
+    runs)."""
+    rs = np.random.default_rng(seed)
+    C, n, box = ((4096, 3800, (520.0, 460.0, 0.0)) if dims == 2 else
+                 (4096, 3900, (150.0, 140.0, 130.0)))
     loc = np.zeros((C, 3), np.float32)
-    loc[:n, :2] = rs.random((n, 2)).astype(np.float32) * np.asarray(box[:2], np.float32)
+    loc[:n, :dims] = rs.random((n, dims)).astype(np.float32) * np.asarray(box[:dims], np.float32)
     alive = np.zeros(C, bool)
     alive[:n] = True
     spec = nbr.GridSpec.from_box(box, BIO.neighbor_radius, 0)
@@ -289,19 +330,58 @@ def test_bio_kernel_matches_plain(dev, mode):
                        torch.from_numpy(alive))
     o = g.order
     l0 = torch.from_numpy(loc)[o]
-    l1 = l0 + torch.from_numpy(rs.normal(0, 0.7, (C, 3)).astype(np.float32))
-    feats = [torch.from_numpy(rs.integers(0, 3, C).astype(np.float32)) for _ in range(3)]
-    now = torch.from_numpy(alive)[o] & torch.from_numpy(rs.random(C) > 0.05)
-    flat = torch.where(now, g.sorted_flat, nbr.dead_sentinel(spec)).to(torch.int32)
-    pack = torch.stack([l0[:, 0], l0[:, 1], l1[:, 0], l1[:, 1], *feats,
-                        torch.zeros(C)], dim=1)
-    args = [t.contiguous().to(dev) for t in (pack, flat, nbr.run_bounds(spec, g.sorted_flat))]
-    kw = dict(num_bins=spec.num_bins, radius=BIO.neighbor_radius, mode=mode)
+    noise = np.zeros((C, 3), np.float32)
+    noise[:, :dims] = rs.normal(0, 0.7, (C, dims))
+    l1 = l0 + torch.from_numpy(noise)
+    feats = [torch.from_numpy(rs.integers(0, 3, C).astype(np.int32)) for _ in range(3)]
+    now = alive[o.numpy()] & (rs.random(C) > 0.05)
+    now[n:] = rs.random(C - n) < 0.3
+    return [bio_moments.positions(l0), torch.from_numpy(now), nbr.run_bounds(spec, g.sorted_flat),
+            l1.contiguous(), *feats]
+
+
+@pytest.mark.parametrize("mode", ["count", "pathway", "motility", "full"])
+def test_bio_kernel_matches_plain(dev, mode):
+    args = [t.to(dev) for t in _bio_inputs(2, seed=1)]
+    kw = dict(radius=BIO.neighbor_radius, mode=mode)
+    before = kernels.launch_counts["bio_moments"]
     got = bio_moments.bio_moments_cuda(*args, **kw)
     want = bio_moments.bio_moments_plain(*args, **kw)
-    assert float(want[:, 0].sum()) > C
+    assert kernels.launch_counts["bio_moments"] == before + 1
+    assert float(want[:, 0].sum()) > args[0].shape[0]
     assert torch.equal(got[:, [0, 1, 2, 3, 7]], want[:, [0, 1, 2, 3, 7]])
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
+def test_bio_kernel_reads_only_the_inputs_of_its_mode(dev):
+    """The engine's calls pass only what their mode reads: count none,
+    pathway ``f0``; the lanes equal those of the call with every input."""
+    args = [t.to(dev) for t in _bio_inputs(2, seed=4)]
+    kw = dict(radius=BIO.neighbor_radius)
+    full = {m: bio_moments.bio_moments_cuda(*args, mode=m, **kw) for m in ("count", "pathway")}
+    assert torch.equal(bio_moments.bio_moments_cuda(*args[:3], mode="count", **kw),
+                       full["count"])
+    assert torch.equal(bio_moments.bio_moments_cuda(*args[:3], f0=args[4], mode="pathway",
+                                                    **kw), full["pathway"])
+    bad = list(args)
+    bad[4] = bad[4].to(torch.int64)
+    with pytest.raises(TypeError):
+        bio_moments.bio_moments_cuda(*bad, mode="full", **kw)
+
+
+def test_engine_bio_call_launches_only_the_kernel(dev):
+    """Each of the engine's three bio-moments calls of a step is one device
+    launch, the kernel's: no re-sentineled copy or pack per call."""
+    from hipsc_abm_tpu_torch.tools.contact_ab import device_kernels, record_bio_calls
+
+    gen = GeneralParams(num_to_start=2000, size=(1200.0, 1200.0, 0.0))
+    eng = HipscEngine(gen, ExperimentalParams(num_gata6=200, dox_step=1), device=dev)
+    state, _ = eng.safe_step(eng.init_state(seed=2))
+    calls = record_bio_calls(eng, state)
+    assert [k["mode"] for _, k in calls] == ["count", "pathway", "motility"]
+    for a, k in calls:
+        _, launches, names = device_kernels(lambda: bio_moments.bio_moments_cuda(*a, **k), 5)
+        assert launches == 1 and all("bio_moments_kernel" in name for name in names), names
 
 
 @pytest.mark.parametrize("shape", [(97, 131), (449, 449), (1001, 1001)])
@@ -410,29 +490,14 @@ def test_span_mask_kernels_3d_match_plain(dev, K):
 
 @pytest.mark.parametrize("mode", ["count", "pathway", "motility", "full"])
 def test_bio_kernel_3d_matches_plain(dev, mode):
-    rs = np.random.default_rng(3)
-    C, n, box = 4096, 3900, (150.0, 140.0, 130.0)
-    loc = np.zeros((C, 3), np.float32)
-    loc[:n] = rs.random((n, 3)).astype(np.float32) * np.asarray(box, np.float32)
-    alive = np.zeros(C, bool)
-    alive[:n] = True
-    spec = nbr.GridSpec.from_box(box, BIO.neighbor_radius, 0)
-    g = nbr.build_grid(spec, torch.from_numpy(loc), torch.arange(C, dtype=torch.int32),
-                       torch.from_numpy(alive))
-    o = g.order
-    l0 = torch.from_numpy(loc)[o]
-    l1 = l0 + torch.from_numpy(rs.normal(0, 0.7, (C, 3)).astype(np.float32))
-    feats = [torch.from_numpy(rs.integers(0, 3, C).astype(np.int32)) for _ in range(3)]
-    now = torch.from_numpy(alive)[o] & torch.from_numpy(rs.random(C) > 0.05)
-    flat = torch.where(now, g.sorted_flat, nbr.dead_sentinel(spec)).to(torch.int32)
-    pack = bio_moments.make_pack(l0, l1, *feats, two_d=False)
-    args = [t.contiguous().to(dev) for t in (pack, flat, nbr.run_bounds(spec, g.sorted_flat))]
-    kw = dict(num_bins=spec.num_bins, radius=BIO.neighbor_radius, mode=mode)
+    args = [t.to(dev) for t in _bio_inputs(3, seed=3)]
+    assert args[2].shape[1] == 18
+    kw = dict(radius=BIO.neighbor_radius, mode=mode)
     before = kernels.launch_counts["bio_moments_3d"]
     got = bio_moments.bio_moments_cuda(*args, **kw)
     want = bio_moments.bio_moments_plain(*args, **kw)
     assert kernels.launch_counts["bio_moments_3d"] == before + 1
-    assert float(want[:, 0].sum()) > C
+    assert float(want[:, 0].sum()) > args[0].shape[0]
     assert torch.equal(got[:, [0, 1, 2, 3, 7]], want[:, [0, 1, 2, 3, 7]])
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
 

@@ -188,6 +188,18 @@ def test_compact_truncates_in_walk_order():
     assert np.all(np.delete(got, row, axis=0) == NO_BOND)
 
 
+@pytest.mark.parametrize("K,rows", [(1, 128), (5, 128), (96, 128), (97, 64), (128, 64),
+                                    (192, 64), (193, 32), (384, 32)])
+def test_compact_threads_keep_the_tile_in_shared_memory(K, rows):
+    """The compaction kernel's rows per block: 128, halved while the block's
+    (rows, K) int32 output tile exceeds 48 KB; K past 384 (32 rows) and
+    K < 1 are refused before any launch."""
+    assert span_mask.compact_threads(K) == rows
+    assert rows * K * 4 <= span_mask.COMPACT_TILE_BYTES
+    with pytest.raises(ValueError, match="bond capacity"):
+        span_mask.compact_threads(0 if K == 1 else 385)
+
+
 def _scan_inputs(skin, seed=2):
     """One JAX step in (bonds formed), then random motility forces so agents
     drift during the scan."""

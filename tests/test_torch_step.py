@@ -206,6 +206,16 @@ def _bench_like(n):
     return gen, xp, diff
 
 
+def _torch_engine_like(jeng, gen, xp, diff):
+    """The port's CPU engine with the JAX engine's parameters and capacities."""
+    teng = HipscEngine(*(convert.params_from_jax(p) for p in (gen, xp)),
+                       diff=convert.params_from_jax(diff), enable_diffusion=True,
+                       device="cpu")
+    teng.cfg = dataclasses.replace(teng.cfg, capacity=jeng.cfg.capacity,
+                                   bond_cap=jeng.cfg.bond_cap, div_cap=jeng.cfg.div_cap)
+    return teng
+
+
 def test_hipsc_step_matches_jax():
     """One full step with diffusion and FGF4 release from one converted
     state (one JAX step in, so it carries bonds and a lattice)."""
@@ -213,11 +223,7 @@ def test_hipsc_step_matches_jax():
     jeng = JaxEngine(gen, xp, diff=diff, enable_diffusion=True, use_pallas=False)
     js = jeng.init_state(seed=0)
     js, _ = jeng.safe_step(js)
-    teng = HipscEngine(*(convert.params_from_jax(p) for p in (gen, xp)),
-                       diff=convert.params_from_jax(diff), enable_diffusion=True,
-                       device="cpu")
-    teng.cfg = dataclasses.replace(teng.cfg, capacity=jeng.cfg.capacity,
-                                   bond_cap=jeng.cfg.bond_cap, div_cap=jeng.cfg.div_cap)
+    teng = _torch_engine_like(jeng, gen, xp, diff)
     ts = convert.state_from_numpy(convert.numpy_from_jax_state(js), "cpu")
     assert int(ts.bonds.mask.sum()) > 0
     js2, jinfo = jeng.safe_step(js)
@@ -226,6 +232,33 @@ def test_hipsc_step_matches_jax():
     assert tinfo.num_removed == int(jinfo.num_removed)
     assert tinfo.jkr_max_degree == int(jinfo.jkr_max_degree)
     _assert_same_colony(js2, ts2, "step")
+
+
+def test_hipsc_step_with_field_coupling_matches_jax():
+    """One full step with ``DiffusionParams.field_coupling=True``: perceived
+    FGF4 is the lattice sampled at each agent, so the lattice's floats feed
+    the integer FDS update. The converted state carries a lattice of values
+    in [0, 2), so that ``floor((1 + g) * field)`` takes both values; the
+    step must match the JAX engine by agent id, and coupling must change
+    ERK against the same step with coupling off."""
+    gen, xp, diff = _bench_like(500)
+    diff = dataclasses.replace(diff, field_coupling=True)
+    jeng = JaxEngine(gen, xp, diff=diff, enable_diffusion=True, use_pallas=False)
+    js, _ = jeng.safe_step(jeng.init_state(seed=0))
+    shape = js.gradients["fgf4_values"].shape
+    lattice = np.random.default_rng(0).random(shape).astype(np.float32) * 2
+    js = js._replace(gradients={"fgf4_values": jnp.asarray(lattice)})
+    d = convert.numpy_from_jax_state(js)
+    js2, _ = jeng.safe_step(js)
+    ts2, _ = _torch_engine_like(jeng, gen, xp, diff).safe_step(
+        convert.state_from_numpy(d, "cpu"))
+    _assert_same_colony(js2, ts2, "coupled step")
+    uncoupled = dataclasses.replace(diff, field_coupling=False)
+    ts_off, _ = _torch_engine_like(jeng, gen, xp, uncoupled).safe_step(
+        convert.state_from_numpy(d, "cpu"))
+    on, off = _by_id(convert.state_to_numpy(ts2)), _by_id(convert.state_to_numpy(ts_off))
+    np.testing.assert_array_equal(on["ids"], off["ids"])
+    assert not np.array_equal(on["ERK"], off["ERK"])
 
 
 @pytest.mark.parametrize("seed", [0, 7])
