@@ -219,7 +219,7 @@ def kernel_phase(eng, state):
     from hipsc_abm_tpu_torch.ops import neighbors as nbr
     from hipsc_abm_tpu_torch.ops.integrate import stokes_integrate
     from hipsc_abm_tpu_torch.ops.jkr import pack_physics
-    from hipsc_abm_tpu_torch.tools.contact_ab import device_kernels, kernel_ms, record_bio_calls
+    from hipsc_abm_tpu_torch.tools import device_kernels, kernel_ms, record_bio_calls
 
     cfg, bio, diff = eng.cfg, eng.bio, eng.diff
     a, alive = state.arrays, state.alive
@@ -363,23 +363,28 @@ def kernel_phase(eng, state):
         torch.testing.assert_close(b_k, b_p, rtol=1e-5, atol=1e-4)
         err = max(err, float((b_k - b_p).abs().max()))
     full = dict(b_kw, mode="full")
-    # bytes in mode full: per row its build-time position, liveness, bounds,
-    # current position, three features and 16 lanes out; operations: a
-    # distance test per candidate (6 in 2D, 9 in 3D), and per neighbour the
-    # pathway sums (3) and motility sums (10 in 2D, 13 in 3D)
+    # bytes in mode full: per live row its build-time position (x, y in 2D,
+    # x, y, z in 3D), liveness, bounds, current position, three features
+    # and the 11 lanes that are not always zero; per dead row its liveness
+    # and those lanes; operations: a distance test per candidate (6 in 2D,
+    # 9 in 3D), and per neighbour the pathway sums (3) and motility sums (10
+    # in 2D, 13 in 3D)
     candidates = int(span_mask.candidate_counts(bounds)[b_alive].sum())
+    dims = 2 if cfg.two_d else 3
     dist_ops, nbr_ops = (6, 13) if cfg.two_d else (9, 16)
-    C = pos0.shape[0]
+    C, live = pos0.shape[0], int(b_alive.sum())
+    lanes_out = 4 * 11
     name = entry(
         "bio_moments", "bio_moments.cu", "hipsc_abm_tpu/ops/pallas_bio.py:58",
         max_abs_err=err,
         ms=cuda_ms(lambda: bio_moments.bio_moments_cuda(*b_args, **full), 50),
         plain_ms=cuda_ms(lambda: bio_moments.bio_moments_plain(*b_args, **full), 10),
-        **bound(C * (16 + 1 + 8 * n_runs + 12 + 12 + 4 * bio_moments.OUT_LANES),
+        **bound(live * (4 * dims + 1 + 8 * n_runs + 4 * dims + 12 + lanes_out)
+                + (C - live) * (1 + lanes_out),
                 dist_ops * candidates + nbr_ops * float(b_p[:, 0].sum())))
-    live = max(1, int(b_alive.sum()))
-    print(f"kernel {name}: rows={C} mean candidates per live row {candidates / live:.2f}, "
-          f"mean neighbours={float(b_k[:, 0].sum()) / live:.3f} "
+    print(f"kernel {name}: rows={C} live {live} mean candidates per live row "
+          f"{candidates / max(1, live):.2f}, "
+          f"mean neighbours={float(b_k[:, 0].sum()) / max(1, live):.3f} "
           f"max_abs_err={err:.3e} (all four modes, on the step's motility call)")
     # the engine's whole bio-moments work of one step: each call as the
     # engine makes it (device ms and device launches, glue included) and
@@ -511,8 +516,8 @@ def probe_phase() -> list:
     ``ms``."""
     from hipsc_abm_tpu_torch import kernels
     from hipsc_abm_tpu_torch.tools import dynslice_probe as p1
+    from hipsc_abm_tpu_torch.tools import device_kernels
     from hipsc_abm_tpu_torch.tools import dynslice_probe2 as p2
-    from hipsc_abm_tpu_torch.tools.contact_ab import device_kernels
 
     results = []
     for probe in (p1, p2):
@@ -749,15 +754,17 @@ def device_ms_per_step(eng, state, steps: int = 2) -> dict:
     steps: ``{"all": ms, "contact": ms, "by_kernel": {short name: [ms,
     launches]}}``, ``by_kernel`` each hand-written kernel's own time and
     launches per step and ``contact`` the contact kernels' sum; empty where
-    the profiler saw no device time."""
-    from hipsc_abm_tpu_torch.tools.contact_ab import device_kernels
+    the profiler saw no device time. The profiled steps are the ones right
+    after the timed window (no warm-up call)."""
+    from hipsc_abm_tpu_torch.tools import device_kernels
 
     carry = [state]
 
     def step():
         carry[0], _ = eng.step(carry[0])
 
-    total, _, by_kernel = device_kernels(step, steps, CONTACT_KERNELS + OTHER_KERNELS)
+    total, _, by_kernel = device_kernels(step, steps, CONTACT_KERNELS + OTHER_KERNELS,
+                                         warmup=False)
     if total <= 0:
         return {}
     return {"all": total,

@@ -32,12 +32,15 @@
 // bins (3.8 per live row at the 2D bench colony's density, 52 over the 27
 // bins of the 3D spheroid, chip_smoke.py's 100k and 99k states), neighbours
 // in the sorted order whose loads hit L1: the latency of the loads and the
-// instructions issued per candidate, not bytes or arithmetic. In 2D the
-// kernel now runs within 1.5x of its bytes; in 3D it stays ~4.5x, most of
-// it in the motility mode's loads per neighbour (7.8 per live row: three
-// feature columns and the current position, each a load of its own), which
-// take the 3D motility pass to 1.8x the count pass (PERF.md). What the
-// design does:
+// instructions issued per candidate, not bytes or arithmetic. The bytes it
+// must move are, per live row, its build-time and current positions,
+// liveness, bounds, three features and the 11 lanes that are not always
+// zero, and per dead row its liveness and those lanes; the kernel runs at a
+// few times that bound in 2D and several times it in 3D (PERF.md section 6
+// gives the multiples), most of the 3D excess in the motility mode's loads
+// per neighbour (7.8 per live row: three feature columns and the current
+// position, each a load of its own), which take the 3D motility pass to
+// 1.8x the count pass. What the design does:
 // - each row's bounds come in as N_RUNS int2 loads, all issued before the
 //   walk, not two dependent scalar loads at the start of every run;
 // - the walk loads the positions and liveness of kAhead candidates of a

@@ -102,9 +102,6 @@ using hipsc::PairLaw;
 constexpr int kThreads = 128;
 // candidates of a run whose positions are loaded before the first is tested
 constexpr int kAhead = 4;
-// the compaction's output tile per block: within the 48 KB of shared memory
-// a block gets without opting in (ops/span_mask.py compact_threads)
-constexpr size_t kCompactTileBytes = 48 * 1024;
 
 template <bool kSeed, int N_RUNS>
 __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
@@ -187,9 +184,10 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
   degree[row] = count;
 }
 
-// One thread per row, blockDim rows per block; the block's output rows are
-// contiguous (blockDim x K ints) and are built in a shared-memory tile of
-// that size (dynamic shared memory, at most kCompactTileBytes).
+// One thread per row, kThreads rows per block; the block's output rows are
+// contiguous (kThreads x K ints) and are built in a shared-memory tile of
+// that size (dynamic shared memory: 4 KB at K = 8, 64 KB at the engine's
+// largest bond capacity, 128).
 template <int N_RUNS>
 __global__ void mask_compact_kernel(const int* __restrict__ ids,
                                     const int2* __restrict__ bounds,
@@ -289,15 +287,16 @@ extern "C" int hipsc_contact_masked(
 
 extern "C" int hipsc_mask_compact(const void* ids, const void* bounds,
                                   const void* mask, void* out, int C, int K,
-                                  int W, int n_runs, int threads, void* stream) {
+                                  int W, int n_runs, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
-  if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
-  const size_t tile_bytes = (size_t)threads * K * sizeof(int);
-  if (threads < 32 || threads > kThreads || threads % 32 != 0 || K < 1 ||
-      tile_bytes > kCompactTileBytes)
-    return (int)cudaErrorInvalidValue;
+  if ((n_runs != 3 && n_runs != 9) || K < 1) return (int)cudaErrorInvalidValue;
   auto kernel = n_runs == 3 ? mask_compact_kernel<3> : mask_compact_kernel<9>;
-  kernel<<<(C + threads - 1) / threads, threads, tile_bytes, (cudaStream_t)stream>>>(
+  // the tile may pass the 48 KB a block gets without opting in (K > 96)
+  const int tile_bytes = kThreads * K * (int)sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tile_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks_for(C), kThreads, tile_bytes, (cudaStream_t)stream>>>(
       (const int*)ids, (const int2*)bounds, (const unsigned*)mask, (int*)out, C,
       K, W);
   return (int)cudaGetLastError();

@@ -56,7 +56,7 @@ _SIGNATURES = {
                            _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
     "hipsc_contact_masked": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
-    "hipsc_mask_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "hipsc_mask_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "hipsc_dynslice_probe": (_P, _P, _P, _P, _I, _I, _P),
     "hipsc_dynslice_probe2": (_P, _P, _P, _P, _I, _I, _I, _P),
 }

@@ -63,11 +63,6 @@ from hipsc_abm_tpu_torch.ops import jkr as jkr_ops
 from hipsc_abm_tpu_torch.ops.contact import pair_law_args
 from hipsc_abm_tpu_torch.ops.neighbors import bounds_window
 
-# the compaction kernel's rows per block and its output tile's limit
-# (csrc/contact_mask.cu kThreads, kCompactTileBytes)
-COMPACT_THREADS = 128
-COMPACT_TILE_BYTES = 48 * 1024
-
 
 def candidate_counts(bounds: torch.Tensor) -> torch.Tensor:
     """(C,) int64 candidate count of each row: the summed widths of its runs."""
@@ -233,22 +228,15 @@ def contact_masked_cuda(
     return force, degree, mask
 
 
-def compact_threads(bond_cap: int) -> int:
-    """Rows (threads) per block of the compaction kernel: 128, halved while
-    the block's (rows, bond_cap) int32 output tile exceeds the 48 KB of
-    shared memory a block gets without opting in; raises past 32 rows."""
-    threads = COMPACT_THREADS
-    while threads > 32 and threads * bond_cap * 4 > COMPACT_TILE_BYTES:
-        threads //= 2
-    if bond_cap < 1 or threads * bond_cap * 4 > COMPACT_TILE_BYTES:
-        raise ValueError(f"mask_compact_cuda: bond capacity {bond_cap} outside "
-                         f"1..{COMPACT_TILE_BYTES // (4 * 32)}")
-    return threads
-
-
 def mask_compact_cuda(ids, bounds, mask, bond_cap: int) -> torch.Tensor:
-    """The compaction. A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel (or raises)."""
+    """The compaction, for a bond capacity up to the engine's largest
+    (``engine.MAX_BOND_CAP``). A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel (or raises)."""
+    from hipsc_abm_tpu_torch.engine import MAX_BOND_CAP  # the engine imports this module
+
+    if not 1 <= bond_cap <= MAX_BOND_CAP:
+        raise ValueError(f"mask_compact_cuda: bond capacity {bond_cap} outside "
+                         f"1..{MAX_BOND_CAP}")
     if ids.device.type == "cpu":
         return mask_compact_plain(ids, bounds, mask, bond_cap)
     C = ids.shape[0]
@@ -256,10 +244,8 @@ def mask_compact_cuda(ids, bounds, mask, bond_cap: int) -> torch.Tensor:
     n_runs = kernels.run_count(bounds)
     kernels.check_cuda("bounds", bounds, torch.int32, (C, 2 * n_runs))
     W = _check_mask(mask, C)
-    threads = compact_threads(bond_cap)
     out = torch.empty((C, bond_cap), dtype=torch.int32, device=ids.device)
     kernels.launch("hipsc_mask_compact", ids.data_ptr(), bounds.data_ptr(),
-                   mask.data_ptr(), out.data_ptr(), C, int(bond_cap), W, n_runs,
-                   threads)
+                   mask.data_ptr(), out.data_ptr(), C, int(bond_cap), W, n_runs)
     kernels.launch_counts[kernels.counted_name("mask_compact", n_runs)] += 1
     return out

@@ -23,15 +23,13 @@ physics scan's first substep inputs:
   fate phases, so deaths and births since the build are present); each
   call is replayed in its own mode and the motility call's inputs in all
   four modes. Saves the step's input state, the run bounds and every
-  output. Besides each mode's kernel alone, it times the engine's whole
-  call (device ms and device launches per call, glue included: for a
-  checkout whose engine still builds a pack and a re-sentineled bin-id copy
-  per call, those ops are replayed as its engine ran them) and the glue
-  made once per step.
+  output.
 
-It also times each kernel of the path alone, per launch under
-``torch.profiler`` (``device_kernels``, 20 launches after the run whose
-outputs are saved), and saves the times with the card's name.
+It also times each kernel of the path alone (bio: in each mode), per launch
+under ``torch.profiler`` (``hipsc_abm_tpu_torch.tools.kernel_ms``, 20
+launches after the run whose outputs are saved), and saves the times with
+the card's name. The profiler helper and the recording of the engine's
+calls are the checkout's own, so ROOT must hold them.
 Run it from two checkouts (for example a change and its parent, unpacked
 with ``git archive``), then ``compare``: the inputs must be equal (the
 earlier steps ran the same kernels) and every output is compared element
@@ -62,107 +60,12 @@ BIO_OUTPUTS = ("count_call", "pathway_call") + tuple(f"motility_call_{m}" for m 
 BIO_INPUTS = ("in_ids", "in_loc", "in_alive", "in_bounds")
 
 
-def record_bio_calls(eng, state) -> list:
-    """The arguments of the engine's bio-moments calls in one ``step`` from
-    ``state``: ``[(args, kwargs)]``, in call order (count, pathway,
-    motility). The engine calls ``bio_moments_cuda`` by its module-level
-    name, which is wrapped for the step."""
-    from hipsc_abm_tpu_torch import engine as engine_mod
-
-    calls = []
-    real = engine_mod.bio_moments_cuda
-
-    def record(*args, **kw):
-        calls.append((args, dict(kw)))
-        return real(*args, **kw)
-
-    engine_mod.bio_moments_cuda = record
-    try:
-        eng.step(state)
-    finally:
-        engine_mod.bio_moments_cuda = real
-    return calls
-
-
-def device_kernels(fn, calls: int, names=()) -> tuple:
-    """Device time and launches per call of ``fn`` under ``torch.profiler``,
-    over ``calls`` calls after one warm-up call: ``(ms, launches,
-    by_kernel)``. The first two count every device activity with device
-    time (kernels, copies, fills). ``by_kernel`` maps each of ``names`` to
-    the (ms, launches) per call of the kernels whose profiler name contains
-    it, or, with no ``names``, each kernel's full name to its own."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, launches, by_kernel = 0.0, 0, {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t <= 0:
-            continue
-        total += t
-        launches += e.count
-        for key in [n for n in names if n in e.key] if names else [e.key]:
-            ms, n = by_kernel.get(key, (0.0, 0.0))
-            by_kernel[key] = (ms + t / 1e3 / calls, n + e.count / calls)
-    return total / 1e3 / calls, launches / calls, by_kernel
-
-
-def kernel_ms(fn, name: str, calls: int = TIMED_LAUNCHES) -> float:
-    """Device ms per launch of the kernel ``name`` names, alone (``fn``
-    called ``calls`` times); nan when it never launched."""
-    ms, launches = device_kernels(fn, calls, (name,))[2].get(name, (0.0, 0.0))
-    return ms / launches if launches else float("nan")
-
-
-def _engine_bio_glue(bio_moments, calls, two_d: bool) -> tuple:
-    """The engine's bio-moments work around the recorded kernel calls:
-    ``(per-call functions, per-step function)``. A checkout whose engine
-    builds a pack and a re-sentineled bin-id copy per call (``make_pack``)
-    gets those ops replayed on tensors of the step's shapes, and its
-    per-step copies of the bin ids and the zero features; one that reads
-    the step's columns gets its calls as they are and its per-step float4
-    positions."""
-    import torch
-
-    fn = bio_moments.bio_moments_cuda
-    if not hasattr(bio_moments, "make_pack"):
-        pos0 = calls[0][0][0]
-        loc0 = pos0[:, :3].contiguous()
-        per_call = [lambda a=a, k=k: fn(*a, **k) for a, k in calls]
-        return per_call, lambda: bio_moments.positions(loc0)
-    per_call = []
-    for (pack, flat, bounds), k in calls:
-        lanes = ((0, 1), (2, 3), (4, 5, 6)) if two_d else ((0, 1, 2), (4, 5, 6), (3, 7, 8))
-        loc0, loc1 = (torch.zeros((pack.shape[0], 3), device=pack.device) for _ in range(2))
-        loc0[:, :len(lanes[0])] = pack[:, list(lanes[0])]
-        loc1[:, :len(lanes[1])] = pack[:, list(lanes[1])]
-        feats = [pack[:, f].to(torch.int32) for f in lanes[2]]
-        alive_now = flat < k["num_bins"]
-        flat0, sentinel = flat.clone(), torch.full_like(flat, k["num_bins"])
-        per_call.append(lambda b=bounds, l0=loc0, l1=loc1, fs=feats, an=alive_now,
-                        f0=flat0, s=sentinel, k=k: fn(
-                            bio_moments.make_pack(l0, l1, *fs, two_d),
-                            torch.where(an, f0, s), b, **k))
-    flat64 = calls[0][0][1].to(torch.int64)
-    C = flat64.shape[0]
-    return per_call, lambda: (flat64.to(torch.int32), torch.full((C,), 7, dtype=torch.int32,
-                                                                 device=flat64.device),
-                              torch.zeros((C,), dtype=torch.int32, device=flat64.device))
-
-
 def bio_outputs(eng, state) -> tuple:
     """The ``bio`` dump's arrays (``BIO_INPUTS`` and ``BIO_OUTPUTS``, as
     tensors) for one ``step`` of ``eng`` from ``state``, and the recorded
     calls."""
     from hipsc_abm_tpu_torch.ops import bio_moments
+    from hipsc_abm_tpu_torch.tools import record_bio_calls
 
     saved = dict(in_ids=state.arrays["ids"], in_loc=state.arrays["locations"],
                  in_alive=state.alive)
@@ -176,21 +79,17 @@ def bio_outputs(eng, state) -> tuple:
 
 
 def _dump_bio(eng, state) -> tuple:
-    """The ``bio`` path of ``dump``: ``(outputs, times)``."""
+    """The ``bio`` path of ``dump``: ``(outputs, each mode's kernel alone,
+    ms per launch)``."""
     from hipsc_abm_tpu_torch.ops import bio_moments
+    from hipsc_abm_tpu_torch.tools import kernel_ms
 
     saved, calls = bio_outputs(eng, state)
-    times = {}
     fn = bio_moments.bio_moments_cuda
     a3, k3 = calls[2]
-    for mode in BIO_MODES:
-        times[f"bio_{mode}_ms"] = kernel_ms(lambda: fn(*a3, **{**k3, "mode": mode}), BIO_KERNEL)
-    per_call, per_step = _engine_bio_glue(bio_moments, calls, eng.cfg.two_d)
-    for name, call in zip(("count", "pathway", "motility"), per_call):
-        times[f"call_{name}_ms"], times[f"call_{name}_launches"], _ = device_kernels(
-            call, TIMED_LAUNCHES)
-    times["step_glue_ms"], times["step_glue_launches"], _ = device_kernels(
-        per_step, TIMED_LAUNCHES)
+    times = {f"bio_{mode}_ms": kernel_ms(lambda: fn(*a3, **{**k3, "mode": mode}), BIO_KERNEL,
+                                         TIMED_LAUNCHES)
+             for mode in BIO_MODES}
     return saved, times
 
 
@@ -203,6 +102,7 @@ def dump(root: str, out: str, dims: int, path: str) -> None:
     from hipsc_abm_tpu_torch.ops import neighbors as nbr
     from hipsc_abm_tpu_torch.ops.integrate import stokes_integrate
     from hipsc_abm_tpu_torch.ops.jkr import pack_physics
+    from hipsc_abm_tpu_torch.tools import kernel_ms
 
     if not torch.cuda.is_available():
         raise SystemExit("contact_ab dump: no CUDA device")
@@ -216,11 +116,7 @@ def dump(root: str, out: str, dims: int, path: str) -> None:
         print(f"contact_ab dump: {root} {dims}D bio rows={saved['in_bounds'].shape[0]} -> "
               f"{out}; {BIO_KERNEL} alone per launch (profiler, {TIMED_LAUNCHES} launches): "
               + ", ".join(f"{m} {times[f'bio_{m}_ms']:.5f} ms" for m in BIO_MODES)
-              + "; engine call (device ms, launches): "
-              + ", ".join(f"{c} {times[f'call_{c}_ms']:.5f} / {times[f'call_{c}_launches']:g}"
-                          for c in ("count", "pathway", "motility"))
-              + f"; per-step glue {times['step_glue_ms']:.5f} ms / "
-                f"{times['step_glue_launches']:g} [{_card()}]")
+              + f" [{_card()}]")
         return
     cfg, bio, a, alive = eng.cfg, eng.bio, state.arrays, state.alive
     grid = nbr.build_grid(cfg.jkr_spec, a["locations"], a["ids"], alive)
@@ -257,7 +153,7 @@ def dump(root: str, out: str, dims: int, path: str) -> None:
     arrays = {k: v.cpu().numpy() for k, v in saved.items()}
     times = {}
     for prefix, fn in runs.items():
-        times[f"{prefix}ms"] = kernel_ms(fn, KERNELS[path][prefix])
+        times[f"{prefix}ms"] = kernel_ms(fn, KERNELS[path][prefix], TIMED_LAUNCHES)
     _save(out, path, arrays, times)
     timed = ", ".join(f"{KERNELS[path][k[:-2]]} {v:.5f} ms" for k, v in times.items())
     print(f"contact_ab dump: {root} {dims}D {path} rows={args[0].shape[0]} K={K} "
@@ -312,9 +208,6 @@ def compare(a_path: str, b_path: str) -> bool:
     print(f"contact_ab compare [{path}]: inputs equal {ok_in}; {', '.join(report)}")
     if path == "bio":
         timed = [(f"bio_{m}_ms", f"{BIO_KERNEL}[{m}] alone per launch, ms") for m in BIO_MODES]
-        timed += [(f"call_{c}_{u}", f"engine {c} call, device {u}")
-                  for c in ("count", "pathway", "motility") for u in ("ms", "launches")]
-        timed += [(f"step_glue_{u}", f"per-step glue, device {u}") for u in ("ms", "launches")]
     else:
         timed = [(f"{prefix}ms", f"{name} alone per launch, ms")
                  for prefix, name in KERNELS[path].items()]

@@ -268,19 +268,18 @@ def test_mask_compact_kernel_matches_plain(dev, K):
     assert K > 5 or int(degree.max()) > K
 
 
-@pytest.mark.parametrize("K", [5, 97, 128, 300])
+@pytest.mark.parametrize("K", [5, 97, 128])
 @pytest.mark.parametrize("dims", [2, 3])
 def test_mask_compact_kernel_edge_cases(dev, K, dims):
-    """Rows past the last full block (C = 2045, not a multiple of the 128,
-    64 or 32 rows a block takes), rows dead at the build (empty runs: no
-    mask word read) and dead since (all-zero words), rows with more set bits
-    than K, and K whose tile needs 64 or 32 rows per block (97, 128, 300)."""
+    """Rows past the last full block (C = 2045, not a multiple of the 128
+    rows a block takes), rows dead at the build (empty runs: no mask word
+    read) and dead since (all-zero words), rows with more set bits than K,
+    and K whose output tile passes the 48 KB a block gets without opting in
+    (97; 128, the engine's largest bond capacity, a 64 KB tile)."""
     box = (420.0, 420.0, 0.0) if dims == 2 else (120.0, 120.0, 120.0)
     args = [a.to(dev) for a in _contact_inputs(8, C=2045, n=1900, box=box, skin=14.0)]
     _, degree, mask = span_mask.contact_seed_plain(*args, **LAW)
-    rows_per_block = span_mask.compact_threads(K)
-    assert args[0].shape[0] % rows_per_block != 0
-    assert rows_per_block == {5: 128, 97: 64, 128: 64, 300: 32}[K]
+    assert args[0].shape[0] % 128 != 0
     dead = ~args[2]
     assert bool(dead.any()) and bool((span_mask.candidate_counts(args[3])[dead] == 0).any())
     got = span_mask.mask_compact_cuda(args[1], args[3], mask, K)
@@ -291,10 +290,12 @@ def test_mask_compact_kernel_edge_cases(dev, K, dims):
     assert K > 5 or int(degree.max()) > K
 
 
-def test_mask_compact_kernel_rejects_a_tile_past_shared_memory(dev):
+def test_mask_compact_kernel_rejects_a_bond_capacity_past_the_engine_cap(dev):
+    from hipsc_abm_tpu_torch.engine import MAX_BOND_CAP
+
     args = [a.to(dev) for a in _contact_inputs(8, C=256, n=200, box=(150.0, 150.0, 0.0))]
     _, _, mask = span_mask.contact_seed_plain(*args, **LAW)
-    K = span_mask.COMPACT_TILE_BYTES // (4 * 32) + 1
+    K = MAX_BOND_CAP + 1
     before = kernels.launch_counts["mask_compact"]
     with pytest.raises(ValueError, match="bond capacity"):
         span_mask.mask_compact_cuda(args[1], args[3], mask, K)
@@ -372,7 +373,7 @@ def test_bio_kernel_reads_only_the_inputs_of_its_mode(dev):
 def test_engine_bio_call_launches_only_the_kernel(dev):
     """Each of the engine's three bio-moments calls of a step is one device
     launch, the kernel's: no re-sentineled copy or pack per call."""
-    from hipsc_abm_tpu_torch.tools.contact_ab import device_kernels, record_bio_calls
+    from hipsc_abm_tpu_torch.tools import device_kernels, record_bio_calls
 
     gen = GeneralParams(num_to_start=2000, size=(1200.0, 1200.0, 0.0))
     eng = HipscEngine(gen, ExperimentalParams(num_gata6=200, dox_step=1), device=dev)

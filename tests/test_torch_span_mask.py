@@ -157,13 +157,11 @@ def test_seed_masked_compact_match_pallas_interpret(K):
     assert beyond > 0
 
 
-def test_compact_truncates_in_walk_order():
-    """More set bits than K: the compaction keeps the first K candidates in
-    the port's walk order (run, then sorted position), the order the id-list
-    kernel appends in. The Pallas compaction truncates in its (chunk, run,
-    lane) order instead (``tests/test_pallas.py``), a layout artifact. Either
-    way the substeps' degree probe exceeds K, so ``safe_step`` grows K and
-    re-executes before any accepted step depends on which K were kept."""
+def _one_row_mask(n_bits):
+    """Sorted ids and bounds of a small colony, and a mask with ``n_bits``
+    set bits (every candidate but each third) on its row with the most
+    candidates, which must have more than that: ``(sids, bounds, mask, row,
+    ids of the set bits in the port's walk order)``."""
     locs, _, radii, ids, alive, _, jspec = _colony(8, seed=3)
     tspec = tnbr.GridSpec(**dataclasses.asdict(jspec))
     grid = tnbr.build_grid(tspec, torch.from_numpy(locs), torch.from_numpy(ids),
@@ -173,31 +171,49 @@ def test_compact_truncates_in_walk_order():
     counts = span_mask.candidate_counts(bounds)
     row = int(torch.argmax(counts))
     n = int(counts[row])
-    K = 8
-    assert n > K + 4
+    cand = [j for j in range(n) if j % 3 != 1][:n_bits]  # every set bit but a gap
+    assert len(cand) == n_bits
     W = span_mask.mask_words(bounds)
     words = np.zeros((W, len(ids)), np.int64)
-    cand = [j for j in range(n) if j % 3 != 1][: K + 4]  # every set bit but a gap
     for j in cand:
         words[j >> 5, row] |= 1 << (j & 31)
     mask = torch.from_numpy(np.where(words >= 1 << 31, words - (1 << 32), words).astype(np.int32))
-    got = span_mask.mask_compact_cuda(sids, bounds, mask, K).numpy()
     b = bounds[row].numpy()
     walk = [p for r in range(3) for p in range(b[2 * r], b[2 * r + 1])]
-    np.testing.assert_array_equal(got[row], sids.numpy()[[walk[j] for j in cand[:K]]])
+    return sids, bounds, mask, row, sids.numpy()[[walk[j] for j in cand]]
+
+
+def test_compact_truncates_in_walk_order():
+    """More set bits than K: the compaction keeps the first K candidates in
+    the port's walk order (run, then sorted position), the order the id-list
+    kernel appends in. The Pallas compaction truncates in its (chunk, run,
+    lane) order instead (``tests/test_pallas.py``), a layout artifact. Either
+    way the substeps' degree probe exceeds K, so ``safe_step`` grows K and
+    re-executes before any accepted step depends on which K were kept."""
+    K = 8
+    sids, bounds, mask, row, kept = _one_row_mask(K + 4)
+    got = span_mask.mask_compact_cuda(sids, bounds, mask, K).numpy()
+    np.testing.assert_array_equal(got[row], kept[:K])
     assert np.all(np.delete(got, row, axis=0) == NO_BOND)
 
 
-@pytest.mark.parametrize("K,rows", [(1, 128), (5, 128), (96, 128), (97, 64), (128, 64),
-                                    (192, 64), (193, 32), (384, 32)])
-def test_compact_threads_keep_the_tile_in_shared_memory(K, rows):
-    """The compaction kernel's rows per block: 128, halved while the block's
-    (rows, K) int32 output tile exceeds 48 KB; K past 384 (32 rows) and
-    K < 1 are refused before any launch."""
-    assert span_mask.compact_threads(K) == rows
-    assert rows * K * 4 <= span_mask.COMPACT_TILE_BYTES
-    with pytest.raises(ValueError, match="bond capacity"):
-        span_mask.compact_threads(0 if K == 1 else 385)
+@pytest.mark.parametrize("K", [0, 1, 8, 24, 96, 97, 128, 129])
+def test_compact_bond_capacity_up_to_the_engine_cap(K):
+    """The compaction takes a bond capacity from 1 to the engine's largest
+    (``MAX_BOND_CAP``, 128, where the kernel's output tile is 64 KB per
+    block) and refuses any other; within it a row keeps its first K set
+    bits in walk order, padded with ``NO_BOND``."""
+    sids, bounds, mask, row, kept = _one_row_mask(12)
+    if not 1 <= K <= teng_mod.MAX_BOND_CAP:
+        with pytest.raises(ValueError, match="bond capacity"):
+            span_mask.mask_compact_cuda(sids, bounds, mask, K)
+        return
+    got = span_mask.mask_compact_cuda(sids, bounds, mask, K).numpy()
+    assert got.shape == (len(sids), K)
+    want = np.full(K, NO_BOND, np.int32)
+    want[:min(K, len(kept))] = kept[:K]
+    np.testing.assert_array_equal(got[row], want)
+    assert np.all(np.delete(got, row, axis=0) == NO_BOND)
 
 
 def _scan_inputs(skin, seed=2):
