@@ -24,7 +24,7 @@ Phases, each of which raises on failure (exit code != 0):
    reach the membership test; FTCS also on fixed halos beside the plan's;
 3. probes: each mode of the window probes P1 and P2 against its plain
    version at NBLK = 4096, the kernel's own device time per launch under
-   ``torch.profiler``, then each probe's entry point
+   ``torch.profiler`` and its multiple of the bound, then each probe's entry point
    (``hipsc_abm_tpu_torch.tools.dynslice_probe[2].main``) per mode, with the
    launch counts set to 0 just before it;
 4. step: one ``step`` of the port from the same 20k-cell 2D state on the
@@ -572,10 +572,12 @@ def probe_phase() -> list:
                 max_abs_err=err, ms=run["ms"], plain_ms=plain_ms,
                 **bound(moved, flops), library_ms=None))
             r = results[-1]
-            alone = "not measured" if kernel_ms is None else f"{kernel_ms:.4f} ms"
+            alone = ("not measured" if kernel_ms is None else
+                     f"{kernel_ms:.4f} ms per launch (profiler), "
+                     f"{kernel_ms / r['bound_ms']:.2f}x its bound")
             print(f"probe {r['name']}: max|out|={scale:.6e} max_abs_err={err:.3e}; "
                   f"{r['ms']:.4f} ms ({run['glanes_per_s']:.1f} Glanes/s), kernel alone "
-                  f"{alone} per launch (profiler), plain "
+                  f"{alone}, plain "
                   f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
                   f"{moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
         del inputs, offs, rows, span

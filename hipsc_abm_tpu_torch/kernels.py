@@ -57,8 +57,8 @@ _SIGNATURES = {
     "hipsc_contact_masked": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
     "hipsc_mask_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "hipsc_dynslice_probe": (_P, _P, _P, _P, _I, _I, _P),
-    "hipsc_dynslice_probe2": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "hipsc_dynslice_probe": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "hipsc_dynslice_probe2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 # stencil runs per row: 3 in 2D, 9 in 3D (the kernels' N_RUNS)
 RUN_COUNTS = (3, 9)

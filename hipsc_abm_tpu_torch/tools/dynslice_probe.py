@@ -16,6 +16,9 @@ Inputs are those of the JAX probe: numpy ``default_rng(0)`` rows
 offsets (G, NBLK) in ``[0, SPAN - W)``, all float32 / int32. Output
 (NBLK * 128, 1) float32.
 
+The kernel walks one program per warp at a time (4 rows per thread);
+``launch_shape`` sets its grid, and P2's.
+
     python -m hipsc_abm_tpu_torch.tools.dynslice_probe [--device cpu] [modes]
 
 prints ``mode  ms  (Glanes/s)`` per mode, as the JAX probe does, timed over
@@ -40,15 +43,36 @@ ROWS = 32        # rows per group
 W = 128          # window lanes
 REPS = 30
 MODES = ("static", "dyn_aligned", "dyn_unaligned")
+# the kernels' grid: warps (one program in flight each) per block; and the
+# warps P1's grid puts on each SM: 32, so that on an H100 (132 SMs) every
+# one of the 4096 programs has a warp of its own, all resident at once
+WARPS_PER_BLOCK = 4
+WARPS_PER_SM = 32
 
 
-def make_inputs(nblk: int = NBLK, device="cuda"):
+def make_inputs(nblk: int = NBLK, device="cuda", offset: int | None = None):
     """``(offs (G, nblk) int32, rows (nblk * 128, 8), span (8, nblk * SPAN))``
-    from the JAX probe's seeds."""
+    from the JAX probe's seeds; ``offset`` sets every window offset to that
+    lane instead (the edge cases the tests hold)."""
     rows = np.random.default_rng(0).random((nblk * G * ROWS, 8)).astype(np.float32)
     span = np.random.default_rng(1).random((8, nblk * SPAN)).astype(np.float32)
     offs = np.random.default_rng(2).integers(0, SPAN - W, (G, nblk)).astype(np.int32)
+    if offset is not None:
+        offs[:] = offset
     return tuple(torch.from_numpy(a).to(device) for a in (offs, rows, span))
+
+
+def launch_shape(nblk: int, n_sm: int, warps_per_sm: int) -> tuple:
+    """``(blocks, threads, buffers)`` of a probe kernel's launch over
+    ``nblk`` programs on ``n_sm`` SMs: ``warps_per_sm`` warps on each SM (or
+    one per program, if fewer), warp w walking programs w, w + warps, ...
+    A warp that walks more than one program stages the next one's lanes in
+    a second buffer while it walks the current one. At the probes' 4096
+    programs on 132 SMs no SM walks more than 32: P1 (32 warps per SM) one
+    per warp, P2 (8) 3-4 per warp."""
+    nblk = max(nblk, 1)
+    blocks = -(-min(nblk, n_sm * warps_per_sm) // WARPS_PER_BLOCK)
+    return blocks, 32 * WARPS_PER_BLOCK, 2 if nblk > blocks * WARPS_PER_BLOCK else 1
 
 
 def window_offsets(mode: str, offs: torch.Tensor) -> torch.Tensor:
@@ -96,8 +120,9 @@ def probe_cuda(offs, rows, span, mode: str) -> torch.Tensor:
     kernels.check_cuda("rows", rows, torch.float32, (nblk * G * ROWS, 8))
     kernels.check_cuda("span", span, torch.float32, (8, nblk * SPAN))
     out = torch.empty((nblk * G * ROWS, 1), dtype=torch.float32, device=rows.device)
+    shape = launch_shape(nblk, kernels.device_limits()["n_sm"], WARPS_PER_SM)
     kernels.launch("hipsc_dynslice_probe", offs.data_ptr(), rows.data_ptr(),
-                   span.data_ptr(), out.data_ptr(), nblk, MODES.index(mode))
+                   span.data_ptr(), out.data_ptr(), nblk, MODES.index(mode), *shape)
     kernels.launch_counts["dynslice_probe"] += 1
     return out
 

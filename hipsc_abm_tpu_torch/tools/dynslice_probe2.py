@@ -17,7 +17,8 @@ against ``width`` lanes of span rows 0, 1, 2 and 4 starting at
 Inputs are those of the JAX probe: numpy ``default_rng(0)`` rows
 (NBLK * B, 8), ``default_rng(1)`` span (8, NBLK * SPAN), ``default_rng(2)``
 offsets (4, NBLK) in ``[0, SPAN - 256)``, all float32 / int32. Output
-(NBLK * B, 1) float32.
+(NBLK * B, 1) float32. The kernel's grid is P1's
+(``dynslice_probe.launch_shape``).
 
     python -m hipsc_abm_tpu_torch.tools.dynslice_probe2 [--device cpu] [modes]
 
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from hipsc_abm_tpu_torch import kernels
-from hipsc_abm_tpu_torch.tools import parse_args, time_ms
+from hipsc_abm_tpu_torch.tools import dynslice_probe, parse_args, time_ms
 
 NBLK = 4096
 SPAN = 512
@@ -45,14 +46,20 @@ MODES = ("full", "half", "q256", "quarters", "octets")
 GROUPS = {"full": (128, 512), "half": (64, 256), "q256": (32, 256),
           "quarters": (32, 128), "octets": (8, 128)}
 SPAN_ROWS = (0, 1, 2, 4)  # the span rows the body reads: x, y, f, id
+# the warps the kernel's grid puts on each SM: 8, whose two staged buffers
+# of 10.6 KB each (169 KB in all) fit the SM's shared memory
+WARPS_PER_SM = 8
 
 
-def make_inputs(nblk: int = NBLK, device="cuda"):
+def make_inputs(nblk: int = NBLK, device="cuda", offset: int | None = None):
     """``(offs (4, nblk) int32, rows (nblk * B, 8), span (8, nblk * SPAN))``
-    from the JAX probe's seeds."""
+    from the JAX probe's seeds; ``offset`` sets every offset to that lane
+    instead (the edge cases the tests hold)."""
     rows = np.random.default_rng(0).random((nblk * B, 8)).astype(np.float32)
     span = np.random.default_rng(1).random((8, nblk * SPAN)).astype(np.float32)
     offs = np.random.default_rng(2).integers(0, SPAN - 256, (4, nblk)).astype(np.int32)
+    if offset is not None:
+        offs[:] = offset
     return tuple(torch.from_numpy(a).to(device) for a in (offs, rows, span))
 
 
@@ -130,8 +137,9 @@ def probe_cuda(offs, rows, span, mode: str) -> torch.Tensor:
     kernels.check_cuda("rows", rows, torch.float32, (nblk * B, 8))
     kernels.check_cuda("span", span, torch.float32, (8, nblk * SPAN))
     out = torch.empty((nblk * B, 1), dtype=torch.float32, device=rows.device)
+    shape = dynslice_probe.launch_shape(nblk, kernels.device_limits()["n_sm"], WARPS_PER_SM)
     kernels.launch("hipsc_dynslice_probe2", offs.data_ptr(), rows.data_ptr(),
-                   span.data_ptr(), out.data_ptr(), nblk, *GROUPS[mode])
+                   span.data_ptr(), out.data_ptr(), nblk, *GROUPS[mode], *shape)
     kernels.launch_counts["dynslice_probe2"] += 1
     return out
 

@@ -513,25 +513,83 @@ def test_kernels_reject_other_run_counts(dev):
         span_mask.contact_seed_cuda(*bad, **LAW)
 
 
+def _probe_matches_plain(probe, inputs, mode):
+    """One launch of the probe's kernel against its plain version."""
+    name = probe.__name__.rsplit(".", 1)[1]
+    before = kernels.launch_counts[name]
+    got = probe.probe_cuda(*inputs, mode)
+    want = probe.probe_plain(*inputs, mode)
+    assert kernels.launch_counts[name] == before + 1
+    if probe is dynslice_probe:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
 @pytest.mark.parametrize("mode", dynslice_probe.MODES)
 def test_probe1_kernel_matches_plain(dev, mode):
-    inputs = dynslice_probe.make_inputs(64, dev)
-    before = kernels.launch_counts["dynslice_probe"]
-    got = dynslice_probe.probe_cuda(*inputs, mode)
-    want = dynslice_probe.probe_plain(*inputs, mode)
-    assert kernels.launch_counts["dynslice_probe"] == before + 1
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    _probe_matches_plain(dynslice_probe, dynslice_probe.make_inputs(64, dev), mode)
 
 
 @pytest.mark.parametrize("mode", dynslice_probe2.MODES)
 def test_probe2_kernel_matches_plain(dev, mode):
-    inputs = dynslice_probe2.make_inputs(64, dev)
-    before = kernels.launch_counts["dynslice_probe2"]
-    got = dynslice_probe2.probe_cuda(*inputs, mode)
-    want = dynslice_probe2.probe_plain(*inputs, mode)
-    assert kernels.launch_counts["dynslice_probe2"] == before + 1
-    scale = float(want.abs().max())
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    _probe_matches_plain(dynslice_probe2, dynslice_probe2.make_inputs(64, dev), mode)
+
+
+# program counts: a part of one block, one program past 132 SMs' warps,
+# and more than two programs for some warps on 132 SMs
+PROBE_NBLK = (1, 3, 133, 2117)
+
+
+@pytest.mark.parametrize("nblk", PROBE_NBLK)
+@pytest.mark.parametrize("mode", dynslice_probe.MODES)
+def test_probe1_kernel_at_program_counts(dev, mode, nblk):
+    _probe_matches_plain(dynslice_probe, dynslice_probe.make_inputs(nblk, dev), mode)
+
+
+@pytest.mark.parametrize("nblk", PROBE_NBLK)
+@pytest.mark.parametrize("mode", dynslice_probe2.MODES)
+def test_probe2_kernel_at_program_counts(dev, mode, nblk):
+    _probe_matches_plain(dynslice_probe2, dynslice_probe2.make_inputs(nblk, dev), mode)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 895, 896])
+def test_probe1_kernel_at_edge_offsets(dev, offset):
+    """Unaligned windows at the span block's first lanes and its last
+    window (SPAN - W = 896)."""
+    _probe_matches_plain(dynslice_probe, dynslice_probe.make_inputs(37, dev, offset=offset),
+                         "dyn_unaligned")
+
+
+@pytest.mark.parametrize("offset", [0, 383, 511])
+@pytest.mark.parametrize("mode", ["quarters", "octets"])
+def test_probe2_kernel_at_edge_offsets(dev, mode, offset):
+    """Windows from aligned starts 0, 256 and 384 (= SPAN - W, the clamp)."""
+    _probe_matches_plain(dynslice_probe2, dynslice_probe2.make_inputs(37, dev, offset=offset),
+                         mode)
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 2), (1, 128, 2), (3, 96, 2), (10, 128, 1)])
+def test_probe_kernels_on_other_grids(dev, monkeypatch, shape):
+    """Every mode of both probes at 37 programs on grids other than the
+    wrapper's: one warp walking all, a part-filled last pass, one program
+    per warp with idle warps."""
+    monkeypatch.setattr(dynslice_probe, "launch_shape", lambda nblk, n_sm, warps_per_sm: shape)
+    for probe in (dynslice_probe, dynslice_probe2):
+        inputs = probe.make_inputs(37, dev)
+        for mode in probe.MODES:
+            _probe_matches_plain(probe, inputs, mode)
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 1), (1, 48, 1), (1, 32, 3), (0, 32, 1)])
+def test_probe_kernels_refuse_other_shapes(dev, monkeypatch, shape):
+    """One buffer per warp needs a warp per program; threads a multiple of
+    32, one or two buffers, at least one block."""
+    monkeypatch.setattr(dynslice_probe, "launch_shape", lambda nblk, n_sm, warps_per_sm: shape)
+    for probe, mode in ((dynslice_probe, "static"), (dynslice_probe2, "full")):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            probe.probe_cuda(*probe.make_inputs(2, dev), mode)
 
 
 @pytest.mark.parametrize("contact_path", ["id_list", "span_mask"])

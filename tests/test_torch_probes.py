@@ -9,6 +9,11 @@ NBLK = 4 with the probes' own seeds.
 import, so they are loaded from their files and the cache setting is put
 back afterwards.
 
+The edge cases of the port's kernels (window offsets at the span's ends)
+are held here too, through the same ``make_inputs(offset=...)`` the card
+tests use, and the kernels' grid (``launch_shape``) is checked without a
+card.
+
 Tolerances, from measured error: P1 sums 128 terms ``dx * d2`` of |.| < 2
 in another order (rtol 1e-5, atol 1e-5 for sums that cancel to near 0); P2
 sums up to 512 terms of |.| < 25 with ``torch.rsqrt`` against XLA's rsqrt
@@ -98,6 +103,66 @@ def test_probe2_plain_matches_pallas_interpret(jp2, mode):
     scale = np.abs(want).max()
     assert scale > 1.0
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 895, 896])
+def test_probe1_plain_matches_pallas_interpret_at_edge_offsets(jp1, offset):
+    """dyn_unaligned windows at the span block's first lanes and at its
+    last window (SPAN - W = 896)."""
+    inputs = tp1.make_inputs(NBLK, "cpu", offset=offset)
+    assert int(inputs[0].min()) == int(inputs[0].max()) == offset
+    want = _jax_probe(jp1, "dyn_unaligned", *inputs, jp1.G * jp1.ROWS, jp1.SPAN)
+    got = tp1.probe_cuda(*inputs, "dyn_unaligned")
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("offset", [0, 383, 511])
+@pytest.mark.parametrize("mode", ["quarters", "octets"])
+def test_probe2_plain_matches_pallas_interpret_at_edge_offsets(jp2, mode, offset):
+    """128-lane windows from offsets whose aligned start is 0, 256 and 384
+    (511 // 128 * 128 = 384 = SPAN - W, the clamp both probes apply)."""
+    inputs = tp2.make_inputs(NBLK, "cpu", offset=offset)
+    want = _jax_probe(jp2, mode, *inputs, jp2.B, jp2.SPAN)
+    got = tp2.probe_cuda(*inputs, mode)
+    scale = np.abs(want).max()
+    assert scale > 1.0
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * scale)
+
+
+def _programs_per_sm(nblk, n_sm, shape):
+    """Programs each SM walks under ``shape``, with blocks dealt to the SMs
+    in turn (all resident at once) and warp w of the grid walking programs
+    w, w + warps, ..., as the kernels do."""
+    blocks, threads, _ = shape
+    warps = blocks * (threads // 32)
+    per_sm = [0] * n_sm
+    for w in range(min(warps, nblk)):
+        per_sm[(w // (threads // 32)) % n_sm] += len(range(w, nblk, warps))
+    return per_sm
+
+
+@pytest.mark.parametrize("nblk,n_sm,warps_per_sm,want,most", [
+    (4096, 132, 32, (1024, 128, 1), 32), (1, 132, 32, (1, 128, 1), 1),
+    (3, 132, 32, (1, 128, 1), 3), (133, 132, 32, (34, 128, 1), 4),
+    (2117, 132, 32, (530, 128, 1), 20), (4096, 132, 8, (264, 128, 2), 32),
+    (2117, 132, 8, (264, 128, 2), 20), (4096, 114, 8, (228, 128, 2), 36),
+    (0, 132, 8, (1, 128, 1), 0)])
+def test_probe_launch_shape(nblk, n_sm, warps_per_sm, want, most):
+    """The probes' grid: at most ``warps_per_sm`` warps per SM, so the grid
+    is resident at once; every program walked once; a second buffer
+    whenever a warp walks more than one program; at the probes' 4096
+    programs no SM walks more than ceil(4096 / n_sm) (32 on an H100's 132
+    SMs), at P1's and P2's settings alike."""
+    assert (tp1.WARPS_PER_SM, tp2.WARPS_PER_SM) == (32, 8)
+    shape = tp1.launch_shape(nblk, n_sm, warps_per_sm)
+    assert shape == want
+    blocks, threads, buffers = shape
+    warps = blocks * threads // 32
+    assert threads == 32 * tp1.WARPS_PER_BLOCK
+    assert -(-blocks // n_sm) * tp1.WARPS_PER_BLOCK <= warps_per_sm
+    assert (buffers == 2) == (warps < nblk)
+    per_sm = _programs_per_sm(nblk, n_sm, shape)
+    assert sum(per_sm) == nblk and max(per_sm) == most
 
 
 def test_probe_constants_match_the_jax_probes(jp1, jp2):
