@@ -43,17 +43,37 @@ Phases, each of which raises on failure (exit code != 0):
    of the path must have launched; in 2D one FTCS launch per step), the
    device time per step, in all and of the contact kernels, over 2 more
    steps under ``torch.profiler``, and in 2D the FTCS kernel against its
-   plain version on the path's last lattice.
+   plain version on the path's last lattice;
+6. lifecycle (``lifecycle_phase``): ``CellSimulation.start`` on the card
+   from templates written into a temporary directory. (a) The shipped
+   templates' values (5,000 cells, 2000 x 2000 um, every output, image
+   width 2000, ``temp_pickle: true``) with ``end_step`` 24, ``num_gata6``
+   500 and ``dox_step`` 5: its first 4 steps on the card and on the CPU
+   (``lifecycle_card_vs_cpu``: each card step from the CPU's state to the
+   step phase's tolerance, the two trajectories' integer state equal by
+   agent id); mode 0 to step 12 then mode 1 to step 24, bit-equal
+   by agent id to a mode-0 run straight to step 24; the per-step population,
+   GATA6-high and differentiated counts of both from their values CSVs;
+   then mode 2 (video) and mode 3 (zip). (b) The bench configuration at
+   100,000 + 10,000 cells through the lifecycle, diffusion on, values, TDA,
+   gradient and image outputs, ``temp_pickle: false``, 6 steps: per step
+   the wall, ``step_fused`` and output times from the data CSV, the peak
+   device memory and the launches of the kernels (B4, B6 and B5 must all
+   have launched).
 
 The last lines are one JSON object with each kernel's numbers, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -104,6 +124,23 @@ TIMED_STEPS = 20
 ALONE_LAUNCHES = 20
 # FTCS halos timed beside the plan's own (subcycles per grid barrier)
 FTCS_HALOS = (1, 2, 4, 8, 12, 16)
+# the lifecycle phase's templates: the shipped examples/templates values,
+# with the fate decision (dox at step 5) inside a 24-step window
+LIFECYCLE_GENERAL = dict(
+    num_to_start=5000, cuda=False, end_step=24, size=[2000, 2000, 0], output_values=True,
+    output_images=True, record_initial_step=True, image_quality=2000, video_quality=1000,
+    fps=10, seed=0, temp_pickle=True)
+LIFECYCLE_EXPERIMENTAL = dict(
+    num_gata6=500, output_tda=True, output_gradients=True, group=0, dox_step=5,
+    guye_move=True, lonely_thresh=2, color_mode=True)
+# and the bench configuration (bench_engine at N_MAIN) through the lifecycle
+LIFECYCLE_BENCH_GENERAL = dict(
+    LIFECYCLE_GENERAL, num_to_start=N_MAIN, end_step=6, size=[8944, 8944, 0],
+    temp_pickle=False)
+LIFECYCLE_BENCH_EXPERIMENTAL = dict(
+    LIFECYCLE_EXPERIMENTAL, num_gata6=N_MAIN // 10, enable_diffusion=True, spat_res=20.0,
+    release_amount=0.01, degradation=0.1)
+LIFECYCLE_CPU_STEPS = 4
 
 
 def bench_engine(n_cells: int, device: str, contact_path: str = "id_list"):
@@ -723,6 +760,325 @@ def coupling_phase(steps: int = 20) -> None:
                              f"bit-equal {loc_equal})")
 
 
+def write_templates(root: str, general: dict, experimental: dict) -> None:
+    """``templates/general.yaml`` and ``experimental.yaml`` under ``root``,
+    one ``key: value`` line each (lists as ``[a, b]``)."""
+
+    def text(keys):
+        return "".join(f"{k}: [{', '.join(map(str, v))}]\n" if isinstance(v, list)
+                       else f"{k}: {v}\n" for k, v in keys.items())
+
+    os.makedirs(os.path.join(root, "templates"), exist_ok=True)
+    for name, keys in (("general", general), ("experimental", experimental)):
+        with open(os.path.join(root, "templates", f"{name}.yaml"), "w") as f:
+            f.write(text(keys))
+
+
+def run_lifecycle(root: str, argv: list):
+    """``CellSimulation.start`` on the card from ``root`` (its templates)
+    into ``root/outputs``; the run's own prints are kept out of this
+    script's output unless it fails."""
+    from hipsc_abm_tpu_torch.models.hipsc import CellSimulation
+
+    cwd, log = os.getcwd(), io.StringIO()
+    os.chdir(root)
+    try:
+        with contextlib.redirect_stdout(log):
+            return CellSimulation.start(os.path.join(root, "outputs"), argv=argv,
+                                        device="cuda")
+    except BaseException:
+        print(log.getvalue()[-4000:])
+        raise
+    finally:
+        os.chdir(cwd)
+
+
+def lifecycle_card_vs_cpu(root: str, steps: int) -> list:
+    """The lifecycle's initial colony (``CellSimulation`` set-up from the
+    templates under ``root``) stepped ``steps`` times by ``safe_step`` on the
+    card and on the CPU. Per step: the two trajectories compared by agent id
+    (agents, integer fields equal, max |dloc|, agents moved apart by more
+    than 1e-3 um, bond sets differing), and one card step from the CPU's
+    previous state against the CPU's step (max |dloc|, bond sets
+    differing). Returns one dict per step."""
+    from hipsc_abm_tpu_torch import convert
+    from hipsc_abm_tpu_torch.models.hipsc import CellSimulation
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        sims = {}
+        for device in ("cuda", "cpu"):
+            sim = CellSimulation("drift", os.path.join(root, "outputs") + os.sep, device=device)
+            sim.agent_initials()
+            sim.build_state()
+            sims[device] = sim
+    finally:
+        os.chdir(cwd)
+    card, cpu = sims["cuda"], sims["cpu"]
+    one = CellSimulation.__new__(CellSimulation)  # an engine for the one-step check only
+    one.__dict__.update(card.__dict__)
+    one.engine = one._make_engine()
+
+    def diff(a, b):
+        ia, ib = by_id(a), by_id(b)
+        if not np.array_equal(ia["ids"], ib["ids"]):
+            return dict(same_agents=False)
+        ints = all(np.array_equal(ia[k], ib[k]) for k in (
+            "FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states", "death_counters",
+            "diff_counters", "div_counters", "fds_counters"))
+        d = np.abs(ia["locations"] - ib["locations"]).max(axis=1)
+        return dict(same_agents=True, ints_equal=ints, max_dloc=float(d.max()),
+                    over_1e3=int((d > 1e-3).sum()),
+                    bond_rows=sum(x != y for x, y in zip(ia["bonds"], ib["bonds"])))
+
+    out = []
+    for step in range(1, steps + 1):
+        prev = convert.state_to_numpy(cpu.state)
+        one.engine.cfg = cpu.engine.cfg
+        one_state, _ = one.engine.safe_step(convert.state_from_numpy(prev, "cuda"))
+        card.state, _ = card.engine.safe_step(card.state)
+        cpu.state, _ = cpu.engine.safe_step(cpu.state)
+        torch.cuda.synchronize()
+        now = convert.state_to_numpy(cpu.state)
+        row = dict(step=step, agents=int(now["alive"].sum()),
+                   trajectory=diff(convert.state_to_numpy(card.state), now),
+                   one_step=diff(convert.state_to_numpy(one_state), now))
+        print(f"lifecycle card vs CPU, step {step}: {row}")
+        out.append(row)
+    return out
+
+
+def values_trajectory(run_dir: str, name: str, steps) -> list:
+    """``(agents, GATA6-high, differentiated)`` per step from the run's
+    values CSVs (columns of ``models.hipsc.OUTPUT_ARRAYS``)."""
+    out = []
+    for step in steps:
+        path = os.path.join(run_dir, f"{name}_values", f"{name}_values_{step}.csv")
+        with open(path) as f:
+            header = f.readline().strip().split(",")
+        v = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+        col = {h: v[:, i] for i, h in enumerate(header)}
+        out.append((len(v), int((col["GATA6"] > col["NANOG"]).sum()),
+                    int((col["states"] == 1).sum())))
+    return out
+
+
+@contextlib.contextmanager
+def lifecycle_timers(into: dict):
+    """Time the lifecycle's parts that its data CSV does not hold: agent
+    set-up (``agent_initials`` + ``build_state``), the drain of the output
+    queue (``flush_outputs``) and, per output kind, the seconds the output
+    worker spends on its tasks (keyed by the submitting method). At each
+    step's ``data()`` call, ``into["steps"]`` gets the step's peak device
+    memory (MiB, the peak is then reset) and the launch counts so far."""
+    from hipsc_abm_tpu_torch import kernels
+    from hipsc_abm_tpu_torch.models.hipsc import CellSimulation
+    from hipsc_abm_tpu_torch.utils import io as io_utils
+
+    def add(key, t0):
+        into[key] = into.get(key, 0.0) + time.perf_counter() - t0
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                add(key, t0)
+        return call
+
+    def data(sim):
+        into.setdefault("steps", []).append(
+            (torch.cuda.max_memory_allocated() / 2**20, dict(kernels.launch_counts)))
+        torch.cuda.reset_peak_memory_stats()
+        saved[4](sim)
+
+    submit = io_utils.submit_output
+    patched = [(CellSimulation, "agent_initials"), (CellSimulation, "build_state"),
+               (io_utils, "flush_outputs"), (io_utils, "submit_output"),
+               (CellSimulation, "data")]
+    saved = [getattr(obj, name) for obj, name in patched]
+    CellSimulation.agent_initials = timed(saved[0], "set-up")
+    CellSimulation.build_state = timed(saved[1], "set-up")
+    io_utils.flush_outputs = timed(saved[2], "drain")
+    io_utils.submit_output = lambda fn, *a, **k: submit(
+        timed(fn, "worker " + fn.__qualname__.split(".<locals>")[0]), *a, **k)
+    CellSimulation.data = data
+    try:
+        yield into
+    finally:
+        for (obj, name), value in zip(patched, saved):
+            setattr(obj, name, value)
+
+
+def lifecycle_phase() -> dict:
+    """The lifecycle on the card (see the module docstring, phase 6);
+    returns phase b's numbers."""
+    from hipsc_abm_tpu_torch import convert, kernels
+    from hipsc_abm_tpu_torch.utils import io as io_utils
+
+    tmp = tempfile.mkdtemp(prefix="hipsc_lifecycle_")
+    try:
+        # --- a: the reference's templates, resume and the trajectory ---
+        root = os.path.join(tmp, "a")
+        out = os.path.join(root, "outputs")
+        steps = LIFECYCLE_GENERAL["end_step"]
+        n0 = LIFECYCLE_GENERAL["num_to_start"] + LIFECYCLE_EXPERIMENTAL["num_gata6"]
+        label = f"lifecycle phase a ({n0} cells)"
+
+        def mode0(name, end_step):
+            write_templates(root, dict(LIFECYCLE_GENERAL, end_step=end_step),
+                            LIFECYCLE_EXPERIMENTAL)
+            t = time.perf_counter()
+            sim = run_lifecycle(root, ["-n", name, "-m", "0"])
+            return sim, time.perf_counter() - t
+
+        # the first steps on the card against the CPU: each card step from the
+        # CPU's previous state to the step phase's tolerance; the two
+        # trajectories with integer state equal (their positions part by
+        # more than one step's rounding where a contact decision falls
+        # within it, so their drift is reported)
+        write_templates(root, LIFECYCLE_GENERAL, LIFECYCLE_EXPERIMENTAL)
+        allowed = max(1, n0 // 10000)
+        for row in lifecycle_card_vs_cpu(root, LIFECYCLE_CPU_STEPS):
+            one, traj = row["one_step"], row["trajectory"]
+            if not (one["same_agents"] and one["ints_equal"] and one["max_dloc"] <= 1e-3
+                    and one["bond_rows"] <= allowed):
+                raise AssertionError(f"{label}: step {row['step']} on the card from the CPU's "
+                                     f"state differs: {one}")
+            if not (traj["same_agents"] and traj["ints_equal"]
+                    and traj["bond_rows"] <= allowed):
+                raise AssertionError(f"{label}: the card's and the CPU's trajectories part at "
+                                     f"step {row['step']}: {traj}")
+
+        _, t_a0 = mode0("resumed", steps // 2)
+        write_templates(root, LIFECYCLE_GENERAL, LIFECYCLE_EXPERIMENTAL)
+        t = time.perf_counter()
+        resumed = run_lifecycle(root, ["-n", "resumed", "-m", "1", "-fs", str(steps)])
+        t_a1 = time.perf_counter() - t
+        straight, t_b = mode0("straight", steps)
+        a = by_id(convert.state_to_numpy(resumed.state))
+        b = by_id(convert.state_to_numpy(straight.state))
+        if not np.array_equal(a["ids"], b["ids"]):
+            raise AssertionError(f"{label}: mode 0+1 and mode 0 hold different agents")
+        differ = [k for k in ("FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states",
+                              "death_counters", "diff_counters", "div_counters",
+                              "fds_counters") if not np.array_equal(a[k], b[k])]
+        if not np.array_equal(a["locations"].view(np.int32), b["locations"].view(np.int32)):
+            differ.append("locations")
+        if a["bonds"] != b["bonds"]:
+            differ.append("bonds")
+        if differ:
+            raise AssertionError(f"{label}: mode 0 to {steps // 2} + mode 1 to {steps} differs "
+                                 f"from mode 0 to {steps} in {differ}")
+        print(f"{label}: mode 0 to step {steps // 2} ({t_a0:.2f} s) + mode 1 to step {steps} "
+              f"({t_a1:.2f} s) bit-equal by agent id to mode 0 to step {steps} ({t_b:.2f} s): "
+              f"{len(a['ids'])} agents, integer fields, positions and bond sets")
+        traj = {name: values_trajectory(os.path.join(out, name), name, range(1, steps + 1))
+                for name in ("resumed", "straight")}
+        if traj["resumed"] != traj["straight"]:
+            raise AssertionError(f"{label}: the two runs' values CSVs differ in their counts")
+        for step, (ra, rb) in enumerate(zip(traj["resumed"], traj["straight"]), start=1):
+            print(f"{label} step {step}: agents {ra[0]} / {rb[0]}, GATA6-high {ra[1]} / {rb[1]}, "
+                  f"differentiated {ra[2]} / {rb[2]} (mode 0+1 / mode 0)")
+        if traj["straight"][-1][2] == 0 or traj["straight"][-1][1] <= traj["straight"][3][1]:
+            raise AssertionError(f"{label}: no fate decision after dox: {traj['straight']}")
+
+        run_dir = os.path.join(out, "straight")
+        video = os.path.join(run_dir, "straight_video.mp4")
+        if os.path.exists(video):
+            os.remove(video)
+        run_lifecycle(root, ["-n", "straight", "-m", "2"])
+        encoder = io_utils.video_encoder()
+        if os.path.exists(video) != (encoder is not None):
+            raise AssertionError(f"{label}: mode 2 with video encoder {encoder}: mp4 "
+                                 f"{'written' if os.path.exists(video) else 'missing'}")
+        run_lifecycle(root, ["-n", "straight", "-m", "3"])
+        if not os.path.isfile(os.path.join(out, "straight.zip")):
+            raise AssertionError(f"{label}: mode 3 wrote no zip")
+        frames = len(os.listdir(os.path.join(run_dir, "straight_images")))
+        for f in ("straight_temp.pkl", "straight_state.npz", "straight_data.csv"):
+            if not os.path.isfile(os.path.join(run_dir, f)):
+                raise AssertionError(f"{label}: {f} missing")
+        if frames != steps + 1:
+            raise AssertionError(f"{label}: {frames} step images for {steps} steps")
+        print(f"{label}: mode 2 and mode 3 ran; {frames} step images by "
+              f"{io_utils.image_encoder()}, video encoder {encoder or 'none installed'}")
+
+        # --- b: the bench configuration through the lifecycle ---
+        root = os.path.join(tmp, "b")
+        out = os.path.join(root, "outputs")
+        write_templates(root, LIFECYCLE_BENCH_GENERAL, LIFECYCLE_BENCH_EXPERIMENTAL)
+        steps = LIFECYCLE_BENCH_GENERAL["end_step"]
+        n0 = LIFECYCLE_BENCH_GENERAL["num_to_start"] + LIFECYCLE_BENCH_EXPERIMENTAL["num_gata6"]
+        label = f"lifecycle phase b (bench, {n0} cells)"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.launch_counts.clear()
+        t = time.perf_counter()
+        with lifecycle_timers({}) as parts:
+            sim = run_lifecycle(root, ["-n", "bench", "-m", "0"])
+        wall = time.perf_counter() - t
+        counts = dict(kernels.launch_counts)
+        # the run's peak: each step's (reset at its data() call) and the rest
+        peak = max([p for p, _ in parts.get("steps", [])]
+                   + [torch.cuda.max_memory_allocated() / 2**20])
+        for name in ("bio_moments", "contact_substep", "ftcs_diffuse"):
+            if counts.get(name, 0) <= 0:
+                raise AssertionError(f"{label}: kernel {name} was never launched ({counts})")
+        if 3 * counts["ftcs_diffuse"] != counts["bio_moments"]:
+            raise AssertionError(f"{label}: {counts['ftcs_diffuse']} FTCS launches for "
+                                 f"{counts['bio_moments'] // 3} step attempts")
+        run_dir = os.path.join(out, "bench")
+        with open(os.path.join(run_dir, "bench_data.csv")) as f:
+            header = f.readline().strip().split(",")
+            rows = [list(map(float, line.split(","))) for line in f if line.strip()]
+        if [int(r[0]) for r in rows] != list(range(1, steps + 1)):
+            raise AssertionError(f"{label}: data CSV steps {[r[0] for r in rows]}")
+        lattice = sim.state.gradients["fgf4_values"]
+        if not (n0 < sim.number_agents < 2 * n0) or not bool(torch.isfinite(lattice).all()):
+            raise AssertionError(f"{label}: {sim.number_agents} agents, lattice finite "
+                                 f"{bool(torch.isfinite(lattice).all())}")
+        expected = [os.path.join("bench_values", f"bench_values_{steps}.csv"),
+                    os.path.join("bench_tda", "all", f"bench_tda_all_{steps}.csv"),
+                    os.path.join("bench_gradients", "fgf4_values",
+                                 f"bench_fgf4_values_{steps}.csv"),
+                    os.path.join("bench_images", f"bench_image_{steps}.png"),
+                    "bench_state.npz"]
+        missing = [f for f in expected if not os.path.isfile(os.path.join(run_dir, f))]
+        if missing or os.path.exists(os.path.join(run_dir, "bench_temp.pkl")):
+            raise AssertionError(f"{label}: outputs missing {missing} or a pickle written")
+        per_step = [dict(zip(header, r)) for r in rows]
+        methods = header[4:]
+        before = {}
+        for r, (peak_step, launched) in zip(per_step, parts["steps"]):
+            times = ", ".join(f"{m} {r[m] * 1e3:.2f}" for m in methods)
+            step_counts = {k: launched.get(k, 0) - before.get(k, 0)
+                           for k in ("bio_moments", "contact_substep", "ftcs_diffuse")}
+            before = launched
+            if min(step_counts.values()) <= 0:
+                raise AssertionError(f"{label}: step {int(r['Step Number'])} launched "
+                                     f"{step_counts}")
+            r["peak_mib"], r["launches"] = peak_step, step_counts
+            print(f"{label} step {int(r['Step Number'])}: {int(r['Number Cells'])} agents, wall "
+                  f"{r['Step Time'] * 1e3:.2f} ms; ms: {times}; peak device memory "
+                  f"{peak_step:.1f} MiB; launches {step_counts}")
+        loop = sum(r["Step Time"] for r in per_step)
+        print(f"{label}: {steps} steps in {wall:.2f} s from start() to its return: agent "
+              f"set-up {parts.get('set-up', 0.0):.2f} s, the steps' wall {loop:.2f} s, drain of "
+              f"the output queue {parts.get('drain', 0.0):.2f} s; output worker busy per step: "
+              + ", ".join(f"{k[7:]} {v / steps * 1e3:.1f} ms" for k, v in sorted(parts.items())
+                          if k.startswith("worker "))
+              + f"; peak device memory {peak:.1f} MiB; launches {counts}")
+        return dict(cells=n0, steps=steps, wall_s=wall, peak_mib=peak, launches=counts,
+                    parts_s={k: v for k, v in parts.items() if k != "steps"},
+                    per_step=[{k: r[k] for k in ["Step Time", *methods, "peak_mib", "launches"]}
+                              for r in per_step])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def timed_run(dims: int, n_cells: int, path: str):
     """init_state(seed=0), 3 safe_step warm-ups, TIMED_STEPS timed steps,
     each on the host clock up to a synchronise; returns the engine, the
@@ -867,6 +1223,8 @@ def main() -> int:
     step_phase()
     step_phase_3d()
     coupling_phase()
+    lifecycle = lifecycle_phase()
+    print(json.dumps({"lifecycle": lifecycle}))
     # each main path runs the contact paths in turns (id_list, span_mask,
     # span_mask, id_list) so that neither gains from running second
     runs = [(dims, n, path, main_path(dims, n, path))

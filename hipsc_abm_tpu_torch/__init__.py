@@ -11,6 +11,10 @@ Module names follow the JAX package:
   (sources in ``csrc/``, built by ``kernels``) beside their plain versions;
 - ``models.biology``: the biology phases;
 - ``engine``: ``hipsc_step`` and ``HipscEngine``;
+- ``simulation``, ``models.hipsc``, ``__main__``: the framework and the
+  colony model's lifecycle (``python -m hipsc_abm_tpu_torch``, modes 0-3);
+- ``utils``: templates, the command line, outputs, checkpoints, timing;
+  ``native``: the C++ CSV writers (built with ``g++`` at first use);
 - ``convert``: state and parameters to and from numpy / the JAX package.
 
 Nothing here imports JAX.

@@ -60,10 +60,11 @@ def state_from_numpy(d: dict, device="cuda") -> CellState:
 
 
 def state_to_numpy(state: CellState) -> dict:
-    """The numpy dict of a port ``CellState``."""
+    """The numpy dict of a port ``CellState``: copies, which share no memory
+    with the state's tensors (on the CPU too)."""
 
     def n(x):
-        return x.detach().cpu().numpy()
+        return x.detach().to("cpu", copy=True).numpy()
 
     return {
         "arrays": {k: n(v) for k, v in state.arrays.items()},

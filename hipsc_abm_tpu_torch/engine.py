@@ -185,6 +185,33 @@ class EngineConfig:
         )
 
 
+def config_to_meta(cfg: EngineConfig) -> dict:
+    """EngineConfig as a plain JSON-able dict (checkpoint metadata). A
+    resume must restore the exact configuration (capacities decide which
+    divisions are deferred), not re-derive it from data."""
+    return dataclasses.asdict(cfg)
+
+
+# flags of the JAX engine's config that change the dynamics and that the
+# port does not run yet (ROADMAP A4)
+_UNPORTED_META_FLAGS = ("enable_growth", "enable_stochastic", "enable_diff_surround")
+
+
+def config_from_meta(meta: dict) -> EngineConfig:
+    """The EngineConfig of a checkpoint's metadata, written by either
+    package: keys the port's config does not have (the JAX engine's kernel
+    choices and spans) are dropped, and missing ones take their defaults."""
+    bad = [k for k in _UNPORTED_META_FLAGS if meta.get(k)]
+    if bad:
+        raise NotImplementedError(f"checkpoint enables {bad}, not ported yet (ROADMAP A4)")
+    fields = {f.name for f in dataclasses.fields(EngineConfig)}
+    spec_fields = {f.name for f in dataclasses.fields(GridSpec)}
+    kept = {k: v for k, v in meta.items() if k in fields}
+    for spec in ("nbr_spec", "jkr_spec"):
+        kept[spec] = GridSpec(**{k: v for k, v in meta[spec].items() if k in spec_fields})
+    return EngineConfig(**kept)
+
+
 class StepInfo(NamedTuple):
     """Per-step diagnostics and overflow probes (0-d tensors from
     ``hipsc_step``; Python numbers from ``safe_step``). The span probes of

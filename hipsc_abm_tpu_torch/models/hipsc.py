@@ -1,0 +1,374 @@
+"""CellSimulation: the hiPSC colony model on the port's engine (port of
+``hipsc_abm_tpu/models/hipsc.py``).
+
+It reads ``experimental.yaml``, exposes the biology constants as
+attributes, seeds the initial colony through the framework's registration
+API with the same numpy draws as the JAX model, and runs each step as one
+``HipscEngine.safe_step`` on ``self.device``, followed by the outputs: step
+images in both color modes, value CSVs, TDA splits, gradient CSVs, the pickle
+and npz checkpoints, the data CSV and the end-of-run video.
+
+Not ported yet, and raising ``NotImplementedError``: ``domain_tiles``
+(ROADMAP A10), ``output_interval`` > 1 (A6) and ``enable_growth``,
+``enable_stochastic`` and ``enable_diff_surround`` (A4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from hipsc_abm_tpu_torch import convert
+from hipsc_abm_tpu_torch.engine import (
+    HIPSC_ARRAY_SPECS, CellState, HipscEngine, config_from_meta, config_to_meta)
+from hipsc_abm_tpu_torch.ops import rng
+from hipsc_abm_tpu_torch.params import BiologyParams, DiffusionParams, ExperimentalParams
+from hipsc_abm_tpu_torch.simulation import Simulation
+from hipsc_abm_tpu_torch.utils import io as io_utils
+from hipsc_abm_tpu_torch.utils.checkpoint import load_state, save_state
+from hipsc_abm_tpu_torch.utils.config import check_direct, template_params
+from hipsc_abm_tpu_torch.utils.profiling import record_block, record_time
+
+OUTPUT_ARRAYS = [
+    "locations", "FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states",
+    "diff_counters", "div_counters",
+]  # the nine arrays the reference writes to the values CSV each step
+
+
+class CellSimulation(Simulation):
+    """hiPSC colony simulation (NANOG/GATA6 fate, JKR contact mechanics)."""
+
+    def __init__(self, name: str, output_path: str, device="cuda"):
+        super().__init__(name, output_path, device=device)
+
+        keys = template_params(self.templates_path + "experimental.yaml")
+        self.num_gata6 = keys["num_gata6"]
+        self.output_tda = keys["output_tda"]
+        self.output_gradients = keys["output_gradients"]
+        self.group = keys["group"]  # vestigial in the reference; kept for parity
+        self.dox_step = keys["dox_step"]
+        self.guye_move = keys["guye_move"]
+        self.lonely_thresh = keys["lonely_thresh"]
+        self.color_mode = keys["color_mode"]
+
+        self.gradients_path = self.main_path + name + "_gradients" + self.separator
+        self.tda_path = self.main_path + name + "_tda" + self.separator
+
+        # the biology constants as attributes; BiologyParams is the source
+        self.biology_params = BiologyParams()
+        bio = self.biology_params
+        self.step_dt = bio.step_dt
+        self.move_dt = bio.move_dt
+        self.field = bio.field
+        self.GATA6_prob = bio.GATA6_prob
+        self.NANOG_prob = bio.NANOG_prob
+        self.pluri_div_thresh = bio.pluri_div_thresh
+        self.diff_div_thresh = bio.diff_div_thresh
+        self.pluri_to_diff = bio.pluri_to_diff
+        self.death_thresh = bio.death_thresh
+        self.fds_thresh = bio.fds_thresh
+        self.max_radius = bio.max_radius
+        self.min_radius = bio.min_radius
+        self.pluri_growth = bio.pluri_growth
+        self.diff_growth = bio.diff_growth
+
+        self.experimental_params = ExperimentalParams.from_dict(keys)
+        self.enable_growth = bool(keys.get("enable_growth", False))
+        self.enable_stochastic = bool(keys.get("enable_stochastic", False))
+        self.enable_diff_surround = bool(keys.get("enable_diff_surround", False))
+        self.enable_diffusion = bool(keys.get("enable_diffusion", False))
+        self.diffusion_params = (
+            DiffusionParams(
+                spat_res=float(keys.get("spat_res", 10.0)),
+                diffuse_dt=float(keys.get("diffuse_dt", 6.0)),
+                diffuse_const=float(keys.get("diffuse_const", 2.0)),
+                max_concentration=float(keys.get("max_concentration", 2.0)),
+                degradation=float(keys.get("degradation", 0.1)),
+                release_amount=float(keys.get("release_amount", 0.0)),
+                uptake_amount=float(keys.get("uptake_amount", 0.0)),
+                field_coupling=bool(keys.get("field_coupling", False)),
+            )
+            if self.enable_diffusion
+            else None
+        )
+        self._check_ported()
+
+        self.engine: Optional[HipscEngine] = None
+        self.state: Optional[CellState] = None
+        self._host_state: Optional[dict] = None
+
+    def _check_ported(self) -> None:
+        if self.domain_tiles is not None:
+            raise NotImplementedError(
+                "domain_tiles: the multi-device domain engine is not ported yet (ROADMAP A10)")
+        if self.output_interval > 1:
+            raise NotImplementedError(
+                "output_interval > 1: run_steps blocks are not ported yet (ROADMAP A6)")
+        for flag in ("enable_growth", "enable_stochastic", "enable_diff_surround"):
+            if getattr(self, flag):
+                raise NotImplementedError(f"{flag} is not ported yet (ROADMAP A4)")
+
+    # ------------------------------------------------------------------
+    # initial conditions
+    # ------------------------------------------------------------------
+
+    def agent_initials(self):
+        rng_np = self._np_rng
+        self.add_agents(self.num_to_start)
+        self.add_agents(self.num_gata6, agent_type="GATA6_high")
+
+        self.agent_array("locations", override=rng_np.random((self.number_agents, 3)) * self.size)
+        self.agent_array("radii", func=lambda: self.max_radius)
+        self.agent_array("FGF4", dtype=int, func=lambda: rng_np.integers(0, self.field))
+        self.agent_array("FGFR", dtype=int, func=lambda: rng_np.integers(0, self.field))
+        self.agent_array("ERK", dtype=int, func=lambda: rng_np.integers(0, self.field))
+        self.agent_array("GATA6", dtype=int)
+        self.agent_array("NANOG", dtype=int, func=lambda: rng_np.integers(0, self.field))
+        self.agent_array("states", dtype=int)
+        self.agent_array("death_counters", dtype=int,
+                         func=lambda: rng_np.integers(0, self.death_thresh))
+        self.agent_array("diff_counters", dtype=int,
+                         func=lambda: rng_np.integers(0, self.pluri_to_diff))
+        self.agent_array("div_counters", dtype=int,
+                         func=lambda: rng_np.integers(0, self.pluri_div_thresh))
+        self.agent_array("fds_counters", dtype=int,
+                         func=(lambda: rng_np.integers(0, self.fds_thresh))
+                         if self.fds_thresh > 1 else (lambda: 0))
+        self.agent_array("motility_forces", vector=3)
+        self.agent_array("jkr_forces", vector=3)
+
+        self.agent_array("GATA6", agent_type="GATA6_high",
+                         func=lambda: rng_np.integers(1, max(self.field, 2)))
+        self.agent_array("NANOG", agent_type="GATA6_high", func=lambda: 0)
+
+        self.agent_graph("neighbor_graph")
+        self.agent_graph("jkr_graph")
+
+    # ------------------------------------------------------------------
+    # engine wiring
+    # ------------------------------------------------------------------
+
+    def _make_engine(self) -> HipscEngine:
+        return HipscEngine(self.general_params, self.experimental_params, self.biology_params,
+                           self.diffusion_params, enable_diffusion=self.enable_diffusion,
+                           device=self.device)
+
+    def _adopt_config(self, meta: dict) -> None:
+        """Take a checkpoint's engine config, keeping this engine's contact
+        path (a kernel choice, not dynamics)."""
+        self.engine.cfg = dataclasses.replace(config_from_meta(meta),
+                                              contact_path=self.engine.cfg.contact_path)
+
+    def build_state(self) -> None:
+        """Pack the registered host arrays into the engine's state on
+        ``self.device``."""
+        if self.engine is None:
+            self.engine = self._make_engine()
+        cfg = self.engine.cfg
+        n = self.number_agents
+        if n > cfg.capacity:
+            cfg = dataclasses.replace(
+                cfg, capacity=max(cfg.capacity, ((int(n * 1.5) + 127) // 128) * 128))
+        # the contact kernels' scalar-radius pair law assumes equal radii;
+        # custom seeded radii select the general pair law
+        if cfg.uniform_radius is not None and not np.all(
+                np.asarray(self.radii)[:n] == cfg.uniform_radius):
+            cfg = dataclasses.replace(cfg, uniform_radius=None)
+        self.engine.cfg = cfg
+        C = cfg.capacity
+
+        arrays = {}
+        for name, (dtype, vec) in HIPSC_ARRAY_SPECS.items():
+            shape = (C,) if vec is None else (C, vec)
+            host = np.zeros(shape, dtype=np.int32 if dtype == torch.int32 else np.float32)
+            if name == "ids":  # the engine's stable identity
+                host[:n] = np.arange(n, dtype=np.int32)
+            else:
+                host[:n] = np.asarray(self.__dict__[name])
+            arrays[name] = host
+        alive = np.zeros((C,), dtype=bool)
+        alive[:n] = True
+
+        gradients: Dict[str, np.ndarray] = {}
+        if cfg.enable_diffusion and self.diffusion_params is not None:
+            gradients["fgf4_values"] = np.zeros(
+                self.diffusion_params.grid_size(tuple(self.size)), dtype=np.float32)
+            self.gradient_names = ["fgf4_values"]
+
+        self.state = convert.state_from_numpy({
+            "arrays": arrays, "alive": alive,
+            "partners": np.zeros((C, cfg.bond_cap), dtype=np.int32),
+            "bond_mask": np.zeros((C, cfg.bond_cap), dtype=bool),
+            "gradients": gradients,
+            "key": rng.prng_key(self.seed).numpy().astype(np.uint32),
+            "step": self.beginning_step,
+            "next_id": n,
+        }, self.device)
+
+    def _ensure_state(self) -> None:
+        """Build the state from the registered arrays, or put a resumed
+        pickle's host state on ``self.device`` under its engine config."""
+        resume = self.__dict__.pop("_resume", None)
+        if resume is None:
+            self.build_state()
+            return
+        host, cfg_meta = resume
+        self.engine = self._make_engine()
+        if cfg_meta is not None:
+            self._adopt_config(cfg_meta)
+        self.state = convert.state_from_numpy(host, self.device)
+
+    def _sync_host(self) -> None:
+        """Copy the whole state to the host once per step and derive the
+        live-agent attributes (``self.locations`` etc.) from it. The copy is
+        kept for this step's checkpoint writers, so that the pickle and the
+        npz do not each fetch the state again."""
+        host = convert.state_to_numpy(self.state)
+        self._host_state = host
+        alive = host["alive"]
+        for name in self.agent_array_names:
+            self.__dict__[name] = host["arrays"][name][alive]
+        self.number_agents = int(alive.sum())
+
+    def _host(self) -> dict:
+        return self._host_state if self._host_state is not None else \
+            convert.state_to_numpy(self.state)
+
+    # ------------------------------------------------------------------
+    # main loop
+    # ------------------------------------------------------------------
+
+    def steps(self):
+        if self.state is None:
+            self._ensure_state()
+        if self.record_initial_step:
+            self.record_initials()
+
+        for step in range(self.beginning_step, self.end_step + 1):
+            self.current_step = step
+            self.info()
+
+            # the fused step: neighbours, division, death, pathway,
+            # differentiation, diffusion, motility, 11 contact substeps
+            self._host_state = None  # the cache belongs to the previous step
+            with record_block(self, "step_fused"):
+                self.state, info = self.engine.safe_step(self.state)
+            print("\tAdded " + str(int(info.num_added)) + " agents")
+            print("\tRemoved " + str(int(info.num_removed)) + " agents")
+
+            self._sync_host()
+            self.step_image()
+            self.step_values(arrays=OUTPUT_ARRAYS)
+            if self.enable_diffusion:
+                self.step_gradients()
+            self.step_tda()
+            self.temp()
+            self.data()
+
+        self.create_video()  # flushes the output queue first
+
+    # ------------------------------------------------------------------
+    # outputs
+    # ------------------------------------------------------------------
+
+    @record_time
+    def step_image(self, background=(0, 0, 0), origin_bottom=True):
+        if self.output_images:
+            check_direct(self.images_path)
+            n = self.number_agents
+            # the host arrays are rebound each step, never mutated in place;
+            # rendering and encoding run on the background writer
+            states, gata6, nanog = self.states[:n], self.GATA6[:n], self.NANOG[:n]
+            locations, radii = self.locations[:n], self.radii[:n]
+            field, color_mode = self.field, self.color_mode
+            size, quality = tuple(self.size), self.image_quality
+            path = self.images_path + f"{self.name}_image_{self.current_step}.png"
+
+            def render_and_save():
+                colors = io_utils.hipsc_cell_colors(np.asarray(states), np.asarray(gata6),
+                                                    np.asarray(nanog), field, color_mode)
+                image = io_utils.render_step_image(
+                    np.asarray(locations), np.asarray(radii), colors, size, quality,
+                    background=background, origin_bottom=origin_bottom)
+                io_utils.save_image_png(path, image)
+
+            io_utils.submit_output(render_and_save)
+
+    @record_time
+    def step_gradients(self):
+        if self.output_gradients and self.state is not None:
+            check_direct(self.gradients_path)
+            grads = self._host()["gradients"]
+            path, name, step = self.gradients_path, self.name, self.current_step
+            io_utils.submit_output(lambda: io_utils.write_gradient_csvs(path, name, step, grads))
+
+    @record_time
+    def step_tda(self):
+        if self.output_tda:
+            check_direct(self.tda_path)
+            n = self.number_agents
+            locs, gata6, nanog = self.locations[:n], self.GATA6[:n], self.NANOG[:n]
+            path, name, step = self.tda_path, self.name, self.current_step
+            io_utils.submit_output(lambda: io_utils.write_tda_csvs(
+                path, name, step, np.asarray(locs), np.asarray(gata6), np.asarray(nanog)))
+
+    @record_time
+    def temp(self):
+        """Checkpoints: the pickle of the simulation (the reference's
+        mechanism, with the state as host numpy), unless ``temp_pickle`` is
+        false, and the npz of the state alone (``utils.checkpoint``)."""
+        if self.temp_pickle:
+            super().temp.__wrapped__(self)  # the pickle, not timed again
+        if self.state is not None:
+            state = self._host()
+            path = os.path.join(self.main_path, f"{self.name}_state.npz")
+            meta = {"current_step": self.current_step, "name": self.name,
+                    "engine_config": config_to_meta(self.engine.cfg)}
+            io_utils.submit_output(lambda: save_state(path, state, meta=meta))
+
+    # ------------------------------------------------------------------
+    # resume (mode 1)
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def resume_from_npz(cls, name, output_dir, device="cuda"):
+        """Mode 1 without the per-step pickle (``temp_pickle: false``):
+        rebuild the simulation from the templates (assumed unchanged since
+        the run started) and restore the npz state and its engine config.
+        Either package's checkpoint resumes here."""
+        sim = cls(name, output_dir, device=device)
+        sim.agent_initials()  # registers the host arrays; the draws are replaced below
+        state, meta = load_state(os.path.join(sim.main_path, f"{name}_state.npz"),
+                                 device=sim.device)
+        if "domain_config" in meta:
+            raise NotImplementedError(
+                "a domain-engine checkpoint: the domain engine is not ported yet (ROADMAP A10)")
+        sim.engine = sim._make_engine()
+        sim._adopt_config(meta["engine_config"])
+        sim.state = state
+        sim.current_step = int(meta["current_step"])
+        sim._sync_host()
+        return sim
+
+    def __getstate__(self):
+        state = super().__getstate__()
+        state["engine"] = None  # holds device handles; rebuilt on resume
+        # the exact static config must survive: capacities decide deferred
+        # divisions, so a bit-exact resume needs the same EngineConfig
+        state["_engine_cfg"] = None if self.engine is None else config_to_meta(self.engine.cfg)
+        if self.state is not None:
+            state["state"] = self._host()  # host numpy, never tensors
+        state["_host_state"] = None  # never persist the cache itself
+        return state
+
+    def __setstate__(self, state):
+        cfg_meta = state.pop("_engine_cfg", None)
+        super().__setstate__(state)
+        if self.state is not None:
+            # placed on the device by steps(), after start() sets the device
+            self._resume = (self.state, cfg_meta)
+            self.state = None

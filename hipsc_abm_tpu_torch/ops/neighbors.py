@@ -221,3 +221,49 @@ def _run_windows(spec: GridSpec, grid: Grid):
         valid.reshape(capacity, W),
         count.max(),
     )
+
+
+# ---------------------------------------------------------------------------
+# the framework's host search (``Simulation.get_neighbors``)
+# ---------------------------------------------------------------------------
+
+
+def candidate_window(spec: GridSpec, grid: Grid):
+    """The padded candidate window of every slot: ``(cand_idx (C, W) slots,
+    cand_valid (C, W), max_run_count)``. Rows of dead slots hold garbage and
+    are masked by the consumer."""
+    pos, valid, max_run = _run_windows(spec, grid)
+    return grid.order[pos], valid, max_run
+
+
+def neighbor_mask(locations: torch.Tensor, alive: torch.Tensor, cand_idx: torch.Tensor,
+                  cand_valid: torch.Tensor, radius: float) -> torch.Tensor:
+    """Candidates within ``radius`` (inclusive, float32), self excluded;
+    each undirected edge appears in both endpoints' rows."""
+    capacity = locations.shape[0]
+    self_idx = torch.arange(capacity, dtype=cand_idx.dtype, device=cand_idx.device)[:, None]
+    delta = locations[cand_idx] - locations[:, None, :]
+    dist2 = (delta * delta).sum(dim=-1)
+    r = torch.tensor(radius, dtype=locations.dtype, device=locations.device)
+    mask = cand_valid & (cand_idx != self_idx) & (dist2 <= r * r)
+    return mask & alive[:, None]
+
+
+def neighbor_search(spec: GridSpec, locations: torch.Tensor, alive: torch.Tensor,
+                    radius: float):
+    """``(cand_idx, mask, max_run_count)`` of a fixed-radius search in which
+    slot = agent id; ``spec.run_cap`` must cover the widest run."""
+    ids = torch.arange(locations.shape[0], dtype=torch.int32, device=locations.device)
+    grid = build_grid(spec, locations, ids, alive)
+    cand_idx, cand_valid, max_run = candidate_window(spec, grid)
+    return cand_idx, neighbor_mask(locations, alive, cand_idx, cand_valid, radius), max_run
+
+
+def brute_force_mask(locations: torch.Tensor, alive: torch.Tensor, radius: float) -> torch.Tensor:
+    """O(n^2) dense adjacency, the oracle of the grid search."""
+    delta = locations[:, None, :] - locations[None, :, :]
+    dist2 = (delta * delta).sum(dim=-1)
+    n = locations.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=locations.device)
+    r = torch.tensor(radius, dtype=locations.dtype, device=locations.device)
+    return (dist2 <= r * r) & ~eye & alive[:, None] & alive[None, :]
