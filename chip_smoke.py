@@ -60,9 +60,25 @@ Phases, each of which raises on failure (exit code != 0):
    the wall, ``step_fused`` and output times from the data CSV, the peak
    device memory and the launches of the kernels (B4, B6 and B5 must all
    have launched).
+7. optional biology phases (growth, stochastic GATA6 bumps, diff_surround:
+   ``OPTIONAL``), with radii seeded uniform in [min_radius, max_radius]
+   (``seeded_radii``), so that the contact kernels take their general
+   (per-pair radius) law and the step makes a fourth bio-moments pass:
+   (a) ``general_law_phase``: B6, B2 and B1 on the general law against
+   their plain versions at the 2D 100k and 3D 99k states, forces on the
+   rows that agree, and every pair the card and the CPU decide apart
+   reported with its distance from its own break distance (and held within
+   ``APART_UM`` of it), each kernel alone per launch beside the uniform law
+   on the same rows; (b) phase 4's one step (20k, 2D) and 4 spheroid
+   ``safe_step``s with the flags; (c) ``optional_lifecycle_phase``: the
+   lifecycle colony, 8 card steps from the CPU's state on each contact
+   path, and mode 0 + 1 against mode 0; (d) the 2D 100k and 3D 99k main
+   paths with the flags, in turns, beside phase 5's (``optional_summary``).
 
-The last lines are one JSON object with each kernel's numbers, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the seconds per phase, one JSON object with each
+kernel's numbers (``law``: the contact law of the run its inputs and
+launches come from, ``"general"`` for the entries named ``[general]``), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -108,6 +124,29 @@ PEAK_F32_PER_S = 67e12
 # per kept pair (pair law, normal, force sum)
 DIST_FLOPS = 8
 PAIR_FLOPS = 20
+# and per kept pair on the general (per-pair radius) law: those 20, the
+# reduced radius (a sum, a max, two products, a division), the cube root by
+# powf counted as 8 (a log2 and an exp2 of the special-function unit and
+# the products and fix-ups around them; CUDA's accurate powf issues more),
+# the scale's product, the overlap's division and the clamp (2)
+GENERAL_PAIR_FLOPS = 37
+# the optional phases the reference ships disabled
+OPTIONAL = dict(enable_growth=True, enable_stochastic=True, enable_diff_surround=True)
+# a pair that the card and the CPU decide apart is put down to the rounding
+# of the general law's cube root (powf on the card, pow on the CPU, neither
+# correctly rounded) when it lies within this distance (um) of its own break
+# distance; one ulp of the overlap d there is ~2.5e-8 um
+APART_UM = 1e-4
+# the general law's force tolerance, atol in units of max |F| (rtol stays
+# 1e-5): a pair's force carries the cube root's rounding (powf within 2 ulp
+# on the card, the CPU's pow within 1), some 4e-7 of its size, and a row sums
+# up to ~10 such pairs that may cancel to near zero; the uniform law's 1e-6
+# was passed by 1.07e-6 on 2 of 386,304 force components of the 3D masked
+# substep at the 99k spheroid (NVIDIA H100 80GB HBM3, 700.00 W)
+GENERAL_ATOL = 4e-6
+# steps of the optional phase's lifecycle colony stepped on the card from the
+# CPU's state
+OPT_LIFECYCLE_STEPS = 8
 # per (row, lane) pair: P1 two differences, two squares, a sum, the test,
 # dx * d2 and the accumulation; P2 the 23 operations of its body every pair
 # needs and 4 more (two products, two sums) per kept pair
@@ -143,10 +182,11 @@ LIFECYCLE_BENCH_EXPERIMENTAL = dict(
 LIFECYCLE_CPU_STEPS = 4
 
 
-def bench_engine(n_cells: int, device: str, contact_path: str = "id_list"):
+def bench_engine(n_cells: int, device: str, contact_path: str = "id_list", **flags):
     """The bench configuration: a 2D box at reference colony density
     (side = 2000 * sqrt(n / 5000) um), n/10 GATA6-high cells, dox at step
-    5, FGF4 secretion and FTCS diffusion on."""
+    5, FGF4 secretion and FTCS diffusion on; ``flags`` are the engine's
+    optional-phase switches (``OPTIONAL``)."""
     from hipsc_abm_tpu_torch.engine import HipscEngine
     from hipsc_abm_tpu_torch.params import (
         DiffusionParams, ExperimentalParams, GeneralParams)
@@ -158,10 +198,10 @@ def bench_engine(n_cells: int, device: str, contact_path: str = "id_list"):
                            max_concentration=2.0, degradation=0.1,
                            release_amount=0.01)
     return HipscEngine(gen, xp, diff=diff, enable_diffusion=True, device=device,
-                       contact_path=contact_path)
+                       contact_path=contact_path, **flags)
 
 
-def spheroid_engine(n_cells: int, device: str, contact_path: str = "id_list"):
+def spheroid_engine(n_cells: int, device: str, contact_path: str = "id_list", **flags):
     """The 3D spheroid example's configuration at ``n_cells`` (10:1 with
     GATA6-high cells, dox at step 2, guye_move off): a cubic box of
     600 * s um and a seeding ball of 110 * s um at its centre, with
@@ -180,16 +220,32 @@ def spheroid_engine(n_cells: int, device: str, contact_path: str = "id_list"):
     direction /= np.linalg.norm(direction, axis=1, keepdims=True)
     r = radius * rng.random(n_cells) ** (1.0 / 3.0)
     ball = (box / 2.0 + direction * r[:, None]).astype(np.float32)
-    return HipscEngine(gen, xp, device=device, contact_path=contact_path), ball
+    return HipscEngine(gen, xp, device=device, contact_path=contact_path, **flags), ball
 
 
-def engine_for(dims: int, n_cells: int, device: str, path: str):
-    """``(engine, initial state)`` of the 2D bench or the 3D spheroid."""
+def seeded_radii(n: int, bio) -> np.ndarray:
+    """Radii drawn uniform in [min_radius, max_radius] from the seed, as
+    growth spreads them (every radius starts at max_radius, daughters copy
+    their mother's, so growth alone does nothing at first)."""
+    rng = np.random.default_rng(SEED + 1)
+    return rng.uniform(bio.min_radius, bio.max_radius, n).astype(np.float32)
+
+
+def engine_for(dims: int, n_cells: int, device: str, path: str, optional: bool = False):
+    """``(engine, initial state)`` of the 2D bench or the 3D spheroid;
+    ``optional`` turns the three optional phases on and seeds the radii
+    (``seeded_radii``), so that the contact kernels take the general law."""
+    flags = OPTIONAL if optional else {}
     if dims == 2:
-        eng = bench_engine(n_cells, device, path)
-        return eng, eng.init_state(seed=SEED)
-    eng, ball = spheroid_engine(n_cells, device, path)
-    return eng, eng.init_state(seed=SEED, locations=ball)
+        eng = bench_engine(n_cells, device, path, **flags)
+        state = eng.init_state(seed=SEED)
+    else:
+        eng, ball = spheroid_engine(n_cells, device, path, **flags)
+        state = eng.init_state(seed=SEED, locations=ball)
+    if optional:
+        radii = torch.from_numpy(seeded_radii(state.capacity, eng.bio)).to(state.alive.device)
+        state = state._replace(arrays={**state.arrays, "radii": radii})
+    return eng, state
 
 
 def card_line() -> str:
@@ -208,7 +264,10 @@ def cuda_ms(fn, reps: int) -> float:
 
 def bound(bytes_moved: float, flops: float) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the float32 operations over the float32 rate."""
+    memory rate and the float32 operations over the float32 rate. The
+    general-law entries count the uniform law's compulsory bytes and
+    ``GENERAL_PAIR_FLOPS`` per kept pair, the cube root by ``powf`` counted
+    as 8 operations."""
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -267,7 +326,7 @@ def kernel_phase(eng, state):
     def entry(name, source, replaces, **nums):
         results.append(dict(name=kernels.counted_name(name, n_runs), route="cuda",
                             source=f"hipsc_abm_tpu_torch/csrc/{source}",
-                            replaces=replaces, library_ms=None, **nums))
+                            replaces=replaces, library_ms=None, law="uniform", **nums))
         return results[-1]["name"]
 
     # B6 contact substep: the physics scan's first substep of the next step
@@ -460,7 +519,7 @@ def kernel_phase(eng, state):
             # per cell and subcycle (four sums, two products, the update and
             # the clip and degradation around them)
             **bound(2 * 4 * lattice.numel(), 9 * lattice.numel() * steps),
-            library_ms=None,
+            library_ms=None, law="uniform",
         ))
         # the kernel alone, on the plan's halo and on fixed ones, in turns
         limits = kernels.device_limits()
@@ -475,6 +534,193 @@ def kernel_phase(eng, state):
     for r in results:
         print(f"  {r['name']} ({label}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    kernels.launch_counts.clear()
+    return results
+
+
+def break_distance(ri, rj, bio):
+    """The distance (um, float64) at which a pair of radii ri, rj breaks,
+    and the pair law's overlap scale (um): d = (ri + rj - mag) / scale."""
+    e_hat = 1.0 / (2.0 * (1.0 - bio.poisson ** 2) / bio.youngs)
+    scale_c = ((np.pi * bio.adhesion_const) / e_hat) ** (2.0 / 3.0)
+    scale = scale_c * (ri * rj / (1e6 * (ri + rj))) ** (1.0 / 3.0) * 1e6
+    return ri + rj - bio.jkr_break_d * scale, scale
+
+
+def pairs_apart(args, keep_k, keep_p, rows, bio) -> list:
+    """The pairs of ``rows`` (sorted rows whose keep sets differ) that one
+    side kept and the other not, given each side's keep matrix over the
+    rows' windows (``span_mask._window`` of their bounds): per pair the
+    distance from its own break distance (um, float64; < 0 inside) and the
+    overlap d's distance from break_d (float64), and which side kept it."""
+    from hipsc_abm_tpu_torch.ops import span_mask
+
+    pos, valid, _ = span_mask._window(args[3][rows])
+    r_idx, t_idx = torch.nonzero(keep_k ^ keep_p, as_tuple=True)
+    xyzr = args[0].double()
+    me, other = xyzr[rows[r_idx]], xyzr[pos[r_idx, t_idx]]
+    mag = torch.linalg.norm(me[:, :3] - other[:, :3], dim=1)
+    out = []
+    for m, ri, rj, k in zip(mag.tolist(), me[:, 3].tolist(), other[:, 3].tolist(),
+                            keep_k[r_idx, t_idx].tolist()):
+        reach, scale = break_distance(ri, rj, bio)
+        out.append(dict(from_break_um=m - reach, d_minus_break=(ri + rj - m) / scale
+                        - bio.jkr_break_d, kept_by="card" if k else "cpu"))
+    return out
+
+
+def keep_from_partners(args, partners, rows):
+    """(rows, T) bool keep matrix over the rows' windows from (C, K)
+    partner lists (exact where a row's degree is within K)."""
+    from hipsc_abm_tpu_torch.ops import span_mask
+
+    pos, valid, _ = span_mask._window(args[3][rows])
+    cand = args[1][pos]
+    p = partners[rows]
+    return valid & ((cand[:, :, None] == p[:, None, :]) & (p[:, None, :] >= 0)).any(-1)
+
+
+def keep_from_mask(args, mask, rows):
+    from hipsc_abm_tpu_torch.ops import span_mask
+
+    _, valid, j = span_mask._window(args[3][rows])
+    return span_mask._unpack(mask[:, rows], j, valid)
+
+
+def check_general(name, f_k, d_k, f_p, d_p, same_rows, keep, args, bio) -> dict:
+    """A general-law kernel against its plain version: forces to rtol 1e-5,
+    atol ``GENERAL_ATOL`` x max |F| and degrees equal on the rows whose keep
+    sets agree; every pair of the other rows decided apart must lie within
+    ``APART_UM`` of its own break distance (rounding of the cube root).
+    ``keep(rows)`` gives both sides' keep matrices. Returns the numbers."""
+    same_rows = same_rows & torch.eq(d_k, d_p)
+    f_scale = float(f_p.abs().max())
+    torch.testing.assert_close(f_k[same_rows], f_p[same_rows], rtol=1e-5,
+                               atol=GENERAL_ATOL * f_scale)
+    f_err = float((f_k[same_rows] - f_p[same_rows]).abs().max())
+    rows = torch.nonzero(~same_rows).squeeze(1)
+    apart = pairs_apart(args, *keep(rows), rows, bio) if rows.numel() else []
+    far = [p for p in apart if abs(p["from_break_um"]) > APART_UM]
+    if far or (rows.numel() and not apart):
+        raise AssertionError(f"{name}: {rows.numel()} rows differ, pairs decided apart "
+                             f"beyond {APART_UM} um of the break: {far or 'none found'}")
+    return dict(max_abs_err=f_err, f_scale=f_scale, rows_apart=int(rows.numel()),
+                pairs_apart=apart)
+
+
+def general_law_phase(eng, state) -> list:
+    """Optional phase a: the general-law forms of B6, B2 and B1 against
+    their plain versions on the main path's rows (``state``: the flagged
+    engine's colony with seeded radii after one ``safe_step``), each timed
+    by CUDA events, alone per launch under the profiler beside the uniform
+    law on the same rows (in turns), with its bound. Entries are named
+    ``<launch_counts name>[general]``; ``main`` adds the launches and the
+    in-step times from the timed runs."""
+    from hipsc_abm_tpu_torch import kernels
+    from hipsc_abm_tpu_torch.ops import contact, span_mask
+    from hipsc_abm_tpu_torch.ops import neighbors as nbr
+    from hipsc_abm_tpu_torch.ops.integrate import stokes_integrate
+    from hipsc_abm_tpu_torch.ops.jkr import pack_physics
+    from hipsc_abm_tpu_torch.tools import kernel_ms
+
+    cfg, bio = eng.cfg, eng.bio
+    assert cfg.uniform_radius is None and cfg.enable_growth
+    a, alive = state.arrays, state.alive
+    n_runs = len(cfg.jkr_spec.flat_run_offsets)
+    label = f"optional phase a ({2 if n_runs == 3 else 3}D)"
+    grid = nbr.build_grid(cfg.jkr_spec, a["locations"], a["ids"], alive)
+    o = grid.order
+    args = (pack_physics(a["locations"][o], a["radii"][o]), a["ids"][o].contiguous(),
+            alive[o].contiguous(), nbr.run_bounds(cfg.jkr_spec, grid.sorted_flat),
+            state.bonds.ids()[o].contiguous())
+    law = dict(radius=bio.jkr_radius, adhesion_const=bio.adhesion_const,
+               poisson=bio.poisson, youngs=bio.youngs, break_d=bio.jkr_break_d,
+               uniform_radius=None)
+    uni = dict(law, uniform_radius=bio.max_radius)
+    C, K = args[4].shape
+    live = args[2]
+    radii = args[0][:, 3][live]
+    row_bytes = 16 + 1 + 8 * n_runs
+    candidates = int(span_mask.candidate_counts(args[3])[live].sum())
+    walk = membership_counts(args, law)
+    results = []
+
+    def entry(base, source, replaces, fn_k, fn_p, fn_u, kname, bytes_moved, kept, check):
+        alone = {"general": [], "uniform": []}
+        for key in ("general", "uniform", "uniform", "general"):
+            fn = fn_k if key == "general" else fn_u
+            alone[key].append(round(kernel_ms(fn, kname, ALONE_LAUNCHES), 5))
+        name = kernels.counted_name(base, n_runs) + "[general]"
+        apart = check.pop("pairs_apart")
+        results.append(dict(
+            name=name, route="cuda", source=f"hipsc_abm_tpu_torch/csrc/{source}",
+            replaces=replaces, law="general", max_abs_err=check["max_abs_err"],
+            ms=cuda_ms(fn_k, 50), plain_ms=cuda_ms(fn_p, 10),
+            **bound(bytes_moved, DIST_FLOPS * candidates + GENERAL_PAIR_FLOPS * kept),
+            library_ms=None, alone_ms=alone["general"], alone_uniform_ms=alone["uniform"],
+            kernel=kname,
+            rows_apart=check["rows_apart"], pairs_apart=len(apart)))
+        r = results[-1]
+        print(f"{label} kernel {name}: rows={C} K={K} radii [{float(radii.min()):.4f}, "
+              f"{float(radii.max()):.4f}] um, candidates per live row "
+              f"{candidates / max(1, int(live.sum())):.2f}, kept pairs {kept}; "
+              f"max|F|={check['f_scale']:.6e} N max_abs_err={check['max_abs_err']:.3e} N "
+              f"(rows agreeing); rows with keep sets apart {check['rows_apart']}, pairs "
+              f"decided apart {len(apart)}: {apart[:8]}; kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); alone "
+              f"per launch (profiler, {ALONE_LAUNCHES} launches, in turns) general "
+              f"{alone['general']} uniform {alone['uniform']} ms")
+
+    # B6, the id-list substep
+    f_k, d_k, p_k = contact.contact_substep_cuda(*args, **law)
+    f_p, d_p, p_p = contact.contact_substep_plain(*args, **law)
+    torch.cuda.synchronize()
+    check = check_general("contact_substep[general]", f_k, d_k, f_p, d_p,
+                          torch.eq(p_k, p_p).all(dim=1), lambda rows: (
+                              keep_from_partners(args, p_k, rows),
+                              keep_from_partners(args, p_p, rows)), args, bio)
+    entry("contact_substep", "contact.cu", "hipsc_abm_tpu/ops/pallas_contact.py:79",
+          lambda: contact.contact_substep_cuda(*args, **law),
+          lambda: contact.contact_substep_plain(*args, **law),
+          lambda: contact.contact_substep_cuda(*args, **uni), "contact_substep_kernel",
+          C * (row_bytes + 4 + 8 * K + 16), int(d_p.sum()), check)
+
+    # B2, the seed
+    f_k, d_k, m_k = span_mask.contact_seed_cuda(*args, **law)
+    f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **law)
+    torch.cuda.synchronize()
+    W = m_p.shape[0]
+    check = check_general("contact_seed[general]", f_k, d_k, f_p, d_p,
+                          torch.eq(m_k, m_p).all(dim=0), lambda rows: (
+                              keep_from_mask(args, m_k, rows),
+                              keep_from_mask(args, m_p, rows)), args, bio)
+    entry("contact_seed", "contact_mask.cu", "hipsc_abm_tpu/ops/pallas_contact.py:697",
+          lambda: span_mask.contact_seed_cuda(*args, **law),
+          lambda: span_mask.contact_seed_plain(*args, **law),
+          lambda: span_mask.contact_seed_cuda(*args, **uni), "contact_mask_kernel<true",
+          C * (row_bytes + 16 + 4 * W) + 4 * K * walk["rows"] + 4 * walk["membership"],
+          int(d_p.sum()), check)
+
+    # B1, the masked substep at the positions the seed's forces move the rows
+    # to, from the plain seed's mask
+    size = torch.tensor(eng.gen.size, dtype=torch.float32, device=f_p.device)
+    loc1 = stokes_integrate(args[0][:, :3], args[0][:, 3], f_p, torch.zeros_like(f_p),
+                            args[2], bio.stokes, size, float(bio.move_dt))
+    margs = (pack_physics(loc1, args[0][:, 3]), *args[1:4])
+    m_k, m_p, m_time = m_p.clone(), m_p.clone(), m_p.clone()
+    f_k, d_k, _ = span_mask.contact_masked_cuda(*margs, m_k, **law)
+    f_p, d_p, _ = span_mask.contact_masked_plain(*margs, m_p, **law)
+    torch.cuda.synchronize()
+    check = check_general("contact_masked[general]", f_k, d_k, f_p, d_p,
+                          torch.eq(m_k, m_p).all(dim=0), lambda rows: (
+                              keep_from_mask(margs + (None,), m_k, rows),
+                              keep_from_mask(margs + (None,), m_p, rows)),
+                          margs + (None,), bio)
+    entry("contact_masked", "contact_mask.cu", "hipsc_abm_tpu/ops/pallas_contact.py:481",
+          lambda: span_mask.contact_masked_cuda(*margs, m_time, **law),
+          lambda: span_mask.contact_masked_plain(*margs, m_time, **law),
+          lambda: span_mask.contact_masked_cuda(*margs, m_time, **uni),
+          "contact_mask_kernel<false", C * (row_bytes + 16 + 8 * W), int(d_p.sum()), check)
     kernels.launch_counts.clear()
     return results
 
@@ -607,7 +853,7 @@ def probe_phase() -> list:
                 source="hipsc_abm_tpu_torch/csrc/dynslice_probe.cu",
                 replaces=f"tools/{name}.py:{src_line}", launches=launches,
                 max_abs_err=err, ms=run["ms"], plain_ms=plain_ms,
-                **bound(moved, flops), library_ms=None))
+                **bound(moved, flops), library_ms=None, law="uniform"))
             r = results[-1]
             alone = ("not measured" if kernel_ms is None else
                      f"{kernel_ms:.4f} ms per launch (profiler), "
@@ -624,14 +870,14 @@ def probe_phase() -> list:
 
 
 def compare_colonies(a: dict, b: dict, label: str, bond_rows_allowed: int) -> str:
-    """Two numpy states compared by agent id: integer state equal,
-    positions within 1e-3 um, at most ``bond_rows_allowed`` bond sets
+    """Two numpy states compared by agent id: integer state and radii
+    equal, positions within 1e-3 um, at most ``bond_rows_allowed`` bond sets
     differing. Returns a summary."""
     ia, ib = by_id(a), by_id(b)
     if not np.array_equal(ia["ids"], ib["ids"]):
         raise AssertionError(f"{label}: agent id sets differ")
     for k in ("FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states", "death_counters",
-              "diff_counters", "div_counters", "fds_counters"):
+              "diff_counters", "div_counters", "fds_counters", "radii"):
         if not np.array_equal(ia[k], ib[k]):
             raise AssertionError(f"{label}: {k} differs")
     loc_err = float(np.abs(ia["locations"] - ib["locations"]).max())
@@ -649,19 +895,21 @@ def compare_colonies(a: dict, b: dict, label: str, bond_rows_allowed: int) -> st
     return summary + f", bond rows differing={bond_rows}"
 
 
-def step_phase():
+def step_phase(optional: bool = False):
     """One step from one 20k-cell state on the CPU and on the card, for each
-    contact path, and the two paths against each other on the card."""
+    contact path, and the two paths against each other on the card;
+    ``optional``: with the three optional phases on and seeded radii."""
     from hipsc_abm_tpu_torch import convert
 
-    base = bench_engine(N_STEP_CHECK, "cpu")
-    s0 = base.init_state(seed=SEED)
+    flags = OPTIONAL if optional else {}
+    tag = " (optional phases)" if optional else ""
+    base, s0 = engine_for(2, N_STEP_CHECK, "cpu", "id_list", optional)
     s0, _ = base.safe_step(s0)  # bonds and a lattice to start from
     d0 = convert.state_to_numpy(s0)
     on_card = {}
     for path in PATHS:
-        cpu = bench_engine(N_STEP_CHECK, "cpu", path)
-        gpu = bench_engine(N_STEP_CHECK, "cuda", path)
+        cpu = bench_engine(N_STEP_CHECK, "cpu", path, **flags)
+        gpu = bench_engine(N_STEP_CHECK, "cuda", path, **flags)
         cpu.cfg = gpu.cfg = dataclasses.replace(base.cfg, contact_path=path)
         t0 = time.perf_counter()
         s_cpu, _ = cpu.step(convert.state_from_numpy(d0, "cpu"))
@@ -674,26 +922,27 @@ def step_phase():
         # held to no bond set differing
         allowed = max(1, N_STEP_CHECK // 10000) if path == "id_list" else 0
         summary = compare_colonies(convert.state_to_numpy(s_cpu), on_card[path],
-                                   f"step[{path}] card vs CPU", allowed)
-        print(f"step phase [{path}] card vs CPU: {summary}, cpu {t1 - t0:.2f} s, "
+                                   f"step[{path}]{tag} card vs CPU", allowed)
+        print(f"step phase [{path}]{tag} card vs CPU: {summary}, cpu {t1 - t0:.2f} s, "
               f"card {t2 - t1:.2f} s")
     summary = compare_colonies(on_card["id_list"], on_card["span_mask"],
-                               "step span_mask vs id_list on the card", 0)
-    print(f"step phase span_mask vs id_list on the card: {summary}")
+                               f"step{tag} span_mask vs id_list on the card", 0)
+    print(f"step phase{tag} span_mask vs id_list on the card: {summary}")
 
 
-def step_phase_3d(steps: int = 4):
+def step_phase_3d(steps: int = 4, optional: bool = False):
     """The spheroid example's configuration (3,000 + 300 cells): ``steps``
     ``safe_step``s on the CPU and on the card from the same seeded ball, for
     each contact path (bond sets held equal), and the two paths against each
-    other on the card."""
+    other on the card; ``optional`` as in ``step_phase``."""
     from hipsc_abm_tpu_torch import convert
 
+    tag = " (optional phases)" if optional else ""
     on_card = {}
     for path in PATHS:
         out, k_grown = {}, {}
         for device in ("cpu", "cuda"):
-            eng, state = engine_for(3, N_SPHEROID, device, path)
+            eng, state = engine_for(3, N_SPHEROID, device, path, optional)
             t0 = time.perf_counter()
             for _ in range(steps):
                 state, info = eng.safe_step(state)
@@ -703,15 +952,15 @@ def step_phase_3d(steps: int = 4):
             k_grown[device] = state.bonds.partners.shape[1]
         on_card[path] = out["cuda"][0]
         summary = compare_colonies(out["cpu"][0], out["cuda"][0],
-                                   f"3D step[{path}] card vs CPU", 0)
-        print(f"step phase 3D [{path}] card vs CPU after {steps} safe_steps: {summary}, "
+                                   f"3D step[{path}]{tag} card vs CPU", 0)
+        print(f"step phase 3D [{path}]{tag} card vs CPU after {steps} safe_steps: {summary}, "
               f"bond_cap {k_grown['cpu']}/{k_grown['cuda']}, cpu {out['cpu'][1]:.2f} s, "
               f"card {out['cuda'][1]:.2f} s")
     a, b = by_id(on_card["id_list"]), by_id(on_card["span_mask"])
     same_ids = np.array_equal(a["ids"], b["ids"])
     dloc = float(np.abs(a["locations"] - b["locations"]).max()) if same_ids else float("nan")
     bond_rows = sum(x != y for x, y in zip(a["bonds"], b["bonds"])) if same_ids else -1
-    print(f"step phase 3D span_mask vs id_list on the card: same agents {same_ids}, "
+    print(f"step phase 3D{tag} span_mask vs id_list on the card: same agents {same_ids}, "
           f"max|dloc|={dloc:.3e} um, bond rows differing={bond_rows}")
 
 
@@ -774,18 +1023,31 @@ def write_templates(root: str, general: dict, experimental: dict) -> None:
             f.write(text(keys))
 
 
-def run_lifecycle(root: str, argv: list):
-    """``CellSimulation.start`` on the card from ``root`` (its templates)
-    into ``root/outputs``; the run's own prints are kept out of this
-    script's output unless it fails."""
+def seeded_simulation():
+    """``CellSimulation`` with the radii of its initial colony drawn by
+    ``seeded_radii`` (growth then has something to do)."""
+    from hipsc_abm_tpu_torch.models.hipsc import CellSimulation
+
+    class SeededRadiiSimulation(CellSimulation):
+        def agent_initials(self):
+            super().agent_initials()
+            self.radii = seeded_radii(self.number_agents, self.biology_params)
+
+    return SeededRadiiSimulation
+
+
+def run_lifecycle(root: str, argv: list, cls=None):
+    """``cls.start`` (``CellSimulation`` by default) on the card from
+    ``root`` (its templates) into ``root/outputs``; the run's own prints are
+    kept out of this script's output unless it fails."""
     from hipsc_abm_tpu_torch.models.hipsc import CellSimulation
 
     cwd, log = os.getcwd(), io.StringIO()
     os.chdir(root)
     try:
         with contextlib.redirect_stdout(log):
-            return CellSimulation.start(os.path.join(root, "outputs"), argv=argv,
-                                        device="cuda")
+            return (cls or CellSimulation).start(os.path.join(root, "outputs"), argv=argv,
+                                                 device="cuda")
     except BaseException:
         print(log.getvalue()[-4000:])
         raise
@@ -793,30 +1055,34 @@ def run_lifecycle(root: str, argv: list):
         os.chdir(cwd)
 
 
-def lifecycle_card_vs_cpu(root: str, steps: int) -> list:
-    """The lifecycle's initial colony (``CellSimulation`` set-up from the
-    templates under ``root``) stepped ``steps`` times by ``safe_step`` on the
-    card and on the CPU. Per step: the two trajectories compared by agent id
-    (agents, integer fields equal, max |dloc|, agents moved apart by more
-    than 1e-3 um, bond sets differing), and one card step from the CPU's
-    previous state against the CPU's step (max |dloc|, bond sets
-    differing). Returns one dict per step."""
+def lifecycle_card_vs_cpu(root: str, steps: int, cls=None, contact_path: str = "id_list",
+                          label: str = "lifecycle") -> list:
+    """The lifecycle's initial colony (``cls``, ``CellSimulation`` by
+    default, set up from the templates under ``root``) stepped ``steps``
+    times by ``safe_step`` on the card and on the CPU, on ``contact_path``.
+    Per step: the two trajectories compared by agent id (agents, integer
+    fields equal, max |dloc|, agents moved apart by more than 1e-3 um, bond
+    sets differing), and one card step from the CPU's previous state against
+    the CPU's step (max |dloc|, bond sets differing). Returns one dict per
+    step."""
     from hipsc_abm_tpu_torch import convert
     from hipsc_abm_tpu_torch.models.hipsc import CellSimulation
 
+    cls = cls or CellSimulation
     cwd = os.getcwd()
     os.chdir(root)
     try:
         sims = {}
         for device in ("cuda", "cpu"):
-            sim = CellSimulation("drift", os.path.join(root, "outputs") + os.sep, device=device)
+            sim = cls("drift", os.path.join(root, "outputs") + os.sep, device=device)
             sim.agent_initials()
             sim.build_state()
+            sim.engine.cfg = dataclasses.replace(sim.engine.cfg, contact_path=contact_path)
             sims[device] = sim
     finally:
         os.chdir(cwd)
     card, cpu = sims["cuda"], sims["cpu"]
-    one = CellSimulation.__new__(CellSimulation)  # an engine for the one-step check only
+    one = cls.__new__(cls)  # an engine for the one-step check only
     one.__dict__.update(card.__dict__)
     one.engine = one._make_engine()
 
@@ -844,7 +1110,7 @@ def lifecycle_card_vs_cpu(root: str, steps: int) -> list:
         row = dict(step=step, agents=int(now["alive"].sum()),
                    trajectory=diff(convert.state_to_numpy(card.state), now),
                    one_step=diff(convert.state_to_numpy(one_state), now))
-        print(f"lifecycle card vs CPU, step {step}: {row}")
+        print(f"{label} card vs CPU, step {step}: {row}")
         out.append(row)
     return out
 
@@ -912,10 +1178,49 @@ def lifecycle_timers(into: dict):
             setattr(obj, name, value)
 
 
+def resume_check(root: str, general: dict, experimental: dict, label: str, cls=None):
+    """Mode 0 to half of ``end_step`` then mode 1 to ``end_step`` ("resumed")
+    against mode 0 straight to ``end_step`` ("straight"), from the templates
+    written under ``root``: bit-equal by agent id (integer fields, positions,
+    radii and bond sets) or it raises."""
+    from hipsc_abm_tpu_torch import convert
+
+    steps = general["end_step"]
+
+    def run(name, argv, end_step):
+        write_templates(root, dict(general, end_step=end_step), experimental)
+        t = time.perf_counter()
+        sim = run_lifecycle(root, ["-n", name] + argv, cls)
+        return sim, time.perf_counter() - t
+
+    _, t_a0 = run("resumed", ["-m", "0"], steps // 2)
+    resumed, t_a1 = run("resumed", ["-m", "1", "-fs", str(steps)], steps)
+    straight, t_b = run("straight", ["-m", "0"], steps)
+    a = by_id(convert.state_to_numpy(resumed.state))
+    b = by_id(convert.state_to_numpy(straight.state))
+    if not np.array_equal(a["ids"], b["ids"]):
+        raise AssertionError(f"{label}: mode 0+1 and mode 0 hold different agents")
+    differ = [k for k in ("FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states",
+                          "death_counters", "diff_counters", "div_counters",
+                          "fds_counters") if not np.array_equal(a[k], b[k])]
+    for k in ("locations", "radii"):
+        if not np.array_equal(a[k].view(np.int32), b[k].view(np.int32)):
+            differ.append(k)
+    if a["bonds"] != b["bonds"]:
+        differ.append("bonds")
+    if differ:
+        raise AssertionError(f"{label}: mode 0 to {steps // 2} + mode 1 to {steps} differs "
+                             f"from mode 0 to {steps} in {differ}")
+    print(f"{label}: mode 0 to step {steps // 2} ({t_a0:.2f} s) + mode 1 to step {steps} "
+          f"({t_a1:.2f} s) bit-equal by agent id to mode 0 to step {steps} ({t_b:.2f} s): "
+          f"{len(a['ids'])} agents, integer fields, positions, radii and bond sets")
+    return straight
+
+
 def lifecycle_phase() -> dict:
     """The lifecycle on the card (see the module docstring, phase 6);
     returns phase b's numbers."""
-    from hipsc_abm_tpu_torch import convert, kernels
+    from hipsc_abm_tpu_torch import kernels
     from hipsc_abm_tpu_torch.utils import io as io_utils
 
     tmp = tempfile.mkdtemp(prefix="hipsc_lifecycle_")
@@ -926,13 +1231,6 @@ def lifecycle_phase() -> dict:
         steps = LIFECYCLE_GENERAL["end_step"]
         n0 = LIFECYCLE_GENERAL["num_to_start"] + LIFECYCLE_EXPERIMENTAL["num_gata6"]
         label = f"lifecycle phase a ({n0} cells)"
-
-        def mode0(name, end_step):
-            write_templates(root, dict(LIFECYCLE_GENERAL, end_step=end_step),
-                            LIFECYCLE_EXPERIMENTAL)
-            t = time.perf_counter()
-            sim = run_lifecycle(root, ["-n", name, "-m", "0"])
-            return sim, time.perf_counter() - t
 
         # the first steps on the card against the CPU: each card step from the
         # CPU's previous state to the step phase's tolerance; the two
@@ -952,29 +1250,7 @@ def lifecycle_phase() -> dict:
                 raise AssertionError(f"{label}: the card's and the CPU's trajectories part at "
                                      f"step {row['step']}: {traj}")
 
-        _, t_a0 = mode0("resumed", steps // 2)
-        write_templates(root, LIFECYCLE_GENERAL, LIFECYCLE_EXPERIMENTAL)
-        t = time.perf_counter()
-        resumed = run_lifecycle(root, ["-n", "resumed", "-m", "1", "-fs", str(steps)])
-        t_a1 = time.perf_counter() - t
-        straight, t_b = mode0("straight", steps)
-        a = by_id(convert.state_to_numpy(resumed.state))
-        b = by_id(convert.state_to_numpy(straight.state))
-        if not np.array_equal(a["ids"], b["ids"]):
-            raise AssertionError(f"{label}: mode 0+1 and mode 0 hold different agents")
-        differ = [k for k in ("FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states",
-                              "death_counters", "diff_counters", "div_counters",
-                              "fds_counters") if not np.array_equal(a[k], b[k])]
-        if not np.array_equal(a["locations"].view(np.int32), b["locations"].view(np.int32)):
-            differ.append("locations")
-        if a["bonds"] != b["bonds"]:
-            differ.append("bonds")
-        if differ:
-            raise AssertionError(f"{label}: mode 0 to {steps // 2} + mode 1 to {steps} differs "
-                                 f"from mode 0 to {steps} in {differ}")
-        print(f"{label}: mode 0 to step {steps // 2} ({t_a0:.2f} s) + mode 1 to step {steps} "
-              f"({t_a1:.2f} s) bit-equal by agent id to mode 0 to step {steps} ({t_b:.2f} s): "
-              f"{len(a['ids'])} agents, integer fields, positions and bond sets")
+        resume_check(root, LIFECYCLE_GENERAL, LIFECYCLE_EXPERIMENTAL, label)
         traj = {name: values_trajectory(os.path.join(out, name), name, range(1, steps + 1))
                 for name in ("resumed", "straight")}
         if traj["resumed"] != traj["straight"]:
@@ -1079,14 +1355,60 @@ def lifecycle_phase() -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def timed_run(dims: int, n_cells: int, path: str):
+def optional_lifecycle_phase() -> None:
+    """Optional phase c: the lifecycle's colony (the ``LIFECYCLE_*``
+    templates, 5,500 cells) with the three optional phases on and radii
+    seeded at set-up (``seeded_simulation``), ``temp_pickle: false`` (mode 1
+    resumes from the npz: a class made at run time does not pickle). On
+    each contact path, ``OPT_LIFECYCLE_STEPS`` steps, each card step from
+    the CPU's previous state: integer state equal by agent id at every step,
+    max |dloc| and the bond rows that differ reported. Then mode 0 to 12 +
+    mode 1 to 24 bit-equal by agent id to mode 0 to 24 (``resume_check``)."""
+    cls = seeded_simulation()
+    general = dict(LIFECYCLE_GENERAL, temp_pickle=False)
+    experimental = dict(LIFECYCLE_EXPERIMENTAL, **OPTIONAL)
+    n0 = general["num_to_start"] + experimental["num_gata6"]
+    label = f"optional phase c ({n0} cells)"
+    tmp = tempfile.mkdtemp(prefix="hipsc_optional_")
+    try:
+        root = os.path.join(tmp, "c")
+        write_templates(root, general, experimental)
+        for path in PATHS:
+            rows = lifecycle_card_vs_cpu(root, OPT_LIFECYCLE_STEPS, cls, path,
+                                         label=f"{label} [{path}]")
+            for row in rows:
+                one = row["one_step"]
+                if not (one["same_agents"] and one["ints_equal"]):
+                    raise AssertionError(f"{label} [{path}]: step {row['step']} on the card "
+                                         f"from the CPU's state differs: {one}")
+            dloc = [float(f"{r['one_step']['max_dloc']:.3e}") for r in rows]
+            bond_rows = [r["one_step"]["bond_rows"] for r in rows]
+            traj = [r["trajectory"] for r in rows]
+            print(f"{label} [{path}]: {OPT_LIFECYCLE_STEPS} card steps from the CPU's state, "
+                  f"integer state equal at each; max|dloc| per step {dloc} um, bond rows "
+                  f"differing per step {bond_rows}; the card's own trajectory: integer state "
+                  f"equal at each step {all(t.get('ints_equal', False) for t in traj)}, bond "
+                  f"rows {[t.get('bond_rows') for t in traj]}")
+        straight = resume_check(root, general, experimental, label, cls)
+        cfg = straight.engine.cfg
+        radii = straight.radii
+        if cfg.uniform_radius is not None or not all(getattr(cfg, k) for k in OPTIONAL):
+            raise AssertionError(f"{label}: engine config {cfg}")
+        print(f"{label}: radii after {general['end_step']} steps in [{float(radii.min()):.4f}, "
+              f"{float(radii.max()):.4f}] um, {int((radii < straight.max_radius).sum())} of "
+              f"{len(radii)} below max_radius")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def timed_run(dims: int, n_cells: int, path: str, optional: bool = False):
     """init_state(seed=0), 3 safe_step warm-ups, TIMED_STEPS timed steps,
     each on the host clock up to a synchronise; returns the engine, the
     final state and its numbers (warm-up s, steps/s, median and p90 ms per
     step, peak bytes, contact-window rebuilds per timed step)."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng, state = engine_for(dims, n_cells, "cuda", path)
+    eng, state = engine_for(dims, n_cells, "cuda", path, optional)
     for _ in range(3):
         state, _ = eng.safe_step(state)
     torch.cuda.synchronize()
@@ -1130,19 +1452,24 @@ def device_ms_per_step(eng, state, steps: int = 2) -> dict:
             "by_kernel": by_kernel}
 
 
-def main_path(dims: int, n_cells: int, path: str) -> dict:
+def main_path(dims: int, n_cells: int, path: str, optional: bool = False) -> dict:
     """One main path (the 2D bench or the 3D spheroid) through the engine
     API on one contact path, with the launch counts set to 0 just before
-    and read just after."""
+    and read just after; ``optional``: with the three optional phases on
+    and seeded radii (the contact kernels' general law, four bio-moments
+    passes per step attempt)."""
     from hipsc_abm_tpu_torch import kernels
+    from hipsc_abm_tpu_torch.engine import _physics_dts
 
     kernels.launch_counts.clear()
-    eng, state, nums = timed_run(dims, n_cells, path)
+    eng, state, nums = timed_run(dims, n_cells, path, optional)
     counts = dict(kernels.launch_counts)
     agents = state.num_agents()
     loc = state.arrays["locations"][state.alive]
     size = torch.tensor(eng.gen.size, device=loc.device)
-    label = f"main path [{dims}D, {path}, {n_cells}]"
+    label = f"main path [{dims}D, {path}, {n_cells}{', optional phases' if optional else ''}]"
+    if optional != (eng.cfg.uniform_radius is None) or optional != eng.cfg.enable_diff_surround:
+        raise AssertionError(f"{label}: config {eng.cfg}")
     if not (n_cells < agents < 2 * n_cells):
         raise AssertionError(f"{label}: implausible population {agents}")
     if not bool(torch.isfinite(loc).all()) or bool((loc < 0).any()) or bool((loc > size).any()):
@@ -1162,11 +1489,20 @@ def main_path(dims: int, n_cells: int, path: str) -> dict:
     for name in PATH_KERNELS[(dims, path)]:
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"{label}: kernel {name} was never launched")
-    # every step attempt runs three bio-moments passes and, in 2D, one FTCS
-    # launch for its whole subcycle schedule
-    if dims == 2 and 3 * counts["ftcs_diffuse"] != counts["bio_moments"]:
-        raise AssertionError(f"{label}: {counts['ftcs_diffuse']} FTCS launches for "
-                             f"{counts['bio_moments'] // 3} steps")
+    # every step attempt runs 11 contact substeps, three bio-moments passes
+    # (four with diff_surround) and, in 2D, one FTCS launch for its whole
+    # subcycle schedule
+    n_runs = 3 if dims == 2 else 9
+    substeps = sum(counts.get(kernels.counted_name(k, n_runs), 0)
+                   for k in ("contact_substep", "contact_seed", "contact_masked"))
+    attempts, rest = divmod(substeps, len(_physics_dts(eng.bio)))
+    passes = 4 if optional else 3
+    bio_launches = counts.get(kernels.counted_name("bio_moments", n_runs), 0)
+    if rest or attempts < 3 + TIMED_STEPS or bio_launches != passes * attempts or (
+            dims == 2 and counts["ftcs_diffuse"] != attempts):
+        raise AssertionError(f"{label}: {substeps} contact substeps, {bio_launches} "
+                             f"bio-moments and {counts.get('ftcs_diffuse')} FTCS launches "
+                             f"for {attempts} step attempts")
     other = {n for key, names in PATH_KERNELS.items() if key[0] != dims for n in names}
     stray = sorted(n for n in other if counts.get(n, 0))
     if stray:
@@ -1183,9 +1519,33 @@ def main_path(dims: int, n_cells: int, path: str) -> dict:
           f"rebuilds/step {nums['rebuilds_per_step']:.2f}; device time/step (profiler, 2 steps): "
           f"contact kernels {fmt(dev.get('contact'))}, all {fmt(dev.get('all'))}; "
           f"by kernel {dev.get('by_kernel')}")
-    print(f"{label}: launches {counts}")
-    return dict(nums, counts=counts, contact_ms=dev.get("contact"),
+    print(f"{label}: launches {counts} over {attempts} step attempts ({passes} bio-moments "
+          f"passes each)")
+    return dict(nums, counts=counts, attempts=attempts, contact_ms=dev.get("contact"),
                 device_ms=dev.get("all"), contact_ms_by_kernel=dev.get("by_kernel"))
+
+
+def optional_summary(runs) -> None:
+    """Optional phase d beside the uniform-law main path: per dimensionality
+    and contact path, the medians of the two runs of each, device time per
+    step in all, of the contact kernels and of B4, and B4's launches per
+    step."""
+    def ms(rs, key):
+        return [r[key] and round(r[key], 4) for r in rs]
+
+    for dims, n in ((2, N_MAIN), (3, N_MAIN_3D)):
+        for path in PATHS:
+            cols = {}
+            for opt in (False, True):
+                rs = [r for d, c, p, o, r in runs if (d, c, p, o) == (dims, n, path, opt)]
+                b4 = [(r.get("contact_ms_by_kernel") or {}).get("bio_moments_kernel", (0.0, 0.0))
+                      for r in rs]
+                cols[opt] = (f"median {ms(rs, 'median_ms')} ms, device {ms(rs, 'device_ms')} "
+                             f"ms, contact {ms(rs, 'contact_ms')} ms, B4 "
+                             f"{[round(t, 4) for t, _ in b4]} ms in {[k for _, k in b4]} "
+                             f"launches per step")
+            print(f"optional phase d [{dims}D, {path}, {n}]: optional phases {cols[True]}; "
+                  f"uniform-law main path {cols[False]}")
 
 
 def main() -> int:
@@ -1211,38 +1571,75 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
-    results = []
-    for dims, n in ((2, N_MAIN), (3, N_MAIN_3D)):
-        eng, state = engine_for(dims, n, "cuda", "id_list")
+    phase_s = {}
+
+    def phase(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            phase_s[name] = round(time.perf_counter() - t, 2)
+
+    def kernels_at(dims, n, optional=False):
+        eng, state = engine_for(dims, n, "cuda", "id_list", optional)
         state, _ = eng.safe_step(state)
-        results += kernel_phase(eng, state)
+        out = (general_law_phase if optional else kernel_phase)(eng, state)
         del eng, state
         torch.cuda.empty_cache()
-    results += probe_phase()
+        return out
 
-    step_phase()
-    step_phase_3d()
-    coupling_phase()
-    lifecycle = lifecycle_phase()
+    results = []
+    for dims, n in ((2, N_MAIN), (3, N_MAIN_3D)):
+        results += phase(f"kernels {dims}D", kernels_at, dims, n)
+    results += phase("probes", probe_phase)
+
+    phase("step", step_phase)
+    phase("step 3D", step_phase_3d)
+    phase("coupling", coupling_phase)
+    lifecycle = phase("lifecycle", lifecycle_phase)
     print(json.dumps({"lifecycle": lifecycle}))
     # each main path runs the contact paths in turns (id_list, span_mask,
     # span_mask, id_list) so that neither gains from running second
-    runs = [(dims, n, path, main_path(dims, n, path))
-            for dims, n in ((2, N_MAIN), (2, N_LARGE), (3, N_MAIN_3D))
-            for path in PATHS + PATHS[::-1]]
+    runs = phase("main paths", lambda: [
+        (dims, n, path, False, main_path(dims, n, path))
+        for dims, n in ((2, N_MAIN), (2, N_LARGE), (3, N_MAIN_3D))
+        for path in PATHS + PATHS[::-1]])
+
+    # the optional biology phases (growth, stochastic bumps, diff_surround):
+    # a, the contact kernels' general law at the main path's shapes; b, one
+    # step card vs CPU; c, the lifecycle colony; d, the timed runs, in turns
+    for dims, n in ((2, N_MAIN), (3, N_MAIN_3D)):
+        results += phase(f"optional a {dims}D", kernels_at, dims, n, optional=True)
+    phase("optional b", step_phase, optional=True)
+    phase("optional b 3D", step_phase_3d, optional=True)
+    phase("optional c", optional_lifecycle_phase)
+    runs += phase("optional d", lambda: [
+        (dims, n, path, True, main_path(dims, n, path, optional=True))
+        for dims, n in ((2, N_MAIN), (3, N_MAIN_3D)) for path in PATHS + PATHS[::-1]])
     print(json.dumps({"paths": [
-        dict(dims=dims, cells=n, contact_path=path,
+        dict(dims=dims, cells=n, contact_path=path, optional=opt,
              **{k: v for k, v in r.items() if k != "counts"})
-        for dims, n, path, r in runs]}))
+        for dims, n, path, opt, r in runs]}))
+    optional_summary(runs)
     for r in results:
         if "launches" in r:  # the probes count their own entry points
             continue
         # each kernel's launches come from the first main-path run of its
-        # dimensionality (100k in 2D) and contact path
-        dims = 3 if r["name"].endswith("_3d") else 2
-        path = "span_mask" if r["name"].startswith(SPAN_MASK_KERNELS) else "id_list"
-        first = next(c for d, n, p, c in runs if (d, p) == (dims, path) and n != N_LARGE)
-        r["launches"] = first["counts"][r["name"]]
+        # dimensionality (100k in 2D), contact path and law; a general-law
+        # entry also takes its in-step time per launch from that run and the
+        # uniform law's from the uniform run's
+        base = r["name"].split("[")[0]
+        dims = 3 if base.endswith("_3d") else 2
+        path = "span_mask" if base.startswith(SPAN_MASK_KERNELS) else "id_list"
+        first = {opt: c for d, n, p, opt, c in reversed(runs)
+                 if (d, p) == (dims, path) and n != N_LARGE}
+        general = r["law"] == "general"
+        r["launches"] = first[general]["counts"][base]
+        if general:
+            for key, opt in (("in_step_ms", True), ("uniform_in_step_ms", False)):
+                ms, n = (first[opt].get("contact_ms_by_kernel") or {}).get(r["kernel"], (0, 0))
+                r[key] = ms / n if n else None
+    print(f"chip_smoke: seconds per phase {phase_s}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": results}))
     print(card_line())

@@ -8,6 +8,21 @@
 // the Python wrappers (`ops.contact._pair_law_args`), and the library is
 // built with --fmad=false, so every kernel that includes this header rounds
 // the same way.
+//
+// Two forms. The uniform law (`law.uniform == 1`: every radius equal, as
+// when growth is off) folds the radii into three constants, so a
+// candidate's overlap costs a subtraction and a product. The general law
+// (`law.uniform == 0`: per-pair radii, as growth makes them) computes the
+// reduced radius r_hat, its cube root by `powf`, and two divisions per
+// candidate. The kernels ask `jkr_overlap` of every candidate before the
+// distance and membership tests (the break test first, contact.cu), so on
+// the general branch what bounds them is that per-candidate `powf` and the
+// divisions, paid by candidates far beyond the break distance too (~222 per
+// row over nine runs in the 3D spheroid). CUDA's `powf` is not correctly
+// rounded (2 ulp), nor is the plain versions' `pow`: a pair whose overlap
+// lies within a few ulps of `break_d` can be decided apart on the card and
+// on the CPU (chip_smoke.py reports each such pair and its distance from
+// the break).
 
 #pragma once
 

@@ -6,11 +6,13 @@ and 3D boxes).
 (``cell_simulation.py:85-123``) in the same phase order as the JAX engine:
 the canonical ``(flat bin, id)`` sort that makes the state sorted-resident,
 the neighbour-moment pass for division and death, the pathway and
-differentiation phases, FGF4 secretion and FTCS diffusion, motility, and
-11 JKR-contact + Stokes substeps. Dynamic population lives in an ``alive``
-mask over preallocated slots; ``HipscEngine.safe_step`` re-executes a step
-from its unmodified input after growing whichever capacity overflowed, so
-results are never silently truncated.
+differentiation phases, the optional growth, stochastic-bump and
+diff_surround phases (``EngineConfig.enable_*``), FGF4 secretion and FTCS
+diffusion, motility, and 11 JKR-contact + Stokes substeps. Dynamic
+population lives in an ``alive`` mask over preallocated slots;
+``HipscEngine.safe_step`` re-executes a step from its unmodified input after
+growing whichever capacity overflowed, so results are never silently
+truncated.
 
 The contact substeps have two designs, chosen by ``EngineConfig.contact_path``
 (the counterpart of the JAX engine's ``use_pallas`` physics choice):
@@ -142,9 +144,13 @@ class EngineConfig:
     # agent drifts more than skin/2; contacts are re-tested at the true
     # radius every substep, so the skin only decides how often to re-sort
     verlet_skin: float = 14.0
+    # the phases the reference ships disabled (cell_simulation.py:98-104)
+    enable_growth: bool = False
+    enable_stochastic: bool = False
+    enable_diff_surround: bool = False
     enable_diffusion: bool = False
-    # equal radii for every agent (growth off): the contact kernel's
-    # scalar-radius pair law
+    # equal radii for every agent (growth off): the contact kernels'
+    # scalar-radius pair law; None selects the general (per-pair) law
     uniform_radius: Optional[float] = None
     # contact-substep design: "id_list" or "span_mask" (see the module
     # docstring); the default is to be settled by a benchmark
@@ -192,18 +198,10 @@ def config_to_meta(cfg: EngineConfig) -> dict:
     return dataclasses.asdict(cfg)
 
 
-# flags of the JAX engine's config that change the dynamics and that the
-# port does not run yet (ROADMAP A4)
-_UNPORTED_META_FLAGS = ("enable_growth", "enable_stochastic", "enable_diff_surround")
-
-
 def config_from_meta(meta: dict) -> EngineConfig:
     """The EngineConfig of a checkpoint's metadata, written by either
     package: keys the port's config does not have (the JAX engine's kernel
     choices and spans) are dropped, and missing ones take their defaults."""
-    bad = [k for k in _UNPORTED_META_FLAGS if meta.get(k)]
-    if bad:
-        raise NotImplementedError(f"checkpoint enables {bad}, not ported yet (ROADMAP A4)")
     fields = {f.name for f in dataclasses.fields(EngineConfig)}
     spec_fields = {f.name for f in dataclasses.fields(GridSpec)}
     kept = {k: v for k, v in meta.items() if k in fields}
@@ -272,7 +270,7 @@ def hipsc_step(
     bonds = state.bonds
     gradients = dict(state.gradients)
     device = alive.device
-    key, k_div, k_path, k_diff, _k_stoch, k_mot = rng.split(state.key, 6)
+    key, k_div, k_path, k_diff, k_stoch, k_mot = rng.split(state.key, 6)
     size = torch.tensor(gen.size, dtype=torch.float32, device=device)
 
     # --- get_neighbors("neighbor_graph", 15) and the sorted-resident state ---
@@ -329,6 +327,23 @@ def hipsc_step(
         arrays["GATA6"], arrays["NANOG"], arrays["states"], arrays["diff_counters"],
         arrays["ids"], alive, k_diff, bio,
     )
+
+    # --- the phases the reference ships disabled (cell_simulation.py:98-104) ---
+    if cfg.enable_growth:
+        arrays["radii"] = biology.cell_growth(
+            arrays["radii"], arrays["states"], arrays["div_counters"], alive, bio)
+    if cfg.enable_stochastic:
+        arrays["GATA6"], arrays["NANOG"] = biology.cell_stochastic_update(
+            arrays["GATA6"], arrays["NANOG"], arrays["ids"], alive, k_stoch, bio)
+    if cfg.enable_diff_surround:
+        # a fourth moments pass: differentiated neighbours (lane 7) with the
+        # post-fate states, post-division locations, post-death liveness
+        zero_i = torch.zeros_like(arrays["states"])
+        m_ds = bio_moments(alive, "motility", arrays["locations"], zero_i, zero_i,
+                           arrays["states"])
+        arrays["GATA6"], arrays["NANOG"] = biology.cell_diff_surround(
+            arrays["GATA6"], arrays["NANOG"], arrays["states"], alive,
+            m_ds[:, 7].to(torch.int32), bio)
 
     # --- FGF4 secretion and FTCS diffusion ---
     if cfg.enable_diffusion and diff is not None:
@@ -535,8 +550,10 @@ class HipscEngine:
     and raises when CUDA is absent; ``"cpu"`` runs the plain versions.
     ``contact_path`` picks the contact-substep design (``EngineConfig``);
     when a ``cfg`` is given as well, it overrides that config's choice.
-    A box with ``size[2] > 0`` is 3D. Growth, stochastic updates and
-    diff_surround are not ported yet and raise."""
+    A box with ``size[2] > 0`` is 3D. ``enable_growth``,
+    ``enable_stochastic`` and ``enable_diff_surround`` turn on the phases
+    the reference ships disabled; growth makes radii unequal, so it selects
+    the contact kernels' general pair law (``uniform_radius=None``)."""
 
     def __init__(
         self,
@@ -552,11 +569,6 @@ class HipscEngine:
         device="cuda",
         contact_path: Optional[str] = None,
     ):
-        for flag, on in (("enable_growth", enable_growth),
-                         ("enable_stochastic", enable_stochastic),
-                         ("enable_diff_surround", enable_diff_surround)):
-            if on:
-                raise NotImplementedError(f"{flag} is not ported yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("HipscEngine(device='cuda') needs a CUDA device")
@@ -570,7 +582,11 @@ class HipscEngine:
             cfg = EngineConfig.create(
                 gen.size, capacity=capacity, bio=self.bio,
                 enable_diffusion=enable_diffusion,
-                uniform_radius=self.bio.max_radius,
+                enable_growth=enable_growth,
+                enable_stochastic=enable_stochastic,
+                enable_diff_surround=enable_diff_surround,
+                # all radii are max_radius at init and only growth changes them
+                uniform_radius=None if enable_growth else self.bio.max_radius,
                 contact_path=contact_path or "id_list",
             )
         elif contact_path is not None:

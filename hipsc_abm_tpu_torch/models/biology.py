@@ -3,9 +3,10 @@
 Synchronous-update, id-keyed versions of the reference's ``CellMethods``
 (``cell_methods.py``): every agent reads the pre-update state, and every
 random draw is a pure function of (step key, agent id, salt), so results
-are bit-identical to the JAX package on the same input. The phases here are
-the ones the flagship step runs with growth, stochastic updates and
-diff_surround off (the reference's defaults).
+are bit-identical to the JAX package on the same input. Besides the phases
+of the flagship step, the three the reference ships disabled
+(``cell_simulation.py:98-104``) and the engine runs when their flag is set:
+``cell_growth``, ``cell_stochastic_update`` and ``cell_diff_surround``.
 
 JAX's out-of-range ``mode="drop"`` scatters become writes into one extra
 sentinel row that is sliced away.
@@ -288,6 +289,44 @@ def cell_differentiate(GATA6, NANOG, states, diff_counters, ids, alive, key,
     states = torch.where(trigger, torch.ones_like(states), states)
     NANOG = torch.where(trigger, torch.zeros_like(NANOG), NANOG)
     return NANOG, states, counters
+
+
+def cell_diff_surround(GATA6, NANOG, states, alive,
+                       num_diff_neighbors: torch.Tensor,  # (C,) differentiated neighbours
+                       p: BiologyParams):
+    """``cell_diff_surround`` (``cell_methods.py:119-141``): >= 6
+    differentiated neighbours force a GATA6-low pluripotent cell to GATA6
+    high. Returns (GATA6, NANOG)."""
+    eligible = alive & (states == 0) & (GATA6 < NANOG)
+    induce = eligible & (num_diff_neighbors >= p.diff_surround_neighbors)
+    return (torch.where(induce, torch.full_like(GATA6, p.field - 1), GATA6),
+            torch.where(induce, torch.zeros_like(NANOG), NANOG))
+
+
+def cell_growth(radii, states, div_counters, alive, p: BiologyParams) -> torch.Tensor:
+    """``cell_growth`` (``cell_methods.py:143-158``): linear radius growth by
+    state, re-derived from the division clock. No clamp, as in the
+    reference: a radius can pass ``max_radius`` by one increment."""
+    growing = alive & (radii < p.max_radius)
+    dc = div_counters.to(radii.dtype)
+    target = torch.where(states == 0, p.pluri_growth * dc + p.min_radius,
+                         p.diff_growth * dc + p.min_radius)
+    return torch.where(growing, target, radii)
+
+
+def cell_stochastic_update(GATA6, NANOG, ids, alive, key, p: BiologyParams,
+                           nanog_too: bool = False):
+    """``cell_stochastic_update`` (``cell_methods.py:160-174``): a random
+    GATA6 bump with probability ``GATA6_prob`` (draw salt 0). The NANOG
+    branch is commented out in the reference; ``nanog_too=True`` runs it
+    (salt 1). Returns (GATA6, NANOG)."""
+    top = p.field - 1
+    bump_g = rng.uniform(key, ids, salt=0) < p.GATA6_prob
+    GATA6 = torch.where(alive & bump_g & (GATA6 != top), GATA6 + 1, GATA6)
+    if nanog_too:
+        bump_n = rng.uniform(key, ids, salt=1) < p.NANOG_prob
+        NANOG = torch.where(alive & bump_n & (NANOG != top), NANOG + 1, NANOG)
+    return GATA6, NANOG
 
 
 # ---------------------------------------------------------------------------

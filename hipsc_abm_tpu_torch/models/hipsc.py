@@ -8,9 +8,11 @@ API with the same numpy draws as the JAX model, and runs each step as one
 images in both color modes, value CSVs, TDA splits, gradient CSVs, the pickle
 and npz checkpoints, the data CSV and the end-of-run video.
 
-Not ported yet, and raising ``NotImplementedError``: ``domain_tiles``
-(ROADMAP A10), ``output_interval`` > 1 (A6) and ``enable_growth``,
-``enable_stochastic`` and ``enable_diff_surround`` (A4).
+The template keys ``enable_growth``, ``enable_stochastic`` and
+``enable_diff_surround`` (``experimental.yaml``) turn on the phases the
+reference ships disabled. Not ported yet, and raising
+``NotImplementedError``: ``domain_tiles`` (ROADMAP A10) and
+``output_interval`` > 1 (A6).
 """
 
 from __future__ import annotations
@@ -108,9 +110,6 @@ class CellSimulation(Simulation):
         if self.output_interval > 1:
             raise NotImplementedError(
                 "output_interval > 1: run_steps blocks are not ported yet (ROADMAP A6)")
-        for flag in ("enable_growth", "enable_stochastic", "enable_diff_surround"):
-            if getattr(self, flag):
-                raise NotImplementedError(f"{flag} is not ported yet (ROADMAP A4)")
 
     # ------------------------------------------------------------------
     # initial conditions
@@ -155,6 +154,9 @@ class CellSimulation(Simulation):
     def _make_engine(self) -> HipscEngine:
         return HipscEngine(self.general_params, self.experimental_params, self.biology_params,
                            self.diffusion_params, enable_diffusion=self.enable_diffusion,
+                           enable_growth=self.enable_growth,
+                           enable_stochastic=self.enable_stochastic,
+                           enable_diff_surround=self.enable_diff_surround,
                            device=self.device)
 
     def _adopt_config(self, meta: dict) -> None:
@@ -253,7 +255,8 @@ class CellSimulation(Simulation):
             self.info()
 
             # the fused step: neighbours, division, death, pathway,
-            # differentiation, diffusion, motility, 11 contact substeps
+            # differentiation, (growth/stochastic/diff_surround/diffusion),
+            # motility, 11 contact substeps
             self._host_state = None  # the cache belongs to the previous step
             with record_block(self, "step_fused"):
                 self.state, info = self.engine.safe_step(self.state)

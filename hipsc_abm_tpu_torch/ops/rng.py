@@ -79,19 +79,28 @@ def normal(key, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI_F32 * u2)
 
 
+def _f32(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of a float32 tensor, evaluated in float64 and rounded to
+    float32. The card's and the CPU's float32 ``cos`` and ``sin`` differ by
+    an ulp (neither is correctly rounded); their float64 results round to
+    the same float32 but where the exact value lies within a few float64
+    ulps of a float32 rounding boundary. A lone agent's motility move
+    repeats every substep, so one ulp of its force that tips the rounding of
+    its position makes one ulp of position per substep between the card and
+    the CPU."""
+    return fn(x.to(torch.float64)).to(torch.float32)
+
+
 def unit_vectors(key, ids: torch.Tensor, two_d: bool, salt: int = 0) -> torch.Tensor:
     """Id-keyed batch of the reference's ``random_vector``: a point on the
     unit circle in 2D, else its (non-uniform) sphere parameterization."""
     theta = uniform(key, ids, salt) * _TWO_PI_F32
+    cos_t, sin_t = _f32(torch.cos, theta), _f32(torch.sin, theta)
     if two_d:
-        return torch.stack(
-            [torch.cos(theta), torch.sin(theta), torch.zeros_like(theta)], dim=-1
-        )
+        return torch.stack([cos_t, sin_t, torch.zeros_like(theta)], dim=-1)
     phi = uniform(key, ids, salt + 29) * _TWO_PI_F32
-    radius = torch.cos(phi)
-    return torch.stack(
-        [radius * torch.cos(theta), radius * torch.sin(theta), torch.sin(phi)], dim=-1
-    )
+    radius = _f32(torch.cos, phi)
+    return torch.stack([radius * cos_t, radius * sin_t, _f32(torch.sin, phi)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

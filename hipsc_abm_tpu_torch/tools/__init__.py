@@ -97,9 +97,10 @@ def kernel_ms(fn: Callable[[], object], name: str, calls: int) -> float:
 
 def record_bio_calls(eng, state) -> list:
     """The arguments of the engine's bio-moments calls in one ``step`` from
-    ``state``: ``[(args, kwargs)]``, in call order (count, pathway,
-    motility). The engine calls ``bio_moments_cuda`` by its module-level
-    name, which is wrapped for the step."""
+    ``state``: ``[(args, kwargs)]``, in call order (count, pathway, with
+    diff_surround on its motility-mode call, then motility). The engine
+    calls ``bio_moments_cuda`` by its module-level name, which is wrapped
+    for the step."""
     from hipsc_abm_tpu_torch import engine as engine_mod
 
     calls = []

@@ -9,7 +9,8 @@ imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: the contact kernels' scalar-radius pair law rounds differently
-from the plain versions' general law (forces rtol 1e-5, atol 1e-6 x max|F|);
+from the plain versions' general law, and on the general law the card's
+``powf`` from the CPU's ``pow`` (forces rtol 1e-5, atol 1e-6 x max|F|);
 moment counts, bond sets, degrees and span-mask words are exact; FTCS keeps the plain version's
 association without FMA contraction and is held bit-equal;
 the probes sum their lanes in another order than the plain versions (P1
@@ -45,11 +46,22 @@ def dev():
     return torch.device("cuda")
 
 
-def _contact_inputs(K, seed=0, C=2048, n=1900, box=(420.0, 420.0, 0.0), skin=2.0):
+def _radii(C, seed, unequal):
+    """max_radius everywhere, or (``unequal``) radii drawn uniform in
+    [min_radius, max_radius], as growth spreads them."""
+    if not unequal:
+        return torch.full((C,), BIO.max_radius)
+    rs = np.random.default_rng(seed + 100)
+    return torch.from_numpy(rs.uniform(BIO.min_radius, BIO.max_radius, C).astype(np.float32))
+
+
+def _contact_inputs(K, seed=0, C=2048, n=1900, box=(420.0, 420.0, 0.0), skin=2.0,
+                    unequal=False):
     """Sorted contact inputs with bonds from one plain substep at earlier
     positions (some bonds now beyond the search radius, some breaking). The
     engine's default Verlet skin (14 um) widens the bins so that rows have
-    more than 32 candidates and the span masks more than one word."""
+    more than 32 candidates and the span masks more than one word.
+    ``unequal`` draws the radii (``_radii``)."""
     rs = np.random.default_rng(seed)
     dims = 2 if box[2] == 0 else 3
     locs = np.zeros((C, 3), np.float32)
@@ -59,7 +71,7 @@ def _contact_inputs(K, seed=0, C=2048, n=1900, box=(420.0, 420.0, 0.0), skin=2.0
     alive[rs.choice(n, 40, replace=False)] = False
     ids = rs.permutation(10 * C)[:C].astype(np.int32)
     spec = nbr.GridSpec.from_box(box, BIO.jkr_radius + 2 * BIO.jkr_break_band + skin, 0)
-    radii = torch.full((C,), BIO.max_radius)
+    radii = _radii(C, seed, unequal)
 
     def sorted_args(xy, partners):
         t_loc = torch.from_numpy(xy)
@@ -175,10 +187,10 @@ def test_contact_masked_kernel_matches_plain(dev, K):
     assert torch.equal(m_k, m_p) and not torch.equal(m_k, mask)
 
 
-def _pair_rows(gaps, bonded, dims, K=24):
+def _pair_rows(gaps, bonded, dims, K=24, radii=None):
     """Seed inputs, sorted, for pairs far apart: pair k at distance
     ``gaps[k]`` along a random direction, bonded where ``bonded[k]``, and 64
-    dead slots after them."""
+    dead slots after them; ``radii`` (C,) float32 or max_radius for all."""
     n = len(gaps)
     side = int(math.ceil(n ** (1.0 / dims)))
     box = (40.0 * (side + 1),) * dims + (0.0,) * (3 - dims)
@@ -203,7 +215,8 @@ def _pair_rows(gaps, bonded, dims, K=24):
     t_loc = torch.from_numpy(locs)
     g = nbr.build_grid(spec, t_loc, torch.from_numpy(ids), torch.from_numpy(alive))
     o = g.order
-    return [pack_physics(t_loc[o], torch.full((C,), BIO.max_radius)),
+    radii = torch.full((C,), BIO.max_radius) if radii is None else torch.from_numpy(radii)
+    return [pack_physics(t_loc[o], radii[o]),
             torch.from_numpy(ids)[o].contiguous(), torch.from_numpy(alive)[o].contiguous(),
             nbr.run_bounds(spec, g.sorted_flat), torch.from_numpy(partners)[o].contiguous()]
 
@@ -249,6 +262,128 @@ def test_contact_seed_kernel_keeps_a_bond_beyond_the_search_radius(dev, dims):
     args = _pair_rows(gaps, np.array([True, False, True, False]), dims)
     d_p = _seed_against_plain(dev, args)
     assert int(d_p.sum()) == 4 and int(d_p.max()) == 1
+
+
+# ---------------------------------------------------------------------------
+# the general-radius pair law (growth on: uniform_radius=None, unequal radii)
+# ---------------------------------------------------------------------------
+
+GENERAL = dict(uniform_radius=None, **LAW)
+
+
+def _sets_equal(a, b):
+    return all(set(x[x >= 0].tolist()) == set(y[y >= 0].tolist())
+               for x, y in zip(a.cpu().numpy(), b.cpu().numpy()))
+
+
+@pytest.mark.parametrize("K", [8, 40])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_general_law_kernels_match_plain(dev, dims, K):
+    """B6, then B2 (seed) -> B1 (masked, positions moved) -> B3 on unequal
+    radii, each against its plain version: forces to the file's tolerance,
+    degrees, partner sets, mask words and compacted ids exact."""
+    box = (420.0, 420.0, 0.0) if dims == 2 else BOX3D
+    C, n = (2048, 1900) if dims == 2 else (768, 700)
+    args = [a.to(dev) for a in _contact_inputs(K, C=C, n=n, box=box, skin=14.0,
+                                               unequal=True)]
+    assert float(args[0][:, 3].max() - args[0][:, 3].min()) > 1.0
+    _, shell, _ = _bond_shells(args)
+    assert shell > 0
+    suffix = "" if dims == 2 else "_3d"
+    before = dict(kernels.launch_counts)
+    fk, dk, pk = contact.contact_substep_cuda(*args, **GENERAL)
+    fp, dp, pp = contact.contact_substep_plain(*args, **GENERAL)
+    torch.cuda.synchronize()
+    _check_contact(fk, dk, fp, dp)
+    assert _sets_equal(pk, pp) and int(dp.sum()) > n
+    f_k, d_k, m_k = span_mask.contact_seed_cuda(*args, **GENERAL)
+    f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **GENERAL)
+    torch.cuda.synchronize()
+    _check_contact(f_k, d_k, f_p, d_p)
+    assert torch.equal(m_k, m_p)
+    rows = (_moved(args), *args[1:4])
+    m_k, m_p = m_p.clone(), m_p.clone()
+    f_k, d_k, _ = span_mask.contact_masked_cuda(*rows, m_k, **GENERAL)
+    f_p, d_p, _ = span_mask.contact_masked_plain(*rows, m_p, **GENERAL)
+    torch.cuda.synchronize()
+    _check_contact(f_k, d_k, f_p, d_p)
+    assert torch.equal(m_k, m_p)
+    assert torch.equal(span_mask.mask_compact_cuda(args[1], args[3], m_p, K),
+                       span_mask.mask_compact_plain(args[1], args[3], m_p, K))
+    for name in ("contact_substep", "contact_seed", "contact_masked", "mask_compact"):
+        key = name + suffix
+        assert kernels.launch_counts[key] == before.get(key, 0) + 1, key
+
+
+def _break_reach(ri, rj):
+    """The distance at which a pair of radii ri, rj breaks (float64)."""
+    e_hat = 1.0 / (2.0 * (1.0 - BIO.poisson ** 2) / BIO.youngs)
+    scale_c = ((math.pi * BIO.adhesion_const) / e_hat) ** (2.0 / 3.0)
+    r_hat = ri * rj / (1e6 * (ri + rj))
+    return ri + rj - BIO.jkr_break_d * scale_c * r_hat ** (1.0 / 3.0) * 1e6
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_general_law_kernels_at_the_break_distance(dev, dims):
+    """Bonded pairs of unequal radii from 4e-3 um inside to 4e-3 um past
+    their own break distance (offsets within 1e-4 um left out: there the
+    card's powf and the CPU's pow may round apart): B6, the seed (B2) and
+    the masked substep (B1, from the seed's mask) against their plain
+    versions, and only the pairs inside keep their bond."""
+    off = np.linspace(-4e-3, 4e-3, 240)
+    off = off[np.abs(off) > 1e-4]
+    n = len(off)
+    rs = np.random.default_rng(12)
+    radii = np.full(2 * n + 64, BIO.max_radius, np.float32)
+    radii[:2 * n] = rs.uniform(BIO.min_radius, BIO.max_radius, 2 * n).astype(np.float32)
+    gaps = [_break_reach(float(radii[2 * k]), float(radii[2 * k + 1])) + off[k]
+            for k in range(n)]
+    args = [a.to(dev) for a in _pair_rows(np.asarray(gaps), np.ones(n, bool), dims,
+                                          radii=radii)]
+    want = 2 * int((off < 0).sum())
+    fk, dk, pk = contact.contact_substep_cuda(*args, **GENERAL)
+    fp, dp, pp = contact.contact_substep_plain(*args, **GENERAL)
+    f_k, d_k, m_k = span_mask.contact_seed_cuda(*args, **GENERAL)
+    f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **GENERAL)
+    torch.cuda.synchronize()
+    for got, plain in (((fk, dk), (fp, dp)), ((f_k, d_k), (f_p, d_p))):
+        _check_contact(*got, *plain)
+        assert int(plain[1].sum()) == want
+    assert _sets_equal(pk, pp) and torch.equal(m_k, m_p)
+    m_k, m_p = m_p.clone(), m_p.clone()
+    f_k, d_k, _ = span_mask.contact_masked_cuda(*args[:4], m_k, **GENERAL)
+    f_p, d_p, _ = span_mask.contact_masked_plain(*args[:4], m_p, **GENERAL)
+    torch.cuda.synchronize()
+    _check_contact(f_k, d_k, f_p, d_p)
+    assert torch.equal(m_k, m_p) and int(d_p.sum()) == want
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_diff_surround_moments_call_matches_plain(dev, dims):
+    """With diff_surround on, the engine's fourth bio-moments call (motility
+    mode, ``states`` as ``f2``, before the motility call): the kernel's
+    lanes against the plain version on the recorded inputs, lane 7 (the
+    differentiated-neighbour count diff_surround reads) exactly."""
+    from hipsc_abm_tpu_torch.tools import record_bio_calls
+
+    if dims == 2:
+        gen = GeneralParams(num_to_start=2000, size=(300.0, 300.0, 0.0))
+    else:
+        gen = GeneralParams(num_to_start=2000, size=(120.0, 120.0, 120.0))
+    eng = HipscEngine(gen, ExperimentalParams(num_gata6=200, dox_step=1), device=dev,
+                      enable_growth=True, enable_stochastic=True, enable_diff_surround=True)
+    state, _ = eng.safe_step(eng.init_state(seed=2))
+    states = (torch.arange(state.capacity, device=dev) % 3 == 0).to(torch.int32)
+    state = state._replace(arrays={**state.arrays, "states": states})
+    calls = record_bio_calls(eng, state)
+    assert [k["mode"] for _, k in calls] == ["count", "pathway", "motility", "motility"]
+    a, k = calls[2]
+    assert int(a[4].abs().sum()) == 0 and int(a[5].abs().sum()) == 0
+    assert int(a[6].sum()) > 0
+    got = bio_moments.bio_moments_cuda(*a, **k)
+    want = bio_moments.bio_moments_plain(*a, **k)
+    assert torch.equal(got[:, [0, 3, 7]], want[:, [0, 3, 7]]) and float(want[:, 7].sum()) > 0
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
 
 
 @pytest.mark.parametrize("K", [5, 8, 40])
@@ -383,6 +518,20 @@ def test_engine_bio_call_launches_only_the_kernel(dev):
     for a, k in calls:
         _, launches, names = device_kernels(lambda: bio_moments.bio_moments_cuda(*a, **k), 5)
         assert launches == 1 and all("bio_moments_kernel" in name for name in names), names
+
+
+@pytest.mark.parametrize("two_d", [True, False])
+def test_unit_vectors_are_bit_equal_on_card_and_cpu(dev, two_d):
+    """The id-keyed unit vectors of the motility phase (their trigonometry in
+    float64, rounded to float32) on the card equal the CPU's bit for bit at
+    a million ids: a lone cell's motility move, the same every substep, then
+    rounds its position the same way on both."""
+    from hipsc_abm_tpu_torch.ops import rng
+
+    key = rng.prng_key(7)
+    ids = torch.arange(0, 3_000_000, 3, dtype=torch.int32)
+    got = rng.unit_vectors(key, ids.to(dev), two_d, salt=1).cpu()
+    assert torch.equal(got, rng.unit_vectors(key, ids, two_d, salt=1))
 
 
 @pytest.mark.parametrize("shape", [(97, 131), (449, 449), (1001, 1001)])

@@ -9,7 +9,12 @@ the CPU, against itself and against the JAX package's ``CellSimulation``.
   exact, positions within 1e-3 um (float32 force sums taken in another
   order, see ``test_torch_step.py``);
 - a JAX npz checkpoint resumes in the port and matches JAX continuing the
-  same run; a port npz loads in the JAX package;
+  same run, also with the three optional biology phases on; a port npz
+  loads in the JAX package;
+- the optional phases (``enable_growth``, ``enable_stochastic``,
+  ``enable_diff_surround``) run through the lifecycle: the engine's config
+  carries each flag, a pickle resume with all three is bit-exact, and grown
+  radii reach the step images and the npz;
 - the options not ported yet raise and name their ROADMAP item.
 
 The JAX side writes its CSVs with its Python writers
@@ -43,6 +48,7 @@ EXPERIMENTAL = {
     "num_gata6": 8, "output_tda": True, "output_gradients": False, "group": 0,
     "dox_step": 1, "guye_move": True, "lonely_thresh": 2, "color_mode": True,
 }
+OPTIONAL = {"enable_growth": True, "enable_stochastic": True, "enable_diff_surround": True}
 INT_FIELDS = ("FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states", "death_counters",
               "diff_counters", "div_counters", "fds_counters")
 
@@ -73,17 +79,20 @@ def port_run(tmp_path_factory):
     return dict(root=root, out=out, sim=sim, state=convert.state_to_numpy(sim.state))
 
 
-@pytest.fixture(scope="module")
-def jax_run(tmp_path_factory):
+def _jax_resumed_run(root, experimental=None) -> dict:
     """One JAX run with ``temp_pickle: false``: mode 0 to step 2 (its output
     directory copied aside), then mode 1 to step 4."""
-    root = tmp_path_factory.mktemp("jax")
-    out = _env(root, general={"temp_pickle": False, "end_step": 2})
+    out = _env(root, general={"temp_pickle": False, "end_step": 2}, experimental=experimental)
     _start(root, out, ["-n", "j", "-m", "0"], cls=JaxCellSimulation)
     shutil.copytree(os.path.join(out, "j"), root / "step2" / "j")
     sim = _start(root, out, ["-n", "j", "-m", "1", "-fs", "4"], cls=JaxCellSimulation)
     return dict(step2=root / "step2" / "j", state=convert.numpy_from_jax_state(sim.state),
                 meta=jax_config_to_meta(sim.engine.cfg))
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    return _jax_resumed_run(tmp_path_factory.mktemp("jax"))
 
 
 def _by_id(d: dict) -> dict:
@@ -181,6 +190,22 @@ def test_jax_npz_resumes_in_port(tmp_path, jax_run):
     _assert_same_colony(convert.state_to_numpy(sim.state), jax_run["state"], atol=1e-3)
 
 
+def test_jax_npz_with_optional_phases_resumes_in_port(tmp_path):
+    """A JAX checkpoint written with the three optional phases on resumes in
+    the port (its config keeps the flags) and matches JAX continuing the
+    run."""
+    ref = _jax_resumed_run(tmp_path / "jax", experimental=OPTIONAL)
+    assert all(ref["meta"][k] for k in OPTIONAL) and ref["meta"]["uniform_radius"] is None
+    root = tmp_path / "port"
+    out = _env(root, general={"temp_pickle": False}, experimental=OPTIONAL)
+    shutil.copytree(ref["step2"], os.path.join(out, "j"))
+    sim = _start(root, out, ["-n", "j", "-m", "1", "-fs", "4"], device="cpu")
+    cfg = sim.engine.cfg
+    assert sim.current_step == 4 and all(getattr(cfg, k) for k in OPTIONAL)
+    assert cfg.uniform_radius is None
+    _assert_same_colony(convert.state_to_numpy(sim.state), ref["state"], atol=1e-3)
+
+
 def test_port_npz_loads_in_jax(port_run):
     path = os.path.join(port_run["out"], "full", "full_state.npz")
     state, meta = jckpt.load_state(path)
@@ -192,14 +217,77 @@ def test_port_npz_loads_in_jax(port_run):
 @pytest.mark.parametrize("general,experimental,item", [
     ({"domain_tiles": [2, 2]}, {}, "A10"),
     ({"output_interval": 2}, {}, "A6"),
-    ({}, {"enable_growth": True}, "A4"),
-    ({}, {"enable_stochastic": True}, "A4"),
-    ({}, {"enable_diff_surround": True}, "A4"),
 ])
 def test_unported_options_raise(tmp_path, general, experimental, item):
     out = _env(tmp_path, general=general, experimental=experimental)
     with pytest.raises(NotImplementedError, match=item):
         _start(tmp_path, out, ["-n", "x", "-m", "0"], device="cpu")
+
+
+@pytest.mark.parametrize("flags", [("enable_growth",), ("enable_stochastic",),
+                                   ("enable_diff_surround",), tuple(OPTIONAL)],
+                         ids=["growth", "stochastic", "diff_surround", "all"])
+def test_optional_phases_run(tmp_path, flags):
+    """Mode 0 for 2 steps on the CPU with each optional phase, and with all
+    three: the engine's config carries the flags, and growth selects the
+    contact kernels' general pair law."""
+    out = _env(tmp_path, general={"end_step": 2, "output_images": False},
+               experimental={k: True for k in flags})
+    sim = _start(tmp_path, out, ["-n", "opt", "-m", "0"], device="cpu")
+    cfg = sim.engine.cfg
+    assert sim.current_step == 2 and sim.number_agents > 0
+    for k in OPTIONAL:
+        assert getattr(cfg, k) == (k in flags), k
+    assert (cfg.uniform_radius is None) == ("enable_growth" in flags)
+    assert config_to_meta(cfg)["enable_stochastic"] == ("enable_stochastic" in flags)
+
+
+def test_optional_phases_pickle_resume_is_bit_exact(tmp_path):
+    """With the three phases on: mode 0 to step 2, then mode 1 from the
+    pickle to step 4, bit-equal to mode 0 straight to step 4."""
+    out = _env(tmp_path, general={"end_step": 2, "output_images": False},
+               experimental=OPTIONAL)
+    _start(tmp_path, out, ["-n", "a", "-m", "0"], device="cpu")
+    resumed = _start(tmp_path, out, ["-n", "a", "-m", "1", "-fs", "4"], device="cpu")
+    assert all(getattr(resumed.engine.cfg, k) for k in OPTIONAL)
+    root = tmp_path / "straight"
+    out = _env(root, general={"end_step": 4, "output_images": False}, experimental=OPTIONAL)
+    straight = _start(root, out, ["-n", "b", "-m", "0"], device="cpu")
+    _assert_bit_equal(convert.state_to_numpy(resumed.state),
+                      convert.state_to_numpy(straight.state))
+
+
+class SeededRadiiSimulation(CellSimulation):
+    """The model with radii drawn uniform in [min_radius, max_radius] at
+    set-up (every radius is max_radius otherwise, and growth then has
+    nothing to do)."""
+
+    def agent_initials(self):
+        super().agent_initials()
+        rs = np.random.default_rng(3)
+        self.radii = rs.uniform(self.min_radius, self.max_radius,
+                                self.number_agents).astype(np.float32)
+
+
+def test_grown_radii_reach_the_outputs(tmp_path, monkeypatch):
+    """Growth on, radii seeded: the step images are rendered with each
+    step's grown radii (the values CSV holds the reference's nine arrays,
+    radii not among them), and the npz checkpoint holds them."""
+    from hipsc_abm_tpu_torch.utils import io as io_utils
+    from hipsc_abm_tpu_torch.utils.checkpoint import load_state
+
+    rendered = []
+    render = io_utils.render_step_image
+    monkeypatch.setattr(io_utils, "render_step_image", lambda locs, radii, *a, **k: (
+        rendered.append(np.array(radii)), render(locs, radii, *a, **k))[1])
+    out = _env(tmp_path, general={"end_step": 2}, experimental={"enable_growth": True})
+    sim = _start(tmp_path, out, ["-n", "g", "-m", "0"], cls=SeededRadiiSimulation,
+                 device="cpu")
+    assert sim.engine.cfg.uniform_radius is None and len(rendered) == 3
+    np.testing.assert_array_equal(rendered[-1], sim.radii)
+    assert sim.radii.min() < sim.max_radius and not np.array_equal(rendered[0], rendered[-1])
+    state, _ = load_state(os.path.join(out, "g", "g_state.npz"), device="cpu")
+    np.testing.assert_array_equal(state.arrays["radii"][state.alive].numpy(), sim.radii)
 
 
 def test_cli_entry_point(tmp_path):

@@ -151,8 +151,10 @@ def test_engine_config_meta_across_packages():
     assert _common_meta(jmeta, tmeta) == port_view
     assert dataclasses.replace(
         from_jax, nbr_spec=teng.cfg.nbr_spec, jkr_spec=teng.cfg.jkr_spec) == teng.cfg
-    with pytest.raises(NotImplementedError, match="A4"):
-        config_from_meta({**jmeta, "enable_growth": True})
+    # a JAX checkpoint with the optional biology phases keeps them
+    flags = {"enable_growth": True, "enable_stochastic": True, "enable_diff_surround": True}
+    flagged = config_from_meta({**jmeta, **flags, "uniform_radius": None})
+    assert all(getattr(flagged, k) for k in flags) and flagged.uniform_radius is None
 
 
 def test_npz_checkpoints_load_in_both_packages(tmp_path):

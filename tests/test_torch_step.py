@@ -315,8 +315,10 @@ def test_engine_device_is_explicit():
     else:
         with pytest.raises(RuntimeError):
             HipscEngine(tgen, txp, device="cuda")
-    with pytest.raises(NotImplementedError):
-        HipscEngine(tgen, txp, enable_growth=True, device="cpu")
+    # growth makes radii unequal: the general pair law, on the device asked for
+    grown = HipscEngine(tgen, txp, enable_growth=True, device="cpu")
+    assert grown.device.type == "cpu" and grown.cfg.enable_growth
+    assert grown.cfg.uniform_radius is None
     # a 3D box is ported: the same rules, cuda by default, cpu on request
     gen3 = convert.params_from_jax(GeneralParams(num_to_start=50, size=(100.0, 100.0, 100.0)))
     if not torch.cuda.is_available():
