@@ -36,13 +36,16 @@ Phases, each of which raises on failure (exit code != 0):
    FGF4 field coupling on, from one seed, equal by agent id;
 5. main paths: the bench configuration at 100k and 500k cells (2D) and the
    spheroid at 99k cells (3D), ``init_state(seed=0)``, 3 ``safe_step``
-   warm-ups and 20 timed ``step``s, twice per contact path in turns
+   warm-ups and 20 timed ``safe_step``s (each the replay of the engine's
+   captured one-step graph), twice per contact path in turns
    (``"id_list"``, ``"span_mask"``, ``"span_mask"``, ``"id_list"``);
    steps/s with the median and p90 time per step, agents, peak memory,
    window rebuilds per step, the launch counts of every kernel (each kernel
    of the path must have launched; in 2D one FTCS launch per step), the
    device time per step, in all and of the contact kernels, over 2 more
-   steps under ``torch.profiler``, and in 2D the FTCS kernel against its
+   eager ``step``s under ``torch.profiler`` (with their window rebuilds,
+   which give the predicated span-mask kernels' taken launches), and in 2D
+   the FTCS kernel against its
    plain version on the path's last lattice;
 6. lifecycle (``lifecycle_phase``): ``CellSimulation.start`` on the card
    from templates written into a temporary directory. (a) The shipped
@@ -74,10 +77,30 @@ Phases, each of which raises on failure (exit code != 0):
    lifecycle colony, 8 card steps from the CPU's state on each contact
    path, and mode 0 + 1 against mode 0; (d) the 2D 100k and 3D 99k main
    paths with the flags, in turns, beside phase 5's (``optional_summary``).
+8. ``run_steps`` blocks (``blocks_phase``), each block one CUDA graph replay
+   and one probe fetch: (a) at the 2D 100k and 3D 99k states after one
+   ``safe_step``, both contact paths, and the 3D span-mask path with the
+   optional phases, ``run_steps(10)`` against 10 ``safe_step``s (blocks of
+   one step) and against 10 eager ``step``s (integer state, bond sets,
+   positions and radii bit-equal by agent id, rebuilds per step equal, the
+   lattice's difference reported), the block's launches counted from 0;
+   (b) one eager step of each under
+   ``set_sync_debug_mode("error")``, and the synchronising calls of one
+   block counted (must be 1); (c) the 2D 100k colony from ``init_state`` at
+   a bond capacity of 2 and a mask capacity of 16: the block re-executes
+   grown and ends equal to ``safe_step``s; (d) time per step of blocks of
+   10 and 50 against ``safe_step`` (a block of one) and the eager ``step``
+   at 1k, 2D 100k, 2D 500k and 3D 99k cells on both paths, in turns, with
+   device time, busy share, capture seconds
+   and graph memory; (e) lifecycle b with ``output_interval: 3`` against
+   the per-step run (the boundaries' values CSVs byte-equal).
 
 The last lines are the seconds per phase, one JSON object with each
 kernel's numbers (``law``: the contact law of the run its inputs and
-launches come from, ``"general"`` for the entries named ``[general]``), the
+launches come from, ``"general"`` for the entries named ``[general]``;
+``taken_launches``: those of ``launches`` that ran their branch, fewer for
+the span-mask kernels, which launch on every substep under the rebuild
+predicate; ``in_step_ms``: device time per taken launch in the step), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -180,6 +203,17 @@ LIFECYCLE_BENCH_EXPERIMENTAL = dict(
     LIFECYCLE_EXPERIMENTAL, num_gata6=N_MAIN // 10, enable_diffusion=True, spat_res=20.0,
     release_amount=0.01, degradation=0.1)
 LIFECYCLE_CPU_STEPS = 4
+# phase 8, run_steps blocks: the block of the equality checks (a-c), the
+# block sizes timed against safe_step (d), the 1k-cell bench cell (side
+# 2000 * sqrt(1000 / 5000) = 894 um), safe_steps per timed run, and the
+# timed cells' capacity over their start (so that no block re-executes for
+# capacity while it is timed: 53 steps grow the colony ~1.5x)
+BLOCK_K = 10
+TIMED_KS = (10, 50)
+N_SMALL = 1_000
+BLOCK_TIMED_STEPS = 20
+BLOCK_HEADROOM = 2.0
+LIFECYCLE_BLOCK_INTERVAL = 3
 
 
 def bench_engine(n_cells: int, device: str, contact_path: str = "id_list", **flags):
@@ -304,6 +338,35 @@ def by_id(d: dict) -> dict:
     partners = np.where(d["bond_mask"], d["partners"], -1)[alive][order]
     out["bonds"] = [frozenset(r[r >= 0].tolist()) for r in partners]
     return out
+
+
+def bio_bound(args, kw, neighbours: float) -> dict:
+    """``bound`` of one bio-moments call (``args``, ``kw`` as the engine
+    passes them) with ``neighbours`` neighbour pairs. Bytes: per live row
+    its build-time position (x, y in 2D, x, y, z in 3D), liveness and
+    bounds, in modes motility and full its current position and three
+    features, in pathway one feature, and the lanes the mode makes that are
+    not always zero (count 1, pathway 3, motility 9, full 11); per dead row
+    its liveness and those lanes. Operations: a distance test per candidate
+    (6 in 2D, 9 in 3D), and per neighbour the pathway sums (3) and the
+    motility sums (10 in 2D, 13 in 3D) that the mode makes."""
+    from hipsc_abm_tpu_torch import kernels
+    from hipsc_abm_tpu_torch.ops import span_mask
+
+    pos0, alive, bounds = args[:3]
+    mode = kw["mode"]
+    n_runs = kernels.run_count(bounds)
+    dims = 2 if n_runs == 3 else 3
+    candidates = int(span_mask.candidate_counts(bounds)[alive].sum())
+    C, live = pos0.shape[0], int(alive.sum())
+    lanes_out = 4 * {"count": 1, "pathway": 3, "motility": 9, "full": 11}[mode]
+    reads = {"count": 0, "pathway": 4, "motility": 4 * dims + 12, "full": 4 * dims + 12}[mode]
+    dist_ops = 6 if dims == 2 else 9
+    nbr_ops = ((3 if mode in ("pathway", "full") else 0)
+               + ((10 if dims == 2 else 13) if mode in ("motility", "full") else 0))
+    return bound(live * (4 * dims + 1 + 8 * n_runs + reads + lanes_out)
+                 + (C - live) * (1 + lanes_out),
+                 dist_ops * candidates + nbr_ops * neighbours)
 
 
 def kernel_phase(eng, state):
@@ -459,25 +522,14 @@ def kernel_phase(eng, state):
         torch.testing.assert_close(b_k, b_p, rtol=1e-5, atol=1e-4)
         err = max(err, float((b_k - b_p).abs().max()))
     full = dict(b_kw, mode="full")
-    # bytes in mode full: per live row its build-time position (x, y in 2D,
-    # x, y, z in 3D), liveness, bounds, current position, three features
-    # and the 11 lanes that are not always zero; per dead row its liveness
-    # and those lanes; operations: a distance test per candidate (6 in 2D,
-    # 9 in 3D), and per neighbour the pathway sums (3) and motility sums (10
-    # in 2D, 13 in 3D)
     candidates = int(span_mask.candidate_counts(bounds)[b_alive].sum())
-    dims = 2 if cfg.two_d else 3
-    dist_ops, nbr_ops = (6, 13) if cfg.two_d else (9, 16)
     C, live = pos0.shape[0], int(b_alive.sum())
-    lanes_out = 4 * 11
     name = entry(
         "bio_moments", "bio_moments.cu", "hipsc_abm_tpu/ops/pallas_bio.py:58",
         max_abs_err=err,
         ms=cuda_ms(lambda: bio_moments.bio_moments_cuda(*b_args, **full), 50),
         plain_ms=cuda_ms(lambda: bio_moments.bio_moments_plain(*b_args, **full), 10),
-        **bound(live * (4 * dims + 1 + 8 * n_runs + 4 * dims + 12 + lanes_out)
-                + (C - live) * (1 + lanes_out),
-                dist_ops * candidates + nbr_ops * float(b_p[:, 0].sum())))
+        **bio_bound(b_args, full, float(b_p[:, 0].sum())))
     print(f"kernel {name}: rows={C} live {live} mean candidates per live row "
           f"{candidates / max(1, live):.2f}, "
           f"mean neighbours={float(b_k[:, 0].sum()) / max(1, live):.3f} "
@@ -617,11 +669,11 @@ def general_law_phase(eng, state) -> list:
     ``<launch_counts name>[general]``; ``main`` adds the launches and the
     in-step times from the timed runs."""
     from hipsc_abm_tpu_torch import kernels
-    from hipsc_abm_tpu_torch.ops import contact, span_mask
+    from hipsc_abm_tpu_torch.ops import bio_moments, contact, span_mask
     from hipsc_abm_tpu_torch.ops import neighbors as nbr
     from hipsc_abm_tpu_torch.ops.integrate import stokes_integrate
     from hipsc_abm_tpu_torch.ops.jkr import pack_physics
-    from hipsc_abm_tpu_torch.tools import kernel_ms
+    from hipsc_abm_tpu_torch.tools import kernel_ms, record_bio_calls
 
     cfg, bio = eng.cfg, eng.bio
     assert cfg.uniform_radius is None and cfg.enable_growth
@@ -721,6 +773,17 @@ def general_law_phase(eng, state) -> list:
           lambda: span_mask.contact_masked_plain(*margs, m_time, **law),
           lambda: span_mask.contact_masked_cuda(*margs, m_time, **uni),
           "contact_mask_kernel<false", C * (row_bytes + 16 + 8 * W), int(d_p.sum()), check)
+    # B4's fourth call (diff_surround, motility mode with the states as f2)
+    # beside the step's other three, each with its bound
+    calls = record_bio_calls(eng, state)
+    bounds_ms = []
+    for b_args, b_kw in calls:
+        out = bio_moments.bio_moments_cuda(*b_args, **b_kw)
+        bounds_ms.append(bio_bound(b_args, b_kw, float(out[:, 0].sum()))["bound_ms"])
+    print(f"{label} kernel {kernels.counted_name('bio_moments', n_runs)} with diff_surround: "
+          f"{len(calls)} calls per step ({', '.join(kw['mode'] for _, kw in calls)}), bound "
+          f"per call {[round(b, 5) for b in bounds_ms]} ms, the diff_surround call's "
+          f"{bounds_ms[2]:.5f} ms, the step's four {sum(bounds_ms):.5f} ms")
     kernels.launch_counts.clear()
     return results
 
@@ -1402,8 +1465,9 @@ def optional_lifecycle_phase() -> None:
 
 
 def timed_run(dims: int, n_cells: int, path: str, optional: bool = False):
-    """init_state(seed=0), 3 safe_step warm-ups, TIMED_STEPS timed steps,
-    each on the host clock up to a synchronise; returns the engine, the
+    """init_state(seed=0), 3 safe_step warm-ups, TIMED_STEPS timed
+    ``safe_step``s, each on the host clock up to a synchronise (the probe
+    fetch that ends it); returns the engine, the
     final state and its numbers (warm-up s, steps/s, median and p90 ms per
     step, peak bytes, contact-window rebuilds per timed step)."""
     torch.cuda.reset_peak_memory_stats()
@@ -1416,8 +1480,7 @@ def timed_run(dims: int, n_cells: int, path: str, optional: bool = False):
     rebuilds, per_step = [], []
     for _ in range(TIMED_STEPS):
         t = time.perf_counter()
-        state, info = eng.step(state)
-        torch.cuda.synchronize()
+        state, info = eng.safe_step(state)
         per_step.append(time.perf_counter() - t)
         rebuilds.append(info.jkr_rebuilds)
     t2 = time.perf_counter()
@@ -1431,17 +1494,19 @@ def timed_run(dims: int, n_cells: int, path: str, optional: bool = False):
 
 def device_ms_per_step(eng, state, steps: int = 2) -> dict:
     """Device time per step under ``torch.profiler`` over ``steps`` more
-    steps: ``{"all": ms, "contact": ms, "by_kernel": {short name: [ms,
-    launches]}}``, ``by_kernel`` each hand-written kernel's own time and
-    launches per step and ``contact`` the contact kernels' sum; empty where
-    the profiler saw no device time. The profiled steps are the ones right
-    after the timed window (no warm-up call)."""
+    eager steps: ``{"all": ms, "contact": ms, "by_kernel": {short name:
+    [ms, launches]}, "rebuilds": r}``, ``by_kernel`` each hand-written
+    kernel's own time and launches per step, ``contact`` the contact
+    kernels' sum and ``rebuilds`` the window rebuilds per profiled step;
+    empty where the profiler saw no device time. The profiled steps are the
+    ones right after the timed window (no warm-up call)."""
     from hipsc_abm_tpu_torch.tools import device_kernels
 
-    carry = [state]
+    carry, rebuilds = [state], []
 
     def step():
-        carry[0], _ = eng.step(carry[0])
+        carry[0], info = eng.step(carry[0])
+        rebuilds.append(info.jkr_rebuilds)
 
     total, _, by_kernel = device_kernels(step, steps, CONTACT_KERNELS + OTHER_KERNELS,
                                          warmup=False)
@@ -1449,7 +1514,21 @@ def device_ms_per_step(eng, state, steps: int = 2) -> dict:
         return {}
     return {"all": total,
             "contact": sum(v[0] for k, v in by_kernel.items() if k in CONTACT_KERNELS),
-            "by_kernel": by_kernel}
+            "by_kernel": by_kernel, "rebuilds": sum(int(r) for r in rebuilds) / steps}
+
+
+def taken_launches(name: str, launches: float, attempts: float, rebuilds: float,
+                   substeps: int) -> float:
+    """Of ``launches`` of the kernel ``name`` over ``attempts`` step
+    attempts with ``rebuilds`` window rebuilds in all, those that ran their
+    branch: the span-mask seed and compaction once per attempt (the entry
+    seed, the exit compaction) and once per rebuild, the masked substep on
+    every later substep without one; every launch of the other kernels."""
+    if name.startswith(("contact_seed", "mask_compact")):
+        return attempts + rebuilds
+    if name.startswith("contact_masked"):
+        return attempts * (substeps - 1) - rebuilds
+    return launches
 
 
 def main_path(dims: int, n_cells: int, path: str, optional: bool = False) -> dict:
@@ -1464,6 +1543,7 @@ def main_path(dims: int, n_cells: int, path: str, optional: bool = False) -> dic
     kernels.launch_counts.clear()
     eng, state, nums = timed_run(dims, n_cells, path, optional)
     counts = dict(kernels.launch_counts)
+    rebuilds = eng.window_rebuilds  # over every step attempt of the run
     agents = state.num_agents()
     loc = state.arrays["locations"][state.alive]
     size = torch.tensor(eng.gen.size, device=loc.device)
@@ -1491,16 +1571,27 @@ def main_path(dims: int, n_cells: int, path: str, optional: bool = False) -> dic
             raise AssertionError(f"{label}: kernel {name} was never launched")
     # every step attempt runs 11 contact substeps, three bio-moments passes
     # (four with diff_surround) and, in 2D, one FTCS launch for its whole
-    # subcycle schedule
+    # subcycle schedule; on the span-mask path every substep launches the
+    # seed (which runs at the entry and where the window is rebuilt), every
+    # substep after the first the masked substep (which runs where it is
+    # not) and the compaction (as the seed), and the scan's exit one more
+    # compaction
     n_runs = 3 if dims == 2 else 9
-    substeps = sum(counts.get(kernels.counted_name(k, n_runs), 0)
-                   for k in ("contact_substep", "contact_seed", "contact_masked"))
-    attempts, rest = divmod(substeps, len(_physics_dts(eng.bio)))
+    n_sub = len(_physics_dts(eng.bio))
+
+    def launched(name):
+        return counts.get(kernels.counted_name(name, n_runs), 0)
+
+    substeps = launched("contact_seed" if path == "span_mask" else "contact_substep")
+    attempts, rest = divmod(substeps, n_sub)
+    if path == "span_mask" and (launched("contact_masked") != (n_sub - 1) * attempts
+                                or launched("mask_compact") != n_sub * attempts):
+        rest = 1
     passes = 4 if optional else 3
     bio_launches = counts.get(kernels.counted_name("bio_moments", n_runs), 0)
     if rest or attempts < 3 + TIMED_STEPS or bio_launches != passes * attempts or (
             dims == 2 and counts["ftcs_diffuse"] != attempts):
-        raise AssertionError(f"{label}: {substeps} contact substeps, {bio_launches} "
+        raise AssertionError(f"{label}: contact launches {counts}, {bio_launches} "
                              f"bio-moments and {counts.get('ftcs_diffuse')} FTCS launches "
                              f"for {attempts} step attempts")
     other = {n for key, names in PATH_KERNELS.items() if key[0] != dims for n in names}
@@ -1513,16 +1604,20 @@ def main_path(dims: int, n_cells: int, path: str, optional: bool = False) -> dic
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
     print(f"{label}: {n_cells} cells start, {agents} agents after {3 + TIMED_STEPS} steps, "
           f"capacity {state.capacity}, bond_cap {state.bonds.partners.shape[1]}")
-    print(f"{label}: warm-up (init + 3 safe_step) {nums['warm_s']:.2f} s; {TIMED_STEPS} steps "
+    print(f"{label}: warm-up (init + 3 safe_step) {nums['warm_s']:.2f} s; {TIMED_STEPS} "
+          f"safe_steps "
           f"at {nums['steps_per_s']:.3f} steps/s, per step median {nums['median_ms']:.3f} ms, "
           f"p90 {nums['p90_ms']:.3f} ms; peak device memory {nums['peak_mib']:.1f} MiB; "
-          f"rebuilds/step {nums['rebuilds_per_step']:.2f}; device time/step (profiler, 2 steps): "
+          f"rebuilds/step {nums['rebuilds_per_step']:.2f}; device time/step (profiler, 2 eager "
+          f"steps, {dev.get('rebuilds')} rebuilds per step): "
           f"contact kernels {fmt(dev.get('contact'))}, all {fmt(dev.get('all'))}; "
           f"by kernel {dev.get('by_kernel')}")
     print(f"{label}: launches {counts} over {attempts} step attempts ({passes} bio-moments "
-          f"passes each)")
-    return dict(nums, counts=counts, attempts=attempts, contact_ms=dev.get("contact"),
-                device_ms=dev.get("all"), contact_ms_by_kernel=dev.get("by_kernel"))
+          f"passes each, {rebuilds} window rebuilds)")
+    return dict(nums, counts=counts, attempts=attempts, rebuilds=rebuilds, substeps=n_sub,
+                contact_ms=dev.get("contact"), device_ms=dev.get("all"),
+                contact_ms_by_kernel=dev.get("by_kernel"),
+                profiled_rebuilds_per_step=dev.get("rebuilds"))
 
 
 def optional_summary(runs) -> None:
@@ -1546,6 +1641,371 @@ def optional_summary(runs) -> None:
                              f"launches per step")
             print(f"optional phase d [{dims}D, {path}, {n}]: optional phases {cols[True]}; "
                   f"uniform-law main path {cols[False]}")
+
+
+def compare_bits(a: dict, b: dict, label: str) -> str:
+    """Two numpy states by agent id: ids, integer fields and bond sets equal,
+    positions and radii bit-equal; the lattice's largest difference
+    reported (its deposit adds float32 with atomics in no fixed order, so
+    its low bits may differ between two runs). Raises, or returns a
+    summary."""
+    ia, ib = by_id(a), by_id(b)
+    if not np.array_equal(ia["ids"], ib["ids"]):
+        raise AssertionError(f"{label}: agent id sets differ")
+    differ = [k for k in ("FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states", "death_counters",
+                          "diff_counters", "div_counters", "fds_counters")
+              if not np.array_equal(ia[k], ib[k])]
+    differ += [k for k in ("locations", "radii")
+               if not np.array_equal(ia[k].view(np.int32), ib[k].view(np.int32))]
+    if ia["bonds"] != ib["bonds"]:
+        differ.append("bonds")
+    if differ:
+        raise AssertionError(f"{label}: {differ} differ")
+    summary = (f"{len(ia['ids'])} agents, integer fields, bond sets, positions and radii "
+               "bit-equal")
+    if "fgf4_values" in a["gradients"]:
+        la, lb = a["gradients"]["fgf4_values"], b["gradients"]["fgf4_values"]
+        summary += (f", lattice max |d| {float(np.abs(la - lb).max()):.3e} "
+                    f"({int((la.view(np.int32) != lb.view(np.int32)).sum())} of {la.size} "
+                    "points differ in bits)")
+    return summary
+
+
+class SyncCounter:
+    """Counts the synchronising CUDA calls (``torch.cuda.set_sync_debug_mode
+    ("warn")``) made inside the ``with`` block: the host reads."""
+
+    def __enter__(self):
+        import warnings
+
+        self.count = 0
+        self._show = warnings.showwarning
+        self._filters = warnings.filters[:]
+
+        def show(message, *args, **kwargs):
+            if "synchroniz" in str(message):
+                self.count += 1
+            else:
+                self._show(message, *args, **kwargs)
+
+        warnings.showwarning = show
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import warnings
+
+        torch.cuda.set_sync_debug_mode(0)
+        warnings.showwarning = self._show
+        warnings.filters[:] = self._filters
+        return False
+
+
+def blocks_equal_phase(dims: int, n: int, path: str, optional: bool = False) -> dict:
+    """Phase 8 a and b on one main path: from one state (one ``safe_step``
+    after ``init_state``), ``run_steps(BLOCK_K)`` (one CUDA graph, captured
+    then replayed) against ``BLOCK_K`` ``safe_step``s on the card (blocks of
+    one step) and against ``BLOCK_K`` eager ``step``s at the config those
+    ended on, compared by ``compare_bits``, with the window rebuilds of each
+    step equal; the
+    block's launches counted from 0 (each kernel of the path must have run
+    in the graph); then one eager step under ``set_sync_debug_mode
+    ("error")`` and the host reads of one more block counted."""
+    from hipsc_abm_tpu_torch import convert, kernels
+
+    label = (f"blocks phase a [{dims}D, {path}, {n}{', optional phases' if optional else ''}]")
+    eng, state = engine_for(dims, n, "cuda", path, optional)
+    state, _ = eng.safe_step(state)
+    ref = engine_for(dims, n, "cuda", path, optional)[0]
+    ref.cfg = eng.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    steps, infos = state, []
+    for _ in range(BLOCK_K):
+        steps, info = ref.safe_step(steps)
+        infos.append(info)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peak_steps = torch.cuda.max_memory_allocated() / 2**20
+    eager, r_eager = ref.repad_state(state, ref.cfg), []
+    for _ in range(BLOCK_K):
+        eager, info = ref.step(eager)
+        r_eager.append(int(info.jkr_rebuilds))
+    eager_summary = compare_bits(convert.state_to_numpy(steps), convert.state_to_numpy(eager),
+                                 f"{label} (eager steps)")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launch_counts.clear()
+    block, binfo = eng.run_steps(state, BLOCK_K)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = dict(kernels.launch_counts)
+    peak_block = torch.cuda.max_memory_allocated() / 2**20
+    missing = [k for k in PATH_KERNELS[(dims, path)] if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels {missing} did not run in the block ({counts})")
+    summary = compare_bits(convert.state_to_numpy(steps), convert.state_to_numpy(block), label)
+    r_steps = [int(i.jkr_rebuilds) for i in infos]
+    r_block = [int(r) for r in binfo.jkr_rebuilds]
+    if not r_steps == r_eager == r_block:
+        raise AssertionError(f"{label}: rebuilds per step {r_steps} (safe_step), {r_eager} "
+                             f"(eager step) vs {r_block}")
+    graphs = eng.block_graphs()
+    print(f"{label}: run_steps({BLOCK_K}) ({t2 - t1:.2f} s, capture included, "
+          f"{eng.block_attempts} attempt(s)) vs {BLOCK_K} safe_steps ({t1 - t0:.2f} s): "
+          f"{summary}; safe_steps vs eager steps: {eager_summary}; rebuilds per step "
+          f"{r_block} on all three; peak device memory "
+          f"{peak_steps:.1f} MiB (safe_steps) / {peak_block:.1f} MiB (block); graph "
+          f"{[(g['k'], round(g['capture_s'], 2), round(g['pool_mib'], 1)) for g in graphs]} "
+          f"(k, capture s, MiB reserved); block launches {counts}")
+
+    # b: no host read in a step, one in a block
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with SyncCounter() as reads:
+        eng.run_steps(state, BLOCK_K)
+    print(f"blocks phase b [{dims}D, {path}]: one eager step under "
+          f"set_sync_debug_mode('error') ran; host reads per block {reads.count} "
+          f"(k = {BLOCK_K})")
+    if reads.count != 1:
+        raise AssertionError(f"blocks phase b [{dims}D, {path}]: {reads.count} host reads in "
+                             "one block, expected 1 (the probe fetch)")
+    return dict(dims=dims, cells=n, contact_path=path, optional=optional,
+                rebuilds=r_block, host_reads=reads.count, peak_mib_steps=peak_steps,
+                peak_mib_block=peak_block, graphs=graphs)
+
+
+def block_growth_phase() -> dict:
+    """Phase 8 c: the 2D bench colony at ``N_MAIN`` cells on the span-mask
+    path from ``init_state``, at a bond capacity of 2 and a mask capacity of
+    16 candidates, both below what its first steps need: ``run_steps
+    (BLOCK_K)`` re-executes with the config grown from the block's worst
+    probes and ends equal (``compare_bits``) to ``BLOCK_K`` ``safe_step``s
+    from the same tight config."""
+    from hipsc_abm_tpu_torch import convert
+
+    label = f"blocks phase c (growth, 2D span_mask, {N_MAIN})"
+    eng = bench_engine(N_MAIN, "cuda", "span_mask")
+    eng.cfg = dataclasses.replace(eng.cfg, bond_cap=2, mask_bits=16)
+    ref = bench_engine(N_MAIN, "cuda", "span_mask")
+    ref.cfg = eng.cfg
+    state = eng.init_state(seed=SEED)
+    steps = state
+    for _ in range(BLOCK_K):
+        steps, _ = ref.safe_step(steps)
+    t = time.perf_counter()
+    block, _ = eng.run_steps(state, BLOCK_K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    grown = {k: getattr(eng.cfg, k) for k in ("capacity", "bond_cap", "div_cap", "mask_bits")}
+    ref_grown = {k: getattr(ref.cfg, k) for k in grown}
+    if eng.block_attempts < 2 or grown["bond_cap"] <= 2 or grown["mask_bits"] <= 16:
+        raise AssertionError(f"{label}: no growth in the block ({eng.block_attempts} "
+                             f"attempts, config {grown})")
+    summary = compare_bits(convert.state_to_numpy(steps), convert.state_to_numpy(block), label)
+    print(f"{label}: {eng.block_attempts} attempts in {wall:.2f} s; grown config {grown} "
+          f"(safe_steps: {ref_grown}); {summary}")
+    return dict(attempts=eng.block_attempts, grown=grown, safe_step_grown=ref_grown)
+
+
+def timed_engine(dims: int, n: int, path: str):
+    """The engine and initial state of a phase 8 d cell: the main path's
+    configuration with the capacity ``BLOCK_HEADROOM`` times the initial
+    colony."""
+    if dims == 2:
+        eng = bench_engine(n, "cuda", path)
+    else:
+        eng, ball = spheroid_engine(n, "cuda", path)
+    n0 = eng.gen.num_to_start + eng.xp.num_gata6
+    capacity = -(-int(n0 * BLOCK_HEADROOM) // 256) * 256
+    eng.cfg = dataclasses.replace(eng.cfg, capacity=capacity,
+                                  div_cap=min(eng.cfg.div_cap, capacity))
+    state = eng.init_state(seed=SEED) if dims == 2 else eng.init_state(seed=SEED, locations=ball)
+    return eng, state
+
+
+def block_timing(dims: int, n: int, path: str) -> dict:
+    """Phase 8 d on one cell: 3 ``safe_step`` warm-ups (the one-step graph
+    captured), the blocks of ``TIMED_KS`` captured (their set-up), then from
+    that one state, in turns, ``BLOCK_TIMED_STEPS`` eager ``step``s (each
+    timed to a synchronise), as many ``safe_step``s, blocks of 10, blocks
+    of 50, blocks of 50, blocks of 10, ``safe_step``s, eager ``step``s
+    (each ``safe_step`` and block timed to its probe fetch, which ends it);
+    the median, p90 and steps/s of each, device ms per step under
+    ``torch.profiler`` (2 eager steps; 2 ``safe_step``s; one block of
+    ``BLOCK_K``) and the busy share, the graphs' capture seconds and memory,
+    and the launches of one block counted from 0."""
+    from hipsc_abm_tpu_torch import kernels
+    from hipsc_abm_tpu_torch.tools import device_kernels
+
+    label = f"blocks phase d [{dims}D, {path}, {n}]"
+    torch.cuda.reset_peak_memory_stats()
+    eng, state = timed_engine(dims, n, path)
+    for _ in range(3):
+        state, _ = eng.safe_step(state)
+    for _ in range(3):  # capture; a growth re-captures at the grown config
+        before = eng.cfg
+        for k in TIMED_KS:
+            eng.run_steps(state, k)
+        state = eng.repad_state(state, eng.cfg)
+        if eng.cfg == before:
+            break
+    torch.cuda.synchronize()
+    eng.safe_step(state)  # the one-step graph at the final config
+    graphs = eng.block_graphs()
+    if sorted(g["k"] for g in graphs) != sorted((1,) + TIMED_KS):
+        raise AssertionError(f"{label}: graphs held {graphs}")
+
+    def run_steps_of(step):
+        s, ms = state, []
+        for _ in range(BLOCK_TIMED_STEPS):
+            t = time.perf_counter()
+            s, _ = step(s)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return ms
+
+    def run_blocks(k):
+        s, ms = state, []
+        for _ in range(max(1, BLOCK_TIMED_STEPS // k)):
+            t = time.perf_counter()
+            s, _ = eng.run_steps(s, k)
+            ms.append((time.perf_counter() - t) * 1e3 / k)
+        return ms
+
+    k1, k2 = TIMED_KS
+    order = ["eager", "safe", k1, k2, k2, k1, "safe", "eager"]
+    samples = {key: [] for key in order}
+    for key in order:
+        samples[key] += (run_steps_of(eng.step) if key == "eager" else
+                         run_steps_of(eng.safe_step) if key == "safe" else run_blocks(key))
+    attempts = eng.block_attempts
+    if eng.block_graphs() != graphs:
+        raise AssertionError(f"{label}: a timed block re-captured ({eng.block_graphs()})")
+
+    kernels.launch_counts.clear()
+    eng.run_steps(state, BLOCK_K)
+    block_counts = dict(kernels.launch_counts)
+    missing = [k for k in PATH_KERNELS[(dims, path)] if block_counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels {missing} did not run in the block")
+    carry = [state]
+
+    def eager_step():
+        carry[0], _ = eng.step(carry[0])
+
+    dev = dict(eager=device_kernels(eager_step, 2, warmup=False)[0],
+               safe=device_kernels(lambda: eng.safe_step(state), 2, warmup=False)[0],
+               block=device_kernels(lambda: eng.run_steps(state, BLOCK_K), 1,
+                                    warmup=False)[0] / BLOCK_K)
+    names = dict(eager="step", safe="safe_step")
+    out = dict(dims=dims, cells=n, contact_path=path, capacity=state.capacity,
+               agents=state.num_agents(), peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+               graphs=graphs, block_launches=block_counts, attempts=attempts)
+    parts = []
+    for key in ("eager", "safe", k1, k2):
+        ms = np.asarray(samples[key])
+        d = dev.get(key, dev["block"])
+        row = dict(median_ms=float(np.median(ms)), p90_ms=float(np.percentile(ms, 90)),
+                   steps_per_s=1e3 / float(np.mean(ms)), samples=len(ms),
+                   device_ms=d if d > 0 else None,
+                   busy=d / float(np.median(ms)) if d > 0 else None)
+        out[names.get(key, f"block{key}")] = row
+        busy = "not measured" if row["busy"] is None else f"{row['busy']:.3f}"
+        dms = "not measured" if row["device_ms"] is None else f"{row['device_ms']:.4f} ms"
+        parts.append(f"{names.get(key, f'blocks of {key}')}: median "
+                     f"{row['median_ms']:.3f} ms, p90 {row['p90_ms']:.3f} ms, "
+                     f"{row['steps_per_s']:.2f} steps/s ({len(ms)} samples), device {dms} "
+                     f"per step, busy {busy}")
+    print(f"{label}: capacity {state.capacity}, {out['agents']} agents at the start; per step, "
+          f"in turns {order}: " + "; ".join(parts)
+          + f"; graphs (k, capture s, MiB reserved) "
+          f"{[(g['k'], round(g['capture_s'], 2), round(g['pool_mib'], 1)) for g in graphs]}; "
+          f"peak device memory {out['peak_mib']:.1f} MiB; launches of one block of {BLOCK_K} "
+          f"{block_counts}")
+    del eng, state, carry
+    torch.cuda.empty_cache()
+    return out
+
+
+def block_lifecycle_phase() -> dict:
+    """Phase 8 e: lifecycle b (the bench configuration at ``N_MAIN`` +
+    ``N_MAIN // 10`` cells, every output but the pickle, 6 steps) with
+    ``output_interval: LIFECYCLE_BLOCK_INTERVAL`` against the per-step run:
+    the values CSVs of the block boundaries byte-equal, the blocked run
+    writes no other step's, and the wall per step of both from their data
+    CSVs."""
+    tmp = tempfile.mkdtemp(prefix="hipsc_blocks_")
+    try:
+        walls, runs = {}, {}
+        steps = LIFECYCLE_BENCH_GENERAL["end_step"]
+        for name, interval in (("per_step", 1), ("blocked", LIFECYCLE_BLOCK_INTERVAL)):
+            root = os.path.join(tmp, name)
+            write_templates(root, dict(LIFECYCLE_BENCH_GENERAL, output_interval=interval),
+                            LIFECYCLE_BENCH_EXPERIMENTAL)
+            t = time.perf_counter()
+            run_lifecycle(root, ["-n", name, "-m", "0"])
+            wall = time.perf_counter() - t
+            run_dir = os.path.join(root, "outputs", name)
+            with open(os.path.join(run_dir, f"{name}_data.csv")) as f:
+                f.readline()
+                rows = [list(map(float, line.split(","))) for line in f if line.strip()]
+            walls[name] = (wall, [(int(r[0]), r[2]) for r in rows])
+            runs[name] = run_dir
+        label = f"blocks phase e (lifecycle b, output_interval {LIFECYCLE_BLOCK_INTERVAL})"
+        boundaries = list(range(LIFECYCLE_BLOCK_INTERVAL, steps + 1, LIFECYCLE_BLOCK_INTERVAL))
+        for step in range(1, steps + 1):
+            path = os.path.join(runs["blocked"], "blocked_values", f"blocked_values_{step}.csv")
+            if os.path.isfile(path) != (step in boundaries):
+                raise AssertionError(f"{label}: values CSV of step {step} "
+                                     f"{'written' if os.path.isfile(path) else 'missing'}")
+        for step in boundaries:
+            with open(os.path.join(runs["per_step"], "per_step_values",
+                                   f"per_step_values_{step}.csv"), "rb") as f:
+                a = f.read()
+            with open(os.path.join(runs["blocked"], "blocked_values",
+                                   f"blocked_values_{step}.csv"), "rb") as f:
+                b = f.read()
+            if a != b:
+                raise AssertionError(f"{label}: the values CSVs of step {step} differ")
+        per_step = {name: [w / (LIFECYCLE_BLOCK_INTERVAL if name == "blocked" else 1)
+                           for _, w in rows] for name, (_, rows) in walls.items()}
+        print(f"{label}: values CSVs of steps {boundaries} byte-equal to the per-step run's, no "
+              f"other step's written; wall per step (data CSV, ms): per step "
+              f"{[round(w * 1e3, 2) for w in per_step['per_step']]}, blocked "
+              f"{[round(w * 1e3, 2) for w in per_step['blocked']]}; runs "
+              f"{walls['per_step'][0]:.2f} s / {walls['blocked'][0]:.2f} s from start()")
+        return dict(wall_s={k: v[0] for k, v in walls.items()}, ms_per_step={
+            k: [w * 1e3 for w in v] for k, v in per_step.items()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def blocks_phase() -> dict:
+    """Phase 8 (module docstring): a and b on both contact paths at 2D
+    ``N_MAIN`` and 3D ``N_MAIN_3D``, and the 3D span-mask path with the
+    optional phases; c; d on the 1k, 2D 100k, 2D 500k and 3D 99k cells, both
+    paths; e."""
+    out = dict(equal=[], timing=[])
+    for dims, n in ((2, N_MAIN), (3, N_MAIN_3D)):
+        for path in PATHS:
+            out["equal"].append(blocks_equal_phase(dims, n, path))
+            torch.cuda.empty_cache()
+    out["equal"].append(blocks_equal_phase(3, N_MAIN_3D, "span_mask", optional=True))
+    torch.cuda.empty_cache()
+    out["growth"] = block_growth_phase()
+    torch.cuda.empty_cache()
+    for dims, n in ((2, N_SMALL), (2, N_MAIN), (2, N_LARGE), (3, N_MAIN_3D)):
+        for path in PATHS:
+            out["timing"].append(block_timing(dims, n, path))
+    out["lifecycle"] = block_lifecycle_phase()
+    return out
 
 
 def main() -> int:
@@ -1621,8 +2081,11 @@ def main() -> int:
              **{k: v for k, v in r.items() if k != "counts"})
         for dims, n, path, opt, r in runs]}))
     optional_summary(runs)
+    # run_steps blocks: one CUDA graph per block, against safe_step
+    print(json.dumps({"blocks": phase("blocks", blocks_phase)}))
     for r in results:
         if "launches" in r:  # the probes count their own entry points
+            r["taken_launches"] = r["launches"]
             continue
         # each kernel's launches come from the first main-path run of its
         # dimensionality (100k in 2D), contact path and law; a general-law
@@ -1634,10 +2097,15 @@ def main() -> int:
         first = {opt: c for d, n, p, opt, c in reversed(runs)
                  if (d, p) == (dims, path) and n != N_LARGE}
         general = r["law"] == "general"
-        r["launches"] = first[general]["counts"][base]
-        if general:
+        run = first[general]
+        r["launches"] = run["counts"][base]
+        r["taken_launches"] = taken_launches(base, r["launches"], run["attempts"],
+                                             run["rebuilds"], run["substeps"])
+        if general:  # per launch that ran its branch, in the profiled steps
             for key, opt in (("in_step_ms", True), ("uniform_in_step_ms", False)):
                 ms, n = (first[opt].get("contact_ms_by_kernel") or {}).get(r["kernel"], (0, 0))
+                n = taken_launches(base, n, 1, first[opt].get("profiled_rebuilds_per_step")
+                                   or 0, first[opt]["substeps"])
                 r[key] = ms / n if n else None
     print(f"chip_smoke: seconds per phase {phase_s}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

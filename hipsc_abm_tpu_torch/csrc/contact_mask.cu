@@ -35,6 +35,22 @@
 // Force and degree (the untruncated keep count, the bond-capacity probe)
 // are those of contact.cu's kernel for the same bond set.
 //
+// The mask's width W is a static capacity (the engine's
+// EngineConfig.mask_bits / 32), not the widest row of this window: no kernel
+// here reads or writes a word at w >= W. A row with more than 32 W
+// candidates still gets the force and degree of its whole walk, but the
+// keep bits past the capacity are dropped (and read as 0); the engine
+// probes the widest row of every build and re-executes the step with a
+// grown capacity, so no kept result depends on a dropped bit.
+//
+// Each entry point takes `pred`, a device pointer to one int, or null: the
+// kernel returns at once unless *pred != 0. The engine's scan decides on
+// the device whether the window is stale and runs, on every substep after
+// the first, the compaction and the seed under that flag and the masked
+// substep under its negation: exactly one of the two substeps writes the
+// force, degree and mask buffers they share, and no host read takes the
+// decision (the JAX engine's lax.cond).
+//
 // What bounds the compaction: its output. A row's K ids are mostly padding
 // (a mean degree of 2.5 against K = 24 in the 3D spheroid, 8 in 2D), and
 // written one int at a time at a stride of 4K bytes they cost a scattered
@@ -111,7 +127,8 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
     const unsigned* in_mask,           // masked: (W, C) words, aliased with out_mask
     unsigned* out_mask,                // (W, C) words
     float* __restrict__ force, int* __restrict__ degree, int C, int K, int W,
-    PairLaw law) {
+    PairLaw law, const int* __restrict__ pred) {
+  if (pred != nullptr && *pred == 0) return;  // the other branch runs
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= C) return;
 
@@ -138,10 +155,10 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
           const int bit = j & 31;
           if (bit == 0) {
             if (j > 0) {  // the previous word is complete
-              out_mask[(size_t)((j >> 5) - 1) * C + row] = out_word;
+              if ((j >> 5) - 1 < W) out_mask[(size_t)((j >> 5) - 1) * C + row] = out_word;
               out_word = 0;
             }
-            if (!kSeed) in_word = in_mask[(size_t)(j >> 5) * C + row];
+            if (!kSeed) in_word = (j >> 5) < W ? in_mask[(size_t)(j >> 5) * C + row] : 0u;
           }
           ++j;
           const float4 c = cand[u];
@@ -176,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
   // the last (partial) word, then zeros up to W: a dead or short row leaves
   // no stale bits for a later masked substep or compaction to read
   int w = j > 0 ? ((j - 1) >> 5) : 0;
-  out_mask[(size_t)w * C + row] = out_word;
+  if (w < W) out_mask[(size_t)w * C + row] = out_word;
   for (++w; w < W; ++w) out_mask[(size_t)w * C + row] = 0u;
   force[(size_t)row * 3 + 0] = fx;
   force[(size_t)row * 3 + 1] = fy;
@@ -192,7 +209,9 @@ template <int N_RUNS>
 __global__ void mask_compact_kernel(const int* __restrict__ ids,
                                     const int2* __restrict__ bounds,
                                     const unsigned* __restrict__ mask,
-                                    int* __restrict__ out, int C, int K, int W) {
+                                    int* __restrict__ out, int C, int K, int W,
+                                    const int* __restrict__ pred) {
+  if (pred != nullptr && *pred == 0) return;  // the whole grid returns, no barrier waits
   extern __shared__ int4 tile4[];
   int* tile = reinterpret_cast<int*>(tile4);
   const int first_row = blockIdx.x * blockDim.x;
@@ -257,15 +276,15 @@ extern "C" int hipsc_contact_seed(
     const void* partners, void* mask, void* force, void* degree, int C, int K,
     int W, int n_runs, float radius2, float break_d, int uniform, float two_r,
     float inv_scale, float fpre, float scale_c, float pi_f, float adhesion,
-    void* stream) {
+    const void* pred, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
-  if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
+  if ((n_runs != 3 && n_runs != 9) || W < 1) return (int)cudaErrorInvalidValue;
   PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
   auto kernel = n_runs == 3 ? contact_mask_kernel<true, 3> : contact_mask_kernel<true, 9>;
   kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)xyzr, (const int*)ids, (const unsigned char*)alive,
       (const int*)bounds, (const int*)partners, nullptr, (unsigned*)mask,
-      (float*)force, (int*)degree, C, K, W, law);
+      (float*)force, (int*)degree, C, K, W, law, (const int*)pred);
   return (int)cudaGetLastError();
 }
 
@@ -273,23 +292,23 @@ extern "C" int hipsc_contact_masked(
     const void* xyzr, const void* alive, const void* bounds, void* mask,
     void* force, void* degree, int C, int W, int n_runs, float radius2,
     float break_d, int uniform, float two_r, float inv_scale, float fpre,
-    float scale_c, float pi_f, float adhesion, void* stream) {
+    float scale_c, float pi_f, float adhesion, const void* pred, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
-  if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
+  if ((n_runs != 3 && n_runs != 9) || W < 1) return (int)cudaErrorInvalidValue;
   PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
   auto kernel = n_runs == 3 ? contact_mask_kernel<false, 3> : contact_mask_kernel<false, 9>;
   kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)xyzr, nullptr, (const unsigned char*)alive,
       (const int*)bounds, nullptr, (const unsigned*)mask, (unsigned*)mask,
-      (float*)force, (int*)degree, C, 0, W, law);
+      (float*)force, (int*)degree, C, 0, W, law, (const int*)pred);
   return (int)cudaGetLastError();
 }
 
 extern "C" int hipsc_mask_compact(const void* ids, const void* bounds,
                                   const void* mask, void* out, int C, int K,
-                                  int W, int n_runs, void* stream) {
+                                  int W, int n_runs, const void* pred, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
-  if ((n_runs != 3 && n_runs != 9) || K < 1) return (int)cudaErrorInvalidValue;
+  if ((n_runs != 3 && n_runs != 9) || K < 1 || W < 1) return (int)cudaErrorInvalidValue;
   auto kernel = n_runs == 3 ? mask_compact_kernel<3> : mask_compact_kernel<9>;
   // the tile may pass the 48 KB a block gets without opting in (K > 96)
   const int tile_bytes = kThreads * K * (int)sizeof(int);
@@ -298,6 +317,6 @@ extern "C" int hipsc_mask_compact(const void* ids, const void* bounds,
   if (err != cudaSuccess) return (int)err;
   kernel<<<blocks_for(C), kThreads, tile_bytes, (cudaStream_t)stream>>>(
       (const int*)ids, (const int2*)bounds, (const unsigned*)mask, (int*)out, C,
-      K, W);
+      K, W, (const int*)pred);
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,8 @@
 //   tile plus halo from there: ceil(steps / T) - 1 grid barriers per step
 //   instead of `steps` launches.
 // - The grid barrier is an arrival counter in device memory (zeroed by the
-//   wrapper), valid because the cooperative launch guarantees co-residency;
+//   wrapper, a memset that a captured CUDA graph replays before the
+//   kernel), valid because the cooperative launch guarantees co-residency;
 //   no CTA returns before the last barrier. Reloads read through L2
 //   (__ldcg), since L1 is not coherent across SMs.
 
@@ -165,9 +166,20 @@ extern "C" int hipsc_ftcs_diffuse(void* buf0, void* buf1, void* arrived, int nx,
   float* p0 = (float*)buf0;
   float* p1 = (float*)buf1;
   unsigned* cnt = (unsigned*)arrived;
-  void* args[] = {&p0, &p1, &cnt, &g, &steps, &a_main, &b_main, &a_last, &b_last};
-  err = cudaLaunchCooperativeKernel((const void*)ftcs_diffuse_kernel, dim3(ctas),
-                                    threads, args, smem, (cudaStream_t)stream);
+  // a cooperative launch through cudaLaunchKernelEx, which a stream capture
+  // records into a CUDA graph as a cooperative kernel node
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(ctas);
+  config.blockDim = threads;
+  config.dynamicSmemBytes = smem;
+  config.stream = (cudaStream_t)stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, ftcs_diffuse_kernel, p0, p1, cnt, g, steps, a_main,
+                           b_main, a_last, b_last);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,15 @@ diffusion, motility, and 11 JKR-contact + Stokes substeps. Dynamic
 population lives in an ``alive`` mask over preallocated slots;
 ``HipscEngine.safe_step`` re-executes a step from its unmodified input after
 growing whichever capacity overflowed, so results are never silently
-truncated.
+truncated; ``HipscEngine.run_steps`` does the same for a block of k steps.
+
+A step reads nothing back to the host: the Verlet drift test and the window
+rebuild it decides are taken on the device (the JAX engine's ``lax.cond``),
+the span-mask path's mask has a static width (``EngineConfig.mask_bits``),
+and the step's keys and number come in as a device tensor (``StepInputs``).
+On the card ``run_steps`` therefore captures its k steps once per config as
+one CUDA graph and replays it, with one probe fetch per block; ``safe_step``
+is its block of one step. ``HipscEngine.step`` runs a step eagerly.
 
 The contact substeps have two designs, chosen by ``EngineConfig.contact_path``
 (the counterpart of the JAX engine's ``use_pallas`` physics choice):
@@ -36,11 +44,13 @@ lattice stays 2D (x, y), as in the JAX engine.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from hipsc_abm_tpu_torch import kernels
 from hipsc_abm_tpu_torch.models import biology
 from hipsc_abm_tpu_torch.ops import diffusion as diffusion_ops
 from hipsc_abm_tpu_torch.ops import neighbors as nbr_ops
@@ -66,8 +76,9 @@ class CellState(NamedTuple):
     ``arrays["ids"]`` holds stable, never-recycled agent ids: all randomness
     is id-keyed and bonds store partner ids, so dynamics do not depend on
     slot layout. ``key`` is the raw threefry step key, (2,) int64 on the
-    host (the key schedule does not depend on the colony). ``next_id`` is
-    the id the next daughter born will receive."""
+    host: the key schedule does not depend on the colony, so it is derived
+    there (``step_inputs``) and reaches the step as a device tensor.
+    ``next_id`` is the id the next daughter born will receive."""
 
     arrays: Dict[str, torch.Tensor]  # per-agent slot arrays (SoA)
     alive: torch.Tensor  # (C,) bool slot occupancy
@@ -155,6 +166,13 @@ class EngineConfig:
     # contact-substep design: "id_list" or "span_mask" (see the module
     # docstring); the default is to be settled by a benchmark
     contact_path: str = "id_list"
+    # span-mask path: the most candidates one row's keep mask is sized for
+    # (the mask has ceil(mask_bits / 32) words per row); grown by
+    # re-execution, to a multiple of 32, when a window build's widest row
+    # passes it. 0 until HipscEngine derives it from the state at its first
+    # step (a set-up read). Not the JAX engine's jkr_span, a window span of
+    # rows.
+    mask_bits: int = 0
 
     def __post_init__(self):
         if self.contact_path not in _PHYSICS_SCANS:
@@ -201,7 +219,8 @@ def config_to_meta(cfg: EngineConfig) -> dict:
 def config_from_meta(meta: dict) -> EngineConfig:
     """The EngineConfig of a checkpoint's metadata, written by either
     package: keys the port's config does not have (the JAX engine's kernel
-    choices and spans) are dropped, and missing ones take their defaults."""
+    choices and spans) are dropped, and missing ones take their defaults
+    (``mask_bits`` 0: derived from the state at the first step)."""
     fields = {f.name for f in dataclasses.fields(EngineConfig)}
     spec_fields = {f.name for f in dataclasses.fields(GridSpec)}
     kept = {k: v for k, v in meta.items() if k in fields}
@@ -212,8 +231,13 @@ def config_from_meta(meta: dict) -> EngineConfig:
 
 class StepInfo(NamedTuple):
     """Per-step diagnostics and overflow probes (0-d tensors from
-    ``hipsc_step``; Python numbers from ``safe_step``). The span probes of
-    the JAX engine have no meaning here and report 0."""
+    ``hipsc_step``; Python numbers from ``safe_step``; (k,) numpy arrays
+    from ``run_steps``). The span probes report the widest row's candidate
+    count (the summed widths of its stencil runs) of the step's windows:
+    ``jkr_span_needed`` over every contact-window build, the span-mask
+    path's mask-capacity probe (``EngineConfig.mask_bits``), and
+    ``nbr_span_needed`` over the radius-15 window of the bio moments. The
+    JAX engine's fields of these names probe its kernels' DMA spans."""
 
     num_agents: object
     num_added: object
@@ -223,8 +247,8 @@ class StepInfo(NamedTuple):
     nbr_max_in_bin: object  # widest radius-15 stencil run
     jkr_max_in_bin: object  # widest contact stencil run
     jkr_max_degree: object  # bond_cap growth probe
-    jkr_span_needed: object
-    nbr_span_needed: object
+    jkr_span_needed: object  # widest contact-window row (mask_bits growth probe)
+    nbr_span_needed: object  # widest radius-15 window row
     max_id: object
     max_substep_move: object  # max per-agent move per physics substep (um)
     max_window_drift: object
@@ -232,6 +256,48 @@ class StepInfo(NamedTuple):
 
 
 _FLOAT_PROBES = ("max_substep_move", "max_window_drift")
+
+
+def _probe_row(info: StepInfo) -> torch.Tensor:
+    """A step's probes as one (14,) float64 tensor on their device (exact
+    for the integer probes), so that one transfer fetches them."""
+    return torch.stack([torch.as_tensor(v).to(torch.float64).reshape(()) for v in info])
+
+
+def _probes_from_host(values, stacked: bool = False) -> StepInfo:
+    """StepInfo of fetched probe values: Python numbers from one row, (k,)
+    numpy arrays (int64, or float64 for the float probes) from k rows."""
+    if not stacked:
+        return StepInfo(*(v if name in _FLOAT_PROBES else int(v)
+                          for name, v in zip(StepInfo._fields, values)))
+    cols = np.asarray(values, dtype=np.float64).T
+    return StepInfo(*(c if name in _FLOAT_PROBES else c.astype(np.int64)
+                      for name, c in zip(StepInfo._fields, cols)))
+
+
+class StepInputs(NamedTuple):
+    """What one step takes besides the state: ``words``, (13,) int64 on the
+    state's device, holds the six keys of ``split(key, 6)`` (12 uint32
+    words: the next step's key, then the division, pathway,
+    differentiation, stochastic and motility keys) and the step number;
+    ``key`` is the next step's key on the host (the new state's)."""
+
+    words: torch.Tensor
+    key: torch.Tensor
+
+
+def step_inputs(key: torch.Tensor, step: int, k: int = 1):
+    """The inputs of ``k`` steps from ``(key, step)``, derived on the host
+    (the key schedule does not depend on the colony): a (k, 13) int64 table
+    of ``StepInputs.words`` rows and the (2,) key after each step."""
+    words = (int(key[0]) & 0xFFFFFFFF, int(key[1]) & 0xFFFFFFFF)
+    rows, keys = [], []
+    for t in range(k):
+        split = rng.split_words(words, 6)
+        rows.append([w for pair in split for w in pair] + [step + t])
+        words = split[0]
+        keys.append(torch.tensor(words, dtype=torch.int64))
+    return torch.tensor(rows, dtype=torch.int64), keys
 
 
 def _physics_dts(bio: BiologyParams) -> np.ndarray:
@@ -242,16 +308,32 @@ def _physics_dts(bio: BiologyParams) -> np.ndarray:
     return np.array([bio.move_dt] * int(steps) + [last_dt], dtype=np.float32)
 
 
-def _max_run(bounds: torch.Tensor) -> torch.Tensor:
-    """Widest stencil run of a (C, 2 * n_runs) bounds table (dead rows are
-    empty)."""
-    return torch.clamp(bounds[:, 1::2] - bounds[:, 0::2], min=0).max()
+def _window_widths(bounds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Of a (C, 2 * n_runs) bounds table (dead rows are empty): the widest
+    stencil run and the widest row's candidate count, 0-d tensors."""
+    widths = torch.clamp(bounds[:, 1::2] - bounds[:, 0::2], min=0)
+    return widths.max(), widths.sum(dim=1).max()
+
+
+def take_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x[index]`` along the rows; an integer or bool (C, K) table (the bond
+    lists, K >= 2) goes through a gather of its flat elements: on the card
+    PyTorch gathers rows of such tables with a kernel of its own
+    (``vectorized_gather_kernel``) that is several times slower than the
+    gather of their flat elements (``tools/step_profile.py`` shows both).
+    The values are the same."""
+    if x.dim() != 2 or x.shape[1] < 2 or x.dtype == torch.float32:
+        return x[index]
+    k = x.shape[1]
+    cols = torch.arange(k, dtype=index.dtype, device=index.device)
+    return x.reshape(-1)[(index[:, None] * k + cols).reshape(-1)].view(index.shape[0], k)
 
 
 def _sort_state_rows(arrays, alive, bonds, order):
     """Move the whole per-agent state into ``order``."""
     out = {k: v[order] for k, v in arrays.items()}
-    return out, alive[order], BondState(bonds.partners[order], bonds.mask[order])
+    return out, alive[order], BondState(take_rows(bonds.partners, order),
+                                        take_rows(bonds.mask, order))
 
 
 def hipsc_step(
@@ -261,17 +343,30 @@ def hipsc_step(
     xp: ExperimentalParams,
     bio: BiologyParams,
     diff: Optional[DiffusionParams],
+    inputs: Optional[StepInputs] = None,
 ) -> Tuple[CellState, StepInfo]:
     """One full simulation step, in the phase order of the JAX engine's
     ``hipsc_step``. The output state is in this step's canonical sorted
-    layout; agent identity rides the stable ids."""
+    layout; agent identity rides the stable ids. ``inputs`` (the step's keys
+    and number on the device) default to those of ``state.key`` and
+    ``state.step``. Nothing in the step reads a device value on the host."""
     arrays = dict(state.arrays)
     alive = state.alive
     bonds = state.bonds
     gradients = dict(state.gradients)
     device = alive.device
-    key, k_div, k_path, k_diff, k_stoch, k_mot = rng.split(state.key, 6)
-    size = torch.tensor(gen.size, dtype=torch.float32, device=device)
+    if inputs is None:
+        table, keys = step_inputs(state.key, state.step)
+        # on the card an asynchronous copy from pinned memory: no host read
+        words = table[0] if device.type == "cpu" else table[0].pin_memory().to(
+            device, non_blocking=True)
+        inputs = StepInputs(words, keys[0])
+    k_div, k_path, k_diff, k_stoch, k_mot = inputs.words[2:12].view(5, 2).unbind(0)
+    step_number = inputs.words[12]
+    # the box made by fills: a tensor built from host data would be a copy,
+    # which synchronises and which a CUDA graph cannot capture
+    size = torch.stack([torch.full((), float(v), dtype=torch.float32, device=device)
+                        for v in gen.size])
 
     # --- get_neighbors("neighbor_graph", 15) and the sorted-resident state ---
     nbr_grid = nbr_ops.build_grid(cfg.nbr_spec, arrays["locations"], arrays["ids"], alive)
@@ -319,7 +414,7 @@ def hipsc_step(
     ) = biology.cell_pathway(
         arrays["FGF4"], arrays["FGFR"], arrays["ERK"], arrays["GATA6"],
         arrays["NANOG"], arrays["fds_counters"], arrays["ids"], alive, count2,
-        m2[:, 1], m2[:, 2], k_path, state.step, xp, bio, field_fgf4=field_fgf4,
+        m2[:, 1], m2[:, 2], k_path, step_number, xp, bio, field_fgf4=field_fgf4,
     )
 
     # --- cell_differentiate ---
@@ -375,37 +470,36 @@ def hipsc_step(
     )
 
     # --- apply_forces: 11 physics substeps (cell_methods.py:386-439) ---
-    locations, bonds, j_bins, j_deg, max_move, rebuilds = _PHYSICS_SCANS[cfg.contact_path](
-        cfg, bio, arrays, alive, bonds, size, _physics_dts(bio)
-    )
+    locations, bonds, j_bins, j_deg, max_move, rebuilds, j_cands = _PHYSICS_SCANS[
+        cfg.contact_path](cfg, bio, arrays, alive, bonds, size, _physics_dts(bio))
     arrays["locations"] = locations
     # the reference leaves both force arrays zeroed after the step
     arrays["jkr_forces"] = torch.zeros_like(arrays["jkr_forces"])
     arrays["motility_forces"] = torch.zeros_like(arrays["motility_forces"])
 
-    zero = torch.zeros((), dtype=torch.int64, device=device)
+    nbr_run, nbr_cands = _window_widths(nbr_bounds)
     info = StepInfo(
         num_agents=alive.sum(),
         num_added=num_added,
         num_removed=num_removed,
         num_deferred=num_deferred,
         num_dividing=num_dividing,
-        nbr_max_in_bin=_max_run(nbr_bounds),
+        nbr_max_in_bin=nbr_run,
         jkr_max_in_bin=j_bins,
         jkr_max_degree=j_deg,
-        jkr_span_needed=zero,
-        nbr_span_needed=zero,
+        jkr_span_needed=j_cands,
+        nbr_span_needed=nbr_cands,
         max_id=torch.where(alive, arrays["ids"], torch.zeros_like(arrays["ids"])).max(),
         max_substep_move=max_move,
         max_window_drift=torch.zeros((), dtype=torch.float32, device=device),
-        jkr_rebuilds=torch.tensor(rebuilds, dtype=torch.int64, device=device),
+        jkr_rebuilds=rebuilds,
     )
     new_state = CellState(
         arrays=arrays,
         alive=alive,
         bonds=bonds,
         gradients=gradients,
-        key=key,
+        key=inputs.key,
         step=state.step + 1,
         next_id=(state.next_id + num_added).to(torch.int32),
     )
@@ -430,69 +524,121 @@ def _contact_law(cfg, bio):
                 uniform_radius=cfg.uniform_radius)
 
 
-def _window_stale(cfg, rows, ref) -> bool:
-    """The drift test (one host read): has an agent moved more than skin/2
-    since the window was built?"""
+def drift_threshold(verlet_skin: float) -> float:
+    """``(skin / 2)^2`` rounded to float32. The JAX engine compares the
+    float32 drift with the weak-typed Python scalar, that is in float32;
+    against a float32 value the comparison gives the same answer in float32
+    and in float64."""
+    return float(np.float32((verlet_skin * 0.5) ** 2))
+
+
+def _window_stale(cfg, rows, ref) -> torch.Tensor:
+    """The drift test on the device, () bool: has an agent moved more than
+    skin/2 since the window was built?"""
     drift2 = _masked_max(((rows["loc"] - ref) ** 2).sum(dim=1), rows["alive"])
-    return float(drift2) > (cfg.verlet_skin * 0.5) ** 2
+    return drift2 > drift_threshold(cfg.verlet_skin)
 
 
 def _build_window(cfg, rows):
     """Re-sort the rows into the contact grid's canonical order and build
     their run bounds."""
     grid = nbr_ops.build_grid(cfg.jkr_spec, rows["loc"], rows["ids"], rows["alive"])
-    rows = {k: v[grid.order] for k, v in rows.items()}
+    rows = {k: take_rows(v, grid.order) for k, v in rows.items()}
     return rows, nbr_ops.run_bounds(cfg.jkr_spec, grid.sorted_flat)
 
 
-def _move(bio, rows, force, size, dt, moves2):
+def _rebuild_where(stale, cfg, rows, bounds, ref, identity):
+    """The window rebuild under the device predicate ``stale`` (the JAX
+    engine's ``lax.cond``): the grid order of the current rows is always
+    computed, the rows are gathered through it where ``stale`` and through
+    the identity elsewhere, and the bounds and the drift reference are
+    selected. The values are those of a rebuild taken or skipped on the
+    host."""
+    grid = nbr_ops.build_grid(cfg.jkr_spec, rows["loc"], rows["ids"], rows["alive"])
+    order = torch.where(stale, grid.order, identity)
+    rows = {k: take_rows(v, order) for k, v in rows.items()}
+    bounds = torch.where(stale, nbr_ops.run_bounds(cfg.jkr_spec, grid.sorted_flat), bounds)
+    return rows, bounds, torch.where(stale, rows["loc"], ref)
+
+
+class _ScanProbes:
+    """The scan's probes, gathered on the device: the widest run and row of
+    each substep's window, the largest degree and move, the rebuilds."""
+
+    def __init__(self, device):
+        self.bins, self.cands, self.degs, self.moves2 = [], [], [], []
+        self.rebuilds = torch.zeros((), dtype=torch.int64, device=device)
+
+    def window(self, bounds):
+        run, cands = _window_widths(bounds)
+        self.bins.append(run)
+        self.cands.append(cands)
+
+
+def _move(bio, rows, force, size, dt, probes):
     """The Stokes update of the rows' locations; records the largest move."""
     new_loc = stokes_integrate(rows["loc"], rows["rad"], force, rows["mot"],
                                rows["alive"], bio.stokes, size, float(dt))
-    moves2.append(_masked_max(((new_loc - rows["loc"]) ** 2).sum(dim=1), rows["alive"]))
+    probes.moves2.append(
+        _masked_max(((new_loc - rows["loc"]) ** 2).sum(dim=1), rows["alive"]))
     rows["loc"] = new_loc
 
 
-def _scan_result(rows, j_bins, j_degs, moves2):
+def _scan_result(rows, probes):
     """The rows back in slot order: ``(locations, bonds, widest run, max
-    degree, max substep move, rebuilds after the entry build)``."""
+    degree, max substep move, rebuilds after the entry build, widest
+    row)``."""
     perm = rows["perm"]
     locations = torch.empty_like(rows["loc"])
     locations[perm] = rows["loc"]
     partners = torch.empty_like(rows["partners"])
     partners[perm] = rows["partners"]
-    return (locations, BondState.from_ids(partners), torch.stack(j_bins).max(),
-            torch.stack(j_degs).max(), torch.sqrt(torch.stack(moves2).max()),
-            len(j_bins) - 1)
+    return (locations, BondState.from_ids(partners), torch.stack(probes.bins).max(),
+            torch.stack(probes.degs).max(), torch.sqrt(torch.stack(probes.moves2).max()),
+            probes.rebuilds, torch.stack(probes.cands).max())
 
 
 def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts):
     """The contact substeps over Verlet-cached stencil runs, bonds as (C, K)
     partner-id lists (``contact_path="id_list"``).
 
-    At entry, and whenever an agent has drifted more than skin/2 from where
-    the runs were built, the physics rows are re-sorted into the contact
-    grid's canonical order and the per-row run bounds rebuilt. The drift
-    test is one host read per substep. Each substep is one contact-kernel
+    At entry the physics rows are sorted into the contact grid's canonical
+    order and the per-row run bounds built. Before every later substep the
+    drift test runs on the device, and the rebuild (re-sort, new bounds)
+    takes effect where an agent has drifted more than skin/2 from where the
+    runs were built: it is computed on every substep and selected
+    (``_rebuild_where``). Each substep is one contact-kernel
     launch (forces, degrees and the new partner lists) and one Stokes
     update; the rows go back to the state's layout at the end. Returns
     ``_scan_result``'s tuple."""
     rows = _scan_rows(arrays, alive, bonds)
     law = _contact_law(cfg, bio)
-    bounds = ref = None
-    j_bins, j_degs, moves2 = [], [], []
-    for dt in dts:
-        if bounds is None or _window_stale(cfg, rows, ref):
-            rows, bounds = _build_window(cfg, rows)
-            ref = rows["loc"]
-            j_bins.append(_max_run(bounds))
+    probes = _ScanProbes(alive.device)
+    rows, bounds = _build_window(cfg, rows)
+    ref = rows["loc"]
+    identity = torch.arange(alive.shape[0], device=alive.device)
+    for s, dt in enumerate(dts):
+        if s > 0:
+            stale = _window_stale(cfg, rows, ref)
+            rows, bounds, ref = _rebuild_where(stale, cfg, rows, bounds, ref, identity)
+            probes.rebuilds = probes.rebuilds + stale
+        probes.window(bounds)
         force, degree, rows["partners"] = contact_substep_cuda(
             pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
             bounds, rows["partners"], **law,
         )
-        j_degs.append(degree.max())
-        _move(bio, rows, force, size, dt, moves2)
-    return _scan_result(rows, j_bins, j_degs, moves2)
+        probes.degs.append(degree.max())
+        _move(bio, rows, force, size, dt, probes)
+    return _scan_result(rows, probes)
+
+
+def mask_words_of(cfg: EngineConfig) -> int:
+    """The span-mask path's words per row, ``ceil(cfg.mask_bits / 32)``;
+    raises while the capacity is unset (``HipscEngine`` derives it)."""
+    if cfg.mask_bits < 1:
+        raise ValueError("EngineConfig.mask_bits is unset: HipscEngine derives it from the "
+                         "state (HipscEngine.step/safe_step/run_steps)")
+    return -(-cfg.mask_bits // 32)
 
 
 def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts):
@@ -502,45 +648,60 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts):
 
     At entry the rows are sorted, the run bounds built and the mask seeded
     from the (C, K) partner ids (``span_mask.contact_seed``, which also
-    evaluates substep 0). Before each later substep the drift test of
-    ``_physics_scan`` runs: while the window holds, the substep is one
-    ``contact_masked`` launch that reads and rewrites the mask in place;
-    when it fires, the mask is compacted to partner ids (``mask_compact``,
-    the only bond form that survives a re-sort), the rows (ids riding along)
-    are re-sorted, and the new window is seeded. At exit the mask is
-    compacted once more and the rows go back to slot order. Host reads: the
-    drift test per substep and the mask width per seed. Returns
+    evaluates substep 0). The mask is one (W, C) buffer of the static width
+    ``cfg.mask_bits / 32``. Before each later substep the drift test of
+    ``_physics_scan`` runs on the device, and its flag predicates the
+    launches: when the window is stale, the compaction writes the mask back
+    to partner ids (the only bond form that survives a re-sort), the rows
+    (ids riding along) are re-sorted and the new window is seeded; when it
+    holds, the masked substep reads and rewrites the mask in place. The seed
+    and the masked substep are both launched into the same force, degree and
+    mask buffers, each returning at once unless its branch is taken (the
+    re-sort is computed and selected, as in ``_physics_scan``). At exit the
+    mask is compacted once more and the rows go back to slot order. Returns
     ``_scan_result``'s tuple."""
     rows = _scan_rows(arrays, alive, bonds)
     law = _contact_law(cfg, bio)
     K = rows["partners"].shape[1]
-    bounds = ref = mask = None
-    j_bins, j_degs, moves2 = [], [], []
-    for dt in dts:
-        if bounds is None or _window_stale(cfg, rows, ref):
-            if bounds is not None:
-                rows["partners"] = span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K)
-            rows, bounds = _build_window(cfg, rows)
-            ref = rows["loc"]
-            j_bins.append(_max_run(bounds))
-            force, degree, mask = span_mask.contact_seed_cuda(
+    C, device = alive.shape[0], alive.device
+    mask = torch.empty((mask_words_of(cfg), C), dtype=torch.int32, device=device)
+    probes = _ScanProbes(device)
+    rows, bounds = _build_window(cfg, rows)
+    ref = rows["loc"]
+    identity = torch.arange(C, device=device)
+    for s, dt in enumerate(dts):
+        force = torch.empty((C, 3), dtype=torch.float32, device=device)
+        degree = torch.empty((C,), dtype=torch.int32, device=device)
+        if s == 0:
+            probes.window(bounds)
+            span_mask.contact_seed_cuda(
                 pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
-                bounds, rows["partners"], **law)
+                bounds, rows["partners"], out=(force, degree, mask), **law)
         else:
-            force, degree, mask = span_mask.contact_masked_cuda(
-                pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
-                bounds, mask, **law)
-        j_degs.append(degree.max())
-        _move(bio, rows, force, size, dt, moves2)
+            stale = _window_stale(cfg, rows, ref)
+            rebuild = stale.to(torch.int32).reshape(1)
+            span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K, pred=rebuild,
+                                        out=rows["partners"])
+            rows, bounds, ref = _rebuild_where(stale, cfg, rows, bounds, ref, identity)
+            probes.rebuilds = probes.rebuilds + stale
+            probes.window(bounds)
+            xyzr = pack_physics(rows["loc"], rows["rad"])
+            span_mask.contact_seed_cuda(xyzr, rows["ids"], rows["alive"], bounds,
+                                        rows["partners"], pred=rebuild,
+                                        out=(force, degree, mask), **law)
+            span_mask.contact_masked_cuda(xyzr, rows["ids"], rows["alive"], bounds, mask,
+                                          pred=1 - rebuild, out=(force, degree), **law)
+        probes.degs.append(degree.max())
+        _move(bio, rows, force, size, dt, probes)
     rows["partners"] = span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K)
-    return _scan_result(rows, j_bins, j_degs, moves2)
+    return _scan_result(rows, probes)
 
 
 _PHYSICS_SCANS = {"id_list": _physics_scan, "span_mask": _physics_scan_span_mask}
 
 
 def _masked_max(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.where(mask, values, torch.zeros_like(values)).max()
+    return torch.where(mask, values, 0.0).max()
 
 
 class HipscEngine:
@@ -592,6 +753,14 @@ class HipscEngine:
         elif contact_path is not None:
             cfg = dataclasses.replace(cfg, contact_path=contact_path)
         self.cfg = cfg
+        # the captured blocks on the card, by (k, config, parameters); the
+        # attempts (re-executions + 1) of the last safe_step or run_steps
+        # call; the contact-window rebuilds of every step attempt run by
+        # them (with the launch counts, the predicated kernels' taken
+        # launches)
+        self._graphs: Dict[tuple, "_BlockGraph"] = {}
+        self.block_attempts = 0
+        self.window_rebuilds = 0
 
     # -- state construction -------------------------------------------------
 
@@ -652,7 +821,11 @@ class HipscEngine:
 
     def _cfg_for_state(self, state: CellState) -> EngineConfig:
         """A config whose static shapes match the given state (``self.cfg``
-        is a template that growth may have moved past an older state)."""
+        is a template that growth may have moved past an older state). The
+        span-mask path's first step derives ``mask_bits`` from the state (a
+        set-up read) and commits it to ``self.cfg``."""
+        if self.cfg.contact_path == "span_mask" and self.cfg.mask_bits == 0:
+            self.cfg = dataclasses.replace(self.cfg, mask_bits=initial_mask_bits(self.cfg, state))
         cfg = self.cfg
         bond_cap = state.bonds.partners.shape[1]
         if cfg.capacity != state.capacity or cfg.bond_cap != bond_cap:
@@ -666,31 +839,91 @@ class HipscEngine:
 
     def safe_step(self, state: CellState) -> Tuple[CellState, StepInfo]:
         """Step with exact capacity-overflow recovery: if a static capacity
-        (bond degree, daughter table, free slots) overflowed, re-execute from
-        the same input state with that capacity grown. The probes come to the
-        host in one transfer per attempt."""
-        for _ in range(16):
+        (bond degree, daughter table, free slots, mask width) overflowed,
+        re-execute from the same input state with that capacity grown. The
+        probes come to the host in one transfer per attempt, the step's only
+        host read. ``run_steps`` with k = 1 (on the card a captured graph of
+        one step); the probes are Python numbers."""
+        new_state, probes = self._run_attempts(state, 1)
+        return new_state, _probes_from_host(probes[0])
+
+    def run_steps(self, state: CellState, k: int) -> Tuple[CellState, StepInfo]:
+        """Run ``k`` full steps with exact overflow recovery: the JAX
+        engine's ``run_steps``. The result is that of ``k`` calls of
+        ``safe_step``; the probes of the block's steps are stacked on the
+        device and fetched in one transfer, the block's only host read.
+        When a probe of any step overflowed, the config grows by the block's
+        worst-case probes and the WHOLE block re-executes from its
+        unmodified input state. Returns the final state and a ``StepInfo``
+        whose fields are (k,) numpy arrays.
+
+        On the card the block runs as one CUDA graph, captured once per
+        ``(k, config, parameters)`` (``_BlockGraph``) and replayed; a config
+        that growth replaces, or parameters the caller replaces
+        (``self.gen``, ``xp``, ``bio``, ``diff``), drop the graphs captured
+        before and their memory pools. On the CPU the same block runs
+        eagerly."""
+        if k < 1:
+            raise ValueError(f"run_steps needs k >= 1, got {k}")
+        new_state, probes = self._run_attempts(state, k)
+        return new_state, _probes_from_host(probes, stacked=True)
+
+    def _run_attempts(self, state: CellState, k: int):
+        """The attempt loop of ``safe_step`` and ``run_steps``: ``k`` steps
+        from ``state`` (a captured graph on the card, eagerly on the CPU),
+        the (k, 14) probes fetched, and on overflow the config grown by the
+        block's worst probes and the block re-executed from the re-padded
+        input state; raises after 16 attempts. Returns the final state and
+        the probe rows (lists of floats)."""
+        for attempt in range(1, 17):
+            self.block_attempts = attempt
             cfg = self._cfg_for_state(state)
-            new_state, info = hipsc_step(state, cfg, self.gen, self.xp, self.bio,
-                                         self.diff)
-            values = torch.stack([torch.as_tensor(v).to(torch.float64).reshape(())
-                                  for v in info]).tolist()
-            info = StepInfo(*(v if name in _FLOAT_PROBES else int(v)
-                              for name, v in zip(StepInfo._fields, values)))
-            if info.max_id >= (1 << 31) - 2:
-                raise RuntimeError("agent id space exhausted (2^31 agents ever "
-                                   "created); id recycling is not implemented")
-            grown_cfg = self._grown_cfg(cfg, info)
+            table, keys = step_inputs(state.key, state.step, k)
+            if self.device.type == "cuda":
+                new_state, probes = self._graph_for(cfg, k, state).run(state, table)
+            else:
+                new_state, probes = _run_block(self, cfg, state, table)
+            rows = probes.tolist()
+            infos = _probes_from_host(rows, stacked=True)
+            self.window_rebuilds += int(infos.jkr_rebuilds.sum())
+            grown_cfg = self._grown_cfg(cfg, StepInfo(*(np.max(f) for f in infos)))
             if grown_cfg is None:
-                return new_state, info
+                return new_state._replace(key=keys[-1], step=state.step + k), rows
             self.cfg = grown_cfg
             state = self.repad_state(state, grown_cfg)
         raise RuntimeError("capacity growth failed to converge")
 
+    def _graph_for(self, cfg: EngineConfig, k: int, state: CellState) -> "_BlockGraph":
+        """The captured block of ``k`` steps under ``cfg`` and the engine's
+        parameters, whose values the graph holds as launch constants; graphs
+        of another config or other parameters are dropped with their memory
+        pools."""
+        fixed = (cfg, self.gen, self.xp, self.bio, self.diff)
+        graphs = self._graphs
+        for key in [key for key in graphs if key[1:] != fixed]:
+            del graphs[key]
+        if (k,) + fixed not in graphs:
+            torch.cuda.empty_cache()  # return the dropped pools
+            graphs[(k,) + fixed] = _BlockGraph(self, cfg, k, state)
+        return graphs[(k,) + fixed]
+
+    def block_graphs(self) -> list:
+        """The captured blocks held: ``{"k", "capture_s", "pool_mib",
+        "launches"}`` each (``pool_mib``: device memory reserved by the
+        capture, graph pool included; ``launches``: kernel launches per
+        replay)."""
+        return [dict(k=key[0], capture_s=g.capture_s, pool_mib=g.pool_bytes / 2**20,
+                     launches=dict(g.launches)) for key, g in self._graphs.items()]
+
     def _grown_cfg(self, cfg: EngineConfig, info: StepInfo) -> Optional[EngineConfig]:
-        """The config the step's overflow probes demand, or None."""
+        """The config the step's overflow probes demand, or None. Raises
+        when the ids near 2^31 (ids are never recycled)."""
+        if int(info.max_id) >= (1 << 31) - 2:
+            raise RuntimeError("agent id space exhausted (2^31 agents ever "
+                               "created); id recycling is not implemented")
         changed = False
         bond_cap, capacity, div_cap = cfg.bond_cap, cfg.capacity, cfg.div_cap
+        mask_bits = cfg.mask_bits
         if int(info.jkr_max_degree) > bond_cap:
             bond_cap = _round_up(int(info.jkr_max_degree) * 2, 8)
             if bond_cap > MAX_BOND_CAP:
@@ -705,10 +938,15 @@ class HipscEngine:
         elif int(info.num_deferred) > 0:
             capacity = _round_up(capacity * 2, _CAPACITY_QUANTUM)
             changed = True
+        if cfg.contact_path == "span_mask" and int(info.jkr_span_needed) > mask_bits:
+            # the JAX engine's span growth rule (x1.25, rounded up to a word)
+            mask_bits = _round_up(int(info.jkr_span_needed) * 1.25, 32)
+            changed = True
         if not changed:
             return None
         return dataclasses.replace(cfg, bond_cap=bond_cap, capacity=capacity,
-                                   div_cap=min(div_cap, capacity) if div_cap else div_cap)
+                                   div_cap=min(div_cap, capacity) if div_cap else div_cap,
+                                   mask_bits=mask_bits)
 
     @staticmethod
     def repad_state(state: CellState, cfg: EngineConfig) -> CellState:
@@ -739,3 +977,86 @@ class HipscEngine:
             step=state.step,
             next_id=state.next_id,
         )
+
+
+def initial_mask_bits(cfg: EngineConfig, state: CellState) -> int:
+    """The span-mask capacity to start from: the widest row of the contact
+    window over the state's positions, grown by the growth rule (x1.25,
+    rounded up to a word). One host read, at set-up."""
+    grid = nbr_ops.build_grid(cfg.jkr_spec, state.arrays["locations"], state.arrays["ids"],
+                              state.alive)
+    widest = span_mask.widest_row(nbr_ops.run_bounds(cfg.jkr_spec, grid.sorted_flat))
+    return _round_up(max(widest, 1) * 1.25, 32)
+
+
+def _run_block(engine: HipscEngine, cfg: EngineConfig, state: CellState, table):
+    """``len(table)`` steps from ``state`` with the step inputs of ``table``
+    ((k, 13) int64 on the state's device): the final state (its key and
+    step as the last row left them) and the (k, 14) float64 probes, on the
+    device. What ``_BlockGraph`` captures; on the CPU, what ``safe_step``
+    and ``run_steps`` run."""
+    rows = []
+    for t in range(table.shape[0]):
+        state, info = hipsc_step(state, cfg, engine.gen, engine.xp, engine.bio, engine.diff,
+                                 StepInputs(table[t], state.key))
+        rows.append(_probe_row(info))
+    return state, torch.stack(rows)
+
+
+def _device_tensors(state: CellState) -> list:
+    """The state's tensors on the device, in a fixed order."""
+    return ([state.arrays[k] for k in sorted(state.arrays)] + [state.alive]
+            + list(state.bonds) + [state.gradients[k] for k in sorted(state.gradients)]
+            + [state.next_id])
+
+
+def _with_device_tensors(state: CellState, tensors: list) -> CellState:
+    """``state`` with its device tensors replaced, in ``_device_tensors``
+    order."""
+    it = iter(tensors)
+    arrays = {k: next(it) for k in sorted(state.arrays)}
+    alive = next(it)
+    bonds = BondState(next(it), next(it))
+    gradients = {k: next(it) for k in sorted(state.gradients)}
+    return state._replace(arrays=arrays, alive=alive, bonds=bonds, gradients=gradients,
+                          next_id=next(it))
+
+
+class _BlockGraph:
+    """A k-step block of one config captured as one CUDA graph
+    (``torch.cuda.graph``). The graph reads static copies of the input
+    state and a static (k, 13) table of step inputs; ``run`` copies the
+    state and the block's keys and step numbers into them, replays the
+    graph, and returns clones of its outputs (the next replay overwrites
+    them) and the stacked probes. Before the capture one eager step from
+    the state (discarded; its rebuilds go to ``engine.window_rebuilds``)
+    loads every kernel of the path. The kernels
+    launched in the capture are counted once per replay
+    (``kernels.capturing``). ``capture_s`` and ``pool_bytes`` (device memory
+    the capture reserved) are recorded for the measurements."""
+
+    def __init__(self, engine: HipscEngine, cfg: EngineConfig, k: int, state: CellState):
+        device = engine.device
+        t0 = time.perf_counter()
+        _, info = hipsc_step(state, cfg, engine.gen, engine.xp, engine.bio, engine.diff)
+        engine.window_rebuilds += int(info.jkr_rebuilds)  # a set-up read
+        reserved = torch.cuda.memory_reserved(device)
+        self.state = _with_device_tensors(state, [t.clone() for t in _device_tensors(state)])
+        self.table = torch.zeros((k, 13), dtype=torch.int64, device=device)
+        self.graph = torch.cuda.CUDAGraph()
+        with kernels.capturing() as tally, torch.cuda.graph(self.graph):
+            self.out_state, self.out_probes = _run_block(engine, cfg, self.state, self.table)
+        torch.cuda.synchronize(device)
+        self.launches = dict(tally)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+
+    def run(self, state: CellState, table: torch.Tensor):
+        for static, src in zip(_device_tensors(self.state), _device_tensors(state)):
+            static.copy_(src)
+        self.table.copy_(table.pin_memory(), non_blocking=True)
+        self.graph.replay()
+        out = _with_device_tensors(
+            self.out_state, [t.clone() for t in _device_tensors(self.out_state)])
+        kernels.launch_counts.update(self.launches)
+        return out, self.out_probes.cpu()

@@ -9,13 +9,17 @@ checkout builds itself and an unchanged one reuses its library. Nothing here run
 the CPU tests import every module on a machine without ``nvcc``.
 
 Each wrapper in ``ops`` that launches a kernel adds one to
-``launch_counts[name]`` per launch, so a run can show that it went through
-the kernels.
+``launch_counts[name]`` per launch (``count_launch``), so a run can show
+that it went through the kernels. A launch made while a CUDA graph is being
+captured is not run then: it counts into the capture's tally instead
+(``capturing``), and each replay of the graph adds that tally to
+``launch_counts`` (``HipscEngine.run_steps``).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,6 +42,8 @@ NVCC_FLAGS = (
 )
 
 launch_counts: collections.Counter = collections.Counter()
+# the tally of the graph being captured, or None
+_capture_tally: Optional[collections.Counter] = None
 
 _lib: Optional[ctypes.CDLL] = None
 _limits: dict = {}
@@ -53,10 +59,10 @@ _SIGNATURES = {
     "hipsc_ftcs_diffuse": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _P),
     "hipsc_contact_seed": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
+                           _F, _F, _I, _F, _F, _F, _F, _F, _F, _P, _P),
     "hipsc_contact_masked": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
-    "hipsc_mask_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+                             _F, _F, _I, _F, _F, _F, _F, _F, _F, _P, _P),
+    "hipsc_mask_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "hipsc_dynslice_probe": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "hipsc_dynslice_probe2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
@@ -155,6 +161,24 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         msg = lib.hipsc_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel ``name``: into ``launch_counts``, or into
+    the tally of the graph being captured."""
+    (launch_counts if _capture_tally is None else _capture_tally)[name] += 1
+
+
+@contextlib.contextmanager
+def capturing():
+    """While a CUDA graph is captured: yields the Counter of the launches
+    the graph holds (``count_launch`` counts there instead)."""
+    global _capture_tally
+    outer, _capture_tally = _capture_tally, collections.Counter()
+    try:
+        yield _capture_tally
+    finally:
+        _capture_tally = outer
 
 
 def device_limits() -> dict:

@@ -36,8 +36,10 @@ def _set_drop(arr: torch.Tensor, index: torch.Tensor, values) -> torch.Tensor:
     ``[0, len(arr)]``: index ``len(arr)`` is the drop sentinel."""
     n = arr.shape[0]
     ext = torch.cat([arr, arr[:1]], dim=0)
-    ext[index] = values if isinstance(values, torch.Tensor) else torch.as_tensor(
-        values, dtype=arr.dtype, device=arr.device)
+    if isinstance(values, torch.Tensor):
+        ext[index] = values
+    else:  # a scalar rides the launch (a tensor of it would be a copy to the card)
+        ext.index_fill_(0, index, values)
     return ext[:n]
 
 
@@ -225,7 +227,7 @@ def cell_pathway(
     nbr_FGF4_sum: torch.Tensor,  # (C,) float32 sum of neighbours' FGF4
     nbr_FGF4_sq_sum: torch.Tensor,  # (C,) float32 sum of neighbours' FGF4^2
     key,
-    current_step: int,
+    current_step,  # the step number: an int, or a 0-d tensor on the state's device
     xp: ExperimentalParams,
     p: BiologyParams,
     field_fgf4: Optional[torch.Tensor] = None,
@@ -234,8 +236,10 @@ def cell_pathway(
     noisy mean over the closed neighbourhood, ``(sum F + g sqrt(sum F^2)) /
     n`` with one N(0, 1) draw per agent (equal in distribution to the
     reference's per-neighbour noise); the finite dynamical system advances
-    every ``fds_thresh`` steps once doxycycline is in."""
-    active = alive & (int(current_step) >= xp.dox_step)
+    every ``fds_thresh`` steps once doxycycline is in. The engine passes the
+    step number as a device tensor, so that the dox gate is read on the
+    device (a captured CUDA graph replays it with each step's number)."""
+    active = alive & (current_step >= xp.dox_step)
 
     g = rng.normal(key, ids, salt=0)
     if field_fgf4 is not None:

@@ -8,17 +8,23 @@ API with the same numpy draws as the JAX model, and runs each step as one
 images in both color modes, value CSVs, TDA splits, gradient CSVs, the pickle
 and npz checkpoints, the data CSV and the end-of-run video.
 
+With ``output_interval: k`` > 1 (``general.yaml``) the steps between
+outputs run as blocks of ``HipscEngine.run_steps`` (on the card one CUDA
+graph replay and one probe fetch per block), as in the JAX model: the
+per-step prints come from the block's stacked probes, and the outputs and
+checkpoints land on block boundaries only.
+
 The template keys ``enable_growth``, ``enable_stochastic`` and
 ``enable_diff_surround`` (``experimental.yaml``) turn on the phases the
 reference ships disabled. Not ported yet, and raising
-``NotImplementedError``: ``domain_tiles`` (ROADMAP A10) and
-``output_interval`` > 1 (A6).
+``NotImplementedError``: ``domain_tiles`` (ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -107,9 +113,6 @@ class CellSimulation(Simulation):
         if self.domain_tiles is not None:
             raise NotImplementedError(
                 "domain_tiles: the multi-device domain engine is not ported yet (ROADMAP A10)")
-        if self.output_interval > 1:
-            raise NotImplementedError(
-                "output_interval > 1: run_steps blocks are not ported yet (ROADMAP A6)")
 
     # ------------------------------------------------------------------
     # initial conditions
@@ -250,18 +253,22 @@ class CellSimulation(Simulation):
         if self.record_initial_step:
             self.record_initials()
 
-        for step in range(self.beginning_step, self.end_step + 1):
-            self.current_step = step
-            self.info()
-
-            # the fused step: neighbours, division, death, pathway,
-            # differentiation, (growth/stochastic/diff_surround/diffusion),
-            # motility, 11 contact substeps
+        step = self.beginning_step
+        while step <= self.end_step:
             self._host_state = None  # the cache belongs to the previous step
-            with record_block(self, "step_fused"):
-                self.state, info = self.engine.safe_step(self.state)
-            print("\tAdded " + str(int(info.num_added)) + " agents")
-            print("\tRemoved " + str(int(info.num_removed)) + " agents")
+            if self.output_interval == 1:
+                self.current_step = step
+                self.info()
+                # the fused step: neighbours, division, death, pathway,
+                # differentiation, (growth/stochastic/diff_surround/diffusion),
+                # motility, 11 contact substeps
+                with record_block(self, "step_fused"):
+                    self.state, info = self.engine.safe_step(self.state)
+                print("\tAdded " + str(int(info.num_added)) + " agents")
+                print("\tRemoved " + str(int(info.num_removed)) + " agents")
+                step += 1
+            else:
+                step = self._run_block(step)
 
             self._sync_host()
             self.step_image()
@@ -273,6 +280,26 @@ class CellSimulation(Simulation):
             self.data()
 
         self.create_video()  # flushes the output queue first
+
+    def _run_block(self, step: int) -> int:
+        """Steps ``step`` .. ``step + k - 1`` as one ``run_steps`` block,
+        ``k = min(output_interval, end_step + 1 - step)``, with the
+        reference's per-step prints from the stacked probes; returns the
+        next step. The data CSV's step time is the whole block's wall with
+        the boundary's outputs (``step_start`` is taken before the block)."""
+        k = min(self.output_interval, self.end_step + 1 - step)
+        n_before = self.number_agents
+        self.step_start = time.perf_counter()
+        with record_block(self, "step_fused"):
+            self.state, infos = self.engine.run_steps(self.state, k)
+        for j in range(k):
+            self.current_step = step + j
+            print("Step: " + str(self.current_step))
+            print("Number of agents: "
+                  + str(n_before if j == 0 else int(infos.num_agents[j - 1])))
+            print("\tAdded " + str(int(infos.num_added[j])) + " agents")
+            print("\tRemoved " + str(int(infos.num_removed[j])) + " agents")
+        return step + k
 
     # ------------------------------------------------------------------
     # outputs

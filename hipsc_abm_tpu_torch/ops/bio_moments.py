@@ -122,5 +122,5 @@ def bio_moments_cuda(pos0, alive, bounds, loc1=None, f0=None, f1=None, f2=None, 
     kernels.launch("hipsc_bio_moments", pos0.data_ptr(), alive.data_ptr(),
                    bounds.data_ptr(), *ptrs, out.data_ptr(), C, float(r * r),
                    MODES[mode], n_runs)
-    kernels.launch_counts[kernels.counted_name("bio_moments", n_runs)] += 1
+    kernels.count_launch(kernels.counted_name("bio_moments", n_runs))
     return out

@@ -115,5 +115,5 @@ def contact_substep_cuda(
         *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
                        uniform_radius),
     )
-    kernels.launch_counts[kernels.counted_name("contact_substep", n_runs)] += 1
+    kernels.count_launch(kernels.counted_name("contact_substep", n_runs))
     return force, degree, new_partners

@@ -81,8 +81,9 @@ def deposit_morphogen(
     writes out-of-range points to one extra sentinel entry, then drops it."""
     nx, ny = gradient.shape
     base = torch.floor(locations[:, :2] / spat_res).to(torch.int64)  # (C, 2)
-    corner_offsets = torch.tensor([[0, 0], [1, 0], [0, 1], [1, 1]],
-                                  dtype=torch.int64, device=locations.device)
+    # [[0, 0], [1, 0], [0, 1], [1, 1]], made on the device (no host copy)
+    corner = torch.arange(4, dtype=torch.int64, device=locations.device)
+    corner_offsets = torch.stack([corner % 2, corner // 2], dim=1)
     points = base[:, None, :] + corner_offsets[None, :, :]  # (C, 4, 2)
     in_bounds = ((points[..., 0] < nx) & (points[..., 1] < ny)
                  & (points >= 0).all(-1))

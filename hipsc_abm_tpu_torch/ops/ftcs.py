@@ -157,6 +157,6 @@ def ftcs_diffuse_cuda(
                    arrived.data_ptr(), nx, ny, plan.tile_rows, plan.tile_cols,
                    plan.grid_rows, plan.grid_cols, plan.halo, steps,
                    a_main, b_main, a_last, b_last)
-    kernels.launch_counts["ftcs_diffuse"] += 1
+    kernels.count_launch("ftcs_diffuse")
     out = buf1 if -(-steps // plan.halo) % 2 else buf0
     return out * (1.0 - degradation)

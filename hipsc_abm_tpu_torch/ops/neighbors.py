@@ -87,9 +87,9 @@ class Grid(NamedTuple):
 
 def _bin_coords(spec: GridSpec, locations: torch.Tensor) -> torch.Tensor:
     coords = torch.floor(locations / spec.cell_size).to(torch.int64) + 1
-    dims = torch.tensor([spec.nx, spec.ny, spec.nz], dtype=torch.int64,
-                        device=locations.device)
-    return torch.minimum(coords.clamp(min=0), dims - 1)
+    for axis, n in enumerate((spec.nx, spec.ny, spec.nz)):
+        coords[:, axis].clamp_(0, n - 1)
+    return coords
 
 
 def dead_sentinel(spec: GridSpec) -> int:
@@ -99,15 +99,15 @@ def dead_sentinel(spec: GridSpec) -> int:
     return spec.num_bins + reach + 3
 
 
-def flat_bin_ids(spec: GridSpec, locations: torch.Tensor,
-                 alive: torch.Tensor) -> torch.Tensor:
-    """Row-major flat bin id per agent (int64); dead slots get the sentinel."""
-    coords = _bin_coords(spec, locations)
+def _flat_from_coords(spec: GridSpec, coords: torch.Tensor,
+                      alive: torch.Tensor) -> torch.Tensor:
+    """Row-major flat bin id of bin coordinates; dead slots get the
+    sentinel."""
     if spec.two_d:
         flat = coords[:, 0] * spec.ny + coords[:, 1]
     else:
         flat = (coords[:, 0] * spec.ny + coords[:, 1]) * spec.nz + coords[:, 2]
-    return torch.where(alive, flat, torch.full_like(flat, dead_sentinel(spec)))
+    return torch.where(alive, flat, dead_sentinel(spec))
 
 
 def build_grid(spec: GridSpec, locations: torch.Tensor, ids: torch.Tensor,
@@ -117,53 +117,57 @@ def build_grid(spec: GridSpec, locations: torch.Tensor, ids: torch.Tensor,
     JAX's 2-key ``lax.sort`` becomes one ``torch.sort`` of the int64 key
     ``flat << 32 | id`` (both fit 31 bits). The sort is stable, so dead
     slots that share a stale id keep slot order."""
-    flat = flat_bin_ids(spec, locations, alive)
+    coords = _bin_coords(spec, locations)
+    flat = _flat_from_coords(spec, coords, alive)
     key = (flat << 32) | (ids.to(torch.int64) & 0xFFFFFFFF)
     order = torch.sort(key, stable=True).indices
-    return Grid(order=order, sorted_flat=flat[order],
-                coords=_bin_coords(spec, locations))
+    return Grid(order=order, sorted_flat=flat[order], coords=coords)
 
 
 def _bin_table(spec: GridSpec, sorted_flat: torch.Tensor) -> torch.Tensor:
-    """``table[b]`` = number of live agents in bins < b = the sorted position
-    where bin b starts (histogram + exclusive cumsum; sentinel ids drop)."""
-    nb1 = spec.num_bins + 1
-    counts = torch.bincount(sorted_flat[sorted_flat < nb1], minlength=nb1)
-    return torch.cumsum(counts, 0) - counts
+    """``table[b]``, for b in ``[0, num_bins]``: the number of agents in bins
+    < b, the sorted position where bin b starts (a binary search of the
+    sorted flat ids; dead slots' sentinel lies beyond every b). No host read,
+    unlike a histogram (``bincount`` on the card reads its largest bin)."""
+    bins = torch.arange(spec.num_bins + 1, dtype=torch.int64, device=sorted_flat.device)
+    return torch.searchsorted(sorted_flat, bins)
+
+
+def _run_index(spec: GridSpec, device) -> Tuple[torch.Tensor, ...]:
+    """Over the columns ``[lo_0, hi_0, lo_1, ...]`` of the bounds, (2 *
+    n_runs,) int64 each: the run's first flat bin relative to the row's
+    (``flat_run_offsets`` less 1), the offset of the column's bin-table
+    entry from it (0 for lo, 3 for hi), and 1 where a dead row holds the
+    capacity (the lo columns). Made on the device from an ``arange``."""
+    col = torch.arange(2 * len(spec.run_offsets), dtype=torch.int64, device=device)
+    r = col // 2
+    if spec.two_d:
+        first = (r - 1) * spec.ny - 1
+    else:
+        first = ((r // 3 - 1) * spec.ny + (r % 3 - 1)) * spec.nz - 1
+    return first, (col % 2) * 3, 1 - col % 2
+
+
+def run_bounds(spec: GridSpec, sorted_flat: torch.Tensor) -> torch.Tensor:
+    """Absolute run bounds ``[lo_0, hi_0, lo_1, hi_1, ...]`` per sorted row,
+    (C, 2 * n_runs) int32 (3 runs in 2D, 9 in 3D), what the kernels walk:
+    run r covers the flat bins ``[f + flat_run_offsets[r] - 1, +3)``. Rows
+    dead at build time get the empty interval ``[capacity, 0)`` in every
+    run. Both bounds of every run come from one gather of the bin table."""
+    table = _bin_table(spec, sorted_flat)
+    first, plus, lo_col = _run_index(spec, sorted_flat.device)
+    capacity = sorted_flat.shape[0]
+    index = torch.clamp(sorted_flat[:, None] + first, 0, spec.num_bins - 3) + plus
+    dead = (sorted_flat >= spec.num_bins)[:, None]
+    return torch.where(dead, lo_col * capacity, table[index]).to(torch.int32)
 
 
 def sorted_run_bounds_from_flat(spec: GridSpec,
                                 sorted_flat: torch.Tensor) -> torch.Tensor:
-    """Absolute run bounds ``[s0, e0, s1, e1, ...]`` per sorted row, int32:
-    run r covers the flat bins ``[f + flat_run_offsets[r] - 1, +3)``. In 2D
-    (3 runs) the table is (C, 8), two zero columns padding it to the JAX
-    package's layout; in 3D (9 runs) it is (C, 18). Rows dead at build time
-    get the empty interval ``[capacity, 0)`` in every run."""
-    table = _bin_table(spec, sorted_flat)
-    f = sorted_flat
-    cols = []
-    for off in spec.flat_run_offsets:
-        lo = torch.clamp(f + off - 1, 0, spec.num_bins - 3)
-        cols.append(table[lo])
-        cols.append(table[lo + 3])
-    capacity = sorted_flat.shape[0]
-    empty = [capacity, 0] * len(cols[::2])
-    if spec.two_d:
-        zero = torch.zeros_like(cols[0])
-        cols += [zero, zero]
-        empty += [0, 0]
-    bounds = torch.stack(cols, dim=1).to(torch.int32)
-    empty = torch.tensor(empty, dtype=torch.int32, device=bounds.device)
-    dead = (f >= spec.num_bins)[:, None]
-    return torch.where(dead, empty, bounds)
-
-
-def run_bounds(spec: GridSpec, sorted_flat: torch.Tensor) -> torch.Tensor:
-    """The kernels' (C, 2 * n_runs) int32 view of
-    ``sorted_run_bounds_from_flat``: ``[lo_r, hi_r)`` for runs r = 0..2 in
-    2D, 0..8 in 3D."""
-    n = 2 * len(spec.flat_run_offsets)
-    return sorted_run_bounds_from_flat(spec, sorted_flat)[:, :n].contiguous()
+    """``run_bounds`` in the JAX package's layout: in 2D (3 runs) the table
+    is (C, 8), two zero columns padding it; in 3D it is (C, 18)."""
+    bounds = run_bounds(spec, sorted_flat)
+    return torch.nn.functional.pad(bounds, (0, 2)) if spec.two_d else bounds
 
 
 def bounds_window(bounds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -11,9 +11,15 @@ The step key is a raw threefry2x32 key, ``(2,)`` int64 holding two uint32
 words, as ``jax.random.PRNGKey`` makes it. ``split`` follows JAX's
 partitionable counter layout (``jax_threefry_partitionable = True``, the
 default of the JAX release the reference is pinned to): key ``i`` of a split
-is ``threefry2x32(key, (0, i))``. The key schedule does not depend on the
-colony, so it is derived on the host; the per-agent hashes run wherever the
-ids lie.
+is ``threefry2x32(key, (0, i))``.
+
+Keys are read as tensors, never as host numbers: ``hash_bits`` and
+``threefry2x32`` take the key's words by indexing, so a key on the card
+stays there (no host read) and a captured CUDA graph reads it as an input
+on every replay instead of baking one step's words in. ``threefry2x32``
+also runs on plain Python ints (its arithmetic is operators only), which is
+how ``split_words`` derives the engine's key schedule on the host: the
+schedule does not depend on the colony.
 """
 
 from __future__ import annotations
@@ -47,15 +53,18 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _key_words(key) -> tuple:
-    """The two uint32 words of a raw key as Python ints."""
+    """The two uint32 words of a raw key: 0-d int64 tensors on the key's
+    device for a tensor key (no host read), Python ints for a pair of
+    ints."""
     if isinstance(key, torch.Tensor):
-        key = key.tolist()
-    return int(key[0]) & _MASK, int(key[1]) & _MASK
+        key = key.to(torch.int64)
+    return key[0] & _MASK, key[1] & _MASK
 
 
 def hash_bits(key, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
-    """uint32 random bits (as int64) per agent id, keyed by a raw key and a
-    small static ``salt`` separating streams within one phase."""
+    """uint32 random bits (as int64) per agent id, keyed by a raw key (a
+    (2,) int64 tensor on the ids' device) and a small static ``salt``
+    separating streams within one phase."""
     k0, k1 = _key_words(key)
     x = ids.to(torch.int64) & _MASK
     h = _fmix32(x ^ k0)
@@ -114,13 +123,14 @@ def _rotl32(x: torch.Tensor, d: int) -> torch.Tensor:
     return ((x << d) & _MASK) | (x >> (32 - d))
 
 
-def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor):
-    """The Threefry-2x32 block cipher (20 rounds) as JAX implements it,
-    on uint32 words held in int64. Returns the two output words."""
+def threefry2x32(key, x0, x1):
+    """The Threefry-2x32 block cipher (20 rounds) as JAX implements it, on
+    uint32 words held in int64 tensors or in Python ints (the key and the
+    counters alike). Returns the two output words."""
     k0, k1 = _key_words(key)
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = (x0.to(torch.int64) + ks[0]) & _MASK
-    x1 = (x1.to(torch.int64) + ks[1]) & _MASK
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
     for i in range(5):
         for rot in _ROTATIONS[i % 2]:
             x0 = (x0 + x1) & _MASK
@@ -136,9 +146,16 @@ def prng_key(seed: int) -> torch.Tensor:
     return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64)
 
 
-def split(key, num: int = 2) -> Sequence[torch.Tensor]:
+def split(key: torch.Tensor, num: int = 2) -> Sequence[torch.Tensor]:
     """``jax.random.split(key, num)`` in the partitionable layout: key ``i``
-    is ``threefry2x32(key, (0, i))``. Returns ``num`` (2,) int64 keys."""
-    counts = torch.arange(num, dtype=torch.int64)
+    is ``threefry2x32(key, (0, i))``. Returns ``num`` (2,) int64 keys on the
+    key's device, computed there (no host read)."""
+    counts = torch.arange(num, dtype=torch.int64, device=key.device)
     b0, b1 = threefry2x32(key, torch.zeros_like(counts), counts)
     return list(torch.stack([b0, b1], dim=1).unbind(0))
+
+
+def split_words(words, num: int = 2) -> list:
+    """``split`` on the host: a key as two Python ints in, ``num`` keys as
+    pairs of Python ints out (bit-equal to ``split``)."""
+    return [threefry2x32(words, 0, i) for i in range(num)]

@@ -14,10 +14,15 @@ runs (3 in 2D, 9 in 3D), in run
 order and ascending sorted position (the row itself included, so that ``j``
 depends on the bounds alone). The mask holds one bit per (row, candidate):
 "this pair was kept by the last substep". It is ``(W, C)`` int32, word-major
-(bit ``j & 31`` of ``mask[j >> 5, i]``), with ``W = ceil(M / 32)`` words
-where ``M`` is the widest row's candidate count at the window's build. It is
-valid only while the bounds it was seeded over are frozen; bits beyond a
-row's candidates are zero. Bytes: ``4 W C``, so 0.57 MB per word at 100k
+(bit ``j & 31`` of ``mask[j >> 5, i]``), with ``W`` words: in the engine a
+static capacity (``EngineConfig.mask_bits / 32``, grown by re-execution when
+the widest row's candidate count ``M`` of a build passes it), for a direct
+call without a mask buffer ``ceil(M / 32)`` of these bounds (``mask_words``,
+a host read). It is valid only while the bounds it was seeded over are
+frozen; bits beyond a row's candidates are zero, and so are the bits of
+candidates past ``32 W``, which no operation stores (their forces and
+degrees still count: the engine's probe of ``M`` re-executes the step
+before any result depends on a dropped bit). Bytes: ``4 W C``, so 0.57 MB per word at 100k
 cells (C = 143,104 slots) and 2.9 MB per word at 500k (C = 715,008), against
 the TPU layout's ``n_runs * span`` int8 bytes per row (1.5 KB at the default
 512-lane span: 220 MB and 1.1 GB). In 3D a row's nine runs hold far more
@@ -29,8 +34,7 @@ and the mask is 5.2 MB (C = 128,768; ``chip_smoke.py`` on an NVIDIA H100
 
 - ``contact_seed`` (B2): membership from the (C, K) partner-id lists, the
   only bond form that survives a re-sort; returns force, degree and a fresh
-  mask. Runs at the scan's entry and at every rebuild. It reads ``M`` from
-  the bounds to size the mask: one host read per call. The kernel tests the
+  mask. Runs at the scan's entry and at every rebuild. The kernel tests the
   pair law's break before membership, so it scans the K partner ids only
   for pairs that survive beyond the search radius.
 - ``contact_masked`` (B1): membership from the mask; the new keep set is
@@ -47,9 +51,21 @@ rows dead at the window's build have empty runs (``neighbors.run_bounds``),
 so the two tests agree on every row the engine gives them. The kernels' walk
 therefore reads no ids except at the seed's membership test.
 
+**Predicated launches.** Each operation takes ``pred``, an optional (1,)
+int32 tensor on the rows' device: the operation runs only where
+``pred[0] != 0`` and otherwise leaves its output buffers as they were. With
+``out`` buffers given (``(force, degree, mask)`` for the seed, ``(force,
+degree)`` for the masked substep, the (C, K) ids for the compaction) the
+results are written into them. The engine's scan launches, on every substep
+after the first, the compaction and the seed under "the window is stale"
+and the masked substep under its negation, into shared buffers, so that the
+choice is made on the device (no host read; a CUDA graph captures both
+launches). The plain versions take the same arguments.
+
 Each wrapper runs the plain version for a CPU tensor and launches the kernel
-for a CUDA tensor (or raises); ``kernels.launch_counts`` counts launches,
-the 3D forms under the names with ``_3d`` appended.
+for a CUDA tensor (or raises); ``kernels.launch_counts`` counts launches
+(skipped ones included: the kernel is launched and returns), the 3D forms
+under the names with ``_3d`` appended.
 """
 
 from __future__ import annotations
@@ -70,10 +86,21 @@ def candidate_counts(bounds: torch.Tensor) -> torch.Tensor:
     return torch.clamp(b[..., 1] - b[..., 0], min=0).sum(dim=1)
 
 
+def widest_row(bounds: torch.Tensor) -> int:
+    """The widest row's candidate count (a host read)."""
+    return int(candidate_counts(bounds).max()) if bounds.shape[0] else 0
+
+
 def mask_words(bounds: torch.Tensor) -> int:
-    """Words per row of a mask over these bounds (at least 1; a host read)."""
-    widest = int(candidate_counts(bounds).max()) if bounds.shape[0] else 0
-    return max(1, -(-widest // 32))
+    """Words per row of a mask that holds every candidate of these bounds
+    (at least 1; a host read)."""
+    return max(1, -(-widest_row(bounds) // 32))
+
+
+def _skipped(pred: Optional[torch.Tensor]) -> bool:
+    """Whether a plain operation's predicate says not to run (a read of a
+    CPU tensor)."""
+    return pred is not None and not bool(pred.reshape(-1)[0])
 
 
 def _window(bounds: torch.Tensor):
@@ -90,15 +117,18 @@ def _window(bounds: torch.Tensor):
 
 
 def _unpack(mask: torch.Tensor, j: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """(C, T) bool: bit ``j`` of each row's words, False where not valid."""
+    """(C, T) bool: bit ``j`` of each row's words, False where not valid or
+    past the mask's ``32 W`` bits."""
     words = mask.t().to(torch.int64) & 0xFFFFFFFF  # (C, W)
     w = torch.clamp(j >> 5, max=mask.shape[0] - 1)
     bits = (torch.gather(words, 1, w) >> (j & 31)) & 1
-    return (bits == 1) & valid
+    return (bits == 1) & valid & (j < 32 * mask.shape[0])
 
 
 def _pack(keep: torch.Tensor, j: torch.Tensor, n_words: int) -> torch.Tensor:
-    """(W, C) int32 words with bit ``j`` set for every kept entry."""
+    """(W, C) int32 words with bit ``j`` set for every kept entry within the
+    ``32 W`` bits."""
+    keep = keep & (j < 32 * n_words)
     vals = torch.where(keep, torch.ones_like(j) << (j & 31), torch.zeros_like(j))
     w = torch.where(keep, j >> 5, torch.zeros_like(j))
     words = torch.zeros((keep.shape[0], n_words), dtype=torch.int64, device=keep.device)
@@ -115,44 +145,77 @@ def _substep(xyzr, ids, alive, pos, valid, bonded, law):
     return force, keep.sum(dim=1, dtype=torch.int32), keep
 
 
+def _law(radius, adhesion_const, poisson, youngs, break_d):
+    return dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
+                youngs=youngs, break_d=break_d)
+
+
 def contact_seed_plain(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
+    pred: Optional[torch.Tensor] = None, out=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain seed substep: returns ``(force (C, 3) float32, degree (C,)
-    int32, mask (W, C) int32)``. ``uniform_radius`` is accepted for
-    signature parity; the general pair law gives the same physics."""
+    int32, mask (W, C) int32)``, written into ``out`` when given (``W`` is
+    then its mask's, else ``mask_words(bounds)``); ``pred`` as in the module
+    docstring. ``uniform_radius`` is accepted for signature parity; the
+    general pair law gives the same physics."""
     del uniform_radius
-    law = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
-               youngs=youngs, break_d=break_d)
+    if out is None:
+        C, dev = xyzr.shape[0], xyzr.device
+        out = (torch.zeros((C, 3), dtype=torch.float32, device=dev),
+               torch.zeros((C,), dtype=torch.int32, device=dev),
+               torch.zeros((mask_words(bounds), C), dtype=torch.int32, device=dev))
+    if _skipped(pred):
+        return out
     pos, valid, j = _window(bounds)
     bonded = jkr_ops._is_bonded(partners, ids[pos])
-    force, degree, keep = _substep(xyzr, ids, alive, pos, valid, bonded, law)
-    return force, degree, _pack(keep, j, mask_words(bounds))
+    force, degree, keep = _substep(xyzr, ids, alive, pos, valid, bonded,
+                                   _law(radius, adhesion_const, poisson, youngs, break_d))
+    out[0].copy_(force)
+    out[1].copy_(degree)
+    out[2].copy_(_pack(keep, j, out[2].shape[0]))
+    return out
 
 
 def contact_masked_plain(
     xyzr, ids, alive, bounds, mask, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
+    pred: Optional[torch.Tensor] = None, out=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain masked substep: returns ``(force, degree, mask)``, the mask
-    being the given tensor with the new keep set written into it."""
+    being the given tensor with the new keep set written into it and force
+    and degree written into ``out`` when given; ``pred`` as in the module
+    docstring."""
     del uniform_radius
-    law = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
-               youngs=youngs, break_d=break_d)
+    if out is None:
+        C, dev = xyzr.shape[0], xyzr.device
+        out = (torch.zeros((C, 3), dtype=torch.float32, device=dev),
+               torch.zeros((C,), dtype=torch.int32, device=dev))
+    if _skipped(pred):
+        return (*out, mask)
     pos, valid, j = _window(bounds)
-    force, degree, keep = _substep(xyzr, ids, alive, pos, valid,
-                                   _unpack(mask, j, valid), law)
+    force, degree, keep = _substep(xyzr, ids, alive, pos, valid, _unpack(mask, j, valid),
+                                   _law(radius, adhesion_const, poisson, youngs, break_d))
     mask.copy_(_pack(keep, j, mask.shape[0]))
-    return force, degree, mask
+    out[0].copy_(force)
+    out[1].copy_(degree)
+    return (*out, mask)
 
 
-def mask_compact_plain(ids, bounds, mask, bond_cap: int) -> torch.Tensor:
+def mask_compact_plain(ids, bounds, mask, bond_cap: int,
+                       pred: Optional[torch.Tensor] = None, out=None) -> torch.Tensor:
     """Plain compaction: (C, bond_cap) int32 partner ids, the first
-    ``bond_cap`` set bits in candidate order, ``NO_BOND`` padded."""
+    ``bond_cap`` set bits in candidate order, ``NO_BOND`` padded; written
+    into ``out`` when given; ``pred`` as in the module docstring."""
+    if out is None:
+        out = torch.full((ids.shape[0], bond_cap), jkr_ops.NO_BOND, dtype=torch.int32,
+                         device=ids.device)
+    if _skipped(pred):
+        return out
     pos, valid, j = _window(bounds)
-    out, _ = jkr_ops._compact_bonds(ids[pos], _unpack(mask, j, valid), bond_cap)
-    return out
+    compact, _ = jkr_ops._compact_bonds(ids[pos], _unpack(mask, j, valid), bond_cap)
+    return out.copy_(compact)
 
 
 def _check_rows(xyzr, ids, alive, bounds):
@@ -172,14 +235,41 @@ def _check_mask(mask, C):
     return mask.shape[0]
 
 
+def _pred_ptr(pred: Optional[torch.Tensor]):
+    """The kernel's predicate pointer (null: always run)."""
+    if pred is None:
+        return None
+    kernels.check_cuda("pred", pred, torch.int32, (1,))
+    return pred.data_ptr()
+
+
+def _outputs(out, C, device, W=None, with_mask=False):
+    """The substep's force and degree buffers (and the seed's mask): the
+    given ones, checked, or new ones (a mask of ``W`` words)."""
+    if out is not None:
+        kernels.check_cuda("force", out[0], torch.float32, (C, 3))
+        kernels.check_cuda("degree", out[1], torch.int32, (C,))
+        if with_mask:
+            _check_mask(out[2], C)
+        return out
+    force = torch.empty((C, 3), dtype=torch.float32, device=device)
+    degree = torch.empty((C,), dtype=torch.int32, device=device)
+    if W is None:
+        return force, degree
+    return force, degree, torch.empty((W, C), dtype=torch.int32, device=device)
+
+
 def contact_seed_cuda(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
+    pred: Optional[torch.Tensor] = None, out=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The seed substep. A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel (or raises)."""
+    launches the kernel (or raises). Without ``out`` the mask gets
+    ``mask_words(bounds)`` words (a host read)."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
-              youngs=youngs, break_d=break_d, uniform_radius=uniform_radius)
+              youngs=youngs, break_d=break_d, uniform_radius=uniform_radius,
+              pred=pred, out=out)
     if xyzr.device.type == "cpu":
         return contact_seed_plain(xyzr, ids, alive, bounds, partners, **kw)
     C, n_runs = _check_rows(xyzr, ids, alive, bounds)
@@ -187,48 +277,50 @@ def contact_seed_cuda(
     kernels.check_cuda("partners", partners, torch.int32, (C, K))
     if K < 1:
         raise ValueError("contact_seed_cuda: bond capacity must be >= 1")
-    W = mask_words(bounds)
-    mask = torch.empty((W, C), dtype=torch.int32, device=xyzr.device)
-    force = torch.empty((C, 3), dtype=torch.float32, device=xyzr.device)
-    degree = torch.empty((C,), dtype=torch.int32, device=xyzr.device)
+    force, degree, mask = (_outputs(out, C, xyzr.device, with_mask=True) if out is not None
+                           else _outputs(None, C, xyzr.device, W=mask_words(bounds)))
     kernels.launch(
         "hipsc_contact_seed",
         xyzr.data_ptr(), ids.data_ptr(), alive.data_ptr(), bounds.data_ptr(),
         partners.data_ptr(), mask.data_ptr(), force.data_ptr(), degree.data_ptr(),
-        C, K, W, n_runs, *pair_law_args(radius, adhesion_const, poisson, youngs,
-                                        break_d, uniform_radius),
+        C, K, mask.shape[0], n_runs, *pair_law_args(radius, adhesion_const, poisson,
+                                                    youngs, break_d, uniform_radius),
+        _pred_ptr(pred),
     )
-    kernels.launch_counts[kernels.counted_name("contact_seed", n_runs)] += 1
+    kernels.count_launch(kernels.counted_name("contact_seed", n_runs))
     return force, degree, mask
 
 
 def contact_masked_cuda(
     xyzr, ids, alive, bounds, mask, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
+    pred: Optional[torch.Tensor] = None, out=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The masked substep; the mask is updated in place and returned. A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel (or
     raises)."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
-              youngs=youngs, break_d=break_d, uniform_radius=uniform_radius)
+              youngs=youngs, break_d=break_d, uniform_radius=uniform_radius,
+              pred=pred, out=out)
     if xyzr.device.type == "cpu":
         return contact_masked_plain(xyzr, ids, alive, bounds, mask, **kw)
     C, n_runs = _check_rows(xyzr, ids, alive, bounds)
     W = _check_mask(mask, C)
-    force = torch.empty((C, 3), dtype=torch.float32, device=xyzr.device)
-    degree = torch.empty((C,), dtype=torch.int32, device=xyzr.device)
+    force, degree = _outputs(out, C, xyzr.device)
     kernels.launch(
         "hipsc_contact_masked",
         xyzr.data_ptr(), alive.data_ptr(), bounds.data_ptr(),
         mask.data_ptr(), force.data_ptr(), degree.data_ptr(), C, W, n_runs,
         *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
                        uniform_radius),
+        _pred_ptr(pred),
     )
-    kernels.launch_counts[kernels.counted_name("contact_masked", n_runs)] += 1
+    kernels.count_launch(kernels.counted_name("contact_masked", n_runs))
     return force, degree, mask
 
 
-def mask_compact_cuda(ids, bounds, mask, bond_cap: int) -> torch.Tensor:
+def mask_compact_cuda(ids, bounds, mask, bond_cap: int,
+                      pred: Optional[torch.Tensor] = None, out=None) -> torch.Tensor:
     """The compaction, for a bond capacity up to the engine's largest
     (``engine.MAX_BOND_CAP``). A CPU tensor runs the plain version; a CUDA
     tensor launches the kernel (or raises)."""
@@ -238,14 +330,17 @@ def mask_compact_cuda(ids, bounds, mask, bond_cap: int) -> torch.Tensor:
         raise ValueError(f"mask_compact_cuda: bond capacity {bond_cap} outside "
                          f"1..{MAX_BOND_CAP}")
     if ids.device.type == "cpu":
-        return mask_compact_plain(ids, bounds, mask, bond_cap)
+        return mask_compact_plain(ids, bounds, mask, bond_cap, pred=pred, out=out)
     C = ids.shape[0]
     kernels.check_cuda("ids", ids, torch.int32, (C,))
     n_runs = kernels.run_count(bounds)
     kernels.check_cuda("bounds", bounds, torch.int32, (C, 2 * n_runs))
     W = _check_mask(mask, C)
-    out = torch.empty((C, bond_cap), dtype=torch.int32, device=ids.device)
+    if out is None:
+        out = torch.empty((C, bond_cap), dtype=torch.int32, device=ids.device)
+    kernels.check_cuda("out", out, torch.int32, (C, bond_cap))
     kernels.launch("hipsc_mask_compact", ids.data_ptr(), bounds.data_ptr(),
-                   mask.data_ptr(), out.data_ptr(), C, int(bond_cap), W, n_runs)
-    kernels.launch_counts[kernels.counted_name("mask_compact", n_runs)] += 1
+                   mask.data_ptr(), out.data_ptr(), C, int(bond_cap), W, n_runs,
+                   _pred_ptr(pred))
+    kernels.count_launch(kernels.counted_name("mask_compact", n_runs))
     return out

@@ -18,6 +18,7 @@ rtol 1e-5, atol 1e-5; P2, with the card's rsqrtf against torch.rsqrt, rtol
 1e-4, atol 1e-4 x max|out|).
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -775,3 +776,232 @@ def test_engine_3d_step_on_card_matches_cpu(dev, contact_path):
               "diff_counters", "div_counters", "fds_counters"):
         np.testing.assert_array_equal(b[k], a[k], err_msg=k)
     np.testing.assert_allclose(b["locations"], a["locations"], rtol=0, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# run_steps blocks: the step without host reads, the predicated span-mask
+# kernels and their static mask width, the captured block
+# ---------------------------------------------------------------------------
+
+
+def _bench_engine(dev, contact_path, n=3000, **flags):
+    side = 2000.0 * (n / 5000.0) ** 0.5
+    gen = GeneralParams(num_to_start=n, end_step=20, size=(side, side, 0.0))
+    xp = ExperimentalParams(num_gata6=n // 10, dox_step=1)
+    diff = DiffusionParams(spat_res=20.0, diffuse_dt=6.0, diffuse_const=2.0,
+                           max_concentration=2.0, degradation=0.1, release_amount=0.01)
+    return HipscEngine(gen, xp, diff=diff, enable_diffusion=True, device=dev,
+                       contact_path=contact_path, **flags)
+
+
+def _spheroid_engine(dev, contact_path, n=1500):
+    from hipsc_abm_tpu_torch.engine import HipscEngine as Engine
+
+    gen = GeneralParams(num_to_start=n - n // 11, end_step=20, size=(300.0, 300.0, 300.0))
+    xp = ExperimentalParams(num_gata6=n // 11, dox_step=1, guye_move=False)
+    rs = np.random.default_rng(3)
+    u = rs.normal(size=(n, 3))
+    ball = 150.0 + u / np.linalg.norm(u, axis=1, keepdims=True) * (
+        70.0 * rs.random(n) ** (1 / 3))[:, None]
+    eng = Engine(gen, xp, device=dev, contact_path=contact_path)
+    return eng, eng.init_state(seed=2, locations=ball.astype(np.float32))
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("contact_path", ["id_list", "span_mask"])
+def test_engine_step_makes_no_host_read(dev, contact_path, dims):
+    """After one warm-up step, a step of either contact path, in 2D (with
+    diffusion) and 3D, runs under ``set_sync_debug_mode("error")``: nothing
+    in it waits for the card."""
+    if dims == 2:
+        eng = _bench_engine(dev, contact_path)
+        state = eng.init_state(seed=1)
+    else:
+        eng, state = _spheroid_engine(dev, contact_path)
+    state, _ = eng.safe_step(state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, info = eng.step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(info.num_agents) > 0
+
+
+def test_step_keys_on_card_match_cpu(dev):
+    """``split`` and ``hash_bits`` on key tensors on the card, bit-equal to
+    the CPU's."""
+    from hipsc_abm_tpu_torch.ops import rng
+
+    key = rng.prng_key(77)
+    keys_cpu = torch.stack(rng.split(key, 4096))
+    keys_dev = torch.stack(rng.split(key.to(dev), 4096))
+    assert torch.equal(keys_dev.cpu(), keys_cpu)
+    ids = torch.arange(0, 2**31 - 1, 2**31 // 100_000, dtype=torch.int32)
+    assert torch.equal(rng.hash_bits(keys_dev[9], ids.to(dev), 3).cpu(),
+                       rng.hash_bits(keys_cpu[9], ids, 3))
+
+
+def _pred(dev, on):
+    return torch.full((1,), int(on), dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("on", [True, False], ids=["taken", "skipped"])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_predicated_span_mask_kernels_match_plain(dev, dims, on):
+    """The seed, the masked substep and the compaction under a device
+    predicate, into given buffers, against their plain versions under the
+    same predicate: taken, the results are those of an unpredicated call;
+    skipped, every buffer keeps what it held."""
+    K = 24
+    args = [a.to(dev) for a in (_contact_inputs(K, skin=14.0) if dims == 2
+                                else _contact_inputs_3d(K))]
+    law = dict(uniform_radius=BIO.max_radius, **LAW)
+    _, _, seed_mask = span_mask.contact_seed_plain(*args, **law)
+    W, C = seed_mask.shape
+    rows = (_moved(args), *args[1:4])
+
+    def buffers():
+        return (torch.full((C, 3), 7.0, device=dev),
+                torch.full((C,), -3, dtype=torch.int32, device=dev),
+                torch.full((W, C), 0x5A5A5A5A, dtype=torch.int32, device=dev),
+                torch.full((C, K), -7, dtype=torch.int32, device=dev))
+
+    outs = {}
+    for name, seed, masked, compact in (
+            ("kernel", span_mask.contact_seed_cuda, span_mask.contact_masked_cuda,
+             span_mask.mask_compact_cuda),
+            ("plain", span_mask.contact_seed_plain, span_mask.contact_masked_plain,
+             span_mask.mask_compact_plain)):
+        force, degree, mask, ids = buffers()
+        seed(*args, out=(force, degree, mask), pred=_pred(dev, on), **law)
+        m2 = seed_mask.clone()
+        f2, d2 = torch.zeros_like(force), torch.zeros_like(degree)
+        masked(*rows, m2, out=(f2, d2), pred=_pred(dev, on), **law)
+        compact(args[1], args[3], seed_mask, K, pred=_pred(dev, on), out=ids)
+        outs[name] = (force, degree, mask, f2, d2, m2, ids)
+    torch.cuda.synchronize()
+    k, p = outs["kernel"], outs["plain"]
+    fresh = buffers()
+    if on:
+        _check_contact(k[0], k[1], p[0], p[1])
+        _check_contact(k[3], k[4], p[3], p[4])
+        assert torch.equal(k[2], p[2]) and torch.equal(k[2], seed_mask)
+        assert torch.equal(k[5], p[5]) and not torch.equal(k[5], seed_mask)
+        assert torch.equal(k[6], p[6])
+        assert torch.equal(k[6], span_mask.mask_compact_plain(args[1], args[3], seed_mask, K))
+    else:
+        for got in (k, p):
+            for a, b in zip((got[0], got[1], got[2], got[6]), (fresh[0], fresh[1], fresh[2],
+                                                               fresh[3])):
+                assert torch.equal(a, b)
+            assert torch.equal(got[5], seed_mask) and not bool(got[4].any())
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_mask_kernels_never_write_past_the_capacity(dev, dims):
+    """A mask of one word (32 candidates) over rows that hold more: the
+    seed, the masked substep and the compaction read and write only that
+    word, whose guard rows before and after stay as they were; force and
+    degree are those of the whole walk (the plain version at the same
+    capacity), and the widest row reports the need."""
+    K = 24
+    args = [a.to(dev) for a in (_contact_inputs(K, skin=14.0) if dims == 2
+                                else _contact_inputs_3d(K))]
+    C = args[0].shape[0]
+    assert span_mask.widest_row(args[3]) > 32
+    law = dict(uniform_radius=BIO.max_radius, **LAW)
+    guard = 0x5A5A5A5A
+    buf = torch.full((3, C), guard, dtype=torch.int32, device=dev)
+    mask = buf[1:2]  # one word per row between two guard rows
+    force = torch.empty((C, 3), device=dev)
+    degree = torch.empty((C,), dtype=torch.int32, device=dev)
+    span_mask.contact_seed_cuda(*args, out=(force, degree, mask), **law)
+    plain = [torch.zeros_like(force), torch.zeros_like(degree),
+             torch.zeros((1, C), dtype=torch.int32, device=dev)]
+    span_mask.contact_seed_plain(*args, out=plain, **law)
+    torch.cuda.synchronize()
+    _check_contact(force, degree, plain[0], plain[1])
+    assert torch.equal(mask, plain[2])
+    rows = (_moved(args), *args[1:4])
+    span_mask.contact_masked_cuda(*rows, mask, out=(force, degree), **law)
+    span_mask.contact_masked_plain(*rows, plain[2], out=plain[:2], **law)
+    ids = span_mask.mask_compact_cuda(args[1], args[3], mask, K)
+    torch.cuda.synchronize()
+    _check_contact(force, degree, plain[0], plain[1])
+    assert torch.equal(mask, plain[2])
+    assert torch.equal(ids, span_mask.mask_compact_plain(args[1], args[3], plain[2], K))
+    assert bool((buf[0] == guard).all()) and bool((buf[2] == guard).all())
+
+
+@pytest.mark.parametrize("contact_path", ["id_list", "span_mask"])
+def test_run_steps_graph_replays_match_eager_blocks(dev, contact_path):
+    """Two consecutive 3-step blocks of ``run_steps`` (one captured CUDA
+    graph, replayed twice) against the same block function run eagerly on
+    the card: positions and integer state bit-equal by slot, the lattice
+    within its deposit's atomics (float32 sums in no fixed order), the
+    probes equal; each replay counts the graph's launches."""
+    from hipsc_abm_tpu_torch import engine as engine_mod
+
+    eng = _bench_engine(dev, contact_path)
+    state, _ = eng.safe_step(eng.init_state(seed=4))
+    cfg = eng._cfg_for_state(state)
+    eager, probes = state, []
+    for _ in range(2):
+        table, keys = engine_mod.step_inputs(eager.key, eager.step, 3)
+        eager, p = engine_mod._run_block(eng, cfg, eager, table.to(dev))
+        eager = eager._replace(key=keys[-1])
+        probes.append(p.cpu())
+    graphed, info = eng.run_steps(state, 3)  # the capture, then a replay
+    infos = [info]
+    kernels.launch_counts.clear()
+    graphed, info = eng.run_steps(graphed, 3)
+    infos.append(info)
+    graphs = {g["k"]: g for g in eng.block_graphs()}  # safe_step's and the block's
+    assert eng.block_attempts == 1 and sorted(graphs) == [1, 3]
+    per_replay = graphs[3]["launches"]
+    assert per_replay and dict(kernels.launch_counts) == per_replay
+    a, b = convert.state_to_numpy(eager), convert.state_to_numpy(graphed)
+    for k in a["arrays"]:
+        np.testing.assert_array_equal(b["arrays"][k].view(np.int32)
+                                      if b["arrays"][k].dtype == np.float32
+                                      else b["arrays"][k],
+                                      a["arrays"][k].view(np.int32)
+                                      if a["arrays"][k].dtype == np.float32
+                                      else a["arrays"][k], err_msg=k)
+    for k in ("alive", "partners", "bond_mask", "key", "step", "next_id"):
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    np.testing.assert_allclose(b["gradients"]["fgf4_values"], a["gradients"]["fgf4_values"],
+                               rtol=0, atol=1e-6)
+    for p, info in zip(probes, infos):
+        np.testing.assert_array_equal(np.asarray(info.num_agents), p[:, 0].numpy())
+        np.testing.assert_array_equal(np.asarray(info.jkr_rebuilds), p[:, -1].numpy())
+
+
+@pytest.mark.parametrize("contact_path", ["id_list", "span_mask"])
+def test_run_steps_follows_replaced_parameters(dev, contact_path):
+    """A block captured under one ``xp`` (doxycycline never in) and run again
+    after the caller replaces ``eng.xp`` (doxycycline in from step 1), with
+    the config unchanged: the second run is captured anew and equals the
+    same steps run eagerly under the new parameters, and differs from the
+    first."""
+    eng = _bench_engine(dev, contact_path)
+    eng.xp = dataclasses.replace(eng.xp, dox_step=1000)
+    state = eng.init_state(seed=5)
+    before, _ = eng.run_steps(state, 2)
+    eng.xp = dataclasses.replace(eng.xp, dox_step=1)
+    after, _ = eng.run_steps(state, 2)
+    assert eng.block_attempts == 1 and len(eng.block_graphs()) == 1
+    eager = state
+    for _ in range(2):
+        eager, _ = eng.step(eager)
+    a, b, c = (convert.state_to_numpy(s) for s in (after, eager, before))
+    for k in a["arrays"]:
+        x, y = a["arrays"][k], b["arrays"][k]
+        if x.dtype == np.float32:
+            x, y = x.view(np.int32), y.view(np.int32)
+        np.testing.assert_array_equal(x, y, err_msg=k)
+    for k in ("alive", "partners", "bond_mask", "next_id"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert any(not np.array_equal(a["arrays"][k], c["arrays"][k])
+               for k in ("FGFR", "ERK", "GATA6", "NANOG"))

@@ -145,7 +145,7 @@ def test_engine_config_meta_across_packages():
     assert config_from_meta(tmeta) == teng.cfg
     jmeta = jax_config_to_meta(jeng.cfg)
     from_jax = config_from_meta(jmeta)
-    port_view = {k: v for k, v in tmeta.items() if k != "contact_path"}
+    port_view = {k: v for k, v in tmeta.items() if k not in ("contact_path", "mask_bits")}
     for spec in ("nbr_spec", "jkr_spec"):
         port_view[spec] = {k: v for k, v in tmeta[spec].items() if k != "run_cap"}
     assert _common_meta(jmeta, tmeta) == port_view

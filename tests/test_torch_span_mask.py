@@ -235,7 +235,7 @@ def _scan_inputs(skin, seed=2):
         bond_cap=d["partners"].shape[1])
     tcfg = teng_mod.EngineConfig.create(
         gen.size, capacity=C, bio=TBIO, verlet_skin=skin, uniform_radius=BIO.max_radius,
-        bond_cap=d["partners"].shape[1], contact_path="span_mask")
+        bond_cap=d["partners"].shape[1], contact_path="span_mask", mask_bits=C)
     assert jcfg.capacity == tcfg.capacity
     assert dataclasses.asdict(jcfg.jkr_spec) | {"run_cap": 0} == dataclasses.asdict(tcfg.jkr_spec)
     return gen, d, jcfg, tcfg
@@ -255,7 +255,7 @@ def test_scan_matches_physics_scan_pallas(skin):
     ts = convert.state_from_numpy(d, "cpu")
     tout = teng_mod._physics_scan_span_mask(
         tcfg, TBIO, ts.arrays, ts.alive, ts.bonds, torch.tensor(gen.size), dts)
-    loc, bonds, _, deg, move, rebuilds = tout
+    loc, bonds, _, deg, move, rebuilds, _ = tout
     assert (rebuilds > 0) == (skin < 14.0)
     alive = d["alive"]
     np.testing.assert_allclose(loc.numpy()[alive], np.asarray(jout[0])[alive], rtol=0,
