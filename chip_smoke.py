@@ -22,6 +22,9 @@ Phases, each of which raises on failure (exit code != 0):
    the compaction and the bio moments also each alone per launch under
    ``torch.profiler``, in turns, with the candidates per live row that
    reach the membership test; FTCS also on fixed halos beside the plan's;
+   the deposit's fixed-order sum (``csrc/deposit.cu``, glue) bit-equal to
+   ``index_add`` on the CPU at the 100k state and at 500k after one step,
+   timed beside ``index_add_`` on the card;
 3. probes: each mode of the window probes P1 and P2 against its plain
    version at NBLK = 4096, the kernel's own device time per launch under
    ``torch.profiler`` and its multiple of the bound, then each probe's entry point
@@ -82,8 +85,8 @@ Phases, each of which raises on failure (exit code != 0):
    ``safe_step``, both contact paths, and the 3D span-mask path with the
    optional phases, ``run_steps(10)`` against 10 ``safe_step``s (blocks of
    one step) and against 10 eager ``step``s (integer state, bond sets,
-   positions and radii bit-equal by agent id, rebuilds per step equal, the
-   lattice's difference reported), the block's launches counted from 0;
+   positions, radii and the lattice bit-equal by agent id, rebuilds per
+   step equal), the block's launches counted from 0;
    (b) one eager step of each under
    ``set_sync_debug_mode("error")``, and the synchronising calls of one
    block counted (must be 1); (c) the 2D 100k colony from ``init_state`` at
@@ -94,6 +97,23 @@ Phases, each of which raises on failure (exit code != 0):
    device time, busy share, capture seconds
    and graph memory; (e) lifecycle b with ``output_interval: 3`` against
    the per-step run (the boundaries' values CSVs byte-equal).
+9. ensembles (``ensemble_phase``, ``parallel.ensemble.EnsembleEngine``):
+   R = 16 replicates of the 5,000-cell bench colony (seeds 0-15), FGF4
+   field coupling on from lattices seeded in [0, 2) (degradation off), each
+   ``safe_step`` one replay of one CUDA graph of 16 branches and one probe
+   fetch: (a) 6 ``safe_step``s, each replicate bit-equal by agent id (the
+   lattice, key and next_id too) to its solo card ``safe_step`` run, the
+   launches counted from 0, one host read per attempt; (b) an 8-point
+   sweep of ``adhesion_const`` (0.8-1.2x) and ``GATA6_prob`` (stochastic
+   bumps on), each point bit-equal to its solo run; (c) replicates 0 and
+   1 on the CPU, each card step from the CPU's state within the step
+   phase's tolerance; (d) 4 replicates at a capacity that overflows,
+   growing inside ``safe_step``, equal to solo runs; (e) the ensemble's
+   ``safe_step`` against the 16 solo ``safe_step``s in turns (ensemble,
+   solo, solo, ensemble): ms per step and per replicate-step, the kernels'
+   summed device time (profiler) and the replays' device span (CUDA
+   events), busy share, capture s, MiB and launches per replay,
+   and one eager ensemble ``step``. Every replay waits with a deadline.
 
 The last lines are the seconds per phase, one JSON object with each
 kernel's numbers (``law``: the contact law of the run its inputs and
@@ -131,9 +151,9 @@ PATHS = ("id_list", "span_mask")
 # the kernels each contact path launches in 2D and in 3D (counted from its
 # own main-path run)
 PATH_KERNELS = {
-    (2, "id_list"): ("contact_substep", "bio_moments", "ftcs_diffuse"),
+    (2, "id_list"): ("contact_substep", "bio_moments", "ftcs_diffuse", "deposit"),
     (2, "span_mask"): ("contact_seed", "contact_masked", "mask_compact", "bio_moments",
-                       "ftcs_diffuse"),
+                       "ftcs_diffuse", "deposit"),
     (3, "id_list"): ("contact_substep_3d", "bio_moments_3d"),
     (3, "span_mask"): ("contact_seed_3d", "contact_masked_3d", "mask_compact_3d",
                        "bio_moments_3d"),
@@ -179,7 +199,7 @@ P2_FLOPS, P2_KEPT_FLOPS = 23, 4
 # others whose device time per step is reported beside them
 CONTACT_KERNELS = ("contact_substep_kernel", "contact_mask_kernel<true",
                    "contact_mask_kernel<false", "mask_compact_kernel")
-OTHER_KERNELS = ("bio_moments_kernel", "ftcs_diffuse_kernel")
+OTHER_KERNELS = ("bio_moments_kernel", "ftcs_diffuse_kernel", "deposit_sorted_kernel")
 # timed steps of a main path (after 3 warm-ups)
 TIMED_STEPS = 20
 # launches per turn when a kernel is timed alone under the profiler
@@ -214,6 +234,18 @@ N_SMALL = 1_000
 BLOCK_TIMED_STEPS = 20
 BLOCK_HEADROOM = 2.0
 LIFECYCLE_BLOCK_INTERVAL = 3
+# phase 9, ensembles: R replicates of the bench colony at 5,000 cells (side
+# 2000 um; the JAX package's ensemble workload, tools/bench_ensemble.py),
+# safe_steps of the equality checks, the sweep's points, the growth check's
+# capacity (one quantum above the 5,500 starting agents: the first steps'
+# divisions overflow it), and the timed turns' warm-up and timed steps
+N_ENSEMBLE = 5_000
+ENSEMBLE_R = 16
+ENSEMBLE_STEPS = 6
+SWEEP_POINTS = 8
+ENSEMBLE_TIGHT_CAPACITY = 5_632
+ENSEMBLE_WARMUP = 3
+ENSEMBLE_TIMED = 10
 
 
 def bench_engine(n_cells: int, device: str, contact_path: str = "id_list", **flags):
@@ -583,6 +615,8 @@ def kernel_phase(eng, state):
         print(f"kernel ftcs_diffuse: plan {plan} ({plan.ctas} CTAs, {plan.smem_bytes} bytes "
               f"of shared memory each); kernel alone per launch by halo (profiler, 10 "
               f"launches, in turns; 0 = the plan's): {alone}")
+        # the deposit's fixed-order sum (glue: the JAX deposit is XLA)
+        results.append(deposit_entry(eng, state, "100k"))
     for r in results:
         print(f"  {r['name']} ({label}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -1031,9 +1065,9 @@ def coupling_phase(steps: int = 20) -> None:
     """Reproducibility with ``DiffusionParams.field_coupling`` on: two runs
     of the 2D bench configuration at ``N_MAIN`` cells from one seed,
     ``steps`` ``safe_step``s each, compared by agent id. With coupling on,
-    the lattice (whose FGF4 deposit sums with atomics in no fixed order)
-    feeds the integer FDS update through ``floor((1 + g) * field)``, so
-    integer state and positions must come out equal. The bench's release
+    the lattice feeds the integer FDS update through ``floor((1 + g) *
+    field)``, so integer state, positions and (its deposit summing in a
+    fixed order) the lattice must come out bit-equal. The bench's release
     (0.01 per cell and step) alone would keep the field far below the
     floor's first boundary, so both runs start from one lattice drawn
     uniform in [0, max_concentration) from the seed, with degradation off so
@@ -1067,9 +1101,9 @@ def coupling_phase(steps: int = 20) -> None:
           f"positions bit-equal {loc_equal}; lattice points differing in bits {lat_diff} of "
           f"{la.size} (max |d| {float(np.abs(la - lb).max()):.3e}); lattice mean "
           f"{float(la.mean()):.4f}, min {float(la.min()):.4f}, max {float(la.max()):.4f}")
-    if ints or not loc_equal:
+    if ints or not loc_equal or lat_diff:
         raise AssertionError(f"{label}: the two runs part (integer fields {ints}, positions "
-                             f"bit-equal {loc_equal})")
+                             f"bit-equal {loc_equal}, lattice points apart {lat_diff})")
 
 
 def write_templates(root: str, general: dict, experimental: dict) -> None:
@@ -1570,8 +1604,8 @@ def main_path(dims: int, n_cells: int, path: str, optional: bool = False) -> dic
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"{label}: kernel {name} was never launched")
     # every step attempt runs 11 contact substeps, three bio-moments passes
-    # (four with diff_surround) and, in 2D, one FTCS launch for its whole
-    # subcycle schedule; on the span-mask path every substep launches the
+    # (four with diff_surround) and, in 2D, one deposit launch and one FTCS
+    # launch for its whole subcycle schedule; on the span-mask path every substep launches the
     # seed (which runs at the entry and where the window is rebuilt), every
     # substep after the first the masked substep (which runs where it is
     # not) and the compaction (as the seed), and the scan's exit one more
@@ -1590,10 +1624,11 @@ def main_path(dims: int, n_cells: int, path: str, optional: bool = False) -> dic
     passes = 4 if optional else 3
     bio_launches = counts.get(kernels.counted_name("bio_moments", n_runs), 0)
     if rest or attempts < 3 + TIMED_STEPS or bio_launches != passes * attempts or (
-            dims == 2 and counts["ftcs_diffuse"] != attempts):
+            dims == 2 and not counts["ftcs_diffuse"] == counts["deposit"] == attempts):
         raise AssertionError(f"{label}: contact launches {counts}, {bio_launches} "
-                             f"bio-moments and {counts.get('ftcs_diffuse')} FTCS launches "
-                             f"for {attempts} step attempts")
+                             f"bio-moments, {counts.get('ftcs_diffuse')} FTCS and "
+                             f"{counts.get('deposit')} deposit launches for {attempts} step "
+                             "attempts")
     other = {n for key, names in PATH_KERNELS.items() if key[0] != dims for n in names}
     stray = sorted(n for n in other if counts.get(n, 0))
     if stray:
@@ -1645,10 +1680,8 @@ def optional_summary(runs) -> None:
 
 def compare_bits(a: dict, b: dict, label: str) -> str:
     """Two numpy states by agent id: ids, integer fields and bond sets equal,
-    positions and radii bit-equal; the lattice's largest difference
-    reported (its deposit adds float32 with atomics in no fixed order, so
-    its low bits may differ between two runs). Raises, or returns a
-    summary."""
+    positions, radii, the lattice (its deposit sums in a fixed order), the
+    key and ``next_id`` bit-equal. Raises, or returns a summary."""
     ia, ib = by_id(a), by_id(b)
     if not np.array_equal(ia["ids"], ib["ids"]):
         raise AssertionError(f"{label}: agent id sets differ")
@@ -1659,16 +1692,15 @@ def compare_bits(a: dict, b: dict, label: str) -> str:
                if not np.array_equal(ia[k].view(np.int32), ib[k].view(np.int32))]
     if ia["bonds"] != ib["bonds"]:
         differ.append("bonds")
+    for g in a["gradients"]:
+        apart = int((a["gradients"][g].view(np.int32) != b["gradients"][g].view(np.int32)).sum())
+        if apart:
+            differ.append(f"lattice {g} ({apart} points)")
+    differ += [k for k in ("key", "next_id") if not np.array_equal(a[k], b[k])]
     if differ:
         raise AssertionError(f"{label}: {differ} differ")
-    summary = (f"{len(ia['ids'])} agents, integer fields, bond sets, positions and radii "
-               "bit-equal")
-    if "fgf4_values" in a["gradients"]:
-        la, lb = a["gradients"]["fgf4_values"], b["gradients"]["fgf4_values"]
-        summary += (f", lattice max |d| {float(np.abs(la - lb).max()):.3e} "
-                    f"({int((la.view(np.int32) != lb.view(np.int32)).sum())} of {la.size} "
-                    "points differ in bits)")
-    return summary
+    return (f"{len(ia['ids'])} agents, integer fields, bond sets, positions, radii, "
+            f"{'the lattice, ' if a['gradients'] else ''}key and next_id bit-equal")
 
 
 class SyncCounter:
@@ -1683,7 +1715,8 @@ class SyncCounter:
         self._filters = warnings.filters[:]
 
         def show(message, *args, **kwargs):
-            if "synchroniz" in str(message):
+            # PyTorch's notice on the first use of the debug mode is not a read
+            if "synchroniz" in str(message) and "prototype" not in str(message):
                 self.count += 1
             else:
                 self._show(message, *args, **kwargs)
@@ -2008,6 +2041,365 @@ def blocks_phase() -> dict:
     return out
 
 
+def deposit_entry(eng, state, tag: str) -> dict:
+    """The fixed-order deposit (``diffusion.scatter_add_cuda``: a stable
+    sort and the ``deposit`` kernel) on the step's deposit terms at
+    ``state``, against its plain version, ``index_add`` on the CPU, bit for
+    bit (twice: two card calls equal too); the wrapper's time beside the
+    plain version's and ``index_add_``'s on the card (atomics in no fixed
+    order), the kernel's and the sort's own device time, and the bound: the
+    terms (int64 index, float32 amount) and the lattice read once, the
+    lattice written once."""
+    from hipsc_abm_tpu_torch.ops import diffusion
+    from hipsc_abm_tpu_torch.tools import device_kernels
+
+    a, alive, diff = state.arrays, state.alive, eng.diff
+    secreting = alive & (a["NANOG"] > a["GATA6"])
+    amounts = (torch.where(secreting, diff.release_amount, 0.0)
+               - torch.where(alive, diff.uptake_amount, 0.0)).to(torch.float32)
+    lattice = state.gradients["fgf4_values"]
+    idx, contrib = diffusion.deposit_terms(lattice.shape, a["locations"], amounts,
+                                           diff.spat_res)
+    flat = lattice.reshape(-1).contiguous()
+    got = diffusion.scatter_add_cuda(flat, idx, contrib)
+    again = diffusion.scatter_add_cuda(flat, idx, contrib)
+    want = diffusion.scatter_add_plain(flat.cpu(), idx.cpu(), contrib.cpu())
+    err = float((got.cpu() - want).abs().max())
+    label = f"kernel deposit [{tag}]"
+    if not (torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+            and torch.equal(got.view(torch.int32), again.view(torch.int32))):
+        raise AssertionError(f"{label}: not bit-equal to index_add on the CPU")
+    ext = torch.cat([flat, flat.new_zeros(1)])
+    n, P = idx.numel(), flat.numel()
+    ms = cuda_ms(lambda: diffusion.scatter_add_cuda(flat, idx, contrib), 50)
+    plain_ms = cuda_ms(lambda: diffusion.scatter_add_plain(flat, idx, contrib), 50)
+    library_ms = cuda_ms(lambda: ext.index_add_(0, idx, contrib), 50)
+    _, _, own = device_kernels(lambda: diffusion.scatter_add_cuda(flat, idx, contrib),
+                               ALONE_LAUNCHES, ("deposit_sorted_kernel", "Sort", "sort"))
+    nearby = int((idx < P).sum())
+    entry = dict(name="deposit" if tag == "100k" else f"deposit[{tag}]", route="cuda",
+                 source="hipsc_abm_tpu_torch/csrc/deposit.cu",
+                 replaces="hipsc_abm_tpu/ops/diffusion.py:121 (an XLA scatter-add, not a "
+                          "Pallas kernel: glue)",
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 law="uniform", **bound(8 * n + 4 * n + 2 * 4 * P, n))
+    print(f"{label}: lattice {tuple(lattice.shape)}, {n} terms ({nearby} on the lattice), "
+          f"bit-equal to index_add on the CPU and between two card calls; wrapper "
+          f"{ms:.4f} ms, plain (index_add on the card) {plain_ms:.4f} ms, index_add_ "
+          f"{library_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}); "
+          f"device per call by kernel (profiler, {ALONE_LAUNCHES} calls) "
+          + ", ".join(f"{k} {v[0]:.5f} ms / {v[1]:g}" for k, v in own.items()))
+    return entry
+
+
+def deposit_large_phase() -> list:
+    """The deposit at the 2D 500k bench colony after one eager step."""
+    eng, state = engine_for(2, N_LARGE, "cuda", "id_list")
+    state, _ = eng.step(state)
+    out = [deposit_entry(eng, state, "500k")]
+    del eng, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def ensemble_engine(device: str, **flags):
+    """Phase 9's configuration: the bench at ``N_ENSEMBLE`` cells (side 2000
+    um, 500 GATA6-high, dox at step 5, diffusion on; the JAX package's
+    ensemble workload) with the FGF4 field coupled to the pathway and
+    degradation off (see ``seed_lattices``)."""
+    eng = bench_engine(N_ENSEMBLE, device, **flags)
+    eng.diff = dataclasses.replace(eng.diff, field_coupling=True, degradation=0.0)
+    return eng
+
+
+def seeded_lattice(seed: int, shape, max_concentration: float) -> np.ndarray:
+    """A lattice uniform in [0, max_concentration) from ``seed``: the bench's
+    release alone keeps the field below ``floor((1 + g) * field)``'s first
+    boundary, so the coupling would change nothing (as in
+    ``coupling_phase``)."""
+    return (np.random.default_rng(seed).random(tuple(shape), dtype=np.float32)
+            * np.float32(max_concentration))
+
+
+def seed_lattices(states, seeds, diff):
+    """Stacked states with replicate i's lattice ``seeded_lattice(seeds[i])``."""
+    g = states.gradients["fgf4_values"]
+    lat = np.stack([seeded_lattice(s, g.shape[1:], diff.max_concentration) for s in seeds])
+    return states._replace(gradients={"fgf4_values": torch.from_numpy(lat).to(g.device)})
+
+
+def solo_state(eng, seed: int):
+    state = eng.init_state(seed=seed)
+    g = state.gradients["fgf4_values"]
+    lat = seeded_lattice(seed, g.shape, eng.diff.max_concentration)
+    return state._replace(gradients={"fgf4_values": torch.from_numpy(lat).to(g.device)})
+
+
+def ensemble_against_solo(label: str, ens, seeds, steps: int, make_eng, sweep=None) -> dict:
+    """``steps`` ensemble ``safe_step``s from ``init_states(seeds)`` (lattices
+    seeded), the launch counts set to 0 just before and read just after,
+    and one host read per attempt counted on the last; then each replicate
+    against its solo card ``safe_step`` run on the ensemble's initial
+    config with its swept values, by ``compare_bits`` (every array by agent
+    id, the lattice, key and next_id bit-equal)."""
+    from hipsc_abm_tpu_torch import convert, kernels
+    from hipsc_abm_tpu_torch.parallel.ensemble import SWEEPABLE, EnsembleEngine
+
+    states = seed_lattices(ens.init_states(seeds), seeds, ens.engine.diff)
+    cfg0 = ens.engine.cfg
+    cap0 = states.alive.shape[1]
+    kernels.launch_counts.clear()
+    attempts = 0
+    t0 = time.perf_counter()
+    for t in range(steps):
+        before = ens.graphs()
+        if t == steps - 1:
+            with SyncCounter() as reads:
+                states, infos = ens.safe_step(states)
+        else:
+            states, infos = ens.safe_step(states)
+        attempts += ens.attempts
+    captured = ens.graphs() != before  # a capture makes set-up reads
+    torch.cuda.synchronize()
+    t_ens = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    missing = [k for k in PATH_KERNELS[(2, "id_list")] if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels {missing} did not run ({counts})")
+    if not captured and reads.count != ens.attempts:
+        raise AssertionError(f"{label}: {reads.count} host reads for {ens.attempts} "
+                             "attempt(s) of the last safe_step, expected one per attempt")
+    graphs = ens.graphs()
+    per_replay = sum(graphs[-1]["launches"].values())
+    # each replay runs every replicate's step (11 contact substeps, 3
+    # bio-moments passes, one deposit and one FTCS launch); each capture
+    # adds one eager warm-up replicate step
+    n_steps, rest = divmod(counts["contact_substep"], 11)
+    R = len(seeds)
+    if (rest or not R * attempts <= n_steps <= (R + 1) * attempts
+            or counts["bio_moments"] != 3 * n_steps
+            or not counts["ftcs_diffuse"] == counts["deposit"] == n_steps):
+        raise AssertionError(f"{label}: launches {counts} for {attempts} attempts of "
+                             f"{R} replicates")
+    t0 = time.perf_counter()
+    for i, seed in enumerate(seeds):
+        eng = make_eng()
+        over = {k: v[i] for k, v in (sweep or {}).items()}
+        eng.xp = dataclasses.replace(eng.xp, **{k: v for k, v in over.items()
+                                                 if SWEEPABLE[k] == "xp"})
+        eng.bio = dataclasses.replace(eng.bio, **{k: v for k, v in over.items()
+                                                   if SWEEPABLE[k] == "bio"})
+        eng.cfg = cfg0
+        solo = solo_state(eng, seed)
+        for _ in range(steps):
+            solo, _ = eng.safe_step(solo)
+        summary = compare_bits(convert.state_to_numpy(EnsembleEngine.replicate(states, i)),
+                               convert.state_to_numpy(solo), f"{label}: replicate {i}")
+        del eng, solo
+    torch.cuda.synchronize()
+    t_solo = time.perf_counter() - t0
+    held = [(g["replicates"], round(g["capture_s"], 2), round(g["pool_mib"], 1), per_replay)
+            for g in graphs]
+    print(f"{label}: {len(seeds)} replicates x {steps} safe_steps ({attempts} attempts, "
+          f"{t_ens:.2f} s, capture included) each bit-equal to its solo card run "
+          f"({t_solo:.2f} s); last: {summary}; capacity {cap0} -> {states.alive.shape[1]}; "
+          f"agents {infos.num_agents.tolist()}; host reads in the last safe_step "
+          f"{reads.count}; graph (R, capture s, MiB reserved, launches per replay) {held}; "
+          f"launches {counts}")
+    return dict(replicates=len(seeds), steps=steps, attempts=attempts,
+                capacity=[cap0, states.alive.shape[1]], graphs=graphs,
+                launches_per_replay=per_replay, launches=counts, states=states)
+
+
+def ensemble_card_vs_cpu(steps: int = 2) -> str:
+    """Phase 9 c: replicates 0 and 1 (seeds 0, 1) as an ensemble on the CPU
+    (plain versions); each step of the card's ensemble from the CPU's state
+    held to the CPU's next state by ``compare_colonies`` (the step phase's
+    tolerance: integer state equal by agent id, positions within 1e-3 um,
+    bond sets differing on at most one row)."""
+    from hipsc_abm_tpu_torch.parallel.ensemble import EnsembleEngine
+    from hipsc_abm_tpu_torch import convert
+
+    seeds = [0, 1]
+    cpu = EnsembleEngine(ensemble_engine("cpu"))
+    card = EnsembleEngine(ensemble_engine("cuda"))
+    states = seed_lattices(cpu.init_states(seeds), seeds, cpu.engine.diff)
+    out = []
+    t_cpu = t_card = 0.0
+    for t in range(steps):
+        card.engine.cfg = cpu.engine.cfg
+        on_card = to_device(states, "cuda")
+        t0 = time.perf_counter()
+        states, _ = cpu.safe_step(states)
+        t1 = time.perf_counter()
+        on_card, _ = card.safe_step(on_card)
+        torch.cuda.synchronize()
+        t_cpu, t_card = t_cpu + t1 - t0, t_card + time.perf_counter() - t1
+        for i in range(2):
+            out.append(compare_colonies(
+                convert.state_to_numpy(EnsembleEngine.replicate(states, i)),
+                convert.state_to_numpy(EnsembleEngine.replicate(on_card, i)),
+                f"ensemble phase c, step {t + 1}, replicate {i}", 1))
+    summary = (f"ensemble phase c ({N_ENSEMBLE} cells, R = 2, {steps} card steps each from "
+               f"the CPU's state): {'; '.join(out)}; cpu {t_cpu:.2f} s, card {t_card:.2f} s")
+    print(summary)
+    return summary
+
+
+def to_device(states, device: str):
+    """A (stacked) state with its device tensors moved to ``device``."""
+    from hipsc_abm_tpu_torch.engine import _device_tensors, _with_device_tensors
+
+    return _with_device_tensors(states, [t.to(device) for t in _device_tensors(states)])
+
+
+def ensemble_timing(seeds) -> dict:
+    """Phase 9 e: the ensemble's ``safe_step`` against the 16 solo
+    ``safe_step``s of the same seeds (each a captured one-step graph), in
+    turns (ensemble, solo, solo, ensemble), ``ENSEMBLE_WARMUP`` warm-up and
+    ``ENSEMBLE_TIMED`` timed steps each from one set of states, each step
+    timed on the host clock to its probe fetch; ms per step and per
+    replicate-step, the kernels' summed device time and the replays' device
+    span, the busy share (span over wall) of each, the graph's capture s,
+    MiB and launches, and one eager ensemble ``step``. No claim."""
+    from hipsc_abm_tpu_torch.parallel.ensemble import EnsembleEngine
+    from hipsc_abm_tpu_torch.tools import device_kernels
+
+    R = len(seeds)
+    ens = EnsembleEngine(ensemble_engine("cuda"))
+    states0 = seed_lattices(ens.init_states(seeds), seeds, ens.engine.diff)
+    solos = []
+    for seed in seeds:
+        eng = ensemble_engine("cuda")
+        eng.cfg = ens.engine.cfg
+        solos.append((eng, solo_state(eng, seed)))
+    for _ in range(ENSEMBLE_WARMUP):
+        states0, _ = ens.safe_step(states0)
+        solos = [(eng, eng.safe_step(s)[0]) for eng, s in solos]
+    torch.cuda.synchronize()
+
+    def run_ens():
+        s, ms = states0, []
+        for _ in range(ENSEMBLE_TIMED):
+            t = time.perf_counter()
+            s, _ = ens.safe_step(s)
+            ms.append((time.perf_counter() - t) * 1e3)
+        return ms
+
+    def run_solo():
+        ss, ms = [s for _, s in solos], []
+        for _ in range(ENSEMBLE_TIMED):
+            t = time.perf_counter()
+            ss = [eng.safe_step(s)[0] for (eng, _), s in zip(solos, ss)]
+            ms.append((time.perf_counter() - t) * 1e3)
+        return ms
+
+    graphs = ens.graphs()
+    samples = {"ensemble": [], "solo": []}
+    order = ["ensemble", "solo", "solo", "ensemble"]
+    for key in order:
+        samples[key] += run_ens() if key == "ensemble" else run_solo()
+    if ens.graphs() != graphs:
+        raise AssertionError(f"ensemble phase e: the ensemble re-captured ({ens.graphs()})")
+    # device time per step: the kernels' summed time (profiler; it traces
+    # concurrent kernels one after another, so it cannot see the overlap)
+    # and the span of back-to-back replays (CUDA events), which the busy
+    # share divides by the step's wall time
+    ens_graph = next(iter(ens._graphs.values())).graph
+    solo_graphs = [next(iter(eng._graphs.values())).graph for eng, _ in solos]
+    dev = {"ensemble": (device_kernels(lambda: ens.safe_step(states0), 2, warmup=False)[0],
+                        cuda_ms(ens_graph.replay, 10)),
+           "solo": (device_kernels(lambda: [eng.safe_step(s) for eng, s in solos], 2,
+                                   warmup=False)[0],
+                    cuda_ms(lambda: [g.replay() for g in solo_graphs], 10))}
+    t0 = time.perf_counter()
+    ens.step(states0)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    out = dict(replicates=R, cells=N_ENSEMBLE, eager_step_ms=eager_ms, graphs=graphs,
+               solo_graphs=[g for eng, _ in solos[:1] for g in eng.block_graphs()])
+    parts = []
+    for key in ("ensemble", "solo"):
+        ms = np.asarray(samples[key])
+        total, span = dev[key]
+        med = float(np.median(ms))
+        total = total if total > 0 else None  # the profiler saw no device time
+        row = dict(median_ms=med, p90_ms=float(np.percentile(ms, 90)),
+                   per_replicate_ms=med / R, samples=len(ms), kernel_ms_summed=total,
+                   replay_span_ms=span, busy=span / med,
+                   concurrency=total / span if total else None)
+        out[key] = row
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
+        parts.append(f"{key}: median {med:.3f} ms per step ({med / R:.4f} per replicate-step), "
+                     f"p90 {row['p90_ms']:.3f} ms ({len(ms)} samples); kernels "
+                     f"{fmt(total)} ms summed (profiler), replays' device span {span:.4f} ms "
+                     f"(CUDA events), busy {row['busy']:.3f}, kernels per span "
+                     f"{fmt(row['concurrency'])}")
+    out["speedup_per_replicate_step"] = out["solo"]["median_ms"] / out["ensemble"]["median_ms"]
+
+    def held(gs):
+        return [(round(g["capture_s"], 3), round(g["pool_mib"], 1), sum(g["launches"].values()))
+                for g in gs]
+
+    print(f"ensemble phase e ({R} x {N_ENSEMBLE} cells, in turns {order}, {ENSEMBLE_WARMUP} "
+          f"warm-up and {ENSEMBLE_TIMED} timed steps each): " + "; ".join(parts)
+          + f"; solo / ensemble {out['speedup_per_replicate_step']:.2f}x; ensemble graph "
+          f"(capture s, MiB reserved, launches per replay) {held(graphs)}; a solo graph "
+          f"{held(out['solo_graphs'])}; one eager ensemble step {eager_ms:.1f} ms")
+    del ens, solos
+    torch.cuda.empty_cache()
+    return out
+
+
+def ensemble_phase() -> dict:
+    """Phase 9, ensembles (see the module docstring)."""
+    from hipsc_abm_tpu_torch.parallel.ensemble import EnsembleEngine
+
+    seeds = list(range(ENSEMBLE_R))
+    out = {}
+    # a: replicates against solo runs
+    a = ensemble_against_solo(
+        f"ensemble phase a ({ENSEMBLE_R} x {N_ENSEMBLE} cells, field coupling on)",
+        EnsembleEngine(ensemble_engine("cuda")), seeds, ENSEMBLE_STEPS,
+        lambda: ensemble_engine("cuda"))
+    # b: a sweep of adhesion_const and GATA6_prob (the stochastic bumps on,
+    # so that GATA6_prob is read)
+    base = ensemble_engine("cuda", enable_stochastic=True).bio
+    sweep = {"adhesion_const": [float(base.adhesion_const * f)
+                                for f in np.linspace(0.8, 1.2, SWEEP_POINTS)],
+             "GATA6_prob": [float(base.GATA6_prob * f)
+                            for f in np.linspace(0.5, 4.0, SWEEP_POINTS)]}
+    b = ensemble_against_solo(
+        f"ensemble phase b ({SWEEP_POINTS}-point sweep of adhesion_const and GATA6_prob, "
+        "stochastic bumps on)",
+        EnsembleEngine(ensemble_engine("cuda", enable_stochastic=True), sweep=sweep),
+        [0] * SWEEP_POINTS, ENSEMBLE_STEPS,
+        lambda: ensemble_engine("cuda", enable_stochastic=True), sweep)
+    first, last = (EnsembleEngine.replicate(b["states"], i) for i in (0, SWEEP_POINTS - 1))
+    if torch.equal(first.arrays["locations"], last.arrays["locations"]):
+        raise AssertionError("ensemble phase b: the sweep's ends did not part")
+    # c: card against CPU
+    out["card_vs_cpu"] = ensemble_card_vs_cpu()
+    # d: growth inside safe_step
+    def tight():
+        eng = ensemble_engine("cuda")
+        eng.cfg = dataclasses.replace(eng.cfg, capacity=ENSEMBLE_TIGHT_CAPACITY)
+        return eng
+
+    d = ensemble_against_solo(
+        f"ensemble phase d (growth: capacity {ENSEMBLE_TIGHT_CAPACITY}, 4 replicates)",
+        EnsembleEngine(tight()), seeds[:4], ENSEMBLE_STEPS, tight)
+    if d["capacity"][1] == d["capacity"][0]:
+        raise AssertionError(f"ensemble phase d: the capacity never grew ({d['capacity']})")
+    for key, r in (("replicates", a), ("sweep", b), ("growth", d)):
+        out[key] = {k: v for k, v in r.items() if k != "states"}
+    del a, b, d, first, last
+    torch.cuda.empty_cache()
+    # e: timing, no claim
+    out["timing"] = ensemble_timing(seeds)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2051,6 +2443,7 @@ def main() -> int:
     results = []
     for dims, n in ((2, N_MAIN), (3, N_MAIN_3D)):
         results += phase(f"kernels {dims}D", kernels_at, dims, n)
+    results += phase("deposit 500k", deposit_large_phase)
     results += phase("probes", probe_phase)
 
     phase("step", step_phase)
@@ -2083,6 +2476,8 @@ def main() -> int:
     optional_summary(runs)
     # run_steps blocks: one CUDA graph per block, against safe_step
     print(json.dumps({"blocks": phase("blocks", blocks_phase)}))
+    # ensembles: R replicate steps as branches of one CUDA graph
+    print(json.dumps({"ensemble": phase("ensemble", ensemble_phase)}))
     for r in results:
         if "launches" in r:  # the probes count their own entry points
             r["taken_launches"] = r["launches"]
@@ -2094,8 +2489,9 @@ def main() -> int:
         base = r["name"].split("[")[0]
         dims = 3 if base.endswith("_3d") else 2
         path = "span_mask" if base.startswith(SPAN_MASK_KERNELS) else "id_list"
+        large = r["name"].endswith("[500k]")  # the deposit at 500k: the 500k run's
         first = {opt: c for d, n, p, opt, c in reversed(runs)
-                 if (d, p) == (dims, path) and n != N_LARGE}
+                 if (d, p) == (dims, path) and (n == N_LARGE) == large}
         general = r["law"] == "general"
         run = first[general]
         r["launches"] = run["counts"][base]

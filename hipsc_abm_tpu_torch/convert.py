@@ -59,6 +59,28 @@ def state_from_numpy(d: dict, device="cuda") -> CellState:
     )
 
 
+def numpy_from_jax_states(jstates) -> dict:
+    """The numpy dict of a JAX ensemble's stacked ``CellState`` (leading
+    replicate axis R): every array as stacked, ``key`` (R, 2) uint32,
+    ``next_id`` (R,) int32 and the replicates' shared ``step``."""
+    steps = np.unique(np.asarray(jstates.step))
+    if steps.size != 1:
+        raise ValueError(f"replicates at different steps: {steps.tolist()}")
+    d = numpy_from_jax_state(jstates)
+    d["step"] = np.int32(steps[0])
+    d["next_id"] = np.asarray(jstates.next_id).astype(np.int32)
+    return d
+
+
+def states_from_numpy(d: dict, device="cuda") -> CellState:
+    """A stacked port ``CellState`` (``parallel.ensemble``: ``key`` (R, 2)
+    int64 on the host, ``next_id`` (R,) and every array with a leading R on
+    ``device``) from the numpy dict of ``numpy_from_jax_states``."""
+    state = state_from_numpy({**d, "next_id": 0}, device)
+    return state._replace(next_id=torch.from_numpy(
+        np.asarray(d["next_id"], dtype=np.int32).copy()).to(torch.device(device)))
+
+
 def state_to_numpy(state: CellState) -> dict:
     """The numpy dict of a port ``CellState``: copies, which share no memory
     with the state's tensors (on the CPU too)."""

@@ -989,15 +989,17 @@ def initial_mask_bits(cfg: EngineConfig, state: CellState) -> int:
     return _round_up(max(widest, 1) * 1.25, 32)
 
 
-def _run_block(engine: HipscEngine, cfg: EngineConfig, state: CellState, table):
+def _run_block(params, cfg: EngineConfig, state: CellState, table):
     """``len(table)`` steps from ``state`` with the step inputs of ``table``
-    ((k, 13) int64 on the state's device): the final state (its key and
-    step as the last row left them) and the (k, 14) float64 probes, on the
-    device. What ``_BlockGraph`` captures; on the CPU, what ``safe_step``
-    and ``run_steps`` run."""
+    ((k, 13) int64 on the state's device) and the parameters of ``params``
+    (anything with ``gen``, ``xp``, ``bio`` and ``diff``: the engine, or one
+    replicate's parameters): the final state (its key and step as the last
+    row left them) and the (k, 14) float64 probes, on the device. What
+    ``_BlockGraph`` captures; on the CPU, what ``safe_step`` and
+    ``run_steps`` run."""
     rows = []
     for t in range(table.shape[0]):
-        state, info = hipsc_step(state, cfg, engine.gen, engine.xp, engine.bio, engine.diff,
+        state, info = hipsc_step(state, cfg, params.gen, params.xp, params.bio, params.diff,
                                  StepInputs(table[t], state.key))
         rows.append(_probe_row(info))
     return state, torch.stack(rows)
@@ -1022,41 +1024,71 @@ def _with_device_tensors(state: CellState, tensors: list) -> CellState:
                           next_id=next(it))
 
 
-class _BlockGraph:
-    """A k-step block of one config captured as one CUDA graph
-    (``torch.cuda.graph``). The graph reads static copies of the input
-    state and a static (k, 13) table of step inputs; ``run`` copies the
-    state and the block's keys and step numbers into them, replays the
-    graph, and returns clones of its outputs (the next replay overwrites
-    them) and the stacked probes. Before the capture one eager step from
-    the state (discarded; its rebuilds go to ``engine.window_rebuilds``)
-    loads every kernel of the path. The kernels
-    launched in the capture are counted once per replay
-    (``kernels.capturing``). ``capture_s`` and ``pool_bytes`` (device memory
-    the capture reserved) are recorded for the measurements."""
+def _wait_for_device(deadline_s: float, what: str) -> None:
+    """Wait for the work queued on the current stream, polling an event,
+    and raise ``TimeoutError`` after ``deadline_s`` seconds instead of
+    blocking forever."""
+    done = torch.cuda.Event()
+    done.record()
+    end = time.perf_counter() + deadline_s
+    while not done.query():
+        if time.perf_counter() > end:
+            raise TimeoutError(f"{what}: not done after {deadline_s} s")
+        time.sleep(5e-5)
 
-    def __init__(self, engine: HipscEngine, cfg: EngineConfig, k: int, state: CellState):
-        device = engine.device
+
+class _CapturedGraph:
+    """Work on a state captured as one CUDA graph (``torch.cuda.graph``):
+    ``block(state, table)`` returns the new state and the probes, on the
+    device. The graph reads static copies of the input state (of any
+    leading shape: a colony, or an ensemble's stacked colonies) and a
+    static int64 table of step inputs of ``table_shape``; ``run`` copies
+    the state and the table into them, replays the graph, and returns
+    clones of its outputs (the next replay overwrites them) and the probes
+    on the host. ``warm_up`` runs before the capture: one eager step that
+    loads every kernel of the path. The kernels launched in the capture are
+    counted once per replay (``kernels.capturing``). ``capture_s`` and
+    ``pool_bytes`` (device memory the capture reserved) are recorded for
+    the measurements."""
+
+    def __init__(self, device, block, state: CellState, table_shape: tuple, warm_up):
         t0 = time.perf_counter()
-        _, info = hipsc_step(state, cfg, engine.gen, engine.xp, engine.bio, engine.diff)
-        engine.window_rebuilds += int(info.jkr_rebuilds)  # a set-up read
+        warm_up()
         reserved = torch.cuda.memory_reserved(device)
         self.state = _with_device_tensors(state, [t.clone() for t in _device_tensors(state)])
-        self.table = torch.zeros((k, 13), dtype=torch.int64, device=device)
+        self.table = torch.zeros(table_shape, dtype=torch.int64, device=device)
         self.graph = torch.cuda.CUDAGraph()
         with kernels.capturing() as tally, torch.cuda.graph(self.graph):
-            self.out_state, self.out_probes = _run_block(engine, cfg, self.state, self.table)
+            self.out_state, self.out_probes = block(self.state, self.table)
         torch.cuda.synchronize(device)
         self.launches = dict(tally)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
 
-    def run(self, state: CellState, table: torch.Tensor):
+    def run(self, state: CellState, table: torch.Tensor, deadline_s: Optional[float] = None):
+        """One replay from ``state`` with the inputs of ``table``; with
+        ``deadline_s``, raise rather than wait longer for the replay."""
         for static, src in zip(_device_tensors(self.state), _device_tensors(state)):
             static.copy_(src)
         self.table.copy_(table.pin_memory(), non_blocking=True)
         self.graph.replay()
         out = _with_device_tensors(
             self.out_state, [t.clone() for t in _device_tensors(self.out_state)])
+        if deadline_s is not None:
+            _wait_for_device(deadline_s, "graph replay")
         kernels.launch_counts.update(self.launches)
         return out, self.out_probes.cpu()
+
+
+class _BlockGraph(_CapturedGraph):
+    """A k-step block of one config and the engine's parameters: the graph
+    of ``_run_block``, after one eager step from the state (discarded; its
+    rebuilds go to ``engine.window_rebuilds``)."""
+
+    def __init__(self, engine: HipscEngine, cfg: EngineConfig, k: int, state: CellState):
+        def warm_up():
+            _, info = hipsc_step(state, cfg, engine.gen, engine.xp, engine.bio, engine.diff)
+            engine.window_rebuilds += int(info.jkr_rebuilds)  # a set-up read
+
+        super().__init__(engine.device, lambda s, t: _run_block(engine, cfg, s, t), state,
+                         (k, 13), warm_up)

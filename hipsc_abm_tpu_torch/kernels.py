@@ -52,7 +52,9 @@ _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
+    "hipsc_deposit": (_P, _P, _P, _P, _L, _I, _P),
     "hipsc_contact_substep": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _F, _F, _I, _F, _F, _F, _F, _F, _F, _P),
     "hipsc_bio_moments": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P),

@@ -9,10 +9,16 @@ writes the tile back, and waits at a grid barrier before the next ``T``
 (temporal blocking). ``ftcs_plan`` chooses the tiles and ``T``. The clip on
 entry and the degradation on exit are plain elementwise ops around the
 launch.
+
+The grid barrier needs every CTA resident at once. Two such launches on
+concurrent streams (the branches of an ensemble's graph) could each hold
+part of the card and wait for the rest forever, so inside ``serialized()``
+each launch waits for the one before it, whatever its stream.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -29,6 +35,23 @@ MAX_HALO = 16
 # the cost of one reload (grid barrier, global write and read of the tile),
 # in lane-slots of stencil work
 BLOCK_COST_SLOTS = 16384
+
+
+# inside ``serialized()``: the event recorded after the last launch, or None
+_chain = None
+
+
+@contextlib.contextmanager
+def serialized():
+    """FTCS launches made inside run one after another: each waits on its
+    stream for the event recorded after the launch before it (in a graph
+    capture, an edge from one kernel node to the next)."""
+    global _chain
+    outer, _chain = _chain, [None]
+    try:
+        yield
+    finally:
+        _chain = outer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,10 +176,15 @@ def ftcs_diffuse_cuda(
     plan = ftcs_plan(nx, ny, limits["n_sm"], limits["smem_optin"], halo)
     buf1 = torch.empty_like(buf0)
     arrived = torch.zeros((1,), dtype=torch.int32, device=gradient.device)
+    if _chain is not None and _chain[0] is not None:
+        torch.cuda.current_stream().wait_event(_chain[0])
     kernels.launch("hipsc_ftcs_diffuse", buf0.data_ptr(), buf1.data_ptr(),
                    arrived.data_ptr(), nx, ny, plan.tile_rows, plan.tile_cols,
                    plan.grid_rows, plan.grid_cols, plan.halo, steps,
                    a_main, b_main, a_last, b_last)
     kernels.count_launch("ftcs_diffuse")
+    if _chain is not None:
+        _chain[0] = torch.cuda.Event()
+        _chain[0].record()
     out = buf1 if -(-steps // plan.halo) % 2 else buf0
     return out * (1.0 - degradation)

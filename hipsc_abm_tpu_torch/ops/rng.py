@@ -81,35 +81,40 @@ def coin_flips(key, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
     return (hash_bits(key, ids, salt) & 1).to(torch.int32)
 
 
+def f32_via_f64(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of a float32 tensor, evaluated in float64 and rounded to
+    float32. The card's and the CPU's float32 ``log``, ``cos`` and ``sin``
+    differ by an ulp (none is correctly rounded); their float64 results
+    round to the same float32 but where the exact value lies within a few
+    float64 ulps of a float32 rounding boundary. A lone agent's motility
+    move repeats every substep, so one ulp of its force that tips the
+    rounding of its position makes one ulp of position per substep between
+    the card and the CPU; the pathway's normal draw feeds ``floor``, where
+    one ulp at a boundary would part integer state."""
+    return fn(x.to(torch.float64)).to(torch.float32)
+
+
 def normal(key, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
-    """N(0, 1) in float32 via Box-Muller on two independent hash streams."""
+    """N(0, 1) in float32 via Box-Muller on two independent hash streams;
+    ``log``, ``sqrt`` and ``cos`` through ``f32_via_f64``, so the card and
+    the CPU agree bit for bit (PyTorch's float32 ``sqrt`` on the CPU is not
+    correctly rounded either: it parts from numpy's at ~0.5% of inputs)."""
     u1 = uniform(key, ids, salt) + (1.0 / (1 << 25))  # (0, 1]
     u2 = uniform(key, ids, salt + 17)
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI_F32 * u2)
-
-
-def _f32(fn, x: torch.Tensor) -> torch.Tensor:
-    """``fn`` of a float32 tensor, evaluated in float64 and rounded to
-    float32. The card's and the CPU's float32 ``cos`` and ``sin`` differ by
-    an ulp (neither is correctly rounded); their float64 results round to
-    the same float32 but where the exact value lies within a few float64
-    ulps of a float32 rounding boundary. A lone agent's motility move
-    repeats every substep, so one ulp of its force that tips the rounding of
-    its position makes one ulp of position per substep between the card and
-    the CPU."""
-    return fn(x.to(torch.float64)).to(torch.float32)
+    return (f32_via_f64(torch.sqrt, -2.0 * f32_via_f64(torch.log, u1))
+            * f32_via_f64(torch.cos, _TWO_PI_F32 * u2))
 
 
 def unit_vectors(key, ids: torch.Tensor, two_d: bool, salt: int = 0) -> torch.Tensor:
     """Id-keyed batch of the reference's ``random_vector``: a point on the
     unit circle in 2D, else its (non-uniform) sphere parameterization."""
     theta = uniform(key, ids, salt) * _TWO_PI_F32
-    cos_t, sin_t = _f32(torch.cos, theta), _f32(torch.sin, theta)
+    cos_t, sin_t = f32_via_f64(torch.cos, theta), f32_via_f64(torch.sin, theta)
     if two_d:
         return torch.stack([cos_t, sin_t, torch.zeros_like(theta)], dim=-1)
     phi = uniform(key, ids, salt + 29) * _TWO_PI_F32
-    radius = _f32(torch.cos, phi)
-    return torch.stack([radius * cos_t, radius * sin_t, _f32(torch.sin, phi)], dim=-1)
+    radius = f32_via_f64(torch.cos, phi)
+    return torch.stack([radius * cos_t, radius * sin_t, f32_via_f64(torch.sin, phi)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,9 @@ moment counts, bond sets, degrees and span-mask words are exact; FTCS keeps the 
 association without FMA contraction and is held bit-equal;
 the probes sum their lanes in another order than the plain versions (P1
 rtol 1e-5, atol 1e-5; P2, with the card's rsqrtf against torch.rsqrt, rtol
-1e-4, atol 1e-4 x max|out|).
+1e-4, atol 1e-4 x max|out|). The deposit's fixed-order sum, the pathway's
+normal draw and an ensemble's replicates (against their solo runs) are
+held bit-equal.
 """
 
 import dataclasses
@@ -1005,3 +1007,86 @@ def test_run_steps_follows_replaced_parameters(dev, contact_path):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     assert any(not np.array_equal(a["arrays"][k], c["arrays"][k])
                for k in ("FGFR", "ERK", "GATA6", "NANOG"))
+
+
+def test_deposit_card_equals_cpu_index_add_at_500k(dev):
+    """The deposit's fixed-order sum (a stable sort and the ``deposit``
+    kernel) on the card at the 2D 500k bench state, one eager step in: bit
+    for bit the CPU's sequential ``index_add`` and the same on a second
+    call, one launch per call."""
+    eng = _bench_engine(dev, "id_list", n=500_000)
+    state, _ = eng.step(eng.init_state(seed=0))
+    a, alive = state.arrays, state.alive
+    amounts = torch.where(alive & (a["NANOG"] > a["GATA6"]), 0.01, 0.0).to(torch.float32)
+    lattice = state.gradients["fgf4_values"]
+    idx, contrib = diffusion.deposit_terms(lattice.shape, a["locations"], amounts, 20.0)
+    flat = lattice.reshape(-1)
+    before = kernels.launch_counts["deposit"]
+    got = diffusion.scatter_add_cuda(flat, idx, contrib)
+    assert kernels.launch_counts["deposit"] == before + 1
+    want = diffusion.scatter_add_plain(flat.cpu(), idx.cpu(), contrib.cpu())
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    again = diffusion.scatter_add_cuda(flat, idx, contrib)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_normal_is_bit_equal_on_card_and_cpu(dev):
+    """The pathway's normal draw (log, sqrt and cos in float64, rounded to
+    float32) on the card equals the CPU's bit for bit at a million ids."""
+    from hipsc_abm_tpu_torch.ops import rng
+
+    key = rng.prng_key(9)
+    ids = torch.arange(0, 3_000_000, 3, dtype=torch.int32)
+    got = rng.normal(key, ids.to(dev)).cpu()
+    assert torch.equal(got.view(torch.int32), rng.normal(key, ids).view(torch.int32))
+
+
+def test_ensemble_replicates_equal_solo_runs_on_card(dev):
+    """Three replicates (one a sweep point of ``adhesion_const``) of a
+    3,000-cell bench colony with the FGF4 field coupled to the pathway, as
+    one captured graph of three branches: after 3 ``safe_step``s each
+    equals its solo card run bit for bit, lattice, key and next_id
+    included."""
+    from hipsc_abm_tpu_torch.parallel.ensemble import EnsembleEngine
+
+    def make():
+        eng = _bench_engine(dev, "id_list")
+        eng.diff = dataclasses.replace(eng.diff, field_coupling=True, degradation=0.0)
+        return eng
+
+    def seeded(state, seed):
+        g = state.gradients["fgf4_values"]
+        lat = np.random.default_rng(seed).random(tuple(g.shape[-2:]), dtype=np.float32) * 2
+        return torch.from_numpy(lat).to(g.device)
+
+    seeds = [0, 1, 2]
+    base = make().bio.adhesion_const
+    sweep = {"adhesion_const": [base, base, 1.2 * base]}
+    ens = EnsembleEngine(make(), sweep=sweep)
+    states = ens.init_states(seeds)
+    states = states._replace(gradients={"fgf4_values": torch.stack(
+        [seeded(states, s) for s in seeds])})
+    cfg0 = ens.engine.cfg
+    for _ in range(3):
+        states, infos = ens.safe_step(states)
+    assert infos.num_agents.shape == (3,) and len(ens.graphs()) == 1
+    assert kernels.launch_counts["deposit"] > 0
+    for i, seed in enumerate(seeds):
+        eng = make()
+        eng.bio = dataclasses.replace(eng.bio, adhesion_const=sweep["adhesion_const"][i])
+        eng.cfg = cfg0
+        solo = eng.init_state(seed=seed)
+        solo = solo._replace(gradients={"fgf4_values": seeded(solo, seed)})
+        for _ in range(3):
+            solo, _ = eng.safe_step(solo)
+        a = convert.state_to_numpy(EnsembleEngine.replicate(states, i))
+        b = convert.state_to_numpy(solo)
+        for k in a["arrays"]:
+            x, y = a["arrays"][k], b["arrays"][k]
+            if x.dtype == np.float32:
+                x, y = x.view(np.int32), y.view(np.int32)
+            np.testing.assert_array_equal(x, y, err_msg=f"replicate {i}: {k}")
+        for k in ("alive", "partners", "bond_mask", "key", "step", "next_id"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"replicate {i}: {k}")
+        np.testing.assert_array_equal(a["gradients"]["fgf4_values"].view(np.int32),
+                                      b["gradients"]["fgf4_values"].view(np.int32))

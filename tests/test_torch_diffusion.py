@@ -7,6 +7,13 @@ coefficients, so the plain version agrees with ``ftcs_diffuse`` to float32
 rounding (atol 1e-6 on concentrations <= 2); the Pallas kernel fuses the
 stencil differently on its backend and is held to the same atol. The
 deposit is a scatter-add whose accumulation order differs (atol 1e-7).
+
+On the card the deposit's sum runs a kernel that adds in a fixed order:
+its schedule (a stable sort, then each point's terms left to right) is
+emulated here in plain PyTorch and must equal the CPU's sequential
+``index_add`` bit for bit. The pathway's normal draw evaluates ``log``,
+``sqrt`` and ``cos`` in float64 and rounds (``ops.rng.f32_via_f64``),
+bit-equal to numpy's.
 """
 
 import jax.numpy as jnp
@@ -19,6 +26,7 @@ from hipsc_abm_tpu.ops.pallas_diffusion import ftcs_diffuse_pallas
 from hipsc_abm_tpu_torch import kernels
 from hipsc_abm_tpu_torch.ops import diffusion as tdiff
 from hipsc_abm_tpu_torch.ops import ftcs as tftcs
+from hipsc_abm_tpu_torch.ops import rng as trng
 
 ARGS = (2.0, 400.0, 2.0, 0.1)  # diffuse_const, spat_res2, max_concentration, degradation
 
@@ -98,3 +106,58 @@ def test_cpu_wrapper_runs_plain_and_counts_no_launch():
     assert torch.equal(tftcs.ftcs_diffuse_cuda(g, dts, *ARGS),
                        tdiff.ftcs_diffuse(g, dts, *ARGS))
     assert kernels.launch_counts["ftcs_diffuse"] == before
+
+
+def _crowded_deposit(n=100_000, shape=(200, 180), spat_res=20.0, seed=5):
+    """~100k agents over a 200 x 180 lattice (several terms per point),
+    some outside it, with release and uptake (negative) amounts."""
+    rs = np.random.default_rng(seed)
+    g = _lattice(seed=seed, shape=shape)
+    locs = np.zeros((n, 3), np.float32)
+    box = np.asarray(shape, np.float32) * np.float32(spat_res)
+    locs[:, :2] = (rs.random((n, 2)) * 1.1 - 0.05).astype(np.float32) * box
+    amounts = np.where(rs.random(n) < 0.6, 0.01, 0.0).astype(np.float32)
+    amounts -= np.where(rs.random(n) < 0.8, 0.0035, 0.0).astype(np.float32)
+    return (torch.from_numpy(g), *tdiff.deposit_terms(
+        shape, torch.from_numpy(locs), torch.from_numpy(amounts), spat_res))
+
+
+def test_fixed_order_deposit_equals_index_add():
+    """The card kernel's schedule, emulated (``scatter_add_sorted``), is
+    bit-equal to the CPU's ``index_add`` on ~100k agents with agents out of
+    bounds and uptake; the CPU wrapper runs ``index_add`` and counts no
+    launch."""
+    g, idx, contrib = _crowded_deposit()
+    P = g.numel()
+    per_point = torch.bincount(idx[idx < P], minlength=P)
+    assert int(per_point.max()) >= 8 and int((idx == P).sum()) > 0
+    assert float(contrib.min()) < 0 < float(contrib.max())
+    flat = g.reshape(-1)
+    want = flat.clone().index_add(0, idx.clamp(max=P - 1),
+                                  torch.where(idx < P, contrib, 0.0))
+    plain = tdiff.scatter_add_plain(flat, idx, contrib)
+    assert torch.equal(plain.view(torch.int32), want.view(torch.int32))
+    sorted_sum = tdiff.scatter_add_sorted(flat, idx, contrib)
+    assert torch.equal(sorted_sum.view(torch.int32), plain.view(torch.int32))
+    # the order matters: the same terms summed in reverse part some points
+    rev = tdiff.scatter_add_plain(flat, idx.flip(0), contrib.flip(0))
+    assert not torch.equal(rev, plain)
+    before = kernels.launch_counts["deposit"]
+    assert torch.equal(tdiff.scatter_add_cuda(flat, idx, contrib), plain)
+    assert kernels.launch_counts["deposit"] == before
+
+
+def test_normal_is_float64_log_cos_rounded():
+    """``rng.normal`` over 10^6 ids equals numpy's float64 ``log``, ``sqrt``
+    and ``cos`` of the same float32 uniforms, rounded to float32, bit for
+    bit."""
+    key = trng.prng_key(17)
+    ids = torch.arange(1_000_000, dtype=torch.int32)
+    u1 = (trng.uniform(key, ids, 0) + (1.0 / (1 << 25))).numpy()
+    u2 = trng.uniform(key, ids, 17).numpy()
+    log_u1 = np.log(u1.astype(np.float64)).astype(np.float32)
+    cos_u2 = np.cos((np.float32(trng._TWO_PI_F32) * u2).astype(np.float64)).astype(np.float32)
+    want = np.sqrt((np.float32(-2.0) * log_u1).astype(np.float64)).astype(np.float32) * cos_u2
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(trng.normal(key, ids).numpy().view(np.int32),
+                                  want.view(np.int32))

@@ -356,6 +356,7 @@ def test_port_never_imports_jax():
             "assert 'hipsc_abm_tpu_torch.tools.dynslice_probe2' in mods, mods\n"
             "assert 'hipsc_abm_tpu_torch.models.hipsc' in mods, mods\n"
             "assert 'hipsc_abm_tpu_torch.utils.io' in mods, mods\n"
+            "assert 'hipsc_abm_tpu_torch.parallel.ensemble' in mods, mods\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'tools', 'hipsc_abm_tpu')\n"
             "             or m.startswith(('jax.', 'jaxlib', 'hipsc_abm_tpu.', 'tools.')))\n"
             "assert not bad, bad\n")
