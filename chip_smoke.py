@@ -114,6 +114,27 @@ Phases, each of which raises on failure (exit code != 0):
    summed device time (profiler) and the replays' device span (CUDA
    events), busy share, capture s, MiB and launches per replay,
    and one eager ensemble ``step``. Every replay waits with a deadline.
+10. calibration (``calibration_phase``, ``calibrate.Calibrator``): (a) the
+   JAX package's calibration showcase (1,000 + 100 cells in a 300 um box,
+   R = 16 replicates, horizon 10, adhesion and motility from 3x the
+   reference's constants, the replicate-mean Rg and contact delta courses
+   of ``tools/calibration_target.json``): ``prepare``, one gradient
+   evaluation on the plain path (loss, gradient, seconds, peak memory),
+   again with ``remat_substeps`` on, a central finite difference through
+   the kernels, and at horizon 2 over 2 replicates the card against the
+   CPU with the share of the evaluation spent in the plain contact and
+   bio-moments functions; recorded, not held, as that rollout is chaotic in
+   float32; (b) on ``tests/test_calibrate.py``'s colony (settled by one
+   step) the held checks: the gradient of the soft contact count at horizon
+   2 within 15% of the finite difference through the kernels (B4, B6), the
+   card's loss and gradient against the CPU's (2 replicates, rtol 1e-5 and
+   1e-3), and the dense and windowed paths' Rg after 4 steps within 2e-4 um;
+   (c) 2 generations of ``fit_es`` (population 16, sigma 0.3) at R = 4 on
+   ``adhesion_const``, dense then windowed: per generation the capture and
+   replay seconds, branches and peak memory, the launches of B4 (both) and
+   B6 (windowed only), one candidate's population loss bit-equal to its
+   solo rollout; (d) the port's ``examples/calibrate.py`` at its defaults,
+   both fits lowering their loss.
 
 The last lines are the seconds per phase, one JSON object with each
 kernel's numbers (``law``: the contact law of the run its inputs and
@@ -246,6 +267,36 @@ SWEEP_POINTS = 8
 ENSEMBLE_TIGHT_CAPACITY = 5_632
 ENSEMBLE_WARMUP = 3
 ENSEMBLE_TIMED = 10
+# phase 10, calibration. The JAX package's calibration showcase
+# (tools/calibration_showcase.py:216-266: 1,000 + 100 cells in a 300 um box,
+# dox at step 5, adhesion and motility fitted from 3x the reference's
+# constants against the replicate-mean Rg and contact delta courses of
+# tools/calibration_target.json, read as data), R replicates (seeds 0..R-1)
+# over the target's 10 steps. Its first step from random placement is
+# chaotic in float32 (in the JAX package one ulp at every cell moves cells by
+# ~6 um), so the checks that need a well-conditioned rollout run on
+# tests/test_calibrate.py's colony (150 + 15 cells in a 300 um box, settled
+# by one safe_step): the gradient against a finite difference of the soft
+# contact count at horizon 2, the card against the CPU over CAL_CPU_R
+# replicates, and the dense and windowed paths over CAL_DENSE_STEPS steps.
+# The finite difference's step is 1e-3 of each parameter (1e-3 in its log);
+# the ES runs take CAL_ES_R replicates, a population, sigma and generations.
+CAL_TARGET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                          "calibration_target.json")
+CAL_TRUE = {"adhesion_const": 0.000107, "motility_force": 2e-9}
+CAL_START = 3.0
+CAL_R = 16
+CAL_FD_H = 1e-3
+CAL_CPU_R, CAL_CHECK_HORIZON, CAL_DENSE_STEPS = 2, 2, 4
+CAL_ES_R, CAL_ES_POP, CAL_ES_SIGMA, CAL_ES_GENS = 4, 16, 0.3, 2
+# the gradient's agreement with the finite difference (the JAX test's
+# criterion), and the card against the CPU (tests/test_torch_cuda.py's)
+CAL_FD_RTOL = 0.15
+CAL_CPU_LOSS_RTOL, CAL_CPU_GRAD_RTOL = 1e-5, 1e-3
+# the dense and windowed paths' replicate-mean Rg (um):
+# tests/test_engine.py::test_dense_pairs_matches_windowed's position
+# tolerance (Rg is a mean of distances: it moves no more than they do)
+CAL_DENSE_ATOL = 2e-4
 
 
 def bench_engine(n_cells: int, device: str, contact_path: str = "id_list", **flags):
@@ -2400,6 +2451,335 @@ def ensemble_phase() -> dict:
     return out
 
 
+def calibration_target() -> dict:
+    with open(CAL_TARGET) as f:
+        return json.load(f)
+
+
+def calibration_engine(target: dict, device: str):
+    """The showcase's colony, with adhesion and motility at 3x the
+    reference's constants (the fit's start)."""
+    from hipsc_abm_tpu_torch.engine import HipscEngine
+    from hipsc_abm_tpu_torch.params import BiologyParams, ExperimentalParams, GeneralParams
+
+    n, side, steps = target["n_cells"], target["side"], target["steps"]
+    gen = GeneralParams(num_to_start=n, end_step=steps + 1, size=(side, side, 0.0))
+    xp = ExperimentalParams(num_gata6=n // 10, dox_step=5)
+    bio = BiologyParams(**{p: v * CAL_START for p, v in CAL_TRUE.items()})
+    return HipscEngine(gen, xp, bio=bio, device=device)
+
+
+def check_colony(device: str, replicates: int):
+    """tests/test_calibrate.py's colony (150 + 15 cells in a 300 um box,
+    dox at step 1) on ``device``: the engine and ``replicates`` states
+    (seeds 0..), each settled by one ``safe_step``, stacked."""
+    from hipsc_abm_tpu_torch.engine import HipscEngine
+    from hipsc_abm_tpu_torch.params import ExperimentalParams, GeneralParams
+    from hipsc_abm_tpu_torch.parallel.ensemble import EnsembleEngine
+
+    eng = HipscEngine(GeneralParams(num_to_start=150, end_step=5, size=(300.0, 300.0, 0.0)),
+                      ExperimentalParams(num_gata6=15, dox_step=1), device=device)
+    ens = EnsembleEngine(eng)
+    states, _ = ens.safe_step(ens.init_states(seeds=range(replicates)))
+    return eng, states
+
+
+def showcase_loss(target: dict, horizon: int):
+    """The showcase's loss: the replicate-mean Rg and soft contact delta
+    courses against the target's first ``horizon`` steps."""
+    from hipsc_abm_tpu_torch import calibrate as cal_mod
+
+    gate = target["contact_gate"]
+    return cal_mod.ensemble_trajectory(cal_mod.multi_delta_trajectory_squared_error([
+        (cal_mod.radius_of_gyration,
+         np.asarray(target["rg_trajectory_um"][:horizon], np.float32)),
+        (cal_mod.soft_contact_count(gate["r_um"], gate["width_um"]),
+         np.asarray(target["contact_trajectory"][:horizon], np.float32)),
+    ]))
+
+
+def timed_gradient(cal, theta, states, cfg) -> dict:
+    """One gradient evaluation under ``cfg``: loss, gradient, wall seconds
+    and peak device memory (MiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (loss, _), grad = cal._value_and_grad(theta, states, cfg)
+    torch.cuda.synchronize()
+    return dict(loss=float(loss), grad=grad.tolist(), s=time.perf_counter() - t0,
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+
+
+def finite_difference(cal, theta, states) -> dict:
+    """Central differences of the loss in each parameter, ``CAL_FD_H`` in
+    its log, as one population through the kernels (the engine's path):
+    the differences, seconds, branches and kernel launches."""
+    from hipsc_abm_tpu_torch import kernels
+
+    steps = torch.eye(theta.shape[0]) * CAL_FD_H
+    cands = torch.stack([theta + sgn * steps[i] for i in range(theta.shape[0])
+                         for sgn in (1, -1)])
+    kernels.launch_counts.clear()
+    t0 = time.perf_counter()
+    losses, _ = cal._eval_with_growth(lambda st: cal._population(cands, st), states)
+    torch.cuda.synchronize()
+    fd = [(float(losses[2 * i]) - float(losses[2 * i + 1])) / (2 * CAL_FD_H)
+          for i in range(theta.shape[0])]
+    return dict(h=CAL_FD_H, fd=fd, s=time.perf_counter() - t0,
+                branches=len(cands) * states.alive.shape[0],
+                launches=dict(kernels.launch_counts))
+
+
+@contextlib.contextmanager
+def plain_path_timer():
+    """Times the plain contact substeps and bio moments the gradient path
+    calls (each call synchronised before and after; a checkpoint's
+    recompute calls them again): yields a dict of seconds by name."""
+    from hipsc_abm_tpu_torch import engine as engine_mod
+
+    spent = {"contact_substep_plain": 0.0, "bio_moments_plain": 0.0}
+    saved = {name: getattr(engine_mod, name) for name in spent}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    for name in spent:
+        setattr(engine_mod, name, timed(name))
+    try:
+        yield spent
+    finally:
+        for name, fn in saved.items():
+            setattr(engine_mod, name, fn)
+
+
+def card_and_cpu_gradients(make_cal, numpy_states: list, time_plain: bool = False) -> dict:
+    """One gradient evaluation of the same stacked states on the card and
+    on the CPU (``make_cal(device)`` builds each calibrator); with
+    ``time_plain``, the card's under ``plain_path_timer``."""
+    from hipsc_abm_tpu_torch import convert
+    from hipsc_abm_tpu_torch.parallel.ensemble import _stack
+
+    got = {}
+    for device in ("cuda", "cpu"):
+        cal = make_cal(device)
+        st = cal._reconcile(_stack([convert.state_from_numpy(d, device) for d in numpy_states]))
+        timer = plain_path_timer() if time_plain and device == "cuda" else (
+            contextlib.nullcontext({}))
+        t0 = time.perf_counter()
+        with timer as spent:
+            (loss, _), g = cal._value_and_grad(cal.theta0(), st, cal._grad_cfg(cal.engine.cfg))
+            if device == "cuda":
+                torch.cuda.synchronize()
+        got[device] = dict(loss=float(loss), grad=g.tolist(), s=time.perf_counter() - t0)
+        if spent:
+            got[device]["plain_s"] = dict(spent)
+            got[device]["plain_share"] = sum(spent.values()) / got[device]["s"]
+    return got
+
+
+def calibration_showcase_part(target: dict) -> dict:
+    """Phase 10 a: ``prepare`` and one gradient evaluation at the showcase
+    width (R replicates, the target's horizon; ``dense_pairs`` off, so that
+    the forward-only rollouts run the contact kernel), again with
+    ``remat_substeps`` on, the central finite difference through the
+    kernels, and at horizon 2 over 2 replicates the card against the CPU
+    with the share of the card's evaluation spent in the plain contact and
+    bio-moments functions. The finite difference and the card-vs-CPU
+    numbers are recorded, not held to a tolerance (the rollout is chaotic
+    in float32)."""
+    from hipsc_abm_tpu_torch import calibrate as cal_mod
+    from hipsc_abm_tpu_torch import convert
+    from hipsc_abm_tpu_torch.parallel.ensemble import EnsembleEngine
+
+    names = list(CAL_TRUE)
+    horizon = target["steps"]
+    eng = calibration_engine(target, "cuda")
+    cal = cal_mod.Calibrator(eng, names, showcase_loss(target, horizon), horizon=horizon,
+                             dense_pairs=False)
+    states = EnsembleEngine(eng).init_states(seeds=range(CAL_R))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states = cal.prepare(states)
+    torch.cuda.synchronize()
+    out = {"replicates": CAL_R, "horizon": horizon, "capacity": eng.cfg.capacity,
+           "prepare_s": time.perf_counter() - t0}
+    theta = cal.theta0()
+    gcfg = cal._grad_cfg(eng.cfg)
+    out["gradient"] = timed_gradient(cal, theta, states, gcfg)
+    out["remat_substeps"] = timed_gradient(
+        cal, theta, states, dataclasses.replace(gcfg, remat_substeps=True))
+    grad = np.asarray(out["gradient"]["grad"])
+    if not np.all(np.isfinite(grad)) or not np.any(grad):
+        raise AssertionError(f"calibration a: gradient {grad}")
+    if out["remat_substeps"]["loss"] != out["gradient"]["loss"]:
+        raise AssertionError("calibration a: remat_substeps changed the loss: "
+                             f"{out['gradient']['loss']} vs {out['remat_substeps']['loss']}")
+    out["finite_difference"] = finite_difference(cal, theta, states)
+    pair = [convert.state_to_numpy(EnsembleEngine.replicate(states, i)) for i in range(CAL_CPU_R)]
+    out["card_vs_cpu"] = card_and_cpu_gradients(
+        lambda device: cal_mod.Calibrator(
+            calibration_engine(target, device), names,
+            showcase_loss(target, CAL_CHECK_HORIZON), horizon=CAL_CHECK_HORIZON,
+            dense_pairs=False), pair, time_plain=True)
+    print(f"calibration a: loss {out['gradient']['loss']:.6g} gradient {grad.tolist()} in "
+          f"{out['gradient']['s']:.1f} s, peak {out['gradient']['peak_mib']:.0f} MiB "
+          f"(remat_substeps on: {out['remat_substeps']['s']:.1f} s, "
+          f"{out['remat_substeps']['peak_mib']:.0f} MiB); finite difference "
+          f"{out['finite_difference']['fd']}; horizon {CAL_CHECK_HORIZON} card vs CPU "
+          f"{out['card_vs_cpu']}")
+    return out
+
+
+def calibration_checks_part() -> dict:
+    """Phase 10 b, on ``check_colony``: the gradient of the soft contact
+    count at horizon 2 (adhesion and motility) against the central finite
+    difference through the kernels, within ``CAL_FD_RTOL``; the card's
+    loss and gradient against the CPU's over ``CAL_CPU_R`` replicates; the
+    dense and windowed paths' replicate-mean Rg after ``CAL_DENSE_STEPS``
+    steps, within ``CAL_DENSE_ATOL``."""
+    from hipsc_abm_tpu_torch import calibrate as cal_mod
+    from hipsc_abm_tpu_torch import convert
+    from hipsc_abm_tpu_torch.parallel.ensemble import EnsembleEngine
+
+    names = list(CAL_TRUE)
+    eng, states = check_colony("cuda", 1)
+    cal = cal_mod.Calibrator(eng, names, cal_mod.soft_contact_count(10.0, 1.0),
+                             horizon=CAL_CHECK_HORIZON, dense_pairs=False)
+    states = cal.prepare(states)
+    theta = cal.theta0()
+    (_, _), grad = cal._value_and_grad(theta, states, cal._grad_cfg(eng.cfg))
+    out = {"gradient": grad.tolist(), "finite_difference": finite_difference(cal, theta, states)}
+    launches = out["finite_difference"]["launches"]
+    if not (launches.get("contact_substep") and launches.get("bio_moments")):
+        raise AssertionError(f"calibration b: kernels not launched {launches}")
+    for name, ad, fd in zip(names, grad.tolist(), out["finite_difference"]["fd"]):
+        if not abs(ad - fd) <= CAL_FD_RTOL * max(abs(ad), abs(fd)):
+            raise AssertionError(f"calibration b: {name} gradient {ad} vs finite difference {fd}")
+    _, pair_states = check_colony("cuda", CAL_CPU_R)
+    pair = [convert.state_to_numpy(EnsembleEngine.replicate(pair_states, i))
+            for i in range(CAL_CPU_R)]
+    got = card_and_cpu_gradients(
+        lambda device: cal_mod.Calibrator(
+            check_colony(device, 1)[0], names,
+            cal_mod.squared_error(cal_mod.radius_of_gyration, 100.0),
+            horizon=CAL_CHECK_HORIZON), pair)
+    out["card_vs_cpu"] = got
+    lc, lp = got["cuda"]["loss"], got["cpu"]["loss"]
+    gc, gp = np.asarray(got["cuda"]["grad"]), np.asarray(got["cpu"]["grad"])
+    if not abs(lc - lp) <= CAL_CPU_LOSS_RTOL * abs(lp):
+        raise AssertionError(f"calibration b: card loss {lc} vs CPU {lp}")
+    if not np.all(np.abs(gc - gp) <= CAL_CPU_GRAD_RTOL * np.abs(gp)):
+        raise AssertionError(f"calibration b: card gradient {gc} vs CPU {gp}")
+    rg = {}
+    for dense in (True, False):
+        c = cal_mod.Calibrator(eng, ["adhesion_const"], cal_mod.TrajectoryLoss(
+            cal_mod.radius_of_gyration, lambda stats: stats[-1]), horizon=CAL_DENSE_STEPS,
+            dense_pairs=dense)
+        st = c._reconcile(pair_states)
+        rg["dense" if dense else "windowed"] = float(
+            c._population(c.theta0()[None, :], st)[0][0])
+    out["final_rg_um"] = rg
+    if not abs(rg["dense"] - rg["windowed"]) <= CAL_DENSE_ATOL:
+        raise AssertionError(f"calibration b: dense and windowed Rg {rg}")
+    print(f"calibration b: gradient {grad.tolist()} finite difference "
+          f"{out['finite_difference']['fd']}; card vs CPU {got}; Rg {rg}")
+    return out
+
+
+def calibration_es_part(target: dict) -> dict:
+    """Phase 10 c: ``fit_es`` on ``adhesion_const`` at the showcase colony
+    (``CAL_ES_R`` replicates, the target's horizon), first with the
+    auto-selected dense path, then with ``dense_pairs=False``: per
+    generation the population's capture seconds (the warm-up step
+    included), the rest of its wall (``replay_s``: the replays and the
+    statistics), branches and peak memory; the launches of B4 and B6 (B6
+    only on the windowed path); one candidate's population loss against
+    its solo rollout, bit for bit; the two runs' loss histories."""
+    from hipsc_abm_tpu_torch import calibrate as cal_mod
+    from hipsc_abm_tpu_torch import kernels
+    from hipsc_abm_tpu_torch.parallel.ensemble import EnsembleEngine
+
+    horizon = target["steps"]
+    out = {}
+    for label, dense in (("dense", None), ("windowed", False)):
+        eng = calibration_engine(target, "cuda")
+        cal = cal_mod.Calibrator(eng, ["adhesion_const"], showcase_loss(target, horizon),
+                                 horizon=horizon, dense_pairs=dense)
+        states = EnsembleEngine(eng).init_states(seeds=range(CAL_ES_R))
+        gens = []
+        population = cal._population
+
+        def timed_population(cands, st):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = population(cands, st)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            graph = cal._ens.graphs()[0]
+            gens.append(dict(branches=graph["replicates"], capture_s=graph["capture_s"],
+                             replay_s=wall - graph["capture_s"], pool_mib=graph["pool_mib"],
+                             peak_mib=torch.cuda.max_memory_allocated() / 2**20))
+            return result
+
+        cal._population = timed_population
+        kernels.launch_counts.clear()
+        t0 = time.perf_counter()
+        res = cal.fit_es(states, iters=CAL_ES_GENS, popsize=CAL_ES_POP, sigma=CAL_ES_SIGMA,
+                         learning_rate=0.1, seed=0)
+        run = dict(dense_pairs=eng.cfg.dense_pairs, s=time.perf_counter() - t0,
+                   loss_history=res.loss_history, params=res.params, generations=gens,
+                   launches=dict(kernels.launch_counts))
+        del cal._population
+        b4, b6 = run["launches"].get("bio_moments", 0), run["launches"].get("contact_substep", 0)
+        if not b4 or (b6 > 0) == eng.cfg.dense_pairs or eng.cfg.dense_pairs != (dense is None):
+            raise AssertionError(f"calibration c ({label}): dense {eng.cfg.dense_pairs}, "
+                                 f"launches {run['launches']}")
+        states = cal._reconcile(states)
+        theta = torch.from_numpy(res.theta)
+        pop, _ = cal._population(theta[None, :], states)
+        run["solo_loss"] = cal.evaluate(theta, states)
+        if float(pop[0]) != run["solo_loss"]:
+            raise AssertionError(f"calibration c ({label}): population {float(pop[0])!r} "
+                                 f"vs solo {run['solo_loss']!r}")
+        out[label] = run
+        print(f"calibration c ({label}): {run['s']:.1f} s, losses {res.loss_history}, "
+              f"generations {gens}, B4 {b4}, B6 {b6}; population = solo "
+              f"{run['solo_loss']!r}")
+    out["loss_apart_rel"] = [abs(a - b) / abs(b) for a, b in zip(
+        out["dense"]["loss_history"], out["windowed"]["loss_history"])]
+    return out
+
+
+def calibration_phase() -> dict:
+    """Phase 10, calibration (see the module docstring)."""
+    from hipsc_abm_tpu_torch.examples import calibrate as example
+
+    target = calibration_target()
+    out = {"showcase": calibration_showcase_part(target)}
+    torch.cuda.empty_cache()
+    out["checks"] = calibration_checks_part()
+    out["es"] = calibration_es_part(target)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fits = example.main(device="cuda")
+    grad_fit, es_fit = fits["gradient"], fits["es"]
+    out["example"] = dict(
+        s=time.perf_counter() - t0, gradient=grad_fit.loss_history, es=es_fit.loss_history,
+        params={**grad_fit.params, **es_fit.params})
+    if not (grad_fit.best_loss < grad_fit.loss_history[0]
+            and es_fit.loss_history[-1] < es_fit.loss_history[0]):
+        raise AssertionError(f"calibration d: the example's losses did not fall: {out['example']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2478,6 +2858,9 @@ def main() -> int:
     print(json.dumps({"blocks": phase("blocks", blocks_phase)}))
     # ensembles: R replicate steps as branches of one CUDA graph
     print(json.dumps({"ensemble": phase("ensemble", ensemble_phase)}))
+    # calibration: gradients through the plain path, ES populations as
+    # captured ensembles, the example
+    print(json.dumps({"calibration": phase("calibration", calibration_phase)}))
     for r in results:
         if "launches" in r:  # the probes count their own entry points
             r["taken_launches"] = r["launches"]

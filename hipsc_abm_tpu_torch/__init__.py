@@ -11,6 +11,9 @@ Module names follow the JAX package:
   (sources in ``csrc/``, built by ``kernels``) beside their plain versions;
 - ``models.biology``: the biology phases;
 - ``engine``: ``hipsc_step`` and ``HipscEngine``;
+- ``parallel.ensemble``: replicate ensembles and parameter sweeps;
+  ``calibrate``: gradient and ES fits of the model's parameters;
+  ``examples``: runnable demos;
 - ``simulation``, ``models.hipsc``, ``__main__``: the framework and the
   colony model's lifecycle (``python -m hipsc_abm_tpu_torch``, modes 0-3);
 - ``utils``: templates, the command line, outputs, checkpoints, timing;

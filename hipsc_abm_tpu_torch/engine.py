@@ -28,12 +28,16 @@ The contact substeps have two designs, chosen by ``EngineConfig.contact_path``
 as (C, K) partner ids, one ``ops.contact`` launch per substep) and
 ``"span_mask"`` (``_physics_scan_span_mask``, the JAX ``_physics_scan_pallas``
 design: bonds as a keep mask over the frozen window, ``ops.span_mask``).
-Both give the same physics.
+Both give the same physics. ``EngineConfig.dense_pairs`` replaces both with
+the all-pairs ``_physics_scan_dense`` for calibration-sized colonies.
 
 The engine has an explicit ``device``. On a CUDA device the neighbour
 moments, the contact substeps and the FTCS subcycles run the hand-written
 kernels of ``ops.bio_moments``, ``ops.contact`` or ``ops.span_mask`` and
 ``ops.ftcs``; on the CPU the same wrappers run their plain versions.
+``hipsc_step(plain=True)`` runs the plain versions on any device: the path
+of reverse-mode autograd (``calibrate.Calibrator``), whose contact substeps
+``EngineConfig.remat_substeps`` rematerialises.
 
 A box with ``size[2] > 0`` runs the same step in 3D: nine stencil runs per
 row instead of three (``neighbors.run_bounds``), the z lanes of the
@@ -49,18 +53,25 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from hipsc_abm_tpu_torch import kernels
 from hipsc_abm_tpu_torch.models import biology
 from hipsc_abm_tpu_torch.ops import diffusion as diffusion_ops
 from hipsc_abm_tpu_torch.ops import neighbors as nbr_ops
 from hipsc_abm_tpu_torch.ops import rng, span_mask
-from hipsc_abm_tpu_torch.ops.bio_moments import bio_moments_cuda
+from hipsc_abm_tpu_torch.ops.bio_moments import bio_moments_cuda, bio_moments_plain
 from hipsc_abm_tpu_torch.ops.bio_moments import positions as bio_positions
-from hipsc_abm_tpu_torch.ops.contact import contact_substep_cuda
+from hipsc_abm_tpu_torch.ops.contact import contact_substep_cuda, contact_substep_plain
 from hipsc_abm_tpu_torch.ops.ftcs import ftcs_diffuse_cuda
 from hipsc_abm_tpu_torch.ops.integrate import stokes_integrate
-from hipsc_abm_tpu_torch.ops.jkr import BondState, clear_bond_rows, pack_physics
+from hipsc_abm_tpu_torch.ops.jkr import (
+    BondState,
+    _compact_bonds,
+    _pair_jkr,
+    clear_bond_rows,
+    pack_physics,
+)
 from hipsc_abm_tpu_torch.ops.neighbors import GridSpec
 from hipsc_abm_tpu_torch.params import (
     BiologyParams,
@@ -173,6 +184,17 @@ class EngineConfig:
     # step (a set-up read). Not the JAX engine's jkr_span, a window span of
     # rows.
     mask_bits: int = 0
+    # all-pairs contact substeps (``_physics_scan_dense``): no window, no
+    # sort, the bond set as a (C, C) mask; for calibration-sized colonies
+    # (the calibrator selects it at capacity <= 4096). Takes precedence
+    # over contact_path, as in the JAX engine.
+    dense_pairs: bool = False
+    # recompute each contact substep in the backward pass instead of saving
+    # its intermediates (``torch.utils.checkpoint``), when autograd is
+    # recording; a gradient fit of a colony too large for its residuals
+    # sets it. The primal is the same bit for bit, and nothing changes
+    # outside autograd.
+    remat_substeps: bool = False
 
     def __post_init__(self):
         if self.contact_path not in _PHYSICS_SCANS:
@@ -344,12 +366,23 @@ def hipsc_step(
     bio: BiologyParams,
     diff: Optional[DiffusionParams],
     inputs: Optional[StepInputs] = None,
+    plain: bool = False,
 ) -> Tuple[CellState, StepInfo]:
     """One full simulation step, in the phase order of the JAX engine's
     ``hipsc_step``. The output state is in this step's canonical sorted
     layout; agent identity rides the stable ids. ``inputs`` (the step's keys
     and number on the device) default to those of ``state.key`` and
-    ``state.step``. Nothing in the step reads a device value on the host."""
+    ``state.step``. Nothing in the step reads a device value on the host.
+
+    ``plain=True`` runs the contact substeps, the bio moments and FTCS as
+    their plain PyTorch versions on any device, the path reverse-mode
+    autograd takes (the kernels have no backward, and take the pair law's
+    constants as host floats): ``calibrate.Calibrator``'s gradient
+    evaluation passes it, and it reads the contact windows' widths on the
+    host. The deposit keeps its fixed-order kernel on the card, so a
+    checkpoint's recompute replays the forward bit for bit (no gradient
+    reaches it: its terms are constants of the discrete states).
+    The span-mask contact path has no plain form here."""
     arrays = dict(state.arrays)
     alive = state.alive
     bonds = state.bonds
@@ -376,10 +409,12 @@ def hipsc_step(
     # call: agents killed earlier in the step stop contributing
     # (cell_methods.py:47); the build-time positions are packed once
     nbr_pos0 = bio_positions(arrays["locations"])
+    moments = bio_moments_plain if plain else bio_moments_cuda
+    diffuse = diffusion_ops.ftcs_diffuse if plain else ftcs_diffuse_cuda
 
     def bio_moments(alive_now, mode, loc1=None, f0=None, f1=None, f2=None):
-        return bio_moments_cuda(nbr_pos0, alive_now, nbr_bounds, loc1, f0, f1, f2,
-                                radius=bio.neighbor_radius, mode=mode)
+        return moments(nbr_pos0, alive_now, nbr_bounds, loc1, f0, f1, f2,
+                       radius=bio.neighbor_radius, mode=mode)
 
     m1 = bio_moments(alive, "count")
     nbr_count = m1[:, 0].to(torch.int32)
@@ -454,7 +489,7 @@ def hipsc_step(
                 grid = diffusion_ops.deposit_morphogen(
                     grid, arrays["locations"], amounts.to(torch.float32), diff.spat_res
                 )
-            gradients[gname] = ftcs_diffuse_cuda(
+            gradients[gname] = diffuse(
                 grid, np_dts, diff.diffuse_const, diff.spat_res2,
                 diff.max_concentration, diff.degradation,
             )
@@ -470,8 +505,9 @@ def hipsc_step(
     )
 
     # --- apply_forces: 11 physics substeps (cell_methods.py:386-439) ---
-    locations, bonds, j_bins, j_deg, max_move, rebuilds, j_cands = _PHYSICS_SCANS[
-        cfg.contact_path](cfg, bio, arrays, alive, bonds, size, _physics_dts(bio))
+    scan = _physics_scan_dense if cfg.dense_pairs else _PHYSICS_SCANS[cfg.contact_path]
+    locations, bonds, j_bins, j_deg, max_move, rebuilds, j_cands = scan(
+        cfg, bio, arrays, alive, bonds, size, _physics_dts(bio), plain=plain)
     arrays["locations"] = locations
     # the reference leaves both force arrays zeroed after the step
     arrays["jkr_forces"] = torch.zeros_like(arrays["jkr_forces"])
@@ -575,13 +611,38 @@ class _ScanProbes:
         self.cands.append(cands)
 
 
-def _move(bio, rows, force, size, dt, probes):
-    """The Stokes update of the rows' locations; records the largest move."""
+def _move(bio, rows, force, size, dt):
+    """The Stokes update of the rows' locations: the new locations and the
+    largest squared move."""
     new_loc = stokes_integrate(rows["loc"], rows["rad"], force, rows["mot"],
                                rows["alive"], bio.stokes, size, float(dt))
-    probes.moves2.append(
-        _masked_max(((new_loc - rows["loc"]) ** 2).sum(dim=1), rows["alive"]))
-    rows["loc"] = new_loc
+    return new_loc, _masked_max(((new_loc - rows["loc"]) ** 2).sum(dim=1), rows["alive"])
+
+
+def _remat(cfg: EngineConfig, substep, *args):
+    """``substep(*args)``; under ``cfg.remat_substeps`` while autograd is
+    recording, as a checkpoint whose intermediates the backward pass
+    recomputes from ``args`` (the substep is deterministic, so the
+    recompute replays its forward).
+
+    A checkpoint saves its tensor arguments as autograd residuals, which an
+    enclosing checkpoint (the calibrator's per-step one) drops and
+    recomputes; any other argument it holds by reference for as long as
+    the graph lives. So a dict argument (the scan's rows) goes in as its
+    tensors, and the substep must hold no tensor of the scan in a closure."""
+    if not (cfg.remat_substeps and torch.is_grad_enabled()):
+        return substep(*args)
+    flat, keys = [], []
+    for a in args:
+        keys.append(tuple(a) if isinstance(a, dict) else None)
+        flat.extend(a.values() if isinstance(a, dict) else [a])
+
+    def unflattened(*flat):
+        it = iter(flat)
+        return substep(*[{k: next(it) for k in ks} if ks is not None else next(it)
+                         for ks in keys])
+
+    return torch.utils.checkpoint.checkpoint(unflattened, *flat, use_reentrant=False)
 
 
 def _scan_result(rows, probes):
@@ -598,7 +659,26 @@ def _scan_result(rows, probes):
             probes.rebuilds, torch.stack(probes.cands).max())
 
 
-def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts):
+def _id_list_substep(cfg, bio, law, contact, size, identity, first, dt, rows, bounds, ref):
+    """One substep of ``_physics_scan``: the drift test and the rebuild it
+    selects (after the first substep), one contact substep and the Stokes
+    update. Returns the new ``(rows, bounds, ref)`` and the substep's probes
+    ``(widest run, widest row, max degree, max squared move, stale)``."""
+    stale = None
+    if not first:
+        stale = _window_stale(cfg, rows, ref)
+        rows, bounds, ref = _rebuild_where(stale, cfg, rows, bounds, ref, identity)
+    run, cands = _window_widths(bounds)
+    force, degree, partners = contact(
+        pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
+        bounds, rows["partners"], **law,
+    )
+    new_loc, move2 = _move(bio, rows, force, size, dt)
+    rows = dict(rows, loc=new_loc, partners=partners)
+    return rows, bounds, ref, (run, cands, degree.max(), move2, stale)
+
+
+def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
     """The contact substeps over Verlet-cached stencil runs, bonds as (C, K)
     partner-id lists (``contact_path="id_list"``).
 
@@ -607,29 +687,80 @@ def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts):
     drift test runs on the device, and the rebuild (re-sort, new bounds)
     takes effect where an agent has drifted more than skin/2 from where the
     runs were built: it is computed on every substep and selected
-    (``_rebuild_where``). Each substep is one contact-kernel
-    launch (forces, degrees and the new partner lists) and one Stokes
-    update; the rows go back to the state's layout at the end. Returns
+    (``_rebuild_where``). Each substep is one contact-kernel launch (forces,
+    degrees and the new partner lists; the plain version under ``plain``)
+    and one Stokes update, rematerialised under ``cfg.remat_substeps``; the
+    rows go back to the state's layout at the end. Returns
     ``_scan_result``'s tuple."""
     rows = _scan_rows(arrays, alive, bonds)
     law = _contact_law(cfg, bio)
+    contact = contact_substep_plain if plain else contact_substep_cuda
     probes = _ScanProbes(alive.device)
     rows, bounds = _build_window(cfg, rows)
     ref = rows["loc"]
     identity = torch.arange(alive.shape[0], device=alive.device)
     for s, dt in enumerate(dts):
-        if s > 0:
-            stale = _window_stale(cfg, rows, ref)
-            rows, bounds, ref = _rebuild_where(stale, cfg, rows, bounds, ref, identity)
+        rows, bounds, ref, (run, cands, deg, move2, stale) = _remat(
+            cfg, _id_list_substep, cfg, bio, law, contact, size, identity, s == 0,
+            float(dt), rows, bounds, ref)
+        if stale is not None:
             probes.rebuilds = probes.rebuilds + stale
-        probes.window(bounds)
-        force, degree, rows["partners"] = contact_substep_cuda(
-            pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
-            bounds, rows["partners"], **law,
-        )
-        probes.degs.append(degree.max())
-        _move(bio, rows, force, size, dt, probes)
+        probes.bins.append(run)
+        probes.cands.append(cands)
+        probes.degs.append(deg)
+        probes.moves2.append(move2)
     return _scan_result(rows, probes)
+
+
+def _physics_scan_dense(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
+    """All-pairs contact substeps for calibration-sized colonies
+    (``EngineConfig.dense_pairs``; the JAX engine's ``_physics_scan_dense``):
+    no window and no sort. The (C, K) partner lists become a (C, C) bond
+    mask at entry, which every substep replaces with its surviving eligible
+    pairs, and go back to the first K partners in slot order at exit. The
+    pair law is ``ops.jkr._pair_jkr``, with the eligibility and break rules
+    of the windowed paths; only the order of a row's force sum differs
+    (slot order against window order), so the paths agree to rounding
+    (``tests/test_torch_calibrate.py``). Plain PyTorch on any device
+    (``plain`` changes nothing), as the JAX engine computes it in XLA. Each
+    substep is rematerialised under ``cfg.remat_substeps``. Returns
+    ``_scan_result``'s tuple, with no window: widest run and row 0, no
+    rebuilds."""
+    del plain
+    ids, radii, C = arrays["ids"], arrays["radii"], alive.shape[0]
+    device = alive.device
+    r = np.float32(bio.jkr_radius)
+    radius2 = float(r * r)  # the float32 square, as the JAX engine compares
+    bmask = ((bonds.partners[:, :, None] == ids[None, None, :])
+             & bonds.mask[:, :, None] & alive[None, None, :]).any(dim=1)
+    pair_ok = (alive[:, None] & alive[None, :]
+               & ~torch.eye(C, dtype=torch.bool, device=device))
+    mot = arrays["motility_forces"]
+
+    def substep(locations, bmask, dt, pair_ok, radii, mot, alive):
+        delta = locations[None, :, :] - locations[:, None, :]
+        eligible = pair_ok & (((delta * delta).sum(dim=-1) <= radius2) | bmask)
+        force, survive = _pair_jkr(
+            locations[:, None, :], locations[None, :, :], radii[:, None], radii[None, :],
+            bio.adhesion_const, bio.poisson, bio.youngs, bio.jkr_break_d,
+        )
+        keep = eligible & survive
+        forces = torch.where(keep[..., None], force, 0.0).sum(dim=1)
+        new_loc = stokes_integrate(locations, radii, forces, mot, alive, bio.stokes,
+                                   size, dt)
+        move2 = _masked_max(((new_loc - locations) ** 2).sum(dim=1), alive)
+        return new_loc, keep, keep.sum(dim=1).max(), move2
+
+    locations, degs, moves2 = arrays["locations"], [], []
+    for dt in dts:
+        locations, bmask, deg, move2 = _remat(cfg, substep, locations, bmask, float(dt),
+                                              pair_ok, radii, mot, alive)
+        degs.append(deg)
+        moves2.append(move2)
+    partners, _ = _compact_bonds(ids[None, :].expand(C, C), bmask, bonds.partners.shape[1])
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    return (locations, BondState.from_ids(partners), zero, torch.stack(degs).max(),
+            torch.sqrt(torch.stack(moves2).max()), zero, zero)
 
 
 def mask_words_of(cfg: EngineConfig) -> int:
@@ -641,7 +772,7 @@ def mask_words_of(cfg: EngineConfig) -> int:
     return -(-cfg.mask_bits // 32)
 
 
-def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts):
+def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
     """The contact substeps with the bond set as a keep mask over the frozen
     window (``contact_path="span_mask"``; the JAX engine's
     ``_physics_scan_pallas`` design).
@@ -659,7 +790,11 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts):
     mask buffers, each returning at once unless its branch is taken (the
     re-sort is computed and selected, as in ``_physics_scan``). At exit the
     mask is compacted once more and the rows go back to slot order. Returns
-    ``_scan_result``'s tuple."""
+    ``_scan_result``'s tuple. It has no plain form on the card, and raises
+    under ``plain``."""
+    if plain:
+        raise ValueError("hipsc_step(plain=True) runs the id-list or the dense contact path, "
+                         "not contact_path='span_mask'")
     rows = _scan_rows(arrays, alive, bonds)
     law = _contact_law(cfg, bio)
     K = rows["partners"].shape[1]
@@ -692,7 +827,8 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts):
             span_mask.contact_masked_cuda(xyzr, rows["ids"], rows["alive"], bounds, mask,
                                           pred=1 - rebuild, out=(force, degree), **law)
         probes.degs.append(degree.max())
-        _move(bio, rows, force, size, dt, probes)
+        rows["loc"], move2 = _move(bio, rows, force, size, dt)
+        probes.moves2.append(move2)
     rows["partners"] = span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K)
     return _scan_result(rows, probes)
 

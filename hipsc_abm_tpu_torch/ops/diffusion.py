@@ -155,24 +155,50 @@ def scatter_add_sorted(flat: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+class ScatterAdd(torch.autograd.Function):
+    """The deposit's sum. Forward: ``scatter_add_plain`` on a CPU tensor; on
+    a CUDA tensor a stable sort of the indices and the fixed-order kernel
+    (or a raise), bit-equal to the CPU's, counted as ``deposit``. Backward:
+    the lattice's cotangent passed through for ``flat`` and gathered at
+    each term's index for ``contrib``, the sentinel's terms getting 0, as
+    autograd of ``scatter_add_plain`` gives. A fit's rollout gives neither
+    ``flat`` nor ``contrib`` a gradient (the terms are constants of the
+    agents' discrete states, the indices integers), so there this builds
+    no graph."""
+
+    @staticmethod
+    def forward(ctx, flat, idx, contrib):
+        ctx.save_for_backward(idx)
+        if flat.device.type == "cpu":
+            return scatter_add_plain(flat, idx, contrib)
+        (P,), (n,) = flat.shape, idx.shape
+        if P >= 2**31 - 1:
+            raise ValueError(f"scatter_add_cuda: {P} lattice points exceed int32")
+        kernels.check_cuda("flat", flat, torch.float32, (P,))
+        kernels.check_cuda("idx", idx, torch.int64, (n,))
+        kernels.check_cuda("contrib", contrib, torch.float32, (n,))
+        sorted_idx, order = torch.sort(idx.to(torch.int32), stable=True)
+        out = flat.clone()
+        kernels.launch("hipsc_deposit", sorted_idx.data_ptr(), order.data_ptr(),
+                       contrib.data_ptr(), out.data_ptr(), n, P)
+        kernels.count_launch("deposit")
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        grad_contrib = None
+        if ctx.needs_input_grad[2]:
+            grad_contrib = torch.cat([grad, grad.new_zeros(1)])[idx]
+        return grad if ctx.needs_input_grad[0] else None, None, grad_contrib
+
+
 def scatter_add_cuda(flat: torch.Tensor, idx: torch.Tensor,
                      contrib: torch.Tensor) -> torch.Tensor:
     """The deposit's sum: ``flat`` (P,) float32 plus each ``contrib[i]``
     (float32) at ``idx[i]`` (int64 in [0, P], P the dropped sentinel). A CPU
     tensor runs the plain version (``index_add``); a CUDA tensor sorts the
     indices stably and launches the fixed-order kernel (or raises), whose
-    result is bit-equal to the CPU's. Counts as ``deposit``."""
-    if flat.device.type == "cpu":
-        return scatter_add_plain(flat, idx, contrib)
-    (P,), (n,) = flat.shape, idx.shape
-    if P >= 2**31 - 1:
-        raise ValueError(f"scatter_add_cuda: {P} lattice points exceed int32")
-    kernels.check_cuda("flat", flat, torch.float32, (P,))
-    kernels.check_cuda("idx", idx, torch.int64, (n,))
-    kernels.check_cuda("contrib", contrib, torch.float32, (n,))
-    sorted_idx, order = torch.sort(idx.to(torch.int32), stable=True)
-    out = flat.clone()
-    kernels.launch("hipsc_deposit", sorted_idx.data_ptr(), order.data_ptr(),
-                   contrib.data_ptr(), out.data_ptr(), n, P)
-    kernels.count_launch("deposit")
-    return out
+    result is bit-equal to the CPU's. Counts as ``deposit``. Differentiable
+    (``ScatterAdd``)."""
+    return ScatterAdd.apply(flat, idx, contrib)

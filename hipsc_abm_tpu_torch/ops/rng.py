@@ -27,6 +27,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -164,3 +165,70 @@ def split_words(words, num: int = 2) -> list:
     """``split`` on the host: a key as two Python ints in, ``num`` keys as
     pairs of Python ints out (bit-equal to ``split``)."""
     return [threefry2x32(words, 0, i) for i in range(num)]
+
+
+# ---------------------------------------------------------------------------
+# jax.random draws from a threefry key (the calibrator's ES perturbations)
+# ---------------------------------------------------------------------------
+
+# XLA's float32 erf_inv (M. Giles, "Approximating the erfinv function"):
+# Horner coefficients, highest order first, for w = -log1p(-x^2) < 5 and
+# for w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_SQRT2_F32 = float(np.float32(math.sqrt(2.0)))
+
+
+def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` uint32 words (int64) of ``jax.random.bits(key, (n,))`` in the
+    partitionable layout: word ``i`` is the xor of the two outputs of
+    ``threefry2x32(key, (0, i))``."""
+    counts = torch.arange(n, dtype=torch.int64, device=key.device)
+    b0, b1 = threefry2x32(key, torch.zeros_like(counts), counts)
+    return b0 ^ b1
+
+
+def random_uniform(key: torch.Tensor, shape, minval: float = 0.0,
+                   maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top 23
+    bits of each word as the mantissa of a float in [1, 2), less 1, scaled
+    to the range and held at ``minval`` or above. Bit-equal to JAX's for
+    the ranges used here ([0, 1) and ``random_normal``'s), where the scale
+    and shift are exact."""
+    bits = random_bits(key, math.prod(shape))
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = np.float32(minval), np.float32(maxval)
+    out = floats * float(hi - lo) + float(lo)
+    return torch.clamp(out, min=float(lo)).reshape(shape)
+
+
+def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` polynomial. ``log1p`` and ``sqrt`` are taken
+    in float64 and each Horner step is rounded once, as a fused
+    multiply-add, so the card and the CPU agree; against XLA:CPU's own
+    evaluation it lands within a few float32 ulps (its ``log1p`` is another
+    approximation)."""
+    w = (-torch.log1p(-(x * x).to(torch.float64))).to(torch.float32)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, f32_via_f64(torch.sqrt, w) - 3.0)
+    w64 = w.to(torch.float64)
+
+    def coef(i):
+        return torch.where(small, float(np.float32(_ERFINV_LT5[i])),
+                           float(np.float32(_ERFINV_GE5[i]))).to(torch.float64)
+
+    p = coef(0).to(torch.float32)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = (coef(i) + p.to(torch.float64) * w64).to(torch.float32)
+    return p * x
+
+
+def random_normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: ``sqrt(2) *
+    erf_inv(u)`` with ``u`` uniform on ``(nextafter(-1, 0), 1)``. The
+    uniform is bit-equal to JAX's; the normal within a few ulps
+    (``erf_inv_f32``)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return _SQRT2_F32 * erf_inv_f32(random_uniform(key, shape, lo, 1.0))

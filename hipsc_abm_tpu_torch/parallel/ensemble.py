@@ -294,23 +294,31 @@ class EnsembleEngine:
         params = self.replicate_params(states.alive.shape[0])
         for attempt in range(1, 17):
             self.attempts = attempt
-            cfg = self._cfg_for_states(states)
-            inputs = [step_inputs(key, states.step) for key in states.key]
-            table = torch.cat([t for t, _ in inputs])
-            if self.device.type == "cuda":
-                new_states, probes = self._graph_for(cfg, params, states).run(
-                    states, table, deadline_s=REPLAY_DEADLINE_S)
-            else:
-                new_states, probes = _ensemble_block(params, cfg, states, table)
-            rows = probes.tolist()
+            new_states, rows, cfg = self.attempt(states, params)
             grown_cfg = eng._grown_cfg(cfg, _probes_from_host(rows[-1]))
             if grown_cfg is None:
-                keys = torch.stack([k[-1] for _, k in inputs])
-                return (new_states._replace(key=keys, step=states.step + 1),
-                        _probes_from_host(rows[:-1], stacked=True))
+                return new_states, _probes_from_host(rows[:-1], stacked=True)
             eng.cfg = grown_cfg
             states = self.repad_states(states, grown_cfg)
         raise RuntimeError("capacity growth failed to converge")
+
+    def attempt(self, states: CellState, params: Sequence[StepParams]):
+        """One step of every replicate with the given per-replicate
+        parameters and no overflow recovery: on the card one replay of the
+        graph of ``(R, config, params)`` (captured at its first use), on the
+        CPU the replicate steps eagerly. Returns the new stacked state (keys
+        and step advanced), the (R + 1, 14) probe rows fetched in one
+        transfer (each replicate's, then their max) and the config run."""
+        cfg = self._cfg_for_states(states)
+        inputs = [step_inputs(key, states.step) for key in states.key]
+        table = torch.cat([t for t, _ in inputs])
+        if self.device.type == "cuda":
+            new_states, probes = self._graph_for(cfg, params, states).run(
+                states, table, deadline_s=REPLAY_DEADLINE_S)
+        else:
+            new_states, probes = _ensemble_block(params, cfg, states, table)
+        keys = torch.stack([k[-1] for _, k in inputs])
+        return (new_states._replace(key=keys, step=states.step + 1), probes.tolist(), cfg)
 
     def _graph_for(self, cfg: EngineConfig, params, states: CellState) -> _CapturedGraph:
         """The captured ensemble step of ``len(params)`` replicates under

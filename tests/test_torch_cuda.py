@@ -1090,3 +1090,115 @@ def test_ensemble_replicates_equal_solo_runs_on_card(dev):
             np.testing.assert_array_equal(a[k], b[k], err_msg=f"replicate {i}: {k}")
         np.testing.assert_array_equal(a["gradients"]["fgf4_values"].view(np.int32),
                                       b["gradients"]["fgf4_values"].view(np.int32))
+
+
+def _calibration_engine(dev, n=150, diffusion=False):
+    """``tests/test_calibrate.py``'s colony (150 + 15 cells in a 300 um
+    box), with FGF4 secretion and FTCS diffusion when ``diffusion``."""
+    gen = GeneralParams(num_to_start=n, end_step=5, size=(300.0, 300.0, 0.0))
+    xp = ExperimentalParams(num_gata6=n // 10, dox_step=1)
+    diff = DiffusionParams(spat_res=20.0, diffuse_dt=6.0, diffuse_const=2.0,
+                           max_concentration=2.0, degradation=0.1, release_amount=0.01)
+    return HipscEngine(gen, xp, diff=diff if diffusion else None,
+                       enable_diffusion=diffusion, device=dev)
+
+
+def test_deposit_backward_on_card_equals_cpu(dev):
+    """The deposit's ``autograd.Function``: forward the fixed-order kernel
+    (one launch), backward the lattice cotangent passed through and
+    gathered at each term's index (the sentinel's terms 0), bit-equal to
+    autograd of ``scatter_add_plain`` on the CPU."""
+    g = torch.Generator().manual_seed(3)
+    P, n = 5000, 40000
+    flat = torch.rand(P, generator=g)
+    idx = torch.randint(0, P + 1, (n,), generator=g)
+    contrib = torch.rand(n, generator=g)
+    weight = torch.rand(P, generator=g)
+
+    def grads(device, fn):
+        f = flat.to(device).requires_grad_(True)
+        c = contrib.to(device).requires_grad_(True)
+        out = fn(f, idx.to(device), c)
+        (out * weight.to(device)).sum().backward()
+        return out.detach().cpu(), f.grad.cpu(), c.grad.cpu()
+
+    before = kernels.launch_counts["deposit"]
+    got = grads(dev, diffusion.scatter_add_cuda)
+    assert kernels.launch_counts["deposit"] == before + 1
+    want = grads("cpu", diffusion.scatter_add_plain)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_plain_selector_launches_no_kernel(dev):
+    """``hipsc_step(plain=True)`` on the card, with diffusion on: the contact,
+    bio-moments and FTCS kernels are not launched (their counts unchanged),
+    the deposit's fixed-order kernel is; the same step without the selector
+    launches all four."""
+    from hipsc_abm_tpu_torch.engine import hipsc_step
+
+    eng = _calibration_engine(dev, diffusion=True)
+    state = eng.init_state(seed=0)
+    names = ("contact_substep", "bio_moments", "ftcs_diffuse", "deposit")
+    for plain in (True, False):
+        before = {k: kernels.launch_counts[k] for k in names}
+        hipsc_step(state, eng.cfg, eng.gen, eng.xp, eng.bio, eng.diff, plain=plain)
+        moved = {k: kernels.launch_counts[k] - before[k] for k in names}
+        if plain:
+            assert moved == {"contact_substep": 0, "bio_moments": 0, "ftcs_diffuse": 0,
+                             "deposit": 1}, moved
+        else:
+            assert all(v > 0 for v in moved.values()), moved
+
+
+def test_calibration_gradient_on_card_matches_cpu(dev):
+    """A 2-step gradient evaluation (adhesion and motility, squared Rg
+    error, diffusion on) on the card against the same on the CPU from one
+    state: loss rtol 1e-5, gradient rtol 1e-3 (float32 reductions and libm
+    functions of two devices)."""
+    from hipsc_abm_tpu_torch import calibrate as cal_mod
+
+    out = {}
+    cpu_eng = _calibration_engine("cpu", diffusion=True)
+    start = convert.state_to_numpy(cpu_eng.safe_step(cpu_eng.init_state(seed=0))[0])
+    for device in (dev, "cpu"):
+        cal = cal_mod.Calibrator(
+            _calibration_engine(device, diffusion=True), ["adhesion_const", "motility_force"],
+            cal_mod.squared_error(cal_mod.radius_of_gyration, 100.0), horizon=2)
+        state = cal._reconcile(convert.state_from_numpy(start, device))
+        (loss, _), grad = cal._value_and_grad(cal.theta0(), state,
+                                              cal._grad_cfg(cal.engine.cfg))
+        out[str(device)] = (float(loss), grad.numpy())
+    (loss_c, grad_c), (loss_p, grad_p) = out[str(dev)], out["cpu"]
+    assert np.all(np.isfinite(grad_c)) and np.abs(grad_c).max() > 0
+    np.testing.assert_allclose(loss_c, loss_p, rtol=1e-5)
+    np.testing.assert_allclose(grad_c, grad_p, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_population_losses_equal_solo_rollouts_on_card(dev, dense):
+    """An ES population (3 candidates of adhesion and motility over R = 2
+    replicates: one captured ensemble of 6 branches) on the card: each
+    candidate's loss equals its solo rollout's (``Calibrator.evaluate``,
+    eager steps) bit for bit, on the dense and the windowed path; the bio
+    moments kernel launched in both, the contact kernel in the windowed
+    one only."""
+    from hipsc_abm_tpu_torch import calibrate as cal_mod
+    from hipsc_abm_tpu_torch.parallel.ensemble import EnsembleEngine
+
+    eng = _calibration_engine(dev)
+    cal = cal_mod.Calibrator(
+        eng, ["adhesion_const", "motility_force"],
+        cal_mod.ensemble_trajectory(cal_mod.trajectory_squared_error(
+            cal_mod.radius_of_gyration, [95.0, 94.5, 94.0])),
+        horizon=3, dense_pairs=dense)
+    states = cal.prepare(EnsembleEngine(eng).init_states(seeds=[0, 1]))
+    theta = cal.theta0()
+    cands = theta[None, :] + torch.tensor([[0.0, 0.0], [0.3, -0.2], [-0.3, 0.2]])
+    kernels.launch_counts.clear()
+    losses, _ = cal._population(cands, states)
+    assert kernels.launch_counts["bio_moments"] > 0
+    assert (kernels.launch_counts["contact_substep"] > 0) != dense
+    assert len(set(losses.tolist())) == 3
+    for i in range(3):
+        assert float(losses[i]) == cal.evaluate(cands[i], states), i

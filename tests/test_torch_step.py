@@ -346,7 +346,8 @@ def test_numpy_round_trip_is_lossless():
 
 def test_port_never_imports_jax():
     """Every module of the port, and chip_smoke, imported in a fresh process
-    without JAX pulls in neither JAX nor the JAX package."""
+    without JAX pulls in neither JAX, nor the JAX package, nor optax (the
+    card's machine has none)."""
     code = ("import importlib, pkgutil, sys\n"
             "import hipsc_abm_tpu_torch as pkg, chip_smoke\n"
             "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
@@ -357,8 +358,10 @@ def test_port_never_imports_jax():
             "assert 'hipsc_abm_tpu_torch.models.hipsc' in mods, mods\n"
             "assert 'hipsc_abm_tpu_torch.utils.io' in mods, mods\n"
             "assert 'hipsc_abm_tpu_torch.parallel.ensemble' in mods, mods\n"
-            "bad = sorted(m for m in sys.modules if m in ('jax', 'tools', 'hipsc_abm_tpu')\n"
-            "             or m.startswith(('jax.', 'jaxlib', 'hipsc_abm_tpu.', 'tools.')))\n"
+            "assert 'hipsc_abm_tpu_torch.calibrate' in mods, mods\n"
+            "assert 'hipsc_abm_tpu_torch.examples.calibrate' in mods, mods\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'tools', 'hipsc_abm_tpu', 'optax')\n"
+            "             or m.startswith(('jax.', 'jaxlib', 'hipsc_abm_tpu.', 'tools.', 'optax.')))\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
