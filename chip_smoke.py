@@ -135,10 +135,33 @@ Phases, each of which raises on failure (exit code != 0):
    B6 (windowed only), one candidate's population loss bit-equal to its
    solo rollout; (d) the port's ``examples/calibrate.py`` at its defaults,
    both fits lowering their loss.
+11. the domain-decomposed engine (``domain_phase``,
+   ``parallel.domain_engine.DomainHipscEngine``, every tile on the one
+   card, span-mask path unless named): (a) the 2D 100k bench colony in 4
+   stripes, 5 ``safe_step``s against the single engine on the card from
+   one initial colony: integer fields, bond sets, positions and radii
+   bit-equal by agent id, the lattice within 1e-5; (b) 20k cells in 2 x 2
+   tiles, one ``step`` on the card against the CPU from the same
+   decomposed state (integers equal, positions within 1e-3 um, the lattice
+   bit-equal); (c) the 3D 99k spheroid in 2 stripes, 3 ``safe_step``s as
+   in a; (d) the id-list path from b's state against the span-mask path on
+   the card, with B6's launches counted; (e) the 2D 500k colony in 2 x 2
+   tiles and on the single engine, each warmed up until a ``safe_step``
+   grows nothing, one more domain step whose kernel calls (tile-local
+   capacities and run bounds) are recorded and held against the plain
+   versions (the ``[tile]`` entries), then ``safe_step`` median and p90
+   over 10 steps each, in turns (domain, single, domain, single), peak
+   memory per engine, the domain's launches per step attempt counted from
+   0 over its turns (every kernel of the path, exactly); (f) the shipped
+   templates' values with ``domain_tiles: [2, 2]`` through
+   ``CellSimulation`` on the card (6 steps, no images) against the same
+   run on one engine, bit-equal by agent id.
 
 The last lines are the seconds per phase, one JSON object with each
 kernel's numbers (``law``: the contact law of the run its inputs and
 launches come from, ``"general"`` for the entries named ``[general]``;
+``domain_launches``: its launches on the domain path, phase 11 e in 2D,
+c in 3D, d for B6; the ``[tile]`` entries' ``launches`` are those;
 ``taken_launches``: those of ``launches`` that ran their branch, fewer for
 the span-mask kernels, which launch on every substep under the rebuild
 predicate; ``in_step_ms``: device time per taken launch in the step), the
@@ -297,6 +320,20 @@ CAL_CPU_LOSS_RTOL, CAL_CPU_GRAD_RTOL = 1e-5, 1e-3
 # tests/test_engine.py::test_dense_pairs_matches_windowed's position
 # tolerance (Rg is a mean of distances: it moves no more than they do)
 CAL_DENSE_ATOL = 2e-4
+# phase 11, the domain-decomposed engine: the stripes and tile grid of its
+# checks, the steps of the checks against the single engine (5 in 2D, 3 in
+# 3D), the 500k cell's timed safe_steps per engine and turn (two turns
+# each, in the order domain, single, domain, single), the most warm-up
+# steps before one that grows nothing, and the lifecycle's cut (the shipped
+# templates' values, 6 steps, no images)
+DOMAIN_STRIPES = 4
+DOMAIN_TILES = (2, 2)
+DOMAIN_STEPS = 5
+DOMAIN_STEPS_3D = 3
+DOMAIN_TIMED = 5
+DOMAIN_WARMUP = 8
+DOMAIN_LIFECYCLE_STEPS = 6
+DOMAIN_LATTICE_ATOL = 1e-5
 
 
 def bench_engine(n_cells: int, device: str, contact_path: str = "id_list", **flags):
@@ -2780,6 +2817,451 @@ def calibration_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the domain-decomposed engine
+# ---------------------------------------------------------------------------
+
+
+def domain_like(eng, device: str, path: str = "span_mask", **grid):
+    """A ``DomainHipscEngine`` with the parameters and phase switches of the
+    single engine ``eng``, on ``device``, cut by ``grid`` (``n_stripes`` or
+    ``tiles``)."""
+    from hipsc_abm_tpu_torch.parallel import DomainHipscEngine
+
+    cfg = eng.cfg
+    return DomainHipscEngine(eng.gen, eng.xp, eng.bio, eng.diff, device=device,
+                             contact_path=path, enable_diffusion=cfg.enable_diffusion,
+                             enable_growth=cfg.enable_growth,
+                             enable_stochastic=cfg.enable_stochastic,
+                             enable_diff_surround=cfg.enable_diff_surround, **grid)
+
+
+def domain_flat(dom, dstate) -> dict:
+    """A decomposed state as a flat numpy state dict."""
+    from hipsc_abm_tpu_torch import convert
+
+    return convert.state_to_numpy(dom.to_cell_state(dstate))
+
+
+def domain_equal(a: dict, b: dict, label: str) -> str:
+    """A decomposed run's flat state against a single engine's, by agent id:
+    integer fields, bond sets, positions and radii bit-equal; the lattice
+    within ``DOMAIN_LATTICE_ATOL`` (the tiles' deposits are summed in tile
+    order, the single engine's go straight onto the lattice). Raises, or
+    returns a summary."""
+    ia, ib = by_id(a), by_id(b)
+    if not np.array_equal(ia["ids"], ib["ids"]):
+        raise AssertionError(f"{label}: agent id sets differ")
+
+    def bits(x):
+        return x.view(np.int32) if x.dtype == np.float32 else x
+
+    differ = [k for k in ia if k != "bonds" and not np.array_equal(bits(ia[k]), bits(ib[k]))]
+    if ia["bonds"] != ib["bonds"]:
+        differ.append("bonds")
+    if differ:
+        raise AssertionError(f"{label}: {differ} differ")
+    summary = (f"{len(ia['ids'])} agents, integer fields, bond sets, positions and radii "
+               "bit-equal")
+    for g in a["gradients"]:
+        err = float(np.abs(a["gradients"][g] - b["gradients"][g]).max())
+        if not err <= DOMAIN_LATTICE_ATOL:
+            raise AssertionError(f"{label}: lattice {g} apart by {err}")
+        summary += f", lattice {g} max|d|={err:.3e}"
+    return summary
+
+
+def counted(fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: ``(result, counts)``."""
+    from hipsc_abm_tpu_torch import kernels
+
+    kernels.launch_counts.clear()
+    out = fn()
+    counts = dict(kernels.launch_counts)
+    kernels.launch_counts.clear()
+    return out, counts
+
+
+def clone_tree(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(clone_tree(v) for v in x)
+    if isinstance(x, dict):
+        return {k: clone_tree(v) for k, v in x.items()}
+    return x
+
+
+class TileCalls:
+    """Inside the ``with`` block, records the first call of each kernel
+    wrapper that runs its kernel (no predicate, or one that is set; for the
+    bio moments the motility-mode call), with its inputs cloned before the
+    call: the inputs the domain path gives the kernels at a tile's shapes
+    (own rows and halo blocks, tile-local run bounds)."""
+
+    def __init__(self):
+        from hipsc_abm_tpu_torch import engine as engine_mod
+        from hipsc_abm_tpu_torch.ops import span_mask
+        from hipsc_abm_tpu_torch.parallel import domain_engine
+
+        self.targets = [(span_mask, "contact_seed_cuda", "contact_seed"),
+                        (span_mask, "contact_masked_cuda", "contact_masked"),
+                        (span_mask, "mask_compact_cuda", "mask_compact"),
+                        (engine_mod, "bio_moments_cuda", "bio_moments"),
+                        (domain_engine, "contact_substep_cuda", "contact_substep")]
+        self.calls, self.real = {}, []
+
+    def _wrap(self, real, name):
+        def call(*args, **kw):
+            pred = kw.get("pred")
+            if (name not in self.calls and (pred is None or int(pred.reshape(-1)[0]) != 0)
+                    and (name != "bio_moments" or kw.get("mode") == "motility")):
+                self.calls[name] = (clone_tree(args), clone_tree(kw))
+            return real(*args, **kw)
+        return call
+
+    def __enter__(self):
+        for mod, attr, name in self.targets:
+            self.real.append(getattr(mod, attr))
+            setattr(mod, attr, self._wrap(self.real[-1], name))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, attr, _), real in zip(self.targets, self.real):
+            setattr(mod, attr, real)
+
+
+def tile_kernel_entries(calls: dict) -> list:
+    """Each kernel the domain path ran, on the inputs of its recorded tile
+    call (``TileCalls``), against its plain version on the same inputs, with
+    the times and bounds of ``kernel_phase``: entries ``<kernel>[tile]``."""
+    from hipsc_abm_tpu_torch import kernels
+    from hipsc_abm_tpu_torch.ops import bio_moments, contact, span_mask
+
+    results = []
+
+    def entry(name, n_runs, source, replaces, **nums):
+        results.append(dict(name=f"{kernels.counted_name(name, n_runs)}[tile]", route="cuda",
+                            source=f"hipsc_abm_tpu_torch/csrc/{source}", replaces=replaces,
+                            library_ms=None, law="uniform", **nums))
+        return results[-1]["name"]
+
+    def law_of(kw):
+        return {k: v for k, v in kw.items() if k not in ("out", "pred", "width")}
+
+    if "contact_substep" in calls:
+        args, kw = calls["contact_substep"]
+        law, n_runs = law_of(kw), kernels.run_count(args[3])
+        C, K = args[4].shape
+        f_k, d_k, p_k = contact.contact_substep_cuda(*args, **law)
+        f_p, d_p, p_p = contact.contact_substep_plain(*args, **law)
+        torch.cuda.synchronize()
+        f_scale, f_err = check_contact("contact_substep[tile]", f_k, d_k, f_p, d_p)
+        bad = sum(x != y for x, y in zip(
+            [frozenset(r[r >= 0].tolist()) for r in p_k.cpu().numpy()],
+            [frozenset(r[r >= 0].tolist()) for r in p_p.cpu().numpy()]))
+        if bad:
+            raise AssertionError(f"contact_substep[tile]: bond sets differ on {bad} rows")
+        name = entry("contact_substep", n_runs, "contact.cu",
+                     "hipsc_abm_tpu/ops/pallas_contact.py:79", max_abs_err=f_err,
+                     ms=cuda_ms(lambda: contact.contact_substep_cuda(*args, **law), 20),
+                     plain_ms=cuda_ms(lambda: contact.contact_substep_plain(*args, **law), 5),
+                     **bound(C * (16 + 1 + 8 * n_runs + 4 + 8 * K + 16),
+                             contact_flops(args[3], args[2], d_p)))
+        print(f"kernel {name}: rows={C} K={K} max|F|={f_scale:.6e} N max_abs_err={f_err:.3e} N")
+    if "contact_seed" in calls:
+        args, kw = calls["contact_seed"]
+        law, n_runs = law_of(kw), kernels.run_count(args[3])
+        C, K = args[4].shape
+        row_bytes = 16 + 1 + 8 * n_runs
+        f_k, d_k, m_k = span_mask.contact_seed_cuda(*args, **law)
+        f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **law)
+        torch.cuda.synchronize()
+        f_scale, f_err = check_contact("contact_seed[tile]", f_k, d_k, f_p, d_p)
+        if m_k.shape != m_p.shape or not torch.equal(m_k, m_p):
+            raise AssertionError("contact_seed[tile]: mask words differ")
+        W, walk = m_p.shape[0], membership_counts(args, law)
+        name = entry("contact_seed", n_runs, "contact_mask.cu",
+                     "hipsc_abm_tpu/ops/pallas_contact.py:697", max_abs_err=f_err,
+                     ms=cuda_ms(lambda: span_mask.contact_seed_cuda(*args, **law), 20),
+                     plain_ms=cuda_ms(lambda: span_mask.contact_seed_plain(*args, **law), 5),
+                     **bound(C * (row_bytes + 16 + 4 * W) + 4 * K * walk["rows"]
+                             + 4 * walk["membership"], contact_flops(args[3], args[2], d_p)))
+        print(f"kernel {name}: rows={C} K={K} W={W} max|F|={f_scale:.6e} N "
+              f"max_abs_err={f_err:.3e} N")
+    if "contact_masked" in calls:
+        args, kw = calls["contact_masked"]
+        law, n_runs = law_of(kw), kernels.run_count(args[3])
+        C, W = args[0].shape[0], args[4].shape[0]
+        m_k, m_p = args[4].clone(), args[4].clone()
+        f_k, d_k, _ = span_mask.contact_masked_cuda(*args[:4], m_k, **law)
+        f_p, d_p, _ = span_mask.contact_masked_plain(*args[:4], m_p, **law)
+        torch.cuda.synchronize()
+        f_scale, f_err = check_contact("contact_masked[tile]", f_k, d_k, f_p, d_p)
+        if not torch.equal(m_k, m_p):
+            raise AssertionError("contact_masked[tile]: mask words differ")
+        m_time = args[4].clone()
+        name = entry("contact_masked", n_runs, "contact_mask.cu",
+                     "hipsc_abm_tpu/ops/pallas_contact.py:481", max_abs_err=f_err,
+                     ms=cuda_ms(lambda: span_mask.contact_masked_cuda(*args[:4], m_time, **law),
+                                20),
+                     plain_ms=cuda_ms(lambda: span_mask.contact_masked_plain(
+                         *args[:4], m_time, **law), 5),
+                     **bound(C * (16 + 1 + 8 * n_runs + 16 + 8 * W),
+                             contact_flops(args[3], args[2], d_p)))
+        print(f"kernel {name}: rows={C} W={W} max|F|={f_scale:.6e} N max_abs_err={f_err:.3e} N")
+    if "mask_compact" in calls:
+        (ids, bounds, mask, K), _ = calls["mask_compact"]
+        n_runs, C, W = kernels.run_count(bounds), ids.shape[0], mask.shape[0]
+        c_k = span_mask.mask_compact_cuda(ids, bounds, mask, K)
+        c_p = span_mask.mask_compact_plain(ids, bounds, mask, K)
+        torch.cuda.synchronize()
+        if not torch.equal(c_k, c_p):
+            raise AssertionError("mask_compact[tile]: ids differ")
+        words = int(torch.clamp((span_mask.candidate_counts(bounds) + 31) // 32, max=W).sum())
+        name = entry("mask_compact", n_runs, "contact_mask.cu",
+                     "hipsc_abm_tpu/ops/pallas_contact.py:877", max_abs_err=0.0,
+                     ms=cuda_ms(lambda: span_mask.mask_compact_cuda(ids, bounds, mask, K), 20),
+                     plain_ms=cuda_ms(lambda: span_mask.mask_compact_plain(ids, bounds, mask, K),
+                                      5),
+                     **bound(C * (8 * n_runs + 4 * K) + 4 * words + 4 * int((c_k >= 0).sum()),
+                             0.0))
+        print(f"kernel {name}: rows={C} K={K} W={W}, ids equal row for row")
+    if "bio_moments" in calls:
+        b_args, b_kw = calls["bio_moments"]
+        b_kw = law_of(b_kw)
+        n_runs = kernels.run_count(b_args[2])
+        err = 0.0
+        for mode in ("count", "pathway", "motility", "full"):
+            kw = dict(b_kw, mode=mode)
+            b_k = bio_moments.bio_moments_cuda(*b_args, **kw)
+            b_p = bio_moments.bio_moments_plain(*b_args, **kw)
+            if not torch.equal(b_k[:, [0, 3, 7]], b_p[:, [0, 3, 7]]):
+                raise AssertionError(f"bio_moments[tile, {mode}]: count lanes differ")
+            torch.testing.assert_close(b_k, b_p, rtol=1e-5, atol=1e-4)
+            err = max(err, float((b_k - b_p).abs().max()))
+        full = dict(b_kw, mode="full")
+        name = entry("bio_moments", n_runs, "bio_moments.cu",
+                     "hipsc_abm_tpu/ops/pallas_bio.py:58", max_abs_err=err,
+                     ms=cuda_ms(lambda: bio_moments.bio_moments_cuda(*b_args, **full), 20),
+                     plain_ms=cuda_ms(lambda: bio_moments.bio_moments_plain(*b_args, **full), 5),
+                     **bio_bound(b_args, full, float(b_p[:, 0].sum())))
+        print(f"kernel {name}: rows={b_args[0].shape[0]} max_abs_err={err:.3e} (all four "
+              "modes, on the motility call's inputs)")
+    return results
+
+
+def domain_against_single(dims: int, n: int, grid: dict, steps: int, tag: str) -> dict:
+    """``steps`` ``safe_step``s of the decomposed engine (span-mask path) and
+    of the single engine on the card from one initial colony, held bit-equal
+    by agent id (``domain_equal``); the domain's launches counted from 0."""
+    from hipsc_abm_tpu_torch import convert
+
+    eng, state = engine_for(dims, n, "cuda", "span_mask")
+    dom = domain_like(eng, "cuda", **grid)
+    ds = [dom.from_cell_state(state)]
+    t0 = time.perf_counter()
+
+    def run():
+        for _ in range(steps):
+            ds[0], _ = dom.safe_step(ds[0])
+        torch.cuda.synchronize()
+
+    _, counts = counted(run)
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = eng.safe_step(state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    label = f"domain phase {tag} [{dims}D, {n}, {grid}]"
+    summary = domain_equal(domain_flat(dom, ds[0]), convert.state_to_numpy(state), label)
+    cfg = dom.cfg
+    print(f"{label}: {steps} safe_steps against the single engine on the card: {summary}; "
+          f"domain {t1 - t0:.2f} s, single {t2 - t1:.2f} s; per tile {cfg.per_stripe} slots + "
+          f"{cfg.n_halo_blocks} x {cfg.halo_cap} halo rows; launches {counts}")
+    del eng, dom
+    torch.cuda.empty_cache()
+    return dict(counts=counts, domain_s=t1 - t0, single_s=t2 - t1)
+
+
+def domain_card_vs_cpu() -> dict:
+    """Phase 11 b and d: one domain step (tiles ``DOMAIN_TILES``) from one
+    20k-cell state on the CPU and on the card (b: integers equal, positions
+    within 1e-3 um, the lattice bit-equal), and the id-list path on the card
+    from the same state against the span-mask path (d), with B6's launches
+    counted from 0 and its tile-shaped call recorded."""
+    from hipsc_abm_tpu_torch import convert
+    from hipsc_abm_tpu_torch.engine import _physics_dts
+
+    base, s0 = engine_for(2, N_STEP_CHECK, "cpu", "span_mask")
+    s0, _ = base.safe_step(s0)  # bonds and a lattice to start from
+    cpu = domain_like(base, "cpu", tiles=DOMAIN_TILES)
+    d = convert.domain_state_to_numpy(cpu.from_cell_state(s0))
+    t0 = time.perf_counter()
+    a, _ = cpu.step(convert.domain_state_from_numpy(d, cpu.devices))
+    t1 = time.perf_counter()
+    gpu = domain_like(base, "cuda", tiles=DOMAIN_TILES)
+    gpu.cfg = cpu.cfg
+    b, _ = gpu.step(convert.domain_state_from_numpy(d, gpu.devices))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    x, y = domain_flat(cpu, a), domain_flat(gpu, b)
+    summary = compare_colonies(x, y, "domain phase b card vs CPU", 0)
+    lattice_bits = int((x["gradients"]["fgf4_values"].view(np.int32)
+                        != y["gradients"]["fgf4_values"].view(np.int32)).sum())
+    if lattice_bits:
+        raise AssertionError(f"domain phase b: the lattice differs at {lattice_bits} points")
+    print(f"domain phase b [2D, {N_STEP_CHECK}, tiles {DOMAIN_TILES}] one step card vs CPU: "
+          f"{summary}, lattice bit-equal; cpu {t1 - t0:.2f} s, card {t2 - t1:.2f} s")
+    gid = domain_like(base, "cuda", "id_list", tiles=DOMAIN_TILES)
+    gid.cfg = dataclasses.replace(cpu.cfg, base=dataclasses.replace(cpu.cfg.base,
+                                                                   contact_path="id_list"))
+    with TileCalls() as calls:
+        (c, _), counts = counted(lambda: gid.step(
+            convert.domain_state_from_numpy(d, gid.devices)))
+    S, n_sub = gid.cfg.n_stripes, len(_physics_dts(gid.bio))
+    if counts.get("contact_substep", 0) != S * n_sub or any(
+            counts.get(k, 0) for k in SPAN_MASK_KERNELS):
+        raise AssertionError(f"domain phase d: launches {counts}")
+    summary = compare_colonies(y, domain_flat(gid, c), "domain phase d id_list vs span_mask", 0)
+    print(f"domain phase d [tiles {DOMAIN_TILES}] id_list against span_mask on the card: "
+          f"{summary}; launches {counts}")
+    entries = tile_kernel_entries({k: v for k, v in calls.calls.items()
+                                   if k == "contact_substep"})
+    return dict(counts=counts, entries=entries, cpu_s=t1 - t0, card_s=t2 - t1)
+
+
+def domain_timing() -> dict:
+    """Phase 11 e: the 2D 500k bench colony in tiles ``DOMAIN_TILES`` and on
+    the single engine (span-mask path), each warmed up until a
+    ``safe_step`` grows nothing, then one more domain step recording the
+    kernels' tile-shaped calls (checked against their plain versions), then
+    ``DOMAIN_TIMED`` ``safe_step``s per engine and turn in the order domain,
+    single, domain, single: median and p90 ms per step, peak memory per
+    engine's turns, and the domain's launches, counted from 0 over its
+    turns (per step attempt: the seed and the compaction 11 per tile, the
+    masked substep 10, the bio moments 3 and the deposit 1 per tile, FTCS 1
+    per device)."""
+    from hipsc_abm_tpu_torch import kernels
+    from hipsc_abm_tpu_torch.engine import _physics_dts
+
+    eng, state = engine_for(2, N_LARGE, "cuda", "span_mask")
+    dom = domain_like(eng, "cuda", tiles=DOMAIN_TILES)
+    ds = dom.from_cell_state(state)
+    t0 = time.perf_counter()
+    for i in range(DOMAIN_WARMUP):
+        ds, _ = dom.safe_step(ds)
+        if dom.attempts == 1 and i > 0:
+            break
+    else:
+        raise AssertionError("domain phase e: the domain engine still grows after warm-up")
+    for i in range(DOMAIN_WARMUP):
+        state, _ = eng.safe_step(state)
+        if eng.block_attempts == 1 and i > 0:
+            break
+    else:
+        raise AssertionError("domain phase e: the single engine still grows after warm-up")
+    warm_s = time.perf_counter() - t0
+    with TileCalls() as calls:
+        ds, _ = dom.safe_step(ds)
+    entries = tile_kernel_entries(calls.calls)
+    kernels.launch_counts.clear()
+    ms = {"domain": [], "single": []}
+    peak = {"domain": 0, "single": 0}
+    counts, attempts, rebuilds = {}, 0, 0
+    for turn in ("domain", "single", "domain", "single"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.launch_counts.clear()
+        for _ in range(DOMAIN_TIMED):
+            t = time.perf_counter()
+            if turn == "domain":
+                ds, info = dom.safe_step(ds)
+                attempts += dom.attempts
+                rebuilds += info.jkr_rebuilds
+            else:
+                state, info = eng.safe_step(state)
+            ms[turn].append((time.perf_counter() - t) * 1e3)
+        peak[turn] = max(peak[turn], torch.cuda.max_memory_allocated())
+        if turn == "domain":
+            for k, v in kernels.launch_counts.items():
+                counts[k] = counts.get(k, 0) + v
+        kernels.launch_counts.clear()
+    S, n_sub = dom.cfg.n_stripes, len(_physics_dts(dom.bio))
+    want = {"contact_seed": S * n_sub, "contact_masked": S * (n_sub - 1),
+            "mask_compact": S * n_sub, "bio_moments": 3 * S, "deposit": S, "ftcs_diffuse": 1}
+    wrong = {k: (counts.get(k, 0), v * attempts) for k, v in want.items()
+             if counts.get(k, 0) != v * attempts or not v}
+    if wrong:
+        raise AssertionError(f"domain phase e: launches (got, want) {wrong} over {attempts} "
+                             f"step attempts")
+    agents = domain_flat(dom, ds)["alive"].sum()
+    out = dict(
+        cells=N_LARGE, tiles=list(DOMAIN_TILES), agents=int(agents), warm_s=warm_s,
+        domain_median_ms=float(np.median(ms["domain"])),
+        domain_p90_ms=float(np.percentile(ms["domain"], 90)),
+        single_median_ms=float(np.median(ms["single"])),
+        single_p90_ms=float(np.percentile(ms["single"], 90)),
+        domain_peak_mib=peak["domain"] / 2**20, single_peak_mib=peak["single"] / 2**20,
+        attempts=attempts, rebuilds=rebuilds, substeps=n_sub,
+        launches_per_attempt={k: counts.get(k, 0) / attempts for k in want},
+        per_stripe=dom.cfg.per_stripe, halo_cap=dom.cfg.halo_cap,
+        exchange_bytes_per_step=dom.exchange_bytes[-1])
+    print(f"domain phase e [2D, {N_LARGE}, tiles {DOMAIN_TILES}]: {agents} agents; "
+          f"safe_step median {out['domain_median_ms']:.3f} ms, p90 {out['domain_p90_ms']:.3f} ms "
+          f"(domain) against median {out['single_median_ms']:.3f} ms, p90 "
+          f"{out['single_p90_ms']:.3f} ms (single engine), {2 * DOMAIN_TIMED} steps each in "
+          f"turns; peak memory {out['domain_peak_mib']:.1f} / {out['single_peak_mib']:.1f} MiB; "
+          f"launches per step attempt {out['launches_per_attempt']}; {rebuilds} window "
+          f"rebuilds; exchange bytes per step {out['exchange_bytes_per_step']}; warm-up "
+          f"{warm_s:.2f} s")
+    del eng, dom
+    torch.cuda.empty_cache()
+    return dict(out, counts=counts, entries=entries)
+
+
+def domain_lifecycle() -> dict:
+    """Phase 11 f: the shipped templates' values (``LIFECYCLE_GENERAL``,
+    cut to ``DOMAIN_LIFECYCLE_STEPS`` steps without images) through
+    ``CellSimulation`` on the card with ``domain_tiles`` and without, equal
+    by agent id."""
+    from hipsc_abm_tpu_torch import convert
+    from hipsc_abm_tpu_torch.parallel import DomainHipscEngine
+
+    general = dict(LIFECYCLE_GENERAL, end_step=DOMAIN_LIFECYCLE_STEPS, output_images=False)
+    runs = {}
+    for key, extra in (("domain", {"domain_tiles": list(DOMAIN_TILES)}), ("single", {})):
+        root = tempfile.mkdtemp(prefix=f"hipsc_domain_{key}_")
+        try:
+            write_templates(root, dict(general, **extra), LIFECYCLE_EXPERIMENTAL)
+            t0 = time.perf_counter()
+            sim = run_lifecycle(root, ["-n", "dl", "-m", "0"])
+            seconds = time.perf_counter() - t0
+            if isinstance(sim.engine, DomainHipscEngine) != (key == "domain"):
+                raise AssertionError(f"domain phase f: {key} run on {type(sim.engine)}")
+            state = sim.engine.to_cell_state(sim.state) if key == "domain" else sim.state
+            runs[key] = (convert.state_to_numpy(state), seconds)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    summary = domain_equal(runs["domain"][0], runs["single"][0], "domain phase f")
+    print(f"domain phase f: lifecycle, shipped templates, {DOMAIN_LIFECYCLE_STEPS} steps, "
+          f"domain_tiles {list(DOMAIN_TILES)} against one engine: {summary}; "
+          f"{runs['domain'][1]:.2f} s / {runs['single'][1]:.2f} s")
+    return dict(domain_s=runs["domain"][1], single_s=runs["single"][1])
+
+
+def domain_phase() -> dict:
+    """Phase 11, the domain-decomposed engine (see the module docstring)."""
+    out = {"a": domain_against_single(2, N_MAIN, {"n_stripes": DOMAIN_STRIPES},
+                                      DOMAIN_STEPS, "a")}
+    out["b_d"] = domain_card_vs_cpu()
+    out["c"] = domain_against_single(3, N_MAIN_3D, {"n_stripes": 2}, DOMAIN_STEPS_3D, "c")
+    out["e"] = domain_timing()
+    out["f"] = domain_lifecycle()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2861,9 +3343,33 @@ def main() -> int:
     # calibration: gradients through the plain path, ES populations as
     # captured ensembles, the example
     print(json.dumps({"calibration": phase("calibration", calibration_phase)}))
-    for r in results:
-        if "launches" in r:  # the probes count their own entry points
-            r["taken_launches"] = r["launches"]
+    # the domain-decomposed engine: stripes and tiles on the card against the
+    # single engine and against the CPU, the timed 500k tiles, the lifecycle
+    domain = phase("domain", domain_phase)
+    e = domain["e"]
+    print(json.dumps({"domain": {
+        "a": {k: v for k, v in domain["a"].items() if k != "counts"},
+        "b_d": {k: v for k, v in domain["b_d"].items() if k not in ("counts", "entries")},
+        "c": {k: v for k, v in domain["c"].items() if k != "counts"},
+        "e": {k: v for k, v in e.items() if k not in ("counts", "entries")},
+        "f": domain["f"]}}))
+    # each kernel's launches on the domain path: the timed 500k tiles in 2D,
+    # the 3D stripes (c), and B6 on the id-list step (d)
+    domain_counts = {**domain["c"]["counts"], **e["counts"],
+                     "contact_substep": domain["b_d"]["counts"]["contact_substep"]}
+    n_tiles = DOMAIN_TILES[0] * DOMAIN_TILES[1]
+    for r in domain["b_d"]["entries"] + e["entries"]:
+        base = r["name"].split("[")[0]
+        r["launches"] = domain_counts.get(base, 0)
+        r["taken_launches"] = (r["launches"] if base == "contact_substep" else taken_launches(
+            base, r["launches"], n_tiles * e["attempts"], n_tiles * e["rebuilds"],
+            e["substeps"]))
+        results.append(r)
+    for r in results:  # the domain runs took the uniform law only
+        r["domain_launches"] = (0 if r.get("law") == "general"
+                                else domain_counts.get(r["name"].split("[")[0], 0))
+        if "launches" in r:  # the probes count their own entry points; the tile entries
+            r.setdefault("taken_launches", r["launches"])
             continue
         # each kernel's launches come from the first main-path run of its
         # dimensionality (100k in 2D), contact path and law; a general-law

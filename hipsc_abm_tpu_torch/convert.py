@@ -10,7 +10,9 @@ A state travels as a plain dict of numpy arrays holding the JAX
 
 ``numpy_from_jax_state`` reads that dict off a JAX ``CellState`` by
 attribute access and ``np.asarray`` alone, so this module never imports
-JAX.
+JAX. The same dict of a JAX ``DomainState`` holds the per-tile arrays
+stacked, ``(S, P, ...)``, and the replicated lattices once
+(``domain_state_from_numpy`` / ``domain_state_to_numpy``).
 """
 
 from __future__ import annotations
@@ -97,6 +99,58 @@ def state_to_numpy(state: CellState) -> dict:
         "key": n(state.key).astype(np.uint32),
         "step": np.int32(state.step),
         "next_id": np.int32(int(state.next_id)),
+    }
+
+
+def domain_state_from_numpy(d: dict, devices) -> "DomainState":
+    """A port ``DomainState`` from the numpy dict of a decomposed state
+    (``numpy_from_jax_state`` of a JAX ``DomainState``, or
+    ``domain_state_to_numpy``): tile ``s``'s rows on ``devices[s]``, the
+    lattices on each distinct device, ``next_id`` on the first."""
+    from hipsc_abm_tpu_torch.parallel.domain_engine import DomainState
+
+    devices = [torch.device(x) for x in devices]
+    S = len(devices)
+    if np.asarray(d["alive"]).shape[0] != S:
+        raise ValueError(f"a state of {np.asarray(d['alive']).shape[0]} tiles "
+                         f"for {S} devices")
+
+    def t(a, dev, dtype=None):
+        a = np.array(a, copy=True) if dtype is None else np.asarray(a, dtype=dtype).copy()
+        return torch.from_numpy(a).to(dev)
+
+    return DomainState(
+        arrays=tuple({k: t(v[s], dev) for k, v in d["arrays"].items()}
+                     for s, dev in enumerate(devices)),
+        alive=tuple(t(d["alive"][s], dev, bool) for s, dev in enumerate(devices)),
+        bonds=tuple(BondState(t(d["partners"][s], dev, np.int32),
+                              t(d["bond_mask"][s], dev, bool))
+                    for s, dev in enumerate(devices)),
+        gradients=tuple({k: t(v, dev) for k, v in d["gradients"].items()}
+                        for dev in dict.fromkeys(devices)),
+        key=torch.from_numpy(np.asarray(d["key"], dtype=np.uint32).astype(np.int64)),
+        step=int(d["step"]),
+        next_id=torch.tensor(int(d["next_id"]), dtype=torch.int32, device=devices[0]),
+    )
+
+
+def domain_state_to_numpy(dstate) -> dict:
+    """The numpy dict of a port ``DomainState``: per-tile arrays stacked
+    ``(S, P, ...)`` (the JAX ``DomainState`` layout), the first replica of
+    the lattices; copies."""
+
+    def n(x):
+        return x.detach().to("cpu", copy=True).numpy()
+
+    return {
+        "arrays": {k: np.stack([n(a[k]) for a in dstate.arrays]) for k in dstate.arrays[0]},
+        "alive": np.stack([n(a) for a in dstate.alive]),
+        "partners": np.stack([n(b.partners) for b in dstate.bonds]),
+        "bond_mask": np.stack([n(b.mask) for b in dstate.bonds]),
+        "gradients": {k: n(v) for k, v in dstate.gradients[0].items()},
+        "key": n(dstate.key).astype(np.uint32),
+        "step": np.int32(dstate.step),
+        "next_id": np.int32(int(dstate.next_id)),
     }
 
 

@@ -409,12 +409,11 @@ def hipsc_step(
     # call: agents killed earlier in the step stop contributing
     # (cell_methods.py:47); the build-time positions are packed once
     nbr_pos0 = bio_positions(arrays["locations"])
-    moments = bio_moments_plain if plain else bio_moments_cuda
     diffuse = diffusion_ops.ftcs_diffuse if plain else ftcs_diffuse_cuda
 
     def bio_moments(alive_now, mode, loc1=None, f0=None, f1=None, f2=None):
-        return moments(nbr_pos0, alive_now, nbr_bounds, loc1, f0, f1, f2,
-                       radius=bio.neighbor_radius, mode=mode)
+        return neighbor_moments(nbr_pos0, nbr_bounds, alive_now, mode, loc1, f0, f1, f2,
+                                radius=bio.neighbor_radius, plain=plain)
 
     m1 = bio_moments(alive, "count")
     nbr_count = m1[:, 0].to(torch.int32)
@@ -542,6 +541,30 @@ def hipsc_step(
     return new_state, info
 
 
+def neighbor_moments(pos0, bounds, alive, mode, loc1=None, f0=None, f1=None, f2=None, *,
+                     radius: float, order: Optional[torch.Tensor] = None, plain: bool = False,
+                     width: Optional[int] = None) -> torch.Tensor:
+    """The radius-15 neighbour moments of one bio-moments call (the JAX
+    engine's ``make_bio_moments_xla``): ``bio_moments_cuda`` (B4 on the
+    card, its plain version on the CPU), or the plain version on any device
+    under ``plain``. ``pos0`` and ``bounds`` are the step's window, built
+    once over the sorted rows; ``alive`` and the optional inputs are the
+    rows' current values. With ``order`` (the window's sort order of slot
+    rows: the domain engine's own + halo rows, which stay in slot order)
+    the inputs are slot rows, gathered through it, and the (C, 16) output
+    comes back in slot order; without it everything is in sorted order.
+    ``width`` is the plain version's run width (``bounds_window``)."""
+    moments = bio_moments_plain if plain else bio_moments_cuda
+    if order is None:
+        return moments(pos0, alive, bounds, loc1, f0, f1, f2, radius=radius, mode=mode,
+                       width=width)
+    srt = [None if x is None else x[order] for x in (alive, loc1, f0, f1, f2)]
+    out_srt = moments(pos0, srt[0], bounds, *srt[1:], radius=radius, mode=mode, width=width)
+    out = torch.empty_like(out_srt)
+    out[order] = out_srt
+    return out
+
+
 def _scan_rows(arrays, alive, bonds):
     """The per-agent rows the contact scan carries and re-sorts; ``perm``
     maps each row back to its slot."""
@@ -575,25 +598,33 @@ def _window_stale(cfg, rows, ref) -> torch.Tensor:
     return drift2 > drift_threshold(cfg.verlet_skin)
 
 
-def _build_window(cfg, rows):
+def contact_window(cfg: EngineConfig, rows) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The contact grid of the rows over the whole box: ``(order, bounds)``,
+    the canonical sort order of the rows and the run bounds of the sorted
+    rows. The domain engine passes its tile-local counterpart as
+    ``window``."""
+    grid = nbr_ops.build_grid(cfg.jkr_spec, rows["loc"], rows["ids"], rows["alive"])
+    return grid.order, nbr_ops.run_bounds(cfg.jkr_spec, grid.sorted_flat)
+
+
+def _build_window(cfg, rows, window=contact_window):
     """Re-sort the rows into the contact grid's canonical order and build
     their run bounds."""
-    grid = nbr_ops.build_grid(cfg.jkr_spec, rows["loc"], rows["ids"], rows["alive"])
-    rows = {k: take_rows(v, grid.order) for k, v in rows.items()}
-    return rows, nbr_ops.run_bounds(cfg.jkr_spec, grid.sorted_flat)
+    order, bounds = window(cfg, rows)
+    return {k: take_rows(v, order) for k, v in rows.items()}, bounds
 
 
-def _rebuild_where(stale, cfg, rows, bounds, ref, identity):
+def _rebuild_where(stale, cfg, rows, bounds, ref, identity, window=contact_window):
     """The window rebuild under the device predicate ``stale`` (the JAX
     engine's ``lax.cond``): the grid order of the current rows is always
     computed, the rows are gathered through it where ``stale`` and through
     the identity elsewhere, and the bounds and the drift reference are
     selected. The values are those of a rebuild taken or skipped on the
     host."""
-    grid = nbr_ops.build_grid(cfg.jkr_spec, rows["loc"], rows["ids"], rows["alive"])
-    order = torch.where(stale, grid.order, identity)
+    grid_order, new_bounds = window(cfg, rows)
+    order = torch.where(stale, grid_order, identity)
     rows = {k: take_rows(v, order) for k, v in rows.items()}
-    bounds = torch.where(stale, nbr_ops.run_bounds(cfg.jkr_spec, grid.sorted_flat), bounds)
+    bounds = torch.where(stale, new_bounds, bounds)
     return rows, bounds, torch.where(stale, rows["loc"], ref)
 
 
@@ -611,12 +642,13 @@ class _ScanProbes:
         self.cands.append(cands)
 
 
-def _move(bio, rows, force, size, dt):
+def _move(bio, rows, force, size, dt, counted=None):
     """The Stokes update of the rows' locations: the new locations and the
-    largest squared move."""
+    largest squared move (of the alive rows, or of ``counted``)."""
     new_loc = stokes_integrate(rows["loc"], rows["rad"], force, rows["mot"],
                                rows["alive"], bio.stokes, size, float(dt))
-    return new_loc, _masked_max(((new_loc - rows["loc"]) ** 2).sum(dim=1), rows["alive"])
+    return new_loc, _masked_max(((new_loc - rows["loc"]) ** 2).sum(dim=1),
+                                rows["alive"] if counted is None else counted)
 
 
 def _remat(cfg: EngineConfig, substep, *args):
@@ -661,21 +693,34 @@ def _scan_result(rows, probes):
 
 def _id_list_substep(cfg, bio, law, contact, size, identity, first, dt, rows, bounds, ref):
     """One substep of ``_physics_scan``: the drift test and the rebuild it
-    selects (after the first substep), one contact substep and the Stokes
-    update. Returns the new ``(rows, bounds, ref)`` and the substep's probes
+    selects (after the first substep), then ``contact_substep_rows``.
+    Returns the new ``(rows, bounds, ref)`` and the substep's probes
     ``(widest run, widest row, max degree, max squared move, stale)``."""
     stale = None
     if not first:
         stale = _window_stale(cfg, rows, ref)
         rows, bounds, ref = _rebuild_where(stale, cfg, rows, bounds, ref, identity)
+    rows, probes = contact_substep_rows(bio, law, contact, size, dt, rows, bounds)
+    return rows, bounds, ref, (*probes, stale)
+
+
+def contact_substep_rows(bio, law, contact, size, dt, rows, bounds, width=None,
+                         counted=None):
+    """One id-list contact substep over the window ``bounds`` the caller
+    holds: one ``contact`` call (``contact_substep_cuda``, B6, or its plain
+    version) on the sorted rows and the Stokes update. ``counted`` (a (C,)
+    bool of the rows whose degree and move the probes read; default: all)
+    and ``width`` (the plain version's run width) serve the domain engine.
+    Returns the new rows and the substep's probes ``(widest run, widest row,
+    max degree, max squared move)``."""
     run, cands = _window_widths(bounds)
     force, degree, partners = contact(
         pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
-        bounds, rows["partners"], **law,
+        bounds, rows["partners"], **law, width=width,
     )
-    new_loc, move2 = _move(bio, rows, force, size, dt)
-    rows = dict(rows, loc=new_loc, partners=partners)
-    return rows, bounds, ref, (run, cands, degree.max(), move2, stale)
+    new_loc, move2 = _move(bio, rows, force, size, dt, counted)
+    deg = degree.max() if counted is None else torch.where(counted, degree, 0).max()
+    return dict(rows, loc=new_loc, partners=partners), (run, cands, deg, move2)
 
 
 def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
@@ -805,32 +850,46 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts, plain=Fal
     ref = rows["loc"]
     identity = torch.arange(C, device=device)
     for s, dt in enumerate(dts):
-        force = torch.empty((C, 3), dtype=torch.float32, device=device)
-        degree = torch.empty((C,), dtype=torch.int32, device=device)
-        if s == 0:
-            probes.window(bounds)
-            span_mask.contact_seed_cuda(
-                pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
-                bounds, rows["partners"], out=(force, degree, mask), **law)
-        else:
+        rebuild = None
+        if s > 0:
             stale = _window_stale(cfg, rows, ref)
             rebuild = stale.to(torch.int32).reshape(1)
             span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K, pred=rebuild,
                                         out=rows["partners"])
             rows, bounds, ref = _rebuild_where(stale, cfg, rows, bounds, ref, identity)
             probes.rebuilds = probes.rebuilds + stale
-            probes.window(bounds)
-            xyzr = pack_physics(rows["loc"], rows["rad"])
-            span_mask.contact_seed_cuda(xyzr, rows["ids"], rows["alive"], bounds,
-                                        rows["partners"], pred=rebuild,
-                                        out=(force, degree, mask), **law)
-            span_mask.contact_masked_cuda(xyzr, rows["ids"], rows["alive"], bounds, mask,
-                                          pred=1 - rebuild, out=(force, degree), **law)
-        probes.degs.append(degree.max())
-        rows["loc"], move2 = _move(bio, rows, force, size, dt)
+        probes.window(bounds)
+        deg, move2 = span_mask_substep(bio, law, size, dt, rows, bounds, mask, rebuild)
+        probes.degs.append(deg)
         probes.moves2.append(move2)
     rows["partners"] = span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K)
     return _scan_result(rows, probes)
+
+
+def span_mask_substep(bio, law, size, dt, rows, bounds, mask, rebuild=None, width=None,
+                      counted=None):
+    """One span-mask contact substep over the window ``bounds`` and the
+    (W, C) ``mask`` the caller holds, and the Stokes update of
+    ``rows["loc"]`` (in place in the dict). ``rebuild`` None: the scan's
+    first substep, the seed (B2) from the partner ids; else a (1,) int32
+    device flag predicating the seed (the window was just rebuilt, and the
+    caller compacted the mask before) against the masked substep (B1). Both
+    write the same force and degree buffers. ``width`` and ``counted`` as in
+    ``contact_substep_rows``. Returns the substep's ``(max degree, max
+    squared move)``."""
+    C, device = bounds.shape[0], bounds.device
+    force = torch.empty((C, 3), dtype=torch.float32, device=device)
+    degree = torch.empty((C,), dtype=torch.int32, device=device)
+    xyzr = pack_physics(rows["loc"], rows["rad"])
+    span_mask.contact_seed_cuda(xyzr, rows["ids"], rows["alive"], bounds, rows["partners"],
+                                pred=rebuild, out=(force, degree, mask), **law, width=width)
+    if rebuild is not None:
+        span_mask.contact_masked_cuda(xyzr, rows["ids"], rows["alive"], bounds, mask,
+                                      pred=1 - rebuild, out=(force, degree), **law,
+                                      width=width)
+    deg = degree.max() if counted is None else torch.where(counted, degree, 0).max()
+    rows["loc"], move2 = _move(bio, rows, force, size, dt, counted)
+    return deg, move2
 
 
 _PHYSICS_SCANS = {"id_list": _physics_scan, "span_mask": _physics_scan_span_mask}

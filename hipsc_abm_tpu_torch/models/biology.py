@@ -87,16 +87,21 @@ def allocate_daughter_slots(
     alive: torch.Tensor,
     canon_order: Optional[torch.Tensor],
     div_cap: int,
+    allocatable: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Rank-compressed daughter-slot allocation: the r-th mother (canonical
     order) claims the r-th free slot (slot order). Mothers beyond the free
     supply or ``div_cap`` defer. Returns ``(can_divide, rank,
     mother_of_rank, free_slot_of_rank, num_deferred)``; unused table rows
-    hold the sentinel ``capacity``."""
+    hold the sentinel ``capacity``. ``allocatable`` restricts the slots that
+    may receive daughters (the domain engine excludes its halo rows);
+    default: every slot."""
     capacity = alive.shape[0]
     device = alive.device
     rank = canonical_rank(dividing, canon_order)
     free = ~alive
+    if allocatable is not None:
+        free = free & allocatable
     limit = torch.clamp(free.sum(), max=div_cap)
     can_divide = dividing & (rank < limit)
 
@@ -152,16 +157,21 @@ def division_apply(
     canon_order: Optional[torch.Tensor],
     next_id: torch.Tensor,
     div_cap: int,
+    allocatable: Optional[torch.Tensor] = None,
+    rank_offset=0,
 ):
     """Daughter creation (``cell_methods.py:86-117``): a daughter copies the
-    mother's slot values into a free slot and gets id ``next_id + mother's
-    canonical rank``; the pair is displaced by +/- a random vector of length
-    (max_radius - min_radius) and both division counters reset. Returns
+    mother's slot values into a free slot and gets id ``next_id +
+    rank_offset + mother's canonical rank``; the pair is displaced by +/- a
+    random vector of length (max_radius - min_radius) and both division
+    counters reset. ``rank_offset`` (0, a 0-d tensor or a (div_cap,) table
+    by rank) turns a tile's local rank into the global one in the domain
+    engine; ``allocatable`` as in ``allocate_daughter_slots``. Returns
     (arrays, alive, daughter_mask, num_added, num_deferred)."""
     capacity = alive.shape[0]
     ids = arrays["ids"]
     can_divide, _, mother_of_rank, write_slot, num_deferred = (
-        allocate_daughter_slots(dividing, alive, canon_order, div_cap)
+        allocate_daughter_slots(dividing, alive, canon_order, div_cap, allocatable)
     )
     disp = rng.unit_vectors(key, ids, two_d, salt=1).to(arrays["locations"].dtype) * (
         p.max_radius - p.min_radius
@@ -178,8 +188,8 @@ def division_apply(
             arr = _set_drop(div_counters, write_slot, 0)
             arr = torch.where(can_divide, torch.zeros_like(arr), arr)
         elif name == "ids":
-            daughter_ids = (next_id + torch.arange(div_cap, dtype=torch.int32,
-                                                   device=alive.device)).to(arr.dtype)
+            daughter_ids = (next_id + rank_offset + torch.arange(
+                div_cap, dtype=torch.int32, device=alive.device)).to(arr.dtype)
             arr = _set_drop(arr, write_slot, daughter_ids)
         else:
             arr = _set_drop(arr, write_slot, arr[mother])

@@ -16,8 +16,12 @@ checkpoints land on block boundaries only.
 
 The template keys ``enable_growth``, ``enable_stochastic`` and
 ``enable_diff_surround`` (``experimental.yaml``) turn on the phases the
-reference ships disabled. Not ported yet, and raising
-``NotImplementedError``: ``domain_tiles`` (ROADMAP A10).
+reference ships disabled. ``domain_tiles: [n_tx, n_ty]`` (or a scalar for
+x-stripes, ``general.yaml``) runs the whole lifecycle on the
+domain-decomposed engine (``parallel.domain_engine``), its tiles on the
+cards in turn (all on one card when there is one): the outputs and
+checkpoints are those of a single-engine run, and a checkpoint resumes on
+another tile grid, or on the single engine, bit-exact (elastic mode 1).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from hipsc_abm_tpu_torch import convert
 from hipsc_abm_tpu_torch.engine import (
     HIPSC_ARRAY_SPECS, CellState, HipscEngine, config_from_meta, config_to_meta)
 from hipsc_abm_tpu_torch.ops import rng
+from hipsc_abm_tpu_torch.parallel.domain_engine import (
+    DomainHipscEngine, domain_config_from_meta, domain_config_to_meta)
 from hipsc_abm_tpu_torch.params import BiologyParams, DiffusionParams, ExperimentalParams
 from hipsc_abm_tpu_torch.simulation import Simulation
 from hipsc_abm_tpu_torch.utils import io as io_utils
@@ -103,16 +109,10 @@ class CellSimulation(Simulation):
             if self.enable_diffusion
             else None
         )
-        self._check_ported()
 
         self.engine: Optional[HipscEngine] = None
         self.state: Optional[CellState] = None
         self._host_state: Optional[dict] = None
-
-    def _check_ported(self) -> None:
-        if self.domain_tiles is not None:
-            raise NotImplementedError(
-                "domain_tiles: the multi-device domain engine is not ported yet (ROADMAP A10)")
 
     # ------------------------------------------------------------------
     # initial conditions
@@ -154,13 +154,25 @@ class CellSimulation(Simulation):
     # engine wiring
     # ------------------------------------------------------------------
 
-    def _make_engine(self) -> HipscEngine:
-        return HipscEngine(self.general_params, self.experimental_params, self.biology_params,
-                           self.diffusion_params, enable_diffusion=self.enable_diffusion,
-                           enable_growth=self.enable_growth,
-                           enable_stochastic=self.enable_stochastic,
-                           enable_diff_surround=self.enable_diff_surround,
-                           device=self.device)
+    def _make_engine(self):
+        """``HipscEngine``, or with ``domain_tiles`` the
+        ``DomainHipscEngine`` of that tile grid."""
+        params = (self.general_params, self.experimental_params, self.biology_params,
+                  self.diffusion_params)
+        flags = dict(enable_diffusion=self.enable_diffusion, enable_growth=self.enable_growth,
+                     enable_stochastic=self.enable_stochastic,
+                     enable_diff_surround=self.enable_diff_surround, device=self.device)
+        if self._is_domain:
+            return DomainHipscEngine(*params, tiles=self.domain_tiles, **flags)
+        return HipscEngine(*params, **flags)
+
+    @property
+    def _is_domain(self) -> bool:
+        return getattr(self, "domain_tiles", None) is not None
+
+    def _base_cfg(self):
+        """The engine's (base) EngineConfig."""
+        return self.engine.cfg.base if self._is_domain else self.engine.cfg
 
     def _adopt_config(self, meta: dict) -> None:
         """Take a checkpoint's engine config, keeping this engine's contact
@@ -168,12 +180,19 @@ class CellSimulation(Simulation):
         self.engine.cfg = dataclasses.replace(config_from_meta(meta),
                                               contact_path=self.engine.cfg.contact_path)
 
+    def _adopt_domain_config(self, meta: dict) -> None:
+        """Take a checkpoint's DomainConfig, keeping this engine's contact
+        path."""
+        cfg = domain_config_from_meta(meta)
+        self.engine.cfg = dataclasses.replace(cfg, base=dataclasses.replace(
+            cfg.base, contact_path=self.engine.cfg.base.contact_path))
+
     def build_state(self) -> None:
         """Pack the registered host arrays into the engine's state on
         ``self.device``."""
         if self.engine is None:
             self.engine = self._make_engine()
-        cfg = self.engine.cfg
+        cfg = self._base_cfg()
         n = self.number_agents
         if n > cfg.capacity:
             cfg = dataclasses.replace(
@@ -183,7 +202,12 @@ class CellSimulation(Simulation):
         if cfg.uniform_radius is not None and not np.all(
                 np.asarray(self.radii)[:n] == cfg.uniform_radius):
             cfg = dataclasses.replace(cfg, uniform_radius=None)
-        self.engine.cfg = cfg
+        if self._is_domain:
+            # the flat state below is a staging layout that from_cell_state
+            # partitions tile-major; the per-tile slots rule
+            self.engine.cfg = dataclasses.replace(self.engine.cfg, base=cfg)
+        else:
+            self.engine.cfg = cfg
         C = cfg.capacity
 
         arrays = {}
@@ -204,7 +228,7 @@ class CellSimulation(Simulation):
                 self.diffusion_params.grid_size(tuple(self.size)), dtype=np.float32)
             self.gradient_names = ["fgf4_values"]
 
-        self.state = convert.state_from_numpy({
+        self.state = self._device_state({
             "arrays": arrays, "alive": alive,
             "partners": np.zeros((C, cfg.bond_cap), dtype=np.int32),
             "bond_mask": np.zeros((C, cfg.bond_cap), dtype=bool),
@@ -212,7 +236,14 @@ class CellSimulation(Simulation):
             "key": rng.prng_key(self.seed).numpy().astype(np.uint32),
             "step": self.beginning_step,
             "next_id": n,
-        }, self.device)
+        })
+
+    def _device_state(self, host: dict):
+        """The engine's state from a flat host state: a ``CellState`` on
+        ``self.device``, or the domain engine's partition of it."""
+        if self._is_domain:
+            return self.engine.from_cell_state(convert.state_from_numpy(host, "cpu"))
+        return convert.state_from_numpy(host, self.device)
 
     def _ensure_state(self) -> None:
         """Build the state from the registered arrays, or put a resumed
@@ -223,25 +254,32 @@ class CellSimulation(Simulation):
             return
         host, cfg_meta = resume
         self.engine = self._make_engine()
-        if cfg_meta is not None:
+        if isinstance(cfg_meta, tuple):  # ("domain", DomainConfig meta)
+            self._adopt_domain_config(cfg_meta[1])
+        elif cfg_meta is not None:
             self._adopt_config(cfg_meta)
-        self.state = convert.state_from_numpy(host, self.device)
+        self.state = self._device_state(host)
 
     def _sync_host(self) -> None:
         """Copy the whole state to the host once per step and derive the
         live-agent attributes (``self.locations`` etc.) from it. The copy is
         kept for this step's checkpoint writers, so that the pickle and the
         npz do not each fetch the state again."""
-        host = convert.state_to_numpy(self.state)
+        host = self._flat_host()
         self._host_state = host
         alive = host["alive"]
         for name in self.agent_array_names:
             self.__dict__[name] = host["arrays"][name][alive]
         self.number_agents = int(alive.sum())
 
+    def _flat_host(self) -> dict:
+        """The state as a flat host numpy dict (the domain engine's tiles
+        flattened tile-major)."""
+        state = self.engine.to_cell_state(self.state) if self._is_domain else self.state
+        return convert.state_to_numpy(state)
+
     def _host(self) -> dict:
-        return self._host_state if self._host_state is not None else \
-            convert.state_to_numpy(self.state)
+        return self._host_state if self._host_state is not None else self._flat_host()
 
     # ------------------------------------------------------------------
     # main loop
@@ -356,8 +394,14 @@ class CellSimulation(Simulation):
         if self.state is not None:
             state = self._host()
             path = os.path.join(self.main_path, f"{self.name}_state.npz")
-            meta = {"current_step": self.current_step, "name": self.name,
-                    "engine_config": config_to_meta(self.engine.cfg)}
+            meta = {"current_step": self.current_step, "name": self.name}
+            if self._is_domain:
+                # both in the JAX package's layout, so that either package
+                # resumes the checkpoint, on tiles or on one engine
+                meta["domain_config"] = domain_config_to_meta(self.engine.cfg)
+                meta["engine_config"] = meta["domain_config"]["base"]
+            else:
+                meta["engine_config"] = config_to_meta(self.engine.cfg)
             io_utils.submit_output(lambda: save_state(path, state, meta=meta))
 
     # ------------------------------------------------------------------
@@ -369,17 +413,31 @@ class CellSimulation(Simulation):
         """Mode 1 without the per-step pickle (``temp_pickle: false``):
         rebuild the simulation from the templates (assumed unchanged since
         the run started) and restore the npz state and its engine config.
-        Either package's checkpoint resumes here."""
+        Either package's checkpoint resumes here. The templates'
+        ``domain_tiles`` decide the engine: the checkpoint's tile grid
+        adopts its exact DomainConfig; another grid, or tiles where the
+        checkpoint had one engine, re-partitions (elastic); no tiles where
+        the checkpoint had them continues on one engine. All three are
+        bit-exact: the dynamics do not depend on the layout."""
         sim = cls(name, output_dir, device=device)
         sim.agent_initials()  # registers the host arrays; the draws are replaced below
         state, meta = load_state(os.path.join(sim.main_path, f"{name}_state.npz"),
-                                 device=sim.device)
+                                 device="cpu" if sim._is_domain else sim.device)
+        ckpt_tiles = None
         if "domain_config" in meta:
-            raise NotImplementedError(
-                "a domain-engine checkpoint: the domain engine is not ported yet (ROADMAP A10)")
+            cfgd = domain_config_from_meta(meta["domain_config"])
+            ckpt_tiles = (cfgd.n_tx, cfgd.n_ty)
         sim.engine = sim._make_engine()
-        sim._adopt_config(meta["engine_config"])
-        sim.state = state
+        if sim.domain_tiles is not None and sim.domain_tiles == ckpt_tiles:
+            sim._adopt_domain_config(meta["domain_config"])
+            sim.state = sim.engine.from_cell_state(state)
+        elif sim._is_domain:
+            sim.state = sim.engine._adopt_and_partition(state, meta, elastic=True)
+        else:
+            sim._adopt_config(meta["engine_config"])
+            # a domain checkpoint's flat state has its own slot count
+            sim.engine.cfg = dataclasses.replace(sim.engine.cfg, capacity=state.capacity)
+            sim.state = state
         sim.current_step = int(meta["current_step"])
         sim._sync_host()
         return sim
@@ -389,7 +447,12 @@ class CellSimulation(Simulation):
         state["engine"] = None  # holds device handles; rebuilt on resume
         # the exact static config must survive: capacities decide deferred
         # divisions, so a bit-exact resume needs the same EngineConfig
-        state["_engine_cfg"] = None if self.engine is None else config_to_meta(self.engine.cfg)
+        if self.engine is None:
+            state["_engine_cfg"] = None
+        elif self._is_domain:
+            state["_engine_cfg"] = ("domain", domain_config_to_meta(self.engine.cfg))
+        else:
+            state["_engine_cfg"] = config_to_meta(self.engine.cfg)
         if self.state is not None:
             state["state"] = self._host()  # host numpy, never tensors
         state["_host_state"] = None  # never persist the cache itself

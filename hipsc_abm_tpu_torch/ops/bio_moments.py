@@ -62,12 +62,13 @@ def _inputs(mode, loc1, f0, f1, f2) -> dict:
 
 
 def bio_moments_plain(pos0, alive, bounds, loc1=None, f0=None, f1=None, f2=None, *,
-                      radius: float, mode: str = "full") -> torch.Tensor:
-    """Plain PyTorch moments over the padded window of the run bounds."""
+                      radius: float, mode: str = "full", width=None) -> torch.Tensor:
+    """Plain PyTorch moments over the padded window of the run bounds
+    (``width``: ``neighbors.bounds_window``'s)."""
     given = _inputs(mode, loc1, f0, f1, f2)
     dims = 3 if kernels.run_count(bounds) == 9 else 2
     C = pos0.shape[0]
-    pos, valid = bounds_window(bounds)
+    pos, valid = bounds_window(bounds, width)
     own = torch.arange(C, device=pos0.device)[:, None]
     cand = pos0[pos]  # (C, W, 4)
     dist2 = None
@@ -97,13 +98,13 @@ def bio_moments_plain(pos0, alive, bounds, loc1=None, f0=None, f1=None, f2=None,
 
 
 def bio_moments_cuda(pos0, alive, bounds, loc1=None, f0=None, f1=None, f2=None, *,
-                     radius: float, mode: str = "full") -> torch.Tensor:
-    """The moments. A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel (or raises). The launch counts as ``bio_moments``
-    in 2D and ``bio_moments_3d`` in 3D."""
+                     radius: float, mode: str = "full", width=None) -> torch.Tensor:
+    """The moments. A CPU tensor runs the plain version (``width`` is the
+    plain version's); a CUDA tensor launches the kernel (or raises). The
+    launch counts as ``bio_moments`` in 2D and ``bio_moments_3d`` in 3D."""
     if pos0.device.type == "cpu":
         return bio_moments_plain(pos0, alive, bounds, loc1, f0, f1, f2,
-                                 radius=radius, mode=mode)
+                                 radius=radius, mode=mode, width=width)
     given = _inputs(mode, loc1, f0, f1, f2)
     n_runs = kernels.run_count(bounds)
     C = pos0.shape[0]

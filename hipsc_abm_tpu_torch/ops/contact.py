@@ -30,14 +30,14 @@ from hipsc_abm_tpu_torch.ops.neighbors import bounds_window
 
 def contact_substep_plain(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
-    youngs, break_d, uniform_radius: Optional[float] = None,
+    youngs, break_d, uniform_radius: Optional[float] = None, width=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch contact substep: returns ``(force (C, 3) float32,
     degree (C,) int32, new partners (C, K) int32)``. ``uniform_radius`` is
     accepted for signature parity; the general pair law gives the same
-    physics for equal radii."""
+    physics for equal radii. ``width``: ``neighbors.bounds_window``'s."""
     del uniform_radius
-    pos, valid = bounds_window(bounds)
+    pos, valid = bounds_window(bounds, width)
     force, new_partners, degree = jkr_ops.jkr_substep(
         partners, xyzr, ids, alive, None, pos, valid, radius,
         adhesion_const, poisson, youngs, break_d,
@@ -79,16 +79,17 @@ def contact_layout(K: int) -> dict:
 
 def contact_substep_cuda(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
-    youngs, break_d, uniform_radius: Optional[float] = None,
+    youngs, break_d, uniform_radius: Optional[float] = None, width=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The contact substep. A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel (or raises, also when the CTA's partner block
-    does not fit in the card's shared memory). The launch counts as
-    ``contact_substep`` in 2D and ``contact_substep_3d`` in 3D."""
+    """The contact substep. A CPU tensor runs the plain version (``width``
+    is the plain version's); a CUDA tensor launches the kernel (or raises,
+    also when the CTA's partner block does not fit in the card's shared
+    memory). The launch counts as ``contact_substep`` in 2D and
+    ``contact_substep_3d`` in 3D."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius)
     if xyzr.device.type == "cpu":
-        return contact_substep_plain(xyzr, ids, alive, bounds, partners, **kw)
+        return contact_substep_plain(xyzr, ids, alive, bounds, partners, **kw, width=width)
     C, K = partners.shape
     kernels.check_cuda("xyzr", xyzr, torch.float32, (C, 4))
     kernels.check_cuda("ids", ids, torch.int32, (C,))

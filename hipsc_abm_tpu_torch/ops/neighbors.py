@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -112,16 +112,43 @@ def _flat_from_coords(spec: GridSpec, coords: torch.Tensor,
 
 def build_grid(spec: GridSpec, locations: torch.Tensor, ids: torch.Tensor,
                alive: torch.Tensor) -> Grid:
-    """Sort agents into the canonical ``(flat bin, agent id)`` order.
-
-    JAX's 2-key ``lax.sort`` becomes one ``torch.sort`` of the int64 key
-    ``flat << 32 | id`` (both fit 31 bits). The sort is stable, so dead
-    slots that share a stale id keep slot order."""
+    """Sort agents into the canonical ``(flat bin, agent id)`` order."""
     coords = _bin_coords(spec, locations)
-    flat = _flat_from_coords(spec, coords, alive)
+    return grid_from_flat_coords(_flat_from_coords(spec, coords, alive), coords, ids)
+
+
+def grid_from_flat_coords(flat: torch.Tensor, coords: torch.Tensor,
+                          ids: torch.Tensor) -> Grid:
+    """The Grid of precomputed flat bin ids (dead slots at a sentinel) and
+    bin coordinates, sorted canonically. JAX's 2-key ``lax.sort`` becomes
+    one ``torch.sort`` of the int64 key ``flat << 32 | id`` (both fit 31
+    bits). The sort is stable, so dead slots that share a stale id keep
+    slot order."""
     key = (flat << 32) | (ids.to(torch.int64) & 0xFFFFFFFF)
     order = torch.sort(key, stable=True).indices
     return Grid(order=order, sorted_flat=flat[order], coords=coords)
+
+
+def local_flat(spec_local: GridSpec, gcoords: torch.Tensor, col_off: int, row_off: int,
+               alive: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tile-local flat bin ids from *global* integer bin coordinates shifted
+    by the tile's column and row offsets (integer arithmetic: re-binning
+    floats against a shifted origin could disagree with the global binning
+    at bin edges). Rows outside the local lattice, and dead rows, get the
+    local lattice's dead sentinel. Returns ``(flat, local coords)``.
+
+    The shift is lexicographically monotone, so the local canonical
+    ``(flat, id)`` order is the global canonical order restricted to the
+    tile's rows. In 2D ``nz == 1`` and the z coordinate is 0; for x-stripes
+    ``row_off == 0`` and ``spec_local.ny`` is the global ny."""
+    cxl = gcoords[:, 0] - col_off
+    cyl = gcoords[:, 1] - row_off
+    in_range = (cxl >= 0) & (cxl < spec_local.nx) & (cyl >= 0) & (cyl < spec_local.ny)
+    flat = (cxl * spec_local.ny + cyl) * spec_local.nz + gcoords[:, 2]
+    flat = torch.where(alive & in_range, flat, dead_sentinel(spec_local))
+    coords = torch.stack([cxl.clamp(0, spec_local.nx - 1), cyl.clamp(0, spec_local.ny - 1),
+                          gcoords[:, 2]], dim=1)
+    return flat, coords
 
 
 def _bin_table(spec: GridSpec, sorted_flat: torch.Tensor) -> torch.Tensor:
@@ -170,16 +197,25 @@ def sorted_run_bounds_from_flat(spec: GridSpec,
     return torch.nn.functional.pad(bounds, (0, 2)) if spec.two_d else bounds
 
 
-def bounds_window(bounds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def bounds_window(bounds: torch.Tensor, width: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Padded candidate window from per-row run bounds: ``(pos (C, W) int64
     sorted positions, valid (C, W) bool)``, runs in order and ascending
     position within a run — the kernels' walk order. ``W`` is the run count
-    times the widest run, so no candidate is ever cut (one host read of the
-    widest run)."""
+    times the widest run (one host read), so no candidate is ever cut.
+
+    ``width``, at least the widest run, pads every run to it instead: the
+    plain versions' sums over a row then see the same padded row whatever
+    the other rows hold, which keeps a tile's rows bit-equal to the same
+    rows of the whole colony (the domain engine passes the widest run over
+    all tiles)."""
     capacity = bounds.shape[0]
     b = bounds.to(torch.int64).view(capacity, -1, 2)
     lo, hi = b[..., 0], b[..., 1]
-    width = int(torch.clamp(hi - lo, min=0).max()) if capacity else 0
+    widest = int(torch.clamp(hi - lo, min=0).max()) if capacity else 0
+    if width is not None and width < widest:
+        raise ValueError(f"bounds_window: width {width} is below the widest run {widest}")
+    width = widest if width is None else width
     k = torch.arange(max(width, 1), dtype=torch.int64, device=bounds.device)
     pos = lo[:, :, None] + k
     valid = pos < hi[:, :, None]

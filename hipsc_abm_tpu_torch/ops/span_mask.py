@@ -103,10 +103,11 @@ def _skipped(pred: Optional[torch.Tensor]) -> bool:
     return pred is not None and not bool(pred.reshape(-1)[0])
 
 
-def _window(bounds: torch.Tensor):
-    """The padded window of the bounds (``bounds_window``) with each entry's
-    candidate index: ``(pos, valid, j)``, all (C, n_runs * widest run)."""
-    pos, valid = bounds_window(bounds)
+def _window(bounds: torch.Tensor, width=None):
+    """The padded window of the bounds (``bounds_window``, of ``width``) with
+    each entry's candidate index: ``(pos, valid, j)``, all (C, n_runs *
+    run width)."""
+    pos, valid = bounds_window(bounds, width)
     b = bounds.to(torch.int64).view(bounds.shape[0], -1, 2)
     counts = torch.clamp(b[..., 1] - b[..., 0], min=0)
     first = torch.cumsum(counts, dim=1) - counts  # (C, n_runs) each run's first candidate
@@ -153,13 +154,14 @@ def _law(radius, adhesion_const, poisson, youngs, break_d):
 def contact_seed_plain(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
-    pred: Optional[torch.Tensor] = None, out=None,
+    pred: Optional[torch.Tensor] = None, out=None, width=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain seed substep: returns ``(force (C, 3) float32, degree (C,)
     int32, mask (W, C) int32)``, written into ``out`` when given (``W`` is
     then its mask's, else ``mask_words(bounds)``); ``pred`` as in the module
-    docstring. ``uniform_radius`` is accepted for signature parity; the
-    general pair law gives the same physics."""
+    docstring; ``width`` is ``neighbors.bounds_window``'s. ``uniform_radius``
+    is accepted for signature parity; the general pair law gives the same
+    physics."""
     del uniform_radius
     if out is None:
         C, dev = xyzr.shape[0], xyzr.device
@@ -168,7 +170,7 @@ def contact_seed_plain(
                torch.zeros((mask_words(bounds), C), dtype=torch.int32, device=dev))
     if _skipped(pred):
         return out
-    pos, valid, j = _window(bounds)
+    pos, valid, j = _window(bounds, width)
     bonded = jkr_ops._is_bonded(partners, ids[pos])
     force, degree, keep = _substep(xyzr, ids, alive, pos, valid, bonded,
                                    _law(radius, adhesion_const, poisson, youngs, break_d))
@@ -181,12 +183,12 @@ def contact_seed_plain(
 def contact_masked_plain(
     xyzr, ids, alive, bounds, mask, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
-    pred: Optional[torch.Tensor] = None, out=None,
+    pred: Optional[torch.Tensor] = None, out=None, width=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain masked substep: returns ``(force, degree, mask)``, the mask
     being the given tensor with the new keep set written into it and force
     and degree written into ``out`` when given; ``pred`` as in the module
-    docstring."""
+    docstring; ``width`` is ``neighbors.bounds_window``'s."""
     del uniform_radius
     if out is None:
         C, dev = xyzr.shape[0], xyzr.device
@@ -194,7 +196,7 @@ def contact_masked_plain(
                torch.zeros((C,), dtype=torch.int32, device=dev))
     if _skipped(pred):
         return (*out, mask)
-    pos, valid, j = _window(bounds)
+    pos, valid, j = _window(bounds, width)
     force, degree, keep = _substep(xyzr, ids, alive, pos, valid, _unpack(mask, j, valid),
                                    _law(radius, adhesion_const, poisson, youngs, break_d))
     mask.copy_(_pack(keep, j, mask.shape[0]))
@@ -262,16 +264,16 @@ def _outputs(out, C, device, W=None, with_mask=False):
 def contact_seed_cuda(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
-    pred: Optional[torch.Tensor] = None, out=None,
+    pred: Optional[torch.Tensor] = None, out=None, width=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The seed substep. A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel (or raises). Without ``out`` the mask gets
+    """The seed substep. A CPU tensor runs the plain version (``width`` is
+    the plain version's); a CUDA tensor launches the kernel (or raises). Without ``out`` the mask gets
     ``mask_words(bounds)`` words (a host read)."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius,
               pred=pred, out=out)
     if xyzr.device.type == "cpu":
-        return contact_seed_plain(xyzr, ids, alive, bounds, partners, **kw)
+        return contact_seed_plain(xyzr, ids, alive, bounds, partners, **kw, width=width)
     C, n_runs = _check_rows(xyzr, ids, alive, bounds)
     K = partners.shape[1] if partners.dim() == 2 else 0
     kernels.check_cuda("partners", partners, torch.int32, (C, K))
@@ -294,16 +296,16 @@ def contact_seed_cuda(
 def contact_masked_cuda(
     xyzr, ids, alive, bounds, mask, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
-    pred: Optional[torch.Tensor] = None, out=None,
+    pred: Optional[torch.Tensor] = None, out=None, width=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The masked substep; the mask is updated in place and returned. A CPU
-    tensor runs the plain version; a CUDA tensor launches the kernel (or
-    raises)."""
+    tensor runs the plain version (``width`` is the plain version's); a CUDA
+    tensor launches the kernel (or raises)."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius,
               pred=pred, out=out)
     if xyzr.device.type == "cpu":
-        return contact_masked_plain(xyzr, ids, alive, bounds, mask, **kw)
+        return contact_masked_plain(xyzr, ids, alive, bounds, mask, **kw, width=width)
     C, n_runs = _check_rows(xyzr, ids, alive, bounds)
     W = _check_mask(mask, C)
     force, degree = _outputs(out, C, xyzr.device)

@@ -1202,3 +1202,78 @@ def test_population_losses_equal_solo_rollouts_on_card(dev, dense):
     assert len(set(losses.tolist())) == 3
     for i in range(3):
         assert float(losses[i]) == cal.evaluate(cands[i], states), i
+
+
+# ---------------------------------------------------------------------------
+# the domain-decomposed engine: tiles on one card
+# ---------------------------------------------------------------------------
+
+
+def _domain_by_id(d):
+    alive = d["alive"]
+    o = np.argsort(d["arrays"]["ids"][alive])
+    out = {k: v[alive][o] for k, v in d["arrays"].items()}
+    partners = np.where(d["bond_mask"], d["partners"], -1)[alive][o]
+    out["bonds"] = [frozenset(r[r >= 0].tolist()) for r in partners]
+    return out
+
+
+def _domain_engines(device, tiles=(2, 2), n=3000):
+    from hipsc_abm_tpu_torch.parallel import DomainHipscEngine
+
+    side = 2000.0 * (n / 5000.0) ** 0.5
+    gen = GeneralParams(num_to_start=n, end_step=20, size=(side, side, 0.0))
+    xp = ExperimentalParams(num_gata6=n // 10, dox_step=1)
+    diff = DiffusionParams(spat_res=20.0, diffuse_dt=6.0, diffuse_const=2.0,
+                           max_concentration=2.0, degradation=0.1, release_amount=0.01)
+    dom = DomainHipscEngine(gen, xp, diff=diff, enable_diffusion=True, tiles=tiles,
+                            device=device)
+    single = HipscEngine(gen, xp, diff=diff, cfg=dom.cfg.base, device=device)
+    return dom, single
+
+
+def test_domain_tiles_on_card_equal_single_engine_on_card(dev):
+    """Tiles (2, 2) on one card against the single engine on the card, 4
+    safe_steps: integer state, bond sets and positions bit-equal by agent
+    id (the same kernels walk the same candidates in the same order); the
+    lattice within 1e-5 (the tiles' deposits are summed in tile order)."""
+    dom, single = _domain_engines(dev)
+    ds, ss = dom.init_state(seed=2), single.init_state(seed=2)
+    single.cfg = dom.cfg.base
+    for _ in range(4):
+        ds, _ = dom.safe_step(ds)
+        ss, _ = single.safe_step(ss)
+    a = convert.state_to_numpy(dom.to_cell_state(ds))
+    b = convert.state_to_numpy(ss)
+    x, y = _domain_by_id(a), _domain_by_id(b)
+    for k in x:
+        if k == "bonds":
+            assert x[k] == y[k]
+        else:
+            np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+    np.testing.assert_allclose(a["gradients"]["fgf4_values"], b["gradients"]["fgf4_values"],
+                               rtol=0, atol=1e-5)
+
+
+def test_domain_on_card_matches_domain_on_cpu(dev):
+    """One domain step from the same decomposed state on the card and on
+    the CPU (kernels against plain versions): integers equal, positions
+    within 1e-3 um, the lattice bit-equal (the fixed-order deposit, the
+    tile-order sum, FTCS without contraction)."""
+    cpu, _ = _domain_engines("cpu")
+    gpu, _ = _domain_engines(dev)
+    s, _ = cpu.safe_step(cpu.init_state(seed=4))
+    gpu.cfg = cpu.cfg
+    d = convert.domain_state_to_numpy(s)
+    a, _ = cpu.step(convert.domain_state_from_numpy(d, cpu.devices))
+    b, _ = gpu.step(convert.domain_state_from_numpy(d, gpu.devices))
+    x = convert.state_to_numpy(cpu.to_cell_state(a))
+    y = convert.state_to_numpy(gpu.to_cell_state(b))
+    p, q = _domain_by_id(x), _domain_by_id(y)
+    np.testing.assert_array_equal(q["ids"], p["ids"])
+    for k in ("FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states", "death_counters",
+              "diff_counters", "div_counters", "fds_counters"):
+        np.testing.assert_array_equal(q[k], p[k], err_msg=k)
+    np.testing.assert_allclose(q["locations"], p["locations"], rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(y["gradients"]["fgf4_values"].view(np.int32),
+                                  x["gradients"]["fgf4_values"].view(np.int32))

@@ -15,7 +15,7 @@ the CPU, against itself and against the JAX package's ``CellSimulation``.
   ``enable_diff_surround``) run through the lifecycle: the engine's config
   carries each flag, a pickle resume with all three is bit-exact, and grown
   radii reach the step images and the npz;
-- the options not ported yet raise and name their ROADMAP item.
+- ``domain_tiles`` (ROADMAP A10) no longer raises ``NotImplementedError``.
 
 The JAX side writes its CSVs with its Python writers
 (``HIPSC_NO_NATIVE_IO=1``).
@@ -218,9 +218,16 @@ def test_port_npz_loads_in_jax(port_run):
     ({"domain_tiles": [2, 2]}, {}, "A10"),
 ])
 def test_unported_options_raise(tmp_path, general, experimental, item):
-    out = _env(tmp_path, general=general, experimental=experimental)
-    with pytest.raises(NotImplementedError, match=item):
-        _start(tmp_path, out, ["-n", "x", "-m", "0"], device="cpu")
+    """ROADMAP ``item`` is ported now (``test_torch_domain_lifecycle.py``
+    checks it in full): the option no longer raises ``NotImplementedError``,
+    and the run ends on the domain engine."""
+    from hipsc_abm_tpu_torch.parallel import DomainHipscEngine
+
+    out = _env(tmp_path, general={**general, "output_images": False},
+               experimental=experimental)
+    sim = _start(tmp_path, out, ["-n", "x", "-m", "0"], device="cpu")
+    assert isinstance(sim.engine, DomainHipscEngine) and item == "A10"
+    assert sim.current_step == GENERAL["end_step"] and sim.number_agents > 0
 
 
 @pytest.mark.parametrize("flags", [("enable_growth",), ("enable_stochastic",),
