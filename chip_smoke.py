@@ -156,12 +156,43 @@ Phases, each of which raises on failure (exit code != 0):
    templates' values with ``domain_tiles: [2, 2]`` through
    ``CellSimulation`` on the card (6 steps, no images) against the same
    run on one engine, bit-equal by agent id.
+12. the domain engine over processes (``multiprocess_phase``,
+   ``tools.multihost_domain``: ``MP_WORLD`` ranks, one process each, on
+   the one card over gloo, which stages every cross-rank message through
+   pinned host buffers): (a) the 2D 500k bench colony in 2 x 2 tiles (2 per
+   rank), span-mask path, the JAX payload's sequence: ``MP_STEPS``
+   ``safe_step``s, each bit-equal by agent id on rank 0 to the single engine
+   on the card and to one controller over the same tiles (the lattice
+   bit-equal to one controller's), the sharded checkpoint and value CSVs
+   (merged: one row per agent), a resume from the shards stepped beside the
+   original (bit-equal, lattice included), growth from undersized halo,
+   migration and drift capacities, ``rebalance`` and a step, then
+   ``MP_TIMED`` timed ``safe_step``s: per rank median and p90 ms, bytes
+   copied between its tiles and received from the other rank, bytes staged
+   through the host, collectives and peak memory per step, and the launches
+   of each kernel over both ranks (every kernel of the path must have
+   launched); (b) the same at 20k on the id-list path (B6); (c) on the
+   card, ``EnsembleEngine.shard_states`` (``ENSEMBLE_R`` x 5k replicates in
+   ``SHARD_GROUPS`` groups) against the unsharded ensemble and solo runs,
+   ``parallel.mesh.ShardedHipscEngine`` (``MESH_CHUNKS`` chunks, 2D 100k)
+   against the single engine, and ``parallel.domain.domain_forces`` against
+   the all-pairs oracle and the CPU; (d) NCCL: more ranks than cards
+   raises before NCCL starts, and with two cards (a) runs over NCCL, else
+   ``nccl not run``.
+13. the examples on the card (``examples_phase``): ``chemotaxis`` 3 steps
+   against the CPU (positions within ``CHEMO_LOC_ATOL``, the field within
+   ``CHEMO_FIELD_ATOL``; FTCS and the deposit launched once per step),
+   ``spheroid_3d`` at 3,300 cells for 3 steps with both PNGs,
+   ``minimal_abm`` and ``run.py`` mode 0 on the shipped templates for 2
+   steps each, and ``device_trace`` around one ``safe_step`` of a warmed
+   engine, whose trace must name a contact kernel.
 
 The last lines are the seconds per phase, one JSON object with each
 kernel's numbers (``law``: the contact law of the run its inputs and
 launches come from, ``"general"`` for the entries named ``[general]``;
 ``domain_launches``: its launches on the domain path, phase 11 e in 2D,
-c in 3D, d for B6; the ``[tile]`` entries' ``launches`` are those;
+c in 3D, d for B6; ``multiprocess_launches``: its launches on the
+multi-process route over both ranks, phase 12 a, b for B6; the ``[tile]`` entries' ``launches`` are those;
 ``taken_launches``: those of ``launches`` that ran their branch, fewer for
 the span-mask kernels, which launch on every substep under the rebuild
 predicate; ``in_step_ms``: device time per taken launch in the step), the
@@ -191,6 +222,10 @@ N_STEP_CHECK = 20_000
 N_SPHEROID = 3_300
 N_MAIN_3D = 99_000
 SEED = 0
+# what compare_bits holds bit-equal by agent id, beside the bond sets: the
+# integer fields, positions and radii (not the last substep's forces)
+STATE_FIELDS = ("FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states", "death_counters",
+                "diff_counters", "div_counters", "fds_counters", "locations", "radii")
 PATHS = ("id_list", "span_mask")
 # the kernels each contact path launches in 2D and in 3D (counted from its
 # own main-path run)
@@ -335,45 +370,46 @@ DOMAIN_WARMUP = 8
 DOMAIN_LIFECYCLE_STEPS = 6
 DOMAIN_LATTICE_ATOL = 1e-5
 
+# phase 12: the domain engine over processes (two ranks share the one card
+# over gloo), the shard_states / mesh / domain_forces cross-checks
+MP_WORLD = 2
+MP_STEPS = 3
+MP_TIMED = 5
+MP_DEADLINE_S = 300.0
+SHARD_GROUPS = 2
+SHARD_STEPS = 2
+MESH_CHUNKS = 4
+MESH_STEPS = 3
+DOMAIN_FORCES_RTOL = 1e-4
+# phase 13: the examples
+CHEMO_STEPS = 3
+CHEMO_LOC_ATOL = 1e-3
+CHEMO_FIELD_ATOL = 1e-5
+EXAMPLE_STEPS = 2
+
 
 def bench_engine(n_cells: int, device: str, contact_path: str = "id_list", **flags):
-    """The bench configuration: a 2D box at reference colony density
-    (side = 2000 * sqrt(n / 5000) um), n/10 GATA6-high cells, dox at step
-    5, FGF4 secretion and FTCS diffusion on; ``flags`` are the engine's
-    optional-phase switches (``OPTIONAL``)."""
+    """The bench colony (``colonies.bench_params``: a 2D box at reference
+    colony density, n/10 GATA6-high cells, dox at step 5, FGF4 secretion
+    and FTCS diffusion on); ``flags`` are the engine's optional-phase
+    switches (``OPTIONAL``)."""
+    from hipsc_abm_tpu_torch.colonies import bench_params
     from hipsc_abm_tpu_torch.engine import HipscEngine
-    from hipsc_abm_tpu_torch.params import (
-        DiffusionParams, ExperimentalParams, GeneralParams)
 
-    side = 2000.0 * (n_cells / 5000.0) ** 0.5
-    gen = GeneralParams(num_to_start=n_cells, end_step=200, size=(side, side, 0.0))
-    xp = ExperimentalParams(num_gata6=n_cells // 10, dox_step=5)
-    diff = DiffusionParams(spat_res=20.0, diffuse_dt=6.0, diffuse_const=2.0,
-                           max_concentration=2.0, degradation=0.1,
-                           release_amount=0.01)
+    gen, xp, diff = bench_params(n_cells)
     return HipscEngine(gen, xp, diff=diff, enable_diffusion=True, device=device,
                        contact_path=contact_path, **flags)
 
 
 def spheroid_engine(n_cells: int, device: str, contact_path: str = "id_list", **flags):
-    """The 3D spheroid example's configuration at ``n_cells`` (10:1 with
-    GATA6-high cells, dox at step 2, guye_move off): a cubic box of
-    600 * s um and a seeding ball of 110 * s um at its centre, with
-    s = (n_cells / 3300)^(1/3). Returns the engine and the ball (numpy
-    ``default_rng(SEED)``, drawn as the example draws it)."""
+    """The 3D spheroid example's configuration at ``n_cells``
+    (``colonies.spheroid``: 10:1 with GATA6-high cells, dox at step 2,
+    guye_move off, box and seeding ball scaled to the cells). Returns the
+    engine and the ball (drawn from ``SEED``)."""
+    from hipsc_abm_tpu_torch.colonies import spheroid
     from hipsc_abm_tpu_torch.engine import HipscEngine
-    from hipsc_abm_tpu_torch.params import ExperimentalParams, GeneralParams
 
-    s = (n_cells / 3300.0) ** (1.0 / 3.0)
-    box, radius = 600.0 * s, 110.0 * s
-    n_gata6 = n_cells // 11
-    gen = GeneralParams(num_to_start=n_cells - n_gata6, end_step=200, size=(box, box, box))
-    xp = ExperimentalParams(num_gata6=n_gata6, dox_step=2, guye_move=False)
-    rng = np.random.default_rng(SEED)
-    direction = rng.normal(size=(n_cells, 3))
-    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
-    r = radius * rng.random(n_cells) ** (1.0 / 3.0)
-    ball = (box / 2.0 + direction * r[:, None]).astype(np.float32)
+    gen, xp, ball = spheroid(n_cells, SEED)
     return HipscEngine(gen, xp, device=device, contact_path=contact_path, **flags), ball
 
 
@@ -450,14 +486,18 @@ def check_contact(name, f_k, d_k, f_p, d_p) -> tuple:
 
 
 def by_id(d: dict) -> dict:
-    """Alive rows of a numpy state dict, sorted by agent id."""
-    alive = d["alive"]
-    ids = d["arrays"]["ids"][alive]
-    order = np.argsort(ids)
-    out = {k: v[alive][order] for k, v in d["arrays"].items()}
-    partners = np.where(d["bond_mask"], d["partners"], -1)[alive][order]
-    out["bonds"] = [frozenset(r[r >= 0].tolist()) for r in partners]
-    return out
+    """Alive rows of a numpy state dict, sorted by agent id, each agent's
+    bond set as a sorted row (``colonies.by_id``)."""
+    from hipsc_abm_tpu_torch import colonies
+
+    return colonies.by_id(d)
+
+
+def bond_rows_apart(x: np.ndarray, y: np.ndarray) -> int:
+    """Agents whose bond sets differ between two ``by_id`` bond rows."""
+    from hipsc_abm_tpu_torch import colonies
+
+    return colonies.bond_rows_apart(x, y)
 
 
 def bio_bound(args, kw, neighbours: float) -> dict:
@@ -1074,7 +1114,7 @@ def compare_colonies(a: dict, b: dict, label: str, bond_rows_allowed: int) -> st
         np.testing.assert_allclose(a["gradients"]["fgf4_values"],
                                    b["gradients"]["fgf4_values"], rtol=0, atol=1e-6)
         summary += f", max|dlattice|={lat_err:.3e}"
-    bond_rows = sum(x != y for x, y in zip(ia["bonds"], ib["bonds"]))
+    bond_rows = bond_rows_apart(ia["bonds"], ib["bonds"])
     if bond_rows > bond_rows_allowed:
         raise AssertionError(f"{label}: bond sets differ on {bond_rows} rows")
     return summary + f", bond rows differing={bond_rows}"
@@ -1144,7 +1184,7 @@ def step_phase_3d(steps: int = 4, optional: bool = False):
     a, b = by_id(on_card["id_list"]), by_id(on_card["span_mask"])
     same_ids = np.array_equal(a["ids"], b["ids"])
     dloc = float(np.abs(a["locations"] - b["locations"]).max()) if same_ids else float("nan")
-    bond_rows = sum(x != y for x, y in zip(a["bonds"], b["bonds"])) if same_ids else -1
+    bond_rows = bond_rows_apart(a["bonds"], b["bonds"]) if same_ids else -1
     print(f"step phase 3D{tag} span_mask vs id_list on the card: same agents {same_ids}, "
           f"max|dloc|={dloc:.3e} um, bond rows differing={bond_rows}")
 
@@ -1281,7 +1321,7 @@ def lifecycle_card_vs_cpu(root: str, steps: int, cls=None, contact_path: str = "
         d = np.abs(ia["locations"] - ib["locations"]).max(axis=1)
         return dict(same_agents=True, ints_equal=ints, max_dloc=float(d.max()),
                     over_1e3=int((d > 1e-3).sum()),
-                    bond_rows=sum(x != y for x, y in zip(ia["bonds"], ib["bonds"])))
+                    bond_rows=bond_rows_apart(ia["bonds"], ib["bonds"]))
 
     out = []
     for step in range(1, steps + 1):
@@ -1391,7 +1431,7 @@ def resume_check(root: str, general: dict, experimental: dict, label: str, cls=N
     for k in ("locations", "radii"):
         if not np.array_equal(a[k].view(np.int32), b[k].view(np.int32)):
             differ.append(k)
-    if a["bonds"] != b["bonds"]:
+    if bond_rows_apart(a["bonds"], b["bonds"]):
         differ.append("bonds")
     if differ:
         raise AssertionError(f"{label}: mode 0 to {steps // 2} + mode 1 to {steps} differs "
@@ -1770,25 +1810,13 @@ def compare_bits(a: dict, b: dict, label: str) -> str:
     """Two numpy states by agent id: ids, integer fields and bond sets equal,
     positions, radii, the lattice (its deposit sums in a fixed order), the
     key and ``next_id`` bit-equal. Raises, or returns a summary."""
-    ia, ib = by_id(a), by_id(b)
-    if not np.array_equal(ia["ids"], ib["ids"]):
-        raise AssertionError(f"{label}: agent id sets differ")
-    differ = [k for k in ("FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states", "death_counters",
-                          "diff_counters", "div_counters", "fds_counters")
-              if not np.array_equal(ia[k], ib[k])]
-    differ += [k for k in ("locations", "radii")
-               if not np.array_equal(ia[k].view(np.int32), ib[k].view(np.int32))]
-    if ia["bonds"] != ib["bonds"]:
-        differ.append("bonds")
-    for g in a["gradients"]:
-        apart = int((a["gradients"][g].view(np.int32) != b["gradients"][g].view(np.int32)).sum())
-        if apart:
-            differ.append(f"lattice {g} ({apart} points)")
-    differ += [k for k in ("key", "next_id") if not np.array_equal(a[k], b[k])]
+    from hipsc_abm_tpu_torch.colonies import assert_same
+
+    summary = assert_same(a, b, label, fields=STATE_FIELDS)
+    differ = [k for k in ("key", "next_id") if not np.array_equal(a[k], b[k])]
     if differ:
         raise AssertionError(f"{label}: {differ} differ")
-    return (f"{len(ia['ids'])} agents, integer fields, bond sets, positions, radii, "
-            f"{'the lattice, ' if a['gradients'] else ''}key and next_id bit-equal")
+    return summary + ", key and next_id bit-equal"
 
 
 class SyncCounter:
@@ -2845,30 +2873,13 @@ def domain_flat(dom, dstate) -> dict:
 
 def domain_equal(a: dict, b: dict, label: str) -> str:
     """A decomposed run's flat state against a single engine's, by agent id:
-    integer fields, bond sets, positions and radii bit-equal; the lattice
-    within ``DOMAIN_LATTICE_ATOL`` (the tiles' deposits are summed in tile
-    order, the single engine's go straight onto the lattice). Raises, or
-    returns a summary."""
-    ia, ib = by_id(a), by_id(b)
-    if not np.array_equal(ia["ids"], ib["ids"]):
-        raise AssertionError(f"{label}: agent id sets differ")
+    every field and the bond sets bit-equal; the lattice within
+    ``DOMAIN_LATTICE_ATOL`` (the tiles' deposits are summed in tile order,
+    the single engine's go straight onto the lattice). Raises, or returns a
+    summary."""
+    from hipsc_abm_tpu_torch.colonies import assert_same
 
-    def bits(x):
-        return x.view(np.int32) if x.dtype == np.float32 else x
-
-    differ = [k for k in ia if k != "bonds" and not np.array_equal(bits(ia[k]), bits(ib[k]))]
-    if ia["bonds"] != ib["bonds"]:
-        differ.append("bonds")
-    if differ:
-        raise AssertionError(f"{label}: {differ} differ")
-    summary = (f"{len(ia['ids'])} agents, integer fields, bond sets, positions and radii "
-               "bit-equal")
-    for g in a["gradients"]:
-        err = float(np.abs(a["gradients"][g] - b["gradients"][g]).max())
-        if not err <= DOMAIN_LATTICE_ATOL:
-            raise AssertionError(f"{label}: lattice {g} apart by {err}")
-        summary += f", lattice {g} max|d|={err:.3e}"
-    return summary
+    return assert_same(a, b, label, lattice_atol=DOMAIN_LATTICE_ATOL)
 
 
 def counted(fn):
@@ -3262,6 +3273,343 @@ def domain_phase() -> dict:
     return out
 
 
+def multiprocess_route(label: str, args: list, route_kernels, backend: str = "gloo") -> dict:
+    """The domain engine over ``MP_WORLD`` processes on the card
+    (``tools.multihost_domain``: the JAX payload's sequence, every check on
+    rank 0 against the single engine and one controller on the card), with
+    a deadline; each kernel of ``route_kernels`` must have launched on the
+    route (the ranks' counts, set to 0 just before each call of an engine
+    under test and read just after, summed over the ranks)."""
+    from hipsc_abm_tpu_torch.tools import multihost_domain
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="hipsc_mp_")
+    t0 = time.perf_counter()
+    try:
+        outs = multihost_domain.run_ranks(MP_WORLD, workdir,
+                                          ["--device", "cuda", "--backend", backend,
+                                           "--seed", str(SEED), *args],
+                                          timeout_s=MP_DEADLINE_S)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    if "MULTIHOST OK" not in outs[0]:
+        raise AssertionError(f"{label}: rank 0 did not finish its checks\n{outs[0][-3000:]}")
+    for line in outs[0].splitlines():
+        if line.startswith(("rank 0: ", "MULTIHOST OK")):
+            print(f"{label}: {line}")
+    res = multihost_domain.results(outs)
+    launches = {}
+    for r in res:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    missing = [k for k in route_kernels if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{label}: kernels {missing} never launched on the route "
+                             f"({launches})")
+    ranks = []
+    for r in res:
+        steps = r["timed_steps"]
+        ranks.append(dict(
+            rank=r["rank"], tiles=r["local_tiles"], median_ms=r["median_ms"],
+            p90_ms=r["p90_ms"], exchange_bytes_per_step=float(np.median(r["exchange_bytes"])),
+            rank_bytes_per_step=float(np.median(r["rank_bytes"])),
+            staged_bytes_per_step=float(np.median(r["staged_bytes"])),
+            collectives_per_step=float(np.median(r["collectives"])),
+            peak_mib=r["peak_mib"], launches=r["launches"]))
+        print(f"{label}: rank {r['rank']} (tiles {r['local_tiles']}, {r['agents']} agents in "
+              f"all) over {steps} timed safe_steps: median {r['median_ms']:.3f} ms, p90 "
+              f"{r['p90_ms']:.3f} ms; per step {ranks[-1]['exchange_bytes_per_step']:.0f} B "
+              f"copied between its own tiles, {ranks[-1]['rank_bytes_per_step']:.0f} B "
+              f"received from the other rank, {ranks[-1]['staged_bytes_per_step']:.0f} B "
+              f"staged through pinned host memory, "
+              f"{ranks[-1]['collectives_per_step']:.0f} collectives; peak "
+              f"{r['peak_mib']:.1f} MiB")
+    print(f"{label}: {seconds:.2f} s in all; launches over both ranks {launches}")
+    return dict(seconds=seconds, backend=backend, ranks=ranks, launches=launches,
+                agents=res[0]["agents"])
+
+
+def shard_states_check() -> dict:
+    """Phase 12 c: ``ENSEMBLE_R`` replicates of phase 9's colony in
+    ``SHARD_GROUPS`` groups on the one card (``shard_states``), each group
+    one captured graph; every replicate bit-equal (``compare_bits``) to the
+    unsharded ensemble's, and the first replicate of each group to its solo
+    run."""
+    from hipsc_abm_tpu_torch import convert
+    from hipsc_abm_tpu_torch.parallel.ensemble import EnsembleEngine
+
+    seeds = list(range(ENSEMBLE_R))
+    ens, plain = EnsembleEngine(ensemble_engine("cuda")), EnsembleEngine(ensemble_engine("cuda"))
+    states = seed_lattices(ens.init_states(seeds), seeds, ens.engine.diff)
+    unsharded = seed_lattices(plain.init_states(seeds), seeds, plain.engine.diff)
+    sharded = EnsembleEngine.shard_states(states, [torch.device("cuda", 0)] * SHARD_GROUPS)
+    firsts = np.cumsum([0] + [g.alive.shape[0] for g in sharded.groups[:-1]]).tolist()
+    solos = []
+    for i in firsts:
+        eng = ensemble_engine("cuda")
+        eng.cfg = ens.engine.cfg
+        solos.append((i, eng, solo_state(eng, seeds[i])))
+    t0 = time.perf_counter()
+    for _ in range(SHARD_STEPS):
+        sharded, _ = ens.safe_step(sharded)
+    torch.cuda.synchronize()
+    t_sharded = time.perf_counter() - t0
+    for _ in range(SHARD_STEPS):
+        unsharded, _ = plain.safe_step(unsharded)
+        solos = [(i, e, e.safe_step(s)[0]) for i, e, s in solos]
+    for i in range(len(seeds)):
+        summary = compare_bits(convert.state_to_numpy(EnsembleEngine.replicate(sharded, i)),
+                               convert.state_to_numpy(EnsembleEngine.replicate(unsharded, i)),
+                               f"multiprocess phase c shard_states replicate {i}")
+    for i, _, solo in solos:
+        compare_bits(convert.state_to_numpy(EnsembleEngine.replicate(sharded, i)),
+                     convert.state_to_numpy(solo), f"multiprocess phase c solo {i}")
+    graphs = ens.graphs()
+    print(f"multiprocess phase c shard_states: {len(seeds)} x {N_ENSEMBLE} replicates in "
+          f"{SHARD_GROUPS} groups on the one card, {SHARD_STEPS} safe_steps ({t_sharded:.2f} s, "
+          f"captures included; graphs (R, capture s) "
+          f"{[(g['replicates'], round(g['capture_s'], 2)) for g in graphs]}): each replicate "
+          f"bit-equal to the unsharded ensemble's (last: {summary}), replicates {firsts} to "
+          "their solo runs")
+    del ens, plain, sharded, unsharded, solos
+    torch.cuda.empty_cache()
+    return dict(replicates=len(seeds), groups=SHARD_GROUPS, steps=SHARD_STEPS,
+                seconds=t_sharded)
+
+
+def mesh_check() -> dict:
+    """Phase 12 c: ``parallel.mesh.ShardedHipscEngine`` over ``MESH_CHUNKS``
+    chunks on the one card at the 2D 100k bench colony, ``MESH_STEPS``
+    ``safe_step``s bit-equal (``compare_bits``) to the single engine."""
+    from hipsc_abm_tpu_torch import convert
+    from hipsc_abm_tpu_torch.parallel.mesh import ShardedHipscEngine, gather_state, make_mesh
+
+    eng, state = engine_for(2, N_MAIN, "cuda", "id_list")
+    mesh = make_mesh(MESH_CHUNKS, device="cuda")
+    sharded = ShardedHipscEngine(eng.gen, eng.xp, eng.bio, eng.diff, cfg=eng.cfg, mesh=mesh)
+    chunks = sharded.init_state(seed=SEED)
+    if sharded.cfg.capacity != eng.cfg.capacity:
+        eng.cfg = dataclasses.replace(eng.cfg, capacity=sharded.cfg.capacity)
+        state = eng.init_state(seed=SEED)
+    t0 = time.perf_counter()
+    for _ in range(MESH_STEPS):
+        chunks, _ = sharded.safe_step(chunks)
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    for _ in range(MESH_STEPS):
+        state, _ = eng.safe_step(state)
+    summary = compare_bits(convert.state_to_numpy(gather_state(chunks, "cuda")),
+                           convert.state_to_numpy(state), "multiprocess phase c mesh")
+    print(f"multiprocess phase c ShardedHipscEngine [2D, {N_MAIN}, {len(chunks.chunks)} chunks "
+          f"on {sorted(set(map(str, mesh)))}]: {MESH_STEPS} safe_steps ({t_mesh:.2f} s) against "
+          f"the single engine: {summary}")
+    del eng, sharded, chunks, state
+    torch.cuda.empty_cache()
+    return dict(chunks=MESH_CHUNKS, steps=MESH_STEPS, seconds=t_mesh)
+
+
+def domain_forces_check() -> dict:
+    """Phase 12 c: ``parallel.domain.domain_forces`` at the JAX test's colony
+    (300 agents in 8 stripes of a 400 um box) on the card, against the
+    all-pairs oracle (``DOMAIN_FORCES_RTOL``, atol 1e-14: the halo sums add
+    the pairs in another order) and against the same call on the CPU."""
+    from hipsc_abm_tpu_torch.ops.jkr import _pair_jkr
+    from hipsc_abm_tpu_torch.params import BiologyParams
+    from hipsc_abm_tpu_torch.parallel.domain import (
+        domain_forces, make_stripe_mesh, partition_by_stripe)
+
+    bio = BiologyParams()
+    rng = np.random.default_rng(1234)
+    n, n_stripes, per_stripe, box_x = 300, 8, 64, 400.0
+    loc = np.zeros((n, 3), np.float32)
+    loc[:, 0] = rng.random(n) * box_x
+    loc[:, 1] = rng.random(n) * 100.0
+    sloc, salive, sgid = partition_by_stripe(loc, np.ones(n, bool), box_x, n_stripes,
+                                             per_stripe)
+
+    def run(device):
+        devs = make_stripe_mesh(n_stripes, device=device)
+        out = domain_forces([torch.from_numpy(sloc[s]).to(d) for s, d in enumerate(devs)],
+                            [torch.from_numpy(salive[s]).to(d) for s, d in enumerate(devs)],
+                            [torch.full((per_stripe,), 5.0, device=d) for d in devs], box_x, bio)
+        return np.stack([f.cpu().numpy() for f in out])
+
+    card, cpu = run("cuda"), run("cpu")
+    x = torch.from_numpy(loc)
+    delta = x[:, None, :] - x[None, :, :]
+    ok = ~torch.eye(n, dtype=torch.bool) & ((delta * delta).sum(-1) <= bio.jkr_radius ** 2)
+    r = torch.full((n,), 5.0)
+    force, _ = _pair_jkr(x[:, None, :], x[None, :, :], r[:, None], r[None, :],
+                         bio.adhesion_const, bio.poisson, bio.youngs, bio.jkr_break_d)
+    oracle = torch.where(ok[..., None], force, 0.0).sum(dim=1).numpy()
+    own = sgid >= 0
+    np.testing.assert_allclose(card[own], oracle[sgid[own]], rtol=DOMAIN_FORCES_RTOL, atol=1e-14)
+    np.testing.assert_allclose(card, cpu, rtol=DOMAIN_FORCES_RTOL, atol=1e-14)
+    if (card[~own] != 0).any():
+        raise AssertionError("domain_forces: a padding slot has a force")
+    err = float(np.abs(card - cpu).max())
+    print(f"multiprocess phase c domain_forces [{n} agents, {n_stripes} stripes on the card]: "
+          f"against the all-pairs oracle and the CPU within rtol {DOMAIN_FORCES_RTOL} "
+          f"(card vs CPU max|d| {err:.3e} N)")
+    return dict(agents=n, stripes=n_stripes, card_vs_cpu_max_abs=err)
+
+
+def nccl_phase() -> dict:
+    """Phase 12 d: NCCL with two ranks on one card is refused before NCCL is
+    initialised; with a card per rank, phase a's route over NCCL."""
+    from hipsc_abm_tpu_torch.parallel import distributed
+
+    cards = torch.cuda.device_count()
+    try:
+        distributed.init_process_group("nccl", "tcp://127.0.0.1:1", 0, cards + 1,
+                                       device="cuda:0")
+    except RuntimeError as err:
+        if "one card per rank" not in str(err) or torch.distributed.is_initialized():
+            raise
+        print(f"multiprocess phase d: backend nccl with {cards + 1} ranks on {cards} card(s) "
+              f"raised before NCCL started: {err}")
+    else:
+        raise AssertionError("multiprocess phase d: nccl with more ranks than cards did not "
+                             "raise")
+    if cards < MP_WORLD:
+        print(f"multiprocess phase d: nccl not run: {cards} card")
+        return dict(nccl=None)
+    return dict(nccl=multiprocess_route(
+        "multiprocess phase d [nccl]", ["--cells", str(N_LARGE), "--tiles",
+                                        *map(str, DOMAIN_TILES), "--steps", str(MP_STEPS),
+                                        "--timed", str(MP_TIMED)],
+        PATH_KERNELS[(2, "span_mask")], backend="nccl"))
+
+
+def multiprocess_phase() -> dict:
+    """Phase 12, the domain engine over processes (see the module
+    docstring)."""
+    tiles = ["--tiles", *map(str, DOMAIN_TILES)]
+    out = {"a": multiprocess_route(
+        f"multiprocess phase a [2D, {N_LARGE}, {MP_WORLD} ranks x tiles {DOMAIN_TILES}, gloo]",
+        ["--cells", str(N_LARGE), *tiles, "--steps", str(MP_STEPS), "--timed", str(MP_TIMED)],
+        PATH_KERNELS[(2, "span_mask")])}
+    out["b"] = multiprocess_route(
+        f"multiprocess phase b [2D, {N_STEP_CHECK}, id_list, {MP_WORLD} ranks, gloo]",
+        ["--cells", str(N_STEP_CHECK), *tiles, "--path", "id_list", "--steps", "2",
+         "--timed", str(MP_TIMED)], PATH_KERNELS[(2, "id_list")])
+    out["c"] = dict(shard_states=shard_states_check(), mesh=mesh_check(),
+                    domain_forces=domain_forces_check())
+    out["d"] = nccl_phase()
+    return out
+
+
+def examples_phase() -> dict:
+    """Phase 13, the examples on the card (see the module docstring)."""
+    from hipsc_abm_tpu_torch import kernels
+    from hipsc_abm_tpu_torch.examples import chemotaxis, minimal_abm, run, spheroid_3d
+    from hipsc_abm_tpu_torch.utils.profiling import device_trace
+
+    out = {}
+    root = tempfile.mkdtemp(prefix="hipsc_examples_")
+    cwd = os.getcwd()
+    try:
+        # chemotaxis: 3 steps on the card and on the CPU from one colony
+        small = dict(num_to_start=40, cuda=False, end_step=CHEMO_STEPS, size=[300, 300, 0],
+                     output_values=True, output_images=False, record_initial_step=False,
+                     image_quality=100, video_quality=80, fps=5, seed=0)
+        small_xp = dict(num_gata6=4, output_tda=False, output_gradients=False, group=0,
+                        dox_step=1, guye_move=False, lonely_thresh=2, color_mode=True)
+        sims = {}
+        for i, device in enumerate(("cuda", "cpu")):
+            d = os.path.join(root, f"chemotaxis_{i}")
+            write_templates(d, small, small_xp)
+            os.chdir(d)
+            kernels.launch_counts.clear()
+            with contextlib.redirect_stdout(io.StringIO()):
+                sims[device] = chemotaxis.Chemotaxis.start(os.path.join(d, "outputs"),
+                                                           argv=["-n", "fg", "-m", "0"],
+                                                           device=device)
+            if i == 0:
+                counts = dict(kernels.launch_counts)
+                card = sims.pop(device)
+        cpu = sims["cpu"]
+        if counts.get("ftcs_diffuse") != CHEMO_STEPS or counts.get("deposit") != CHEMO_STEPS:
+            raise AssertionError(f"examples phase chemotaxis: launches {counts}")
+        loc_err = float(np.abs(card.locations - cpu.locations).max())
+        field_err = float(np.abs(card.attractant.cpu().numpy() - cpu.attractant.numpy()).max())
+        if not (loc_err <= CHEMO_LOC_ATOL and field_err <= CHEMO_FIELD_ATOL):
+            raise AssertionError(f"examples phase chemotaxis: card vs CPU positions "
+                                 f"{loc_err}, field {field_err}")
+        print(f"examples phase chemotaxis: {CHEMO_STEPS} steps, card against CPU: positions "
+              f"max|d| {loc_err:.3e} um, field max|d| {field_err:.3e}; launches {counts}")
+        out["chemotaxis"] = dict(steps=CHEMO_STEPS, loc_err=loc_err, field_err=field_err,
+                                 launches=counts)
+
+        # the 3D spheroid example at its own size
+        kernels.launch_counts.clear()
+        t0 = time.perf_counter()
+        _, _, stats = spheroid_3d.run(n_cells=3000, n_gata6=300, steps=3,
+                                      out_dir=os.path.join(root, "spheroid"), device="cuda")
+        counts = dict(kernels.launch_counts)
+        seconds = time.perf_counter() - t0
+        pngs = sorted(f for f in os.listdir(os.path.join(root, "spheroid")) if f.endswith(".png"))
+        if (pngs != ["spheroid_xy.png", "spheroid_xz.png"] or stats["population"] < N_SPHEROID
+                or not counts.get("contact_substep_3d") or not counts.get("bio_moments_3d")):
+            raise AssertionError(f"examples phase spheroid_3d: {stats} {pngs} {counts}")
+        print(f"examples phase spheroid_3d: {N_SPHEROID} cells, 3 steps in {seconds:.2f} s: "
+              f"{stats}; {pngs}; launches {counts}")
+        out["spheroid_3d"] = dict(stats, seconds=seconds)
+
+        # minimal_abm and run.py mode 0 (the shipped templates), 2 steps each
+        d = os.path.join(root, "minimal")
+        write_templates(d, dict(small, end_step=EXAMPLE_STEPS), small_xp)
+        os.chdir(d)
+        with contextlib.redirect_stdout(io.StringIO()):
+            walkers = minimal_abm.RandomWalkers.start(os.path.join(d, "outputs"),
+                                                      argv=["-n", "rw", "-m", "0"],
+                                                      device="cuda")
+        vals = os.path.join(d, "outputs", "rw", "rw_values", f"rw_values_{EXAMPLE_STEPS}.csv")
+        if walkers.number_agents != 40 or not os.path.isfile(vals):
+            raise AssertionError("examples phase minimal_abm: no values CSV")
+        d = os.path.join(root, "run")
+        write_templates(d, dict(LIFECYCLE_GENERAL, end_step=EXAMPLE_STEPS),
+                        LIFECYCLE_EXPERIMENTAL)
+        os.chdir(d)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            sim = run.main(["-n", "ex", "-m", "0"], output_dir=os.path.join(d, "outputs"))
+        seconds = time.perf_counter() - t0
+        vals = os.path.join(d, "outputs", "ex", "ex_values", f"ex_values_{EXAMPLE_STEPS}.csv")
+        if sim.device.type != "cuda" or not os.path.isfile(vals):
+            raise AssertionError("examples phase run: no values CSV on the card")
+        print(f"examples phase minimal_abm: 40 walkers, {EXAMPLE_STEPS} steps on the card; run.py "
+              f"mode 0 on the shipped templates: {sim.number_agents} agents after "
+              f"{EXAMPLE_STEPS} steps in {seconds:.2f} s")
+        out["run"] = dict(agents=sim.number_agents, seconds=seconds)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+
+    # device_trace around one safe_step (a graph replay) of a warmed engine
+    eng, state = engine_for(2, N_STEP_CHECK, "cuda", "id_list")
+    state, _ = eng.safe_step(state)
+    trace_dir = tempfile.mkdtemp(prefix="hipsc_trace_")
+    try:
+        with device_trace(trace_dir):
+            state, _ = eng.safe_step(state)
+        files = os.listdir(trace_dir)
+        text = "".join(open(os.path.join(trace_dir, f)).read() for f in files)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    named = [k for k in ("contact_substep_kernel", "contact_mask_kernel") if k in text]
+    if len(files) != 1 or not named:
+        raise AssertionError(f"examples phase device_trace: {files}, kernels named {named}")
+    print(f"examples phase device_trace: one safe_step traced into {files[0]} "
+          f"({len(text)} bytes), naming {named}")
+    out["device_trace"] = dict(bytes=len(text), named=named)
+    del eng, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3353,6 +3701,16 @@ def main() -> int:
         "c": {k: v for k, v in domain["c"].items() if k != "counts"},
         "e": {k: v for k, v in e.items() if k not in ("counts", "entries")},
         "f": domain["f"]}}))
+    # the domain engine over processes, and the cross-checks of the last
+    # ported modules; then the examples and device_trace
+    mp = phase("multiprocess", multiprocess_phase)
+    print(json.dumps({"multiprocess": {
+        "a": {k: v for k, v in mp["a"].items() if k != "launches"},
+        "b": {k: v for k, v in mp["b"].items() if k != "launches"},
+        "c": mp["c"],
+        "d": {"nccl": None if mp["d"]["nccl"] is None else {
+            k: v for k, v in mp["d"]["nccl"].items() if k != "launches"}}}}))
+    print(json.dumps({"examples": phase("examples", examples_phase)}))
     # each kernel's launches on the domain path: the timed 500k tiles in 2D,
     # the 3D stripes (c), and B6 on the id-list step (d)
     domain_counts = {**domain["c"]["counts"], **e["counts"],
@@ -3365,9 +3723,15 @@ def main() -> int:
             base, r["launches"], n_tiles * e["attempts"], n_tiles * e["rebuilds"],
             e["substeps"]))
         results.append(r)
+    # each kernel's launches on the multi-process route, over both ranks: the
+    # 500k span-mask route (a), and B6 on the id-list route (b)
+    mp_counts = {**mp["a"]["launches"],
+                 "contact_substep": mp["b"]["launches"].get("contact_substep", 0)}
     for r in results:  # the domain runs took the uniform law only
         r["domain_launches"] = (0 if r.get("law") == "general"
                                 else domain_counts.get(r["name"].split("[")[0], 0))
+        r["multiprocess_launches"] = (0 if r.get("law") == "general"
+                                      else mp_counts.get(r["name"].split("[")[0], 0))
         if "launches" in r:  # the probes count their own entry points; the tile entries
             r.setdefault("taken_launches", r["launches"])
             continue

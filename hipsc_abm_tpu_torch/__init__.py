@@ -12,8 +12,12 @@ Module names follow the JAX package:
 - ``models.biology``: the biology phases;
 - ``engine``: ``hipsc_step`` and ``HipscEngine``;
 - ``parallel.ensemble``: replicate ensembles and parameter sweeps;
+  ``parallel.domain_engine``: one colony cut into tiles, from one process
+  or over a process group (``parallel.distributed``); ``parallel.mesh`` and
+  ``parallel.domain``: the JAX package's cross-checks;
   ``calibrate``: gradient and ES fits of the model's parameters;
-  ``examples``: runnable demos;
+  ``examples``: runnable demos (``run``, ``minimal_abm``, ``chemotaxis``,
+  ``spheroid_3d``, ``replicate_study``, ``calibrate``);
 - ``simulation``, ``models.hipsc``, ``__main__``: the framework and the
   colony model's lifecycle (``python -m hipsc_abm_tpu_torch``, modes 0-3);
 - ``utils``: templates, the command line, outputs, checkpoints, timing;

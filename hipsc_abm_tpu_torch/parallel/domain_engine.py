@@ -53,6 +53,26 @@ phase: each phase runs every tile's local work, then its exchange.
   holds the same lattice bit for bit; against the single engine, whose
   deposit goes straight onto the lattice, it differs by rounding.
 
+Several processes
+-----------------
+Given a process group (``process_group=``, or ``rank`` and ``world``), the
+tiles are spread over its ranks, a contiguous block each (the JAX mesh's
+order), and each rank is the controller of its own block: it advances only
+its tiles' generators, which are the same. Only the collectives change,
+through ``parallel.distributed.Transport``: an exchange copies between
+local tiles and sends the rest in one ``batch_isend_irecv`` per axis; a
+reduction and the deposit deltas gather every tile's value in tile order on
+every rank, which then sums or maxes them in the order above, so every rank
+holds the lattice of the single controller bit for bit; the probe row is
+all-reduced (integer sums and maxima, exact in any order) before the
+attempt's one host read, so every rank makes the same growth decision.
+Before each collective the ranks check that they are at the same one. The
+state holds only the local tiles; ``from_cell_state`` keeps them from a
+colony every rank holds alike, and ``to_cell_state``, the flat checkpoint,
+``rebalance`` and the drift recovery gather every tile (every rank calls
+them). ``save_checkpoint_sharded`` and ``write_values_sharded`` write each
+rank's own tiles only.
+
 Communication per step is O(boundary): the bio halo exchange at step start
 and its two value refreshes, one contact-band exchange per physics substep
 and decomposed axis (positions of the frozen band; whole packs at a window
@@ -71,10 +91,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import os
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hipsc_abm_tpu_torch import convert
 from hipsc_abm_tpu_torch.engine import (
@@ -176,10 +198,11 @@ class DomainConfig:
 
 
 class DomainState(NamedTuple):
-    """The decomposed state. Per tile ``s``, on ``engine.devices[s]``:
-    ``arrays[s]`` (the per-agent arrays, ``(per_stripe, ...)``),
-    ``alive[s]`` and ``bonds[s]``; agents live in the tile that owns their
-    bin column and row. ``gradients`` holds the replicated lattices, one
+    """The decomposed state. Per tile ``s`` of this process, at its place
+    ``i`` in ``engine.tiles`` (every tile for one controller, the rank's
+    block across ranks), on ``engine.devices[i]``: ``arrays[i]`` (the
+    per-agent arrays, ``(per_stripe, ...)``), ``alive[i]`` and ``bonds[i]``;
+    agents live in the tile that owns their bin column and row. ``gradients`` holds the replicated lattices, one
     dict per distinct device (``engine.replica_devices``). ``key`` is the
     (2,) int64 step key on the host, ``next_id`` a () int32 tensor on the
     first tile's device."""
@@ -224,6 +247,8 @@ class DomainStepInfo(NamedTuple):
 _SUM_FIELDS = frozenset(("num_agents", "num_added", "num_removed", "num_deferred",
                          "mig_shortfall", "mig_too_far", "halo_miss"))
 _FLOAT_FIELDS = frozenset(("drift_exceed", "max_substep_move"))
+_SUM_IDX = [i for i, n in enumerate(DomainStepInfo._fields) if n in _SUM_FIELDS]
+_MAX_IDX = [i for i, n in enumerate(DomainStepInfo._fields) if n not in _SUM_FIELDS]
 
 
 def _info_from_host(rows, stacked: bool) -> DomainStepInfo:
@@ -352,6 +377,26 @@ def _sel(pred, fresh, frozen):
     return tuple(torch.where(pred, f, o) for f, o in zip(fresh, frozen))
 
 
+def _process_group(group, rank: Optional[int], world: Optional[int]):
+    """The process group a domain engine spreads its tiles over, or None for
+    one controller: ``group`` itself, or the default group when ``rank`` and
+    ``world`` name it (checked against it)."""
+    if group is None and rank is None and world is None:
+        return None
+    if group is None:
+        if rank is None or world is None:
+            raise ValueError("pass process_group, or both rank and world")
+        if not dist.is_initialized():
+            raise RuntimeError("rank and world name the default process group, which is "
+                               "not initialised (parallel.distributed.init_process_group)")
+        group = dist.group.WORLD
+    if rank is not None and rank != dist.get_rank(group) or \
+            world is not None and world != dist.get_world_size(group):
+        raise ValueError(f"rank {rank} of {world} is not this process's place in the group "
+                         f"({dist.get_rank(group)} of {dist.get_world_size(group)})")
+    return group
+
+
 class _TileConsts(NamedTuple):
     """A tile's static constants (``DomainHipscEngine._stripe_consts``)."""
 
@@ -396,6 +441,16 @@ class _Tile(NamedTuple):
 # ---------------------------------------------------------------------------
 # the per-tile step body
 # ---------------------------------------------------------------------------
+
+
+def _collective_code(msg) -> int:
+    """A collective's kind as one integer, which the ranks compare before
+    they issue it (``Transport.agree``); 0 is the end of the step."""
+    if isinstance(msg, _Exchange):
+        return 1 + msg.axis
+    if isinstance(msg, _Reduce):
+        return 3 + ("sum", "max", "gather").index(msg.op)
+    return 6
 
 
 def _tile_step(t: _Tile, arrays, alive, bonds, lattice, words, next_id):
@@ -929,7 +984,14 @@ class DomainHipscEngine:
     default tile ``s`` lies on ``cuda:{s % device_count}``. ``tiles=(n_tx,
     n_ty)`` or ``n_stripes`` sets the grid (default: one stripe per device
     given, else per card). ``contact_path`` defaults to ``"span_mask"``, the
-    JAX domain engine's path on the chip, on every device."""
+    JAX domain engine's path on the chip, on every device.
+
+    ``process_group`` (a ``torch.distributed`` group), or ``rank`` and
+    ``world`` of the default group, spread the tiles over the group's ranks
+    (``parallel.distributed``): this rank steps only its own block of tiles,
+    by default all on ``cuda:{rank % device_count}`` (``devices`` then lists
+    the local tiles' devices), and every method is called by every rank
+    with the same arguments."""
 
     def __init__(
         self,
@@ -950,27 +1012,43 @@ class DomainHipscEngine:
         device="cuda",
         devices: Optional[Sequence] = None,
         contact_path: str = "span_mask",
+        process_group=None,
+        rank: Optional[int] = None,
+        world: Optional[int] = None,
     ):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DomainHipscEngine(device='cuda') needs a CUDA device")
         if tiles is not None and n_stripes is not None:
             raise ValueError("pass either tiles=(n_tx, n_ty) or n_stripes")
+        group = _process_group(process_group, rank, world)
         if tiles is not None:
             S = int(tiles[0]) * int(tiles[1])
         elif n_stripes is not None:
             S = int(n_stripes)
-        elif devices is not None:
+        elif devices is not None and group is None:
             S = len(devices)
         else:
             S = torch.cuda.device_count() if device.type == "cuda" else 1
         n_ty = int(tiles[1]) if tiles is not None else 1
+        # the tiles this process steps: all of them, or its rank's block
+        self.transport = None
+        self.tiles = list(range(S))
+        if group is not None:
+            from hipsc_abm_tpu_torch.parallel.distributed import Transport
+
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda", dist.get_rank(group) % torch.cuda.device_count())
+            self.transport = Transport(group, S, device)
+            self.tiles = self.transport.local_tiles
+            if devices is None:
+                devices = [device] * len(self.tiles)
         if devices is None:
             devices = ([torch.device("cuda", s % torch.cuda.device_count()) for s in range(S)]
                        if device.type == "cuda" else [device] * S)
         self.devices = [torch.device(d) for d in devices]
-        if len(self.devices) != S:
-            raise ValueError(f"{len(self.devices)} devices for {S} tiles")
+        if len(self.devices) != len(self.tiles):
+            raise ValueError(f"{len(self.devices)} devices for {len(self.tiles)} tiles")
         if any(d.type == "cuda" and d.index is None for d in self.devices):
             self.devices = [torch.device("cuda", torch.cuda.current_device())
                             if d.type == "cuda" and d.index is None else d
@@ -997,10 +1075,12 @@ class DomainHipscEngine:
             per_stripe = max(_round_up(int(n0 / S * 2.0), 256), 256)
         self.cfg = self._make_cfg(base, S, per_stripe, halo_cap, mig_cap, drift_allowance,
                                   n_ty=n_ty)
-        # the attempts of the last safe_step / run_steps call, and the bytes
-        # handed between tiles by each step of the last attempt
+        # the attempts of the last safe_step / run_steps call; by each step
+        # of the last attempt, the bytes handed between this process's tiles
+        # (copies on one rank) and those its tiles received from other ranks
         self.attempts = 0
         self.exchange_bytes: List[int] = []
+        self.rank_bytes: List[int] = []
 
     # -- partition --------------------------------------------------------
 
@@ -1178,7 +1258,9 @@ class DomainHipscEngine:
     def from_cell_state(self, state: CellState) -> DomainState:
         """Partition a flat ``CellState`` (any device) into the tile-major
         layout on the engine's devices. A partition denser than the per-tile
-        slots grows them first."""
+        slots grows them first. Across ranks every rank passes the same
+        colony and keeps its own tiles (the JAX engine's
+        ``make_array_from_callback`` contract)."""
         host = convert.state_to_numpy(state)
         cfg = self.cfg
         S = cfg.n_stripes
@@ -1187,10 +1269,7 @@ class DomainHipscEngine:
         need = int(np.bincount(tile[alive], minlength=S).max()) if alive.any() else 0
         if need > cfg.per_stripe:
             self.cfg = cfg = dataclasses.replace(cfg, per_stripe=_round_up(int(need * 1.5), 256))
-        tiles = []
-        for s in range(S):
-            idx = np.where(alive & (tile == s))[0]
-            tiles.append(idx)
+        tiles = [np.where(alive & (tile == s))[0] for s in self.tiles]
         stacked = {
             "arrays": {k: np.stack([self._fill(v, idx, cfg.per_stripe) for idx in tiles])
                        for k, v in host["arrays"].items()},
@@ -1212,11 +1291,16 @@ class DomainHipscEngine:
 
     def to_cell_state(self, dstate: DomainState, capacity: Optional[int] = None) -> CellState:
         """Flatten to a ``CellState`` on the first tile's device, tile-major
-        slot order (agents are identified by id, not slot)."""
+        slot order (agents are identified by id, not slot). Across ranks
+        every tile is gathered (O(colony), every rank calls it) and every
+        rank gets the whole colony."""
         dev = self.device
 
         def cat(parts):
-            out = torch.cat([p.to(dev) for p in parts], dim=0)
+            parts = [p.to(dev) for p in parts]
+            if self.transport is not None:
+                parts = self.transport.gather_tiles(parts)
+            out = torch.cat(parts, dim=0)
             return out if capacity is None else out[:capacity]
 
         return CellState(
@@ -1235,8 +1319,11 @@ class DomainHipscEngine:
         DomainConfig as metadata; either package resumes it."""
         from hipsc_abm_tpu_torch.utils.checkpoint import save_state
 
-        save_state(path, self.to_cell_state(dstate),
-                   meta={"domain_config": domain_config_to_meta(self.cfg)})
+        flat = self.to_cell_state(dstate)
+        if self.rank == 0:
+            save_state(path, flat, meta={"domain_config": domain_config_to_meta(self.cfg)})
+        if self.transport is not None:
+            self.transport.barrier()  # returned means written, on every rank
 
     def load_checkpoint(self, path: str, elastic: bool = False) -> DomainState:
         """Restore a DomainState, adopting the checkpoint's static
@@ -1249,6 +1336,72 @@ class DomainHipscEngine:
 
         state, meta = load_state(path, device=self.device)
         return self._adopt_and_partition(state, meta, elastic=elastic)
+
+    def save_checkpoint_sharded(self, path: str, dstate: DomainState) -> None:
+        """The sharded checkpoint (``utils.checkpoint.save_domain_sharded``):
+        ``path/shard_{s}.npz`` per tile, each written by the rank that holds
+        it, with no O(colony) gather; shard 0 carries the replicated leaves
+        and rank 0 the manifest. Every rank calls it. Either package resumes
+        it (``load_checkpoint_sharded``), bit-exactly."""
+        from hipsc_abm_tpu_torch.utils import checkpoint as ckpt
+
+        host = convert.domain_state_to_numpy(dstate)
+        tiles = {s: {"arrays": {k: v[i] for k, v in host["arrays"].items()},
+                     "alive": host["alive"][i], "partners": host["partners"][i],
+                     "bond_mask": host["bond_mask"][i]}
+                 for i, s in enumerate(self.tiles)}
+        shared = ({k: host[k] for k in ("gradients", "key", "step", "next_id")}
+                  if 0 in self.tiles else None)
+        ckpt.save_domain_sharded(
+            path, tiles, self.cfg.n_stripes, shared,
+            meta={"domain_config": domain_config_to_meta(self.cfg)}, rank=self.rank,
+            barrier=None if self.transport is None else self.transport.barrier)
+
+    def load_checkpoint_sharded(self, path: str, elastic: bool = False) -> DomainState:
+        """Resume from a sharded checkpoint (either package's), adopting its
+        configuration. On the same tile grid each rank reads its own shards
+        (and shard 0's replicated leaves) and places every slot block back
+        as it was saved, so the resume is bit-exact, the lattice included:
+        a re-partition compacts the slots, and the deposit's float sums
+        follow slot order. ``elastic=True`` re-partitions the reassembled
+        colony onto this engine's grid, as ``load_checkpoint`` does."""
+        from hipsc_abm_tpu_torch.utils import checkpoint as ckpt
+
+        meta = ckpt.read_manifest(path)
+        if not elastic and "domain_config" in meta:
+            cfg = domain_config_from_meta(meta["domain_config"])
+            if (cfg.n_stripes, cfg.n_ty) == (self.cfg.n_stripes, self.cfg.n_ty):
+                blocks, shared, _ = ckpt.load_domain_tiles(path, self.tiles)
+                self.cfg = dataclasses.replace(cfg, base=dataclasses.replace(
+                    cfg.base, contact_path=self.cfg.base.contact_path))
+                stacked = {k: [blocks[s][k] for s in self.tiles]
+                           for k in ("alive", "partners", "bond_mask")}
+                stacked["arrays"] = {k: [blocks[s]["arrays"][k] for s in self.tiles]
+                                     for k in blocks[self.tiles[0]]["arrays"]}
+                return convert.domain_state_from_numpy({**stacked, **shared}, self.devices)
+        state, meta = ckpt.load_domain_sharded(path, device="cpu")
+        return self._adopt_and_partition(state, meta, elastic=elastic)
+
+    def write_values_sharded(self, dir_path: str, name: str, step: int, dstate: DomainState,
+                             order: Optional[Sequence[str]] = None) -> list:
+        """One value CSV per tile, ``{name}_values_{step}.shard{s}.csv``,
+        written by the rank that holds the tile (alive rows in slot order,
+        the JAX package's headers and bytes), each published atomically.
+        ``utils.io.merge_sharded_values`` joins them into the one-file
+        format. Returns the paths this rank wrote."""
+        from hipsc_abm_tpu_torch.utils import io as io_utils
+
+        os.makedirs(dir_path, exist_ok=True)
+        order = list(order) if order is not None else sorted(dstate.arrays[0])
+        written = []
+        for i, s in enumerate(self.tiles):
+            mask = dstate.alive[i].cpu().numpy()
+            rows = {k: dstate.arrays[i][k].cpu().numpy()[mask] for k in order}
+            path = os.path.join(dir_path, f"{name}_values_{step}.shard{s}.csv")
+            io_utils.write_values_csv(path + ".tmp", rows, order)
+            os.replace(path + ".tmp", path)
+            written.append(path)
+        return written
 
     def _adopt_and_partition(self, state: CellState, meta: dict,
                              elastic: bool = False) -> DomainState:
@@ -1297,46 +1450,94 @@ class DomainHipscEngine:
                                       base=dataclasses.replace(cfg.base, bond_cap=K))
         return cfg
 
+    @property
+    def rank(self) -> int:
+        """This process's rank in the engine's group (0 for one controller)."""
+        return 0 if self.transport is None else self.transport.rank
+
     def _lockstep(self, cfg: DomainConfig, bodies, collective):
-        """Advance every tile's body to its next collective, perform it, and
-        hand each tile its result, until the bodies return (together: their
-        control flow is the config's). Returns the bodies' results."""
+        """Advance every local tile's body to its next collective, perform
+        it, and hand each tile its result, until the bodies return (together:
+        their control flow is the config's). Across ranks every rank first
+        states the collective it is at (``Transport.agree``), so that ranks
+        that disagree raise instead of exchanging the wrong bytes. Returns
+        the bodies' results."""
         msgs, replies, done = [None] * len(bodies), None, [None] * len(bodies)
         while True:
-            for s, body in enumerate(bodies):
-                with self._on(self.devices[s]):
+            for i, body in enumerate(bodies):
+                with self._on(self.devices[i]):
                     try:
-                        msgs[s] = next(body) if replies is None else body.send(replies[s])
+                        msgs[i] = next(body) if replies is None else body.send(replies[i])
                     except StopIteration as stop:
-                        done[s] = stop.value
-            if all(d is not None for d in done):
-                return done
-            if any(d is not None for d in done) or len({type(m) for m in msgs}) != 1:
+                        done[i] = stop.value
+            finished = all(d is not None for d in done)
+            if not finished and (any(d is not None for d in done)
+                                 or len({_collective_code(m) for m in msgs}) != 1):
                 raise RuntimeError("domain tiles diverged at a collective")
+            if self.transport is not None:
+                code = 0 if finished else _collective_code(msgs[0])
+                self.transport.agree(code, "the end of the step" if finished
+                                     else type(msgs[0]).__name__)
+            if finished:
+                return done
             replies = collective(msgs)
 
-    def _deliver(self, x: torch.Tensor, s: int) -> torch.Tensor:
-        """``x`` on tile ``s``'s device, counted in ``exchange_bytes``."""
+    def _deliver(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """``x`` on local tile ``i``'s device, counted in ``exchange_bytes``."""
         self.exchange_bytes[-1] += x.numel() * x.element_size()
-        return x.to(self.devices[s], non_blocking=True)
+        return x.to(self.devices[i], non_blocking=True)
 
     def _exchange(self, cfg: DomainConfig, msgs) -> list:
+        """Tile ``s`` sends ``lo`` to ``s - stride``, where it arrives as
+        ``from_hi``, and ``hi`` to ``s + stride`` (``from_lo``). Pairs of
+        local tiles copy; the messages between ranks go in one batch, listed
+        in tile order with tag ``2 s`` (lo) or ``2 s + 1`` (hi) on every
+        rank."""
         axis = msgs[0].axis
         Tx, Ty = cfg.n_tx, cfg.n_ty
         stride, length = (Ty, Tx) if axis == 0 else (1, Ty)
-        replies = []
+        local = {s: i for i, s in enumerate(self.tiles)}
+        replies = [[None, None] for _ in msgs]
+        ops, slots = [], []
         for s in range(cfg.n_stripes):
             coord = s // Ty if axis == 0 else s % Ty
-            from_lo = (self._deliver(msgs[s - stride].hi, s) if coord > 0
-                       else torch.zeros_like(msgs[s].hi))
-            from_hi = (self._deliver(msgs[s + stride].lo, s) if coord < length - 1
-                       else torch.zeros_like(msgs[s].lo))
-            replies.append((from_lo, from_hi))
-        return replies
+            for side, dst, slot, ok in ((0, s - stride, 1, coord > 0),
+                                        (1, s + stride, 0, coord < length - 1)):
+                src_i, dst_i = local.get(s), local.get(dst)
+                if not ok or (src_i is None and dst_i is None):
+                    continue
+                if src_i is not None and dst_i is not None:
+                    replies[dst_i][slot] = self._deliver(msgs[src_i][1 + side], dst_i)
+                elif src_i is not None:
+                    ops.append(("send", msgs[src_i][1 + side], self.transport.owner(dst),
+                                2 * s + side))
+                else:
+                    ops.append(("recv", msgs[dst_i][2 - slot], self.transport.owner(s),
+                                2 * s + side))
+                    slots.append((dst_i, slot))
+        if ops:
+            before = self.transport.rank_bytes
+            for (i, slot), got in zip(slots, self.transport.exchange(ops)):
+                replies[i][slot] = got
+            self.rank_bytes[-1] += self.transport.rank_bytes - before
+        for m, r in zip(msgs, replies):
+            r[0] = torch.zeros_like(m.hi) if r[0] is None else r[0]
+            r[1] = torch.zeros_like(m.lo) if r[1] is None else r[1]
+        return [tuple(r) for r in replies]
+
+    def _gathered(self, values: list) -> list:
+        """Every tile's value in tile order on the first local device: the
+        local values (already there), with the other ranks' gathered."""
+        if self.transport is None:
+            return values
+        before = self.transport.rank_bytes
+        out = self.transport.gather_tiles(values)
+        self.rank_bytes[-1] += self.transport.rank_bytes - before
+        return out
 
     def _reduce(self, msgs) -> list:
         op = msgs[0].op
-        vals = [self._deliver(m.value, 0) for m in msgs]
+        vals = self._gathered([self._deliver(m.value, 0) for m in msgs])
         if op == "sum":
             out = vals[0]
             for v in vals[1:]:
@@ -1354,8 +1555,7 @@ class DomainHipscEngine:
         name, diff = msgs[0].name, self.diff
         total = None
         if msgs[0].delta is not None:
-            for m in msgs:
-                d = self._deliver(m.delta, 0)
+            for d in self._gathered([self._deliver(m.delta, 0) for m in msgs]):
                 total = d if total is None else total + d
         dts = diffusion_ops.diffusion_dts(self.bio.step_dt, diff.diffuse_dt)
         by_dev = {}
@@ -1372,17 +1572,18 @@ class DomainHipscEngine:
     def _step_once(self, cfg: DomainConfig, state: DomainState, words: list):
         """One decomposed step with the step inputs ``words`` (a (13,)
         int64 row on each replica device): the new state and the (19,)
-        float64 probe row on the first tile's device."""
-        tiles = [_Tile(s, cfg, consts, self.gen, self.xp, self.bio, self.diff)
-                 for s, consts in enumerate(self._stripe_consts(cfg))]
+        float64 probe row, over every tile of every rank, on the first
+        tile's device."""
+        consts = self._stripe_consts(cfg)
         next_ids = {d: state.next_id.to(d, non_blocking=True) for d in self.replica_devices}
         new_gradients = [dict(g) for g in state.gradients]
         bodies = []
-        for s, tile in enumerate(tiles):
-            dev, r = self.devices[s], self._replica_of[s]
+        for i, s in enumerate(self.tiles):
+            tile = _Tile(s, cfg, consts[s], self.gen, self.xp, self.bio, self.diff)
+            dev, r = self.devices[i], self._replica_of[i]
             with self._on(dev):
-                bodies.append(_tile_step(tile, state.arrays[s], state.alive[s],
-                                         state.bonds[s], state.gradients[r], words[r],
+                bodies.append(_tile_step(tile, state.arrays[i], state.alive[i],
+                                         state.bonds[i], state.gradients[r], words[r],
                                          next_ids[dev]))
 
         def collective(msgs):
@@ -1393,6 +1594,7 @@ class DomainHipscEngine:
             return self._diffuse(msgs, state.gradients, new_gradients)
 
         self.exchange_bytes.append(0)
+        self.rank_bytes.append(0)
         results = self._lockstep(cfg, bodies, collective)
         diags = [r[1] for r in results]
         dev0 = self.device
@@ -1402,7 +1604,14 @@ class DomainHipscEngine:
                                 for d in diags])
             row.append(vals.sum() if name in _SUM_FIELDS else vals.max())
         row = torch.stack(row)
-        num_added = torch.stack([d["num_added"].to(dev0) for d in diags]).sum()
+        if self.transport is not None:
+            # across ranks: the sums are of integers (exact in any order),
+            # the rest are maxima
+            row = row.clone()
+            row[_SUM_IDX] = self.transport.all_reduce_sum_int(
+                row[_SUM_IDX].to(torch.int64)).to(row)
+            row[_MAX_IDX] = self.transport.all_reduce_max(row[_MAX_IDX])
+        num_added = row[DomainStepInfo._fields.index("num_added")].to(torch.int64)
         new_state = DomainState(
             arrays=tuple(r[0][0] for r in results), alive=tuple(r[0][1] for r in results),
             bonds=tuple(r[0][2] for r in results), gradients=tuple(new_gradients),
@@ -1416,7 +1625,7 @@ class DomainHipscEngine:
         cfg = self._cfg_for_state(state)
         table, keys = step_inputs(state.key, state.step)
         words = [table[0].to(d) for d in self.replica_devices]
-        self.exchange_bytes = []
+        self.exchange_bytes, self.rank_bytes = [], []
         new_state, row = self._step_once(cfg, state, words)
         return new_state._replace(key=keys[0]), DomainStepInfo(*row.unbind(0))
 
@@ -1445,7 +1654,7 @@ class DomainHipscEngine:
             if self.device.type == "cuda":
                 table = table.pin_memory()
             tables = [table.to(d, non_blocking=True) for d in self.replica_devices]
-            self.exchange_bytes = []
+            self.exchange_bytes, self.rank_bytes = [], []
             new_state, rows = state, []
             for j in range(k):
                 new_state, row = self._step_once(cfg, new_state, [t[j] for t in tables])

@@ -47,8 +47,14 @@ input. Dynamics are layout- and capacity-independent (id-keyed RNG, stable
 ids) and the deposit sums in a fixed order, so every replicate stays
 bit-identical to the same seed run solo, on the card as on the CPU.
 
-``shard_states`` (the replicate axis over a device mesh) waits for the
-port's multi-device engine.
+``shard_states`` splits the replicate axis over a list of devices (the
+JAX ``shard_states`` places it over a mesh): contiguous groups of
+replicates, each stacked on its device (``ShardedStates``). ``safe_step``
+on it runs each group as its own attempt (on the card one replay of the
+group's graph, on its device), with no collectives between them; the
+groups' probes are max-reduced on the host, so one shared config grows for
+all of them, and every replicate still equals its solo run bit for bit.
+The groups' attempts run one after another.
 """
 
 from __future__ import annotations
@@ -110,6 +116,13 @@ class StepParams(NamedTuple):
     xp: object
     bio: object
     diff: object
+
+
+class ShardedStates(NamedTuple):
+    """Replicate groups (``EnsembleEngine.shard_states``): ``groups[g]`` is a
+    stacked state of contiguous replicates on its own device."""
+
+    groups: Tuple[CellState, ...]
 
 
 def _stack(states: Sequence[CellState]) -> CellState:
@@ -243,9 +256,38 @@ class EnsembleEngine:
         return _stack(states)
 
     @staticmethod
-    def replicate(states: CellState, i: int) -> CellState:
-        """Unstacked view of replicate ``i`` — feed to the existing output /
+    def shard_states(states: CellState, devices: Sequence) -> ShardedStates:
+        """The replicate axis split into ``len(devices)`` contiguous groups,
+        group ``g`` stacked on ``devices[g]`` (several groups may share a
+        device). No collectives: each group steps alone."""
+        n = len(devices)
+        R = states.alive.shape[0]
+        if not 1 <= n <= R:
+            raise ValueError(f"{R} replicates cannot form {n} groups")
+        bounds = np.linspace(0, R, n + 1).round().astype(int)
+        groups = []
+        for g, dev in enumerate(devices):
+            a, b = int(bounds[g]), int(bounds[g + 1])
+            part = _stack([EnsembleEngine.replicate(states, i) for i in range(a, b)])
+            groups.append(part._replace(
+                arrays={k: v.to(dev) for k, v in part.arrays.items()},
+                alive=part.alive.to(dev),
+                bonds=BondState(part.bonds.partners.to(dev), part.bonds.mask.to(dev)),
+                gradients={k: v.to(dev) for k, v in part.gradients.items()},
+                next_id=part.next_id.to(dev)))
+        return ShardedStates(tuple(groups))
+
+    @staticmethod
+    def replicate(states, i: int) -> CellState:
+        """Unstacked view of replicate ``i`` (of a stacked state, or of the
+        groups of ``shard_states``) — feed to the existing output /
         checkpoint surfaces unchanged."""
+        if isinstance(states, ShardedStates):
+            for group in states.groups:
+                if i < group.alive.shape[0]:
+                    return EnsembleEngine.replicate(group, i)
+                i -= group.alive.shape[0]
+            raise IndexError("replicate index out of range")
         return CellState(
             arrays={k: v[i] for k, v in states.arrays.items()},
             alive=states.alive[i],
@@ -279,7 +321,7 @@ class EnsembleEngine:
             for f in StepInfo._fields))
         return _stack([s for s, _ in outs]), infos
 
-    def safe_step(self, states: CellState) -> Tuple[CellState, StepInfo]:
+    def safe_step(self, states):
         """Step all replicates with exact capacity-overflow recovery.
 
         Mirrors :meth:`HipscEngine.safe_step`: the probes reduce with
@@ -289,65 +331,89 @@ class EnsembleEngine:
         replicate is ever silently truncated. On the card each attempt is
         one replay of the graph of ``(R, config, parameters)``, waited on
         with a deadline (``REPLAY_DEADLINE_S``); on the CPU the replicate
-        steps run eagerly. ``StepInfo`` fields are (R,) numpy arrays."""
+        steps run eagerly. ``StepInfo`` fields are (R,) numpy arrays.
+
+        ``ShardedStates`` step group by group, each group's attempt on its
+        device, and the groups' worst probes are max-reduced into the one
+        growth decision; the result is ``ShardedStates`` again."""
         eng = self.engine
-        params = self.replicate_params(states.alive.shape[0])
+        sharded = isinstance(states, ShardedStates)
+        groups = list(states.groups) if sharded else [states]
+        params = self.replicate_params(sum(g.alive.shape[0] for g in groups))
         for attempt in range(1, 17):
             self.attempts = attempt
-            new_states, rows, cfg = self.attempt(states, params)
-            grown_cfg = eng._grown_cfg(cfg, _probes_from_host(rows[-1]))
+            outs, first = [], 0
+            for g, group in enumerate(groups):
+                n = group.alive.shape[0]
+                outs.append(self.attempt(group, params[first:first + n],
+                                         group=g if sharded else None))
+                first += n
+            worst = np.max([rows[-1] for _, rows, _ in outs], axis=0)
+            grown_cfg = eng._grown_cfg(outs[0][2], _probes_from_host(worst.tolist()))
             if grown_cfg is None:
-                return new_states, _probes_from_host(rows[:-1], stacked=True)
+                infos = _probes_from_host([r for _, rows, _ in outs for r in rows[:-1]],
+                                          stacked=True)
+                new = [s for s, _, _ in outs]
+                return (ShardedStates(tuple(new)) if sharded else new[0]), infos
             eng.cfg = grown_cfg
-            states = self.repad_states(states, grown_cfg)
+            groups = [self.repad_states(g, grown_cfg) for g in groups]
         raise RuntimeError("capacity growth failed to converge")
 
-    def attempt(self, states: CellState, params: Sequence[StepParams]):
+    def attempt(self, states: CellState, params: Sequence[StepParams], group=None):
         """One step of every replicate with the given per-replicate
         parameters and no overflow recovery: on the card one replay of the
         graph of ``(R, config, params)`` (captured at its first use), on the
         CPU the replicate steps eagerly. Returns the new stacked state (keys
         and step advanced), the (R + 1, 14) probe rows fetched in one
-        transfer (each replicate's, then their max) and the config run."""
+        transfer (each replicate's, then their max) and the config run.
+        ``group`` names a group of ``shard_states`` (its graphs are kept
+        apart from the other groups'); the attempt runs on the states'
+        device."""
         cfg = self._cfg_for_states(states)
         inputs = [step_inputs(key, states.step) for key in states.key]
         table = torch.cat([t for t, _ in inputs])
-        if self.device.type == "cuda":
-            new_states, probes = self._graph_for(cfg, params, states).run(
-                states, table, deadline_s=REPLAY_DEADLINE_S)
+        dev = states.alive.device
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                new_states, probes = self._graph_for(cfg, params, states, group).run(
+                    states, table, deadline_s=REPLAY_DEADLINE_S)
         else:
             new_states, probes = _ensemble_block(params, cfg, states, table)
         keys = torch.stack([k[-1] for _, k in inputs])
         return (new_states._replace(key=keys, step=states.step + 1), probes.tolist(), cfg)
 
-    def _graph_for(self, cfg: EngineConfig, params, states: CellState) -> _CapturedGraph:
+    def _graph_for(self, cfg: EngineConfig, params, states: CellState,
+                   group=None) -> _CapturedGraph:
         """The captured ensemble step of ``len(params)`` replicates under
         ``cfg`` and the replicates' parameters (the graph holds their values
-        as launch constants); graphs of other keys are dropped with their
-        memory pools, as ``HipscEngine._graph_for`` drops them."""
+        as launch constants), on the states' device, for ``group``; the
+        group's graphs of other keys are dropped with their memory pools, as
+        ``HipscEngine._graph_for`` drops them."""
+        dev = states.alive.device
         fixed = (cfg, params)
         graphs = self._graphs
-        for key in [key for key in graphs if key[1:] != fixed]:
+        for key in [key for key in graphs if key[0] == group and key[2:] != fixed]:
             del graphs[key]
         R = len(params)
-        if (R,) + fixed not in graphs:
+        key = (group, R) + fixed
+        if key not in graphs:
             torch.cuda.empty_cache()  # return the dropped pools
-            streams = [torch.cuda.Stream(self.device) for _ in range(R)]
+            streams = [torch.cuda.Stream(dev) for _ in range(R)]
 
             def warm_up():
                 hipsc_step(self.replicate(states, 0), cfg, *params[0])
 
             graph = _CapturedGraph(
-                self.device, lambda s, t: _ensemble_block(params, cfg, s, t, streams),
+                dev, lambda s, t: _ensemble_block(params, cfg, s, t, streams),
                 states, (R, 13), warm_up)
             graph.streams = streams
-            graphs[(R,) + fixed] = graph
-        return graphs[(R,) + fixed]
+            graphs[key] = graph
+        return graphs[key]
 
     def graphs(self) -> list:
         """The captured ensembles held: ``{"replicates", "capture_s",
         "pool_mib", "launches"}`` each (as ``HipscEngine.block_graphs``)."""
-        return [dict(replicates=key[0], capture_s=g.capture_s, pool_mib=g.pool_bytes / 2**20,
+        return [dict(replicates=key[1], capture_s=g.capture_s, pool_mib=g.pool_bytes / 2**20,
                      launches=dict(g.launches)) for key, g in self._graphs.items()]
 
     @staticmethod

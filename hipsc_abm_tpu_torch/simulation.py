@@ -309,7 +309,10 @@ class Simulation:
                 arrays = self.agent_array_names
             os.makedirs(self.values_path, exist_ok=True)
             path = self.values_path + f"{self.name}_values_{self.current_step}.csv"
-            snap = {name: self.__dict__[name][: self.number_agents] for name in arrays}
+            # copies: a model may move its arrays in place before the
+            # background writer formats them
+            snap = {name: np.array(self.__dict__[name][: self.number_agents])
+                    for name in arrays}
             io_utils.submit_output(lambda: io_utils.write_values_csv(
                 path, {k: np.asarray(v) for k, v in snap.items()}, list(arrays)))
 

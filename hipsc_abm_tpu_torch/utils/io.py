@@ -107,6 +107,39 @@ def write_values_csv(path: str, arrays: Dict[str, np.ndarray], order: Sequence[s
         writer.writerows(np.hstack(data))
 
 
+def merge_sharded_values(dir_path: str, name: str, step: int,
+                         out_path: Optional[str] = None,
+                         n_shards: Optional[int] = None) -> str:
+    """Concatenate the per-tile value CSVs ``{name}_values_{step}.shard{s}.csv``
+    (``DomainHipscEngine.write_values_sharded``, each written by the process
+    that holds the tile) in tile order into the one-file format: the first
+    shard's header, then every shard's rows, byte for byte. A missing tile
+    raises: an interior gap always, a trailing one when ``n_shards`` (the
+    engine's tile count) is given."""
+    import shutil
+
+    pattern = re.compile(rf"^{re.escape(name)}_values_{step}\.shard(\d+)\.csv$")
+    shards = sorted((int(m.group(1)), f) for f in os.listdir(dir_path)
+                    if (m := pattern.match(f)))
+    if not shards:
+        raise FileNotFoundError(f"no {name}_values_{step}.shard*.csv under {dir_path}")
+    indices = [s for s, _ in shards]
+    expected = list(range(n_shards if n_shards is not None else len(indices)))
+    if indices != expected:
+        raise FileNotFoundError(f"{name}_values_{step} shard set is incomplete: found "
+                                f"{indices}, expected {expected} under {dir_path}")
+    out_path = out_path or os.path.join(dir_path, f"{name}_values_{step}.csv")
+    # binary copy: the rows keep the writer's CRLF endings
+    with open(out_path, "wb") as out:
+        for i, (_, fname) in enumerate(shards):
+            with open(os.path.join(dir_path, fname), "rb") as f:
+                header = f.readline()
+                if i == 0:
+                    out.write(header)
+                shutil.copyfileobj(f, out)
+    return out_path
+
+
 def _native_savetxt_e18(path: str, matrix: np.ndarray, chunks: int = 0) -> bool:
     """Native ``np.savetxt(fmt='%.18e', delimiter=',')``; False when the
     native tier is switched off."""

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from hipsc_abm_tpu_torch import convert, kernels
+from hipsc_abm_tpu_torch import colonies, convert, kernels
 from hipsc_abm_tpu_torch.engine import HipscEngine
 from hipsc_abm_tpu_torch.ops import bio_moments, contact, diffusion, ftcs, span_mask
 from hipsc_abm_tpu_torch.ops import neighbors as nbr
@@ -1209,15 +1209,6 @@ def test_population_losses_equal_solo_rollouts_on_card(dev, dense):
 # ---------------------------------------------------------------------------
 
 
-def _domain_by_id(d):
-    alive = d["alive"]
-    o = np.argsort(d["arrays"]["ids"][alive])
-    out = {k: v[alive][o] for k, v in d["arrays"].items()}
-    partners = np.where(d["bond_mask"], d["partners"], -1)[alive][o]
-    out["bonds"] = [frozenset(r[r >= 0].tolist()) for r in partners]
-    return out
-
-
 def _domain_engines(device, tiles=(2, 2), n=3000):
     from hipsc_abm_tpu_torch.parallel import DomainHipscEngine
 
@@ -1245,10 +1236,10 @@ def test_domain_tiles_on_card_equal_single_engine_on_card(dev):
         ss, _ = single.safe_step(ss)
     a = convert.state_to_numpy(dom.to_cell_state(ds))
     b = convert.state_to_numpy(ss)
-    x, y = _domain_by_id(a), _domain_by_id(b)
+    x, y = colonies.by_id(a), colonies.by_id(b)
     for k in x:
         if k == "bonds":
-            assert x[k] == y[k]
+            assert colonies.bond_rows_apart(x[k], y[k]) == 0
         else:
             np.testing.assert_array_equal(x[k], y[k], err_msg=k)
     np.testing.assert_allclose(a["gradients"]["fgf4_values"], b["gradients"]["fgf4_values"],
@@ -1269,7 +1260,7 @@ def test_domain_on_card_matches_domain_on_cpu(dev):
     b, _ = gpu.step(convert.domain_state_from_numpy(d, gpu.devices))
     x = convert.state_to_numpy(cpu.to_cell_state(a))
     y = convert.state_to_numpy(gpu.to_cell_state(b))
-    p, q = _domain_by_id(x), _domain_by_id(y)
+    p, q = colonies.by_id(x), colonies.by_id(y)
     np.testing.assert_array_equal(q["ids"], p["ids"])
     for k in ("FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states", "death_counters",
               "diff_counters", "div_counters", "fds_counters"):
@@ -1277,3 +1268,102 @@ def test_domain_on_card_matches_domain_on_cpu(dev):
     np.testing.assert_allclose(q["locations"], p["locations"], rtol=0, atol=1e-3)
     np.testing.assert_array_equal(y["gradients"]["fgf4_values"].view(np.int32),
                                   x["gradients"]["fgf4_values"].view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# the domain engine over processes, and shard_states, on the card
+# ---------------------------------------------------------------------------
+
+_SPAN_MASK_ROUTE = ("contact_seed", "contact_masked", "mask_compact", "bio_moments",
+                    "deposit", "ftcs_diffuse")
+
+
+def _route_launches(outs):
+    from hipsc_abm_tpu_torch.tools import multihost_domain
+
+    launches = {}
+    for r in multihost_domain.results(outs):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def test_multiprocess_gloo_route_on_card_equals_single_engine(dev, tmp_path):
+    """Two ranks sharing the card over gloo, 2 x 2 tiles of a 20k colony:
+    the payload holds every step, the sharded resume, growth and rebalance
+    bit-equal by agent id to the single engine and to one controller on the
+    card (rank 0), and every span-mask kernel launched on the route."""
+    from hipsc_abm_tpu_torch.tools import multihost_domain
+
+    outs = multihost_domain.run_ranks(
+        2, str(tmp_path), ["--device", "cuda", "--cells", "20000", "--tiles", "2", "2",
+                           "--steps", "2", "--timed", "2"], timeout_s=600)
+    assert "MULTIHOST OK" in outs[0], outs[0][-3000:]
+    launches = _route_launches(outs)
+    assert all(launches.get(k, 0) > 0 for k in _SPAN_MASK_ROUTE), launches
+    assert all(r["staged_bytes"][-1] > 0 for r in multihost_domain.results(outs))
+
+
+def test_multiprocess_nccl_route_with_a_card_per_rank(dev, tmp_path):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs a card per rank; this machine has one card")
+    from hipsc_abm_tpu_torch.tools import multihost_domain
+
+    outs = multihost_domain.run_ranks(
+        2, str(tmp_path), ["--device", "cuda", "--backend", "nccl", "--cells", "20000",
+                           "--tiles", "2", "2", "--steps", "2", "--timed", "2"], timeout_s=600)
+    assert "MULTIHOST OK" in outs[0], outs[0][-3000:]
+    assert all(r["staged_bytes"][-1] == 0 for r in multihost_domain.results(outs))
+
+
+def test_nccl_with_more_ranks_than_cards_raises(dev):
+    from hipsc_abm_tpu_torch.parallel import distributed
+
+    with pytest.raises(RuntimeError, match="one card per rank"):
+        distributed.init_process_group("nccl", "tcp://127.0.0.1:1", 0,
+                                       torch.cuda.device_count() + 1, device="cuda:0")
+    assert not torch.distributed.is_initialized()
+
+
+def test_shard_states_on_card_equal_unsharded_and_solo(dev):
+    """4 replicates in 2 groups on the card, each group one captured graph:
+    every replicate bit-equal to the unsharded ensemble's and to its solo
+    run, the lattice, key and next_id included."""
+    from hipsc_abm_tpu_torch.parallel.ensemble import EnsembleEngine
+
+    def engine():
+        gen = GeneralParams(num_to_start=2000, end_step=5, size=(1265.0, 1265.0, 0.0))
+        diff = DiffusionParams(spat_res=20.0, diffuse_dt=6.0, diffuse_const=2.0,
+                               max_concentration=2.0, degradation=0.1, release_amount=0.01)
+        return HipscEngine(gen, ExperimentalParams(num_gata6=200, dox_step=1), diff=diff,
+                           enable_diffusion=True, device=dev, contact_path="id_list")
+
+    seeds = [0, 1, 2, 3]
+    ens, plain = EnsembleEngine(engine()), EnsembleEngine(engine())
+    sharded = EnsembleEngine.shard_states(ens.init_states(seeds), [dev, dev])
+    unsharded = plain.init_states(seeds)
+    solos = []
+    for seed in seeds:
+        eng = engine()
+        state = eng.init_state(seed=seed)
+        eng.cfg = ens.engine.cfg
+        solos.append((eng, state))
+    for _ in range(3):
+        sharded, _ = ens.safe_step(sharded)
+        unsharded, _ = plain.safe_step(unsharded)
+        solos = [(e, e.safe_step(s)[0]) for e, s in solos]
+    assert len(ens.graphs()) == 2
+    for i, (_, solo) in enumerate(solos):
+        got = convert.state_to_numpy(EnsembleEngine.replicate(sharded, i))
+        for want in (convert.state_to_numpy(EnsembleEngine.replicate(unsharded, i)),
+                     convert.state_to_numpy(solo)):
+            x, y = colonies.by_id(got), colonies.by_id(want)
+            for k in x:
+                if k == "bonds":
+                    assert colonies.bond_rows_apart(x[k], y[k]) == 0
+                else:
+                    np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+            np.testing.assert_array_equal(got["gradients"]["fgf4_values"],
+                                          want["gradients"]["fgf4_values"])
+            np.testing.assert_array_equal(got["key"], want["key"])
+            assert int(got["next_id"]) == int(want["next_id"])

@@ -13,8 +13,8 @@ on the CPU, against the port's own solo runs and against the JAX package's
   and ``next_id`` equal; positions within ``tests/test_torch_step.py``'s
   1e-3 um. The JAX runs are made once per scenario by a module fixture.
 - ``test_ensemble_sharded_over_mesh_no_collectives`` (the replicate axis
-  over a device mesh) has no counterpart yet: it waits for the port's
-  multi-device engine (ROADMAP A10).
+  over a device mesh) has its counterpart in ``test_torch_mesh.py``
+  (``shard_states``).
 """
 
 import dataclasses
@@ -189,8 +189,8 @@ def test_ensemble_growth_bit_exact_same_seed(jax_runs):
                        JaxEnsembleEngine.replicate(jstates, 2), "grown vs JAX")
 
 
-# test_ensemble_sharded_over_mesh_no_collectives: waits for the port's
-# multi-device engine (ROADMAP A10); the port has no device mesh yet.
+# test_ensemble_sharded_over_mesh_no_collectives: see test_torch_mesh.py
+# (EnsembleEngine.shard_states).
 
 
 def test_parameter_sweep_matches_solo_param_values(jax_runs):
