@@ -75,11 +75,14 @@ Phases, each of which raises on failure (exit code != 0):
    rows that agree, and every pair the card and the CPU decide apart
    reported with its distance from its own break distance (and held within
    ``APART_UM`` of it), each kernel alone per launch beside the uniform law
-   on the same rows; (b) phase 4's one step (20k, 2D) and 4 spheroid
+   on the same rows (in turns) and the ratio, and the candidates per live
+   row that reach the pair law past the general law's cut
+   (``membership_counts``); (b) phase 4's one step (20k, 2D) and 4 spheroid
    ``safe_step``s with the flags; (c) ``optional_lifecycle_phase``: the
    lifecycle colony, 8 card steps from the CPU's state on each contact
    path, and mode 0 + 1 against mode 0; (d) the 2D 100k and 3D 99k main
-   paths with the flags, in turns, beside phase 5's (``optional_summary``).
+   paths with the flags, in turns, beside phase 5's, with each contact
+   kernel's device ms per step on both laws (``optional_summary``).
 8. ``run_steps`` blocks (``blocks_phase``), each block one CUDA graph replay
    and one probe fetch: (a) at the 2D 100k and 3D 99k states after one
    ``safe_step``, both contact paths, and the 3D span-mask path with the
@@ -859,31 +862,45 @@ def general_law_phase(eng, state) -> list:
     walk = membership_counts(args, law)
     results = []
 
+    def alone_ms(fn, kname):
+        # the profiler now and then sees no launch of the kernel in a
+        # window (kernel_ms gives nan): take that sample again
+        for _ in range(3):
+            t = kernel_ms(fn, kname, ALONE_LAUNCHES)
+            if t == t:
+                break
+        return round(t, 5)
+
     def entry(base, source, replaces, fn_k, fn_p, fn_u, kname, bytes_moved, kept, check):
         alone = {"general": [], "uniform": []}
         for key in ("general", "uniform", "uniform", "general"):
-            fn = fn_k if key == "general" else fn_u
-            alone[key].append(round(kernel_ms(fn, kname, ALONE_LAUNCHES), 5))
+            alone[key].append(alone_ms(fn_k if key == "general" else fn_u, kname))
         name = kernels.counted_name(base, n_runs) + "[general]"
         apart = check.pop("pairs_apart")
+        means = [np.mean([t for t in alone[k] if t == t] or [np.nan]) for k in alone]
+        ratio = float(means[0] / means[1]) if np.isfinite(means).all() else None
+        n_live = max(1, int(live.sum()))
         results.append(dict(
             name=name, route="cuda", source=f"hipsc_abm_tpu_torch/csrc/{source}",
             replaces=replaces, law="general", max_abs_err=check["max_abs_err"],
             ms=cuda_ms(fn_k, 50), plain_ms=cuda_ms(fn_p, 10),
             **bound(bytes_moved, DIST_FLOPS * candidates + GENERAL_PAIR_FLOPS * kept),
             library_ms=None, alone_ms=alone["general"], alone_uniform_ms=alone["uniform"],
-            kernel=kname,
+            alone_ratio=ratio, law_per_row=walk["law"] / n_live, kernel=kname,
             rows_apart=check["rows_apart"], pairs_apart=len(apart)))
         r = results[-1]
         print(f"{label} kernel {name}: rows={C} K={K} radii [{float(radii.min()):.4f}, "
               f"{float(radii.max()):.4f}] um, candidates per live row "
-              f"{candidates / max(1, int(live.sum())):.2f}, kept pairs {kept}; "
+              f"{candidates / n_live:.2f}, of which reach the pair law (B6 and the seed: "
+              f"not dropped by the cut, self excluded) {walk['law'] / n_live:.3f} and the "
+              f"membership test {walk['membership'] / n_live:.3f}; kept pairs {kept}; "
               f"max|F|={check['f_scale']:.6e} N max_abs_err={check['max_abs_err']:.3e} N "
               f"(rows agreeing); rows with keep sets apart {check['rows_apart']}, pairs "
               f"decided apart {len(apart)}: {apart[:8]}; kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); alone "
               f"per launch (profiler, {ALONE_LAUNCHES} launches, in turns) general "
-              f"{alone['general']} uniform {alone['uniform']} ms")
+              f"{alone['general']} uniform {alone['uniform']} ms, general / uniform "
+              f"{'not measured' if ratio is None else f'{ratio:.3f}'}")
 
     # B6, the id-list substep
     f_k, d_k, p_k = contact.contact_substep_cuda(*args, **law)
@@ -981,7 +998,11 @@ def membership_counts(args, law, chunk: int = 16384) -> dict:
     keeps (d > break_d) and that lie beyond the search radius, the only
     ones that reach the bond-membership test of B6 and of the seed:
     ``membership``, their number, and ``rows``, the rows with one or
-    more."""
+    more; and ``law``, the candidates that reach the pair law in B6 and
+    the seed: on the general law (``law["uniform_radius"]`` None) those
+    the cut does not drop (``ops.contact.certainly_breaks``, the kernels'
+    formula in float32), on the uniform law all of them."""
+    from hipsc_abm_tpu_torch.ops import contact
     from hipsc_abm_tpu_torch.ops.jkr import _pair_jkr
 
     xyzr, ids, alive, bounds, _ = args
@@ -989,7 +1010,9 @@ def membership_counts(args, law, chunk: int = 16384) -> dict:
     b = bounds.to(torch.int64).view(C, -1, 2)
     width = int(torch.clamp(b[..., 1] - b[..., 0], min=0).max())
     k = torch.arange(max(width, 1), device=bounds.device)
-    totals = dict(membership=0, rows=0)
+    general = law["uniform_radius"] is None
+    law_args = contact.pair_law_args(**law)
+    totals = dict(membership=0, rows=0, law=0)
     for lo in range(0, C, chunk):
         rows = slice(lo, lo + chunk)
         # each row's runs, padded to the widest; positions index all C rows
@@ -998,7 +1021,9 @@ def membership_counts(args, law, chunk: int = 16384) -> dict:
         pos = pos.clamp(0, C - 1).flatten(1)
         cand = xyzr[pos]
         me = xyzr[rows][:, None, :]
-        dist2 = ((me[..., :3] - cand[..., :3]) ** 2).sum(-1)
+        # the kernels' squared distance, rounded after each operation
+        d = me[..., :3] - cand[..., :3]
+        dist2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
         _, survive = _pair_jkr(me[..., :3], cand[..., :3], me[..., 3], cand[..., 3],
                                law["adhesion_const"], law["poisson"], law["youngs"],
                                law["break_d"])
@@ -1006,6 +1031,12 @@ def membership_counts(args, law, chunk: int = 16384) -> dict:
         reach = pair & survive & (dist2 > float(np.float32(law["radius"]) ** 2))
         totals["membership"] += int(reach.sum())
         totals["rows"] += int(reach.any(dim=1).sum())
+        if general:
+            culled = contact.certainly_breaks(
+                contact.cull_reach(me[..., 3], law_args), cand[..., 3], dist2)
+            totals["law"] += int((pair & ~culled).sum())
+        else:
+            totals["law"] += int(pair.sum())
     return totals
 
 
@@ -1787,23 +1818,37 @@ def optional_summary(runs) -> None:
     """Optional phase d beside the uniform-law main path: per dimensionality
     and contact path, the medians of the two runs of each, device time per
     step in all, of the contact kernels and of B4, and B4's launches per
-    step."""
+    step; then each contact kernel's device ms per step on the general law
+    beside the uniform law's, run by run in the order they ran, and the
+    ratio of their means."""
     def ms(rs, key):
         return [r[key] and round(r[key], 4) for r in rs]
 
+    def by_kernel(rs, name):
+        return [(r.get("contact_ms_by_kernel") or {}).get(name, (0.0, 0.0)) for r in rs]
+
     for dims, n in ((2, N_MAIN), (3, N_MAIN_3D)):
         for path in PATHS:
-            cols = {}
+            cols, sel = {}, {}
             for opt in (False, True):
-                rs = [r for d, c, p, o, r in runs if (d, c, p, o) == (dims, n, path, opt)]
-                b4 = [(r.get("contact_ms_by_kernel") or {}).get("bio_moments_kernel", (0.0, 0.0))
-                      for r in rs]
+                rs = sel[opt] = [r for d, c, p, o, r in runs
+                                 if (d, c, p, o) == (dims, n, path, opt)]
+                b4 = by_kernel(rs, "bio_moments_kernel")
                 cols[opt] = (f"median {ms(rs, 'median_ms')} ms, device {ms(rs, 'device_ms')} "
                              f"ms, contact {ms(rs, 'contact_ms')} ms, B4 "
                              f"{[round(t, 4) for t, _ in b4]} ms in {[k for _, k in b4]} "
                              f"launches per step")
             print(f"optional phase d [{dims}D, {path}, {n}]: optional phases {cols[True]}; "
                   f"uniform-law main path {cols[False]}")
+            for name in CONTACT_KERNELS:
+                t = {opt: [round(ms_, 4) for ms_, _ in by_kernel(sel[opt], name)]
+                     for opt in (False, True)}
+                if not any(t[True]) and not any(t[False]):
+                    continue
+                ratio = (np.mean(t[True]) / np.mean(t[False])) if np.mean(t[False]) > 0 else None
+                print(f"optional phase d [{dims}D, {path}, {n}] {name}: device ms per step "
+                      f"general law {t[True]}, uniform law {t[False]}, general / uniform "
+                      f"{'not measured' if ratio is None else f'{ratio:.3f}'}")
 
 
 def compare_bits(a: dict, b: dict, label: str) -> str:

@@ -18,13 +18,24 @@
 // all inside a few neighbouring bins (8.6 per live row at the 2D bench
 // colony's density, 222 over nine runs in the 3D spheroid, chip_smoke.py's
 // 100k and 99k states); the compulsory bytes are the rows' own 16-byte
-// packs, ids, bounds and partner lists, so the kernel is bound by load
-// latency and L1/L2 traffic of the walk, not arithmetic. The TPU kernel
-// DMA'd 128-aligned spans into VMEM and tested every lane of a span against
+// packs, ids, bounds and partner lists, so the kernel is bound by the
+// instructions it issues per candidate and the load latency and L1/L2
+// traffic of the walk, not by bytes or arithmetic. The TPU kernel DMA'd
+// 128-aligned spans into VMEM and tested every lane of a span against
 // every row of a block; on Hopper each thread walks only its own run slices
 // (the rows of a CTA are neighbours in the sorted order, so their runs
 // overlap and the reads hit L1). What the design does about the rest:
-// - The break test comes first. The pair law decides from distance and
+// - On the general law (per-pair radii, growth on; the kGeneral
+//   instantiation) a candidate that the law certainly breaks is dropped
+//   before the law, by one cut on its squared distance against the row's
+//   reach (jkr_pair.cuh `certainly_breaks`, which states the margin
+//   argument): a position load, the squared distance and the cut, with no
+//   id read and no square root, where the law asked a `powf` and two
+//   divisions of every candidate. Such a pair gives no force and no entry,
+//   bonded or not, and every other candidate runs the law exactly as
+//   before, so the outputs are bit-equal to the law asked of every
+//   candidate. The uniform instantiation is the same walk without the cut.
+// - The break test comes next. The pair law decides from distance and
 //   radii alone whether a pair survives, and a pair that breaks gives no
 //   force and no entry, bonded or not; so only candidates that survive ask
 //   whether they are eligible, and the membership test over the row's K
@@ -60,7 +71,8 @@ using hipsc::PairLaw;
 // rows per CTA (ops/contact.py ROWS_PER_CTA)
 constexpr int kThreads = 128;
 
-template <int N_RUNS>
+// kGeneral: the general law (law.uniform == 0), with the cut before it
+template <int N_RUNS, bool kGeneral>
 __global__ void __launch_bounds__(kThreads) contact_substep_kernel(
     const float4* __restrict__ xyzr, const int* __restrict__ ids,
     const unsigned char* __restrict__ alive, const int* __restrict__ bounds,
@@ -92,17 +104,28 @@ __global__ void __launch_bounds__(kThreads) contact_substep_kernel(
   if (t < rows && alive[row]) {
     const float4 me = xyzr[row];
     const int my_id = ids[row];
+    const float reach = kGeneral ? hipsc::cull_reach(law, me.w) : 0.f;
     for (int r = 0; r < N_RUNS; ++r) {
       const int lo = bounds[row * 2 * N_RUNS + 2 * r];
       const int hi = bounds[row * 2 * N_RUNS + 2 * r + 1];
       for (int p = lo; p < hi; ++p) {
-        const int cid = ids[p];
-        if (cid == my_id) continue;
+        int cid = 0;
+        if (!kGeneral) {
+          cid = ids[p];
+          if (cid == my_id) continue;
+        }
         const float4 c = xyzr[p];
         const float dx = me.x - c.x;
         const float dy = me.y - c.y;
         const float dz = me.z - c.z;
         const float dist2 = dx * dx + dy * dy + dz * dz;
+        if (kGeneral) {
+          // the cut, then the id: a dropped candidate reads no id, and the
+          // row itself (distance 0) is never dropped
+          if (hipsc::certainly_breaks(reach, c.w, dist2)) continue;
+          cid = ids[p];
+          if (cid == my_id) continue;
+        }
         // the pair breaks: no force, no entry, whether bonded or not
         const hipsc::PairOverlap o = hipsc::jkr_overlap(law, me, c, dist2);
         if (!(o.d > law.break_d)) continue;
@@ -144,7 +167,10 @@ extern "C" int hipsc_contact_substep(
   if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
   if (K < 1 || pitch < K) return (int)cudaErrorInvalidValue;
   PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
-  auto kernel = n_runs == 3 ? contact_substep_kernel<3> : contact_substep_kernel<9>;
+  auto kernel = n_runs == 3 ? (uniform ? contact_substep_kernel<3, false>
+                                       : contact_substep_kernel<3, true>)
+                            : (uniform ? contact_substep_kernel<9, false>
+                                       : contact_substep_kernel<9, true>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -84,6 +84,14 @@
 //   candidates of a run before testing any of them (the tail re-reads the
 //   run's last candidate), so each thread has several loads in flight
 //   instead of one dependent load behind each test.
+// - The seed on the general law (per-pair radii, growth on; kGeneral)
+//   drops a candidate that the law certainly breaks before the law, by one
+//   cut on its squared distance against the row's reach (jkr_pair.cuh
+//   `certainly_breaks`, which states the margin argument), as contact.cu
+//   does; the cut comes after the candidate counter j and the mask-word
+//   bookkeeping, so bit positions do not move, and a dropped pair sets no
+//   bit and adds no force, as the law would have decided. Every other
+//   candidate runs the law as before, bit for bit.
 // - The seed tests the break first, as contact.cu does: a pair that breaks
 //   gives no force and no bit, bonded or not, so the scan over the row's K
 //   partner ids runs only for candidates that survive beyond the search
@@ -92,17 +100,22 @@
 //   candidate beyond the radius (most of a row's candidates in 3D), that
 //   scan set the seed's time. Both tests must pass, so their order changes
 //   no output. The masked substep asks its mask bit first instead, a
-//   register test that few candidates pass.
+//   register test that few candidates pass, so the law runs only on its
+//   eligible pairs and it takes no cut.
 // - The mask words are read and written whole, coalesced across the warp.
 // Tried and dropped (PERF.md section 6): a row shared by G = 2, 4 or 8
 // lanes of a warp, each lane taking every G-th candidate of a run and the
 // row summing the kept forces in walk order through warp shuffles, was 1.8
 // to 3.9 times slower in 3D (most likely because every lane repeats the
 // per-chunk bookkeeping and the groups of one warp diverge); kAhead = 8 was
-// within the run-to-run spread of 4; a host-computed squared-distance cut
-// that dropped certainly-breaking pairs before the pair law's square root
-// took 22% off the 3D seed alone, some 0.05 ms of a 5 ms device step, for
-// a second entry point and its own proof of bit-equality.
+// within the run-to-run spread of 4; on the uniform law, a host-computed
+// squared-distance cut that dropped certainly-breaking pairs before the
+// pair law's square root took 22% off the 3D seed alone, some 0.05 ms of a
+// 5 ms device step, for a second entry point and its own proof of
+// bit-equality. The uniform law's overlap is a subtraction and a product
+// after that square root, so a cut saves it little; the general law's is a
+// `powf` and two divisions, so the general seed takes the cut, with the
+// row's reach computed in the kernel and no second entry point.
 // The TPU kernels DMA'd 128-aligned spans plus chunk-major int8 mask slabs
 // into VMEM (~1.5 KB of mask per row); here each thread reads only its own
 // run slices and 4 bytes per 32 candidates of mask.
@@ -119,7 +132,9 @@ constexpr int kThreads = 128;
 // candidates of a run whose positions are loaded before the first is tested
 constexpr int kAhead = 4;
 
-template <bool kSeed, int N_RUNS>
+// kGeneral (seed only): the general law (law.uniform == 0), with the cut
+// before it
+template <bool kSeed, int N_RUNS, bool kGeneral>
 __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
     const float4* __restrict__ xyzr, const int* __restrict__ ids,
     const unsigned char* __restrict__ alive, const int* __restrict__ bounds,
@@ -141,6 +156,7 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
     const float4 me = xyzr[row];
     const int* b = bounds + (size_t)row * 2 * N_RUNS;
     const int* my_partners = kSeed ? partners + (size_t)row * K : nullptr;
+    const float reach = kGeneral ? hipsc::cull_reach(law, me.w) : 0.f;
     for (int r = 0; r < N_RUNS; ++r) {
       const int lo = b[2 * r];
       const int hi = b[2 * r + 1];
@@ -169,6 +185,7 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
           bool keep;
           if (kSeed) {
             // the pair breaks: no force, no bit, whether bonded or not
+            if (kGeneral && hipsc::certainly_breaks(reach, c.w, dist2)) continue;
             const hipsc::PairOverlap o = hipsc::jkr_overlap(law, me, c, dist2);
             if (!(o.d > law.break_d)) continue;
             if (p == row) continue;  // the row itself passes both tests above
@@ -280,7 +297,10 @@ extern "C" int hipsc_contact_seed(
   if (C <= 0) return (int)cudaSuccess;
   if ((n_runs != 3 && n_runs != 9) || W < 1) return (int)cudaErrorInvalidValue;
   PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
-  auto kernel = n_runs == 3 ? contact_mask_kernel<true, 3> : contact_mask_kernel<true, 9>;
+  auto kernel = n_runs == 3 ? (uniform ? contact_mask_kernel<true, 3, false>
+                                       : contact_mask_kernel<true, 3, true>)
+                            : (uniform ? contact_mask_kernel<true, 9, false>
+                                       : contact_mask_kernel<true, 9, true>);
   kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)xyzr, (const int*)ids, (const unsigned char*)alive,
       (const int*)bounds, (const int*)partners, nullptr, (unsigned*)mask,
@@ -296,7 +316,8 @@ extern "C" int hipsc_contact_masked(
   if (C <= 0) return (int)cudaSuccess;
   if ((n_runs != 3 && n_runs != 9) || W < 1) return (int)cudaErrorInvalidValue;
   PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
-  auto kernel = n_runs == 3 ? contact_mask_kernel<false, 3> : contact_mask_kernel<false, 9>;
+  auto kernel = n_runs == 3 ? contact_mask_kernel<false, 3, false>
+                            : contact_mask_kernel<false, 9, false>;
   kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)xyzr, nullptr, (const unsigned char*)alive,
       (const int*)bounds, nullptr, (const unsigned*)mask, (unsigned*)mask,

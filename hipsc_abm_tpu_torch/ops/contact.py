@@ -65,6 +65,40 @@ def pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
             f32(adhesion_const))
 
 
+# the general law's cut (csrc/jkr_pair.cuh kCullSlack, kCullMinRadius,
+# kCullMaxRadius): the relative slack of the cut and the row radii (um) for
+# which its margin argument is made
+CULL_SLACK = np.float32(1.0 + 1.0 / 4096.0)
+CULL_RADII = (np.float32(1e-12), np.float32(1e12))
+
+
+def cull_reach(ri: torch.Tensor, law_args: tuple) -> torch.Tensor:
+    """Plain mirror of the general-law kernels' per-row reach
+    (``csrc/jkr_pair.cuh`` ``cull_reach``), in float32 with the kernel's
+    operations in its order: ``ri + |break_d| scale_c cbrt(ri / 1e6) 1e6``
+    (um), +inf where ``ri`` lies outside ``CULL_RADII`` or is NaN.
+    ``law_args``: ``pair_law_args``'s tuple. The cube root is the CPU's
+    ``pow``, the kernel's ``powf``; each is within 2 ulp."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    break_d, scale_c = law_args[1], law_args[6]
+    ri = ri.to(torch.float32)
+    coeff = f32(np.float32(abs(np.float32(break_d))) * np.float32(scale_c))
+    band = coeff * torch.pow(ri / f32(1e6), float(np.float32(1.0) / np.float32(3.0))) * f32(1e6)
+    inside = (ri >= f32(CULL_RADII[0])) & (ri <= f32(CULL_RADII[1]))
+    return torch.where(inside, ri + band, f32(np.inf))
+
+
+def certainly_breaks(reach: torch.Tensor, rj: torch.Tensor,
+                     dist2: torch.Tensor) -> torch.Tensor:
+    """Plain mirror of ``csrc/jkr_pair.cuh`` ``certainly_breaks``: whether
+    the general law certainly breaks the pair of a row of reach ``reach``
+    (``cull_reach``) and a candidate of radius ``rj`` at squared distance
+    ``dist2`` (float32, ``dx*dx + dy*dy + dz*dz`` rounded after each
+    operation). The kernels skip such a pair before the law."""
+    cut = (reach + rj.to(torch.float32)) * torch.tensor(CULL_SLACK)
+    return (rj > 0) & (dist2 > cut * cut)
+
+
 # rows per CTA of the kernel (csrc/contact.cu kThreads)
 ROWS_PER_CTA = 128
 

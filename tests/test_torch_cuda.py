@@ -361,6 +361,66 @@ def test_general_law_kernels_at_the_break_distance(dev, dims):
     assert torch.equal(m_k, m_p) and int(d_p.sum()) == want
 
 
+@pytest.mark.parametrize("K", [8, 40])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_general_law_kernels_at_the_cull_distance(dev, dims, K):
+    """Bonded and fresh pairs from 1e-2 um inside to 1e-2 um outside one
+    row's cull distance (``contact.cull_reach``, ``certainly_breaks``), where
+    B6 and the seed (B2) drop a pair before the general law: against their
+    plain versions, which ask the law of every pair. Radii as growth spreads
+    them, and every fourth pair a row of 0.01-0.1 um beside a grown one, for
+    which r_hat nears its bound ri / 1e6 and the law's break lies within the
+    window; offsets within 1e-4 um of a pair's own break distance are left
+    out (the card's powf and the CPU's pow may round apart there). Plus 32
+    bonded pairs well inside their break distance."""
+    off = np.linspace(-1e-2, 1e-2, 240)
+    n = len(off)
+    rs = np.random.default_rng(13)
+    radii = rs.uniform(BIO.min_radius, BIO.max_radius, 2 * n + 64).astype(np.float32)
+    tight = np.arange(n) % 4 == 3
+    radii[2 * np.flatnonzero(tight)] = rs.uniform(0.01, 0.1, int(tight.sum()))
+    # the row whose cut places the pair: the small one of a tight pair, else
+    # either in turn
+    row = 2 * np.arange(n) + ((np.arange(n) % 2 == 1) & ~tight)
+    law_args = contact.pair_law_args(**GENERAL)
+    ri, rj = torch.from_numpy(radii[row]), torch.from_numpy(radii[row ^ 1])
+    cut = ((contact.cull_reach(ri, law_args) + rj) * torch.tensor(contact.CULL_SLACK)).double()
+    gaps = cut.numpy() + off
+    reach = np.array([_break_reach(float(radii[2 * k]), float(radii[2 * k + 1]))
+                      for k in range(n)])
+    keep = np.abs(gaps - reach) > 1e-4
+    gaps, reach, tight = gaps[keep], reach[keep], tight[keep]
+    m = len(gaps)
+    pair_radii = np.concatenate([radii[:2 * n].reshape(n, 2)[keep].ravel(),
+                                 radii[2 * n:2 * n + 64]])
+    inside = np.array([_break_reach(float(pair_radii[2 * m + 2 * k]),
+                                    float(pair_radii[2 * m + 2 * k + 1])) - 0.05
+                       for k in range(32)])
+    bonded = np.concatenate([np.arange(m) % 2 == 0, np.ones(32, bool)])
+    args = [a.to(dev) for a in _pair_rows(np.concatenate([gaps, inside]), bonded, dims, K=K,
+                                          radii=np.concatenate([pair_radii, radii[-64:]]))]
+    # what the law keeps: the 32, and pairs inside their break distance that
+    # are bonded or within the search radius (every one of them: tight)
+    survive = gaps < reach
+    assert survive.sum() > 5 and not (survive & ~tight).any()
+    assert (gaps - cut.numpy()[keep] > 1e-4).sum() > m // 3
+    want = 2 * (int(survive.sum()) + 32)
+    suffix = "" if dims == 2 else "_3d"
+    before = dict(kernels.launch_counts)
+    fk, dk, pk = contact.contact_substep_cuda(*args, **GENERAL)
+    fp, dp, pp = contact.contact_substep_plain(*args, **GENERAL)
+    f_k, d_k, m_k = span_mask.contact_seed_cuda(*args, **GENERAL)
+    f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **GENERAL)
+    torch.cuda.synchronize()
+    for got, plain in (((fk, dk), (fp, dp)), ((f_k, d_k), (f_p, d_p))):
+        _check_contact(*got, *plain)
+        assert int(plain[1].sum()) == want
+    assert _sets_equal(pk, pp) and torch.equal(m_k, m_p)
+    for name in ("contact_substep", "contact_seed"):
+        key = name + suffix
+        assert kernels.launch_counts[key] == before.get(key, 0) + 1, key
+
+
 @pytest.mark.parametrize("dims", [2, 3])
 def test_diff_surround_moments_call_matches_plain(dev, dims):
     """With diff_surround on, the engine's fourth bio-moments call (motility
