@@ -25,11 +25,17 @@ Phases, each of which raises on failure (exit code != 0):
    the deposit's fixed-order sum (``csrc/deposit.cu``, glue) bit-equal to
    ``index_add`` on the CPU at the 100k state and at 500k after one step,
    timed beside ``index_add_`` on the card;
-3. probes: each mode of the window probes P1 and P2 against its plain
+3. probes and draws: each mode of the window probes P1 and P2 against its plain
    version at NBLK = 4096, the kernel's own device time per launch under
    ``torch.profiler`` and its multiple of the bound, then each probe's entry point
    (``hipsc_abm_tpu_torch.tools.dynslice_probe[2].main``) per mode, with the
-   launch counts set to 0 just before it;
+   launch counts set to 0 just before it; then the draw kernels
+   (``csrc/draws.cu``: the pathway's normal, the unit vectors in 2D and 3D)
+   over every input, 2^24 ids per stream whose uniforms are every 24-bit
+   uniform, bit-equal on the card to their plain versions on the CPU, and
+   the step's launches and device ms per step at 1k and 100k cells (phase
+   2 holds each draw kernel against its plain version at the main path's
+   shapes);
 4. step: one ``step`` of the port from the same 20k-cell 2D state on the
    CPU (plain versions) and on the card (kernels), compared by agent id, for
    each contact path, and the span-mask step against the id-list step on
@@ -233,18 +239,36 @@ PATHS = ("id_list", "span_mask")
 # the kernels each contact path launches in 2D and in 3D (counted from its
 # own main-path run)
 PATH_KERNELS = {
-    (2, "id_list"): ("contact_substep", "bio_moments", "ftcs_diffuse", "deposit"),
+    (2, "id_list"): ("contact_substep", "bio_moments", "ftcs_diffuse", "deposit", "normal",
+                     "unit_vectors"),
     (2, "span_mask"): ("contact_seed", "contact_masked", "mask_compact", "bio_moments",
-                       "ftcs_diffuse", "deposit"),
-    (3, "id_list"): ("contact_substep_3d", "bio_moments_3d"),
+                       "ftcs_diffuse", "deposit", "normal", "unit_vectors"),
+    (3, "id_list"): ("contact_substep_3d", "bio_moments_3d", "normal", "unit_vectors_3d"),
     (3, "span_mask"): ("contact_seed_3d", "contact_masked_3d", "mask_compact_3d",
-                       "bio_moments_3d"),
+                       "bio_moments_3d", "normal", "unit_vectors_3d"),
 }
 SPAN_MASK_KERNELS = ("contact_seed", "contact_masked", "mask_compact")
 # the card's published peaks (H100 SXM: HBM3 rate, float32 outside the
 # tensor cores), for bound_ms
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# float64 outside the tensor cores (H100 SXM data sheet), for the draw
+# kernels' glibc sinf/cosf mirror
+PEAK_F64_PER_S = 34e12
+# the draw kernels (csrc/draws.cu): per id, the float32 and float64
+# operations (each multiply, add, fused multiply-add, division or square
+# root one): the hash's uniforms are integer work; log 23 float32, each
+# sinf/cosf ~16 float64 and a conversion; the normal's radius, angle and
+# product 4 float32; a unit vector's angles and products 2-4 float32
+DRAW_OPS = {"normal": (28, 17), "unit_vectors": (2, 34), "unit_vectors_3d": (5, 68)}
+# the exhaustive draw check: ids per chunk, and the (draw, stream offset)
+# cases whose ids cover every 24-bit uniform of that stream
+DRAW_CHUNK = 1 << 22
+DRAW_CASES = (("normal", 0), ("normal", 17), ("unit_vectors", 0), ("unit_vectors_3d", 0),
+              ("unit_vectors_3d", 29))
+# the colonies whose step launches and device time the draws phase prints
+# (the 1k bench cell of phase 8 and the 2D main path)
+DRAW_STEP_CELLS = (1_000, 100_000)
 # float32 operations the contact kernels spend per candidate (distance) and
 # per kept pair (pair law, normal, force sum)
 DIST_FLOPS = 8
@@ -748,6 +772,7 @@ def kernel_phase(eng, state):
               f"launches, in turns; 0 = the plan's): {alone}")
         # the deposit's fixed-order sum (glue: the JAX deposit is XLA)
         results.append(deposit_entry(eng, state, "100k"))
+    results += draw_entries(state, n_runs)
     for r in results:
         print(f"  {r['name']} ({label}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -965,6 +990,119 @@ def general_law_phase(eng, state) -> list:
           f"{bounds_ms[2]:.5f} ms, the step's four {sum(bounds_ms):.5f} ms")
     kernels.launch_counts.clear()
     return results
+
+
+def draw_call(name: str, key, ids, cuda: bool):
+    """One call of the draw kernel ``name`` (``csrc/draws.cu``), or of its
+    plain version: the pathway's normal, division's unit vectors (2D, 3D)."""
+    from hipsc_abm_tpu_torch.ops import rng
+
+    if name == "normal":
+        return (rng.normal if cuda else rng.normal_plain)(key, ids, 0)
+    two_d = name == "unit_vectors"
+    return (rng.unit_vectors if cuda else rng.unit_vectors_plain)(key, ids, two_d, 1)
+
+
+def draw_bound(name: str, n: int) -> dict:
+    """The draw kernel's least time for ``n`` ids: each id read once and each
+    float written once (the key's 16 bytes besides), or its float32 and
+    float64 operations over the card's rates for them."""
+    f32, f64 = DRAW_OPS[name]
+    t_bytes = (16 + n * (4 + (4 if name == "normal" else 12))) / PEAK_BYTES_PER_S
+    t_ops = n * (f32 / PEAK_F32_PER_S + f64 / PEAK_F64_PER_S)
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def draw_entries(state, n_runs: int) -> list:
+    """The draw kernels at the main path's shapes (the state's (C,) id
+    column, a step key on the card) against their plain versions on the
+    card, bit for bit; the normal in 2D only (it has one form)."""
+    from hipsc_abm_tpu_torch.ops import rng
+
+    ids = state.arrays["ids"]
+    key = torch.stack(rng.split(rng.prng_key(SEED).to(ids.device), 6))[2]
+    names = ("normal", "unit_vectors") if n_runs == 3 else ("unit_vectors_3d",)
+    out = []
+    for name in names:
+        got, want = draw_call(name, key, ids, True), draw_call(name, key, ids, False)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"kernel {name}: not bit-equal to its plain version")
+        out.append(dict(
+            name=name, route="cuda", source="hipsc_abm_tpu_torch/csrc/draws.cu",
+            replaces=("hipsc_abm_tpu/ops/rng.py:" + ("66" if name == "normal" else "74")
+                      + " (XLA ops, not a Pallas kernel: glue)"),
+            max_abs_err=float((got - want).abs().max()),
+            ms=cuda_ms(lambda: draw_call(name, key, ids, True), 50),
+            plain_ms=cuda_ms(lambda: draw_call(name, key, ids, False), 10),
+            library_ms=None, law="uniform", **draw_bound(name, ids.numel())))
+    return out
+
+
+def draws_phase() -> dict:
+    """The draw kernels over every input: for each case of ``DRAW_CASES``,
+    2^24 ids whose uniforms in one stream of the draw are every 24-bit
+    uniform (``rng.hash_preimage``), the kernel on the card against its
+    plain version on the CPU, bit for bit; then the step's launches and
+    device ms per step at ``DRAW_STEP_CELLS``."""
+    from hipsc_abm_tpu_torch import kernels
+    from hipsc_abm_tpu_torch.ops import rng
+
+    key = torch.stack(rng.split(rng.prng_key(SEED + 7), 6))[3]
+    dkey = key.to("cuda")
+    salt = {"normal": 0, "unit_vectors": 1, "unit_vectors_3d": 1}
+    checked = {}
+    t0 = time.perf_counter()
+    for name, stream in DRAW_CASES:
+        for lo in range(0, 1 << 24, DRAW_CHUNK):
+            bits = torch.arange(lo, lo + DRAW_CHUNK, dtype=torch.int64) << 8
+            ids = rng.hash_preimage(key, bits, salt[name] + stream)
+            got = draw_call(name, dkey, ids.to("cuda"), True).cpu()
+            want = draw_call(name, key, ids, False)
+            bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            if bad:
+                raise AssertionError(f"draws phase: {name} (stream +{stream}) differs from "
+                                     f"its plain version at {bad} of the ids from {lo}")
+        checked[f"{name}+{stream}"] = 1 << 24
+    print(f"draws phase: every 24-bit uniform of each stream ({checked}), the kernels on "
+          f"the card bit-equal to their plain versions on the CPU "
+          f"({time.perf_counter() - t0:.1f} s)")
+    steps = {}
+    for n in DRAW_STEP_CELLS:
+        steps[n] = step_launches(n)
+        print(f"draws phase: step at {n} cells (2D bench, id_list): {steps[n]}")
+    kernels.launch_counts.clear()
+    return dict(checked=checked, steps=steps)
+
+
+def step_launches(n_cells: int) -> dict:
+    """Launches and device ms per step of the 2D bench colony at
+    ``n_cells`` (profiler, after 3 ``safe_step`` warm-ups): the eager
+    ``step`` over 2 steps, and ``safe_step`` (one replay of the captured
+    step graph) over 2 steps; the draw kernels' own share of each."""
+    from hipsc_abm_tpu_torch.tools import device_kernels
+
+    eng, state = engine_for(2, n_cells, "cuda", "id_list")
+    for _ in range(3):
+        state, _ = eng.safe_step(state)
+    carry = [state]
+
+    def eager():
+        carry[0], _ = eng.step(carry[0])
+
+    def replay():
+        carry[0], _ = eng.safe_step(carry[0])
+
+    names = ("normal_kernel", "unit_vectors_kernel")
+    out = {}
+    for label, fn in (("step", eager), ("safe_step", replay)):
+        ms, launches, by = device_kernels(fn, 2, names)
+        out[label] = dict(device_ms=round(ms, 4), launches=launches,
+                          draws={k: [round(v[0], 5), v[1]] for k, v in by.items()})
+    del eng, state, carry
+    torch.cuda.empty_cache()
+    return out
 
 
 def ftcs_args(eng, lattice) -> tuple:
@@ -1788,7 +1926,14 @@ def main_path(dims: int, n_cells: int, path: str, optional: bool = False) -> dic
                              f"bio-moments, {counts.get('ftcs_diffuse')} FTCS and "
                              f"{counts.get('deposit')} deposit launches for {attempts} step "
                              "attempts")
-    other = {n for key, names in PATH_KERNELS.items() if key[0] != dims for n in names}
+    # the draws: the pathway's normal and division's and motility's unit
+    # vectors, one launch each per step attempt
+    unit = "unit_vectors" if dims == 2 else "unit_vectors_3d"
+    if (counts.get("normal", 0), counts.get(unit, 0)) != (attempts, 2 * attempts):
+        raise AssertionError(f"{label}: {counts.get('normal')} normal and "
+                             f"{counts.get(unit)} {unit} launches for {attempts} step attempts")
+    other = {n for key, names in PATH_KERNELS.items() if key[0] != dims
+             for n in names} - set(PATH_KERNELS[(dims, path)])
     stray = sorted(n for n in other if counts.get(n, 0))
     if stray:
         raise AssertionError(f"{label}: kernels of the other dimensionality ran: {stray}")
@@ -3700,6 +3845,7 @@ def main() -> int:
         results += phase(f"kernels {dims}D", kernels_at, dims, n)
     results += phase("deposit 500k", deposit_large_phase)
     results += phase("probes", probe_phase)
+    print(json.dumps({"draws": phase("draws", draws_phase)}))
 
     phase("step", step_phase)
     phase("step 3D", step_phase_3d)

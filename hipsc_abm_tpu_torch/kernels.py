@@ -67,6 +67,8 @@ _SIGNATURES = {
     "hipsc_mask_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "hipsc_dynslice_probe": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "hipsc_dynslice_probe2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "hipsc_draw_normal": (_P, _P, _P, _L, _I, _P),
+    "hipsc_draw_unit_vectors": (_P, _P, _P, _L, _I, _I, _P),
 }
 # stencil runs per row: 3 in 2D, 9 in 3D (the kernels' N_RUNS)
 RUN_COUNTS = (3, 9)

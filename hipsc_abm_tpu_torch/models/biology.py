@@ -259,8 +259,8 @@ def cell_pathway(
         n_closed = (nbr_count + 1).to(torch.float32)
         sum_f = nbr_FGF4_sum + f_self
         sum_f2 = nbr_FGF4_sq_sum + f_self * f_self
-        # sqrt correctly rounded on the card and the CPU alike (rng.f32_via_f64)
-        perceived = (sum_f + g * rng.f32_via_f64(torch.sqrt, sum_f2)) / n_closed
+        # sqrt correctly rounded on the card and the CPU alike (rng.sqrt_f32)
+        perceived = (sum_f + g * rng.sqrt_f32(sum_f2)) / n_closed
     perceived = torch.clamp(torch.floor(perceived), 0, p.field - 1).to(torch.int32)
 
     update = active & (fds_counters % p.fds_thresh == 0)

@@ -20,6 +20,16 @@ on every replay instead of baking one step's words in. ``threefry2x32``
 also runs on plain Python ints (its arithmetic is operators only), which is
 how ``split_words`` derives the engine's key schedule on the host: the
 schedule does not depend on the colony.
+
+The float draws (``normal``, ``unit_vectors``, ``random_normal``) equal the
+JAX package's bit for bit as XLA:CPU computes them on an x86-64 machine with
+FMA and glibc 2.36: ``log`` and ``log1p`` are XLA's own float32 polynomials
+(``log_f32``, ``log1p_f32``), ``cos`` and ``sin`` are glibc's ``cosf`` and
+``sinf``, which XLA:CPU calls (``cosf_glibc``, ``sinf_glibc``), and ``sqrt``
+is correctly rounded. The mirrors are plain float32/float64 arithmetic, so
+the card gives the same bits as the CPU; under another libm or without FMA,
+XLA:CPU's own draws would differ from them. On the card ``normal`` and
+``unit_vectors`` run as one kernel per call (``csrc/draws.cu``).
 """
 
 from __future__ import annotations
@@ -82,40 +92,288 @@ def coin_flips(key, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
     return (hash_bits(key, ids, salt) & 1).to(torch.int32)
 
 
-def f32_via_f64(fn, x: torch.Tensor) -> torch.Tensor:
-    """``fn`` of a float32 tensor, evaluated in float64 and rounded to
-    float32. The card's and the CPU's float32 ``log``, ``cos`` and ``sin``
-    differ by an ulp (none is correctly rounded); their float64 results
-    round to the same float32 but where the exact value lies within a few
-    float64 ulps of a float32 rounding boundary. A lone agent's motility
-    move repeats every substep, so one ulp of its force that tips the
-    rounding of its position makes one ulp of position per substep between
-    the card and the CPU; the pathway's normal draw feeds ``floor``, where
-    one ulp at a boundary would part integer state."""
-    return fn(x.to(torch.float64)).to(torch.float32)
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root of float32 ``x``, as XLA's
+    ``sqrt`` (``llvm.sqrt``) and the card's ``__fsqrt_rn`` give it.
+    PyTorch's own CPU ``sqrt`` is not correctly rounded on every machine,
+    in float32 or float64 (on an AVX-512 machine it parted from numpy's at
+    ~0.6% of inputs), so the float64 root rounded to float32 is corrected
+    by exact tests: a float32 value's midpoints with its neighbours have 25
+    bits, so their squares are exact in float64 and say on which side of
+    each midpoint ``sqrt(x)`` lies. Two steps mend a start up to two ulps
+    off."""
+    x64 = x.to(torch.float64)
+    r = torch.sqrt(x64).to(torch.float32)
+    for _ in range(2):
+        r64 = r.to(torch.float64)
+        down = torch.nextafter(r, torch.zeros_like(r))
+        up = torch.nextafter(r, torch.full_like(r, float("inf")))
+        below = (r64 + down.to(torch.float64)) * 0.5
+        above = (r64 + up.to(torch.float64)) * 0.5
+        r = torch.where(below * below > x64, down, torch.where(above * above < x64, up, r))
+    return r
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of what XLA:CPU computes for the draws' float32 log, log1p, cos and
+# sin. Each is written in float32 and float64 + - * /, integer and bit ops and
+# ``where``; every eager op rounds once, so the CPU and the card give the same
+# bits, and csrc/draws.cu repeats the same operations in CUDA C++.
+# ---------------------------------------------------------------------------
+
+
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` in float32 (``b`` and ``c`` tensors or floats) rounded
+    once, as a hardware fused multiply-add (``fmaf``, the card's
+    ``__fmaf_rn``). The product of two float32 values is exact in float64;
+    the float64 sum is made round-to-odd from its exact error (TwoSum), and
+    a round-to-odd value with 53 bits rounds to float32 as the exact sum
+    would."""
+    a64 = a.to(torch.float64)
+    b64 = b.to(torch.float64) if isinstance(b, torch.Tensor) else float(b)
+    c64 = c.to(torch.float64) if isinstance(c, torch.Tensor) else float(c)
+    prod = a64 * b64
+    s = prod + c64
+    t = s - prod
+    err = (prod - (s - t)) + (c64 - t)
+    # round to odd: step s toward zero where it lies beyond the exact sum,
+    # then set its last bit where the sum was inexact
+    beyond = (err * torch.sign(s) < 0).to(torch.int64)
+    odd = (s.view(torch.int64) - beyond) | (err != 0).to(torch.int64)
+    return odd.view(torch.float64).to(torch.float32)
+
+
+def _hexf(*values: str) -> tuple:
+    return tuple(float.fromhex(v) for v in values)
+
+
+# XLA's float32 log (the Cephes polynomial that XLA:CPU inlines for ``log``
+# and for ``log1p`` at |x| >= sqrt(2) - 1): p0..p8, then ln(2) split as
+# q2 + q1, and sqrt(1/2)
+_LOG_P = _hexf("0x1.204376p-4", "-0x1.d7a37p-4", "0x1.de4a34p-4", "-0x1.fcba9ep-4",
+               "0x1.23d37ep-3", "-0x1.555ca0p-3", "0x1.999d58p-3", "-0x1.fffff8p-3",
+               "0x1.555554p-2")
+_LOG_Q1, _LOG_Q2 = _hexf("-0x1.bd0106p-13", "0x1.63p-1")
+_SQRT_HALF_F32 = float.fromhex("0x1.6a09e6p-1")
+_F32_MIN_NORMAL = float.fromhex("0x1p-126")
+# XLA's float32 log1p for |x| < sqrt(2) - 1: x - x^2/2 + x^3 P(x)/Q(x)
+_LOG1P_P = _hexf("0x1.7bc096p-15", "0x1.fe818ap-2", "0x1.a509f4p+2", "0x1.de9738p+4",
+                 "0x1.e798ecp+5", "0x1.c8e75ap+5", "0x1.40a202p+4")
+_LOG1P_Q = _hexf("0x1p0", "0x1.e2035ap+3", "0x1.4c30b6p+6", "0x1.bb865ap+7",
+                 "0x1.351946p+8", "0x1.b0db14p+7", "0x1.e0f304p+5")
+_LOG1P_SMALL = float.fromhex("0x1.a8279ap-2")
+
+
+def _log_core(x: torch.Tensor) -> torch.Tensor:
+    """The body of XLA's float32 ``log`` (no special values), with its
+    fused multiply-adds where XLA:CPU's backend forms them on an FMA
+    machine (the object code of ``jnp.log`` / ``jnp.log1p``). Inputs below
+    the smallest normal (and NaN) are read as the smallest normal, as
+    XLA's range reduction reads them. (XLA:CPU runs with subnormals flushed
+    to zero, so there a subnormal input is 0; no draw reaches one.)"""
+    x = torch.where(x > _F32_MIN_NORMAL, x, torch.full_like(x, _F32_MIN_NORMAL))
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & -2139095041) | 0x3F000000).view(torch.float32)  # & 0x807FFFFF
+    below = m < _SQRT_HALF_F32
+    e = e - below.to(torch.float32)
+    r = (m - 1.0) + torch.where(below, m, torch.zeros_like(m))
+    r2 = r * r
+    r3 = r2 * r
+    p = _LOG_P
+    y = fma_f32(fma_f32(r, p[0], p[1]), r, p[2])
+    y1 = fma_f32(fma_f32(r, p[3], p[4]), r, p[5])
+    y2 = fma_f32(fma_f32(r, p[6], p[7]), r, p[8])
+    y = fma_f32(fma_f32(fma_f32(y, r3, y1), r3, y2), r3, e * _LOG_Q1)
+    # r - r^2/2 is one fused negative multiply-add in XLA; r^2/2 is exact
+    return fma_f32(e, _LOG_Q2, (r - r2 * 0.5) + y)
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` of float32 as XLA:CPU computes it (its own polynomial,
+    not libm): bit-equal over every input of the draws, the 2^24 values
+    ``u + 2^-25`` (``tests/test_torch_rng.py``)."""
+    out = _log_core(x)
+    out = torch.where(x > 0, out, torch.full_like(x, float("nan")))
+    out = torch.where(x == 0, torch.full_like(x, -float("inf")), out)
+    return torch.where(x == float("inf"), x, out)
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log1p`` of float32 as XLA:CPU computes it: the rational form
+    below |x| = sqrt(2) - 1, else XLA's ``log`` of ``1 + x``. Bit-equal over
+    ``-(u * u)`` for the 2^23 uniforms of ``jax.random.normal``."""
+    poly_p = torch.full_like(x, _LOG1P_P[0])
+    for c in _LOG1P_P[1:]:
+        poly_p = fma_f32(x, poly_p, c)
+    poly_q = torch.full_like(x, _LOG1P_Q[0])
+    for c in _LOG1P_Q[1:]:
+        poly_q = fma_f32(x, poly_q, c)
+    x2 = x * x
+    small = x + ((x * x2) * (poly_p / poly_q) - x2 * 0.5)
+    return torch.where(x.abs() < _LOG1P_SMALL, small, log_f32(x + 1.0))
+
+
+# glibc 2.36's sinf/cosf tables (sysdeps/ieee754/flt-32/sincosf_data.c, as
+# read from libm's object code): 2/pi * 2^24, pi/2, the cosine polynomial
+# c0..c4 and the sine polynomial s1..s3. The second table negates c0..c4.
+_HPI_INV = float.fromhex("0x1.45f306dc9c883p+23")
+_HPI = float.fromhex("0x1.921fb54442d18p+0")
+# pi/2 as hi + lo, hi with 29 significant bits: n * hi and x - n * hi are
+# exact for the quadrants n <= 4 of [0, 120), so (x - n hi) - n lo rounds
+# once, as glibc's fused x - n * pi/2 does
+_HPI_HI = float.fromhex("0x1.921fb54p+0")
+_HPI_LO = _HPI - _HPI_HI
+_COS_C = _hexf("0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+               "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16")
+_SIN_S = _hexf("-0x1.555545995a603p-3", "0x1.1107605230bc4p-7", "-0x1.994eb3774cf24p-13")
+
+
+def _sin_poly(xs: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """glibc's ``sinf_poly`` for an even quadrant, in float64. The fused
+    multiply-adds of ``__sinf_fma`` are separate multiplies and adds here;
+    over the draws' inputs that never changes the float32 result."""
+    s = _SIN_S
+    x3 = x2 * xs
+    x5 = x2 * x3
+    return (xs + x3 * s[0]) + x5 * (s[1] + x2 * s[2])
+
+
+def _cos_poly(x2: torch.Tensor, sign) -> torch.Tensor:
+    """glibc's ``sinf_poly`` for an odd quadrant (the cosine polynomial),
+    in float64; ``sign`` (+-1) picks the table with c0..c4 negated."""
+    c = _COS_C
+    x4 = x2 * x2
+    x6 = x2 * x4
+    c1 = (sign * c[0]) + x2 * (sign * c[1])
+    c2 = (sign * c[3]) + x2 * (sign * c[4])
+    return (c1 + x4 * (sign * c[2])) + x6 * c2
+
+
+def _sincosf_glibc(y: torch.Tensor, sine: bool) -> torch.Tensor:
+    """glibc 2.36's ``sinf`` (``sine``) or ``cosf`` of float32 ``y`` with
+    |y| < 120, the fast path of sysdeps/ieee754/flt-32/s_sinf.c and
+    s_cosf.c: below |y| = 0.75 the polynomial of ``y`` itself, else a
+    reduction by pi/2 to quadrant ``n`` and the polynomial of the
+    remainder. Larger |y| takes glibc's slow reduction, which is not
+    mirrored (the draws take ``2 pi u``, u in [0, 1))."""
+    x = y.to(torch.float64)
+    top = (y.view(torch.int32) >> 20) & 0x7FF
+    # the quadrant: glibc's (int32) truncation of x * 2/pi * 2^24, rounded
+    # to the nearest multiple of 2^24
+    n = ((x * _HPI_INV).to(torch.int32) + 0x800000) >> 24
+    nf = n.to(torch.float64)
+    xr = (x - nf * _HPI_HI) - nf * _HPI_LO
+    # glibc's sign table (+ - - +) at n & 3 scales the sine polynomial's
+    # argument; quadrants 2 and 3 take the cosine table with c0..c4 negated
+    sin_sign = torch.where(((n & 3) == 1) | ((n & 3) == 2), -1.0, 1.0).to(torch.float64)
+    cos_sign = 1.0 - 2.0 * ((n >> 1) & 1).to(torch.float64)
+    # sinf takes the sine polynomial in an even quadrant, cosf in an odd one
+    use_sin = ((n & 1) == 0) if sine else ((n & 1) == 1)
+    x2r = xr * xr
+    reduced = torch.where(use_sin, _sin_poly(xr * sin_sign, x2r), _cos_poly(x2r, cos_sign))
+    x2 = x * x
+    direct = _sin_poly(x, x2) if sine else _cos_poly(x2, 1.0)
+    out = torch.where(top < 0x3F4, direct, reduced).to(torch.float32)
+    tiny = y if sine else torch.ones_like(y)
+    return torch.where(top < 0x398, tiny, out)
+
+
+def cosf_glibc(y: torch.Tensor) -> torch.Tensor:
+    """glibc 2.36's ``cosf`` (|y| < 120), which XLA:CPU calls for
+    ``jnp.cos``. Bit-equal over the draws' 2^24 inputs ``2 pi u``."""
+    return _sincosf_glibc(y, sine=False)
+
+
+def sinf_glibc(y: torch.Tensor) -> torch.Tensor:
+    """glibc 2.36's ``sinf`` (|y| < 120), which XLA:CPU calls for
+    ``jnp.sin``. Bit-equal over the draws' 2^24 inputs ``2 pi u``."""
+    return _sincosf_glibc(y, sine=True)
+
+
+def normal_plain(key, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
+    """``normal`` in PyTorch ops: the plain version of the draw kernel."""
+    u1 = uniform(key, ids, salt) + (1.0 / (1 << 25))  # (0, 1]
+    u2 = uniform(key, ids, salt + 17)
+    return sqrt_f32(-2.0 * log_f32(u1)) * cosf_glibc(_TWO_PI_F32 * u2)
+
+
+def unit_vectors_plain(key, ids: torch.Tensor, two_d: bool, salt: int = 0) -> torch.Tensor:
+    """``unit_vectors`` in PyTorch ops: the plain version of the draw
+    kernel."""
+    theta = uniform(key, ids, salt) * _TWO_PI_F32
+    cos_t, sin_t = cosf_glibc(theta), sinf_glibc(theta)
+    if two_d:
+        return torch.stack([cos_t, sin_t, torch.zeros_like(theta)], dim=-1)
+    phi = uniform(key, ids, salt + 29) * _TWO_PI_F32
+    radius = cosf_glibc(phi)
+    return torch.stack([radius * cos_t, radius * sin_t, sinf_glibc(phi)], dim=-1)
+
+
+def _draw_cuda(entry: str, name: str, key, ids: torch.Tensor, width: int,
+               *args) -> torch.Tensor:
+    """Launch one draw kernel: one thread per id writes ``width`` float32
+    values. The key is read on the card, so a captured graph replays it as
+    an input."""
+    from hipsc_abm_tpu_torch import kernels
+
+    key = key.to(device=ids.device, dtype=torch.int64)
+    (n,) = ids.shape
+    kernels.check_cuda("key", key, torch.int64, (2,))
+    kernels.check_cuda("ids", ids, torch.int32, (n,))
+    out = torch.empty((n, width) if width > 1 else (n,), dtype=torch.float32,
+                      device=ids.device)
+    if n:
+        kernels.launch(entry, key.data_ptr(), ids.data_ptr(), out.data_ptr(), n, *args)
+        kernels.count_launch(name)
+    return out
 
 
 def normal(key, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
-    """N(0, 1) in float32 via Box-Muller on two independent hash streams;
-    ``log``, ``sqrt`` and ``cos`` through ``f32_via_f64``, so the card and
-    the CPU agree bit for bit (PyTorch's float32 ``sqrt`` on the CPU is not
-    correctly rounded either: it parts from numpy's at ~0.5% of inputs)."""
-    u1 = uniform(key, ids, salt) + (1.0 / (1 << 25))  # (0, 1]
-    u2 = uniform(key, ids, salt + 17)
-    return (f32_via_f64(torch.sqrt, -2.0 * f32_via_f64(torch.log, u1))
-            * f32_via_f64(torch.cos, _TWO_PI_F32 * u2))
+    """N(0, 1) in float32 via Box-Muller on two independent hash streams,
+    bit-equal to the JAX package's ``normal`` on XLA:CPU: its ``log`` is
+    XLA's polynomial (``log_f32``), its ``cos`` glibc's (``cosf_glibc``),
+    its ``sqrt`` correctly rounded. A CPU tensor of ids runs the plain
+    version; a CUDA one launches the draw kernel (``csrc/draws.cu``, counted
+    as ``normal``) or raises. Both give the same bits."""
+    if ids.device.type == "cpu":
+        return normal_plain(key, ids, salt)
+    return _draw_cuda("hipsc_draw_normal", "normal", key, ids, 1, salt)
 
 
 def unit_vectors(key, ids: torch.Tensor, two_d: bool, salt: int = 0) -> torch.Tensor:
     """Id-keyed batch of the reference's ``random_vector``: a point on the
-    unit circle in 2D, else its (non-uniform) sphere parameterization."""
-    theta = uniform(key, ids, salt) * _TWO_PI_F32
-    cos_t, sin_t = f32_via_f64(torch.cos, theta), f32_via_f64(torch.sin, theta)
-    if two_d:
-        return torch.stack([cos_t, sin_t, torch.zeros_like(theta)], dim=-1)
-    phi = uniform(key, ids, salt + 29) * _TWO_PI_F32
-    radius = f32_via_f64(torch.cos, phi)
-    return torch.stack([radius * cos_t, radius * sin_t, f32_via_f64(torch.sin, phi)], dim=-1)
+    unit circle in 2D, else its (non-uniform) sphere parameterization,
+    (C, 3) float32, bit-equal to the JAX package's on XLA:CPU (glibc's
+    ``cosf``/``sinf``, ``cosf_glibc``). A CPU tensor of ids runs the plain
+    version; a CUDA one launches the draw kernel (counted as
+    ``unit_vectors`` in 2D, ``unit_vectors_3d`` in 3D) or raises."""
+    if ids.device.type == "cpu":
+        return unit_vectors_plain(key, ids, two_d, salt)
+    return _draw_cuda("hipsc_draw_unit_vectors",
+                      "unit_vectors" if two_d else "unit_vectors_3d",
+                      key, ids, 3, salt, int(two_d))
+
+
+_FMIX_INV = (pow(0x85EBCA6B, -1, 1 << 32), pow(0xC2B2AE35, -1, 1 << 32))
+
+
+def _fmix32_inverse(x: torch.Tensor) -> torch.Tensor:
+    x = x ^ (x >> 16)
+    x = _mul32(x, _FMIX_INV[1])
+    x = x ^ (x >> 13) ^ (x >> 26)
+    x = _mul32(x, _FMIX_INV[0])
+    return x ^ (x >> 16)
+
+
+def hash_preimage(key, bits: torch.Tensor, salt: int = 0) -> torch.Tensor:
+    """The int32 ids whose ``hash_bits(key, ids, salt)`` are ``bits``
+    (uint32 values in int64): both ``fmix32`` rounds are bijections, so
+    every word has one id. Lets a check reach every 24-bit uniform."""
+    k0, k1 = _key_words(key)
+    h = _fmix32_inverse(bits & _MASK) ^ ((k1 + ((_GOLDEN * (salt + 1)) & _MASK)) & _MASK)
+    x = _fmix32_inverse(h) ^ k0
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -205,30 +463,30 @@ def random_uniform(key: torch.Tensor, shape, minval: float = 0.0,
 
 
 def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 ``erf_inv`` polynomial. ``log1p`` and ``sqrt`` are taken
-    in float64 and each Horner step is rounded once, as a fused
-    multiply-add, so the card and the CPU agree; against XLA:CPU's own
-    evaluation it lands within a few float32 ulps (its ``log1p`` is another
-    approximation)."""
-    w = (-torch.log1p(-(x * x).to(torch.float64))).to(torch.float32)
+    """XLA's float32 ``erf_inv`` as XLA:CPU evaluates it inside
+    ``jax.random.normal``: ``w = -log1p(-(x * x))`` (``log1p_f32``), the
+    polynomial of ``w - 2.5`` below 5 and of ``sqrt(w) - 3`` above, every
+    Horner step one fused multiply-add, times ``x``. Bit-equal to JAX's
+    over every input ``jax.random.normal`` draws (XLA's ``erf_inv`` is
+    infinite at |x| = 1, which no draw reaches)."""
+    w = -log1p_f32(-(x * x))
     small = w < 5.0
-    w = torch.where(small, w - 2.5, f32_via_f64(torch.sqrt, w) - 3.0)
-    w64 = w.to(torch.float64)
+    w = torch.where(small, w - 2.5, sqrt_f32(w) - 3.0)
 
     def coef(i):
         return torch.where(small, float(np.float32(_ERFINV_LT5[i])),
-                           float(np.float32(_ERFINV_GE5[i]))).to(torch.float64)
+                           float(np.float32(_ERFINV_GE5[i])))
 
-    p = coef(0).to(torch.float32)
+    p = coef(0)
     for i in range(1, len(_ERFINV_LT5)):
-        p = (coef(i) + p.to(torch.float64) * w64).to(torch.float32)
-    return p * x
+        p = fma_f32(w, p, coef(i))
+    return x * p
 
 
 def random_normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: ``sqrt(2) *
     erf_inv(u)`` with ``u`` uniform on ``(nextafter(-1, 0), 1)``. The
-    uniform is bit-equal to JAX's; the normal within a few ulps
+    uniform and the normal are bit-equal to JAX's on XLA:CPU
     (``erf_inv_f32``)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     return _SQRT2_F32 * erf_inv_f32(random_uniform(key, shape, lo, 1.0))

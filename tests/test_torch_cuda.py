@@ -585,15 +585,19 @@ def test_engine_bio_call_launches_only_the_kernel(dev):
 
 @pytest.mark.parametrize("two_d", [True, False])
 def test_unit_vectors_are_bit_equal_on_card_and_cpu(dev, two_d):
-    """The id-keyed unit vectors of the motility phase (their trigonometry in
-    float64, rounded to float32) on the card equal the CPU's bit for bit at
-    a million ids: a lone cell's motility move, the same every substep, then
-    rounds its position the same way on both."""
+    """The id-keyed unit vectors of the motility phase (glibc's sinf/cosf
+    mirrored, ``csrc/draws.cu``, one launch per call) on the card equal the
+    CPU's plain version bit for bit at a million ids: a lone cell's
+    motility move, the same every substep, then rounds its position the
+    same way on both."""
     from hipsc_abm_tpu_torch.ops import rng
 
     key = rng.prng_key(7)
     ids = torch.arange(0, 3_000_000, 3, dtype=torch.int32)
+    name = "unit_vectors" if two_d else "unit_vectors_3d"
+    before = kernels.launch_counts[name]
     got = rng.unit_vectors(key, ids.to(dev), two_d, salt=1).cpu()
+    assert kernels.launch_counts[name] == before + 1
     assert torch.equal(got, rng.unit_vectors(key, ids, two_d, salt=1))
 
 
@@ -1091,14 +1095,44 @@ def test_deposit_card_equals_cpu_index_add_at_500k(dev):
 
 
 def test_normal_is_bit_equal_on_card_and_cpu(dev):
-    """The pathway's normal draw (log, sqrt and cos in float64, rounded to
-    float32) on the card equals the CPU's bit for bit at a million ids."""
+    """The pathway's normal draw (XLA's float32 log, a correctly rounded
+    sqrt, glibc's cosf; ``csrc/draws.cu``, one launch per call) on the card
+    equals the CPU's plain version bit for bit at a million ids."""
     from hipsc_abm_tpu_torch.ops import rng
 
     key = rng.prng_key(9)
     ids = torch.arange(0, 3_000_000, 3, dtype=torch.int32)
+    before = kernels.launch_counts["normal"]
     got = rng.normal(key, ids.to(dev)).cpu()
+    assert kernels.launch_counts["normal"] == before + 1
     assert torch.equal(got.view(torch.int32), rng.normal(key, ids).view(torch.int32))
+
+
+@pytest.mark.parametrize("draw,stream", [("normal", 0), ("normal", 17), ("unit2d", 0),
+                                         ("unit3d", 29)])
+def test_draw_kernels_equal_plain_over_all_uniforms(dev, draw, stream):
+    """Each draw kernel on 2^24 ids whose uniforms in one stream are every
+    24-bit uniform (``rng.hash_preimage``) equals its plain version on the
+    CPU bit for bit; the key read from the card; empty ids launch nothing."""
+    from hipsc_abm_tpu_torch.ops import rng
+
+    key = torch.stack(rng.split(rng.prng_key(5), 6))[4]
+    salt = 2
+    for lo in range(0, 1 << 24, 1 << 22):
+        bits = torch.arange(lo, lo + (1 << 22), dtype=torch.int64) << 8
+        ids = rng.hash_preimage(key, bits, salt + stream)
+        if draw == "normal":
+            got, want = rng.normal(key.to(dev), ids.to(dev), salt), rng.normal(key, ids, salt)
+        else:
+            two_d = draw == "unit2d"
+            got = rng.unit_vectors(key.to(dev), ids.to(dev), two_d, salt)
+            want = rng.unit_vectors(key, ids, two_d, salt)
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), lo
+    before = dict(kernels.launch_counts)
+    assert rng.normal(key.to(dev), ids[:0].to(dev)).shape == (0,)
+    assert dict(kernels.launch_counts) == before
+    with pytest.raises(TypeError):
+        rng.normal(key.to(dev), ids.to(dev, torch.int64))
 
 
 def test_ensemble_replicates_equal_solo_runs_on_card(dev):

@@ -11,9 +11,9 @@ deposit is a scatter-add whose accumulation order differs (atol 1e-7).
 On the card the deposit's sum runs a kernel that adds in a fixed order:
 its schedule (a stable sort, then each point's terms left to right) is
 emulated here in plain PyTorch and must equal the CPU's sequential
-``index_add`` bit for bit. The pathway's normal draw evaluates ``log``,
-``sqrt`` and ``cos`` in float64 and rounds (``ops.rng.f32_via_f64``),
-bit-equal to numpy's.
+``index_add`` bit for bit. The pathway's normal draw is XLA:CPU's
+float32 ``log``, glibc's ``cosf`` and a correctly rounded ``sqrt``
+(``ops.rng``), its ``sqrt`` bit-equal to numpy's.
 """
 
 import jax.numpy as jnp
@@ -148,16 +148,23 @@ def test_fixed_order_deposit_equals_index_add():
 
 
 def test_normal_is_float64_log_cos_rounded():
-    """``rng.normal`` over 10^6 ids equals numpy's float64 ``log``, ``sqrt``
-    and ``cos`` of the same float32 uniforms, rounded to float32, bit for
-    bit."""
+    """``rng.normal`` over 10^6 ids is ``sqrt(-2 log u1) cos(2 pi u2)`` with
+    XLA:CPU's float32 ``log`` and glibc's ``cosf`` (``rng.log_f32``,
+    ``rng.cosf_glibc``, as the JAX package draws it) and numpy's float64
+    ``sqrt`` rounded to float32, bit for bit; and those ``log`` and ``cos``
+    lie within 1 ulp of numpy's float64 ``log`` and ``cos`` rounded."""
     key = trng.prng_key(17)
     ids = torch.arange(1_000_000, dtype=torch.int32)
-    u1 = (trng.uniform(key, ids, 0) + (1.0 / (1 << 25))).numpy()
-    u2 = trng.uniform(key, ids, 17).numpy()
-    log_u1 = np.log(u1.astype(np.float64)).astype(np.float32)
-    cos_u2 = np.cos((np.float32(trng._TWO_PI_F32) * u2).astype(np.float64)).astype(np.float32)
+    u1 = trng.uniform(key, ids, 0) + (1.0 / (1 << 25))
+    theta = trng._TWO_PI_F32 * trng.uniform(key, ids, 17)
+    log_u1, cos_u2 = trng.log_f32(u1).numpy(), trng.cosf_glibc(theta).numpy()
+    for got, exact in ((log_u1, np.log(u1.numpy().astype(np.float64))),
+                       (cos_u2, np.cos(theta.numpy().astype(np.float64)))):
+        rounded = exact.astype(np.float32)
+        assert (np.abs(got.view(np.int32) - rounded.view(np.int32)) <= 1).all()
     want = np.sqrt((np.float32(-2.0) * log_u1).astype(np.float64)).astype(np.float32) * cos_u2
     assert want.dtype == np.float32
+    x = (np.float32(-2.0) * log_u1)
+    np.testing.assert_array_equal(trng.sqrt_f32(torch.from_numpy(x)).numpy(), np.sqrt(x))
     np.testing.assert_array_equal(trng.normal(key, ids).numpy().view(np.int32),
                                   want.view(np.int32))

@@ -12,10 +12,16 @@ the CPU, every tile on the CPU.
   convention of ``test_torch_step.py``): integers and bond sets equal by
   id, lattices within 1e-5, and positions bit-equal to the port's single
   engine stepping the same flat state, whose gap to the JAX package is the
-  float32 rounding of ``test_torch_step.py``'s parity tests: within 1e-3 um
-  there (a 632 um box), it reaches 10 float32 spacings (1.22e-3 um) on one
-  agent of this 1600 um box, so positions are held to 16 spacings of the
-  largest coordinate. The decomposed state converts between the packages
+  float32 rounding of ``test_torch_step.py``'s parity tests. In this 1600
+  um box it reaches 10 float32 spacings (1.22e-3 um) on agent 36, a cell
+  with no contact force moved by its motility alone: XLA:CPU fuses its
+  update ``loc + (dt v) 1e6`` into one multiply-add, the port rounds the
+  product first, and on each of the step's last 10 substeps the two land
+  one spacing apart (mirroring the fused update, tried on the CPU, brings
+  this colony to 0.38 spacings). The draws are bit-equal to JAX's; neither
+  the force sum's order nor the pair law's ``pow`` is the cause. Positions
+  are held to 16 spacings of the largest coordinate (the 2 x 2 case: 0.88
+  measured). The decomposed state converts between the packages
   (``convert.domain_state_from_numpy``);
 - migration re-homes agents (along y and diagonally too) and keeps every
   agent in the tile that owns its bin column and row;

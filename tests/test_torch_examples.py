@@ -9,8 +9,8 @@ and seeds.
   its locations in place; the JAX framework's values writer holds a
   reference to them, so the JAX example's earlier CSVs may already hold the
   next step's positions. The port's writer takes a copy.)
-- ``chemotaxis``: the jitter is ``ops.rng.random_normal``, within a few
-  float32 ulps of ``jax.random.normal`` (``split`` is bit-exact), and the
+- ``chemotaxis``: the jitter is ``ops.rng.random_normal``, bit-equal to
+  ``jax.random.normal`` (``split`` is bit-exact too), and the
   FTCS subcycles and the deposit round like the JAX ops only to float32
   rounding, so positions drift apart by ulps per step: after 3 steps the
   positions are held within 1e-3 um and the food eaten and the field within

@@ -3,9 +3,17 @@ package, compared by agent id (``__graft_entry__._by_id``'s canonical form).
 
 Tolerances and their causes:
 - integer state (ids, FDS values, states, counters, bond sets) is exact;
-- positions: float32 force sums taken in another order, and libm
-  ``cos``/``sin`` of the random unit vectors that differ by an ulp between
-  PyTorch and XLA:CPU, accumulate over 11 substeps to far below 1e-3 um;
+- positions of the whole steps: within 8 float32 spacings of the largest
+  coordinate (4.9e-4 um in these boxes; measured 5, on agent 423 of
+  ``test_hipsc_step_matches_jax``). The draws are bit-equal to JAX's
+  (``tests/test_torch_rng.py``); what is left is float32 rounding that
+  XLA:CPU does otherwise than the port's eager ops: it rewrites the pair
+  law (the division by 1e6 as a product with float32(1e-6), pi times the
+  adhesion constant folded into one constant, fused multiply-adds in the
+  cubic), so about 2 in 3 kept pair terms of the first substep differ by
+  1-3 ulps, and it fuses the position update ``loc + (dt v) 1e6`` into one
+  multiply-add, so a cell moved by its motility alone lands one spacing
+  apart on some substeps; 11 substeps carry both on;
 - the morphogen lattice: scatter-add order of the deposit (atol 1e-6).
 """
 
@@ -180,12 +188,17 @@ def _by_id(d):
     return out
 
 
-def _assert_same_colony(jstate, tstate, label, atol=1e-3):
+def _assert_same_colony(jstate, tstate, label, atol=1e-3, spacings=None):
+    """Integers, bonds, keys and lattices as the module docstring says;
+    positions within ``atol`` um or, given ``spacings``, within that many
+    float32 spacings of the largest coordinate."""
     a = _by_id(convert.numpy_from_jax_state(jstate))
     b = _by_id(convert.state_to_numpy(tstate))
     np.testing.assert_array_equal(b["ids"], a["ids"], err_msg=f"{label}: ids")
     for k in INT_FIELDS:
         np.testing.assert_array_equal(b[k], a[k], err_msg=f"{label}: {k}")
+    if spacings is not None:
+        atol = spacings * float(np.spacing(np.abs(a["locations"]).max().astype(np.float32)))
     np.testing.assert_allclose(b["locations"], a["locations"], rtol=0, atol=atol,
                                err_msg=f"{label}: locations")
     assert b["bonds"] == a["bonds"], f"{label}: bond sets"
@@ -231,7 +244,7 @@ def test_hipsc_step_matches_jax():
     assert tinfo.num_added == int(jinfo.num_added) > 0
     assert tinfo.num_removed == int(jinfo.num_removed)
     assert tinfo.jkr_max_degree == int(jinfo.jkr_max_degree)
-    _assert_same_colony(js2, ts2, "step")
+    _assert_same_colony(js2, ts2, "step", spacings=8)
 
 
 def test_hipsc_step_with_field_coupling_matches_jax():
@@ -252,7 +265,7 @@ def test_hipsc_step_with_field_coupling_matches_jax():
     js2, _ = jeng.safe_step(js)
     ts2, _ = _torch_engine_like(jeng, gen, xp, diff).safe_step(
         convert.state_from_numpy(d, "cpu"))
-    _assert_same_colony(js2, ts2, "coupled step")
+    _assert_same_colony(js2, ts2, "coupled step", spacings=8)
     uncoupled = dataclasses.replace(diff, field_coupling=False)
     ts_off, _ = _torch_engine_like(jeng, gen, xp, uncoupled).safe_step(
         convert.state_from_numpy(d, "cpu"))
@@ -303,7 +316,7 @@ def test_forced_division_safe_step_grows_like_jax():
     ts2, tinfo = teng.safe_step(ts)
     assert ts2.capacity > cap0 and ts2.capacity == js2.capacity
     assert tinfo.num_added > 0 and tinfo.num_deferred == 0
-    _assert_same_colony(js2, ts2, "forced division")
+    _assert_same_colony(js2, ts2, "forced division", spacings=8)
 
 
 def test_engine_device_is_explicit():
