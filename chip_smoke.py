@@ -15,7 +15,8 @@ Phases, each of which raises on failure (exit code != 0):
    ``safe_step``, the 3D (9-run) forms at the 99k-cell spheroid after the
    same; the span-mask kernels run as the scan runs them: seed, then a
    masked substep at the positions the seed's forces move the rows to, then
-   the compaction; the bio moments on the engine's own calls of one more
+   the compaction; the substep's update (``csrc/update.cu``) and the glue
+   FMA (``csrc/fma.cu``) on the 2D rows; the bio moments on the engine's own calls of one more
    step (recorded, so that deaths and births since the build are present),
    every mode on the motility call's inputs, and each engine call's device
    time and device launches, glue included; the seed, the masked substep,
@@ -37,9 +38,12 @@ Phases, each of which raises on failure (exit code != 0):
    2 holds each draw kernel against its plain version at the main path's
    shapes);
 4. step: one ``step`` of the port from the same 20k-cell 2D state on the
-   CPU (plain versions) and on the card (kernels), compared by agent id, for
-   each contact path, and the span-mask step against the id-list step on
-   the card; then 4 ``safe_step``s of the 3,300-cell spheroid (the 3D
+   CPU (plain versions) and on the card (kernels), compared by agent id
+   bit for bit (positions, bond sets, the lattice), for each contact path,
+   and the span-mask step against the id-list step on the card; then 3
+   ``safe_step``s of the 100k bench colony on the id-list path on the card
+   against the CPU's plain versions, bit for bit after each (``exact
+   phase``); then 4 ``safe_step``s of the 3,300-cell spheroid (the 3D
    example's configuration) on the CPU and on the card, both paths;
    then two runs of 20 ``safe_step``s of the 100k bench colony with
    FGF4 field coupling on, from one seed, equal by agent id;
@@ -240,12 +244,13 @@ PATHS = ("id_list", "span_mask")
 # own main-path run)
 PATH_KERNELS = {
     (2, "id_list"): ("contact_substep", "bio_moments", "ftcs_diffuse", "deposit", "normal",
-                     "unit_vectors"),
+                     "unit_vectors", "update", "fma"),
     (2, "span_mask"): ("contact_seed", "contact_masked", "mask_compact", "bio_moments",
-                       "ftcs_diffuse", "deposit", "normal", "unit_vectors"),
-    (3, "id_list"): ("contact_substep_3d", "bio_moments_3d", "normal", "unit_vectors_3d"),
+                       "ftcs_diffuse", "deposit", "normal", "unit_vectors", "update", "fma"),
+    (3, "id_list"): ("contact_substep_3d", "bio_moments_3d", "normal", "unit_vectors_3d",
+                     "update", "fma"),
     (3, "span_mask"): ("contact_seed_3d", "contact_masked_3d", "mask_compact_3d",
-                       "bio_moments_3d", "normal", "unit_vectors_3d"),
+                       "bio_moments_3d", "normal", "unit_vectors_3d", "update", "fma"),
 }
 SPAN_MASK_KERNELS = ("contact_seed", "contact_masked", "mask_compact")
 # the card's published peaks (H100 SXM: HBM3 rate, float32 outside the
@@ -500,13 +505,14 @@ def contact_flops(bounds, alive, degree) -> float:
 
 
 def check_contact(name, f_k, d_k, f_p, d_p) -> tuple:
-    """Forces within the pair-law rounding tolerance, degrees equal;
-    returns (max |F|, max abs error)."""
+    """Forces and degrees bit-equal (the kernel and the plain version run
+    the same float32 operations in the same order); returns (max |F|, max
+    abs error)."""
     f_scale = float(f_p.abs().max())
     f_err = float((f_k - f_p).abs().max())
-    # uniform-radius pair law (kernel) vs general pair law (plain): the two
-    # round differently by a few ulps of the force
-    torch.testing.assert_close(f_k, f_p, rtol=1e-5, atol=1e-6 * f_scale)
+    if not torch.equal(f_k, f_p):
+        rows = int((f_k != f_p).any(dim=1).sum())
+        raise AssertionError(f"{name}: forces differ on {rows} rows (max {f_err:.3e} N)")
     if not torch.equal(d_k, d_p):
         raise AssertionError(f"{name}: degrees differ")
     return f_scale, f_err
@@ -692,6 +698,14 @@ def kernel_phase(eng, state):
     print(f"kernel {name}: rows={C} K={K} W={W} mask words read {words} "
           f"({words / C:.3f} per row) bonds={bonds}, ids equal row for row")
 
+    # the substep's update (glue: the JAX engine's update is XLA's), on the
+    # B6 substep's outputs: the drift from the positions a rebuild would
+    # hold (the current ones, shifted by a 0.75 um stride), in 2D only (one
+    # kernel for both)
+    if n_runs == 3:
+        results.append(update_entry(eng, state, args, f_p, o))
+        results.append(fma_entry(args))
+
     # B4 bio moments: the engine's own calls of one more step, recorded (the
     # motility call's inputs hold the deaths and births since the build),
     # the motility call's inputs in all four modes
@@ -703,10 +717,9 @@ def kernel_phase(eng, state):
         kw = dict(b_kw, mode=mode)
         b_k = bio_moments.bio_moments_cuda(*b_args, **kw)
         b_p = bio_moments.bio_moments_plain(*b_args, **kw)
-        counts = [0, 3, 7]
-        if not torch.equal(b_k[:, counts], b_p[:, counts]):
-            raise AssertionError(f"bio_moments[{mode}]: count lanes differ")
-        torch.testing.assert_close(b_k, b_p, rtol=1e-5, atol=1e-4)
+        if not torch.equal(b_k, b_p):
+            lanes = (b_k != b_p).any(dim=0).nonzero().flatten().tolist()
+            raise AssertionError(f"bio_moments[{mode}]: lanes {lanes} differ")
         err = max(err, float((b_k - b_p).abs().max()))
     full = dict(b_kw, mode="full")
     candidates = int(span_mask.candidate_counts(bounds)[b_alive].sum())
@@ -778,6 +791,107 @@ def kernel_phase(eng, state):
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     kernels.launch_counts.clear()
     return results
+
+
+def update_entry(eng, state, args, force, order) -> dict:
+    """The update kernel (``csrc/update.cu``) against ``update_plain`` on
+    the sorted rows of the kernel phase: new locations, the largest squared
+    move and drift and the stale flag bit-equal, on the first substep's
+    folded form and a later substep's. Bound: ~65 bytes per row (bytes)."""
+    from hipsc_abm_tpu_torch.engine import drift_threshold
+    from hipsc_abm_tpu_torch.ops import integrate
+
+    bio, cfg = eng.bio, eng.cfg
+    loc, rad, alive = args[0][:, :3].contiguous(), args[0][:, 3].contiguous(), args[2]
+    mot = state.arrays["motility_forces"][order].contiguous()
+    ref = (loc + 0.75).contiguous()
+    size = torch.tensor(eng.gen.size, dtype=torch.float32, device=loc.device)
+    kw = dict(stokes=bio.stokes, dt=float(bio.move_dt),
+              threshold=drift_threshold(cfg.verlet_skin))
+    err = 0.0
+    for folded in (True, False):
+        scratch = integrate.update_scratch(1, loc.device)[0]
+        got = integrate.update_cuda(loc, rad, force, mot, alive, ref, size, folded=folded,
+                                    scratch=scratch, **kw)
+        want = integrate.update_plain(loc, rad, force, mot, alive, ref, size, folded=folded,
+                                      **kw)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("locations", "move2", "drift2", "stale"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"update (folded={folded}): {name} differs "
+                                     f"({g.flatten()[:4].tolist()} / {w.flatten()[:4].tolist()})")
+        err = max(err, float((got[0] - want[0]).abs().max()))
+    scratch = integrate.update_scratch(1, loc.device)[0]
+    C = loc.shape[0]
+    entry = dict(
+        name="update", route="cuda", source="hipsc_abm_tpu_torch/csrc/update.cu",
+        replaces="none (glue: XLA fuses the update into the JAX engine's step)",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: integrate.update_cuda(loc, rad, force, mot, alive, ref, size,
+                                                 folded=False, scratch=scratch, **kw), 50),
+        plain_ms=cuda_ms(lambda: integrate.update_plain(loc, rad, force, mot, alive, ref, size,
+                                                        folded=False, **kw), 10),
+        # per row: location, radius, two forces, liveness, reference in;
+        # the new location out; ~20 operations
+        **bound(C * (12 + 4 + 24 + 1 + 12 + 12), 20.0 * C),
+        library_ms=None, law="uniform")
+    print(f"kernel update: rows={C} stale={bool(want[3])} move2={float(want[1]):.6e} "
+          f"drift2={float(want[2]):.6e}, locations, maxima and flag bit-equal on both forms")
+    return entry
+
+
+def fma_entry(args) -> dict:
+    """The glue FMA (``csrc/fma.cu``) against ``rng.fma_f32`` on the rows'
+    coordinates (the shape of the step's calls: the motility norm's, the
+    daughters' displacement), bit for bit. Bound: 16 bytes per element."""
+    from hipsc_abm_tpu_torch.ops import rng, xla_f32
+
+    x = args[0][:, :3].contiguous()
+    y = torch.flip(x, dims=(0,)).contiguous()
+    got = xla_f32.fma_cuda(x, y, x)
+    want = rng.fma_f32(x, y, x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"fma: {int((got != want).sum())} elements differ")
+    n = x.numel()
+    print(f"kernel fma: {n} elements bit-equal to rng.fma_f32")
+    return dict(name="fma", route="cuda", source="hipsc_abm_tpu_torch/csrc/fma.cu",
+                replaces="none (glue: XLA:CPU's fused multiply-adds in the step)",
+                max_abs_err=0.0, ms=cuda_ms(lambda: xla_f32.fma_cuda(x, y, x), 50),
+                plain_ms=cuda_ms(lambda: rng.fma_f32(x, y, x), 10),
+                **bound(16 * n, 2.0 * n), library_ms=None, law="uniform")
+
+
+def step_exact_phase(steps: int = 3) -> dict:
+    """The 2D bench colony at ``N_MAIN`` cells on the id-list path: ``steps``
+    ``safe_step``s on the card and on the CPU (the plain versions, as
+    ``hipsc_step(plain=True)`` runs them) from the same state, compared by
+    agent id after every step, bit for bit; both sides' seconds."""
+    from hipsc_abm_tpu_torch import convert
+
+    cpu, s0 = engine_for(2, N_MAIN, "cpu", "id_list")
+    gpu = bench_engine(N_MAIN, "cuda")
+    gpu.cfg = cpu.cfg
+    d0 = convert.state_to_numpy(s0)
+    s_cpu, s_gpu = convert.state_from_numpy(d0, "cpu"), convert.state_from_numpy(d0, "cuda")
+    t_cpu = t_gpu = 0.0
+    out = []
+    for k in range(1, steps + 1):
+        t0 = time.perf_counter()
+        s_cpu, _ = cpu.safe_step(s_cpu)
+        t1 = time.perf_counter()
+        s_gpu, _ = gpu.safe_step(s_gpu)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        t_cpu, t_gpu = t_cpu + t1 - t0, t_gpu + t2 - t1
+        summary = compare_colonies(convert.state_to_numpy(s_cpu), convert.state_to_numpy(s_gpu),
+                                   f"exact phase step {k} card vs CPU", 0)
+        print(f"exact phase [2D, {N_MAIN}, id_list] step {k} card vs CPU: {summary}; "
+              f"cpu {t1 - t0:.2f} s, card {t2 - t1:.2f} s")
+        out.append(summary)
+    del cpu, gpu, s_cpu, s_gpu
+    torch.cuda.empty_cache()
+    return dict(cells=N_MAIN, steps=steps, cpu_s=round(t_cpu, 2), card_s=round(t_gpu, 2))
 
 
 def break_distance(ri, rj, bio):
@@ -984,10 +1098,14 @@ def general_law_phase(eng, state) -> list:
     for b_args, b_kw in calls:
         out = bio_moments.bio_moments_cuda(*b_args, **b_kw)
         bounds_ms.append(bio_bound(b_args, b_kw, float(out[:, 0].sum()))["bound_ms"])
+    ds_args, ds_kw = calls[2]
+    ds_ms = cuda_ms(lambda: bio_moments.bio_moments_cuda(*ds_args, **ds_kw), 50)
+    ds_plain_ms = cuda_ms(lambda: bio_moments.bio_moments_plain(*ds_args, **ds_kw), 5)
     print(f"{label} kernel {kernels.counted_name('bio_moments', n_runs)} with diff_surround: "
           f"{len(calls)} calls per step ({', '.join(kw['mode'] for _, kw in calls)}), bound "
           f"per call {[round(b, 5) for b in bounds_ms]} ms, the diff_surround call's "
-          f"{bounds_ms[2]:.5f} ms, the step's four {sum(bounds_ms):.5f} ms")
+          f"{bounds_ms[2]:.5f} ms (card {ds_ms:.5f} ms, plain {ds_plain_ms:.5f} ms per call), "
+          f"the step's four {sum(bounds_ms):.5f} ms")
     kernels.launch_counts.clear()
     return results
 
@@ -1263,10 +1381,12 @@ def probe_phase() -> list:
     return results
 
 
-def compare_colonies(a: dict, b: dict, label: str, bond_rows_allowed: int) -> str:
+def compare_colonies(a: dict, b: dict, label: str, bond_rows_allowed: int,
+                     exact: bool = True) -> str:
     """Two numpy states compared by agent id: integer state and radii
-    equal, positions within 1e-3 um, at most ``bond_rows_allowed`` bond sets
-    differing. Returns a summary."""
+    equal, positions and the lattice bit-equal (``exact``; else positions
+    within 1e-3 um and the lattice within 1e-6), at most
+    ``bond_rows_allowed`` bond sets differing. Returns a summary."""
     ia, ib = by_id(a), by_id(b)
     if not np.array_equal(ia["ids"], ib["ids"]):
         raise AssertionError(f"{label}: agent id sets differ")
@@ -1275,13 +1395,18 @@ def compare_colonies(a: dict, b: dict, label: str, bond_rows_allowed: int) -> st
         if not np.array_equal(ia[k], ib[k]):
             raise AssertionError(f"{label}: {k} differs")
     loc_err = float(np.abs(ia["locations"] - ib["locations"]).max())
-    np.testing.assert_allclose(ia["locations"], ib["locations"], rtol=0, atol=1e-3)
+    if exact:
+        np.testing.assert_array_equal(ia["locations"], ib["locations"], err_msg=label)
+    else:
+        np.testing.assert_allclose(ia["locations"], ib["locations"], rtol=0, atol=1e-3)
     summary = f"{len(ia['ids'])} agents, ints equal, max|dloc|={loc_err:.3e} um"
     if "fgf4_values" in a["gradients"]:
-        lat_err = float(np.abs(a["gradients"]["fgf4_values"]
-                               - b["gradients"]["fgf4_values"]).max())
-        np.testing.assert_allclose(a["gradients"]["fgf4_values"],
-                                   b["gradients"]["fgf4_values"], rtol=0, atol=1e-6)
+        la, lb = a["gradients"]["fgf4_values"], b["gradients"]["fgf4_values"]
+        lat_err = float(np.abs(la - lb).max())
+        if exact:
+            np.testing.assert_array_equal(la, lb, err_msg=label)
+        else:
+            np.testing.assert_allclose(la, lb, rtol=0, atol=1e-6)
         summary += f", max|dlattice|={lat_err:.3e}"
     bond_rows = bond_rows_apart(ia["bonds"], ib["bonds"])
     if bond_rows > bond_rows_allowed:
@@ -1312,15 +1437,18 @@ def step_phase(optional: bool = False):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         on_card[path] = convert.state_to_numpy(s_gpu)
-        # id_list keeps the tolerance of its first card runs; span_mask is
-        # held to no bond set differing
-        allowed = max(1, N_STEP_CHECK // 10000) if path == "id_list" else 0
+        # the uniform law bit for bit; the general law (optional phases)
+        # keeps the tolerance of the cube root, which is powf on the card
+        # and PyTorch's pow on the CPU (ROADMAP C7)
+        allowed = max(1, N_STEP_CHECK // 10000) if optional and path == "id_list" else 0
         summary = compare_colonies(convert.state_to_numpy(s_cpu), on_card[path],
-                                   f"step[{path}]{tag} card vs CPU", allowed)
+                                   f"step[{path}]{tag} card vs CPU", allowed,
+                                   exact=not optional)
         print(f"step phase [{path}]{tag} card vs CPU: {summary}, cpu {t1 - t0:.2f} s, "
               f"card {t2 - t1:.2f} s")
     summary = compare_colonies(on_card["id_list"], on_card["span_mask"],
-                               f"step{tag} span_mask vs id_list on the card", 0)
+                               f"step{tag} span_mask vs id_list on the card", 0,
+                               exact=not optional)
     print(f"step phase{tag} span_mask vs id_list on the card: {summary}")
 
 
@@ -1346,7 +1474,7 @@ def step_phase_3d(steps: int = 4, optional: bool = False):
             k_grown[device] = state.bonds.partners.shape[1]
         on_card[path] = out["cuda"][0]
         summary = compare_colonies(out["cpu"][0], out["cuda"][0],
-                                   f"3D step[{path}]{tag} card vs CPU", 0)
+                                   f"3D step[{path}]{tag} card vs CPU", 0, exact=not optional)
         print(f"step phase 3D [{path}]{tag} card vs CPU after {steps} safe_steps: {summary}, "
               f"bond_cap {k_grown['cpu']}/{k_grown['cuda']}, cpu {out['cpu'][1]:.2f} s, "
               f"card {out['cuda'][1]:.2f} s")
@@ -1488,9 +1616,12 @@ def lifecycle_card_vs_cpu(root: str, steps: int, cls=None, contact_path: str = "
             "FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states", "death_counters",
             "diff_counters", "div_counters", "fds_counters"))
         d = np.abs(ia["locations"] - ib["locations"]).max(axis=1)
+        lattices = [x["gradients"].get("fgf4_values") for x in (a, b)]
         return dict(same_agents=True, ints_equal=ints, max_dloc=float(d.max()),
                     over_1e3=int((d > 1e-3).sum()),
-                    bond_rows=bond_rows_apart(ia["bonds"], ib["bonds"]))
+                    bond_rows=bond_rows_apart(ia["bonds"], ib["bonds"]),
+                    lattice_equal=(lattices[0] is None and lattices[1] is None)
+                    or bool(np.array_equal(*lattices)))
 
     out = []
     for step in range(1, steps + 1):
@@ -1627,22 +1758,15 @@ def lifecycle_phase() -> dict:
         label = f"lifecycle phase a ({n0} cells)"
 
         # the first steps on the card against the CPU: each card step from the
-        # CPU's previous state to the step phase's tolerance; the two
-        # trajectories with integer state equal (their positions part by
-        # more than one step's rounding where a contact decision falls
-        # within it, so their drift is reported)
+        # CPU's previous state, and the two trajectories, bit for bit
         write_templates(root, LIFECYCLE_GENERAL, LIFECYCLE_EXPERIMENTAL)
-        allowed = max(1, n0 // 10000)
         for row in lifecycle_card_vs_cpu(root, LIFECYCLE_CPU_STEPS):
-            one, traj = row["one_step"], row["trajectory"]
-            if not (one["same_agents"] and one["ints_equal"] and one["max_dloc"] <= 1e-3
-                    and one["bond_rows"] <= allowed):
-                raise AssertionError(f"{label}: step {row['step']} on the card from the CPU's "
-                                     f"state differs: {one}")
-            if not (traj["same_agents"] and traj["ints_equal"]
-                    and traj["bond_rows"] <= allowed):
-                raise AssertionError(f"{label}: the card's and the CPU's trajectories part at "
-                                     f"step {row['step']}: {traj}")
+            for kind in ("one_step", "trajectory"):
+                r = row[kind]
+                if not (r["same_agents"] and r["ints_equal"] and r["max_dloc"] == 0
+                        and r["bond_rows"] == 0 and r["lattice_equal"]):
+                    raise AssertionError(f"{label}: step {row['step']} ({kind}) on the card "
+                                         f"differs from the CPU's: {r}")
 
         resume_check(root, LIFECYCLE_GENERAL, LIFECYCLE_EXPERIMENTAL, label)
         traj = {name: values_trajectory(os.path.join(out, name), name, range(1, steps + 1))
@@ -1926,6 +2050,11 @@ def main_path(dims: int, n_cells: int, path: str, optional: bool = False) -> dic
                              f"bio-moments, {counts.get('ftcs_diffuse')} FTCS and "
                              f"{counts.get('deposit')} deposit launches for {attempts} step "
                              "attempts")
+    # one update launch per substep (the Stokes update, move probe and
+    # drift test)
+    if counts.get("update", 0) != n_sub * attempts:
+        raise AssertionError(f"{label}: {counts.get('update')} update launches for "
+                             f"{attempts} step attempts of {n_sub} substeps")
     # the draws: the pathway's normal and division's and motility's unit
     # vectors, one launch each per step attempt
     unit = "unit_vectors" if dims == 2 else "unit_vectors_3d"
@@ -3848,6 +3977,7 @@ def main() -> int:
     print(json.dumps({"draws": phase("draws", draws_phase)}))
 
     phase("step", step_phase)
+    print(json.dumps({"exact": phase("exact 100k", step_exact_phase)}))
     phase("step 3D", step_phase_3d)
     phase("coupling", coupling_phase)
     lifecycle = phase("lifecycle", lifecycle_phase)
@@ -3938,7 +4068,7 @@ def main() -> int:
                  if (d, p) == (dims, path) and (n == N_LARGE) == large}
         general = r["law"] == "general"
         run = first[general]
-        r["launches"] = run["counts"][base]
+        r["launches"] = run["counts"].get(base, 0)
         r["taken_launches"] = taken_launches(base, r["launches"], run["attempts"],
                                              run["rebuilds"], run["substeps"])
         if general:  # per launch that ran its branch, in the profiled steps

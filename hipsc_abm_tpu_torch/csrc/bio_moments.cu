@@ -52,8 +52,11 @@
 //   memory and written with one coalesced pass of float4 stores (in 2D 15%
 //   faster than four float4 stores per thread at a 64-byte stride, in 3D
 //   the same).
-// Candidate order and every float32 operation are those of the earlier
-// kernel (built with --fmad=false), so the lanes are bit-equal to it.
+// The squared distance is XLA:CPU's in the TPU kernel, fma(dz, dz, fma(dx,
+// dx, dy dy)) (the library is built with --fmad=false, so the only FMAs are
+// the __fmaf_rn written), and the displacement lanes add each run's sum to
+// the row's after the run, as the TPU kernel adds its lane sums; the plain
+// version (ops/bio_moments.py) does both the same way, bit for bit.
 // Tried and dropped (PERF.md section 6, each bit-equal): 8 candidates ahead
 // (3D 30-50% slower, 2D 5%); the chunk's neighbours found first and their
 // feature loads issued together (3D 10-30% slower, 2D 8-15%); each run's
@@ -100,6 +103,8 @@ __global__ void __launch_bounds__(kThreads) bio_moments_kernel(
     for (int r = 0; r < N_RUNS; ++r) {
       const int lo = b[r].x;
       const int hi = b[r].y;
+      // the run's displacement sums, added to the row's after the run
+      float rax = 0.f, ray = 0.f, raz = 0.f, rbx = 0.f, rby = 0.f, rbz = 0.f;
       for (int p0 = lo; p0 < hi; p0 += kAhead) {
         float4 c[kAhead];
         unsigned char live[kAhead];
@@ -114,12 +119,14 @@ __global__ void __launch_bounds__(kThreads) bio_moments_kernel(
           const int p = p0 + u;
           if (p >= hi) break;
           if (p == row || !live[u]) continue;
-          const float dx0 = c[u].x - me.x;
-          const float dy0 = c[u].y - me.y;
-          float dist2 = dx0 * dx0 + dy0 * dy0;
+          // XLA:CPU's squared distance in the TPU kernel: the first
+          // product fused into the sum, fma(dz, dz, fma(dx, dx, dy dy))
+          const float dx0 = __fsub_rn(c[u].x, me.x);
+          const float dy0 = __fsub_rn(c[u].y, me.y);
+          float dist2 = __fmaf_rn(dx0, dx0, __fmul_rn(dy0, dy0));
           if (k3D) {
-            const float dz0 = c[u].z - me.z;
-            dist2 = dist2 + dz0 * dz0;
+            const float dz0 = __fsub_rn(c[u].z, me.z);
+            dist2 = __fmaf_rn(dz0, dz0, dist2);
           }
           if (dist2 > radius2) continue;
           count += 1.f;
@@ -137,19 +144,25 @@ __global__ void __launch_bounds__(kThreads) bio_moments_kernel(
             const float ddz = k3D ? loc1[3 * (size_t)p + 2] - mz : 0.f;
             if (g1 > g0) {
               ca += 1.f;
-              ax += ddx;
-              ay += ddy;
-              az += ddz;
+              rax += ddx;
+              ray += ddy;
+              raz += ddz;
             }
             if (g2 != 0.f) {
               cb += 1.f;
-              bx += ddx;
-              by += ddy;
-              bz += ddz;
+              rbx += ddx;
+              rby += ddy;
+              rbz += ddz;
             }
           }
         }
       }
+      ax += rax;
+      ay += ray;
+      az += raz;
+      bx += rbx;
+      by += rby;
+      bz += rbz;
     }
   }
   float4* o = stage + 4 * threadIdx.x;

@@ -10,8 +10,9 @@
 // ascending. A candidate p counts if its id differs from the row's id, the
 // JKR pair law lets it survive (nondimensional overlap d > break_d), and it
 // is a fresh contact (dist^2 <= radius^2) or already in the row's partner
-// list. Survivors add their force and are appended to the new partner list
-// in walk order; the list keeps the first K and the returned degree is the
+// list. Survivors add their force to their run's sum (the runs' sums are
+// then added in order, ops/neighbors.py `walk_sum`) and are appended to the
+// new partner list in walk order; the list keeps the first K and the returned degree is the
 // untruncated count (the bond-capacity overflow probe).
 //
 // What bounds it on the card: a row walks its candidates of 20 bytes each,
@@ -25,16 +26,17 @@
 // every row of a block; on Hopper each thread walks only its own run slices
 // (the rows of a CTA are neighbours in the sorted order, so their runs
 // overlap and the reads hit L1). What the design does about the rest:
-// - On the general law (per-pair radii, growth on; the kGeneral
-//   instantiation) a candidate that the law certainly breaks is dropped
-//   before the law, by one cut on its squared distance against the row's
-//   reach (jkr_pair.cuh `certainly_breaks`, which states the margin
-//   argument): a position load, the squared distance and the cut, with no
-//   id read and no square root, where the law asked a `powf` and two
-//   divisions of every candidate. Such a pair gives no force and no entry,
-//   bonded or not, and every other candidate runs the law exactly as
-//   before, so the outputs are bit-equal to the law asked of every
-//   candidate. The uniform instantiation is the same walk without the cut.
+// - A candidate that the law certainly breaks is dropped before the law,
+//   by one cut on its squared distance: on the general law (per-pair
+//   radii, growth on; the kGeneral instantiation) against the row's reach
+//   (jkr_pair.cuh `certainly_breaks`, which states the margin argument),
+//   where the law asks a `powf` and two divisions of every candidate; on
+//   the uniform law against one reach for all pairs (`uniform_cut2`), where
+//   it asks XLA's rsqrt, a table load and two fused Newton steps.
+//   A position load, the squared distance and the cut, with no id read.
+//   Such a pair gives no force and no entry, bonded or not, and every other
+//   candidate runs the law exactly as before, so the outputs are bit-equal
+//   to the law asked of every candidate.
 // - The break test comes next. The pair law decides from distance and
 //   radii alone whether a pair survives, and a pair that breaks gives no
 //   force and no entry, bonded or not; so only candidates that survive ask
@@ -105,37 +107,35 @@ __global__ void __launch_bounds__(kThreads) contact_substep_kernel(
     const float4 me = xyzr[row];
     const int my_id = ids[row];
     const float reach = kGeneral ? hipsc::cull_reach(law, me.w) : 0.f;
+    const float cut2 = kGeneral ? 0.f : hipsc::uniform_cut2(law);
     for (int r = 0; r < N_RUNS; ++r) {
       const int lo = bounds[row * 2 * N_RUNS + 2 * r];
       const int hi = bounds[row * 2 * N_RUNS + 2 * r + 1];
+      float tx = 0.f, ty = 0.f, tz = 0.f;  // the run's sum
       for (int p = lo; p < hi; ++p) {
-        int cid = 0;
-        if (!kGeneral) {
-          cid = ids[p];
-          if (cid == my_id) continue;
-        }
         const float4 c = xyzr[p];
-        const float dx = me.x - c.x;
-        const float dy = me.y - c.y;
-        const float dz = me.z - c.z;
-        const float dist2 = dx * dx + dy * dy + dz * dz;
-        if (kGeneral) {
-          // the cut, then the id: a dropped candidate reads no id, and the
-          // row itself (distance 0) is never dropped
-          if (hipsc::certainly_breaks(reach, c.w, dist2)) continue;
-          cid = ids[p];
-          if (cid == my_id) continue;
-        }
+        const float dx = __fsub_rn(me.x, c.x);
+        const float dy = __fsub_rn(me.y, c.y);
+        const float dz = __fsub_rn(me.z, c.z);
+        const float dist2 = hipsc::pair_dist2(law, dx, dy, dz);
+        // the cut, then the id: a dropped candidate reads no id, and the
+        // row itself (distance 0) is never dropped
+        if (kGeneral ? hipsc::certainly_breaks(reach, c.w, dist2) : dist2 > cut2) continue;
+        const int cid = ids[p];
+        if (cid == my_id) continue;
         // the pair breaks: no force, no entry, whether bonded or not
         const hipsc::PairOverlap o = hipsc::jkr_overlap(law, me, c, dist2);
         if (!(o.d > law.break_d)) continue;
         bool eligible = dist2 <= law.radius2;
         for (int k = 0; k < K && !eligible; ++k) eligible = in[k] == cid;
         if (!eligible) continue;
-        hipsc::jkr_force(law, o, dx, dy, dz, fx, fy, fz);
+        hipsc::jkr_force(law, o, dx, dy, dz, tx, ty, tz);
         if (count < K) out[count] = cid;
         ++count;
       }
+      fx = __fadd_rn(fx, tx);
+      fy = __fadd_rn(fy, ty);
+      fz = __fadd_rn(fz, tz);
     }
   }
   if (t < rows) {
@@ -162,11 +162,12 @@ extern "C" int hipsc_contact_substep(
     const void* partners, void* force, void* degree, void* new_partners, int C,
     int K, int n_runs, int pitch, int smem_bytes, float radius2, float break_d,
     int uniform, float two_r, float inv_scale, float fpre, float scale_c,
-    float pi_f, float adhesion, void* stream) {
+    float pi_f, float adhesion, const void* rsqrt_tab, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
   if (K < 1 || pitch < K) return (int)cudaErrorInvalidValue;
-  PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
+  PairLaw law{radius2, break_d, uniform, two_r,     inv_scale,
+              fpre,    scale_c, pi_f,    adhesion,  (const int*)rsqrt_tab};
   auto kernel = n_runs == 3 ? (uniform ? contact_substep_kernel<3, false>
                                        : contact_substep_kernel<3, true>)
                             : (uniform ? contact_substep_kernel<9, false>

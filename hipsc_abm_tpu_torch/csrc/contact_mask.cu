@@ -84,14 +84,16 @@
 //   candidates of a run before testing any of them (the tail re-reads the
 //   run's last candidate), so each thread has several loads in flight
 //   instead of one dependent load behind each test.
-// - The seed on the general law (per-pair radii, growth on; kGeneral)
-//   drops a candidate that the law certainly breaks before the law, by one
-//   cut on its squared distance against the row's reach (jkr_pair.cuh
-//   `certainly_breaks`, which states the margin argument), as contact.cu
-//   does; the cut comes after the candidate counter j and the mask-word
-//   bookkeeping, so bit positions do not move, and a dropped pair sets no
-//   bit and adds no force, as the law would have decided. Every other
-//   candidate runs the law as before, bit for bit.
+// - The seed drops a candidate that the law certainly breaks before the
+//   law, by one cut on its squared distance, as contact.cu does: on the
+//   general law (kGeneral) against the row's reach (jkr_pair.cuh
+//   `certainly_breaks`, which states the margin argument), on the uniform
+//   law against one reach for all pairs (`uniform_cut2`: that law asks
+//   XLA's rsqrt of every candidate); the cut comes after the
+//   candidate counter j and the mask-word bookkeeping, so bit positions do
+//   not move, and a dropped pair sets no bit and adds no force, as the law
+//   would have decided. Every other candidate runs the law as before, bit
+//   for bit.
 // - The seed tests the break first, as contact.cu does: a pair that breaks
 //   gives no force and no bit, bonded or not, so the scan over the row's K
 //   partner ids runs only for candidates that survive beyond the search
@@ -109,13 +111,9 @@
 // to 3.9 times slower in 3D (most likely because every lane repeats the
 // per-chunk bookkeeping and the groups of one warp diverge); kAhead = 8 was
 // within the run-to-run spread of 4; on the uniform law, a host-computed
-// squared-distance cut that dropped certainly-breaking pairs before the
-// pair law's square root took 22% off the 3D seed alone, some 0.05 ms of a
-// 5 ms device step, for a second entry point and its own proof of
-// bit-equality. The uniform law's overlap is a subtraction and a product
-// after that square root, so a cut saves it little; the general law's is a
-// `powf` and two divisions, so the general seed takes the cut, with the
-// row's reach computed in the kernel and no second entry point.
+// squared-distance cut through a second entry point took 22% off the 3D
+// seed alone; the cut is now computed in the kernel from the law's
+// constants, with no second entry point.
 // The TPU kernels DMA'd 128-aligned spans plus chunk-major int8 mask slabs
 // into VMEM (~1.5 KB of mask per row); here each thread reads only its own
 // run slices and 4 bytes per 32 candidates of mask.
@@ -157,9 +155,11 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
     const int* b = bounds + (size_t)row * 2 * N_RUNS;
     const int* my_partners = kSeed ? partners + (size_t)row * K : nullptr;
     const float reach = kGeneral ? hipsc::cull_reach(law, me.w) : 0.f;
+    const float cut2 = kGeneral ? 0.f : hipsc::uniform_cut2(law);
     for (int r = 0; r < N_RUNS; ++r) {
       const int lo = b[2 * r];
       const int hi = b[2 * r + 1];
+      float tx = 0.f, ty = 0.f, tz = 0.f;  // the run's sum
       for (int p0 = lo; p0 < hi; p0 += kAhead) {
         float4 cand[kAhead];
 #pragma unroll
@@ -178,14 +178,14 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
           }
           ++j;
           const float4 c = cand[u];
-          const float dx = me.x - c.x;
-          const float dy = me.y - c.y;
-          const float dz = me.z - c.z;
-          const float dist2 = dx * dx + dy * dy + dz * dz;
+          const float dx = __fsub_rn(me.x, c.x);
+          const float dy = __fsub_rn(me.y, c.y);
+          const float dz = __fsub_rn(me.z, c.z);
+          const float dist2 = hipsc::pair_dist2(law, dx, dy, dz);
           bool keep;
           if (kSeed) {
             // the pair breaks: no force, no bit, whether bonded or not
-            if (kGeneral && hipsc::certainly_breaks(reach, c.w, dist2)) continue;
+            if (kGeneral ? hipsc::certainly_breaks(reach, c.w, dist2) : dist2 > cut2) continue;
             const hipsc::PairOverlap o = hipsc::jkr_overlap(law, me, c, dist2);
             if (!(o.d > law.break_d)) continue;
             if (p == row) continue;  // the row itself passes both tests above
@@ -194,10 +194,10 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
               const int cid = ids[p];
               for (int k = 0; k < K && !keep; ++k) keep = my_partners[k] == cid;
             }
-            if (keep) hipsc::jkr_force(law, o, dx, dy, dz, fx, fy, fz);
+            if (keep) hipsc::jkr_force(law, o, dx, dy, dz, tx, ty, tz);
           } else {
             keep = (dist2 <= law.radius2 || ((in_word >> bit) & 1u)) && p != row &&
-                   hipsc::jkr_pair(law, me, c, dx, dy, dz, dist2, fx, fy, fz);
+                   hipsc::jkr_pair(law, me, c, dx, dy, dz, dist2, tx, ty, tz);
           }
           if (keep) {
             out_word |= 1u << bit;
@@ -205,6 +205,9 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
           }
         }
       }
+      fx = __fadd_rn(fx, tx);
+      fy = __fadd_rn(fy, ty);
+      fz = __fadd_rn(fz, tz);
     }
   }
   // the last (partial) word, then zeros up to W: a dead or short row leaves
@@ -293,10 +296,11 @@ extern "C" int hipsc_contact_seed(
     const void* partners, void* mask, void* force, void* degree, int C, int K,
     int W, int n_runs, float radius2, float break_d, int uniform, float two_r,
     float inv_scale, float fpre, float scale_c, float pi_f, float adhesion,
-    const void* pred, void* stream) {
+    const void* rsqrt_tab, const void* pred, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if ((n_runs != 3 && n_runs != 9) || W < 1) return (int)cudaErrorInvalidValue;
-  PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
+  PairLaw law{radius2, break_d, uniform, two_r,     inv_scale,
+              fpre,    scale_c, pi_f,    adhesion,  (const int*)rsqrt_tab};
   auto kernel = n_runs == 3 ? (uniform ? contact_mask_kernel<true, 3, false>
                                        : contact_mask_kernel<true, 3, true>)
                             : (uniform ? contact_mask_kernel<true, 9, false>
@@ -312,10 +316,12 @@ extern "C" int hipsc_contact_masked(
     const void* xyzr, const void* alive, const void* bounds, void* mask,
     void* force, void* degree, int C, int W, int n_runs, float radius2,
     float break_d, int uniform, float two_r, float inv_scale, float fpre,
-    float scale_c, float pi_f, float adhesion, const void* pred, void* stream) {
+    float scale_c, float pi_f, float adhesion, const void* rsqrt_tab, const void* pred,
+    void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if ((n_runs != 3 && n_runs != 9) || W < 1) return (int)cudaErrorInvalidValue;
-  PairLaw law{radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c, pi_f, adhesion};
+  PairLaw law{radius2, break_d, uniform, two_r,     inv_scale,
+              fpre,    scale_c, pi_f,    adhesion,  (const int*)rsqrt_tab};
   auto kernel = n_runs == 3 ? contact_mask_kernel<false, 3, false>
                             : contact_mask_kernel<false, 9, false>;
   kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(

@@ -6,16 +6,17 @@
 // pallas_call; the plain version is hipsc_abm_tpu_torch/ops/diffusion.py
 // `ftcs_diffuse`.
 //
-// What it computes: `steps` subcycles new = b * c + a * (((down + up) +
-// right) + left) on the (nx, ny) lattice, with (a_main, b_main) for all but
+// What it computes: `steps` subcycles new = fma(b, c, a * (((down + up) +
+// right) + left)) on the (nx, ny) lattice, with (a_main, b_main) for all but
 // the last and (a_last, b_last) for the last (`diffusion_dts` always ends
 // with its remainder subcycle). The reference reflects a ghost ring (columns,
 // then rows) before every subcycle; the five-point stencil never reads a
 // corner, so that reflection is exactly a clamp of each neighbour index into
 // the lattice. The association of the sum is the plain version's, and the
-// products and sums are written with __fmul_rn/__fadd_rn so that nvcc
-// cannot contract them into FMAs: every subcycle is bit-identical to the
-// plain float32 one.
+// arithmetic is written with __fmul_rn/__fadd_rn/__fmaf_rn: the one FMA is
+// where XLA:CPU fuses the TPU kernel's `b * c + temp` (ops/xla_f32.py),
+// and nvcc may contract nothing else, so every subcycle is bit-identical to
+// the plain float32 one.
 //
 // What bounds it on the card: per step the lattice must be read once and
 // written once (0.8 MB at 449 x 449, 4 MB at 1001 x 1001) and each subcycle
@@ -115,7 +116,7 @@ __global__ void __launch_bounds__(kCols * kRows, 1) ftcs_diffuse_kernel(
           const int right = min(c + 1, g.ny - 1) - Q0;
           const float sum =
               __fadd_rn(__fadd_rn(__fadd_rn(down[cc], up[cc]), mid[right]), mid[left]);
-          res[cc] = __fadd_rn(__fmul_rn(b, mid[cc]), __fmul_rn(a, sum));
+          res[cc] = __fmaf_rn(b, mid[cc], __fmul_rn(a, sum));
         }
       }
       __syncthreads();

@@ -4,20 +4,32 @@
 // kernels' `_pair_keep` (hipsc_abm_tpu/ops/pallas_contact.py): the
 // nondimensional overlap d of a candidate pair decides survival (d >
 // break_d); a survivor pulls or pushes the row agent along the pair normal
-// with the JKR force polynomial. The constants arrive rounded to float32 by
-// the Python wrappers (`ops.contact.pair_law_args`), and the library is
-// built with --fmad=false, so every kernel that includes this header rounds
-// the same way.
+// with the JKR force polynomial. The float32 operations are those of the
+// plain mirrors in ops/jkr.py, which are the JAX package's as XLA:CPU
+// compiles them (ops/xla_f32.py); the library is built with --fmad=false,
+// so the only FMAs are the __fmaf_rn written here, each where XLA:CPU's
+// backend fuses one. The constants arrive rounded to float32 by the Python
+// wrappers (`ops.contact.pair_law_args`), and the products XLA folds are
+// formed here in float32 as it forms them.
 //
 // Two forms. The uniform law (`law.uniform == 1`: every radius equal, as
-// when growth is off) folds the radii into three constants, so a
-// candidate's overlap costs a subtraction and a product. The general law
-// (`law.uniform == 0`: per-pair radii, as growth makes them) computes the
-// reduced radius r_hat, its cube root by `powf`, and two divisions per
-// pair. CUDA's `powf` is not correctly rounded (2 ulp), nor is the plain
-// versions' `pow`: a pair whose overlap lies within a few ulps of `break_d`
-// can be decided apart on the card and on the CPU (chip_smoke.py reports
-// each such pair and its distance from the break).
+// when growth is off) is the TPU kernels' fast path as XLA:CPU compiles
+// their interpreted bodies: the squared distance fma(dz, dz, fma(dx, dx,
+// dy dy)), inv = XLA's rsqrt (the x86 `rsqrtps` estimate, a table of 2048
+// 12-bit values the caller passes, refined by two Newton steps with FMAs),
+// d0 = fma(-dist2, inv, 2r) (mag = dist2 inv fused away), d = d0 inv_scale,
+// the cubic fused with its first coefficient folded into c3 = -0.0204
+// inv_scale, and the force w (dx, dy, dz) with w = (f fpre) inv. The
+// general law (`law.uniform == 0`: per-pair radii, as growth makes them) is
+// `_pair_jkr` as XLA:CPU compiles it: the squared distance fma(dz, dz,
+// fma(dy, dy, dx dx)), mag = sqrtf (correctly rounded), the overlap times
+// float32(1e-6), the reduced radius r_hat, its cube root by `powf`, two
+// divisions, the cubic fused and pi adhesion folded. CUDA's `powf` is not
+// glibc's, which XLA:CPU calls, nor is the plain versions' `pow`: each is
+// within 2 ulp, so the general law's d can differ in its last bits between
+// the card and the CPU, and a pair whose overlap lies within a few ulps of
+// `break_d` can be decided apart (chip_smoke.py reports each such pair and
+// its distance from the break).
 //
 // What bounded the general law on the card was that per-pair `powf` and the
 // divisions, asked of every candidate a row walks (~222 over nine runs in
@@ -33,10 +45,13 @@
 // `cull_reach`), every pair with mag > ri + rj + b_i breaks. The cut is
 // widened by the relative slack 2^-12 (~2.5e-3 um at the radii growth
 // makes): the float32 evaluation of the law and of the cut (sqrtf and the
-// divisions correctly rounded, `powf` within 2 ulp, a few products) errs by
-// some 1e-6 relative, so a culled pair's computed d is below -|break_d|
-// by ~2^-12 of it, hundreds of times any rounding (one ulp of d near the
-// break is ~2.5e-8 um of distance). The argument needs a row radius in
+// divisions correctly rounded, `powf` within 2 ulp, a few products and
+// FMAs) errs by some 1e-6 relative, so a culled pair's computed d is below
+// -|break_d| by ~2^-12 of it, hundreds of times any rounding (one ulp of d
+// near the break is ~2.5e-8 um of distance). `cull_reach` keeps CUDA's
+// `powf`: the cut is a conservative filter, and a reach off by 2 ulp moves
+// it by ~1e-7 relative, far inside the slack, so the argument holds for
+// any `powf` within a few ulps. The argument needs a row radius in
 // [kCullMinRadius, kCullMaxRadius] (no overflow or underflow in r_hat) and
 // a positive candidate radius; elsewhere nothing is dropped and the law
 // decides. With the cut, ~2 candidates of a 3D row reach the law, and the
@@ -45,6 +60,10 @@
 // overlap is a subtraction and a product after the square root. The plain
 // mirror, which the CPU tests hold to the law, is ops/contact.py
 // `cull_reach` and `certainly_breaks`.
+//
+// The kernels add a row's kept forces run by run: each run's terms in walk
+// order from 0, then the runs' sums in order, as the TPU kernels add each
+// run's lane sum to the row's total (ops/neighbors.py `walk_sum`).
 
 #pragma once
 
@@ -63,18 +82,41 @@ struct PairLaw {
   float scale_c;      // general path: ((pi * adhesion_const) / e_hat)^(2/3)
   float pi_f;         // general path: pi
   float adhesion;     // general path: adhesion_const
+  const int* rsqrt_tab;  // uniform path: the rsqrtps estimates (ops/xla_f32.py)
 };
+
+// XLA:CPU's float32 rsqrt of a positive normal x (ops/xla_f32.py `rsqrt`):
+// the table's 12-bit estimate under the exponent 126 - floor(e / 2), then
+// twice y = fma(y * -0.5, fma(y, x * y, -1), y).
+__device__ __forceinline__ float rsqrt_xla(float x, const int* __restrict__ tab) {
+  const int bits = __float_as_int(x);
+  const int e = ((bits >> 23) & 255) - 127;
+  const int index = ((e & 1) << 10) | ((bits >> 13) & 1023);
+  float y = __int_as_float(((126 - (e >> 1)) << 23) | (__ldg(tab + index) << 11));
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    y = __fmaf_rn(__fmul_rn(y, -0.5f), __fmaf_rn(y, __fmul_rn(x, y), -1.0f), y);
+  return y;
+}
+
+// The pair's squared distance, (dx, dy, dz) = me - c, as each law's mirror
+// forms it (dz = 0 in 2D, where either form is the 2D one).
+__device__ __forceinline__ float pair_dist2(const PairLaw& law, float dx, float dy,
+                                            float dz) {
+  if (law.uniform) return __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
+  return __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
+}
 
 // The pair law in two parts, so that a kernel can drop a pair that breaks
 // before it asks whether the pair is eligible (a breaking pair gives no
-// force and no entry, bonded or not). `jkr_overlap` computes the distance
-// `mag` and the nondimensional overlap `d` (the pair survives iff
-// d > break_d); `jkr_force` adds a survivor's force on the row agent. Each
-// does the float32 operations of the single function they were split from,
-// in the same order, so the forces do not change by a bit.
+// force and no entry, bonded or not). `jkr_overlap` computes the
+// nondimensional overlap `d` (the pair survives iff d > break_d) and what
+// the force reuses; `jkr_force` adds a survivor's force on the row agent to
+// a run's sum.
 struct PairOverlap {
-  float mag;    // |me - c|
   float d;      // nondimensional overlap
+  float mag;    // uniform path: inv = 1 / |me - c|; general path: |me - c|
+  float d0;     // uniform path: 2r - mag (d = d0 inv_scale)
   float r_hat;  // general path: reduced radius (m)
 };
 
@@ -83,16 +125,20 @@ __device__ __forceinline__ PairOverlap jkr_overlap(const PairLaw& law,
                                                    const float4& c,
                                                    float dist2) {
   PairOverlap o;
-  o.mag = dist2 > 0.f ? sqrtf(dist2) : 0.f;
   if (law.uniform) {
-    o.d = (law.two_r - o.mag) * law.inv_scale;
+    o.mag = dist2 > 0.f ? rsqrt_xla(dist2, law.rsqrt_tab) : 0.f;
+    o.d0 = __fmaf_rn(-dist2, o.mag, law.two_r);
+    o.d = __fmul_rn(o.d0, law.inv_scale);
     o.r_hat = 0.f;
   } else {
     const float ri = me.w, rj = c.w;
-    const float overlap = (ri + rj - o.mag) / 1e6f;
-    o.r_hat = (ri * rj) / (1e6f * fmaxf(ri + rj, 1e-12f));
-    const float scale = o.r_hat > 0.f ? law.scale_c * powf(o.r_hat, 1.0f / 3.0f) : 0.f;
-    o.d = overlap / fmaxf(scale, 1e-30f);
+    o.mag = dist2 > 0.f ? sqrtf(dist2) : 0.f;
+    const float overlap = __fmul_rn(__fsub_rn(__fadd_rn(ri, rj), o.mag), 1e-6f);
+    o.r_hat = __fdiv_rn(__fmul_rn(ri, rj), __fmul_rn(fmaxf(__fadd_rn(ri, rj), 1e-12f), 1e6f));
+    const float scale =
+        o.r_hat > 0.f ? __fmul_rn(powf(o.r_hat, 1.0f / 3.0f), law.scale_c) : 0.f;
+    o.d = __fdiv_rn(overlap, fmaxf(scale, 1e-30f));
+    o.d0 = 0.f;
   }
   return o;
 }
@@ -110,6 +156,22 @@ __device__ __forceinline__ float cull_reach(const PairLaw& law, float ri) {
   return ri + fabsf(law.break_d) * law.scale_c * powf(ri / 1e6f, 1.0f / 3.0f) * 1e6f;
 }
 
+// The uniform law's cut: the squared distance beyond which it certainly
+// breaks a pair. d = (2r - mag) inv_scale > break_d needs mag < 2r -
+// break_d / inv_scale (the reach); the kernels' mag = dist2 * inv carries
+// XLA's rsqrt, within ~2^-22 of 1 / sqrt(dist2) after its Newton steps, and
+// d rounds a few times more, so a pair with sqrt(dist2) beyond the reach
+// widened by kCullSlack (2^-12, ~2.5e-3 um at these radii) has a computed d
+// below break_d by ~2^-12 of the reach: it breaks, bonded or not, and gives
+// no force, entry or bit, so dropping it before its rsqrt changes no
+// output. +inf (no cut) where the reach is not positive.
+__device__ __forceinline__ float uniform_cut2(const PairLaw& law) {
+  const float reach = law.two_r - law.break_d / law.inv_scale;
+  if (!(reach > 0.f)) return CUDART_INF_F;
+  const float cut = reach * kCullSlack;
+  return cut * cut;
+}
+
 // Whether the general law certainly breaks the pair of a row of reach
 // `reach` and a candidate of radius rj at squared distance dist2: a load,
 // the squared distance and this cut instead of the law's `powf` and two
@@ -119,39 +181,44 @@ __device__ __forceinline__ bool certainly_breaks(float reach, float rj, float di
   return rj > 0.f && dist2 > cut * cut;
 }
 
-// A survivor's force (o.d > law.break_d) on the row agent, added to
-// (fx, fy, fz); (dx, dy, dz) = me - c.
+// A survivor's force (o.d > law.break_d) on the row agent, added to the
+// run's sum (tx, ty, tz); (dx, dy, dz) = me - c.
 __device__ __forceinline__ void jkr_force(const PairLaw& law,
                                           const PairOverlap& o, float dx,
-                                          float dy, float dz, float& fx,
-                                          float& fy, float& fz) {
-  float fmag;
+                                          float dy, float dz, float& tx,
+                                          float& ty, float& tz) {
   if (law.uniform) {
     const float d = o.d;
-    const float f = ((-0.0204f * d + 0.4942f) * d + 1.0801f) * d - 1.324f;
-    fmag = f * law.fpre;
+    const float c3 = __fmul_rn(-0.0204f, law.inv_scale);
+    const float f = __fmaf_rn(d, __fmaf_rn(d, __fmaf_rn(o.d0, c3, 0.4942f), 1.0801f),
+                              -1.324f);
+    const float w = __fmul_rn(__fmul_rn(f, law.fpre), o.mag);
+    tx = __fadd_rn(tx, __fmul_rn(w, dx));
+    ty = __fadd_rn(ty, __fmul_rn(w, dy));
+    tz = __fadd_rn(tz, __fmul_rn(w, dz));
   } else {
     const float dc = fminf(fmaxf(o.d, -1e8f), 1e8f);
-    const float f = ((-0.0204f * dc + 0.4942f) * dc + 1.0801f) * dc - 1.324f;
-    fmag = f * law.pi_f * law.adhesion * o.r_hat;
-  }
-  if (o.mag > 0.f) {
-    fx += fmag * (dx / o.mag);
-    fy += fmag * (dy / o.mag);
-    fz += fmag * (dz / o.mag);
+    const float f = __fmaf_rn(dc, __fmaf_rn(dc, __fmaf_rn(dc, -0.0204f, 0.4942f), 1.0801f),
+                              -1.324f);
+    const float fmag = __fmul_rn(__fmul_rn(f, __fmul_rn(law.pi_f, law.adhesion)), o.r_hat);
+    if (o.mag > 0.f) {
+      tx = __fadd_rn(tx, __fmul_rn(fmag, __fdiv_rn(dx, o.mag)));
+      ty = __fadd_rn(ty, __fmul_rn(fmag, __fdiv_rn(dy, o.mag)));
+      tz = __fadd_rn(tz, __fmul_rn(fmag, __fdiv_rn(dz, o.mag)));
+    }
   }
 }
 
 // One eligible pair (row `me`, candidate `c`, offset (dx, dy, dz) = me - c,
 // squared distance dist2). Returns whether the bond survives; a survivor's
-// force on the row agent is added to (fx, fy, fz).
+// force on the row agent is added to the run's sum (tx, ty, tz).
 __device__ __forceinline__ bool jkr_pair(const PairLaw& law, const float4& me,
                                          const float4& c, float dx, float dy,
-                                         float dz, float dist2, float& fx,
-                                         float& fy, float& fz) {
+                                         float dz, float dist2, float& tx,
+                                         float& ty, float& tz) {
   const PairOverlap o = jkr_overlap(law, me, c, dist2);
   if (!(o.d > law.break_d)) return false;  // the bond breaks: no force, no entry
-  jkr_force(law, o, dx, dy, dz, fx, fy, fz);
+  jkr_force(law, o, dx, dy, dz, tx, ty, tz);
   return true;
 }
 

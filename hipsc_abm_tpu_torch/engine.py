@@ -64,7 +64,8 @@ from hipsc_abm_tpu_torch.ops.bio_moments import bio_moments_cuda, bio_moments_pl
 from hipsc_abm_tpu_torch.ops.bio_moments import positions as bio_positions
 from hipsc_abm_tpu_torch.ops.contact import contact_substep_cuda, contact_substep_plain
 from hipsc_abm_tpu_torch.ops.ftcs import ftcs_diffuse_cuda
-from hipsc_abm_tpu_torch.ops.integrate import stokes_integrate
+from hipsc_abm_tpu_torch.ops.integrate import (
+    stokes_integrate_unfused, update_cuda, update_plain, update_scratch)
 from hipsc_abm_tpu_torch.ops.jkr import (
     BondState,
     _compact_bonds,
@@ -591,13 +592,6 @@ def drift_threshold(verlet_skin: float) -> float:
     return float(np.float32((verlet_skin * 0.5) ** 2))
 
 
-def _window_stale(cfg, rows, ref) -> torch.Tensor:
-    """The drift test on the device, () bool: has an agent moved more than
-    skin/2 since the window was built?"""
-    drift2 = _masked_max(((rows["loc"] - ref) ** 2).sum(dim=1), rows["alive"])
-    return drift2 > drift_threshold(cfg.verlet_skin)
-
-
 def contact_window(cfg: EngineConfig, rows) -> Tuple[torch.Tensor, torch.Tensor]:
     """The contact grid of the rows over the whole box: ``(order, bounds)``,
     the canonical sort order of the rows and the run bounds of the sorted
@@ -642,13 +636,32 @@ class _ScanProbes:
         self.cands.append(cands)
 
 
-def _move(bio, rows, force, size, dt, counted=None):
-    """The Stokes update of the rows' locations: the new locations and the
-    largest squared move (of the alive rows, or of ``counted``)."""
-    new_loc = stokes_integrate(rows["loc"], rows["rad"], force, rows["mot"],
-                               rows["alive"], bio.stokes, size, float(dt))
-    return new_loc, _masked_max(((new_loc - rows["loc"]) ** 2).sum(dim=1),
-                                rows["alive"] if counted is None else counted)
+class _Update(NamedTuple):
+    """The substep update of a scan (``ops.integrate``): the function
+    (``update_cuda``, or ``update_plain`` under ``plain``), its constants,
+    and the kernel's scratch, one zeroed row per substep (None on the
+    CPU)."""
+
+    fn: object
+    stokes: float
+    threshold: float
+    scratch: Optional[torch.Tensor]
+
+    @classmethod
+    def of(cls, cfg, bio, n_substeps, device, plain=False) -> "_Update":
+        on_card = device.type == "cuda" and not plain
+        return cls(update_plain if plain else update_cuda, bio.stokes,
+                   drift_threshold(cfg.verlet_skin),
+                   update_scratch(n_substeps, device) if on_card else None)
+
+    def __call__(self, s, rows, force, size, dt, ref, counted=None):
+        """Substep ``s``'s update of ``rows``: ``(new locations, max squared
+        move, max squared drift from ref, stale)``. The first substep's dt is
+        a literal of the JAX program (``ops.integrate``, ``folded``)."""
+        return self.fn(rows["loc"], rows["rad"], force, rows["mot"], rows["alive"], ref,
+                       size, stokes=self.stokes, dt=float(dt), folded=s == 0,
+                       threshold=self.threshold, counted=counted,
+                       scratch=None if self.scratch is None else self.scratch[s])
 
 
 def _remat(cfg: EngineConfig, substep, *args):
@@ -691,36 +704,39 @@ def _scan_result(rows, probes):
             probes.rebuilds, torch.stack(probes.cands).max())
 
 
-def _id_list_substep(cfg, bio, law, contact, size, identity, first, dt, rows, bounds, ref):
-    """One substep of ``_physics_scan``: the drift test and the rebuild it
-    selects (after the first substep), then ``contact_substep_rows``.
-    Returns the new ``(rows, bounds, ref)`` and the substep's probes
-    ``(widest run, widest row, max degree, max squared move, stale)``."""
-    stale = None
-    if not first:
-        stale = _window_stale(cfg, rows, ref)
+def _id_list_substep(cfg, law, contact, update, size, identity, s, stale, dt, rows, bounds,
+                     ref):
+    """Substep ``s`` of ``_physics_scan``: the rebuild that the previous
+    substep's drift flag ``stale`` selects (None on the first substep), then
+    ``contact_substep_rows``. Returns the new ``(rows, bounds, ref)`` and
+    the substep's probes ``(widest run, widest row, max degree, max squared
+    move, max squared drift, stale)``, the last two for the next
+    substep."""
+    if stale is not None:
         rows, bounds, ref = _rebuild_where(stale, cfg, rows, bounds, ref, identity)
-    rows, probes = contact_substep_rows(bio, law, contact, size, dt, rows, bounds)
-    return rows, bounds, ref, (*probes, stale)
+    rows, probes = contact_substep_rows(law, contact, update, s, size, dt, rows, bounds, ref)
+    return rows, bounds, ref, probes
 
 
-def contact_substep_rows(bio, law, contact, size, dt, rows, bounds, width=None,
+def contact_substep_rows(law, contact, update, s, size, dt, rows, bounds, ref, width=None,
                          counted=None):
     """One id-list contact substep over the window ``bounds`` the caller
-    holds: one ``contact`` call (``contact_substep_cuda``, B6, or its plain
-    version) on the sorted rows and the Stokes update. ``counted`` (a (C,)
-    bool of the rows whose degree and move the probes read; default: all)
-    and ``width`` (the plain version's run width) serve the domain engine.
-    Returns the new rows and the substep's probes ``(widest run, widest row,
-    max degree, max squared move)``."""
+    holds (built where the rows stood at ``ref``): one ``contact`` call
+    (``contact_substep_cuda``, B6, or its plain version) on the sorted rows
+    and the update (an ``_Update``, substep ``s``). ``counted`` (a (C,)
+    bool of the rows whose degree, move and drift the probes read; default:
+    the alive rows) and ``width`` (the plain version's run width) serve the
+    domain engine. Returns the new rows and the substep's probes ``(widest
+    run, widest row, max degree, max squared move, max squared drift,
+    stale)``."""
     run, cands = _window_widths(bounds)
     force, degree, partners = contact(
         pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
         bounds, rows["partners"], **law, width=width,
     )
-    new_loc, move2 = _move(bio, rows, force, size, dt, counted)
+    new_loc, move2, drift2, stale = update(s, rows, force, size, dt, ref, counted)
     deg = degree.max() if counted is None else torch.where(counted, degree, 0).max()
-    return dict(rows, loc=new_loc, partners=partners), (run, cands, deg, move2)
+    return dict(rows, loc=new_loc, partners=partners), (run, cands, deg, move2, drift2, stale)
 
 
 def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
@@ -740,16 +756,19 @@ def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
     rows = _scan_rows(arrays, alive, bonds)
     law = _contact_law(cfg, bio)
     contact = contact_substep_plain if plain else contact_substep_cuda
+    update = _Update.of(cfg, bio, len(dts), alive.device, plain)
     probes = _ScanProbes(alive.device)
     rows, bounds = _build_window(cfg, rows)
     ref = rows["loc"]
     identity = torch.arange(alive.shape[0], device=alive.device)
+    stale = None
     for s, dt in enumerate(dts):
-        rows, bounds, ref, (run, cands, deg, move2, stale) = _remat(
-            cfg, _id_list_substep, cfg, bio, law, contact, size, identity, s == 0,
+        rows, bounds, ref, (run, cands, deg, move2, _, stale_next) = _remat(
+            cfg, _id_list_substep, cfg, law, contact, update, size, identity, s, stale,
             float(dt), rows, bounds, ref)
         if stale is not None:
             probes.rebuilds = probes.rebuilds + stale
+        stale = stale_next
         probes.bins.append(run)
         probes.cands.append(cands)
         probes.degs.append(deg)
@@ -791,8 +810,8 @@ def _physics_scan_dense(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
         )
         keep = eligible & survive
         forces = torch.where(keep[..., None], force, 0.0).sum(dim=1)
-        new_loc = stokes_integrate(locations, radii, forces, mot, alive, bio.stokes,
-                                   size, dt)
+        new_loc = stokes_integrate_unfused(locations, radii, forces, mot, alive, bio.stokes,
+                                           size, dt)
         move2 = _masked_max(((new_loc - locations) ** 2).sum(dim=1), alive)
         return new_loc, keep, keep.sum(dim=1).max(), move2
 
@@ -845,38 +864,41 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts, plain=Fal
     K = rows["partners"].shape[1]
     C, device = alive.shape[0], alive.device
     mask = torch.empty((mask_words_of(cfg), C), dtype=torch.int32, device=device)
+    update = _Update.of(cfg, bio, len(dts), device)
     probes = _ScanProbes(device)
     rows, bounds = _build_window(cfg, rows)
     ref = rows["loc"]
     identity = torch.arange(C, device=device)
+    stale = None
     for s, dt in enumerate(dts):
         rebuild = None
         if s > 0:
-            stale = _window_stale(cfg, rows, ref)
             rebuild = stale.to(torch.int32).reshape(1)
             span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K, pred=rebuild,
                                         out=rows["partners"])
             rows, bounds, ref = _rebuild_where(stale, cfg, rows, bounds, ref, identity)
             probes.rebuilds = probes.rebuilds + stale
         probes.window(bounds)
-        deg, move2 = span_mask_substep(bio, law, size, dt, rows, bounds, mask, rebuild)
+        deg, move2, _, stale = span_mask_substep(law, update, s, size, dt, rows, bounds, ref,
+                                                 mask, rebuild)
         probes.degs.append(deg)
         probes.moves2.append(move2)
     rows["partners"] = span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K)
     return _scan_result(rows, probes)
 
 
-def span_mask_substep(bio, law, size, dt, rows, bounds, mask, rebuild=None, width=None,
-                      counted=None):
-    """One span-mask contact substep over the window ``bounds`` and the
-    (W, C) ``mask`` the caller holds, and the Stokes update of
-    ``rows["loc"]`` (in place in the dict). ``rebuild`` None: the scan's
+def span_mask_substep(law, update, s, size, dt, rows, bounds, ref, mask, rebuild=None,
+                      width=None, counted=None):
+    """One span-mask contact substep over the window ``bounds`` (built where
+    the rows stood at ``ref``) and the (W, C) ``mask`` the caller holds,
+    and the update (an ``_Update``, substep ``s``) of ``rows["loc"]`` (in
+    place in the dict). ``rebuild`` None: the scan's
     first substep, the seed (B2) from the partner ids; else a (1,) int32
     device flag predicating the seed (the window was just rebuilt, and the
     caller compacted the mask before) against the masked substep (B1). Both
     write the same force and degree buffers. ``width`` and ``counted`` as in
     ``contact_substep_rows``. Returns the substep's ``(max degree, max
-    squared move)``."""
+    squared move, max squared drift, stale)``."""
     C, device = bounds.shape[0], bounds.device
     force = torch.empty((C, 3), dtype=torch.float32, device=device)
     degree = torch.empty((C,), dtype=torch.int32, device=device)
@@ -888,8 +910,8 @@ def span_mask_substep(bio, law, size, dt, rows, bounds, mask, rebuild=None, widt
                                       pred=1 - rebuild, out=(force, degree), **law,
                                       width=width)
     deg = degree.max() if counted is None else torch.where(counted, degree, 0).max()
-    rows["loc"], move2 = _move(bio, rows, force, size, dt, counted)
-    return deg, move2
+    rows["loc"], move2, drift2, stale = update(s, rows, force, size, dt, ref, counted)
+    return deg, move2, drift2, stale
 
 
 _PHYSICS_SCANS = {"id_list": _physics_scan, "span_mask": _physics_scan_span_mask}

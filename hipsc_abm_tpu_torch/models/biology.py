@@ -18,16 +18,17 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from hipsc_abm_tpu_torch.ops import rng
+from hipsc_abm_tpu_torch.ops import rng, xla_f32
 from hipsc_abm_tpu_torch.params import BiologyParams, ExperimentalParams
 
 
 def normalize_rows(v: torch.Tensor) -> torch.Tensor:
     """Safe row normalization (``normal_vector``, ``backend.py:186-196``):
-    ``v / ||v||`` with zero rows left zero."""
-    mag2 = torch.sum(v * v, dim=-1, keepdim=True)
+    ``v / ||v||`` with zero rows left zero, the squared norm and the square
+    root as XLA:CPU computes them (``ops.xla_f32``)."""
+    mag2 = xla_f32.row_sq_sum(v)[..., None]
     pos = mag2 > 0
-    mag = torch.sqrt(torch.where(pos, mag2, torch.ones_like(mag2)))
+    mag = xla_f32.sqrt(torch.where(pos, mag2, torch.ones_like(mag2)))
     return torch.where(pos, v / mag, torch.zeros_like(v))
 
 
@@ -173,17 +174,18 @@ def division_apply(
     can_divide, _, mother_of_rank, write_slot, num_deferred = (
         allocate_daughter_slots(dividing, alive, canon_order, div_cap, allocatable)
     )
-    disp = rng.unit_vectors(key, ids, two_d, salt=1).to(arrays["locations"].dtype) * (
-        p.max_radius - p.min_radius
-    )
+    # the displacement (max_radius - min_radius) u, as XLA:CPU compiles
+    # ``loc -/+ u * c``: each product fused into its sum, ``fma(-/+u, c, loc)``
+    unit = rng.unit_vectors(key, ids, two_d, salt=1).to(arrays["locations"].dtype)
+    c = xla_f32.f32(p.max_radius - p.min_radius)
     # unused ranks gather a clamped row; their write goes to the sentinel
     mother = mother_of_rank.clamp(max=capacity - 1)
 
     new_arrays = {}
     for name, arr in arrays.items():
         if name == "locations":
-            arr = _set_drop(arr, write_slot, (arr - disp)[mother])
-            arr = torch.where(can_divide[:, None], arr + disp, arr)
+            arr = _set_drop(arr, write_slot, xla_f32.fma(unit, -c, arr)[mother])
+            arr = torch.where(can_divide[:, None], xla_f32.fma(unit, c, arr), arr)
         elif name == "div_counters":
             arr = _set_drop(div_counters, write_slot, 0)
             arr = torch.where(can_divide, torch.zeros_like(arr), arr)

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from hipsc_abm_tpu_torch import kernels
-from hipsc_abm_tpu_torch.ops.neighbors import bounds_window
+from hipsc_abm_tpu_torch.ops import xla_f32
+from hipsc_abm_tpu_torch.ops.neighbors import bounds_window, walk_sum
 
 OUT_LANES = 16
 MODES = {"count": 0, "pathway": 1, "motility": 2, "full": 3}
@@ -61,22 +62,38 @@ def _inputs(mode, loc1, f0, f1, f2) -> dict:
     return {k: given[k] for k in _READS[mode]}
 
 
+def _within(dd: torch.Tensor, radius2: float, dims: int, mask: torch.Tensor) -> torch.Tensor:
+    """Whether each (row minus candidate) offset ``dd`` lies within the
+    radius, its squared distance summed as the kernel (and XLA:CPU's build
+    of the TPU kernel) sums it, ``xla_f32.sq_sum``. That sum is formed only
+    for the offsets of ``mask`` whose float64 squared distance lies within
+    2^-20 of the radius; elsewhere the float64 one decides, as the float32
+    one would."""
+    d64 = (dd[..., :dims].double() ** 2).sum(dim=-1)
+    out = d64 <= radius2
+    at = (mask & ((d64 - radius2).abs() <= radius2 * 2.0**-20)).nonzero(as_tuple=True)
+    if at[0].numel():
+        e = dd[at]
+        out[at] = xla_f32.sq_sum(e[:, 0], e[:, 1], e[:, 2] if dims == 3 else None) <= radius2
+    return out
+
+
 def bio_moments_plain(pos0, alive, bounds, loc1=None, f0=None, f1=None, f2=None, *,
                       radius: float, mode: str = "full", width=None) -> torch.Tensor:
     """Plain PyTorch moments over the padded window of the run bounds
-    (``width``: ``neighbors.bounds_window``'s)."""
+    (``width``: ``neighbors.bounds_window``'s). The displacement sums add
+    each row's neighbours run by run (``neighbors.walk_sum``), as the kernel
+    does; the counts and feature sums are integers, exact in any
+    order."""
     given = _inputs(mode, loc1, f0, f1, f2)
     dims = 3 if kernels.run_count(bounds) == 9 else 2
     C = pos0.shape[0]
     pos, valid = bounds_window(bounds, width)
     own = torch.arange(C, device=pos0.device)[:, None]
     cand = pos0[pos]  # (C, W, 4)
-    dist2 = None
-    for d in range(dims):  # summed in axis order, as the kernel sums
-        dd = cand[..., d] - pos0[:, None, d]
-        dist2 = dd * dd if dist2 is None else dist2 + dd * dd
-    r = torch.tensor(radius, dtype=torch.float32)
-    m = valid & (pos != own) & alive[pos] & (dist2 <= r * r) & alive[:, None]
+    r = np.float32(radius)
+    m = valid & (pos != own) & alive[pos] & alive[:, None]
+    m &= _within(pos0[:, None, :3] - cand[..., :3], float(r * r), dims, m)
     mf = m.to(torch.float32)
     out = torch.zeros((C, OUT_LANES), dtype=torch.float32, device=pos0.device)
     out[:, 0] = mf.sum(dim=1)
@@ -91,9 +108,10 @@ def bio_moments_plain(pos0, alive, bounds, loc1=None, f0=None, f1=None, f2=None,
         a = mf * (cf1 > cf0).to(torch.float32)
         b = mf * (cf2 != 0).to(torch.float32)
         out[:, 3] = a.sum(dim=1)
-        out[:, 4:4 + dims] = (a[..., None] * disp).sum(dim=1)
+        n_runs = kernels.run_count(bounds)
+        out[:, 4:4 + dims] = walk_sum(disp, a > 0, n_runs)
         out[:, 7] = b.sum(dim=1)
-        out[:, 8:8 + dims] = (b[..., None] * disp).sum(dim=1)
+        out[:, 8:8 + dims] = walk_sum(disp, b > 0, n_runs)
     return out
 
 

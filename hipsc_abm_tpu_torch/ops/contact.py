@@ -25,6 +25,7 @@ import torch
 
 from hipsc_abm_tpu_torch import kernels
 from hipsc_abm_tpu_torch.ops import jkr as jkr_ops
+from hipsc_abm_tpu_torch.ops import xla_f32
 from hipsc_abm_tpu_torch.ops.neighbors import bounds_window
 
 
@@ -33,14 +34,13 @@ def contact_substep_plain(
     youngs, break_d, uniform_radius: Optional[float] = None, width=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch contact substep: returns ``(force (C, 3) float32,
-    degree (C,) int32, new partners (C, K) int32)``. ``uniform_radius`` is
-    accepted for signature parity; the general pair law gives the same
-    physics for equal radii. ``width``: ``neighbors.bounds_window``'s."""
-    del uniform_radius
+    degree (C,) int32, new partners (C, K) int32)``. ``uniform_radius``
+    selects the uniform law, None the general law, as in the kernel.
+    ``width``: ``neighbors.bounds_window``'s."""
     pos, valid = bounds_window(bounds, width)
     force, new_partners, degree = jkr_ops.jkr_substep(
         partners, xyzr, ids, alive, None, pos, valid, radius,
-        adhesion_const, poisson, youngs, break_d,
+        adhesion_const, poisson, youngs, break_d, uniform_radius, kernels.run_count(bounds),
     )
     return force, degree, new_partners
 
@@ -48,17 +48,16 @@ def contact_substep_plain(
 def pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
                   uniform_radius):
     """The contact kernels' pair-law constants (``csrc/jkr_pair.cuh``
-    ``PairLaw``), rounded to float32 as the plain versions round them."""
+    ``PairLaw``, the table pointer aside), rounded to float32 as the plain
+    versions round them (``ops.jkr.uniform_law``)."""
     f32 = lambda v: float(np.float32(v))  # noqa: E731
     r = np.float32(radius)
     radius2 = float(r * r)
     e_hat = 1.0 / (2.0 * (1.0 - poisson**2) / youngs)
     scale_c = ((math.pi * adhesion_const) / e_hat) ** (2.0 / 3.0)
     if uniform_radius is not None:
-        u_r_hat = (uniform_radius * uniform_radius) / (1e6 * 2.0 * uniform_radius)
-        u_scale = scale_c * u_r_hat ** (1.0 / 3.0)
-        uni = (1, f32(2.0 * uniform_radius), f32(1.0 / (1e6 * u_scale)),
-               f32(math.pi * adhesion_const * u_r_hat))
+        law = jkr_ops.uniform_law(uniform_radius, adhesion_const, poisson, youngs)
+        uni = (1, law["two_r"], law["inv_scale"], law["fpre"])
     else:
         uni = (0, 0.0, 0.0, 0.0)
     return (radius2, f32(break_d), *uni, f32(scale_c), f32(math.pi),
@@ -149,6 +148,7 @@ def contact_substep_cuda(
         new_partners.data_ptr(), C, K, n_runs, layout["pitch"], layout["smem_bytes"],
         *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
                        uniform_radius),
+        xla_f32.rsqrt_table(xyzr.device).data_ptr(),
     )
     kernels.count_launch(kernels.counted_name("contact_substep", n_runs))
     return force, degree, new_partners

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from hipsc_abm_tpu_torch import kernels
+from hipsc_abm_tpu_torch.ops import xla_f32
 
 
 def diffusion_dts(step_dt: float, diffuse_dt: float) -> np.ndarray:
@@ -26,22 +27,24 @@ def diffusion_dts(step_dt: float, diffuse_dt: float) -> np.ndarray:
 
 
 def ftcs_coefficients(dt, diffuse_const: float, spat_res2: float):
-    """``(a, b)`` of one subcycle, rounded in float32 as the JAX scan
-    computes them: ``a = dt * D / h^2``, ``b = 1 - 4a``."""
-    a = np.float32(np.float32(dt) * np.float32(diffuse_const)) / np.float32(spat_res2)
-    b = np.float32(1.0) - np.float32(4.0) * a
-    return float(a), float(b)
+    """``(a, b)`` of one subcycle as the TPU kernel takes them
+    (``ftcs_diffuse_pallas``): ``a = dt * D / h^2`` and ``b = 1 - 4a``
+    in float64, each rounded to float32."""
+    a = float(dt) * float(diffuse_const) / float(spat_res2)
+    return xla_f32.f32(a), xla_f32.f32(1.0 - 4.0 * a)
 
 
 def ftcs_subcycle(base: torch.Tensor, a: float, b: float) -> torch.Tensor:
     """One subcycle on the padded lattice: reflect the ghost columns, then
     the ghost rows (corners take already-reflected values), then
-    ``b * interior + a * (((down + up) + right) + left)``."""
+    ``b * interior + a * (((down + up) + right) + left)``, the first
+    product fused into the sum as XLA:CPU compiles the TPU kernel:
+    ``fma(b, interior, a * sum)``."""
     base = torch.cat([base[:, 1:2], base[:, 1:-1], base[:, -2:-1]], dim=1)
     base = torch.cat([base[1:2, :], base[1:-1, :], base[-2:-1, :]], dim=0)
     interior = base[1:-1, 1:-1]
     temp = a * (base[2:, 1:-1] + base[:-2, 1:-1] + base[1:-1, 2:] + base[1:-1, :-2])
-    new = b * interior + temp
+    new = xla_f32.fma(interior, b, temp)
     mid = torch.cat([base[1:-1, :1], new, base[1:-1, -1:]], dim=1)
     return torch.cat([base[:1, :], mid, base[-1:, :]], dim=0)
 
@@ -85,7 +88,8 @@ def deposit_terms(shape, locations: torch.Tensor, amounts: torch.Tensor,
     otherwise pile thousands of zeros onto point 0 (one serial run of the
     card's fixed-order sum)."""
     nx, ny = shape
-    base = torch.floor(locations[:, :2] / spat_res).to(torch.int64)  # (C, 2)
+    # XLA:CPU divides by the constant as a product with its float32 reciprocal
+    base = torch.floor(locations[:, :2] * xla_f32.recip(spat_res)).to(torch.int64)  # (C, 2)
     # [[0, 0], [1, 0], [0, 1], [1, 1]], made on the device (no host copy)
     corner = torch.arange(4, dtype=torch.int64, device=locations.device)
     corner_offsets = torch.stack([corner % 2, corner // 2], dim=1)
@@ -95,7 +99,8 @@ def deposit_terms(shape, locations: torch.Tensor, amounts: torch.Tensor,
 
     point_loc = points.to(locations.dtype) * spat_res
     delta = locations[:, None, :2] - point_loc
-    dist = torch.sqrt(torch.sum(delta * delta, dim=-1))
+    dist = xla_f32.sqrt(xla_f32.fma(delta[..., 1], delta[..., 1],
+                                    delta[..., 0] * delta[..., 0]))
     nearby = in_bounds & (dist < spat_res)  # (C, 4)
 
     total_nearby = nearby.sum(dim=1)

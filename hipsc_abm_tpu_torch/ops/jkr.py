@@ -18,7 +18,11 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+
+from hipsc_abm_tpu_torch.ops import xla_f32
+from hipsc_abm_tpu_torch.ops.neighbors import walk_sum
 
 NO_BOND = -1  # empty entry of a partner-id list
 
@@ -57,6 +61,15 @@ def pack_physics(locations: torch.Tensor, radii: torch.Tensor) -> torch.Tensor:
                       radii.to(torch.float32)[:, None]], dim=1).contiguous()
 
 
+def _cube_root(x: torch.Tensor) -> torch.Tensor:
+    """``x ** float32(1/3)`` (``jnp.power(x, 1/3)`` as XLA:CPU takes it),
+    raised in float64 and rounded to float32: the same bits wherever ``x``
+    lies in a tensor (PyTorch's float32 ``pow`` takes another path for a
+    vector's tail than for its body), and as near to glibc's ``powf``,
+    which XLA:CPU calls, as float64 allows."""
+    return (x.double() ** float(np.float32(1.0 / 3.0))).to(torch.float32)
+
+
 def _pair_jkr(
     loc_i: torch.Tensor,  # (..., 3) row agent locations
     loc_j: torch.Tensor,  # (..., 3) partner locations
@@ -68,30 +81,41 @@ def _pair_jkr(
     break_d: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-pair JKR force on the row agent and bond-survival flag (the
-    per-edge math of ``jkr_forces_cpu``, ``cell_backend.py:73-113``)."""
+    per-edge math of ``jkr_forces_cpu``, ``cell_backend.py:73-113``): the
+    general law, for any radii, as XLA:CPU compiles the JAX package's
+    ``_pair_jkr`` (``ops.xla_f32``): the squared distance as one chain of
+    FMAs, the division by 1e6 a product with float32(1e-6), pi times the
+    adhesion constant folded into one float32 constant, the cubic fused.
+    The cube root is ``_cube_root``, where XLA:CPU calls glibc's ``powf``;
+    the two may differ in the last bit. A parameter given as a
+    tensor (calibration differentiates through it; to XLA a traced value)
+    is not folded."""
     vector = loc_i - loc_j
-    mag2 = torch.sum(vector * vector, dim=-1)
+    mag2 = xla_f32.row_sq_sum(vector)
     mag_pos = mag2 > 0
     one = torch.ones_like(mag2)
-    mag = torch.where(mag_pos, torch.sqrt(torch.where(mag_pos, mag2, one)),
+    mag = torch.where(mag_pos, xla_f32.sqrt(torch.where(mag_pos, mag2, one)),
                       torch.zeros_like(mag2))
-    overlap = (rad_i + rad_j - mag) / 1e6  # um -> m
+    overlap = (rad_i + rad_j - mag) * xla_f32.f32(1e-6)  # um -> m
 
     e_hat = 1.0 / (2.0 * (1.0 - poisson**2) / youngs)
-    r_hat = (rad_i * rad_j) / (1e6 * torch.clamp(rad_i + rad_j, min=1e-12))
+    r_hat = (rad_i * rad_j) / (torch.clamp(rad_i + rad_j, min=1e-12) * 1e6)
     r_pos = r_hat > 0
     safe_r = torch.where(r_pos, r_hat, torch.ones_like(r_hat))
     overlap_ = torch.where(
         r_pos,
-        ((math.pi * adhesion_const) / e_hat) ** (2.0 / 3.0) * safe_r ** (1.0 / 3.0),
+        _cube_root(safe_r) * xla_f32.f32(((math.pi * adhesion_const) / e_hat) ** (2.0 / 3.0)),
         torch.zeros_like(r_hat),
     )
     d = overlap / torch.clamp(overlap_, min=1e-30)
 
     alive_bond = d > break_d
     d_f = torch.clamp(d, -1e8, 1e8)
-    f = ((-0.0204 * d_f + 0.4942) * d_f + 1.0801) * d_f - 1.324
-    jkr_force = f * math.pi * adhesion_const * r_hat  # N
+    f = xla_f32.fma(d_f, xla_f32.fma(d_f, xla_f32.fma(d_f, -0.0204, 0.4942), 1.0801), -1.324)
+    if isinstance(adhesion_const, torch.Tensor):  # traced, not folded
+        jkr_force = f * math.pi * adhesion_const * r_hat  # N
+    else:
+        jkr_force = f * xla_f32.fold(math.pi, adhesion_const) * r_hat
 
     safe_mag = torch.where(mag_pos, mag, one)
     normal = torch.where(mag_pos[..., None], vector / safe_mag[..., None],
@@ -99,6 +123,40 @@ def _pair_jkr(
     force = torch.where(alive_bond[..., None], jkr_force[..., None] * normal,
                         torch.zeros_like(vector))
     return force, alive_bond
+
+
+def uniform_law(uniform_radius: float, adhesion_const: float, poisson: float,
+                youngs: float) -> dict:
+    """The uniform law's float32 constants, as the TPU kernels fold them
+    (``hipsc_abm_tpu/ops/pallas_contact.py`` ``_pair_consts``) and XLA:CPU
+    folds them again: ``two_r`` (r_i + r_j), ``inv_scale`` (1 / (1e6
+    scale)), ``fpre`` (pi adhesion r_hat) and ``c3``, the cubic's leading
+    coefficient times ``inv_scale``."""
+    e_hat = 1.0 / (2.0 * (1.0 - poisson**2) / youngs)
+    u_r_hat = (uniform_radius * uniform_radius) / (1e6 * 2.0 * uniform_radius)
+    u_scale = ((math.pi * adhesion_const) / e_hat) ** (2.0 / 3.0) * u_r_hat ** (1.0 / 3.0)
+    inv_scale = xla_f32.f32(1.0 / (1e6 * u_scale))
+    return dict(two_r=xla_f32.f32(2.0 * uniform_radius), inv_scale=inv_scale,
+                fpre=xla_f32.f32(math.pi * adhesion_const * u_r_hat),
+                c3=xla_f32.fold(-0.0204, inv_scale))
+
+
+def _pair_uniform(dx, dy, dz, law: dict) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The uniform law of the TPU kernels' pair evaluation (``_pair_keep``)
+    as XLA:CPU compiles their interpreted bodies, for ``(dx, dy, dz)`` = row
+    minus candidate: ``inv`` is XLA's ``rsqrt``, ``mag = dist2 inv`` is
+    fused into ``d0 = 10 - dist2 inv``, ``d = d0 inv_scale``, the cubic's
+    first step reads ``d0`` through the folded ``c3``, and the pair force
+    is ``w (dx, dy, dz)`` with ``w = (f fpre) inv``. Returns ``(dist2, d,
+    w)``."""
+    dist2 = xla_f32.sq_sum(dx, dy, dz)
+    pos = dist2 > 0
+    inv = torch.where(pos, xla_f32.rsqrt(torch.where(pos, dist2, torch.ones_like(dist2))),
+                      torch.zeros_like(dist2))
+    d0 = xla_f32.fma(-dist2, inv, law["two_r"])
+    d = d0 * law["inv_scale"]
+    f = xla_f32.fma(d, xla_f32.fma(d, xla_f32.fma(d0, law["c3"], 0.4942), 1.0801), -1.324)
+    return dist2, d, (f * law["fpre"]) * inv
 
 
 def _is_bonded(partner_ids: torch.Tensor, cand_id: torch.Tensor) -> torch.Tensor:
@@ -129,7 +187,7 @@ def _compact_bonds(
     return out[:, :bond_cap].contiguous(), keep.sum(dim=1, dtype=torch.int32)
 
 
-def jkr_substep_aligned(
+def pair_terms(
     bond_mask: torch.Tensor,  # (C, W) bond set aligned to the window
     xyzr: torch.Tensor,  # (C, 4) [x, y, z, r] rows, slot order
     ids: torch.Tensor,  # (C,) agent ids
@@ -142,31 +200,72 @@ def jkr_substep_aligned(
     poisson: float,
     youngs: float,
     break_d: float,
+    uniform_radius: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One substep over a window. Returns ``(forces (C, 3), keep (C, W))``:
-    the summed pair forces and the surviving eligible set (the next bonds)."""
+    """The pair law over a window: ``(terms (C, W, 3), keep (C, W))``, each
+    kept pair's force on the row agent (zero elsewhere) and the surviving
+    eligible set (the next bonds). ``uniform_radius`` selects the uniform
+    law (``_pair_uniform``: every radius equal, as the contact kernels' fast
+    path), None the general law (``_pair_jkr``)."""
     if order is not None:
         s_xyzr, s_ids = xyzr[order], ids[order]
     else:
         s_xyzr, s_ids = xyzr, ids
     cand = s_xyzr[pos]  # (C, W, 4)
     cand_id = s_ids[pos]
-    self_xyz = xyzr[:, :3]
-
-    delta = cand[..., :3] - self_xyz[:, None, :]
-    dist2 = torch.sum(delta * delta, dim=-1)
-    r = torch.tensor(radius, dtype=torch.float32)
+    delta = xyzr[:, None, :3] - cand[..., :3]  # row minus candidate
+    r = np.float32(radius)
+    radius2 = float(r * r)
     pair_ok = valid & (cand_id != ids[:, None]) & alive[:, None]
-    eligible = pair_ok & ((dist2 <= r * r) | bond_mask)
+    # the law runs only where a pair can be eligible: the float64 squared
+    # distance is within 2^-20 of the float32 one, so every pair within the
+    # radius by the law's squared distance is among these
+    with torch.no_grad():
+        near = pair_ok & (((delta.double() ** 2).sum(dim=-1) <= radius2 * (1 + 2.0**-20))
+                          | bond_mask)
+    at = near.nonzero(as_tuple=True)
+    d_at, c_at = delta[at], cand[at]
+    if uniform_radius is not None:
+        dist2, d, w = _pair_uniform(d_at[:, 0], d_at[:, 1], d_at[:, 2],
+                                    uniform_law(uniform_radius, adhesion_const, poisson,
+                                                youngs))
+        survive = d > break_d
+        terms = w[:, None] * d_at
+    else:
+        dist2 = xla_f32.row_sq_sum(-d_at)
+        terms, survive = _pair_jkr(
+            xyzr[at[0], :3], c_at[:, :3], xyzr[at[0], 3], c_at[:, 3],
+            adhesion_const, poisson, youngs, break_d,
+        )
+    keep = torch.zeros_like(near)
+    keep[at] = ((dist2 <= radius2) | bond_mask[at]) & survive
+    return torch.zeros_like(delta).index_put(at, terms), keep
 
-    force, survive = _pair_jkr(
-        self_xyz[:, None, :], cand[..., :3], xyzr[:, None, 3], cand[..., 3],
-        adhesion_const, poisson, youngs, break_d,
-    )
-    keep = eligible & survive
-    forces = torch.sum(torch.where(keep[..., None], force, torch.zeros_like(force)),
-                       dim=1)
-    return forces, keep
+
+def jkr_substep_aligned(
+    bond_mask: torch.Tensor,
+    xyzr: torch.Tensor,
+    ids: torch.Tensor,
+    alive: torch.Tensor,
+    order: Optional[torch.Tensor],
+    pos: torch.Tensor,
+    valid: torch.Tensor,
+    radius: float,
+    adhesion_const: float,
+    poisson: float,
+    youngs: float,
+    break_d: float,
+    uniform_radius: Optional[float] = None,
+    n_runs: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One substep over a window (``pair_terms``'s arguments). Returns
+    ``(forces (C, 3), keep (C, W))``: the summed pair forces and the
+    surviving eligible set (the next bonds). A row's forces are summed run
+    by run over the window of ``n_runs`` runs (``neighbors.walk_sum``), as
+    the kernels sum them."""
+    terms, keep = pair_terms(bond_mask, xyzr, ids, alive, order, pos, valid, radius,
+                             adhesion_const, poisson, youngs, break_d, uniform_radius)
+    return walk_sum(terms, keep, n_runs), keep
 
 
 def jkr_substep(
@@ -182,6 +281,8 @@ def jkr_substep(
     poisson: float,
     youngs: float,
     break_d: float,
+    uniform_radius: Optional[float] = None,
+    n_runs: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Id-list substep: partner lists -> window mask, one substep, first-K
     compaction back. Returns ``(forces (C, 3), new partner ids (C, K),
@@ -191,7 +292,7 @@ def jkr_substep(
     bond_mask = _is_bonded(partner_ids, cand_id)
     forces, keep = jkr_substep_aligned(
         bond_mask, xyzr, ids, alive, order, pos, valid, radius,
-        adhesion_const, poisson, youngs, break_d,
+        adhesion_const, poisson, youngs, break_d, uniform_radius, n_runs,
     )
     new_ids, degree = _compact_bonds(cand_id, keep, partner_ids.shape[1])
     return forces, new_ids, degree

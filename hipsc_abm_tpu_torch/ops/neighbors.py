@@ -20,6 +20,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from hipsc_abm_tpu_torch.ops import xla_f32
+
 
 @dataclasses.dataclass(frozen=True)
 class GridSpec:
@@ -86,7 +88,9 @@ class Grid(NamedTuple):
 
 
 def _bin_coords(spec: GridSpec, locations: torch.Tensor) -> torch.Tensor:
-    coords = torch.floor(locations / spec.cell_size).to(torch.int64) + 1
+    # the division by the bin size as XLA:CPU compiles it: a product with
+    # the float32 reciprocal
+    coords = torch.floor(locations * xla_f32.recip(spec.cell_size)).to(torch.int64) + 1
     for axis, n in enumerate((spec.nx, spec.ny, spec.nz)):
         coords[:, axis].clamp_(0, n - 1)
     return coords
@@ -221,6 +225,38 @@ def bounds_window(bounds: torch.Tensor, width: Optional[int] = None
     valid = pos < hi[:, :, None]
     pos = torch.clamp(pos, 0, max(capacity - 1, 0))
     return pos.reshape(capacity, -1), valid.reshape(capacity, -1)
+
+
+def walk_sum(terms: torch.Tensor, keep: torch.Tensor, n_runs: int = 1) -> torch.Tensor:
+    """(C, D) sums of the kept (C, W, D) ``terms`` of each row in a kernel
+    thread's order over a run-major window of ``n_runs`` runs: each run's
+    kept terms added one by one from +0, then the runs' sums one by one
+    from +0, as the TPU kernels add each run's sum to the row's total (the
+    grouping of the TPU kernels that does not depend on where the rows lie
+    in the sorted order). Within a run the kept entries move to the front
+    in order (a stable sort) and a loop over the widest run's count adds
+    them (one host read). Padding and the entries not kept add nothing, so
+    the sums do not depend on the window's width."""
+    C, D = terms.shape[0], terms.shape[-1]
+    acc = torch.zeros((C, D), dtype=terms.dtype, device=terms.device)
+    if C == 0 or keep.shape[1] == 0:
+        return acc
+    width = keep.shape[1] // n_runs
+    keep = keep.reshape(C * n_runs, width)
+    terms = terms.reshape(C * n_runs, width, D)
+    first = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices
+    n = int(keep.sum(dim=1).max())
+    first = first[:, :n]
+    kept = torch.gather(keep, 1, first)
+    vals = torch.gather(terms, 1, first[..., None].expand(-1, -1, D))
+    zero = torch.zeros((), dtype=terms.dtype, device=terms.device)
+    run_sum = torch.zeros((C * n_runs, D), dtype=terms.dtype, device=terms.device)
+    for k in range(n):
+        run_sum = run_sum + torch.where(kept[:, k, None], vals[:, k], zero)
+    run_sum = run_sum.reshape(C, n_runs, D)
+    for r in range(n_runs):
+        acc = acc + run_sum[:, r]
+    return acc
 
 
 def window_from_grid(spec: GridSpec, grid: Grid):

@@ -101,7 +101,10 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     by exact tests: a float32 value's midpoints with its neighbours have 25
     bits, so their squares are exact in float64 and say on which side of
     each midpoint ``sqrt(x)`` lies. Two steps mend a start up to two ulps
-    off."""
+    off. On the card PyTorch's ``sqrt`` is ``sqrtf``, correctly rounded
+    (its kernels are built without fast-math), and is taken as it is."""
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        return torch.sqrt(x)
     x64 = x.to(torch.float64)
     r = torch.sqrt(x64).to(torch.float32)
     for _ in range(2):

@@ -76,6 +76,7 @@ import torch
 
 from hipsc_abm_tpu_torch import kernels
 from hipsc_abm_tpu_torch.ops import jkr as jkr_ops
+from hipsc_abm_tpu_torch.ops import xla_f32
 from hipsc_abm_tpu_torch.ops.contact import pair_law_args
 from hipsc_abm_tpu_torch.ops.neighbors import bounds_window
 
@@ -138,17 +139,18 @@ def _pack(keep: torch.Tensor, j: torch.Tensor, n_words: int) -> torch.Tensor:
     return words.to(torch.int32).t().contiguous()
 
 
-def _substep(xyzr, ids, alive, pos, valid, bonded, law):
+def _substep(xyzr, ids, alive, pos, valid, bonded, law, n_runs):
     force, keep = jkr_ops.jkr_substep_aligned(
         bonded, xyzr, ids, alive, None, pos, valid, law["radius"],
         law["adhesion_const"], law["poisson"], law["youngs"], law["break_d"],
+        law["uniform_radius"], n_runs,
     )
     return force, keep.sum(dim=1, dtype=torch.int32), keep
 
 
-def _law(radius, adhesion_const, poisson, youngs, break_d):
+def _law(radius, adhesion_const, poisson, youngs, break_d, uniform_radius):
     return dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
-                youngs=youngs, break_d=break_d)
+                youngs=youngs, break_d=break_d, uniform_radius=uniform_radius)
 
 
 def contact_seed_plain(
@@ -160,9 +162,7 @@ def contact_seed_plain(
     int32, mask (W, C) int32)``, written into ``out`` when given (``W`` is
     then its mask's, else ``mask_words(bounds)``); ``pred`` as in the module
     docstring; ``width`` is ``neighbors.bounds_window``'s. ``uniform_radius``
-    is accepted for signature parity; the general pair law gives the same
-    physics."""
-    del uniform_radius
+    selects the uniform law, None the general law, as in the kernel."""
     if out is None:
         C, dev = xyzr.shape[0], xyzr.device
         out = (torch.zeros((C, 3), dtype=torch.float32, device=dev),
@@ -173,7 +173,8 @@ def contact_seed_plain(
     pos, valid, j = _window(bounds, width)
     bonded = jkr_ops._is_bonded(partners, ids[pos])
     force, degree, keep = _substep(xyzr, ids, alive, pos, valid, bonded,
-                                   _law(radius, adhesion_const, poisson, youngs, break_d))
+                                   _law(radius, adhesion_const, poisson, youngs, break_d,
+                                        uniform_radius), kernels.run_count(bounds))
     out[0].copy_(force)
     out[1].copy_(degree)
     out[2].copy_(_pack(keep, j, out[2].shape[0]))
@@ -188,8 +189,8 @@ def contact_masked_plain(
     """Plain masked substep: returns ``(force, degree, mask)``, the mask
     being the given tensor with the new keep set written into it and force
     and degree written into ``out`` when given; ``pred`` as in the module
-    docstring; ``width`` is ``neighbors.bounds_window``'s."""
-    del uniform_radius
+    docstring; ``width`` is ``neighbors.bounds_window``'s; ``uniform_radius``
+    as in ``contact_seed_plain``."""
     if out is None:
         C, dev = xyzr.shape[0], xyzr.device
         out = (torch.zeros((C, 3), dtype=torch.float32, device=dev),
@@ -198,7 +199,8 @@ def contact_masked_plain(
         return (*out, mask)
     pos, valid, j = _window(bounds, width)
     force, degree, keep = _substep(xyzr, ids, alive, pos, valid, _unpack(mask, j, valid),
-                                   _law(radius, adhesion_const, poisson, youngs, break_d))
+                                   _law(radius, adhesion_const, poisson, youngs, break_d,
+                                        uniform_radius), kernels.run_count(bounds))
     mask.copy_(_pack(keep, j, mask.shape[0]))
     out[0].copy_(force)
     out[1].copy_(degree)
@@ -287,7 +289,7 @@ def contact_seed_cuda(
         partners.data_ptr(), mask.data_ptr(), force.data_ptr(), degree.data_ptr(),
         C, K, mask.shape[0], n_runs, *pair_law_args(radius, adhesion_const, poisson,
                                                     youngs, break_d, uniform_radius),
-        _pred_ptr(pred),
+        xla_f32.rsqrt_table(xyzr.device).data_ptr(), _pred_ptr(pred),
     )
     kernels.count_launch(kernels.counted_name("contact_seed", n_runs))
     return force, degree, mask
@@ -315,7 +317,7 @@ def contact_masked_cuda(
         mask.data_ptr(), force.data_ptr(), degree.data_ptr(), C, W, n_runs,
         *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
                        uniform_radius),
-        _pred_ptr(pred),
+        xla_f32.rsqrt_table(xyzr.device).data_ptr(), _pred_ptr(pred),
     )
     kernels.count_launch(kernels.counted_name("contact_masked", n_runs))
     return force, degree, mask

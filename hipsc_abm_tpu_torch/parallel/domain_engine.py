@@ -105,6 +105,7 @@ from hipsc_abm_tpu_torch.engine import (
     CellState,
     EngineConfig,
     HipscEngine,
+    _Update,
     _build_window,
     _contact_law,
     _masked_max,
@@ -125,7 +126,7 @@ from hipsc_abm_tpu_torch.engine import (
 from hipsc_abm_tpu_torch.models import biology
 from hipsc_abm_tpu_torch.ops import diffusion as diffusion_ops
 from hipsc_abm_tpu_torch.ops import neighbors as nbr_ops
-from hipsc_abm_tpu_torch.ops import span_mask
+from hipsc_abm_tpu_torch.ops import span_mask, xla_f32
 from hipsc_abm_tpu_torch.ops.bio_moments import positions as bio_positions
 from hipsc_abm_tpu_torch.ops.contact import contact_substep_cuda
 from hipsc_abm_tpu_torch.ops.ftcs import ftcs_diffuse_cuda
@@ -736,7 +737,8 @@ def _tile_physics(t: _Tile, arrays, alive, bonds, size, plain: bool):
     threshold = drift_threshold(base.verlet_skin)
 
     def jbin(v, n):
-        return (torch.floor(v / gspec.cell_size).to(torch.int64) + 1).clamp(0, n - 1)
+        return (torch.floor(v * xla_f32.recip(gspec.cell_size)).to(torch.int64)
+                + 1).clamp(0, n - 1)
 
     def window(_cfg, rows):
         gc = nbr_ops._bin_coords(gspec, rows["loc"])
@@ -831,6 +833,8 @@ def _tile_physics(t: _Tile, arrays, alive, bonds, size, plain: bool):
         mask = torch.empty((mask_words_of(base), C), dtype=torch.int32, device=dev)
     runs, cands, degs, moves2, bands, exceeds = [], [], [], [], [band0], []
     rebuilds = torch.zeros((), dtype=torch.int64, device=dev)
+    update = _Update.of(base, bio, len(dts), dev, plain)
+    drift2 = None
     for s, dt in enumerate(dts):
         own_alive = rows["alive"] & (rows["perm"] < P)
         x, y = rows["loc"][:, 0], rows["loc"][:, 1]
@@ -840,7 +844,7 @@ def _tile_physics(t: _Tile, arrays, alive, bonds, size, plain: bool):
         exceeds.append(_masked_max(out, own_alive))
         rebuild = None
         if s > 0:
-            drift2 = _masked_max(((rows["loc"] - ref) ** 2).sum(dim=1), own_alive)
+            # the previous substep's update measured its own rows' drift
             stale = (yield _Reduce("max", drift2)) > threshold
             if span:
                 rebuild = stale.to(torch.int32).reshape(1)
@@ -858,12 +862,13 @@ def _tile_physics(t: _Tile, arrays, alive, bonds, size, plain: bool):
         width = int((yield _Reduce("max", run))) if plain else None
         counted = rows["alive"] & (rows["perm"] < P)
         if span:
-            deg, move2 = span_mask_substep(bio, law, size, dt, rows, bounds, mask, rebuild,
-                                           width=width, counted=counted)
+            deg, move2, drift2, _ = span_mask_substep(law, update, s, size, dt, rows, bounds,
+                                                      ref, mask, rebuild, width=width,
+                                                      counted=counted)
         else:
-            rows, (_, _, deg, move2) = contact_substep_rows(
-                bio, law, contact_substep_cuda, size, dt, rows, bounds, width=width,
-                counted=counted)
+            rows, (_, _, deg, move2, drift2, _) = contact_substep_rows(
+                law, contact_substep_cuda, update, s, size, dt, rows, bounds, ref,
+                width=width, counted=counted)
         degs.append(deg)
         moves2.append(move2)
     if span:

@@ -8,11 +8,16 @@ Pallas kernels with 9 runs and the 16-lane bio pack in interpret mode, its
 
 Tolerances are those of the 2D tests: bounds, counts, degrees, bond sets and
 integer state are exact; force sums taken in the Pallas kernels' (chunk,
-run, lane) order agree to rtol 1e-4, atol 1e-13 N (``tests/test_pallas.py``);
-moment sums to rtol 1e-6, atol 1e-5 um; positions after a step to 1e-4 um.
+run, lane) order agree to rtol 1e-4, atol 1e-13 N (``tests/test_pallas.py``)
+and are bit-equal when the port's pair terms are summed in that order
+(``test_torch_contact.tpu_grouping_sum``): the port adds each run in walk
+order, which parts from the kernels' 32-lane windows where a run's kept
+terms straddle one (ROADMAP C8); moment sums, for the same cause, to rtol
+1e-6, atol 1e-5 um; positions after a step to 1e-4 um.
 The contact colonies have degrees up to 10: K = 8 truncates some rows, K =
 16 none (the Pallas kernels in interpret mode take seconds per unit of K).
 The whole-step reference is the JAX engine's XLA path (``use_pallas=False``),
+against the port's engine on that path's law, the general one,
 which ``tests/test_pallas.py`` holds equal to its 3D Pallas path: the Pallas
 path in interpret mode took 133 s on a CPU for the two steps of
 ``test_spheroid_steps_match_jax_engine`` (132 s of it in the first step,
@@ -23,6 +28,7 @@ Pallas kernels above.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,6 +54,7 @@ from hipsc_abm_tpu_torch.ops import contact as tcontact
 from hipsc_abm_tpu_torch.ops import jkr as tjkr
 from hipsc_abm_tpu_torch.ops import neighbors as tnbr
 from hipsc_abm_tpu_torch.ops import span_mask
+from test_torch_contact import tpu_grouping_sum
 from hipsc_abm_tpu_torch.ops.integrate import stokes_integrate as tstokes
 from test_torch_span_mask import assert_self_is_row
 from test_torch_step import _assert_same_colony
@@ -239,10 +246,19 @@ def test_contact_plain_3d_matches_pallas_interpret(K):
         **plan, **LAW)
     o, xyzr, rows = _port_sorted(tspec, locs, radii, ids, alive)
     np.testing.assert_array_equal(o.numpy(), order)
+    partners_in = torch.from_numpy(partner_ids)[o].contiguous()
     f, d, partners = tcontact.contact_substep_cuda(
-        xyzr(locs), *rows, torch.from_numpy(partner_ids)[o].contiguous(),
-        uniform_radius=BIO.max_radius, **LAW)
+        xyzr(locs), *rows, partners_in, uniform_radius=BIO.max_radius, **LAW)
     _assert_forces(f, d, fd)
+    # the pair terms, summed in the interpreted kernel's grouping: bit for
+    # bit (the port's own grouping parts where a run straddles a window)
+    pos, valid = tnbr.bounds_window(rows[2])
+    bonded = tjkr._is_bonded(partners_in, rows[0][pos])
+    terms, keep = tjkr.pair_terms(bonded, xyzr(locs), rows[0], rows[1], None, pos, valid,
+                                  uniform_radius=BIO.max_radius, **LAW)
+    np.testing.assert_array_equal(
+        tpu_grouping_sum(terms, keep, pos, 9, starts, plan["block"], plan["chunk"]),
+        np.asarray(fd[:, :3]))
     assert int(d.sum()) > C and int(d.max()) > 8  # 3D packing: more than 8 contacts
     within = (d <= K).numpy()
     got, want = _sets(partners.numpy()), _sets(jbonds)
@@ -304,12 +320,14 @@ def test_stokes_integrate_clamps_to_the_3d_box():
     friction = 6.0 * np.pi * BIO.stokes * BIO.max_radius / 1e6
     forces = (rs.uniform(-60.0, 60.0, (C, 3)) / 1e6 / BIO.move_dt * friction).astype(np.float32)
     motility = (0.1 * forces[::-1]).astype(np.float32)
-    want = np.asarray(jstokes(*(jnp.asarray(a) for a in (locs, radii, forces, motility, alive)),
-                              BIO.stokes, jnp.asarray(box), BIO.move_dt))
+    # compiled, as the JAX engine runs it (the step's dt a traced value)
+    want = np.asarray(jax.jit(jstokes, static_argnums=5)(
+        *(jnp.asarray(a) for a in (locs, radii, forces, motility, alive)), BIO.stokes,
+        jnp.asarray(box), jnp.float32(BIO.move_dt)))
     got = tstokes(*(torch.from_numpy(np.ascontiguousarray(a))
                     for a in (locs, radii, forces, motility, alive)),
                   BIO.stokes, torch.from_numpy(box), float(np.float32(BIO.move_dt))).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
+    np.testing.assert_array_equal(got, want)
     live = got[alive]
     assert (live[:, 2] == 0).any() and (live[:, 2] == box[2]).any()  # both z faces hit
     np.testing.assert_array_equal(got[~alive], locs[~alive])
@@ -331,6 +349,13 @@ def _spheroid(n, seed=0, squeeze=1.0):
     return gen, xp, (box / 2.0 + direction * r[:, None]).astype(np.float32)
 
 
+def _general(teng):
+    """The port's engine on the general pair law, the law of the JAX
+    engine's XLA path."""
+    teng.cfg = dataclasses.replace(teng.cfg, uniform_radius=None)
+    return teng
+
+
 @pytest.mark.parametrize("contact_path", ["id_list", "span_mask"])
 def test_spheroid_steps_match_jax_engine(contact_path):
     """Two ``safe_step``s of the port's 3D engine against the JAX engine's
@@ -341,8 +366,8 @@ def test_spheroid_steps_match_jax_engine(contact_path):
     displacement)."""
     gen, xp, ball = _spheroid(440, squeeze=0.8)
     jeng = JaxEngine(gen, xp, use_pallas=False)
-    teng = HipscEngine(convert.params_from_jax(gen), convert.params_from_jax(xp),
-                       device="cpu", contact_path=contact_path)
+    teng = _general(HipscEngine(convert.params_from_jax(gen), convert.params_from_jax(xp),
+                                device="cpu", contact_path=contact_path))
     assert not teng.cfg.two_d and teng.cfg.capacity == jeng.cfg.capacity
     js, ts = jeng.init_state(seed=0, locations=ball), teng.init_state(seed=0, locations=ball)
     k0 = ts.bonds.partners.shape[1]
@@ -365,8 +390,9 @@ def test_spheroid_step_with_diffusion_matches_jax_engine():
     diff = DiffusionParams(spat_res=20.0, diffuse_dt=6.0, diffuse_const=2.0,
                            max_concentration=2.0, degradation=0.1, release_amount=0.01)
     jeng = JaxEngine(gen, xp, diff=diff, enable_diffusion=True, use_pallas=False)
-    teng = HipscEngine(*(convert.params_from_jax(p) for p in (gen, xp)),
-                       diff=convert.params_from_jax(diff), enable_diffusion=True, device="cpu")
+    teng = _general(HipscEngine(*(convert.params_from_jax(p) for p in (gen, xp)),
+                                diff=convert.params_from_jax(diff), enable_diffusion=True,
+                                device="cpu"))
     js, ts = jeng.init_state(seed=0, locations=ball), teng.init_state(seed=0, locations=ball)
     assert ts.gradients["fgf4_values"].dim() == 2
     js, _ = jeng.safe_step(js)

@@ -78,8 +78,10 @@ def port_engine(jeng, **kw):
     capacities."""
     teng = HipscEngine(convert.params_from_jax(jeng.gen), convert.params_from_jax(jeng.xp),
                        device="cpu", **kw)
+    # uniform_radius None: the law of the JAX engine's XLA path, the general one
     teng.cfg = dataclasses.replace(teng.cfg, capacity=jeng.cfg.capacity,
-                                   bond_cap=jeng.cfg.bond_cap, div_cap=jeng.cfg.div_cap)
+                                   bond_cap=jeng.cfg.bond_cap, div_cap=jeng.cfg.div_cap,
+                                   uniform_radius=None)
     return teng
 
 

@@ -2,10 +2,22 @@
 CUDA kernel's wrapper; the kernel itself is in test_torch_cuda.py) vs the
 JAX package's ``contact_substep_pallas`` (interpret mode) and ``jkr_substep``.
 
-Tolerances: forces are float32 sums over a row's partners taken in another
-order and with another pair-law rounding (the Pallas kernel uses rsqrt), so
-they agree to rtol 1e-5 and atol 1e-6 x max|F|; bond sets and degrees are
-integer bookkeeping and must be equal.
+Tolerances:
+- against the interpreted TPU kernel (uniform law): each kept pair's force
+  term is XLA:CPU's bit for bit (``ops.jkr._pair_uniform`` mirrors the
+  compiled body), so the terms summed as the interpreted kernel sums them
+  (``tpu_grouping_sum``: per chunk of 256 lanes, run and 32-lane window of
+  the sorted rows, from where the block's span starts) equal its forces bit
+  for bit. The port sums each run in walk order and then the runs, a
+  grouping that does not depend on where the rows lie in the sorted order
+  (tiles must equal the single engine, ROADMAP C8): its forces agree to
+  rtol 1e-5, atol 1e-6 x max|F|, and bit for bit on every row whose kept
+  terms of each run lie in one window;
+- against ``jkr_substep`` (the XLA path, general law): the cube root is
+  PyTorch's ``pow`` where XLA:CPU calls glibc's ``powf``, and XLA sums each
+  window in 32-wide partial sums (ROADMAP C7): rtol 1e-5, atol 1e-6 x
+  max|F|;
+- bond sets and degrees are integer bookkeeping and must be equal.
 """
 
 import dataclasses
@@ -76,6 +88,54 @@ def _unsort(order, *tensors):
     return [t[inv].numpy() for t in tensors]
 
 
+def tpu_grouping_sum(terms, keep, pos, n_runs, starts, block=128, chunk=128):
+    """(C, 3) float32: each row's kept ``terms`` (C, W, 3) summed as the
+    interpreted TPU contact kernels sum them: for each chunk of ``chunk``
+    lanes (chunk-major) and each run, the run's lanes in 32-lane windows of
+    the sorted rows, each window from +0 in lane order, the windows from +0,
+    that sum added to the row's total. ``pos`` (C, W) are the candidates'
+    sorted positions (run-major), ``starts`` (n_runs + 1, nblocks) the
+    blocks' span starts (``neighbors.block_span_plan``)."""
+    terms, keep, pos = terms.numpy(), keep.numpy(), pos.numpy()
+    C, W = keep.shape
+    width = W // n_runs
+    st = np.asarray(starts)
+    out = np.zeros((C, 3), np.float32)
+    for i, cols in enumerate(keep):
+        groups = {}
+        for j in np.nonzero(cols)[0]:
+            r = j // width
+            lane = pos[i, j] - st[r, i // block]
+            win = groups.setdefault((lane // chunk, r), {}).setdefault(pos[i, j] // 32, [])
+            win.append(terms[i, j])
+        acc = np.zeros(3, np.float32)
+        for key in sorted(groups):
+            total = np.zeros(3, np.float32)
+            for w in sorted(groups[key]):
+                part = np.zeros(3, np.float32)
+                for t in groups[key][w]:
+                    part = (part + t).astype(np.float32)
+                total = (total + part).astype(np.float32)
+            acc = (acc + total).astype(np.float32)
+        out[i] = acc
+    return out
+
+
+def one_window_rows(keep, pos, n_runs) -> np.ndarray:
+    """(C,) bool: rows whose kept candidates of each run lie in one 32-lane
+    window of the sorted rows, where the port's grouping is the TPU
+    kernels'."""
+    keep, pos = keep.numpy(), pos.numpy()
+    width = keep.shape[1] // n_runs
+    out = np.ones(keep.shape[0], bool)
+    for r in range(n_runs):
+        k = keep[:, r * width:(r + 1) * width]
+        w = np.where(k, pos[:, r * width:(r + 1) * width] // 32, -1)
+        lo = np.where(k, w, np.iinfo(np.int64).max).min(axis=1)
+        out &= (w == -1).all(axis=1) | (np.where(k, w, lo[:, None]) == lo[:, None]).all(axis=1)
+    return out
+
+
 def _assert_sets_equal(got, want):
     for i in range(got.shape[0]):
         assert set(got[i][got[i] >= 0].tolist()) == set(want[i][want[i] >= 0].tolist()), i
@@ -108,6 +168,17 @@ def test_plain_matches_pallas_interpret(K):
     want_f = np.asarray(force_deg[:, :3])
     scale = np.abs(want_f).max()
     assert scale > 0 and int((new_partners >= 0).sum()) > C
+    # the pair terms, summed as the interpreted kernel sums them: bit for bit
+    xyzr, t_ids, t_alive, bounds, partners = args
+    pos, valid = tnbr.bounds_window(bounds)
+    bonded = tjkr._is_bonded(partners, t_ids[pos])
+    terms, keep = tjkr.pair_terms(bonded, xyzr, t_ids, t_alive, None, pos, valid,
+                                  uniform_radius=BIO.max_radius, **LAW)
+    np.testing.assert_array_equal(tpu_grouping_sum(terms, keep, pos, 3, starts), want_f)
+    # the port's own grouping: bit for bit where it is the kernel's
+    same = one_window_rows(keep, pos, 3)
+    assert same.sum() > C // 2
+    np.testing.assert_array_equal(force.numpy()[same], want_f[same])
     np.testing.assert_allclose(force.numpy(), want_f, rtol=1e-5, atol=1e-6 * scale)
     np.testing.assert_array_equal(degree.numpy(), np.asarray(force_deg[:, 3]).astype(np.int32))
     _assert_sets_equal(new_partners.numpy(), np.asarray(new_bonds).astype(np.int64))

@@ -27,6 +27,7 @@ from hipsc_abm_tpu_torch import kernels
 from hipsc_abm_tpu_torch.ops import diffusion as tdiff
 from hipsc_abm_tpu_torch.ops import ftcs as tftcs
 from hipsc_abm_tpu_torch.ops import rng as trng
+from hipsc_abm_tpu_torch.ops import xla_f32
 
 ARGS = (2.0, 400.0, 2.0, 0.1)  # diffuse_const, spat_res2, max_concentration, degradation
 
@@ -53,7 +54,7 @@ def test_ftcs_plain_matches_pallas_interpret():
     dts = tdiff.diffusion_dts(1800.0, 6.0)
     want = np.asarray(ftcs_diffuse_pallas(jnp.asarray(g), dts, *ARGS, interpret=True))
     got = tdiff.ftcs_diffuse(torch.from_numpy(g), dts, *ARGS).numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_one_subcycle_is_the_clamped_stencil():
@@ -69,13 +70,20 @@ def test_one_subcycle_is_the_clamped_stencil():
     up = g[(i - 1).clamp(min=0)]
     right = g[:, (j + 1).clamp(max=ny - 1)]
     left = g[:, (j - 1).clamp(min=0)]
-    clamped = b * g + a * (((down + up) + right) + left)
+    clamped = xla_f32.fma(g, b, a * (((down + up) + right) + left))
     assert torch.equal(padded, clamped)
 
 
 def test_coefficients_are_float32_like_the_scan():
+    """The coefficients are the TPU kernel's (``ftcs_diffuse_pallas``: a
+    and b in float64, each rounded to float32); for the schedules the
+    engine runs they equal the XLA scan's float32 ones."""
     for dt in (6.0, 0.0, 3.7):
-        a, b = tdiff.ftcs_coefficients(dt, 2.0, 400.0)
+        a, b = tdiff.ftcs_coefficients(np.float32(dt), 2.0, 400.0)
+        a64 = float(np.float32(dt)) * 2.0 / 400.0
+        assert (a, b) == (float(np.float32(a64)), float(np.float32(1.0 - 4.0 * a64)))
+    for dt in (6.0, 0.0):
+        a, b = tdiff.ftcs_coefficients(np.float32(dt), 2.0, 400.0)
         ja = jnp.float32(dt) * 2.0 / 400.0
         assert np.float32(a) == np.asarray(ja) and np.float32(b) == np.asarray(1.0 - 4.0 * ja)
 
@@ -92,7 +100,7 @@ def test_deposit_and_sample_match_jax():
                                               jnp.asarray(amounts), 20.0))
     got = tdiff.deposit_morphogen(torch.from_numpy(g), torch.from_numpy(locs),
                                   torch.from_numpy(amounts), 20.0).numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-7)
+    np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         tdiff.sample_concentration(torch.from_numpy(g), torch.from_numpy(locs), 20.0).numpy(),
         np.asarray(jdiff.sample_concentration(jnp.asarray(g), jnp.asarray(locs), 20.0)),

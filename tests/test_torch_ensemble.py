@@ -47,6 +47,9 @@ def make_engine(n=200, num_gata6=20, size=(400.0, 400.0, 0.0), capacity=None, **
     gen = GeneralParams(num_to_start=n, end_step=5, size=size)
     xp = ExperimentalParams(num_gata6=num_gata6, dox_step=2, **kw.pop("xp", {}))
     eng = HipscEngine(gen, xp, device="cpu", **kw)
+    # the general pair law: the law of the JAX ensemble's engine (XLA path),
+    # which some tests step beside this one
+    eng.cfg = dataclasses.replace(eng.cfg, uniform_radius=None)
     if capacity:
         eng.cfg = dataclasses.replace(eng.cfg, capacity=capacity)
     return eng

@@ -18,6 +18,7 @@ import torch
 
 from hipsc_abm_tpu_torch.ops import diffusion as tdiff
 from hipsc_abm_tpu_torch.ops import ftcs as tftcs
+from hipsc_abm_tpu_torch.ops import xla_f32
 
 H100_SMS = 132
 H100_SMEM = 232448  # 227 KB of dynamic shared memory per block
@@ -95,7 +96,7 @@ def emulate_kernel(lattice, plan, dts, diffuse_const, spat_res2, max_concentrati
                     left = ((c - 1).clamp(min=0) - Q0)[None, :]
                     right = ((c + 1).clamp(max=ny - 1) - Q0)[None, :]
                     total = ((cur[down, cc] + cur[up, cc]) + cur[mid, right]) + cur[mid, left]
-                    nxt[mid, cc] = b * cur[mid, cc] + a * total
+                    nxt[mid, cc] = xla_f32.fma(cur[mid, cc], b, a * total)
                 cur = nxt
             dst[r0:r1, c0:c1] = cur[r0 - R0:r1 - R0, c0 - Q0:c1 - Q0]
     return bufs[n_blocks % 2] * (1.0 - degradation)

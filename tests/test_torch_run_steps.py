@@ -215,12 +215,12 @@ def _port_rebuild_recorder(monkeypatch):
     """The port's drift decisions, one list per scan (every substep after
     the first)."""
     scans = []
-    real = teng_mod._window_stale
+    real = teng_mod._rebuild_where
 
-    def stale(cfg, rows, ref):
-        out = real(cfg, rows, ref)
-        scans[-1].append(bool(out))
-        return out
+    def rebuild_where(stale, *args, **kw):
+        # the drift flag of the update before this substep (ops.integrate)
+        scans[-1].append(bool(stale))
+        return real(stale, *args, **kw)
 
     real_build = teng_mod._build_window
 
@@ -228,7 +228,7 @@ def _port_rebuild_recorder(monkeypatch):
         scans.append([])
         return real_build(cfg, rows)
 
-    monkeypatch.setattr(teng_mod, "_window_stale", stale)
+    monkeypatch.setattr(teng_mod, "_rebuild_where", rebuild_where)
     monkeypatch.setattr(teng_mod, "_build_window", build)
     return scans
 
@@ -239,6 +239,8 @@ def _jax_and_port(path, skin=None, n=300, side=420.0, seed=7):
     jeng = JaxEngine(gen, xp, use_pallas=False)
     teng = HipscEngine(convert.params_from_jax(gen), convert.params_from_jax(xp),
                        device="cpu", contact_path=path)
+    # the XLA path's law, the general one
+    teng.cfg = dataclasses.replace(teng.cfg, uniform_radius=None)
     if skin is not None:
         reach = BIO.jkr_radius + 2.0 * BIO.jkr_break_band + skin
         jeng.cfg = dataclasses.replace(jeng.cfg, verlet_skin=skin, jkr_spec=jnbr.GridSpec.from_box(
@@ -329,6 +331,17 @@ def _drift_at(x: np.float32):
     return rows, torch.zeros((1, 3), dtype=torch.float32)
 
 
+def _port_stale(cfg, rows, ref):
+    """The port's drift test, the flag of a substep's update
+    (``ops.integrate.update_plain``), for rows that do not move."""
+    from hipsc_abm_tpu_torch.ops.integrate import update_plain
+
+    zero = torch.zeros_like(rows["loc"])
+    return update_plain(rows["loc"], torch.ones(1), zero, zero, rows["alive"], ref,
+                        torch.full((3,), 1e9), stokes=1.0, dt=1.0, folded=False,
+                        threshold=teng_mod.drift_threshold(cfg.verlet_skin))[3]
+
+
 @pytest.mark.parametrize("skin", [13.3, 13.6])
 def test_drift_threshold_compares_in_float32(skin):
     """The drift test against JAX's predicate ``drift2 > (skin/2)**2`` (a
@@ -351,7 +364,7 @@ def test_drift_threshold_compares_in_float32(skin):
         drift2 = np.float32(x) * np.float32(x)
         jax_stale = bool(jnp.max(jnp.where(jnp.asarray([True]), jnp.sum(
             (jnp.asarray([[x, 0.0, 0.0]], jnp.float32) - 0.0) ** 2, axis=-1), 0.0)) > t64)
-        assert bool(teng_mod._window_stale(cfg, rows, ref)) == jax_stale, (skin, x)
+        assert bool(_port_stale(cfg, rows, ref)) == jax_stale, (skin, x)
         if drift2 == t32:
             seen_exact = True
             assert not jax_stale

@@ -12,9 +12,10 @@
   ``load_domain_sharded`` (every leaf equal) and resumes in JAX's
   ``DomainHipscEngine`` (8-device CPU mesh of ``tests/conftest.py``), and a
   JAX shard set resumes in the port, each then stepped beside the other
-  package: integers and bond sets equal by id, positions within 16 float32
-  spacings of the largest coordinate and lattices within 1e-5 (the
-  convention of ``test_torch_domain.py``).
+  package, the port on the general pair law (the JAX XLA path's): integers
+  and bond sets equal by id, positions within one float32 spacing of the
+  largest coordinate and lattices within 1e-5 (the convention and the
+  causes of ``test_torch_domain.py``).
 - At step 0 the port's value shards are byte-equal to JAX's (the same
   partition and slot order), and their merge equals the flat
   ``write_values_csv`` of the colony.
@@ -53,9 +54,14 @@ def jax_params():
 
 
 def port_engine(**grid):
+    """The port's domain engine on the general pair law, the law of the JAX
+    domain engine's XLA path, which some checks step beside it."""
     gen, xp, diff = (convert.params_from_jax(p) for p in jax_params())
-    return DomainHipscEngine(gen, xp, diff=diff, enable_diffusion=True, device="cpu",
-                             **(grid or {"tiles": (2, 2)}))
+    dom = DomainHipscEngine(gen, xp, diff=diff, enable_diffusion=True, device="cpu",
+                            **(grid or {"tiles": (2, 2)}))
+    dom.cfg = dataclasses.replace(dom.cfg, base=dataclasses.replace(dom.cfg.base,
+                                                                    uniform_radius=None))
+    return dom
 
 
 def jax_engine():
@@ -79,7 +85,7 @@ def assert_close_to_jax(port: dict, jax_state: dict):
         np.testing.assert_array_equal(b[k], a[k], err_msg=k)
     assert colonies.bond_rows_apart(b["bonds"], a["bonds"]) == 0
     spacing = float(np.spacing(np.abs(a["locations"]).max().astype(np.float32)))
-    np.testing.assert_allclose(b["locations"], a["locations"], rtol=0, atol=16 * spacing)
+    np.testing.assert_allclose(b["locations"], a["locations"], rtol=0, atol=spacing)
     np.testing.assert_allclose(port["gradients"]["fgf4_values"],
                                jax_state["gradients"]["fgf4_values"], rtol=0, atol=1e-5)
 

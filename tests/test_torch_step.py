@@ -2,22 +2,39 @@
 package, compared by agent id (``__graft_entry__._by_id``'s canonical form).
 
 Tolerances and their causes:
-- integer state (ids, FDS values, states, counters, bond sets) is exact;
-- positions of the whole steps: within 8 float32 spacings of the largest
-  coordinate (4.9e-4 um in these boxes; measured 5, on agent 423 of
-  ``test_hipsc_step_matches_jax``). The draws are bit-equal to JAX's
-  (``tests/test_torch_rng.py``); what is left is float32 rounding that
-  XLA:CPU does otherwise than the port's eager ops: it rewrites the pair
-  law (the division by 1e6 as a product with float32(1e-6), pi times the
-  adhesion constant folded into one constant, fused multiply-adds in the
-  cubic), so about 2 in 3 kept pair terms of the first substep differ by
-  1-3 ulps, and it fuses the position update ``loc + (dt v) 1e6`` into one
-  multiply-add, so a cell moved by its motility alone lands one spacing
-  apart on some substeps; 11 substeps carry both on;
-- the morphogen lattice: scatter-add order of the deposit (atol 1e-6).
+- everything is exact on the uniform law (every radius equal, growth off:
+  the engine's default) against the JAX engine's TPU path run in interpret
+  mode (``use_pallas=True``, ``pallas_interpret=True``): ids, integer state,
+  bond sets, positions and the morphogen lattice, over single steps and five
+  in a row. The port mirrors what XLA:CPU compiles that path to on an
+  x86-64 machine with FMA (``ops.xla_f32``): the pair law with XLA's
+  ``rsqrt`` and its fused and folded forms, the Stokes update's fused
+  multiply-add, the squared distances and norms, FTCS's fused stencil, the
+  deposit's reciprocal; the draws are bit-equal already
+  (``tests/test_torch_rng.py``). Force and moment sums add each run's terms
+  in walk order, then the runs, as the TPU kernels add their lane sums;
+  where a run's candidates straddle one of the interpreted kernel's 32-lane
+  windows of the sorted rows, the TPU kernel groups them otherwise. That
+  grouping depends on where the rows lie in the whole sorted order, so the
+  port, whose tiles must equal the single engine, does not follow it
+  (ROADMAP C8). The 2D colonies here are sparse enough that it never
+  splits two kept terms of a run; the 3D ball's runs are long, and its
+  positions part by a few spacings (``GROUPING_SPACINGS``) while its
+  integer state and bond sets stay equal. ``tests/test_torch_contact.py``
+  and ``tests/test_torch_3d.py`` hold the pair terms, summed in the TPU
+  kernels' grouping, to the interpreted kernels bit for bit.
+- the general law (growth on) against the JAX engine's XLA path
+  (``use_pallas=False``): integers and bond sets exact, positions within
+  ``GENERAL_SPACINGS`` float32 spacings of the largest coordinate. The cube
+  root is PyTorch's ``pow`` where XLA:CPU calls glibc's ``powf`` (1.2% of
+  inputs a last bit apart), and the XLA path sums each row's window in
+  32-wide partial sums over its padded width (ROADMAP C7).
+- motility is held against the JAX function compiled as the engine
+  compiles it (under ``jax.jit``).
 """
 
 import dataclasses
+import math
 import os
 import subprocess
 import sys
@@ -157,6 +174,9 @@ def test_cell_differentiate_matches_jax():
 
 @pytest.mark.parametrize("guye", [True, False])
 def test_cell_motility_matches_jax(guye):
+    """Against the JAX function compiled as its engine compiles it (under
+    ``jax.jit``): XLA:CPU fuses the squared norm into FMAs, which eager
+    JAX, one operation at a time, does not."""
     a, alive, nbr = _agents(5)
     rs = np.random.default_rng(5)
     cnt_n, cnt_d = rs.integers(0, 3, 300).astype(np.int32), rs.integers(0, 3, 300).astype(np.int32)
@@ -165,12 +185,13 @@ def test_cell_motility_matches_jax(guye):
     jkey, tkey = _key(5)
     xp = dataclasses.replace(XP, guye_move=guye)
     names = ("locations", "GATA6", "NANOG", "states", "motility_forces", "ids")
-    want = jbio.cell_motility(*[_j(a[k]) for k in names], _j(alive), _j(nbr), _j(cnt_n),
-                              _j(sum_n), _j(cnt_d), _j(sum_d), jkey, xp, BIO, True)
+    motility = jax.jit(jbio.cell_motility, static_argnums=(13, 14, 15))
+    want = motility(*[_j(a[k]) for k in names], _j(alive), _j(nbr), _j(cnt_n),
+                    _j(sum_n), _j(cnt_d), _j(sum_d), jkey, xp, BIO, True)
     got = tbio.cell_motility(*[_t(a[k]) for k in names], _t(alive), _t(nbr), _t(cnt_n),
                              _t(sum_n), _t(cnt_d), _t(sum_d), tkey,
                              convert.params_from_jax(xp), TBIO, True)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-15)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 # ---------------------------------------------------------------------------
@@ -188,26 +209,36 @@ def _by_id(d):
     return out
 
 
-def _assert_same_colony(jstate, tstate, label, atol=1e-3, spacings=None):
+def _assert_same_colony(jstate, tstate, label, atol=1e-3, spacings=None, exact=False):
     """Integers, bonds, keys and lattices as the module docstring says;
     positions within ``atol`` um or, given ``spacings``, within that many
-    float32 spacings of the largest coordinate."""
+    float32 spacings of the largest coordinate; ``exact``: positions and the
+    lattice bit-equal."""
     a = _by_id(convert.numpy_from_jax_state(jstate))
     b = _by_id(convert.state_to_numpy(tstate))
     np.testing.assert_array_equal(b["ids"], a["ids"], err_msg=f"{label}: ids")
     for k in INT_FIELDS:
         np.testing.assert_array_equal(b[k], a[k], err_msg=f"{label}: {k}")
-    if spacings is not None:
-        atol = spacings * float(np.spacing(np.abs(a["locations"]).max().astype(np.float32)))
-    np.testing.assert_allclose(b["locations"], a["locations"], rtol=0, atol=atol,
-                               err_msg=f"{label}: locations")
+    if exact:
+        np.testing.assert_array_equal(b["locations"], a["locations"],
+                                      err_msg=f"{label}: locations")
+    else:
+        if spacings is not None:
+            atol = spacings * float(np.spacing(np.abs(a["locations"]).max().astype(np.float32)))
+        np.testing.assert_allclose(b["locations"], a["locations"], rtol=0, atol=atol,
+                                   err_msg=f"{label}: locations")
     assert b["bonds"] == a["bonds"], f"{label}: bond sets"
     assert int(tstate.next_id) == int(jstate.next_id)
     assert tstate.step == int(jstate.step)
     np.testing.assert_array_equal(tstate.key.numpy(), np.asarray(jstate.key).astype(np.int64))
     for g in jstate.gradients:
-        np.testing.assert_allclose(tstate.gradients[g].numpy(), np.asarray(jstate.gradients[g]),
-                                   rtol=0, atol=1e-6, err_msg=f"{label}: {g}")
+        if exact:
+            np.testing.assert_array_equal(tstate.gradients[g].numpy(),
+                                          np.asarray(jstate.gradients[g]), err_msg=f"{label}: {g}")
+        else:
+            np.testing.assert_allclose(tstate.gradients[g].numpy(),
+                                       np.asarray(jstate.gradients[g]), rtol=0, atol=1e-6,
+                                       err_msg=f"{label}: {g}")
 
 
 def _bench_like(n):
@@ -217,6 +248,20 @@ def _bench_like(n):
     diff = DiffusionParams(spat_res=20.0, diffuse_dt=6.0, diffuse_const=2.0,
                            max_concentration=2.0, degradation=0.1, release_amount=0.01)
     return gen, xp, diff
+
+
+# positions in float32 spacings of the largest coordinate (module docstring):
+# the general law's, and the uniform law's in 3D, where a run's kept terms
+# straddle the TPU kernels' 32-lane windows
+GENERAL_SPACINGS = 8
+GROUPING_SPACINGS = 4
+
+
+def _interpreted(jeng):
+    """The JAX engine's TPU path in interpret mode, the uniform law's
+    reference."""
+    jeng.cfg = dataclasses.replace(jeng.cfg, pallas_interpret=True)
+    return jeng
 
 
 def _torch_engine_like(jeng, gen, xp, diff):
@@ -233,10 +278,11 @@ def test_hipsc_step_matches_jax():
     """One full step with diffusion and FGF4 release from one converted
     state (one JAX step in, so it carries bonds and a lattice)."""
     gen, xp, diff = _bench_like(500)
-    jeng = JaxEngine(gen, xp, diff=diff, enable_diffusion=True, use_pallas=False)
+    jeng = _interpreted(JaxEngine(gen, xp, diff=diff, enable_diffusion=True, use_pallas=True))
     js = jeng.init_state(seed=0)
     js, _ = jeng.safe_step(js)
     teng = _torch_engine_like(jeng, gen, xp, diff)
+    assert teng.cfg.uniform_radius == BIO.max_radius
     ts = convert.state_from_numpy(convert.numpy_from_jax_state(js), "cpu")
     assert int(ts.bonds.mask.sum()) > 0
     js2, jinfo = jeng.safe_step(js)
@@ -244,7 +290,8 @@ def test_hipsc_step_matches_jax():
     assert tinfo.num_added == int(jinfo.num_added) > 0
     assert tinfo.num_removed == int(jinfo.num_removed)
     assert tinfo.jkr_max_degree == int(jinfo.jkr_max_degree)
-    _assert_same_colony(js2, ts2, "step", spacings=8)
+    assert tinfo.max_substep_move == float(jinfo.max_substep_move)
+    _assert_same_colony(js2, ts2, "step", exact=True)
 
 
 def test_hipsc_step_with_field_coupling_matches_jax():
@@ -256,7 +303,7 @@ def test_hipsc_step_with_field_coupling_matches_jax():
     ERK against the same step with coupling off."""
     gen, xp, diff = _bench_like(500)
     diff = dataclasses.replace(diff, field_coupling=True)
-    jeng = JaxEngine(gen, xp, diff=diff, enable_diffusion=True, use_pallas=False)
+    jeng = _interpreted(JaxEngine(gen, xp, diff=diff, enable_diffusion=True, use_pallas=True))
     js, _ = jeng.safe_step(jeng.init_state(seed=0))
     shape = js.gradients["fgf4_values"].shape
     lattice = np.random.default_rng(0).random(shape).astype(np.float32) * 2
@@ -265,7 +312,7 @@ def test_hipsc_step_with_field_coupling_matches_jax():
     js2, _ = jeng.safe_step(js)
     ts2, _ = _torch_engine_like(jeng, gen, xp, diff).safe_step(
         convert.state_from_numpy(d, "cpu"))
-    _assert_same_colony(js2, ts2, "coupled step", spacings=8)
+    _assert_same_colony(js2, ts2, "coupled step", exact=True)
     uncoupled = dataclasses.replace(diff, field_coupling=False)
     ts_off, _ = _torch_engine_like(jeng, gen, xp, uncoupled).safe_step(
         convert.state_from_numpy(d, "cpu"))
@@ -303,6 +350,9 @@ def test_forced_division_safe_step_grows_like_jax():
     jeng = JaxEngine(gen, xp, use_pallas=False)
     teng = HipscEngine(convert.params_from_jax(gen), convert.params_from_jax(xp),
                        device="cpu")
+    # the XLA path's law, the general one (the interpreted TPU path would
+    # rebuild its kernels at each grown capacity: minutes on a CPU)
+    teng.cfg = dataclasses.replace(teng.cfg, uniform_radius=None)
     assert teng.cfg.capacity == jeng.cfg.capacity
     js = jeng.init_state(seed=0)
     ts = teng.init_state(seed=0)
@@ -316,7 +366,7 @@ def test_forced_division_safe_step_grows_like_jax():
     ts2, tinfo = teng.safe_step(ts)
     assert ts2.capacity > cap0 and ts2.capacity == js2.capacity
     assert tinfo.num_added > 0 and tinfo.num_deferred == 0
-    _assert_same_colony(js2, ts2, "forced division", spacings=8)
+    _assert_same_colony(js2, ts2, "forced division", spacings=GENERAL_SPACINGS)
 
 
 def test_engine_device_is_explicit():
@@ -378,3 +428,206 @@ def test_port_never_imports_jax():
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
+
+
+# ---------------------------------------------------------------------------
+# several steps in a row, and the mirrors of XLA:CPU's arithmetic
+# ---------------------------------------------------------------------------
+
+
+def _spheroid_like(n=400):
+    """A small 3D ball (the spheroid example's shape): ``(gen, xp, ball)``."""
+    from hipsc_abm_tpu_torch import colonies
+
+    tgen, txp, ball = colonies.spheroid(n, 0)
+    gen = GeneralParams(num_to_start=tgen.num_to_start, end_step=20, size=tgen.size)
+    xp = ExperimentalParams(num_gata6=txp.num_gata6, dox_step=1, guye_move=False)
+    return gen, xp, ball
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("law", ["uniform", "general"])
+def test_five_steps_match_jax(dims, law):
+    """Five ``safe_step``s from one state, compared after each: the uniform
+    law against the JAX engine's TPU path in interpret mode, bit for bit in
+    2D, in 3D to ``GROUPING_SPACINGS`` (measured 3 after five steps); the
+    general law (growth on, radii seeded below max_radius) against its XLA
+    path to ``GENERAL_SPACINGS`` (measured 2.5 in 2D, 4 in 3D). Integer
+    state and bond sets exact throughout (module docstring)."""
+    uniform = law == "uniform"
+    growth = dict(enable_growth=not uniform)
+    if dims == 2:
+        gen, xp, diff = _bench_like(400)
+        jeng = JaxEngine(gen, xp, diff=diff, enable_diffusion=True, use_pallas=uniform,
+                         **growth)
+        js = jeng.init_state(seed=3)
+    else:
+        gen, xp, ball = _spheroid_like()
+        diff = None
+        jeng = JaxEngine(gen, xp, use_pallas=uniform, **growth)
+        js = jeng.init_state(seed=3, locations=jnp.asarray(ball))
+    if uniform:
+        _interpreted(jeng)
+    else:
+        rs = np.random.default_rng(3)
+        radii = rs.uniform(BIO.min_radius, BIO.max_radius, js.capacity).astype(np.float32)
+        js = js._replace(arrays={**js.arrays, "radii": jnp.asarray(radii)})
+    teng = HipscEngine(*(convert.params_from_jax(p) for p in (gen, xp)),
+                       diff=None if diff is None else convert.params_from_jax(diff),
+                       enable_diffusion=diff is not None, device="cpu", **growth)
+    ts = convert.state_from_numpy(convert.numpy_from_jax_state(js), "cpu")
+    for step in range(5):
+        js, _ = jeng.safe_step(js)
+        teng.cfg = dataclasses.replace(teng.cfg, capacity=jeng.cfg.capacity,
+                                       bond_cap=jeng.cfg.bond_cap, div_cap=jeng.cfg.div_cap)
+        ts, _ = teng.safe_step(ts)
+        assert (teng.cfg.uniform_radius is None) != uniform
+        label = f"{dims}D {law} step {step + 1}"
+        if uniform and dims == 2:
+            _assert_same_colony(js, ts, label, exact=True)
+        elif uniform:
+            _assert_same_colony(js, ts, label, spacings=GROUPING_SPACINGS)
+        else:
+            _assert_same_colony(js, ts, label, spacings=GENERAL_SPACINGS)
+
+
+def _update_inputs(seed, C=4000):
+    rs = np.random.default_rng(seed)
+    loc = (rs.random((C, 3)) * [300.0, 300.0, 200.0]).astype(np.float32)
+    loc[:40, 0] = 0.0
+    rad = rs.uniform(3.0, 5.0, C).astype(np.float32)
+    alive = rs.random(C) < 0.9
+    rad[~alive] = 0.0
+    force = rs.normal(0, 3e-9, (C, 3)).astype(np.float32)
+    force[:40, 0] = -1e-6  # past the wall: clamped
+    force[40:80, 1] = 1e-6  # past the far wall
+    mot = rs.normal(0, 1e-9, (C, 3)).astype(np.float32)
+    ref = (loc + rs.normal(0, 4.0, (C, 3))).astype(np.float32)
+    size = np.asarray([300.0, 300.0, 200.0], np.float32)
+    return loc, rad, force, mot, alive, ref, size
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_update_mirror_matches_jax(seed):
+    """``integrate.update_plain`` against the JAX package's
+    ``stokes_integrate``, compiled (the scan's dt a traced value; the first
+    substep's a literal, which XLA folds into the update), over random
+    states with clamped and dead rows: the new locations bit for bit."""
+    from hipsc_abm_tpu.ops.integrate import stokes_integrate as jstokes
+    from hipsc_abm_tpu_torch.ops import integrate
+
+    loc, rad, force, mot, alive, ref, size = _update_inputs(seed)
+    dt = np.float32(BIO.move_dt)
+
+    def probes(loc, rad, force, mot, alive, ref, size, dt):
+        new = jstokes(loc, rad, force, mot, alive, BIO.stokes, size, dt)
+        move2 = jnp.max(jnp.where(alive, jnp.sum((new - loc) ** 2, axis=-1), 0.0))
+        drift2 = jnp.max(jnp.where(alive, jnp.sum((new - ref) ** 2, axis=-1), 0.0))
+        return new, move2, drift2
+
+    traced = jax.jit(probes)
+    literal = jax.jit(lambda *a: probes(*a, float(dt)))
+    args = [jnp.asarray(x) for x in (loc, rad, force, mot, alive, ref, size)]
+    for folded, want in ((False, traced(*args, jnp.float32(dt))), (True, literal(*args))):
+        got = integrate.update_plain(*(torch.from_numpy(x) for x in (
+            loc, rad, force, mot, alive, ref, size)), stokes=BIO.stokes, dt=float(dt),
+            folded=folded, threshold=49.0)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        # the probes' squared norms: XLA:CPU fuses them into FMAs in the
+        # engine's step (the step tests hold max_substep_move exactly), but
+        # not in this program, whose vectorised loop squares first
+        for g, w in zip(got[1:3], want[1:]):
+            np.testing.assert_allclose(float(g), float(w), rtol=4e-7)
+        assert bool(got[3]) == (float(got[2]) > 49.0)
+    assert float(got[0][:40, 0].max()) == 0.0 and bool((got[0][40:80, 1] == 300.0).any())
+    assert np.array_equal(got[0].numpy()[~alive], loc[~alive])
+
+
+@pytest.mark.parametrize("mirror", ["fma", "rsqrt", "sqrt", "update", "uniform_law", "general_law"])
+def test_mirror_gradients_are_the_plain_formulas(mirror):
+    """Each mirror on a differentiable path carries the plain formula's
+    derivative (autograd does not pass its bit operations): its gradient
+    equals that of the plain PyTorch expression, to float32 rounding."""
+    from hipsc_abm_tpu_torch.ops import integrate, jkr, xla_f32
+
+    rs = np.random.default_rng(7)
+
+    def leaf(*shape, lo=0.5, hi=2.0):
+        return torch.from_numpy(rs.uniform(lo, hi, shape).astype(np.float32)).requires_grad_()
+
+    if mirror == "fma":
+        xs = [leaf(64), leaf(64), leaf(64)]
+        pair = (lambda a, b, c: xla_f32.fma(a, b, c), lambda a, b, c: a * b + c)
+    elif mirror == "rsqrt":
+        xs = [leaf(64)]
+        pair = (xla_f32.rsqrt, lambda x: x ** -0.5)
+    elif mirror == "sqrt":
+        xs = [leaf(64)]
+        pair = (xla_f32.sqrt, torch.sqrt)
+    elif mirror == "update":
+        loc, rad, force, mot, alive, ref, size = (torch.from_numpy(x) for x in _update_inputs(1, 64))
+        xs = [loc.clone().requires_grad_(), (force * 1e-3).requires_grad_()]
+
+        def plain(loc, force):
+            fric = torch.where(rad > 0, 6.0 * math.pi * BIO.stokes * (rad / 1e6),
+                               torch.ones_like(rad))
+            new = loc + float(BIO.move_dt) * ((force + mot) / fric[:, None]) * 1e6
+            new = torch.minimum(new.clamp(min=0.0), size)
+            return torch.where(alive[:, None], new, loc)
+
+        pair = (lambda loc, force: integrate.stokes_integrate(
+            loc, rad, force, mot, alive, BIO.stokes, size, float(BIO.move_dt)), plain)
+    elif mirror == "uniform_law":
+        xs = [leaf(64, 3, lo=-6.0, hi=6.0)]
+        law = jkr.uniform_law(BIO.max_radius, BIO.adhesion_const, BIO.poisson, BIO.youngs)
+
+        def plain(d):
+            mag = torch.sqrt((d * d).sum(-1))
+            dd = (2 * BIO.max_radius - mag) * law["inv_scale"]
+            f = ((-0.0204 * dd + 0.4942) * dd + 1.0801) * dd - 1.324
+            return (f * law["fpre"] / mag)[:, None] * d
+
+        pair = (lambda d: jkr._pair_uniform(d[:, 0], d[:, 1], d[:, 2], law)[2][:, None] * d,
+                plain)
+    else:
+        xs = [leaf(64, 3, lo=-6.0, hi=6.0), leaf(64, lo=3.0, hi=5.0)]
+        args = (BIO.adhesion_const, BIO.poisson, BIO.youngs, BIO.jkr_break_d)
+
+        def plain(d, r):
+            e_hat = 1.0 / (2.0 * (1.0 - BIO.poisson ** 2) / BIO.youngs)
+            mag = torch.sqrt((d * d).sum(-1))
+            r_hat = r * 5.0 / (1e6 * (r + 5.0))
+            scale = ((math.pi * BIO.adhesion_const) / e_hat) ** (2 / 3) * r_hat ** (1 / 3)
+            dd = (r + 5.0 - mag) / 1e6 / scale
+            f = ((-0.0204 * dd + 0.4942) * dd + 1.0801) * dd - 1.324
+            return (f * math.pi * BIO.adhesion_const * r_hat / mag)[:, None] * d
+
+        pair = (lambda d, r: jkr._pair_jkr(d, torch.zeros_like(d), r, torch.full_like(r, 5.0),
+                                           *args)[0], plain)
+    grads = []
+    for fn in pair:
+        out = fn(*xs)
+        g = torch.autograd.grad(out.sum(), xs)
+        grads.append([x.double() for x in g])
+        assert torch.isfinite(out).all()
+    for g_mirror, g_plain in zip(*grads):
+        np.testing.assert_allclose(g_mirror.numpy(), g_plain.numpy(), rtol=2e-4,
+                                   atol=1e-6 * float(g_plain.abs().max()))
+
+
+def test_rsqrt_mirror_equals_xla_over_every_mantissa():
+    """``xla_f32.rsqrt`` (the x86 estimate table and two fused Newton
+    steps) against XLA:CPU's compiled ``rsqrt`` at every float32 in [1, 4)
+    (the table's whole domain: exponent parity and mantissa) and at random
+    inputs over the normal range: bit for bit."""
+    from hipsc_abm_tpu_torch.ops import xla_f32
+
+    rsqrt = jax.jit(jax.lax.rsqrt)
+    x = (np.arange(1 << 24, dtype=np.uint32) + np.uint32(127 << 23)).view(np.float32)
+    np.testing.assert_array_equal(xla_f32.rsqrt(torch.from_numpy(x)).numpy(),
+                                  np.asarray(rsqrt(jnp.asarray(x))))
+    rs = np.random.default_rng(0)
+    y = (rs.random(1 << 20) * 2.0 ** rs.integers(-120, 120, 1 << 20)).astype(np.float32)
+    y = y[y >= np.finfo(np.float32).tiny]
+    np.testing.assert_array_equal(xla_f32.rsqrt(torch.from_numpy(y)).numpy(),
+                                  np.asarray(rsqrt(jnp.asarray(y))))
