@@ -40,11 +40,15 @@ Phases, each of which raises on failure (exit code != 0):
 4. step: one ``step`` of the port from the same 20k-cell 2D state on the
    CPU (plain versions) and on the card (kernels), compared by agent id
    bit for bit (positions, bond sets, the lattice), for each contact path,
-   and the span-mask step against the id-list step on the card; then 3
+   and the span-mask step against the id-list step on the card; then 2
    ``safe_step``s of the 100k bench colony on the id-list path on the card
    against the CPU's plain versions, bit for bit after each (``exact
-   phase``); then 4 ``safe_step``s of the 3,300-cell spheroid (the 3D
-   example's configuration) on the CPU and on the card, both paths;
+   phase``), on the uniform law and, with the optional phases on and
+   seeded radii, on the general law; then the device twin of glibc's
+   ``powf`` (the general law's cube root) against the plain mirror at
+   every float32 of [2^-25, 2^-13) (``powf phase``); then 3
+   ``safe_step``s of the 3,300-cell spheroid (the 3D example's
+   configuration) on the CPU and on the card, both paths;
    then two runs of 20 ``safe_step``s of the 100k bench colony with
    FGF4 field coupling on, from one seed, equal by agent id;
 5. main paths: the bench configuration at 100k and 500k cells (2D) and the
@@ -81,16 +85,16 @@ Phases, each of which raises on failure (exit code != 0):
    (``seeded_radii``), so that the contact kernels take their general
    (per-pair radius) law and the step makes a fourth bio-moments pass:
    (a) ``general_law_phase``: B6, B2 and B1 on the general law against
-   their plain versions at the 2D 100k and 3D 99k states, forces on the
-   rows that agree, and every pair the card and the CPU decide apart
-   reported with its distance from its own break distance (and held within
-   ``APART_UM`` of it), each kernel alone per launch beside the uniform law
-   on the same rows (in turns) and the ratio, and the candidates per live
-   row that reach the pair law past the general law's cut
-   (``membership_counts``); (b) phase 4's one step (20k, 2D) and 4 spheroid
-   ``safe_step``s with the flags; (c) ``optional_lifecycle_phase``: the
-   lifecycle colony, 8 card steps from the CPU's state on each contact
-   path, and mode 0 + 1 against mode 0; (d) the 2D 100k and 3D 99k main
+   their plain versions at the 2D 100k and 3D 99k states, bit for bit
+   (forces, degrees, partner lists and mask words; a pair decided apart
+   would be reported with its distance from its own break distance), each
+   kernel alone per launch beside the uniform law on the same rows (in
+   turns) and the ratio, and the candidates per live row that reach the
+   pair law past the general law's cut (``membership_counts``); (b) phase
+   4's one step (20k, 2D) and 3 spheroid ``safe_step``s with the flags,
+   bit for bit; (c) ``optional_lifecycle_phase``: the lifecycle colony, 8
+   card steps from the CPU's state on each contact path, bit for bit, and
+   mode 0 + 1 against mode 0; (d) the 2D 100k and 3D 99k main
    paths with the flags, in turns, beside phase 5's, with each contact
    kernel's device ms per step on both laws (``optional_summary``).
 8. ``run_steps`` blocks (``blocks_phase``), each block one CUDA graph replay
@@ -280,24 +284,15 @@ DIST_FLOPS = 8
 PAIR_FLOPS = 20
 # and per kept pair on the general (per-pair radius) law: those 20, the
 # reduced radius (a sum, a max, two products, a division), the cube root by
-# powf counted as 8 (a log2 and an exp2 of the special-function unit and
-# the products and fix-ups around them; CUDA's accurate powf issues more),
-# the scale's product, the overlap's division and the clamp (2)
-GENERAL_PAIR_FLOPS = 37
+# glibc's powf in float64 (csrc/glibc_powf.cuh: nine FMAs and eight other
+# float64 operations, 26 floating-point operations counted at twice their
+# float32 cost, the card's float64 rate being half its float32 rate), the
+# scale's product, the overlap's division and the clamps (2)
+GENERAL_PAIR_FLOPS = 81
+# the powf phase checks the CPU's mirror at every this-many-th input
+POWF_CPU_STRIDE = 16
 # the optional phases the reference ships disabled
 OPTIONAL = dict(enable_growth=True, enable_stochastic=True, enable_diff_surround=True)
-# a pair that the card and the CPU decide apart is put down to the rounding
-# of the general law's cube root (powf on the card, pow on the CPU, neither
-# correctly rounded) when it lies within this distance (um) of its own break
-# distance; one ulp of the overlap d there is ~2.5e-8 um
-APART_UM = 1e-4
-# the general law's force tolerance, atol in units of max |F| (rtol stays
-# 1e-5): a pair's force carries the cube root's rounding (powf within 2 ulp
-# on the card, the CPU's pow within 1), some 4e-7 of its size, and a row sums
-# up to ~10 such pairs that may cancel to near zero; the uniform law's 1e-6
-# was passed by 1.07e-6 on 2 of 386,304 force components of the 3D masked
-# substep at the 99k spheroid (NVIDIA H100 80GB HBM3, 700.00 W)
-GENERAL_ATOL = 4e-6
 # steps of the optional phase's lifecycle colony stepped on the card from the
 # CPU's state
 OPT_LIFECYCLE_STEPS = 8
@@ -862,16 +857,20 @@ def fma_entry(args) -> dict:
                 **bound(16 * n, 2.0 * n), library_ms=None, law="uniform")
 
 
-def step_exact_phase(steps: int = 3) -> dict:
+def step_exact_phase(steps: int = 2, optional: bool = False) -> dict:
     """The 2D bench colony at ``N_MAIN`` cells on the id-list path: ``steps``
     ``safe_step``s on the card and on the CPU (the plain versions, as
     ``hipsc_step(plain=True)`` runs them) from the same state, compared by
-    agent id after every step, bit for bit; both sides' seconds."""
+    agent id after every step, bit for bit; both sides' seconds.
+    ``optional``: with the optional phases on and seeded radii, the general
+    pair law."""
     from hipsc_abm_tpu_torch import convert
 
-    cpu, s0 = engine_for(2, N_MAIN, "cpu", "id_list")
-    gpu = bench_engine(N_MAIN, "cuda")
+    cpu, s0 = engine_for(2, N_MAIN, "cpu", "id_list", optional)
+    gpu = bench_engine(N_MAIN, "cuda", **(OPTIONAL if optional else {}))
     gpu.cfg = cpu.cfg
+    assert (cpu.cfg.uniform_radius is None) == optional
+    law = "general" if optional else "uniform"
     d0 = convert.state_to_numpy(s0)
     s_cpu, s_gpu = convert.state_from_numpy(d0, "cpu"), convert.state_from_numpy(d0, "cuda")
     t_cpu = t_gpu = 0.0
@@ -885,13 +884,60 @@ def step_exact_phase(steps: int = 3) -> dict:
         t2 = time.perf_counter()
         t_cpu, t_gpu = t_cpu + t1 - t0, t_gpu + t2 - t1
         summary = compare_colonies(convert.state_to_numpy(s_cpu), convert.state_to_numpy(s_gpu),
-                                   f"exact phase step {k} card vs CPU", 0)
-        print(f"exact phase [2D, {N_MAIN}, id_list] step {k} card vs CPU: {summary}; "
+                                   f"exact phase [{law}] step {k} card vs CPU", 0)
+        print(f"exact phase [2D, {N_MAIN}, id_list, {law} law] step {k} card vs CPU: {summary}; "
               f"cpu {t1 - t0:.2f} s, card {t2 - t1:.2f} s")
         out.append(summary)
     del cpu, gpu, s_cpu, s_gpu
     torch.cuda.empty_cache()
-    return dict(cells=N_MAIN, steps=steps, cpu_s=round(t_cpu, 2), card_s=round(t_gpu, 2))
+    return dict(cells=N_MAIN, steps=steps, law=law, cpu_s=round(t_cpu, 2),
+                card_s=round(t_gpu, 2))
+
+
+def powf_phase() -> dict:
+    """The device twin of glibc's ``powf`` (``csrc/glibc_powf.cuh``, which
+    the contact kernels' general law inlines; ``xla_f32.powf_cuda``)
+    against the plain mirror (``xla_f32.powf``) at every float32 in
+    [2^-25, 2^-13), the reduced radii of equal radii from about 0.06 to 240
+    um, at y = float32(1/3): the mirror on the card over every input and on
+    the CPU over every ``POWF_CPU_STRIDE``-th, bit for bit, and both
+    devices' seconds."""
+    from hipsc_abm_tpu_torch.ops import xla_f32
+
+    third = float(np.float32(1.0 / 3.0))
+    n = card_s = mirror_s = cpu_s = 0.0
+    cpu_n = 0
+    for e in range(-25, -13):
+        bits = torch.arange(1 << 23, dtype=torch.int64, device="cuda") + ((e + 127) << 23)
+        x = bits.to(torch.int32).view(torch.float32)
+        t0 = time.perf_counter()
+        got = xla_f32.powf_cuda(x, third)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = xla_f32._powf(x, third)  # the mirror's float64 operations, on the card
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not torch.equal(got, want):
+            bad = torch.nonzero(got != want).squeeze(1)[:8]
+            raise AssertionError(f"powf phase: binade 2^{e}: {int((got != want).sum())} inputs "
+                                 f"apart, e.g. x={x[bad].tolist()} card {got[bad].tolist()} "
+                                 f"mirror {want[bad].tolist()}")
+        sub = x[::POWF_CPU_STRIDE].cpu()
+        t3 = time.perf_counter()
+        cpu_want = xla_f32.powf(sub, third)
+        t4 = time.perf_counter()
+        if not torch.equal(got[::POWF_CPU_STRIDE].cpu(), cpu_want):
+            raise AssertionError(f"powf phase: binade 2^{e}: the CPU's mirror differs")
+        n += x.numel()
+        cpu_n += sub.numel()
+        card_s, mirror_s, cpu_s = card_s + t1 - t0, mirror_s + t2 - t1, cpu_s + t4 - t3
+    out = dict(inputs=int(n), cpu_inputs=cpu_n, max_abs_err=0.0, card_s=round(card_s, 3),
+               card_mirror_s=round(mirror_s, 3), cpu_mirror_s=round(cpu_s, 3))
+    print(f"powf phase: device twin equal to the plain mirror at all {int(n)} float32 inputs "
+          f"in [2^-25, 2^-13) (mirror on the card), and to the CPU's mirror at {cpu_n} of "
+          f"them; twin {card_s:.3f} s, mirror on the card {mirror_s:.3f} s, on the CPU "
+          f"{cpu_s:.3f} s")
+    return out
 
 
 def break_distance(ri, rj, bio):
@@ -944,24 +990,20 @@ def keep_from_mask(args, mask, rows):
 
 
 def check_general(name, f_k, d_k, f_p, d_p, same_rows, keep, args, bio) -> dict:
-    """A general-law kernel against its plain version: forces to rtol 1e-5,
-    atol ``GENERAL_ATOL`` x max |F| and degrees equal on the rows whose keep
-    sets agree; every pair of the other rows decided apart must lie within
-    ``APART_UM`` of its own break distance (rounding of the cube root).
-    ``keep(rows)`` gives both sides' keep matrices. Returns the numbers."""
-    same_rows = same_rows & torch.eq(d_k, d_p)
+    """A general-law kernel against its plain version, bit for bit: forces,
+    degrees and the keep sets of every row (``same_rows``: where the partner
+    lists or mask words agree). A failure reports each pair decided apart
+    with its distance from its own break distance; ``keep(rows)`` gives both
+    sides' keep matrices. Returns the numbers."""
+    same_rows = same_rows & torch.eq(d_k, d_p) & torch.eq(f_k, f_p).all(dim=1)
     f_scale = float(f_p.abs().max())
-    torch.testing.assert_close(f_k[same_rows], f_p[same_rows], rtol=1e-5,
-                               atol=GENERAL_ATOL * f_scale)
-    f_err = float((f_k[same_rows] - f_p[same_rows]).abs().max())
+    f_err = float((f_k - f_p).abs().max())
     rows = torch.nonzero(~same_rows).squeeze(1)
-    apart = pairs_apart(args, *keep(rows), rows, bio) if rows.numel() else []
-    far = [p for p in apart if abs(p["from_break_um"]) > APART_UM]
-    if far or (rows.numel() and not apart):
-        raise AssertionError(f"{name}: {rows.numel()} rows differ, pairs decided apart "
-                             f"beyond {APART_UM} um of the break: {far or 'none found'}")
-    return dict(max_abs_err=f_err, f_scale=f_scale, rows_apart=int(rows.numel()),
-                pairs_apart=apart)
+    if rows.numel():
+        apart = pairs_apart(args, *keep(rows), rows, bio)
+        raise AssertionError(f"{name}: {rows.numel()} rows differ (max|dF| {f_err:.3e} N), "
+                             f"pairs decided apart {apart[:8]}")
+    return dict(max_abs_err=f_err, f_scale=f_scale, rows_apart=0, pairs_apart=[])
 
 
 def general_law_phase(eng, state) -> list:
@@ -1033,9 +1075,9 @@ def general_law_phase(eng, state) -> list:
               f"{candidates / n_live:.2f}, of which reach the pair law (B6 and the seed: "
               f"not dropped by the cut, self excluded) {walk['law'] / n_live:.3f} and the "
               f"membership test {walk['membership'] / n_live:.3f}; kept pairs {kept}; "
-              f"max|F|={check['f_scale']:.6e} N max_abs_err={check['max_abs_err']:.3e} N "
-              f"(rows agreeing); rows with keep sets apart {check['rows_apart']}, pairs "
-              f"decided apart {len(apart)}: {apart[:8]}; kernel {r['ms']:.4f} ms, plain "
+              f"max|F|={check['f_scale']:.6e} N max_abs_err={check['max_abs_err']:.3e} N, "
+              f"rows with keep sets apart {check['rows_apart']}, pairs decided apart "
+              f"{len(apart)}; kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); alone "
               f"per launch (profiler, {ALONE_LAUNCHES} launches, in turns) general "
               f"{alone['general']} uniform {alone['uniform']} ms, general / uniform "
@@ -1267,7 +1309,8 @@ def membership_counts(args, law, chunk: int = 16384) -> dict:
     width = int(torch.clamp(b[..., 1] - b[..., 0], min=0).max())
     k = torch.arange(max(width, 1), device=bounds.device)
     general = law["uniform_radius"] is None
-    law_args = contact.pair_law_args(**law)
+    law_args = contact.pair_law_args(**{k: law[k] for k in (
+        "radius", "adhesion_const", "poisson", "youngs", "break_d", "uniform_radius")})
     totals = dict(membership=0, rows=0, law=0)
     for lo in range(0, C, chunk):
         rows = slice(lo, lo + chunk)
@@ -1437,22 +1480,17 @@ def step_phase(optional: bool = False):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         on_card[path] = convert.state_to_numpy(s_gpu)
-        # the uniform law bit for bit; the general law (optional phases)
-        # keeps the tolerance of the cube root, which is powf on the card
-        # and PyTorch's pow on the CPU (ROADMAP C7)
-        allowed = max(1, N_STEP_CHECK // 10000) if optional and path == "id_list" else 0
+        # bit for bit on either law (the optional phases take the general)
         summary = compare_colonies(convert.state_to_numpy(s_cpu), on_card[path],
-                                   f"step[{path}]{tag} card vs CPU", allowed,
-                                   exact=not optional)
+                                   f"step[{path}]{tag} card vs CPU", 0)
         print(f"step phase [{path}]{tag} card vs CPU: {summary}, cpu {t1 - t0:.2f} s, "
               f"card {t2 - t1:.2f} s")
     summary = compare_colonies(on_card["id_list"], on_card["span_mask"],
-                               f"step{tag} span_mask vs id_list on the card", 0,
-                               exact=not optional)
+                               f"step{tag} span_mask vs id_list on the card", 0)
     print(f"step phase{tag} span_mask vs id_list on the card: {summary}")
 
 
-def step_phase_3d(steps: int = 4, optional: bool = False):
+def step_phase_3d(steps: int = 3, optional: bool = False):
     """The spheroid example's configuration (3,000 + 300 cells): ``steps``
     ``safe_step``s on the CPU and on the card from the same seeded ball, for
     each contact path (bond sets held equal), and the two paths against each
@@ -1474,7 +1512,7 @@ def step_phase_3d(steps: int = 4, optional: bool = False):
             k_grown[device] = state.bonds.partners.shape[1]
         on_card[path] = out["cuda"][0]
         summary = compare_colonies(out["cpu"][0], out["cuda"][0],
-                                   f"3D step[{path}]{tag} card vs CPU", 0, exact=not optional)
+                                   f"3D step[{path}]{tag} card vs CPU", 0)
         print(f"step phase 3D [{path}]{tag} card vs CPU after {steps} safe_steps: {summary}, "
               f"bond_cap {k_grown['cpu']}/{k_grown['cuda']}, cpu {out['cpu'][1]:.2f} s, "
               f"card {out['cuda'][1]:.2f} s")
@@ -1879,8 +1917,9 @@ def optional_lifecycle_phase() -> None:
     seeded at set-up (``seeded_simulation``), ``temp_pickle: false`` (mode 1
     resumes from the npz: a class made at run time does not pickle). On
     each contact path, ``OPT_LIFECYCLE_STEPS`` steps, each card step from
-    the CPU's previous state: integer state equal by agent id at every step,
-    max |dloc| and the bond rows that differ reported. Then mode 0 to 12 +
+    the CPU's previous state, and the card's own trajectory: bit-equal by
+    agent id at every step (integer state, positions, bond sets, lattice).
+    Then mode 0 to 12 +
     mode 1 to 24 bit-equal by agent id to mode 0 to 24 (``resume_check``)."""
     cls = seeded_simulation()
     general = dict(LIFECYCLE_GENERAL, temp_pickle=False)
@@ -1895,17 +1934,19 @@ def optional_lifecycle_phase() -> None:
             rows = lifecycle_card_vs_cpu(root, OPT_LIFECYCLE_STEPS, cls, path,
                                          label=f"{label} [{path}]")
             for row in rows:
-                one = row["one_step"]
-                if not (one["same_agents"] and one["ints_equal"]):
-                    raise AssertionError(f"{label} [{path}]: step {row['step']} on the card "
-                                         f"from the CPU's state differs: {one}")
+                for kind in ("one_step", "trajectory"):
+                    d = row[kind]
+                    if not (d["same_agents"] and d["ints_equal"] and d["max_dloc"] == 0
+                            and d["bond_rows"] == 0 and d["lattice_equal"]):
+                        raise AssertionError(f"{label} [{path}]: step {row['step']} on the "
+                                             f"card ({kind}) differs from the CPU's: {d}")
             dloc = [float(f"{r['one_step']['max_dloc']:.3e}") for r in rows]
             bond_rows = [r["one_step"]["bond_rows"] for r in rows]
             traj = [r["trajectory"] for r in rows]
             print(f"{label} [{path}]: {OPT_LIFECYCLE_STEPS} card steps from the CPU's state, "
-                  f"integer state equal at each; max|dloc| per step {dloc} um, bond rows "
-                  f"differing per step {bond_rows}; the card's own trajectory: integer state "
-                  f"equal at each step {all(t.get('ints_equal', False) for t in traj)}, bond "
+                  f"bit-equal at each; max|dloc| per step {dloc} um, bond rows "
+                  f"differing per step {bond_rows}; the card's own trajectory bit-equal at "
+                  f"each step {all(t.get('max_dloc') == 0 for t in traj)}, bond "
                   f"rows {[t.get('bond_rows') for t in traj]}")
         straight = resume_check(root, general, experimental, label, cls)
         cfg = straight.engine.cfg
@@ -3216,6 +3257,8 @@ def counted(fn):
 def clone_tree(x):
     if isinstance(x, torch.Tensor):
         return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):  # a NamedTuple (a grouping)
+        return type(x)(*(clone_tree(v) for v in x))
     if isinstance(x, (tuple, list)):
         return type(x)(clone_tree(v) for v in x)
     if isinstance(x, dict):
@@ -3978,6 +4021,9 @@ def main() -> int:
 
     phase("step", step_phase)
     print(json.dumps({"exact": phase("exact 100k", step_exact_phase)}))
+    print(json.dumps({"exact_general": phase("exact 100k general", step_exact_phase,
+                                             optional=True)}))
+    print(json.dumps({"powf": phase("powf", powf_phase)}))
     phase("step 3D", step_phase_3d)
     phase("coupling", coupling_phase)
     lifecycle = phase("lifecycle", lifecycle_phase)

@@ -417,7 +417,7 @@ class Calibrator:
     # -- rollout --------------------------------------------------------------
 
     def _step(self, state: CellState, cfg: EngineConfig, bio, plain: bool):
-        """One step of a rollout: the new state, its (14,) probes and, for
+        """One step of a rollout: the new state, its (16,) probes and, for
         a :class:`TrajectoryLoss`, the step's statistic (else None)."""
         eng = self.engine
         state, info = hipsc_step(state, cfg, eng.gen, eng.xp, bio, eng.diff, plain=plain)
@@ -450,7 +450,7 @@ class Calibrator:
 
     def _rollout_single(self, bio, state: CellState, cfg: EngineConfig, plain: bool):
         """One colony rolled out ``horizon`` steps: its ``_single_out`` and
-        the (14,) max of its steps' probes. With ``remat``, while autograd
+        the (16,) max of its steps' probes. With ``remat``, while autograd
         records, each step and its statistic are a checkpoint whose
         intermediates the backward pass recomputes (the step is
         deterministic, so the recompute replays its discrete events), as
@@ -468,7 +468,7 @@ class Calibrator:
 
     def _rollout(self, bio, state: CellState, cfg: EngineConfig, plain: bool):
         """Rollout loss of one parameter set ``bio`` and the rollout's max
-        probes (a (14,) tensor). A stacked state (leading replicate axis,
+        probes (a (16,) tensor). A stacked state (leading replicate axis,
         as built by ``EnsembleEngine.init_states``) rolls each replicate out
         in turn, in one autograd graph, and reduces as the JAX calibrator's
         ``_rollout`` does."""
@@ -484,7 +484,7 @@ class Calibrator:
         the rollout on the plain path (``hipsc_step(plain=True)``) under
         ``cfg`` (``_grad_cfg``'s, or another for a measurement). Returns
         ``((loss, probes), grad)``: the loss a 0-d tensor, the probes
-        (14,), the gradient a (n,) float32 tensor on the CPU."""
+        (16,), the gradient a (n,) float32 tensor on the CPU."""
         t = theta.detach().to(self.engine.device).requires_grad_(True)
         loss, info = self._rollout(self._bio_with(t), state, cfg, plain=True)
         loss.backward()
@@ -499,7 +499,7 @@ class Calibrator:
         the card a graph captured at the first and replayed after), with
         no growth inside: the probes are max-reduced over branches and
         steps for ``_eval_with_growth``. Returns the (P,) losses and the
-        (14,) max probes; each candidate's loss equals ``evaluate``'s."""
+        (16,) max probes; each candidate's loss equals ``evaluate``'s."""
         eng = self.engine
         stacked = state.alive.dim() == 2
         R = state.alive.shape[0] if stacked else 1

@@ -54,9 +54,12 @@
 //   the same).
 // The squared distance is XLA:CPU's in the TPU kernel, fma(dz, dz, fma(dx,
 // dx, dy dy)) (the library is built with --fmad=false, so the only FMAs are
-// the __fmaf_rn written), and the displacement lanes add each run's sum to
-// the row's after the run, as the TPU kernel adds its lane sums; the plain
-// version (ops/bio_moments.py) does both the same way, bit for bit.
+// the __fmaf_rn written), and the displacement lanes add their terms in the
+// TPU kernel's grouping: the walk is chunk-major over the span lanes, each
+// (chunk, run) summed in 32-lane windows of the colony's sorted order
+// (group_sum.cuh); the counts and feature sums are integers, exact in any
+// order. The plain version (ops/bio_moments.py) does both the same way, bit
+// for bit.
 // Tried and dropped (PERF.md section 6, each bit-equal): 8 candidates ahead
 // (3D 30-50% slower, 2D 5%); the chunk's neighbours found first and their
 // feature loads issued together (3D 10-30% slower, 2D 8-15%); each run's
@@ -65,6 +68,8 @@
 // block of rows; here each thread reads only its own run slices.
 
 #include <cuda_runtime.h>
+
+#include "group_sum.cuh"
 
 namespace {
 
@@ -78,16 +83,15 @@ __global__ void __launch_bounds__(kThreads) bio_moments_kernel(
     const int2* __restrict__ bounds, const float* __restrict__ loc1,
     const int* __restrict__ f0, const int* __restrict__ f1,
     const int* __restrict__ f2, float4* __restrict__ out, int C, float radius2,
-    int mode) {
+    int mode, hipsc::Grouping grp) {
   constexpr bool k3D = N_RUNS == 9;
   __shared__ float4 stage[kThreads * 4];  // the block's rows, 16 lanes each
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   const bool want_f0 = mode == 1 || mode == 3;
   const bool want_disp = mode == 2 || mode == 3;
 
-  float count = 0.f, sf0 = 0.f, sf0sq = 0.f;
-  float ca = 0.f, ax = 0.f, ay = 0.f, az = 0.f;
-  float cb = 0.f, bx = 0.f, by = 0.f, bz = 0.f;
+  float count = 0.f, sf0 = 0.f, sf0sq = 0.f, ca = 0.f, cb = 0.f;
+  hipsc::GroupSum3 sa, sb;  // the displacement sums, in the TPU kernel's grouping
   if (row < C && alive[row]) {
     int2 b[N_RUNS];
 #pragma unroll
@@ -99,76 +103,81 @@ __global__ void __launch_bounds__(kThreads) bio_moments_kernel(
       my = loc1[3 * (size_t)row + 1];
       if (k3D) mz = loc1[3 * (size_t)row + 2];
     }
+    const int blk = hipsc::row_block(grp, row);
+    // the chunks the row's runs reach
+    int c_first = 0x7fffffff, c_last = -1;
 #pragma unroll
     for (int r = 0; r < N_RUNS; ++r) {
-      const int lo = b[r].x;
-      const int hi = b[r].y;
-      // the run's displacement sums, added to the row's after the run
-      float rax = 0.f, ray = 0.f, raz = 0.f, rbx = 0.f, rby = 0.f, rbz = 0.f;
-      for (int p0 = lo; p0 < hi; p0 += kAhead) {
-        float4 c[kAhead];
-        unsigned char live[kAhead];
+      if (b[r].y <= b[r].x) continue;
+      const hipsc::RunLanes run(grp, r, blk, b[r].x, b[r].y);
+      c_first = min(c_first, run.chunk_of(b[r].x, grp.chunk_shift));
+      c_last = max(c_last, run.chunk_of(b[r].y - 1, grp.chunk_shift));
+    }
+    // chunk-major: each chunk's part of each run
+    for (int ch = c_first; ch <= c_last; ++ch) {
 #pragma unroll
-        for (int u = 0; u < kAhead; ++u) {
-          const int q = min(p0 + u, hi - 1);
-          c[u] = pos0[q];
-          live[u] = alive[q];
-        }
+      for (int r = 0; r < N_RUNS; ++r) {
+        if (b[r].y <= b[r].x) continue;
+        const hipsc::RunLanes run(grp, r, blk, b[r].x, b[r].y);
+        const int hi = run.begin(ch + 1, grp.chunk_shift);
+        for (int p0 = run.begin(ch, grp.chunk_shift); p0 < hi; p0 += kAhead) {
+          float4 c[kAhead];
+          unsigned char live[kAhead];
 #pragma unroll
-        for (int u = 0; u < kAhead; ++u) {
-          const int p = p0 + u;
-          if (p >= hi) break;
-          if (p == row || !live[u]) continue;
-          // XLA:CPU's squared distance in the TPU kernel: the first
-          // product fused into the sum, fma(dz, dz, fma(dx, dx, dy dy))
-          const float dx0 = __fsub_rn(c[u].x, me.x);
-          const float dy0 = __fsub_rn(c[u].y, me.y);
-          float dist2 = __fmaf_rn(dx0, dx0, __fmul_rn(dy0, dy0));
-          if (k3D) {
-            const float dz0 = __fsub_rn(c[u].z, me.z);
-            dist2 = __fmaf_rn(dz0, dz0, dist2);
+          for (int u = 0; u < kAhead; ++u) {
+            const int q = min(p0 + u, hi - 1);
+            c[u] = pos0[q];
+            live[u] = alive[q];
           }
-          if (dist2 > radius2) continue;
-          count += 1.f;
-          if (!(want_f0 || want_disp)) continue;
-          const float g0 = (float)f0[p];
-          if (want_f0) {
-            sf0 += g0;
-            sf0sq += g0 * g0;
-          }
-          if (want_disp) {
-            const float g1 = (float)f1[p];
-            const float g2 = (float)f2[p];
-            const float ddx = loc1[3 * (size_t)p] - mx;
-            const float ddy = loc1[3 * (size_t)p + 1] - my;
-            const float ddz = k3D ? loc1[3 * (size_t)p + 2] - mz : 0.f;
-            if (g1 > g0) {
-              ca += 1.f;
-              rax += ddx;
-              ray += ddy;
-              raz += ddz;
+#pragma unroll
+          for (int u = 0; u < kAhead; ++u) {
+            const int p = p0 + u;
+            if (p >= hi) break;
+            if (p == row || !live[u]) continue;
+            // XLA:CPU's squared distance in the TPU kernel: the first
+            // product fused into the sum, fma(dz, dz, fma(dx, dx, dy dy))
+            const float dx0 = __fsub_rn(c[u].x, me.x);
+            const float dy0 = __fsub_rn(c[u].y, me.y);
+            float dist2 = __fmaf_rn(dx0, dx0, __fmul_rn(dy0, dy0));
+            if (k3D) {
+              const float dz0 = __fsub_rn(c[u].z, me.z);
+              dist2 = __fmaf_rn(dz0, dz0, dist2);
             }
-            if (g2 != 0.f) {
-              cb += 1.f;
-              rbx += ddx;
-              rby += ddy;
-              rbz += ddz;
+            if (dist2 > radius2) continue;
+            count += 1.f;
+            if (!(want_f0 || want_disp)) continue;
+            const float g0 = (float)f0[p];
+            if (want_f0) {
+              sf0 += g0;
+              sf0sq += g0 * g0;
+            }
+            if (want_disp) {
+              const float g1 = (float)f1[p];
+              const float g2 = (float)f2[p];
+              const float ddx = loc1[3 * (size_t)p] - mx;
+              const float ddy = loc1[3 * (size_t)p + 1] - my;
+              const float ddz = k3D ? loc1[3 * (size_t)p + 2] - mz : 0.f;
+              const int g = run.g_lo + (p - run.lo);
+              if (g1 > g0) {
+                ca += 1.f;
+                sa.add(g, ddx, ddy, ddz);
+              }
+              if (g2 != 0.f) {
+                cb += 1.f;
+                sb.add(g, ddx, ddy, ddz);
+              }
             }
           }
         }
+        sa.close();
+        sb.close();
       }
-      ax += rax;
-      ay += ray;
-      az += raz;
-      bx += rbx;
-      by += rby;
-      bz += rbz;
     }
   }
   float4* o = stage + 4 * threadIdx.x;
   o[0] = make_float4(count, sf0, sf0sq, ca);
-  o[1] = make_float4(ax, ay, az, cb);
-  o[2] = make_float4(bx, by, bz, 0.f);
+  o[1] = make_float4(sa.x, sa.y, sa.z, cb);
+  o[2] = make_float4(sb.x, sb.y, sb.z, 0.f);
   o[3] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
   // the block's rows are contiguous in out: one coalesced pass of float4s
@@ -184,14 +193,19 @@ extern "C" int hipsc_bio_moments(const void* pos0, const void* alive,
                                  const void* bounds, const void* loc1,
                                  const void* f0, const void* f1, const void* f2,
                                  void* out, int C, float radius2, int mode,
-                                 int n_runs, void* stream) {
+                                 int n_runs, const void* starts, const void* gpos,
+                                 int nblocks, int chunk_shift, int block_shift, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
+  if (nblocks < 1 || chunk_shift < 5 || chunk_shift > 30 || block_shift < 0 || block_shift > 30)
+    return (int)cudaErrorInvalidValue;
+  const hipsc::Grouping grp{(const int*)starts, (const int*)gpos, nblocks, chunk_shift,
+                           block_shift};
   const int blocks = (C + kThreads - 1) / kThreads;
   auto kernel = n_runs == 3 ? bio_moments_kernel<3> : bio_moments_kernel<9>;
   kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)pos0, (const unsigned char*)alive, (const int2*)bounds,
       (const float*)loc1, (const int*)f0, (const int*)f1, (const int*)f2,
-      (float4*)out, C, radius2, mode);
+      (float4*)out, C, radius2, mode, grp);
   return (int)cudaGetLastError();
 }

@@ -7,13 +7,16 @@
 // What it computes, per sorted row i (alive): walk the stencil runs
 // r = 0..N_RUNS-1 (3 in 2D, 9 in 3D: a template parameter, as the TPU
 // kernel's `run_offs` length was static), sorted positions p in [lo_r, hi_r)
-// ascending. A candidate p counts if its id differs from the row's id, the
-// JKR pair law lets it survive (nondimensional overlap d > break_d), and it
-// is a fresh contact (dist^2 <= radius^2) or already in the row's partner
-// list. Survivors add their force to their run's sum (the runs' sums are
-// then added in order, ops/neighbors.py `walk_sum`) and are appended to the
-// new partner list in walk order; the list keeps the first K and the returned degree is the
-// untruncated count (the bond-capacity overflow probe).
+// ascending, chunk-major as the TPU kernel walks them: for each chunk of its
+// span lanes, each run's positions in that chunk (group_sum.cuh). A
+// candidate p counts if its id differs from the row's id, the JKR pair law
+// lets it survive (nondimensional overlap d > break_d), and it is a fresh
+// contact (dist^2 <= radius^2) or already in the row's partner list.
+// Survivors add their force to the row's sum in the TPU kernel's grouping
+// (group_sum.cuh `GroupSum3`, ops/neighbors.py `grouped_sum`) and are
+// appended to the new partner list in the walk's order, the TPU kernel's;
+// the list keeps the first K and the returned degree is the untruncated
+// count (the bond-capacity overflow probe).
 //
 // What bounds it on the card: a row walks its candidates of 20 bytes each,
 // all inside a few neighbouring bins (8.6 per live row at the 2D bench
@@ -37,6 +40,10 @@
 //   Such a pair gives no force and no entry, bonded or not, and every other
 //   candidate runs the law exactly as before, so the outputs are bit-equal
 //   to the law asked of every candidate.
+// - The sum's grouping costs a shift and a compare per kept candidate, a
+//   window partial and a (chunk, run) total beside the row's sum, and a
+//   first pass over the row's bounds that finds the chunks its runs reach
+//   (one for most rows: then the walk is run by run, as before).
 // - The break test comes next. The pair law decides from distance and
 //   radii alone whether a pair survives, and a pair that breaks gives no
 //   force and no entry, bonded or not; so only candidates that survive ask
@@ -64,6 +71,7 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "group_sum.cuh"
 #include "jkr_pair.cuh"
 
 namespace {
@@ -80,7 +88,7 @@ __global__ void __launch_bounds__(kThreads) contact_substep_kernel(
     const unsigned char* __restrict__ alive, const int* __restrict__ bounds,
     const int* __restrict__ partners, float* __restrict__ force,
     int* __restrict__ degree, int* __restrict__ new_partners, int C, int K,
-    int pitch, PairLaw law) {
+    int pitch, PairLaw law, hipsc::Grouping grp) {
   extern __shared__ int in_lists[];              // kThreads x pitch
   int* out_lists = in_lists + kThreads * pitch;  // kThreads x pitch
   const int t = threadIdx.x;
@@ -101,48 +109,64 @@ __global__ void __launch_bounds__(kThreads) contact_substep_kernel(
 
   const int* in = in_lists + t * pitch;
   int* out = out_lists + t * pitch;
-  float fx = 0.f, fy = 0.f, fz = 0.f;
+  hipsc::GroupSum3 sum;
   int count = 0;
   if (t < rows && alive[row]) {
     const float4 me = xyzr[row];
     const int my_id = ids[row];
     const float reach = kGeneral ? hipsc::cull_reach(law, me.w) : 0.f;
     const float cut2 = kGeneral ? 0.f : hipsc::uniform_cut2(law);
+    const int* b = bounds + (size_t)row * 2 * N_RUNS;
+    const int blk = hipsc::row_block(grp, row);
+    // the chunks the row's runs reach
+    int c_first = 0x7fffffff, c_last = -1;
     for (int r = 0; r < N_RUNS; ++r) {
-      const int lo = bounds[row * 2 * N_RUNS + 2 * r];
-      const int hi = bounds[row * 2 * N_RUNS + 2 * r + 1];
-      float tx = 0.f, ty = 0.f, tz = 0.f;  // the run's sum
-      for (int p = lo; p < hi; ++p) {
-        const float4 c = xyzr[p];
-        const float dx = __fsub_rn(me.x, c.x);
-        const float dy = __fsub_rn(me.y, c.y);
-        const float dz = __fsub_rn(me.z, c.z);
-        const float dist2 = hipsc::pair_dist2(law, dx, dy, dz);
-        // the cut, then the id: a dropped candidate reads no id, and the
-        // row itself (distance 0) is never dropped
-        if (kGeneral ? hipsc::certainly_breaks(reach, c.w, dist2) : dist2 > cut2) continue;
-        const int cid = ids[p];
-        if (cid == my_id) continue;
-        // the pair breaks: no force, no entry, whether bonded or not
-        const hipsc::PairOverlap o = hipsc::jkr_overlap(law, me, c, dist2);
-        if (!(o.d > law.break_d)) continue;
-        bool eligible = dist2 <= law.radius2;
-        for (int k = 0; k < K && !eligible; ++k) eligible = in[k] == cid;
-        if (!eligible) continue;
-        hipsc::jkr_force(law, o, dx, dy, dz, tx, ty, tz);
-        if (count < K) out[count] = cid;
-        ++count;
+      const int lo = b[2 * r], hi = b[2 * r + 1];
+      if (hi <= lo) continue;
+      const hipsc::RunLanes run(grp, r, blk, lo, hi);
+      c_first = min(c_first, run.chunk_of(lo, grp.chunk_shift));
+      c_last = max(c_last, run.chunk_of(hi - 1, grp.chunk_shift));
+    }
+    // chunk-major: each chunk's part of each run, a run's positions being
+    // contiguous, so no candidate is visited twice
+    for (int ch = c_first; ch <= c_last; ++ch) {
+      for (int r = 0; r < N_RUNS; ++r) {
+        const int lo = b[2 * r], hi = b[2 * r + 1];
+        if (hi <= lo) continue;
+        const hipsc::RunLanes run(grp, r, blk, lo, hi);
+        const int end = run.begin(ch + 1, grp.chunk_shift);
+        for (int p = run.begin(ch, grp.chunk_shift); p < end; ++p) {
+          const float4 c = xyzr[p];
+          const float dx = __fsub_rn(me.x, c.x);
+          const float dy = __fsub_rn(me.y, c.y);
+          const float dz = __fsub_rn(me.z, c.z);
+          const float dist2 = hipsc::pair_dist2(dx, dy, dz);
+          // the cut, then the id: a dropped candidate reads no id, and the
+          // row itself (distance 0) is never dropped
+          if (kGeneral ? hipsc::certainly_breaks(reach, c.w, dist2) : dist2 > cut2) continue;
+          const int cid = ids[p];
+          if (cid == my_id) continue;
+          // the pair breaks: no force, no entry, whether bonded or not
+          const hipsc::PairOverlap o = hipsc::jkr_overlap(law, me, c, dist2);
+          if (!(o.d > law.break_d)) continue;
+          bool eligible = dist2 <= law.radius2;
+          for (int k = 0; k < K && !eligible; ++k) eligible = in[k] == cid;
+          if (!eligible) continue;
+          float tx, ty, tz;
+          hipsc::jkr_force(law, o, dx, dy, dz, tx, ty, tz);
+          sum.add(run.g_lo + (p - lo), tx, ty, tz);
+          if (count < K) out[count] = cid;
+          ++count;
+        }
+        sum.close();
       }
-      fx = __fadd_rn(fx, tx);
-      fy = __fadd_rn(fy, ty);
-      fz = __fadd_rn(fz, tz);
     }
   }
   if (t < rows) {
     for (int k = count < K ? count : K; k < K; ++k) out[k] = -1;
-    force[(size_t)row * 3 + 0] = fx;
-    force[(size_t)row * 3 + 1] = fy;
-    force[(size_t)row * 3 + 2] = fz;
+    force[(size_t)row * 3 + 0] = sum.x;
+    force[(size_t)row * 3 + 1] = sum.y;
+    force[(size_t)row * 3 + 2] = sum.z;
     degree[row] = count;
   }
   __syncthreads();
@@ -162,12 +186,17 @@ extern "C" int hipsc_contact_substep(
     const void* partners, void* force, void* degree, void* new_partners, int C,
     int K, int n_runs, int pitch, int smem_bytes, float radius2, float break_d,
     int uniform, float two_r, float inv_scale, float fpre, float scale_c,
-    float pi_f, float adhesion, const void* rsqrt_tab, void* stream) {
+    const void* rsqrt_tab, const void* starts,
+    const void* gpos, int nblocks, int chunk_shift, int block_shift, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
   if (K < 1 || pitch < K) return (int)cudaErrorInvalidValue;
-  PairLaw law{radius2, break_d, uniform, two_r,     inv_scale,
-              fpre,    scale_c, pi_f,    adhesion,  (const int*)rsqrt_tab};
+  if (nblocks < 1 || chunk_shift < 5 || chunk_shift > 30 || block_shift < 0 || block_shift > 30)
+    return (int)cudaErrorInvalidValue;
+  const hipsc::Grouping grp{(const int*)starts, (const int*)gpos, nblocks, chunk_shift,
+                           block_shift};
+  PairLaw law{radius2, break_d, uniform,   two_r,
+              inv_scale, fpre, scale_c, (const int*)rsqrt_tab};
   auto kernel = n_runs == 3 ? (uniform ? contact_substep_kernel<3, false>
                                        : contact_substep_kernel<3, true>)
                             : (uniform ? contact_substep_kernel<9, false>
@@ -178,7 +207,7 @@ extern "C" int hipsc_contact_substep(
   kernel<<<(C + kThreads - 1) / kThreads, kThreads, smem_bytes, (cudaStream_t)stream>>>(
       (const float4*)xyzr, (const int*)ids, (const unsigned char*)alive,
       (const int*)bounds, (const int*)partners, (float*)force, (int*)degree,
-      (int*)new_partners, C, K, pitch, law);
+      (int*)new_partners, C, K, pitch, law, grp);
   return (int)cudaGetLastError();
 }
 

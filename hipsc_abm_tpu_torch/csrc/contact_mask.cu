@@ -33,7 +33,14 @@
 //   first K partner ids, NO_BOND (-1) padded. Runs before each re-sort (ids
 //   are the only bond form that survives one) and at the scan's exit.
 // Force and degree (the untruncated keep count, the bond-capacity probe)
-// are those of contact.cu's kernel for the same bond set.
+// are those of contact.cu's kernel for the same bond set, the force summed
+// in the TPU kernels' grouping (group_sum.cuh): the walk is chunk-major over
+// the span lanes. Where a row's runs lie in one chunk (most rows) that is
+// candidate order and each mask word is entered once; where they reach
+// several, the walk revisits words, so it holds one word at a time and
+// reads it back on entry (the seed having cleared the row's words first),
+// which also keeps the masked substep's in-place update right: a word holds
+// the new bits of the candidates visited and the old bits of the rest.
 //
 // The mask's width W is a static capacity (the engine's
 // EngineConfig.mask_bits / 32), not the widest row of this window: no kernel
@@ -120,6 +127,7 @@
 
 #include <cuda_runtime.h>
 
+#include "group_sum.cuh"
 #include "jkr_pair.cuh"
 
 namespace {
@@ -137,87 +145,107 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
     const float4* __restrict__ xyzr, const int* __restrict__ ids,
     const unsigned char* __restrict__ alive, const int* __restrict__ bounds,
     const int* __restrict__ partners,  // seed: (C, K) partner ids
-    const unsigned* in_mask,           // masked: (W, C) words, aliased with out_mask
-    unsigned* out_mask,                // (W, C) words
+    unsigned* mask,                    // (W, C) words; masked: read and written in place
     float* __restrict__ force, int* __restrict__ degree, int C, int K, int W,
-    PairLaw law, const int* __restrict__ pred) {
+    PairLaw law, const int* __restrict__ pred, hipsc::Grouping grp) {
   if (pred != nullptr && *pred == 0) return;  // the other branch runs
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= C) return;
 
-  float fx = 0.f, fy = 0.f, fz = 0.f;
+  hipsc::GroupSum3 sum;
   int count = 0;
-  int j = 0;              // candidate index along the row's runs
-  unsigned in_word = 0;   // masked: the current word of the old keep set
-  unsigned out_word = 0;  // the current word of the new keep set
+  int n_words = 0;  // words holding the row's candidates
   if (alive[row]) {
     const float4 me = xyzr[row];
     const int* b = bounds + (size_t)row * 2 * N_RUNS;
     const int* my_partners = kSeed ? partners + (size_t)row * K : nullptr;
     const float reach = kGeneral ? hipsc::cull_reach(law, me.w) : 0.f;
     const float cut2 = kGeneral ? 0.f : hipsc::uniform_cut2(law);
+    const int blk = hipsc::row_block(grp, row);
+    // the chunks the row's runs reach, and its candidate count
+    int c_first = 0x7fffffff, c_last = -1, n_cand = 0;
     for (int r = 0; r < N_RUNS; ++r) {
-      const int lo = b[2 * r];
-      const int hi = b[2 * r + 1];
-      float tx = 0.f, ty = 0.f, tz = 0.f;  // the run's sum
-      for (int p0 = lo; p0 < hi; p0 += kAhead) {
-        float4 cand[kAhead];
+      const int lo = b[2 * r], hi = b[2 * r + 1];
+      if (hi <= lo) continue;
+      const hipsc::RunLanes run(grp, r, blk, lo, hi);
+      c_first = min(c_first, run.chunk_of(lo, grp.chunk_shift));
+      c_last = max(c_last, run.chunk_of(hi - 1, grp.chunk_shift));
+      n_cand += hi - lo;
+    }
+    n_words = min((n_cand + 31) >> 5, W);
+    // One chunk: the walk is in candidate order and every word is entered
+    // once, in order. Several: the chunk-major walk revisits words, so the
+    // seed clears the row's words first and every entered word is read.
+    const bool in_order = c_first == c_last;
+    if (kSeed && !in_order)
+      for (int w = 0; w < n_words; ++w) mask[(size_t)w * C + row] = 0u;
+    int cur_w = -1;     // the word held in `word`
+    unsigned word = 0;  // the seed's new bits; masked: new bits where visited, old elsewhere
+    for (int ch = c_first; ch <= c_last; ++ch) {
+      int j_run = 0;  // the candidate index of the run's first position
+      for (int r = 0; r < N_RUNS; ++r) {
+        const int lo = b[2 * r], hi = b[2 * r + 1];
+        if (hi <= lo) continue;
+        const hipsc::RunLanes run(grp, r, blk, lo, hi);
+        const int end = run.begin(ch + 1, grp.chunk_shift);
+        for (int p0 = run.begin(ch, grp.chunk_shift); p0 < end; p0 += kAhead) {
+          float4 cand[kAhead];
 #pragma unroll
-        for (int u = 0; u < kAhead; ++u) cand[u] = xyzr[min(p0 + u, hi - 1)];
+          for (int u = 0; u < kAhead; ++u) cand[u] = xyzr[min(p0 + u, end - 1)];
 #pragma unroll
-        for (int u = 0; u < kAhead; ++u) {
-          const int p = p0 + u;
-          if (p >= hi) break;
-          const int bit = j & 31;
-          if (bit == 0) {
-            if (j > 0) {  // the previous word is complete
-              if ((j >> 5) - 1 < W) out_mask[(size_t)((j >> 5) - 1) * C + row] = out_word;
-              out_word = 0;
+          for (int u = 0; u < kAhead; ++u) {
+            const int p = p0 + u;
+            if (p >= end) break;
+            const int j = j_run + (p - lo);
+            if ((j >> 5) != cur_w) {  // enter the word of j, writing back the one held
+              if (cur_w >= 0 && cur_w < W) mask[(size_t)cur_w * C + row] = word;
+              cur_w = j >> 5;
+              word = (cur_w < W && !(kSeed && in_order)) ? mask[(size_t)cur_w * C + row] : 0u;
             }
-            if (!kSeed) in_word = (j >> 5) < W ? in_mask[(size_t)(j >> 5) * C + row] : 0u;
-          }
-          ++j;
-          const float4 c = cand[u];
-          const float dx = __fsub_rn(me.x, c.x);
-          const float dy = __fsub_rn(me.y, c.y);
-          const float dz = __fsub_rn(me.z, c.z);
-          const float dist2 = hipsc::pair_dist2(law, dx, dy, dz);
-          bool keep;
-          if (kSeed) {
-            // the pair breaks: no force, no bit, whether bonded or not
-            if (kGeneral ? hipsc::certainly_breaks(reach, c.w, dist2) : dist2 > cut2) continue;
-            const hipsc::PairOverlap o = hipsc::jkr_overlap(law, me, c, dist2);
-            if (!(o.d > law.break_d)) continue;
-            if (p == row) continue;  // the row itself passes both tests above
-            keep = dist2 <= law.radius2;
-            if (!keep) {
-              const int cid = ids[p];
-              for (int k = 0; k < K && !keep; ++k) keep = my_partners[k] == cid;
+            const unsigned bit = 1u << (j & 31);
+            const float4 c = cand[u];
+            const float dx = __fsub_rn(me.x, c.x);
+            const float dy = __fsub_rn(me.y, c.y);
+            const float dz = __fsub_rn(me.z, c.z);
+            const float dist2 = hipsc::pair_dist2(dx, dy, dz);
+            float tx, ty, tz;
+            bool keep;
+            if (kSeed) {
+              // the pair breaks: no force, no bit, whether bonded or not
+              if (kGeneral ? hipsc::certainly_breaks(reach, c.w, dist2) : dist2 > cut2) continue;
+              const hipsc::PairOverlap o = hipsc::jkr_overlap(law, me, c, dist2);
+              if (!(o.d > law.break_d)) continue;
+              if (p == row) continue;  // the row itself passes both tests above
+              keep = dist2 <= law.radius2;
+              if (!keep) {
+                const int cid = ids[p];
+                for (int k = 0; k < K && !keep; ++k) keep = my_partners[k] == cid;
+              }
+              if (keep) hipsc::jkr_force(law, o, dx, dy, dz, tx, ty, tz);
+            } else {
+              keep = (dist2 <= law.radius2 || (word & bit)) && p != row &&
+                     hipsc::jkr_pair(law, me, c, dx, dy, dz, dist2, tx, ty, tz);
+              word &= ~bit;
             }
-            if (keep) hipsc::jkr_force(law, o, dx, dy, dz, tx, ty, tz);
-          } else {
-            keep = (dist2 <= law.radius2 || ((in_word >> bit) & 1u)) && p != row &&
-                   hipsc::jkr_pair(law, me, c, dx, dy, dz, dist2, tx, ty, tz);
-          }
-          if (keep) {
-            out_word |= 1u << bit;
-            ++count;
+            if (keep) {
+              word |= bit;
+              sum.add(run.g_lo + (p - lo), tx, ty, tz);
+              ++count;
+            }
           }
         }
+        sum.close();
+        j_run += hi - lo;
       }
-      fx = __fadd_rn(fx, tx);
-      fy = __fadd_rn(fy, ty);
-      fz = __fadd_rn(fz, tz);
     }
+    if (cur_w >= 0 && cur_w < W) mask[(size_t)cur_w * C + row] = word;
   }
-  // the last (partial) word, then zeros up to W: a dead or short row leaves
-  // no stale bits for a later masked substep or compaction to read
-  int w = j > 0 ? ((j - 1) >> 5) : 0;
-  if (w < W) out_mask[(size_t)w * C + row] = out_word;
-  for (++w; w < W; ++w) out_mask[(size_t)w * C + row] = 0u;
-  force[(size_t)row * 3 + 0] = fx;
-  force[(size_t)row * 3 + 1] = fy;
-  force[(size_t)row * 3 + 2] = fz;
+  // zeros past the row's candidates: a dead or short row leaves no stale
+  // bits for a later masked substep or compaction to read
+  for (int w = n_words; w < W; ++w) mask[(size_t)w * C + row] = 0u;
+  force[(size_t)row * 3 + 0] = sum.x;
+  force[(size_t)row * 3 + 1] = sum.y;
+  force[(size_t)row * 3 + 2] = sum.z;
   degree[row] = count;
 }
 
@@ -295,20 +323,25 @@ extern "C" int hipsc_contact_seed(
     const void* xyzr, const void* ids, const void* alive, const void* bounds,
     const void* partners, void* mask, void* force, void* degree, int C, int K,
     int W, int n_runs, float radius2, float break_d, int uniform, float two_r,
-    float inv_scale, float fpre, float scale_c, float pi_f, float adhesion,
-    const void* rsqrt_tab, const void* pred, void* stream) {
+    float inv_scale, float fpre, float scale_c,
+    const void* rsqrt_tab, const void* pred, const void* starts, const void* gpos,
+    int nblocks, int chunk_shift, int block_shift, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if ((n_runs != 3 && n_runs != 9) || W < 1) return (int)cudaErrorInvalidValue;
-  PairLaw law{radius2, break_d, uniform, two_r,     inv_scale,
-              fpre,    scale_c, pi_f,    adhesion,  (const int*)rsqrt_tab};
+  if (nblocks < 1 || chunk_shift < 5 || chunk_shift > 30 || block_shift < 0 || block_shift > 30)
+    return (int)cudaErrorInvalidValue;
+  PairLaw law{radius2, break_d, uniform,   two_r,
+              inv_scale, fpre, scale_c, (const int*)rsqrt_tab};
+  const hipsc::Grouping grp{(const int*)starts, (const int*)gpos, nblocks, chunk_shift,
+                           block_shift};
   auto kernel = n_runs == 3 ? (uniform ? contact_mask_kernel<true, 3, false>
                                        : contact_mask_kernel<true, 3, true>)
                             : (uniform ? contact_mask_kernel<true, 9, false>
                                        : contact_mask_kernel<true, 9, true>);
   kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)xyzr, (const int*)ids, (const unsigned char*)alive,
-      (const int*)bounds, (const int*)partners, nullptr, (unsigned*)mask,
-      (float*)force, (int*)degree, C, K, W, law, (const int*)pred);
+      (const int*)bounds, (const int*)partners, (unsigned*)mask,
+      (float*)force, (int*)degree, C, K, W, law, (const int*)pred, grp);
   return (int)cudaGetLastError();
 }
 
@@ -316,18 +349,23 @@ extern "C" int hipsc_contact_masked(
     const void* xyzr, const void* alive, const void* bounds, void* mask,
     void* force, void* degree, int C, int W, int n_runs, float radius2,
     float break_d, int uniform, float two_r, float inv_scale, float fpre,
-    float scale_c, float pi_f, float adhesion, const void* rsqrt_tab, const void* pred,
+    float scale_c, const void* rsqrt_tab, const void* pred,
+    const void* starts, const void* gpos, int nblocks, int chunk_shift, int block_shift,
     void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if ((n_runs != 3 && n_runs != 9) || W < 1) return (int)cudaErrorInvalidValue;
-  PairLaw law{radius2, break_d, uniform, two_r,     inv_scale,
-              fpre,    scale_c, pi_f,    adhesion,  (const int*)rsqrt_tab};
+  if (nblocks < 1 || chunk_shift < 5 || chunk_shift > 30 || block_shift < 0 || block_shift > 30)
+    return (int)cudaErrorInvalidValue;
+  PairLaw law{radius2, break_d, uniform,   two_r,
+              inv_scale, fpre, scale_c, (const int*)rsqrt_tab};
+  const hipsc::Grouping grp{(const int*)starts, (const int*)gpos, nblocks, chunk_shift,
+                           block_shift};
   auto kernel = n_runs == 3 ? contact_mask_kernel<false, 3, false>
                             : contact_mask_kernel<false, 9, false>;
   kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)xyzr, nullptr, (const unsigned char*)alive,
-      (const int*)bounds, nullptr, (const unsigned*)mask, (unsigned*)mask,
-      (float*)force, (int*)degree, C, 0, W, law, (const int*)pred);
+      (const int*)bounds, nullptr, (unsigned*)mask,
+      (float*)force, (int*)degree, C, 0, W, law, (const int*)pred, grp);
   return (int)cudaGetLastError();
 }
 

@@ -23,13 +23,10 @@
 // general law (`law.uniform == 0`: per-pair radii, as growth makes them) is
 // `_pair_jkr` as XLA:CPU compiles it: the squared distance fma(dz, dz,
 // fma(dy, dy, dx dx)), mag = sqrtf (correctly rounded), the overlap times
-// float32(1e-6), the reduced radius r_hat, its cube root by `powf`, two
-// divisions, the cubic fused and pi adhesion folded. CUDA's `powf` is not
-// glibc's, which XLA:CPU calls, nor is the plain versions' `pow`: each is
-// within 2 ulp, so the general law's d can differ in its last bits between
-// the card and the CPU, and a pair whose overlap lies within a few ulps of
-// `break_d` can be decided apart (chip_smoke.py reports each such pair and
-// its distance from the break).
+// float32(1e-6), the reduced radius r_hat, its cube root by glibc's `powf`
+// (`powf_glibc`, glibc_powf.cuh: XLA:CPU calls glibc's, and the plain
+// versions mirror it, ops/xla_f32.py `powf`), two divisions, the cubic
+// fused and pi adhesion folded. Both laws give the plain versions' bits.
 //
 // What bounded the general law on the card was that per-pair `powf` and the
 // divisions, asked of every candidate a row walks (~222 over nine runs in
@@ -45,30 +42,34 @@
 // `cull_reach`), every pair with mag > ri + rj + b_i breaks. The cut is
 // widened by the relative slack 2^-12 (~2.5e-3 um at the radii growth
 // makes): the float32 evaluation of the law and of the cut (sqrtf and the
-// divisions correctly rounded, `powf` within 2 ulp, a few products and
-// FMAs) errs by some 1e-6 relative, so a culled pair's computed d is below
-// -|break_d| by ~2^-12 of it, hundreds of times any rounding (one ulp of d
-// near the break is ~2.5e-8 um of distance). `cull_reach` keeps CUDA's
-// `powf`: the cut is a conservative filter, and a reach off by 2 ulp moves
-// it by ~1e-7 relative, far inside the slack, so the argument holds for
-// any `powf` within a few ulps. The argument needs a row radius in
-// [kCullMinRadius, kCullMaxRadius] (no overflow or underflow in r_hat) and
-// a positive candidate radius; elsewhere nothing is dropped and the law
-// decides. With the cut, ~2 candidates of a 3D row reach the law, and the
-// walk's instructions per candidate bound the general law as they bound
-// the uniform one (PERF.md section 6). The uniform law takes no cut: its
-// overlap is a subtraction and a product after the square root. The plain
-// mirror, which the CPU tests hold to the law, is ops/contact.py
-// `cull_reach` and `certainly_breaks`.
+// divisions correctly rounded, the law's cube root glibc's powf, within 1
+// ulp of the true cube root, the cut's CUDA's powf, within 2 ulp, a few
+// products and FMAs) errs by some 1e-6 relative, so a culled pair's
+// computed d is below -|break_d| by ~2^-12 of it, hundreds of times any
+// rounding (one ulp of d near the break is ~2.5e-8 um of distance). The
+// cut is a conservative filter that need not match the law bit for bit:
+// `cull_reach` keeps CUDA's `powf` (the plain cut, ops/contact.py
+// `cull_reach`, PyTorch's float32 `pow`), and a reach off by a few ulps
+// moves it by ~1e-7 relative, far inside the slack, so the argument holds
+// for any cube root within a few ulps on either side. The argument needs a
+// row radius in [kCullMinRadius, kCullMaxRadius] (no overflow or underflow
+// in r_hat) and a positive candidate radius; elsewhere nothing is dropped
+// and the law decides. With the cut, ~2 candidates of a 3D row reach the
+// law, and the walk's instructions per candidate bound the general law as
+// they bound the uniform one (PERF.md section 6). The uniform law takes no
+// cut: its overlap is a subtraction and a product after the square root.
+// The plain mirror, which the CPU tests hold to the law, is
+// ops/contact.py `cull_reach` and `certainly_breaks`.
 //
-// The kernels add a row's kept forces run by run: each run's terms in walk
-// order from 0, then the runs' sums in order, as the TPU kernels add each
-// run's lane sum to the row's total (ops/neighbors.py `walk_sum`).
+// The kernels add a row's kept forces in the TPU kernels' grouping
+// (group_sum.cuh `GroupSum3`): `jkr_force` gives one survivor's term.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "glibc_powf.cuh"
 
 namespace hipsc {
 
@@ -78,11 +79,9 @@ struct PairLaw {
   int uniform;        // 1: every radius equals `two_r / 2` (fast path)
   float two_r;        // uniform path: r_i + r_j
   float inv_scale;    // uniform path: 1 / (1e6 * overlap scale)
-  float fpre;         // uniform path: pi * adhesion_const * r_hat
+  float fpre;         // force prefactor: uniform path pi adhesion r_hat, general path pi adhesion
   float scale_c;      // general path: ((pi * adhesion_const) / e_hat)^(2/3)
-  float pi_f;         // general path: pi
-  float adhesion;     // general path: adhesion_const
-  const int* rsqrt_tab;  // uniform path: the rsqrtps estimates (ops/xla_f32.py)
+  const int* rsqrt_tab;  // the rsqrtps estimates (ops/xla_f32.py)
 };
 
 // XLA:CPU's float32 rsqrt of a positive normal x (ops/xla_f32.py `rsqrt`):
@@ -99,12 +98,11 @@ __device__ __forceinline__ float rsqrt_xla(float x, const int* __restrict__ tab)
   return y;
 }
 
-// The pair's squared distance, (dx, dy, dz) = me - c, as each law's mirror
-// forms it (dz = 0 in 2D, where either form is the 2D one).
-__device__ __forceinline__ float pair_dist2(const PairLaw& law, float dx, float dy,
-                                            float dz) {
-  if (law.uniform) return __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
-  return __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
+// The pair's squared distance, (dx, dy, dz) = me - c, as XLA:CPU forms the
+// TPU kernels' dx dx + dy dy + dz dz: fma(dz, dz, fma(dx, dx, dy dy)) (dz =
+// 0 in 2D).
+__device__ __forceinline__ float pair_dist2(float dx, float dy, float dz) {
+  return __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
 }
 
 // The pair law in two parts, so that a kernel can drop a pair that breaks
@@ -115,8 +113,8 @@ __device__ __forceinline__ float pair_dist2(const PairLaw& law, float dx, float 
 // a run's sum.
 struct PairOverlap {
   float d;      // nondimensional overlap
-  float mag;    // uniform path: inv = 1 / |me - c|; general path: |me - c|
-  float d0;     // uniform path: 2r - mag (d = d0 inv_scale)
+  float inv;    // 1 / |me - c| (XLA's rsqrt), 0 at distance 0
+  float d0;     // uniform path: 2r - dist2 inv (d = d0 inv_scale)
   float r_hat;  // general path: reduced radius (m)
 };
 
@@ -125,18 +123,18 @@ __device__ __forceinline__ PairOverlap jkr_overlap(const PairLaw& law,
                                                    const float4& c,
                                                    float dist2) {
   PairOverlap o;
+  o.inv = dist2 > 0.f ? rsqrt_xla(dist2, law.rsqrt_tab) : 0.f;
   if (law.uniform) {
-    o.mag = dist2 > 0.f ? rsqrt_xla(dist2, law.rsqrt_tab) : 0.f;
-    o.d0 = __fmaf_rn(-dist2, o.mag, law.two_r);
+    o.d0 = __fmaf_rn(-dist2, o.inv, law.two_r);
     o.d = __fmul_rn(o.d0, law.inv_scale);
     o.r_hat = 0.f;
   } else {
     const float ri = me.w, rj = c.w;
-    o.mag = dist2 > 0.f ? sqrtf(dist2) : 0.f;
-    const float overlap = __fmul_rn(__fsub_rn(__fadd_rn(ri, rj), o.mag), 1e-6f);
-    o.r_hat = __fdiv_rn(__fmul_rn(ri, rj), __fmul_rn(fmaxf(__fadd_rn(ri, rj), 1e-12f), 1e6f));
-    const float scale =
-        o.r_hat > 0.f ? __fmul_rn(powf(o.r_hat, 1.0f / 3.0f), law.scale_c) : 0.f;
+    const float radii = __fadd_rn(ri, rj);
+    // (ri + rj - dist2 inv) times the float32 reciprocal of 1e6
+    const float overlap = __fmul_rn(__fmaf_rn(-dist2, o.inv, radii), 1.0f / 1e6f);
+    o.r_hat = __fdiv_rn(__fmul_rn(ri, rj), __fmul_rn(fmaxf(radii, 1e-12f), 1e6f));
+    const float scale = __fmul_rn(powf_glibc(o.r_hat, 1.0f / 3.0f), law.scale_c);
     o.d = __fdiv_rn(overlap, fmaxf(scale, 1e-30f));
     o.d0 = 0.f;
   }
@@ -181,37 +179,33 @@ __device__ __forceinline__ bool certainly_breaks(float reach, float rj, float di
   return rj > 0.f && dist2 > cut * cut;
 }
 
-// A survivor's force (o.d > law.break_d) on the row agent, added to the
-// run's sum (tx, ty, tz); (dx, dy, dz) = me - c.
+// A survivor's force (o.d > law.break_d) on the row agent, (tx, ty, tz);
+// (dx, dy, dz) = me - c.
 __device__ __forceinline__ void jkr_force(const PairLaw& law,
                                           const PairOverlap& o, float dx,
                                           float dy, float dz, float& tx,
                                           float& ty, float& tz) {
+  float w;
   if (law.uniform) {
     const float d = o.d;
     const float c3 = __fmul_rn(-0.0204f, law.inv_scale);
     const float f = __fmaf_rn(d, __fmaf_rn(d, __fmaf_rn(o.d0, c3, 0.4942f), 1.0801f),
                               -1.324f);
-    const float w = __fmul_rn(__fmul_rn(f, law.fpre), o.mag);
-    tx = __fadd_rn(tx, __fmul_rn(w, dx));
-    ty = __fadd_rn(ty, __fmul_rn(w, dy));
-    tz = __fadd_rn(tz, __fmul_rn(w, dz));
+    w = __fmul_rn(__fmul_rn(f, law.fpre), o.inv);
   } else {
-    const float dc = fminf(fmaxf(o.d, -1e8f), 1e8f);
-    const float f = __fmaf_rn(dc, __fmaf_rn(dc, __fmaf_rn(dc, -0.0204f, 0.4942f), 1.0801f),
+    const float d = o.d;
+    const float f = __fmaf_rn(d, __fmaf_rn(d, __fmaf_rn(d, -0.0204f, 0.4942f), 1.0801f),
                               -1.324f);
-    const float fmag = __fmul_rn(__fmul_rn(f, __fmul_rn(law.pi_f, law.adhesion)), o.r_hat);
-    if (o.mag > 0.f) {
-      tx = __fadd_rn(tx, __fmul_rn(fmag, __fdiv_rn(dx, o.mag)));
-      ty = __fadd_rn(ty, __fmul_rn(fmag, __fdiv_rn(dy, o.mag)));
-      tz = __fadd_rn(tz, __fmul_rn(fmag, __fdiv_rn(dz, o.mag)));
-    }
+    w = __fmul_rn(__fmul_rn(__fmul_rn(f, law.fpre), o.r_hat), o.inv);
   }
+  tx = __fmul_rn(w, dx);
+  ty = __fmul_rn(w, dy);
+  tz = __fmul_rn(w, dz);
 }
 
 // One eligible pair (row `me`, candidate `c`, offset (dx, dy, dz) = me - c,
-// squared distance dist2). Returns whether the bond survives; a survivor's
-// force on the row agent is added to the run's sum (tx, ty, tz).
+// squared distance dist2). Returns whether the bond survives, and a
+// survivor's force on the row agent in (tx, ty, tz).
 __device__ __forceinline__ bool jkr_pair(const PairLaw& law, const float4& me,
                                          const float4& c, float dx, float dy,
                                          float dz, float dist2, float& tx,

@@ -190,6 +190,17 @@ class EngineConfig:
     # (the calibrator selects it at capacity <= 4096). Takes precedence
     # over contact_path, as in the JAX engine.
     dense_pairs: bool = False
+    # the JAX engine's DMA span caps of its contact (jkr) and biology (nbr)
+    # kernels (``EngineConfig.jkr_span`` / ``nbr_span`` there, its create
+    # rule: 512 clamped to the capacity, rounded to a chunk). The port's
+    # kernels read no span; these set how the TPU kernels group a row's
+    # float sums near the end of the sorted order (``neighbors.Grouping``,
+    # the clip of the blocks' span starts), which the port follows so that
+    # its sums are the JAX package's bit for bit; ``safe_step`` grows them
+    # by the JAX engine's rule on its probes (``StepInfo.jkr_block_span``,
+    # ``nbr_block_span``).
+    jkr_span: int = 512
+    nbr_span: int = 512
     # recompute each contact substep in the backward pass instead of saving
     # its intermediates (``torch.utils.checkpoint``), when autograd is
     # recording; a gradient fit of a colony too large for its residuals
@@ -221,6 +232,8 @@ class EngineConfig:
         )
         flags.setdefault("div_cap", max(128, _round_up(capacity // 32, 128)))
         flags["div_cap"] = min(int(flags["div_cap"]), capacity)
+        for key in ("jkr_span", "nbr_span"):
+            flags[key] = nbr_ops.span_cap(flags.get(key, 512), capacity)
         return cls(
             capacity=capacity,
             nbr_spec=nbr_spec,
@@ -242,7 +255,7 @@ def config_to_meta(cfg: EngineConfig) -> dict:
 def config_from_meta(meta: dict) -> EngineConfig:
     """The EngineConfig of a checkpoint's metadata, written by either
     package: keys the port's config does not have (the JAX engine's kernel
-    choices and spans) are dropped, and missing ones take their defaults
+    choices) are dropped, and missing ones take their defaults
     (``mask_bits`` 0: derived from the state at the first step)."""
     fields = {f.name for f in dataclasses.fields(EngineConfig)}
     spec_fields = {f.name for f in dataclasses.fields(GridSpec)}
@@ -260,7 +273,8 @@ class StepInfo(NamedTuple):
     ``jkr_span_needed`` over every contact-window build, the span-mask
     path's mask-capacity probe (``EngineConfig.mask_bits``), and
     ``nbr_span_needed`` over the radius-15 window of the bio moments. The
-    JAX engine's fields of these names probe its kernels' DMA spans."""
+    JAX engine's fields of these names probe its kernels' DMA spans, which
+    the port's ``jkr_block_span`` and ``nbr_block_span`` are."""
 
     num_agents: object
     num_added: object
@@ -276,13 +290,19 @@ class StepInfo(NamedTuple):
     max_substep_move: object  # max per-agent move per physics substep (um)
     max_window_drift: object
     jkr_rebuilds: object  # contact-window rebuilds after the scan's entry build
+    # the JAX engine's span probes (its jkr_span_needed and nbr_span_needed):
+    # the most sorted positions a block's run reaches from its span start,
+    # over the contact windows and in the radius-15 window (the jkr_span and
+    # nbr_span growth probes)
+    jkr_block_span: object
+    nbr_block_span: object
 
 
 _FLOAT_PROBES = ("max_substep_move", "max_window_drift")
 
 
 def _probe_row(info: StepInfo) -> torch.Tensor:
-    """A step's probes as one (14,) float64 tensor on their device (exact
+    """A step's probes as one (16,) float64 tensor on their device (exact
     for the integer probes), so that one transfer fetches them."""
     return torch.stack([torch.as_tensor(v).to(torch.float64).reshape(()) for v in info])
 
@@ -406,6 +426,7 @@ def hipsc_step(
     nbr_grid = nbr_ops.build_grid(cfg.nbr_spec, arrays["locations"], arrays["ids"], alive)
     arrays, alive, bonds = _sort_state_rows(arrays, alive, bonds, nbr_grid.order)
     nbr_bounds = nbr_ops.run_bounds(cfg.nbr_spec, nbr_grid.sorted_flat)
+    nbr_grouping = window_grouping(nbr_bounds, cfg.nbr_span)
     # the graph stays the build window, re-masked by the liveness of each
     # call: agents killed earlier in the step stop contributing
     # (cell_methods.py:47); the build-time positions are packed once
@@ -414,7 +435,8 @@ def hipsc_step(
 
     def bio_moments(alive_now, mode, loc1=None, f0=None, f1=None, f2=None):
         return neighbor_moments(nbr_pos0, nbr_bounds, alive_now, mode, loc1, f0, f1, f2,
-                                radius=bio.neighbor_radius, plain=plain)
+                                radius=bio.neighbor_radius, plain=plain,
+                                grouping=nbr_grouping)
 
     m1 = bio_moments(alive, "count")
     nbr_count = m1[:, 0].to(torch.int32)
@@ -506,7 +528,7 @@ def hipsc_step(
 
     # --- apply_forces: 11 physics substeps (cell_methods.py:386-439) ---
     scan = _physics_scan_dense if cfg.dense_pairs else _PHYSICS_SCANS[cfg.contact_path]
-    locations, bonds, j_bins, j_deg, max_move, rebuilds, j_cands = scan(
+    locations, bonds, j_bins, j_deg, max_move, rebuilds, j_cands, j_blocks = scan(
         cfg, bio, arrays, alive, bonds, size, _physics_dts(bio), plain=plain)
     arrays["locations"] = locations
     # the reference leaves both force arrays zeroed after the step
@@ -529,6 +551,8 @@ def hipsc_step(
         max_substep_move=max_move,
         max_window_drift=torch.zeros((), dtype=torch.float32, device=device),
         jkr_rebuilds=rebuilds,
+        jkr_block_span=j_blocks,
+        nbr_block_span=nbr_grouping.needed,
     )
     new_state = CellState(
         arrays=arrays,
@@ -544,7 +568,8 @@ def hipsc_step(
 
 def neighbor_moments(pos0, bounds, alive, mode, loc1=None, f0=None, f1=None, f2=None, *,
                      radius: float, order: Optional[torch.Tensor] = None, plain: bool = False,
-                     width: Optional[int] = None) -> torch.Tensor:
+                     width: Optional[int] = None,
+                     grouping: Optional[nbr_ops.Grouping] = None) -> torch.Tensor:
     """The radius-15 neighbour moments of one bio-moments call (the JAX
     engine's ``make_bio_moments_xla``): ``bio_moments_cuda`` (B4 on the
     card, its plain version on the CPU), or the plain version on any device
@@ -554,13 +579,15 @@ def neighbor_moments(pos0, bounds, alive, mode, loc1=None, f0=None, f1=None, f2=
     rows: the domain engine's own + halo rows, which stay in slot order)
     the inputs are slot rows, gathered through it, and the (C, 16) output
     comes back in slot order; without it everything is in sorted order.
-    ``width`` is the plain version's run width (``bounds_window``)."""
+    ``width`` is the plain version's run width (``bounds_window``),
+    ``grouping`` the window's sum order (``window_grouping``)."""
     moments = bio_moments_plain if plain else bio_moments_cuda
     if order is None:
         return moments(pos0, alive, bounds, loc1, f0, f1, f2, radius=radius, mode=mode,
-                       width=width)
+                       width=width, grouping=grouping)
     srt = [None if x is None else x[order] for x in (alive, loc1, f0, f1, f2)]
-    out_srt = moments(pos0, srt[0], bounds, *srt[1:], radius=radius, mode=mode, width=width)
+    out_srt = moments(pos0, srt[0], bounds, *srt[1:], radius=radius, mode=mode, width=width,
+                      grouping=grouping)
     out = torch.empty_like(out_srt)
     out[order] = out_srt
     return out
@@ -592,42 +619,67 @@ def drift_threshold(verlet_skin: float) -> float:
     return float(np.float32((verlet_skin * 0.5) ** 2))
 
 
-def contact_window(cfg: EngineConfig, rows) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The contact grid of the rows over the whole box: ``(order, bounds)``,
-    the canonical sort order of the rows and the run bounds of the sorted
-    rows. The domain engine passes its tile-local counterpart as
-    ``window``."""
+def window_grouping(bounds: torch.Tensor, span: int) -> nbr_ops.Grouping:
+    """The sum order of a window over the whole sorted colony (the rows are
+    its sorted order): the TPU kernels' span starts of its blocks under the
+    JAX engine's span cap ``span`` (``EngineConfig.jkr_span`` or
+    ``nbr_span``) and capacity (the rows), their chunk, and the JAX span
+    probe of the window."""
+    span = nbr_ops.span_cap(span, bounds.shape[0])
+    grouping = nbr_ops.grouping_of_bounds(bounds, span, bounds.shape[0],
+                                          nbr_ops.effective_chunk(span))
+    return grouping._replace(needed=nbr_ops.block_span_needed(bounds, grouping))
+
+
+def contact_window(cfg: EngineConfig, rows):
+    """The contact grid of the rows over the whole box: ``(order, bounds,
+    grouping)``, the canonical sort order of the rows, the run bounds of the
+    sorted rows and their sum order (``window_grouping``). The domain
+    engine passes its tile-local counterpart as ``window``."""
     grid = nbr_ops.build_grid(cfg.jkr_spec, rows["loc"], rows["ids"], rows["alive"])
-    return grid.order, nbr_ops.run_bounds(cfg.jkr_spec, grid.sorted_flat)
+    bounds = nbr_ops.run_bounds(cfg.jkr_spec, grid.sorted_flat)
+    return grid.order, bounds, window_grouping(bounds, cfg.jkr_span)
 
 
 def _build_window(cfg, rows, window=contact_window):
     """Re-sort the rows into the contact grid's canonical order and build
-    their run bounds."""
-    order, bounds = window(cfg, rows)
-    return {k: take_rows(v, order) for k, v in rows.items()}, bounds
+    their run bounds and sum order: ``(rows, bounds, grouping)``."""
+    order, bounds, grouping = window(cfg, rows)
+    return {k: take_rows(v, order) for k, v in rows.items()}, bounds, grouping
 
 
-def _rebuild_where(stale, cfg, rows, bounds, ref, identity, window=contact_window):
+def _select_grouping(stale, fresh: nbr_ops.Grouping, held: nbr_ops.Grouping):
+    def pick(a, b):
+        return None if a is None else torch.where(stale, a, b)
+
+    return fresh._replace(starts=pick(fresh.starts, held.starts), gpos=pick(fresh.gpos, held.gpos),
+                          needed=pick(fresh.needed, held.needed))
+
+
+def _rebuild_where(stale, cfg, rows, bounds, ref, identity, window=contact_window, *,
+                   grouping):
     """The window rebuild under the device predicate ``stale`` (the JAX
     engine's ``lax.cond``): the grid order of the current rows is always
     computed, the rows are gathered through it where ``stale`` and through
-    the identity elsewhere, and the bounds and the drift reference are
-    selected. The values are those of a rebuild taken or skipped on the
-    host."""
-    grid_order, new_bounds = window(cfg, rows)
+    the identity elsewhere, and the bounds, the sum order ``grouping`` and
+    the drift reference are selected. The values are those of a rebuild
+    taken or skipped on the host. Returns ``(rows, bounds, ref,
+    grouping)``."""
+    grid_order, new_bounds, new_grouping = window(cfg, rows)
     order = torch.where(stale, grid_order, identity)
     rows = {k: take_rows(v, order) for k, v in rows.items()}
     bounds = torch.where(stale, new_bounds, bounds)
-    return rows, bounds, torch.where(stale, rows["loc"], ref)
+    grouping = _select_grouping(stale, new_grouping, grouping)
+    return rows, bounds, torch.where(stale, rows["loc"], ref), grouping
 
 
 class _ScanProbes:
     """The scan's probes, gathered on the device: the widest run and row of
-    each substep's window, the largest degree and move, the rebuilds."""
+    each substep's window and its JAX span probe, the largest degree and
+    move, the rebuilds."""
 
     def __init__(self, device):
-        self.bins, self.cands, self.degs, self.moves2 = [], [], [], []
+        self.bins, self.cands, self.degs, self.moves2, self.spans = [], [], [], [], []
         self.rebuilds = torch.zeros((), dtype=torch.int64, device=device)
 
     def window(self, bounds):
@@ -692,8 +744,8 @@ def _remat(cfg: EngineConfig, substep, *args):
 
 def _scan_result(rows, probes):
     """The rows back in slot order: ``(locations, bonds, widest run, max
-    degree, max substep move, rebuilds after the entry build, widest
-    row)``."""
+    degree, max substep move, rebuilds after the entry build, widest row,
+    JAX span probe)``."""
     perm = rows["perm"]
     locations = torch.empty_like(rows["loc"])
     locations[perm] = rows["loc"]
@@ -701,38 +753,40 @@ def _scan_result(rows, probes):
     partners[perm] = rows["partners"]
     return (locations, BondState.from_ids(partners), torch.stack(probes.bins).max(),
             torch.stack(probes.degs).max(), torch.sqrt(torch.stack(probes.moves2).max()),
-            probes.rebuilds, torch.stack(probes.cands).max())
+            probes.rebuilds, torch.stack(probes.cands).max(), torch.stack(probes.spans).max())
 
 
 def _id_list_substep(cfg, law, contact, update, size, identity, s, stale, dt, rows, bounds,
-                     ref):
+                     ref, grouping):
     """Substep ``s`` of ``_physics_scan``: the rebuild that the previous
     substep's drift flag ``stale`` selects (None on the first substep), then
-    ``contact_substep_rows``. Returns the new ``(rows, bounds, ref)`` and
-    the substep's probes ``(widest run, widest row, max degree, max squared
+    ``contact_substep_rows``. Returns the new ``(rows, bounds, ref,
+    grouping)`` and the substep's probes ``(widest run, widest row, max degree, max squared
     move, max squared drift, stale)``, the last two for the next
     substep."""
     if stale is not None:
-        rows, bounds, ref = _rebuild_where(stale, cfg, rows, bounds, ref, identity)
-    rows, probes = contact_substep_rows(law, contact, update, s, size, dt, rows, bounds, ref)
-    return rows, bounds, ref, probes
+        rows, bounds, ref, grouping = _rebuild_where(stale, cfg, rows, bounds, ref, identity,
+                                                     grouping=grouping)
+    rows, probes = contact_substep_rows(law, contact, update, s, size, dt, rows, bounds, ref,
+                                        grouping=grouping)
+    return rows, bounds, ref, grouping, probes
 
 
 def contact_substep_rows(law, contact, update, s, size, dt, rows, bounds, ref, width=None,
-                         counted=None):
+                         counted=None, grouping=None):
     """One id-list contact substep over the window ``bounds`` the caller
     holds (built where the rows stood at ``ref``): one ``contact`` call
     (``contact_substep_cuda``, B6, or its plain version) on the sorted rows
     and the update (an ``_Update``, substep ``s``). ``counted`` (a (C,)
     bool of the rows whose degree, move and drift the probes read; default:
     the alive rows) and ``width`` (the plain version's run width) serve the
-    domain engine. Returns the new rows and the substep's probes ``(widest
+    domain engine; ``grouping`` is the window's sum order. Returns the new rows and the substep's probes ``(widest
     run, widest row, max degree, max squared move, max squared drift,
     stale)``."""
     run, cands = _window_widths(bounds)
     force, degree, partners = contact(
         pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
-        bounds, rows["partners"], **law, width=width,
+        bounds, rows["partners"], **law, width=width, grouping=grouping,
     )
     new_loc, move2, drift2, stale = update(s, rows, force, size, dt, ref, counted)
     deg = degree.max() if counted is None else torch.where(counted, degree, 0).max()
@@ -758,19 +812,20 @@ def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
     contact = contact_substep_plain if plain else contact_substep_cuda
     update = _Update.of(cfg, bio, len(dts), alive.device, plain)
     probes = _ScanProbes(alive.device)
-    rows, bounds = _build_window(cfg, rows)
+    rows, bounds, grouping = _build_window(cfg, rows)
     ref = rows["loc"]
     identity = torch.arange(alive.shape[0], device=alive.device)
     stale = None
     for s, dt in enumerate(dts):
-        rows, bounds, ref, (run, cands, deg, move2, _, stale_next) = _remat(
+        rows, bounds, ref, grouping, (run, cands, deg, move2, _, stale_next) = _remat(
             cfg, _id_list_substep, cfg, law, contact, update, size, identity, s, stale,
-            float(dt), rows, bounds, ref)
+            float(dt), rows, bounds, ref, grouping)
         if stale is not None:
             probes.rebuilds = probes.rebuilds + stale
         stale = stale_next
         probes.bins.append(run)
         probes.cands.append(cands)
+        probes.spans.append(grouping.needed)
         probes.degs.append(deg)
         probes.moves2.append(move2)
     return _scan_result(rows, probes)
@@ -824,7 +879,7 @@ def _physics_scan_dense(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
     partners, _ = _compact_bonds(ids[None, :].expand(C, C), bmask, bonds.partners.shape[1])
     zero = torch.zeros((), dtype=torch.int64, device=device)
     return (locations, BondState.from_ids(partners), zero, torch.stack(degs).max(),
-            torch.sqrt(torch.stack(moves2).max()), zero, zero)
+            torch.sqrt(torch.stack(moves2).max()), zero, zero, zero)
 
 
 def mask_words_of(cfg: EngineConfig) -> int:
@@ -866,7 +921,7 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts, plain=Fal
     mask = torch.empty((mask_words_of(cfg), C), dtype=torch.int32, device=device)
     update = _Update.of(cfg, bio, len(dts), device)
     probes = _ScanProbes(device)
-    rows, bounds = _build_window(cfg, rows)
+    rows, bounds, grouping = _build_window(cfg, rows)
     ref = rows["loc"]
     identity = torch.arange(C, device=device)
     stale = None
@@ -876,11 +931,13 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts, plain=Fal
             rebuild = stale.to(torch.int32).reshape(1)
             span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K, pred=rebuild,
                                         out=rows["partners"])
-            rows, bounds, ref = _rebuild_where(stale, cfg, rows, bounds, ref, identity)
+            rows, bounds, ref, grouping = _rebuild_where(stale, cfg, rows, bounds, ref,
+                                                         identity, grouping=grouping)
             probes.rebuilds = probes.rebuilds + stale
         probes.window(bounds)
+        probes.spans.append(grouping.needed)
         deg, move2, _, stale = span_mask_substep(law, update, s, size, dt, rows, bounds, ref,
-                                                 mask, rebuild)
+                                                 mask, rebuild, grouping=grouping)
         probes.degs.append(deg)
         probes.moves2.append(move2)
     rows["partners"] = span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K)
@@ -888,7 +945,7 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts, plain=Fal
 
 
 def span_mask_substep(law, update, s, size, dt, rows, bounds, ref, mask, rebuild=None,
-                      width=None, counted=None):
+                      width=None, counted=None, grouping=None):
     """One span-mask contact substep over the window ``bounds`` (built where
     the rows stood at ``ref``) and the (W, C) ``mask`` the caller holds,
     and the update (an ``_Update``, substep ``s``) of ``rows["loc"]`` (in
@@ -896,19 +953,20 @@ def span_mask_substep(law, update, s, size, dt, rows, bounds, ref, mask, rebuild
     first substep, the seed (B2) from the partner ids; else a (1,) int32
     device flag predicating the seed (the window was just rebuilt, and the
     caller compacted the mask before) against the masked substep (B1). Both
-    write the same force and degree buffers. ``width`` and ``counted`` as in
-    ``contact_substep_rows``. Returns the substep's ``(max degree, max
+    write the same force and degree buffers. ``width``, ``counted`` and
+    ``grouping`` as in ``contact_substep_rows``. Returns the substep's ``(max degree, max
     squared move, max squared drift, stale)``."""
     C, device = bounds.shape[0], bounds.device
     force = torch.empty((C, 3), dtype=torch.float32, device=device)
     degree = torch.empty((C,), dtype=torch.int32, device=device)
     xyzr = pack_physics(rows["loc"], rows["rad"])
     span_mask.contact_seed_cuda(xyzr, rows["ids"], rows["alive"], bounds, rows["partners"],
-                                pred=rebuild, out=(force, degree, mask), **law, width=width)
+                                pred=rebuild, out=(force, degree, mask), **law, width=width,
+                                grouping=grouping)
     if rebuild is not None:
         span_mask.contact_masked_cuda(xyzr, rows["ids"], rows["alive"], bounds, mask,
                                       pred=1 - rebuild, out=(force, degree), **law,
-                                      width=width)
+                                      width=width, grouping=grouping)
     deg = degree.max() if counted is None else torch.where(counted, degree, 0).max()
     rows["loc"], move2, drift2, stale = update(s, rows, force, size, dt, ref, counted)
     return deg, move2, drift2, stale
@@ -1088,7 +1146,7 @@ class HipscEngine:
     def _run_attempts(self, state: CellState, k: int):
         """The attempt loop of ``safe_step`` and ``run_steps``: ``k`` steps
         from ``state`` (a captured graph on the card, eagerly on the CPU),
-        the (k, 14) probes fetched, and on overflow the config grown by the
+        the (k, 16) probes fetched, and on overflow the config grown by the
         block's worst probes and the block re-executed from the re-padded
         input state; raises after 16 attempts. Returns the final state and
         the probe rows (lists of floats)."""
@@ -1159,11 +1217,20 @@ class HipscEngine:
             # the JAX engine's span growth rule (x1.25, rounded up to a word)
             mask_bits = _round_up(int(info.jkr_span_needed) * 1.25, 32)
             changed = True
+        spans = {}
+        for key, probe in (("jkr_span", info.jkr_block_span), ("nbr_span", info.nbr_block_span)):
+            # the JAX engine's DMA span rule (x1.25, rounded up to a chunk,
+            # at most the capacity): a sum-order input here
+            span = getattr(cfg, key)
+            if int(probe) > span:
+                span = min(_round_up(int(probe) * 1.25, nbr_ops.GROUP_CHUNK), capacity)
+                changed = True
+            spans[key] = min(span, capacity)
         if not changed:
             return None
         return dataclasses.replace(cfg, bond_cap=bond_cap, capacity=capacity,
                                    div_cap=min(div_cap, capacity) if div_cap else div_cap,
-                                   mask_bits=mask_bits)
+                                   mask_bits=mask_bits, **spans)
 
     @staticmethod
     def repad_state(state: CellState, cfg: EngineConfig) -> CellState:
@@ -1211,7 +1278,7 @@ def _run_block(params, cfg: EngineConfig, state: CellState, table):
     ((k, 13) int64 on the state's device) and the parameters of ``params``
     (anything with ``gen``, ``xp``, ``bio`` and ``diff``: the engine, or one
     replicate's parameters): the final state (its key and step as the last
-    row left them) and the (k, 14) float64 probes, on the device. What
+    row left them) and the (k, 16) float64 probes, on the device. What
     ``_BlockGraph`` captures; on the CPU, what ``safe_step`` and
     ``run_steps`` run."""
     rows = []

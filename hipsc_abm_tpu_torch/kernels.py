@@ -56,14 +56,19 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "hipsc_deposit": (_P, _P, _P, _P, _L, _I, _P),
     "hipsc_contact_substep": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _F, _F, _I, _F, _F, _F, _F, _F, _F, _P, _P),
-    "hipsc_bio_moments": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P),
+                              _I, _I, _F, _F, _I, _F, _F, _F, _F, _P,
+                              _P, _P, _I, _I, _I, _P),
+    "hipsc_bio_moments": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I,
+                          _P, _P, _I, _I, _I, _P),
     "hipsc_ftcs_diffuse": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _P),
     "hipsc_contact_seed": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _F, _F, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P),
+                           _F, _F, _I, _F, _F, _F, _F, _P, _P,
+                           _P, _P, _I, _I, _I, _P),
     "hipsc_contact_masked": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _F, _F, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P),
+                             _F, _F, _I, _F, _F, _F, _F, _P, _P,
+                             _P, _P, _I, _I, _I, _P),
+    "hipsc_powf": (_P, _P, _F, _L, _P),
     "hipsc_mask_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "hipsc_dynslice_probe": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "hipsc_dynslice_probe2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

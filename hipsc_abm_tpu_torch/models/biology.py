@@ -323,11 +323,14 @@ def cell_diff_surround(GATA6, NANOG, states, alive,
 def cell_growth(radii, states, div_counters, alive, p: BiologyParams) -> torch.Tensor:
     """``cell_growth`` (``cell_methods.py:143-158``): linear radius growth by
     state, re-derived from the division clock. No clamp, as in the
-    reference: a radius can pass ``max_radius`` by one increment."""
+    reference: a radius can pass ``max_radius`` by one increment.
+    ``growth * dc + min_radius`` is one fused multiply-add
+    (``xla_f32.fma``), as XLA:CPU compiles the JAX function under ``jit``
+    (the JAX engine's step)."""
     growing = alive & (radii < p.max_radius)
     dc = div_counters.to(radii.dtype)
-    target = torch.where(states == 0, p.pluri_growth * dc + p.min_radius,
-                         p.diff_growth * dc + p.min_radius)
+    target = torch.where(states == 0, xla_f32.fma(dc, p.pluri_growth, p.min_radius),
+                         xla_f32.fma(dc, p.diff_growth, p.min_radius))
     return torch.where(growing, target, radii)
 
 

@@ -30,12 +30,15 @@ displacement lanes 6 and 10 are 0 in 2D.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from hipsc_abm_tpu_torch import kernels
 from hipsc_abm_tpu_torch.ops import xla_f32
-from hipsc_abm_tpu_torch.ops.neighbors import bounds_window, walk_sum
+from hipsc_abm_tpu_torch.ops.neighbors import (Grouping, bounds_window, grouped_sum,
+                                                grouping_args, plain_lanes)
 
 OUT_LANES = 16
 MODES = {"count": 0, "pathway": 1, "motility": 2, "full": 3}
@@ -79,12 +82,14 @@ def _within(dd: torch.Tensor, radius2: float, dims: int, mask: torch.Tensor) -> 
 
 
 def bio_moments_plain(pos0, alive, bounds, loc1=None, f0=None, f1=None, f2=None, *,
-                      radius: float, mode: str = "full", width=None) -> torch.Tensor:
+                      radius: float, mode: str = "full", width=None,
+                      grouping: Optional[Grouping] = None) -> torch.Tensor:
     """Plain PyTorch moments over the padded window of the run bounds
     (``width``: ``neighbors.bounds_window``'s). The displacement sums add
-    each row's neighbours run by run (``neighbors.walk_sum``), as the kernel
-    does; the counts and feature sums are integers, exact in any
-    order."""
+    each row's neighbours in the TPU kernel's grouping
+    (``neighbors.grouped_sum`` under ``grouping``, as in
+    ``ops.contact``), as the kernel does; the counts and feature sums are
+    integers, exact in any order."""
     given = _inputs(mode, loc1, f0, f1, f2)
     dims = 3 if kernels.run_count(bounds) == 9 else 2
     C = pos0.shape[0]
@@ -108,21 +113,23 @@ def bio_moments_plain(pos0, alive, bounds, loc1=None, f0=None, f1=None, f2=None,
         a = mf * (cf1 > cf0).to(torch.float32)
         b = mf * (cf2 != 0).to(torch.float32)
         out[:, 3] = a.sum(dim=1)
-        n_runs = kernels.run_count(bounds)
-        out[:, 4:4 + dims] = walk_sum(disp, a > 0, n_runs)
+        lanes = plain_lanes(bounds, pos, grouping)
+        out[:, 4:4 + dims] = grouped_sum(disp, a > 0, lanes)
         out[:, 7] = b.sum(dim=1)
-        out[:, 8:8 + dims] = walk_sum(disp, b > 0, n_runs)
+        out[:, 8:8 + dims] = grouped_sum(disp, b > 0, lanes)
     return out
 
 
 def bio_moments_cuda(pos0, alive, bounds, loc1=None, f0=None, f1=None, f2=None, *,
-                     radius: float, mode: str = "full", width=None) -> torch.Tensor:
+                     radius: float, mode: str = "full", width=None,
+                     grouping: Optional[Grouping] = None) -> torch.Tensor:
     """The moments. A CPU tensor runs the plain version (``width`` is the
-    plain version's); a CUDA tensor launches the kernel (or raises). The
-    launch counts as ``bio_moments`` in 2D and ``bio_moments_3d`` in 3D."""
+    plain version's); a CUDA tensor launches the kernel (or raises).
+    ``grouping`` as in the plain version. The launch counts as
+    ``bio_moments`` in 2D and ``bio_moments_3d`` in 3D."""
     if pos0.device.type == "cpu":
         return bio_moments_plain(pos0, alive, bounds, loc1, f0, f1, f2,
-                                 radius=radius, mode=mode, width=width)
+                                 radius=radius, mode=mode, width=width, grouping=grouping)
     given = _inputs(mode, loc1, f0, f1, f2)
     n_runs = kernels.run_count(bounds)
     C = pos0.shape[0]
@@ -140,6 +147,6 @@ def bio_moments_cuda(pos0, alive, bounds, loc1=None, f0=None, f1=None, f2=None, 
     r = np.float32(radius)
     kernels.launch("hipsc_bio_moments", pos0.data_ptr(), alive.data_ptr(),
                    bounds.data_ptr(), *ptrs, out.data_ptr(), C, float(r * r),
-                   MODES[mode], n_runs)
+                   MODES[mode], n_runs, *grouping_args(bounds, grouping))
     kernels.count_launch(kernels.counted_name("bio_moments", n_runs))
     return out

@@ -5,9 +5,10 @@ Port of ``hipsc_abm_tpu/ops/pallas_contact.py`` ``contact_substep_pallas``
 (B6), the id-list contact substep: per sorted row, walk the stencil runs of
 the build-time window (3 in 2D, 9 in 3D), test each candidate (fresh
 contact within the search radius or already bonded), apply the JKR pair
-law, and emit the summed force, the untruncated degree and the first K
-survivors in walk order as the new partner list. The plain version is the
-windowed ``ops.jkr.jkr_substep`` over the same runs.
+law, and emit the force summed in the TPU kernel's grouping
+(``neighbors.Grouping``), the untruncated degree and the first K survivors
+in the TPU kernel's chunk-major walk order as the new partner list. The
+plain version is the windowed ``ops.jkr.jkr_substep`` over the same runs.
 
 Inputs are in sorted-row order: ``xyzr`` (C, 4) float32 ``[x, y, z, r]``,
 ``ids`` (C,) int32, ``alive`` (C,) bool, ``bounds`` (C, 6) or (C, 18) int32
@@ -26,21 +27,26 @@ import torch
 from hipsc_abm_tpu_torch import kernels
 from hipsc_abm_tpu_torch.ops import jkr as jkr_ops
 from hipsc_abm_tpu_torch.ops import xla_f32
-from hipsc_abm_tpu_torch.ops.neighbors import bounds_window
+from hipsc_abm_tpu_torch.ops.neighbors import (Grouping, bounds_window, grouping_args,
+                                                plain_lanes)
 
 
 def contact_substep_plain(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None, width=None,
+    grouping: Optional[Grouping] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch contact substep: returns ``(force (C, 3) float32,
     degree (C,) int32, new partners (C, K) int32)``. ``uniform_radius``
     selects the uniform law, None the general law, as in the kernel.
-    ``width``: ``neighbors.bounds_window``'s."""
+    ``width``: ``neighbors.bounds_window``'s. The forces are summed in the
+    TPU kernels' grouping (``neighbors.Grouping``; default: the rows are
+    the colony's sorted order, ``grouping_of_bounds``)."""
     pos, valid = bounds_window(bounds, width)
     force, new_partners, degree = jkr_ops.jkr_substep(
         partners, xyzr, ids, alive, None, pos, valid, radius,
-        adhesion_const, poisson, youngs, break_d, uniform_radius, kernels.run_count(bounds),
+        adhesion_const, poisson, youngs, break_d, uniform_radius,
+        plain_lanes(bounds, pos, grouping),
     )
     return force, degree, new_partners
 
@@ -49,7 +55,8 @@ def pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
                   uniform_radius):
     """The contact kernels' pair-law constants (``csrc/jkr_pair.cuh``
     ``PairLaw``, the table pointer aside), rounded to float32 as the plain
-    versions round them (``ops.jkr.uniform_law``)."""
+    versions round them (``ops.jkr.uniform_law``, ``ops.jkr._pair_general``):
+    ``(radius2, break_d, uniform, two_r, inv_scale, fpre, scale_c)``."""
     f32 = lambda v: float(np.float32(v))  # noqa: E731
     r = np.float32(radius)
     radius2 = float(r * r)
@@ -59,9 +66,8 @@ def pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
         law = jkr_ops.uniform_law(uniform_radius, adhesion_const, poisson, youngs)
         uni = (1, law["two_r"], law["inv_scale"], law["fpre"])
     else:
-        uni = (0, 0.0, 0.0, 0.0)
-    return (radius2, f32(break_d), *uni, f32(scale_c), f32(math.pi),
-            f32(adhesion_const))
+        uni = (0, 0.0, 0.0, f32(math.pi * adhesion_const))
+    return (radius2, f32(break_d), *uni, f32(scale_c))
 
 
 # the general law's cut (csrc/jkr_pair.cuh kCullSlack, kCullMinRadius,
@@ -77,7 +83,9 @@ def cull_reach(ri: torch.Tensor, law_args: tuple) -> torch.Tensor:
     operations in its order: ``ri + |break_d| scale_c cbrt(ri / 1e6) 1e6``
     (um), +inf where ``ri`` lies outside ``CULL_RADII`` or is NaN.
     ``law_args``: ``pair_law_args``'s tuple. The cube root is the CPU's
-    ``pow``, the kernel's ``powf``; each is within 2 ulp."""
+    ``pow``, the kernel's CUDA ``powf``; each is within 2 ulp, which the
+    cut's margin allows (``csrc/jkr_pair.cuh``): the law itself takes
+    glibc's."""
     f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
     break_d, scale_c = law_args[1], law_args[6]
     ri = ri.to(torch.float32)
@@ -113,14 +121,16 @@ def contact_layout(K: int) -> dict:
 def contact_substep_cuda(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None, width=None,
+    grouping: Optional[Grouping] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The contact substep. A CPU tensor runs the plain version (``width``
     is the plain version's); a CUDA tensor launches the kernel (or raises,
     also when the CTA's partner block does not fit in the card's shared
-    memory). The launch counts as ``contact_substep`` in 2D and
-    ``contact_substep_3d`` in 3D."""
+    memory). ``grouping`` as in the plain version. The launch counts as
+    ``contact_substep`` in 2D and ``contact_substep_3d`` in 3D."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
-              youngs=youngs, break_d=break_d, uniform_radius=uniform_radius)
+              youngs=youngs, break_d=break_d, uniform_radius=uniform_radius,
+              grouping=grouping)
     if xyzr.device.type == "cpu":
         return contact_substep_plain(xyzr, ids, alive, bounds, partners, **kw, width=width)
     C, K = partners.shape
@@ -148,7 +158,7 @@ def contact_substep_cuda(
         new_partners.data_ptr(), C, K, n_runs, layout["pitch"], layout["smem_bytes"],
         *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
                        uniform_radius),
-        xla_f32.rsqrt_table(xyzr.device).data_ptr(),
+        xla_f32.rsqrt_table(xyzr.device).data_ptr(), *grouping_args(bounds, grouping),
     )
     kernels.count_launch(kernels.counted_name("contact_substep", n_runs))
     return force, degree, new_partners

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from hipsc_abm_tpu_torch.ops import xla_f32
-from hipsc_abm_tpu_torch.ops.neighbors import walk_sum
+from hipsc_abm_tpu_torch.ops.neighbors import Lanes, grouped_sum
 
 NO_BOND = -1  # empty entry of a partner-id list
 
@@ -62,12 +62,10 @@ def pack_physics(locations: torch.Tensor, radii: torch.Tensor) -> torch.Tensor:
 
 
 def _cube_root(x: torch.Tensor) -> torch.Tensor:
-    """``x ** float32(1/3)`` (``jnp.power(x, 1/3)`` as XLA:CPU takes it),
-    raised in float64 and rounded to float32: the same bits wherever ``x``
-    lies in a tensor (PyTorch's float32 ``pow`` takes another path for a
-    vector's tail than for its body), and as near to glibc's ``powf``,
-    which XLA:CPU calls, as float64 allows."""
-    return (x.double() ** float(np.float32(1.0 / 3.0))).to(torch.float32)
+    """``x ** float32(1/3)`` as XLA:CPU takes ``jnp.power(x, 1/3)``: a call
+    of glibc's ``powf``, mirrored bit for bit (``xla_f32.powf``) for
+    positive finite ``x``."""
+    return xla_f32.powf(x, float(np.float32(1.0 / 3.0)))
 
 
 def _pair_jkr(
@@ -86,8 +84,7 @@ def _pair_jkr(
     ``_pair_jkr`` (``ops.xla_f32``): the squared distance as one chain of
     FMAs, the division by 1e6 a product with float32(1e-6), pi times the
     adhesion constant folded into one float32 constant, the cubic fused.
-    The cube root is ``_cube_root``, where XLA:CPU calls glibc's ``powf``;
-    the two may differ in the last bit. A parameter given as a
+    The cube root is glibc's ``powf`` (``_cube_root``). A parameter given as a
     tensor (calibration differentiates through it; to XLA a traced value)
     is not folded."""
     vector = loc_i - loc_j
@@ -159,6 +156,35 @@ def _pair_uniform(dx, dy, dz, law: dict) -> Tuple[torch.Tensor, torch.Tensor, to
     return dist2, d, (f * law["fpre"]) * inv
 
 
+def _pair_general(dx, dy, dz, ri, rj, adhesion_const, poisson: float,
+                  youngs: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The general law of the TPU kernels' pair evaluation (``_pair_keep``
+    and ``_contact_kernel`` with per-pair radii) as XLA:CPU compiles their
+    interpreted bodies, for ``(dx, dy, dz)`` = row minus candidate and the
+    radii ``ri``, ``rj``: ``inv`` is XLA's ``rsqrt``, ``mag = dist2 inv``
+    is fused into the overlap ``fma(-dist2, inv, ri + rj)``, times the
+    float32 reciprocal of 1e6, the reduced radius ``r_hat`` by a division,
+    the overlap scale its cube root (glibc's ``powf``, ``_cube_root``)
+    times the folded constant, ``d`` the overlap over it, the cubic fused
+    (no clamp of ``d``), and the pair force ``w (dx, dy, dz)`` with ``w =
+    ((f (pi adhesion)) r_hat) inv``. This is not ``_pair_jkr``, the JAX
+    package's XLA path, which takes a square root and divides by it.
+    Returns ``(dist2, d, w)``; an adhesion constant given as a tensor is
+    not folded."""
+    dist2 = xla_f32.sq_sum(dx, dy, dz)
+    pos = dist2 > 0
+    inv = torch.where(pos, xla_f32.rsqrt(torch.where(pos, dist2, torch.ones_like(dist2))),
+                      torch.zeros_like(dist2))
+    e_hat = 1.0 / (2.0 * (1.0 - poisson**2) / youngs)
+    radii = ri + rj
+    overlap = xla_f32.fma(-dist2, inv, radii) * xla_f32.recip(1e6)
+    r_hat = (ri * rj) / (torch.clamp(radii, min=1e-12) * xla_f32.f32(1e6))
+    scale_c = xla_f32.f32(((math.pi * adhesion_const) / e_hat) ** (2.0 / 3.0))
+    d = overlap / torch.clamp(_cube_root(r_hat) * scale_c, min=1e-30)
+    f = xla_f32.fma(d, xla_f32.fma(d, xla_f32.fma(d, -0.0204, 0.4942), 1.0801), -1.324)
+    return dist2, d, ((f * xla_f32.f32(math.pi * adhesion_const)) * r_hat) * inv
+
+
 def _is_bonded(partner_ids: torch.Tensor, cand_id: torch.Tensor) -> torch.Tensor:
     """(C, W) membership of each window candidate id in the row's
     ``NO_BOND``-padded partner list."""
@@ -206,7 +232,8 @@ def pair_terms(
     kept pair's force on the row agent (zero elsewhere) and the surviving
     eligible set (the next bonds). ``uniform_radius`` selects the uniform
     law (``_pair_uniform``: every radius equal, as the contact kernels' fast
-    path), None the general law (``_pair_jkr``)."""
+    path), None the general law (``_pair_general``); both are the TPU
+    kernels'."""
     if order is not None:
         s_xyzr, s_ids = xyzr[order], ids[order]
     else:
@@ -232,11 +259,10 @@ def pair_terms(
         survive = d > break_d
         terms = w[:, None] * d_at
     else:
-        dist2 = xla_f32.row_sq_sum(-d_at)
-        terms, survive = _pair_jkr(
-            xyzr[at[0], :3], c_at[:, :3], xyzr[at[0], 3], c_at[:, 3],
-            adhesion_const, poisson, youngs, break_d,
-        )
+        dist2, d, w = _pair_general(d_at[:, 0], d_at[:, 1], d_at[:, 2], xyzr[at[0], 3],
+                                    c_at[:, 3], adhesion_const, poisson, youngs)
+        survive = d > break_d
+        terms = w[:, None] * d_at
     keep = torch.zeros_like(near)
     keep[at] = ((dist2 <= radius2) | bond_mask[at]) & survive
     return torch.zeros_like(delta).index_put(at, terms), keep
@@ -256,16 +282,16 @@ def jkr_substep_aligned(
     youngs: float,
     break_d: float,
     uniform_radius: Optional[float] = None,
-    n_runs: int = 1,
+    lanes: Optional[Lanes] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One substep over a window (``pair_terms``'s arguments). Returns
     ``(forces (C, 3), keep (C, W))``: the summed pair forces and the
-    surviving eligible set (the next bonds). A row's forces are summed run
-    by run over the window of ``n_runs`` runs (``neighbors.walk_sum``), as
-    the kernels sum them."""
+    surviving eligible set (the next bonds). A row's forces are summed in
+    the TPU kernels' grouping of the window's ``lanes``
+    (``neighbors.grouped_sum``; without them, in window order)."""
     terms, keep = pair_terms(bond_mask, xyzr, ids, alive, order, pos, valid, radius,
                              adhesion_const, poisson, youngs, break_d, uniform_radius)
-    return walk_sum(terms, keep, n_runs), keep
+    return grouped_sum(terms, keep, lanes), keep
 
 
 def jkr_substep(
@@ -282,18 +308,23 @@ def jkr_substep(
     youngs: float,
     break_d: float,
     uniform_radius: Optional[float] = None,
-    n_runs: int = 1,
+    lanes: Optional[Lanes] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Id-list substep: partner lists -> window mask, one substep, first-K
     compaction back. Returns ``(forces (C, 3), new partner ids (C, K),
-    degree (C,))``."""
+    degree (C,))``. The survivors are listed in the order the kernels
+    visit them: with ``lanes``, the TPU kernels' chunk-major order (chunk,
+    then run, then position), else window order."""
     s_ids = ids[order] if order is not None else ids
     cand_id = s_ids[pos]
     bond_mask = _is_bonded(partner_ids, cand_id)
     forces, keep = jkr_substep_aligned(
         bond_mask, xyzr, ids, alive, order, pos, valid, radius,
-        adhesion_const, poisson, youngs, break_d, uniform_radius, n_runs,
+        adhesion_const, poisson, youngs, break_d, uniform_radius, lanes,
     )
+    if lanes is not None:
+        visit = torch.sort(lanes.group, dim=1, stable=True).indices
+        cand_id, keep = torch.gather(cand_id, 1, visit), torch.gather(keep, 1, visit)
     new_ids, degree = _compact_bonds(cand_id, keep, partner_ids.shape[1])
     return forces, new_ids, degree
 

@@ -9,7 +9,9 @@ stencil nine runs in 3D), so each run's members are one contiguous slice
 ``[lo, hi)`` of the sorted order. The per-row run bounds
 (``sorted_run_bounds_from_flat``) are what the CUDA kernels walk; the
 padded candidate windows (``_run_windows``) serve the plain versions and
-the parity tests.
+the parity tests. Both add a row's float sums in the TPU kernels' grouping
+(``Grouping``, ``grouped_sum``), which depends on where the rows lie in
+the whole colony's sorted order.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from hipsc_abm_tpu_torch import kernels
 from hipsc_abm_tpu_torch.ops import xla_f32
 
 
@@ -227,36 +230,249 @@ def bounds_window(bounds: torch.Tensor, width: Optional[int] = None
     return pos.reshape(capacity, -1), valid.reshape(capacity, -1)
 
 
-def walk_sum(terms: torch.Tensor, keep: torch.Tensor, n_runs: int = 1) -> torch.Tensor:
-    """(C, D) sums of the kept (C, W, D) ``terms`` of each row in a kernel
-    thread's order over a run-major window of ``n_runs`` runs: each run's
-    kept terms added one by one from +0, then the runs' sums one by one
-    from +0, as the TPU kernels add each run's sum to the row's total (the
-    grouping of the TPU kernels that does not depend on where the rows lie
-    in the sorted order). Within a run the kept entries move to the front
-    in order (a stable sort) and a loop over the widest run's count adds
-    them (one host read). Padding and the entries not kept add nothing, so
-    the sums do not depend on the window's width."""
+# The TPU kernels' blocks of sorted rows, chunks of span lanes and the
+# alignment of span starts (the JAX engine's ``pallas_block``,
+# ``pallas_chunk`` and ``_ALIGN``), and the lane width of XLA:CPU's partial
+# sums in their interpreted bodies
+GROUP_BLOCK = 128
+GROUP_CHUNK = 256
+_ALIGN = 128
+_WINDOW_SHIFT = 5  # 32-lane windows
+
+
+def effective_chunk(span: int, chunk: int = GROUP_CHUNK) -> int:
+    """The chunk the TPU kernels use for a span cap (the JAX package's
+    ``effective_chunk``): never wider than the span, the whole span where
+    the chunk does not divide it."""
+    chunk = min(chunk, span)
+    return span if span % chunk else chunk
+
+
+def span_cap(span: int, capacity: int, chunk: int = GROUP_CHUNK) -> int:
+    """A DMA span cap as the JAX engine's ``EngineConfig.create`` clamps it:
+    at most the capacity, else rounded up to a chunk multiple."""
+    span = min(int(span), capacity)
+    return span if span == capacity else min(-(-span // chunk) * chunk, capacity)
+
+
+class Grouping(NamedTuple):
+    """Where a window's rows and candidates lie in the sorted order of the
+    whole colony, which sets how the TPU kernels group a row's float sums
+    (``grouped_sum``). ``starts`` (n_runs, nblocks) int32 is each block of
+    ``block`` sorted rows' span start per run (``block_starts``); ``gpos``
+    (C,) int32 is each row's position in the colony's sorted order, None
+    when the rows are that order (the single engine); ``chunk`` is the
+    kernels' chunk of span lanes (``effective_chunk``). ``needed``, where
+    an engine computes it, is the JAX engine's span probe of the window
+    (``block_span_needed``), which the kernels do not read."""
+
+    starts: torch.Tensor
+    gpos: Optional[torch.Tensor] = None
+    chunk: int = GROUP_CHUNK
+    block: int = GROUP_BLOCK
+    needed: Optional[torch.Tensor] = None
+
+
+def block_starts(lo_first: torch.Tensor, span: Optional[int], capacity: int,
+                 align: int = _ALIGN) -> torch.Tensor:
+    """The TPU kernels' span starts (``block_span_plan``'s ``starts``
+    without its pad row): each block's first row's run start ``lo_first``
+    (nblocks, n_runs), non-negative, rounded down to ``align`` (a power of
+    two) and clipped to ``max_start = (capacity - span) // align * align``;
+    no clip where ``span`` is None. Returns (n_runs, nblocks) int32."""
+    lo = lo_first.to(torch.int32) & -align
+    if span is not None:
+        lo = torch.clamp(lo, max=max(capacity - span, 0) // align * align)
+    return lo.t().contiguous()
+
+
+def grouping_of_bounds(bounds: torch.Tensor, span: Optional[int] = None,
+                       capacity: Optional[int] = None, chunk: int = GROUP_CHUNK,
+                       block: int = GROUP_BLOCK) -> Grouping:
+    """The grouping of a window whose rows are the colony's sorted order
+    (the single engine): the blocks' run starts are their first rows'
+    bounds. ``span`` and ``capacity`` (default: the rows) are the JAX
+    engine's span cap and capacity, which clip the starts near the end of
+    the sorted order; ``chunk`` is already ``effective_chunk``'s. A block
+    of rows dead at the build (sorted last, empty runs ``[C, 0)``) starts
+    where no live row reads its start."""
+    capacity = bounds.shape[0] if capacity is None else capacity
+    first = bounds.view(bounds.shape[0], -1, 2)[::block, :, 0]
+    return Grouping(block_starts(first, span, capacity), None, chunk, block)
+
+
+def block_span_needed(bounds: torch.Tensor, grouping: Grouping) -> torch.Tensor:
+    """The JAX engine's span probe of a window whose rows are the colony's
+    sorted order (``block_span_plan``'s ``span_needed``): the most sorted
+    positions a block's run reaches from its span start, over the blocks
+    with live rows and their runs (0-d int32). A block's last live row
+    reaches furthest; rows dead at the build reach 0, so a block of them
+    adds nothing. The engine grows its span cap past it as the JAX engine
+    does."""
+    C, block = bounds.shape[0], grouping.block
+    nblocks = grouping.starts.shape[1]
+    hi = bounds.view(C, -1, 2)[:, :, 1]
+    if nblocks * block != C:
+        hi = torch.nn.functional.pad(hi, (0, 0, 0, nblocks * block - C))
+    need = hi.reshape(nblocks, block, -1).amax(dim=1) - grouping.starts.t()
+    return need.max().clamp(min=0)
+
+
+def global_positions(counts: torch.Tensor, gflat: torch.Tensor,
+                     sorted_flat: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(C,) int32 positions of a tile's sorted rows in the colony's sorted
+    order: the exclusive prefix of the colony's per-bin ``counts`` (n_bins
+    + 1, the last the dead) at each row's global flat bin ``gflat``, plus
+    its rank within its bin in the tile's order (``sorted_flat``, tile-local
+    bins, and their ``_bin_table``), which is the colony's rank wherever the
+    tile holds the whole bin. Rows outside the tile's lattice get 0."""
+    prefix = torch.cumsum(counts, 0) - counts
+    n = table.shape[0] - 1
+    local = torch.clamp(sorted_flat, 0, n)
+    rank = torch.arange(sorted_flat.shape[0], device=sorted_flat.device) - table[local]
+    inside = sorted_flat < n
+    g = prefix[torch.clamp(gflat, 0, counts.shape[0] - 1)] + rank
+    return torch.where(inside, g, 0).to(torch.int32)
+
+
+def global_block_starts(spec: GridSpec, counts: torch.Tensor, nblocks: int,
+                        span: Optional[int], capacity: int,
+                        block: int = GROUP_BLOCK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``block_starts`` of the colony's sorted order from its per-bin
+    ``counts`` alone (the domain engine, whose tiles hold parts of it), and
+    its ``block_span_needed``: a block's first (last live) row lies in the
+    last bin whose exclusive prefix is at most its position, and its run
+    starts (ends) are the prefix at that bin's runs (``run_bounds``'s
+    columns). Blocks past the last live row get the dead's bin."""
+    table = torch.cumsum(counts, 0) - counts  # (n_bins + 1,) exclusive prefix
+    n_live = table[-1]
+    at = torch.arange(nblocks, dtype=torch.int64, device=counts.device) * block
+    last = torch.minimum(at + block - 1, n_live - 1)
+    f_lo, f_hi = (torch.searchsorted(table[:-1], p, right=True) - 1 for p in (at, last))
+    first, _, _ = _run_index(spec, counts.device)
+    run_lo = torch.clamp(f_lo[:, None] + first[0::2], 0, spec.num_bins - 3)
+    run_hi = torch.clamp(f_hi[:, None] + first[0::2], 0, spec.num_bins - 3) + 3
+    live = (at < n_live)[:, None]
+    starts = block_starts(torch.where(live, table[run_lo], n_live), span, capacity)
+    need = torch.where(live, table[run_hi] - starts.t().to(torch.int64), 0)
+    return starts, need.max()
+
+
+class Lanes(NamedTuple):
+    """Each entry of a run-major window's place in the TPU kernels' sum
+    (``window_lanes``): ``group`` (C, W) int64, chunk * n_runs + run, and
+    ``window`` (C, W) int64, the 32-lane window of the colony's sorted
+    order."""
+
+    group: torch.Tensor
+    window: torch.Tensor
+
+
+def window_lanes(bounds: torch.Tensor, width: int, grouping: Grouping) -> Lanes:
+    """The ``Lanes`` of the window of ``bounds`` padded to ``width`` per run
+    (``bounds_window``): candidate k of run r of a row lies at ``g = g_lo +
+    k`` in the colony's order (``g_lo`` that of the run's first candidate;
+    a run's bins are consecutive there too), its chunk is ``(g - s) //
+    chunk`` from the span start ``s`` of the row's block for that run, and
+    its window ``g // 32``."""
+    C = bounds.shape[0]
+    b = bounds.to(torch.int64).view(C, -1, 2)
+    lo, n_runs = b[..., 0], b.shape[1]
+    dev = bounds.device
+    if grouping.gpos is None:
+        row_g, lo_g = torch.arange(C, device=dev), lo
+    else:
+        gpos = grouping.gpos.to(torch.int64)
+        row_g, lo_g = gpos, gpos[torch.clamp(lo, 0, max(C - 1, 0))]
+    starts = grouping.starts.to(torch.int64)
+    blk = torch.clamp(row_g // grouping.block, 0, starts.shape[1] - 1)
+    runs = torch.arange(n_runs, device=dev)
+    base = starts[runs[None, :], blk[:, None]]  # (C, n_runs)
+    g = lo_g[:, :, None] + torch.arange(width, device=dev)
+    chunk = torch.clamp(g - base[:, :, None], min=0) // grouping.chunk
+    return Lanes((chunk * n_runs + runs[:, None]).reshape(C, -1),
+                 (g >> _WINDOW_SHIFT).reshape(C, -1))
+
+
+def plain_lanes(bounds, pos, grouping: Optional[Grouping]):
+    """The ``neighbors.Lanes`` of a plain version's window ``pos`` over
+    ``bounds`` under ``grouping`` (default: ``grouping_of_bounds``)."""
+    grouping = grouping_of_bounds(bounds) if grouping is None else grouping
+    return window_lanes(bounds, pos.shape[1] // kernels.run_count(bounds), grouping)
+
+
+def grouping_args(bounds, grouping: Optional[Grouping]) -> tuple:
+    """A kernel's grouping arguments (``csrc/group_sum.cuh`` ``Grouping``):
+    the starts' pointer, the colony positions' pointer (null: the row
+    index), the block count, and the chunk's and the block's log2 (the
+    kernels take powers of two, which the engines' 256-lane chunks and
+    128-row blocks are). ``grouping`` defaults to
+    ``grouping_of_bounds(bounds)``; its tensors are checked to lie on the
+    bounds' card."""
+    grouping = grouping_of_bounds(bounds) if grouping is None else grouping
+    n_runs = kernels.run_count(bounds)
+    starts = grouping.starts
+    if starts.dim() != 2 or starts.shape[1] < 1:
+        raise ValueError(f"grouping.starts: expected ({n_runs}, nblocks >= 1), got "
+                         f"{tuple(starts.shape)}")
+    kernels.check_cuda("grouping.starts", starts, torch.int32, (n_runs, starts.shape[1]))
+    gpos = grouping.gpos
+    if gpos is not None:
+        kernels.check_cuda("grouping.gpos", gpos, torch.int32, (bounds.shape[0],))
+    chunk, block = grouping.chunk, grouping.block
+    if chunk < 32 or chunk & (chunk - 1) or block < 1 or block & (block - 1):
+        raise ValueError(f"grouping: the kernels take a chunk of 32 lanes or more and a "
+                         f"block, each a power of two, not {chunk} and {block}")
+    return (starts.data_ptr(), None if gpos is None else gpos.data_ptr(), starts.shape[1],
+            chunk.bit_length() - 1, block.bit_length() - 1)
+
+
+def grouped_sum(terms: torch.Tensor, keep: torch.Tensor,
+                lanes: Optional[Lanes] = None) -> torch.Tensor:
+    """(C, D) sums of the kept (C, W, D) ``terms`` of each row as the
+    interpreted TPU kernels add them: per (chunk, run) in chunk-major
+    order, the run's lanes of the chunk in 32-lane windows of the colony's
+    sorted order, each window's terms added in lane order from +0, the
+    windows added from +0, and that total added to the row's sum
+    (``Lanes``). Without ``lanes`` the kept terms are added in window
+    order. The kept entries move to the front in that order (a stable
+    sort) and a loop over the most any row keeps (one host read) adds them;
+    padding and the entries not kept add nothing, so the sums do not depend
+    on the window's width."""
     C, D = terms.shape[0], terms.shape[-1]
     acc = torch.zeros((C, D), dtype=terms.dtype, device=terms.device)
     if C == 0 or keep.shape[1] == 0:
         return acc
-    width = keep.shape[1] // n_runs
-    keep = keep.reshape(C * n_runs, width)
-    terms = terms.reshape(C * n_runs, width, D)
-    first = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices
+    big = torch.iinfo(torch.int64).max
+    if lanes is None:
+        group = window = torch.zeros_like(keep, dtype=torch.int64)
+    else:
+        group, window = lanes
+    first = torch.sort(torch.where(keep, group, big), dim=1, stable=True).indices
     n = int(keep.sum(dim=1).max())
     first = first[:, :n]
     kept = torch.gather(keep, 1, first)
-    vals = torch.gather(terms, 1, first[..., None].expand(-1, -1, D))
+    group, window = torch.gather(group, 1, first), torch.gather(window, 1, first)
     zero = torch.zeros((), dtype=terms.dtype, device=terms.device)
-    run_sum = torch.zeros((C * n_runs, D), dtype=terms.dtype, device=terms.device)
+    vals = torch.where(kept[..., None],
+                       torch.gather(terms, 1, first[..., None].expand(-1, -1, D)), zero)
+    # the kept entries lead each row, so entry k opens a group (a window)
+    # where it differs from entry k - 1
+    opens = torch.ones((C, 1), dtype=torch.bool, device=terms.device)
+    new_group = kept & torch.cat([opens, group[:, 1:] != group[:, :-1]], dim=1)
+    new_window = new_group | (kept & torch.cat([opens, window[:, 1:] != window[:, :-1]],
+                                                 dim=1))
+    new_group, new_window = new_group[..., None], new_window[..., None]
+    total = torch.zeros_like(acc)
+    part = torch.zeros_like(acc)
+    # adding +0 leaves a sum as it is (no partial sum is -0), so a closed
+    # window or group adds its sum and the others add +0
     for k in range(n):
-        run_sum = run_sum + torch.where(kept[:, k, None], vals[:, k], zero)
-    run_sum = run_sum.reshape(C, n_runs, D)
-    for r in range(n_runs):
-        acc = acc + run_sum[:, r]
-    return acc
+        total = total + torch.where(new_window[:, k], part, zero)
+        acc = acc + torch.where(new_group[:, k], total, zero)
+        total = torch.where(new_group[:, k], zero, total)
+        part = torch.where(new_window[:, k], zero, part) + vals[:, k]
+    return acc + (total + part)
 
 
 def window_from_grid(spec: GridSpec, grid: Grid):

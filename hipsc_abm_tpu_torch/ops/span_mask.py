@@ -78,7 +78,7 @@ from hipsc_abm_tpu_torch import kernels
 from hipsc_abm_tpu_torch.ops import jkr as jkr_ops
 from hipsc_abm_tpu_torch.ops import xla_f32
 from hipsc_abm_tpu_torch.ops.contact import pair_law_args
-from hipsc_abm_tpu_torch.ops.neighbors import bounds_window
+from hipsc_abm_tpu_torch.ops.neighbors import Grouping, bounds_window, grouping_args, plain_lanes
 
 
 def candidate_counts(bounds: torch.Tensor) -> torch.Tensor:
@@ -139,11 +139,11 @@ def _pack(keep: torch.Tensor, j: torch.Tensor, n_words: int) -> torch.Tensor:
     return words.to(torch.int32).t().contiguous()
 
 
-def _substep(xyzr, ids, alive, pos, valid, bonded, law, n_runs):
+def _substep(xyzr, ids, alive, pos, valid, bonded, law, lanes):
     force, keep = jkr_ops.jkr_substep_aligned(
         bonded, xyzr, ids, alive, None, pos, valid, law["radius"],
         law["adhesion_const"], law["poisson"], law["youngs"], law["break_d"],
-        law["uniform_radius"], n_runs,
+        law["uniform_radius"], lanes,
     )
     return force, keep.sum(dim=1, dtype=torch.int32), keep
 
@@ -157,12 +157,14 @@ def contact_seed_plain(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
     pred: Optional[torch.Tensor] = None, out=None, width=None,
+    grouping: Optional[Grouping] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain seed substep: returns ``(force (C, 3) float32, degree (C,)
     int32, mask (W, C) int32)``, written into ``out`` when given (``W`` is
     then its mask's, else ``mask_words(bounds)``); ``pred`` as in the module
     docstring; ``width`` is ``neighbors.bounds_window``'s. ``uniform_radius``
-    selects the uniform law, None the general law, as in the kernel."""
+    selects the uniform law, None the general law, as in the kernel.
+    ``grouping``: the forces' sum order, as in ``ops.contact``."""
     if out is None:
         C, dev = xyzr.shape[0], xyzr.device
         out = (torch.zeros((C, 3), dtype=torch.float32, device=dev),
@@ -174,7 +176,7 @@ def contact_seed_plain(
     bonded = jkr_ops._is_bonded(partners, ids[pos])
     force, degree, keep = _substep(xyzr, ids, alive, pos, valid, bonded,
                                    _law(radius, adhesion_const, poisson, youngs, break_d,
-                                        uniform_radius), kernels.run_count(bounds))
+                                        uniform_radius), plain_lanes(bounds, pos, grouping))
     out[0].copy_(force)
     out[1].copy_(degree)
     out[2].copy_(_pack(keep, j, out[2].shape[0]))
@@ -185,12 +187,13 @@ def contact_masked_plain(
     xyzr, ids, alive, bounds, mask, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
     pred: Optional[torch.Tensor] = None, out=None, width=None,
+    grouping: Optional[Grouping] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain masked substep: returns ``(force, degree, mask)``, the mask
     being the given tensor with the new keep set written into it and force
     and degree written into ``out`` when given; ``pred`` as in the module
     docstring; ``width`` is ``neighbors.bounds_window``'s; ``uniform_radius``
-    as in ``contact_seed_plain``."""
+    and ``grouping`` as in ``contact_seed_plain``."""
     if out is None:
         C, dev = xyzr.shape[0], xyzr.device
         out = (torch.zeros((C, 3), dtype=torch.float32, device=dev),
@@ -200,7 +203,7 @@ def contact_masked_plain(
     pos, valid, j = _window(bounds, width)
     force, degree, keep = _substep(xyzr, ids, alive, pos, valid, _unpack(mask, j, valid),
                                    _law(radius, adhesion_const, poisson, youngs, break_d,
-                                        uniform_radius), kernels.run_count(bounds))
+                                        uniform_radius), plain_lanes(bounds, pos, grouping))
     mask.copy_(_pack(keep, j, mask.shape[0]))
     out[0].copy_(force)
     out[1].copy_(degree)
@@ -267,13 +270,14 @@ def contact_seed_cuda(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
     pred: Optional[torch.Tensor] = None, out=None, width=None,
+    grouping: Optional[Grouping] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The seed substep. A CPU tensor runs the plain version (``width`` is
     the plain version's); a CUDA tensor launches the kernel (or raises). Without ``out`` the mask gets
     ``mask_words(bounds)`` words (a host read)."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius,
-              pred=pred, out=out)
+              pred=pred, out=out, grouping=grouping)
     if xyzr.device.type == "cpu":
         return contact_seed_plain(xyzr, ids, alive, bounds, partners, **kw, width=width)
     C, n_runs = _check_rows(xyzr, ids, alive, bounds)
@@ -290,6 +294,7 @@ def contact_seed_cuda(
         C, K, mask.shape[0], n_runs, *pair_law_args(radius, adhesion_const, poisson,
                                                     youngs, break_d, uniform_radius),
         xla_f32.rsqrt_table(xyzr.device).data_ptr(), _pred_ptr(pred),
+        *grouping_args(bounds, grouping),
     )
     kernels.count_launch(kernels.counted_name("contact_seed", n_runs))
     return force, degree, mask
@@ -299,13 +304,14 @@ def contact_masked_cuda(
     xyzr, ids, alive, bounds, mask, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
     pred: Optional[torch.Tensor] = None, out=None, width=None,
+    grouping: Optional[Grouping] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The masked substep; the mask is updated in place and returned. A CPU
     tensor runs the plain version (``width`` is the plain version's); a CUDA
     tensor launches the kernel (or raises)."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius,
-              pred=pred, out=out)
+              pred=pred, out=out, grouping=grouping)
     if xyzr.device.type == "cpu":
         return contact_masked_plain(xyzr, ids, alive, bounds, mask, **kw, width=width)
     C, n_runs = _check_rows(xyzr, ids, alive, bounds)
@@ -318,6 +324,7 @@ def contact_masked_cuda(
         *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
                        uniform_radius),
         xla_f32.rsqrt_table(xyzr.device).data_ptr(), _pred_ptr(pred),
+        *grouping_args(bounds, grouping),
     )
     kernels.count_launch(kernels.counted_name("contact_masked", n_runs))
     return force, degree, mask

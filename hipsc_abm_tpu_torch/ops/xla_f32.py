@@ -291,3 +291,177 @@ def rsqrt(x: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and x.requires_grad:
         return _Rsqrt.apply(x)
     return _rsqrt_nr(x)
+
+
+# ---------------------------------------------------------------------------
+# glibc's powf, which XLA:CPU calls for a float32 ``pow``
+# ---------------------------------------------------------------------------
+
+_SPLIT = 134217729.0  # 2^27 + 1, Veltkamp's splitter of a float64
+
+
+def _two_sum(a: torch.Tensor, b):
+    """``(s, e)``: s = a + b rounded, e its exact error."""
+    s = a + b
+    t = s - a
+    return s, (a - (s - t)) + (b - t)
+
+
+def _split(a):
+    t = a * _SPLIT
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def fma_f64(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` in float64 rounded once, as the x86 ``vfmadd*sd`` (the
+    card's ``__fma_rn``), for operands whose products and sums neither
+    overflow nor underflow: the product split exactly into ``ph + pl``
+    (Dekker), ``c + ph`` into ``sh + sl`` (TwoSum), ``sl + pl`` rounded to
+    odd, and that added to ``sh`` (Boldo and Melquiond's emulation). ``b``
+    and ``c`` may be floats."""
+    a = a.to(torch.float64)
+    ph = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    pl = ((ah * bh - ph) + ah * bl + al * bh) + al * bl
+    sh, sl = _two_sum(ph, c)
+    v, err = _two_sum(sl, pl)
+    # round to odd: step v toward zero where it lies beyond the exact sum,
+    # then set its last bit where the sum was inexact
+    beyond = (err * torch.sign(v) < 0).to(torch.int64)
+    v = ((v.view(torch.int64) - beyond) | (err != 0).to(torch.int64)).view(torch.float64)
+    return sh + v
+
+
+def _hex64(*values: str) -> tuple:
+    return tuple(float.fromhex(v) for v in values)
+
+
+# glibc 2.36's __powf_log2_data (POWF_LOG2_TABLE_BITS = 4): 1 / c and
+# log2(c) for the 16 subintervals of [0x3f330000, 2 x that) in float bits,
+# and the polynomial of log2(1 + r); then __exp2f_data (EXP2F_TABLE_BITS =
+# 5): 2^(i / 32) as float64 bits less i << 47, the shift that rounds y
+# log2(x) to a multiple of 1 / 32, and the polynomial of 2^r. Read from
+# libm.so.6's .rodata where __powf_fma addresses them (``objdump -d``).
+_POWF_INVC = _hex64(
+    "0x1.661ec79f8f3bep+0", "0x1.571ed4aaf883dp+0", "0x1.49539f0f010bp+0",
+    "0x1.3c995b0b80385p+0", "0x1.30d190c8864a5p+0", "0x1.25e227b0b8eap+0",
+    "0x1.1bb4a4a1a343fp+0", "0x1.12358f08ae5bap+0", "0x1.0953f419900a7p+0", "0x1p+0",
+    "0x1.e608cfd9a47acp-1", "0x1.ca4b31f026aap-1", "0x1.b2036576afce6p-1",
+    "0x1.9c2d163a1aa2dp-1", "0x1.886e6037841edp-1", "0x1.767dcf5534862p-1")
+_POWF_LOGC = _hex64(
+    "-0x1.efec65b963019p-2", "-0x1.b0b6832d4fca4p-2", "-0x1.7418b0a1fb77bp-2",
+    "-0x1.39de91a6dcf7bp-2", "-0x1.01d9bf3f2b631p-2", "-0x1.97c1d1b3b7afp-3",
+    "-0x1.2f9e393af3c9fp-3", "-0x1.960cbbf788d5cp-4", "-0x1.a6f9db6475fcep-5", "0x0p+0",
+    "0x1.338ca9f24f53dp-4", "0x1.476a9543891bap-3", "0x1.e840b4ac4e4d2p-3",
+    "0x1.40645f0c6651cp-2", "0x1.88e9c2c1b9ff8p-2", "0x1.ce0a44eb17bccp-2")
+_POWF_POLY = _hex64("0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2", "0x1.ec70a6ca7baddp-2",
+                    "-0x1.7154748bef6c8p-1", "0x1.71547652ab82bp+0")
+EXP2F_TABLE = (
+    0x3ff0000000000000, 0x3fefd9b0d3158574, 0x3fefb5586cf9890f, 0x3fef9301d0125b51,
+    0x3fef72b83c7d517b, 0x3fef54873168b9aa, 0x3fef387a6e756238, 0x3fef1e9df51fdee1,
+    0x3fef06fe0a31b715, 0x3feef1a7373aa9cb, 0x3feedea64c123422, 0x3feece086061892d,
+    0x3feebfdad5362a27, 0x3feeb42b569d4f82, 0x3feeab07dd485429, 0x3feea47eb03a5585,
+    0x3feea09e667f3bcd, 0x3fee9f75e8ec5f74, 0x3feea11473eb0187, 0x3feea589994cce13,
+    0x3feeace5422aa0db, 0x3feeb737b0cdc5e5, 0x3feec49182a3f090, 0x3feed503b23e255d,
+    0x3feee89f995ad3ad, 0x3feeff76f2fb5e47, 0x3fef199bdd85529c, 0x3fef3720dcef9069,
+    0x3fef5818dcfba487, 0x3fef7c97337b9b5f, 0x3fefa4afa2a490da, 0x3fefd0765b6e4540)
+_EXP2F_SHIFT = float.fromhex("0x1.8p+47")
+_EXP2F_POLY = _hex64("0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1")
+# the float bits where the log2 table's subintervals start
+_POWF_OFF = 0x3F330000
+
+
+def _powf_tables(device) -> tuple:
+    key = ("powf", torch.device(device))
+    if key not in _TABLES:
+        f64 = dict(dtype=torch.float64, device=device)
+        _TABLES[key] = (torch.tensor(_POWF_INVC, **f64), torch.tensor(_POWF_LOGC, **f64),
+                        torch.tensor(EXP2F_TABLE, dtype=torch.int64, device=device))
+    return _TABLES[key]
+
+
+def _powf(x: torch.Tensor, y: float) -> torch.Tensor:
+    invc_t, logc_t, exp2_t = _powf_tables(x.device)
+    A, C = _POWF_POLY, _EXP2F_POLY
+    ix = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    # a subnormal x is normalised first: x 2^23, exponent less 23
+    sub = (x * 2.0**23).view(torch.int32).to(torch.int64) - (23 << 23)
+    ix = torch.where(ix < 0x00800000, sub, ix)
+    # log2(x) = log2(z / c) + log2(c) + k, z in the subinterval of c
+    tmp = (ix - _POWF_OFF) & 0xFFFFFFFF
+    i = (tmp >> 19) & 15
+    top = tmp & 0xFF800000
+    z = ((ix - top) & 0xFFFFFFFF).to(torch.int32).view(torch.float32).to(torch.float64)
+    k = torch.where(top >= 1 << 31, top - (1 << 32), top) >> 23
+    r = fma_f64(z, invc_t[i], -1.0)
+    y0 = k.to(torch.float64) + logc_t[i]
+    p = fma_f64(r, A[2], A[3])
+    r2 = r * r
+    q = fma_f64(r2, p, fma_f64(r, A[4], y0))
+    logx = fma_f64(fma_f64(r, A[0], A[1]), r2 * r2, q)
+    # 2^(y log2 x) = 2^(k / 32) 2^r, |r| <= 1 / 64
+    ylogx = float(np.float32(y)) * logx
+    kd = ylogx + _EXP2F_SHIFT
+    ki = kd.view(torch.int64)
+    r = ylogx - (kd - _EXP2F_SHIFT)
+    s = (exp2_t[ki & 31] + ((ki & 0x1FFFF) << 47)).view(torch.float64)
+    out = fma_f64(fma_f64(r, C[0], C[1]), r * r, fma_f64(r, C[2], 1.0))
+    return (out * s).to(torch.float32)
+
+
+def _powf_on(x: torch.Tensor, y: float) -> torch.Tensor:
+    """``_powf``, or on a CUDA tensor the device twin."""
+    return _powf(x, y) if x.device.type == "cpu" else powf_cuda(x, y)
+
+
+class _Powf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.save_for_backward(x)
+        ctx.y = y
+        return _powf_on(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        # JAX's derivative of pow: g (y pow(x, y - 1))
+        (x,) = ctx.saved_tensors
+        y = np.float32(ctx.y)
+        return g * (float(y) * _powf_on(x, float(y - np.float32(1.0)))), None
+
+
+def powf(x: torch.Tensor, y: float) -> torch.Tensor:
+    """glibc 2.36's ``powf(x, y)`` (its ``__powf_fma``, which XLA:CPU calls
+    for a float32 ``pow`` on an x86-64 machine with FMA) for a float32
+    constant ``y``, with JAX's derivative of ``x ** y``. For positive
+    finite ``x`` with ``|y log2 x| < 126``, every operation of the object
+    code in float64 (``_powf``): log2(x) from the 16-entry table and its
+    polynomial, ``y`` times it, 2^ of that from the 32-entry table and its
+    polynomial, rounded once to float32; where ``vfmadd*sd`` fuses,
+    ``fma_f64``. Zero, infinite, negative and NaN ``x`` take IEEE ``pow``'s
+    values, as glibc's special cases do. On a CUDA tensor the device twin
+    computes it in one launch (``powf_cuda``), as ``fma`` does."""
+    x = x.to(torch.float32)
+    regular = (x > 0) & (x < float("inf"))
+    xr = torch.where(regular, x, torch.ones_like(x))
+    if torch.is_grad_enabled() and x.requires_grad:
+        out = _Powf.apply(xr, y)
+    else:
+        out = _powf_on(xr, y)
+    return torch.where(regular, out, torch.pow(x.double(), y).to(torch.float32))
+
+
+def powf_cuda(x: torch.Tensor, y: float) -> torch.Tensor:
+    """``powf(x, y)`` elementwise: on a CPU tensor the plain mirror, on a
+    CUDA tensor the device twin (``csrc/powf.cu``, the contact kernels'
+    ``powf_glibc``) in one launch, counted as ``powf``. The card's plain
+    paths (the dense contact path, calibration's gradient) take it through
+    ``powf``; the contact kernels inline the device function."""
+    if x.device.type == "cpu":
+        return _powf(x, y)
+    kernels.check_cuda("x", x, torch.float32, tuple(x.shape))
+    out = torch.empty_like(x)
+    kernels.launch("hipsc_powf", x.data_ptr(), out.data_ptr(), float(np.float32(y)), x.numel())
+    kernels.count_launch("powf")
+    return out

@@ -243,6 +243,8 @@ class DomainStepInfo(NamedTuple):
     jkr_span_needed: object
     max_substep_move: object
     jkr_rebuilds: object  # contact-window rebuilds after the physics entry build
+    jkr_block_span: object  # the JAX span probes of the colony's windows
+    nbr_block_span: object  # (HipscEngine's StepInfo; jkr_span / nbr_span growth)
 
 
 _SUM_FIELDS = frozenset(("num_agents", "num_added", "num_removed", "num_deferred",
@@ -280,8 +282,9 @@ class _Exchange(NamedTuple):
 
 
 class _Reduce(NamedTuple):
-    """``op`` over the tiles' values, in tile order: "sum", "max", or
-    "gather" (stacked); every tile receives the result."""
+    """``op`` over the tiles' values, in tile order: "sum", "max",
+    "gather" (stacked), or "isum", the sum of integer tensors (one
+    all-reduce across ranks); every tile receives the result."""
 
     op: str
     value: torch.Tensor
@@ -450,8 +453,39 @@ def _collective_code(msg) -> int:
     if isinstance(msg, _Exchange):
         return 1 + msg.axis
     if isinstance(msg, _Reduce):
-        return 3 + ("sum", "max", "gather").index(msg.op)
+        return 7 if msg.op == "isum" else 3 + ("sum", "max", "gather").index(msg.op)
     return 6
+
+
+def _bin_counts(spec: nbr_ops.GridSpec, loc: torch.Tensor, own: torch.Tensor) -> torch.Tensor:
+    """(num_bins + 1,) int32 count of the ``own`` rows per bin of the
+    global lattice ``spec`` (the last entry unused): a tile's part of the
+    colony's bin table."""
+    flat = nbr_ops._flat_from_coords(spec, nbr_ops._bin_coords(spec, loc), own)
+    counts = torch.zeros((spec.num_bins + 1,), dtype=torch.int32, device=loc.device)
+    return counts.index_add_(0, torch.clamp(flat, max=spec.num_bins), own.to(torch.int32))
+
+
+def _tile_grouping(spec: nbr_ops.GridSpec, counts: torch.Tensor, loc_sorted: torch.Tensor,
+                   sorted_flat: torch.Tensor, spec_local: nbr_ops.GridSpec, span: int,
+                   capacity: int, n_slots: int) -> nbr_ops.Grouping:
+    """The sum order of a tile's window (its rows in the tile's sorted
+    order ``sorted_flat``, at ``loc_sorted``) within the colony whose
+    per-bin ``counts`` (``_bin_counts``, summed over the tiles) give its
+    sorted order: each row's position in it and the blocks' span starts,
+    under the single engine's span cap and ``capacity``; ``n_slots`` (the
+    tiles' slots) bounds the blocks a live row can lie in. These are the
+    single engine's, so a tile's sums equal its bit for bit; so is the
+    JAX span probe of the window, ``needed``."""
+    span = nbr_ops.span_cap(span, capacity)
+    nblocks = -(-max(capacity, n_slots) // nbr_ops.GROUP_BLOCK)
+    gflat = nbr_ops._flat_from_coords(spec, nbr_ops._bin_coords(spec, loc_sorted),
+                                      sorted_flat < spec_local.num_bins)
+    gpos = nbr_ops.global_positions(counts.to(torch.int64), gflat, sorted_flat,
+                                    nbr_ops._bin_table(spec_local, sorted_flat))
+    starts, needed = nbr_ops.global_block_starts(spec, counts.to(torch.int64), nblocks, span,
+                                                 capacity)
+    return nbr_ops.Grouping(starts, gpos, nbr_ops.effective_chunk(span), needed=needed)
 
 
 def _tile_step(t: _Tile, arrays, alive, bonds, lattice, words, next_id):
@@ -541,13 +575,18 @@ def _tile_step(t: _Tile, arrays, alive, bonds, lattice, words, next_id):
     nbr_grid = nbr_ops.grid_from_flat_coords(nflat, ncoords, arrays["ids"])
     nbr_bounds = nbr_ops.run_bounds(cfg.nbr_spec_local, nbr_grid.sorted_flat)
     nbr_pos0 = bio_positions(loc0[nbr_grid.order])
+    # the colony's sorted order: every tile's own rows per global bin
+    nbr_counts = yield _Reduce("isum", _bin_counts(base.nbr_spec, loc0, alive & owned))
+    nbr_grouping = _tile_grouping(base.nbr_spec, nbr_counts, loc0[nbr_grid.order],
+                                  nbr_grid.sorted_flat, cfg.nbr_spec_local, base.nbr_span,
+                                  base.capacity, cfg.n_stripes * P)
     nbr_run, _ = _window_widths(nbr_bounds)
     nbr_width = int((yield _Reduce("max", nbr_run))) if plain else None
 
     def moments(alive_now, mode, loc1=None, f0=None, f1=None, f2=None):
         return neighbor_moments(nbr_pos0, nbr_bounds, alive_now, mode, loc1, f0, f1, f2,
                                 radius=bio.neighbor_radius, order=nbr_grid.order,
-                                width=nbr_width)
+                                width=nbr_width, grouping=nbr_grouping)
 
     m1 = moments(alive, "count")
     nbr_count = m1[:, 0].to(torch.int32)
@@ -700,6 +739,7 @@ def _tile_step(t: _Tile, arrays, alive, bonds, lattice, words, next_id):
         halo_miss=torch.zeros((), dtype=torch.int64, device=dev),
         drift_exceed=phys["exceeds"], jkr_span_needed=phys["cands"],
         max_substep_move=phys["move"], jkr_rebuilds=phys["rebuilds"],
+        jkr_block_span=phys["spans"], nbr_block_span=nbr_grouping.needed,
     )
     own = ({k: v[:P] for k, v in arrays.items()}, alive_own,
            BondState(bonds.partners[:P], bonds.mask[:P]))
@@ -740,12 +780,20 @@ def _tile_physics(t: _Tile, arrays, alive, bonds, size, plain: bool):
         return (torch.floor(v * xla_f32.recip(gspec.cell_size)).to(torch.int64)
                 + 1).clamp(0, n - 1)
 
+    counts = None  # the colony's contact-bin counts at the window's build
+
     def window(_cfg, rows):
         gc = nbr_ops._bin_coords(gspec, rows["loc"])
         flat, coords = nbr_ops.local_flat(spec_l, gc, c.col_off_jkr, c.row_off_jkr,
                                           rows["alive"])
         grid = nbr_ops.grid_from_flat_coords(flat, coords, rows["ids"])
-        return grid.order, nbr_ops.run_bounds(spec_l, grid.sorted_flat)
+        grouping = _tile_grouping(gspec, counts, rows["loc"][grid.order], grid.sorted_flat,
+                                  spec_l, base.jkr_span, base.capacity, cfg.n_stripes * P)
+        return grid.order, nbr_ops.run_bounds(spec_l, grid.sorted_flat), grouping
+
+    def own_counts():
+        return _Reduce("isum", _bin_counts(gspec, rows["loc"],
+                                           rows["alive"] & (rows["perm"] < P)))
 
     rows = {"loc": arrays["locations"].clone(), "rad": arrays["radii"].clone(),
             "mot": arrays["motility_forces"], "ids": arrays["ids"].clone(),
@@ -823,7 +871,8 @@ def _tile_physics(t: _Tile, arrays, alive, bonds, size, plain: bool):
 
     # --- entry: the fresh bands, then the window over own + halo rows ---
     frz, band0 = yield from exchange_and_update(((z_i, z_b) * 2, (z_i, z_b) * 2), True)
-    rows, bounds = _build_window(base, rows, window)
+    counts = yield own_counts()
+    rows, bounds, grouping = _build_window(base, rows, window)
     inv = _inverse(rows["perm"])
     ref = rows["loc"]
     identity = torch.arange(C, device=dev)
@@ -831,7 +880,7 @@ def _tile_physics(t: _Tile, arrays, alive, bonds, size, plain: bool):
     mask = None
     if span:
         mask = torch.empty((mask_words_of(base), C), dtype=torch.int32, device=dev)
-    runs, cands, degs, moves2, bands, exceeds = [], [], [], [], [band0], []
+    runs, cands, degs, moves2, bands, exceeds, spans = [], [], [], [], [band0], [], []
     rebuilds = torch.zeros((), dtype=torch.int64, device=dev)
     update = _Update.of(base, bio, len(dts), dev, plain)
     drift2 = None
@@ -852,23 +901,25 @@ def _tile_physics(t: _Tile, arrays, alive, bonds, size, plain: bool):
                                             out=rows["partners"])
             frz, band = yield from exchange_and_update(frz, stale)
             bands.append(band)
-            rows, bounds, ref = _rebuild_where(stale, base, rows, bounds, ref, identity,
-                                               window)
+            counts = yield own_counts()
+            rows, bounds, ref, grouping = _rebuild_where(stale, base, rows, bounds, ref,
+                                                         identity, window, grouping=grouping)
             inv = _inverse(rows["perm"])
             rebuilds = rebuilds + stale
         run, widest_row = _window_widths(bounds)
         runs.append(run)
         cands.append(widest_row)
+        spans.append(grouping.needed)
         width = int((yield _Reduce("max", run))) if plain else None
         counted = rows["alive"] & (rows["perm"] < P)
         if span:
             deg, move2, drift2, _ = span_mask_substep(law, update, s, size, dt, rows, bounds,
                                                       ref, mask, rebuild, width=width,
-                                                      counted=counted)
+                                                      counted=counted, grouping=grouping)
         else:
             rows, (_, _, deg, move2, drift2, _) = contact_substep_rows(
                 law, contact_substep_cuda, update, s, size, dt, rows, bounds, ref,
-                width=width, counted=counted)
+                width=width, counted=counted, grouping=grouping)
         degs.append(deg)
         moves2.append(move2)
     if span:
@@ -881,7 +932,8 @@ def _tile_physics(t: _Tile, arrays, alive, bonds, size, plain: bool):
     probes = dict(runs=torch.stack(runs).max(), cands=torch.stack(cands).max(),
                   degs=torch.stack(degs).max(), bands=torch.stack(bands).max(),
                   exceeds=torch.stack(exceeds).max(),
-                  move=torch.sqrt(torch.stack(moves2).max()), rebuilds=rebuilds)
+                  move=torch.sqrt(torch.stack(moves2).max()), rebuilds=rebuilds,
+                  spans=torch.stack(spans).max())
     return locations, BondState.from_ids(partners), probes
 
 
@@ -1542,6 +1594,16 @@ class DomainHipscEngine:
 
     def _reduce(self, msgs) -> list:
         op = msgs[0].op
+        if op == "isum":
+            out = msgs[0].value.to(self.devices[0])
+            for m in msgs[1:]:
+                out = out + self._deliver(m.value, 0)
+            if self.transport is not None:
+                before = self.transport.rank_bytes
+                out = self.transport.all_reduce_sum_int(out)
+                self.rank_bytes[-1] += self.transport.rank_bytes - before
+            by_dev = {d: out.to(d, non_blocking=True) for d in self.replica_devices}
+            return [by_dev[d] for d in self.devices]
         vals = self._gathered([self._deliver(m.value, 0) for m in msgs])
         if op == "sum":
             out = vals[0]
@@ -1731,6 +1793,13 @@ class DomainHipscEngine:
             base = dataclasses.replace(
                 base, mask_bits=_round_up(int(info.jkr_span_needed) * 1.25, 32))
             changed = True
+        for key, probe in (("jkr_span", info.jkr_block_span), ("nbr_span", info.nbr_block_span)):
+            # HipscEngine's span rule, up to the capacity of the base config,
+            # which the tiles' colony may outgrow (the tiles grow their own)
+            if int(probe) > getattr(base, key) and getattr(base, key) < base.capacity:
+                base = dataclasses.replace(base, **{key: min(
+                    _round_up(int(probe) * 1.25, nbr_ops.GROUP_CHUNK), base.capacity)})
+                changed = True
         if not changed:
             return None
         # the partition-dependent statics follow (the bands depend on the

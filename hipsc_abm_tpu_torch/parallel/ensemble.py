@@ -153,7 +153,7 @@ def _ensemble_block(params: Sequence[StepParams], cfg: EngineConfig, states: Cel
     """One step of each replicate of ``states`` with the inputs of its row
     of ``table`` ((R, 13) int64 on the states' device) and its parameters:
     the stacked new state (keys and step as the solo steps leave them) and
-    the (R + 1, 14) float64 probes on the device, each replicate's row and
+    the (R + 1, 16) float64 probes on the device, each replicate's row and
     then their max. With ``streams`` (one per replicate, on the card) each
     replicate's step runs on its own stream, forked from the current stream
     and joined back to it, and the FTCS launches run one after another
@@ -364,7 +364,7 @@ class EnsembleEngine:
         parameters and no overflow recovery: on the card one replay of the
         graph of ``(R, config, params)`` (captured at its first use), on the
         CPU the replicate steps eagerly. Returns the new stacked state (keys
-        and step advanced), the (R + 1, 14) probe rows fetched in one
+        and step advanced), the (R + 1, 16) probe rows fetched in one
         transfer (each replicate's, then their max) and the config run.
         ``group`` names a group of ``shard_states`` (its graphs are kept
         apart from the other groups'); the attempt runs on the states'

@@ -7,13 +7,14 @@ Pallas kernels with 9 runs and the 16-lane bio pack in interpret mode, its
 ``stokes_integrate`` and its 3D engine.
 
 Tolerances are those of the 2D tests: bounds, counts, degrees, bond sets and
-integer state are exact; force sums taken in the Pallas kernels' (chunk,
-run, lane) order agree to rtol 1e-4, atol 1e-13 N (``tests/test_pallas.py``)
-and are bit-equal when the port's pair terms are summed in that order
-(``test_torch_contact.tpu_grouping_sum``): the port adds each run in walk
-order, which parts from the kernels' 32-lane windows where a run's kept
-terms straddle one (ROADMAP C8); moment sums, for the same cause, to rtol
-1e-6, atol 1e-5 um; positions after a step to 1e-4 um.
+integer state are exact, and so are the force and moment sums against the
+Pallas kernels in interpret mode, on the uniform and the general law: the
+port adds them in the kernels' grouping (``neighbors.grouped_sum``: per
+chunk and run, the run's lanes in 32-lane windows of the sorted rows), and
+``test_torch_contact.tpu_grouping_sum`` gives the same bits from the port's
+pair terms. Positions after a step against the JAX engine's XLA path to
+1e-4 um (that path's pair law and window sums, which the port does not
+follow).
 The contact colonies have degrees up to 10: K = 8 truncates some rows, K =
 16 none (the Pallas kernels in interpret mode take seconds per unit of K).
 The whole-step reference is the JAX engine's XLA path (``use_pallas=False``),
@@ -54,7 +55,7 @@ from hipsc_abm_tpu_torch.ops import contact as tcontact
 from hipsc_abm_tpu_torch.ops import jkr as tjkr
 from hipsc_abm_tpu_torch.ops import neighbors as tnbr
 from hipsc_abm_tpu_torch.ops import span_mask
-from test_torch_contact import tpu_grouping_sum
+from test_torch_contact import assert_live_starts, tpu_grouping_sum
 from hipsc_abm_tpu_torch.ops.integrate import stokes_integrate as tstokes
 from test_torch_span_mask import assert_self_is_row
 from test_torch_step import _assert_same_colony
@@ -81,6 +82,14 @@ def _span_plan(jspec, sorted_flat, C, block=128, chunk=128):
     starts, needs, _, _ = jnbr.block_span_plan(jspec, sorted_flat, block, span=span,
                                                capacity=C, chunk=chunk)
     return dict(block=block, span=span, chunk=chunk), starts, needs
+
+
+def _grouping(bounds, plan, starts, C):
+    """The port's sum order of sorted rows under the plan, its span starts
+    checked against the JAX plan's (whose last row is padding)."""
+    grouping = tnbr.grouping_of_bounds(bounds, plan["span"], C, plan["chunk"])
+    assert_live_starts(grouping, starts, bounds)
+    return grouping
 
 
 @pytest.mark.parametrize("box", [(120.0, 120.0, 120.0), (150.0, 150.0, 150.0)])
@@ -166,18 +175,19 @@ def test_bio_plain_3d_matches_pallas_interpret(mode):
     assert pos0.shape == (C, 4)
     bounds = tnbr.run_bounds(tspec, t(s["flat"].astype(np.int64)))
     got = tbio.bio_moments_cuda(pos0, t(s["alive_now"]), bounds, t(s["curr"]),
-                                *(t(f) for f in s["f"]), radius=15.0, mode=mode).numpy()
+                                *(t(f) for f in s["f"]), radius=15.0, mode=mode,
+                                grouping=_grouping(bounds, plan, starts, C)).numpy()
     assert got[:, 0].sum() > C
-    exact = [0, 1, 2, 3, 7]
-    np.testing.assert_array_equal(got[:, exact], want[:, exact])
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+    np.testing.assert_array_equal(got, want)
     if mode in ("motility", "full"):
         assert np.abs(got[:, [6, 10]]).max() > 0.1  # the z sums are live
 
 
-def _contact_colony(K, seed=0, C=128, n=118, box=(48.0, 48.0, 48.0)):
+def _contact_colony(K, seed=0, C=128, n=118, box=(48.0, 48.0, 48.0), general=False):
     """A dense 3D colony with scrambled ids, a few dead slots, bonds from one
-    JAX substep at earlier positions, and positions one substep later."""
+    JAX substep at earlier positions, and positions one substep later;
+    ``general``: radii drawn between the smallest and largest (the general
+    law's inputs)."""
     rs = np.random.default_rng(seed)
     locs = np.zeros((C, 3), np.float32)
     locs[:n] = rs.random((n, 3)).astype(np.float32) * np.asarray(box, np.float32)
@@ -186,6 +196,8 @@ def _contact_colony(K, seed=0, C=128, n=118, box=(48.0, 48.0, 48.0)):
     alive[rs.choice(n, 8, replace=False)] = False
     ids = rs.permutation(4 * C)[:C].astype(np.int32)
     radii = np.full(C, BIO.max_radius, np.float32)
+    if general:
+        radii = rs.uniform(BIO.min_radius, BIO.max_radius, C).astype(np.float32)
     jspec, tspec = _specs(box, CELL)
     earlier = locs.copy()
     earlier[:n] -= rs.normal(0.0, 1.2, (n, 3)).astype(np.float32)
@@ -230,50 +242,57 @@ def _port_sorted(tspec, locs, radii, ids, alive):
 def _assert_forces(f, d, fd):
     want = np.asarray(fd[:, :3])
     assert np.abs(want).max() > 0 and np.abs(want[:, 2]).max() > 0
-    np.testing.assert_allclose(f.numpy(), want, rtol=1e-4, atol=1e-13)
+    np.testing.assert_array_equal(f.numpy(), want)
     np.testing.assert_array_equal(d.numpy(), np.asarray(fd[:, 3]).astype(np.int32))
 
 
+@pytest.mark.parametrize("law", ["uniform", "general"])
 @pytest.mark.parametrize("K", [8, 16])
-def test_contact_plain_3d_matches_pallas_interpret(K):
-    locs, _, radii, ids, alive, partner_ids, jspec, tspec = _contact_colony(K)
+def test_contact_plain_3d_matches_pallas_interpret(K, law):
+    uniform = BIO.max_radius if law == "uniform" else None
+    locs, _, radii, ids, alive, partner_ids, jspec, tspec = _contact_colony(
+        K, general=uniform is None)
     C = locs.shape[0]
     jgrid, order, srt_pack = _jax_sorted(jspec, locs, radii, ids, alive)
     plan, starts, needs = _span_plan(jspec, jgrid.sorted_flat, C)
     fd, jbonds = contact_substep_pallas(
         srt_pack(locs), jnp.asarray(partner_ids.astype(np.float32))[order], starts, needs,
-        run_offs=jspec.flat_run_offsets, uniform_radius=BIO.max_radius, interpret=True,
+        run_offs=jspec.flat_run_offsets, uniform_radius=uniform, interpret=True,
         **plan, **LAW)
     o, xyzr, rows = _port_sorted(tspec, locs, radii, ids, alive)
     np.testing.assert_array_equal(o.numpy(), order)
     partners_in = torch.from_numpy(partner_ids)[o].contiguous()
     f, d, partners = tcontact.contact_substep_cuda(
-        xyzr(locs), *rows, partners_in, uniform_radius=BIO.max_radius, **LAW)
+        xyzr(locs), *rows, partners_in, uniform_radius=uniform,
+        grouping=_grouping(rows[2], plan, starts, C), **LAW)
     _assert_forces(f, d, fd)
-    # the pair terms, summed in the interpreted kernel's grouping: bit for
-    # bit (the port's own grouping parts where a run straddles a window)
+    # the pair terms, summed by the test's own reading of the kernel
     pos, valid = tnbr.bounds_window(rows[2])
     bonded = tjkr._is_bonded(partners_in, rows[0][pos])
     terms, keep = tjkr.pair_terms(bonded, xyzr(locs), rows[0], rows[1], None, pos, valid,
-                                  uniform_radius=BIO.max_radius, **LAW)
+                                  uniform_radius=uniform, **LAW)
     np.testing.assert_array_equal(
         tpu_grouping_sum(terms, keep, pos, 9, starts, plan["block"], plan["chunk"]),
         np.asarray(fd[:, :3]))
-    assert int(d.sum()) > C and int(d.max()) > 8  # 3D packing: more than 8 contacts
+    # 3D packing: more than 8 contacts at the largest radius
+    assert int(d.sum()) > C and (uniform is None or int(d.max()) > 8)
     within = (d <= K).numpy()
     got, want = _sets(partners.numpy()), _sets(jbonds)
     assert [g for g, w in zip(got, within) if w] == [g for g, w in zip(want, within) if w]
 
 
+@pytest.mark.parametrize("law", ["uniform", "general"])
 @pytest.mark.parametrize("K", [8, 16])
-def test_span_mask_plain_3d_matches_pallas_interpret(K):
+def test_span_mask_plain_3d_matches_pallas_interpret(K, law):
     """seed -> masked (positions moved, window frozen) -> compact over nine
     runs, against the three Pallas kernels on the same sorted rows."""
-    locs, moved, radii, ids, alive, partner_ids, jspec, tspec = _contact_colony(K, seed=1)
+    uniform = BIO.max_radius if law == "uniform" else None
+    locs, moved, radii, ids, alive, partner_ids, jspec, tspec = _contact_colony(
+        K, seed=1, general=uniform is None)
     C = locs.shape[0]
     jgrid, order, srt_pack = _jax_sorted(jspec, locs, radii, ids, alive)
     plan, starts, needs = _span_plan(jspec, jgrid.sorted_flat, C)
-    pkw = dict(run_offs=jspec.flat_run_offsets, uniform_radius=BIO.max_radius,
+    pkw = dict(run_offs=jspec.flat_run_offsets, uniform_radius=uniform,
                interpret=True, **plan, **LAW)
     fd1, m1 = contact_substep_ids_to_mask(
         srt_pack(locs), jnp.asarray(partner_ids.astype(np.float32))[order], starts, needs,
@@ -284,13 +303,15 @@ def test_span_mask_plain_3d_matches_pallas_interpret(K):
                                 interpret=True, **plan)
 
     o, xyzr, rows = _port_sorted(tspec, locs, radii, ids, alive)
+    grouping = _grouping(rows[2], plan, starts, C)
     f1, d1, mask = span_mask.contact_seed_cuda(
         xyzr(locs), *rows, torch.from_numpy(partner_ids)[o].contiguous(),
-        uniform_radius=BIO.max_radius, **LAW)
+        uniform_radius=uniform, grouping=grouping, **LAW)
     W = span_mask.mask_words(rows[2])
     assert mask.shape == (W, C) and W >= 2  # nine runs: more than 32 candidates
     f2, d2, _ = span_mask.contact_masked_cuda(xyzr(moved), *rows, mask,
-                                              uniform_radius=BIO.max_radius, **LAW)
+                                              uniform_radius=uniform, grouping=grouping,
+                                              **LAW)
     bonds = span_mask.mask_compact_cuda(rows[0], rows[2], mask, K)
     _assert_forces(f1, d1, fd1)
     _assert_forces(f2, d2, fd2)
@@ -301,9 +322,11 @@ def test_span_mask_plain_3d_matches_pallas_interpret(K):
     # the id-list substep at the moved positions, from the compacted bonds of
     # the seed's mask, keeps the same sets as the masked substep
     _, _, seed_mask = span_mask.contact_seed_cuda(
-        xyzr(locs), *rows, torch.from_numpy(partner_ids)[o].contiguous(), **LAW)
+        xyzr(locs), *rows, torch.from_numpy(partner_ids)[o].contiguous(),
+        uniform_radius=uniform, **LAW)
     seed_ids = span_mask.mask_compact_cuda(rows[0], rows[2], seed_mask, 64)
-    _, d3, p3 = tcontact.contact_substep_cuda(xyzr(moved), *rows, seed_ids, **LAW)
+    _, d3, p3 = tcontact.contact_substep_cuda(xyzr(moved), *rows, seed_ids,
+                                              uniform_radius=uniform, **LAW)
     np.testing.assert_array_equal(d3.numpy(), d2.numpy())
     assert _sets(p3.numpy()) == _sets(span_mask.mask_compact_cuda(rows[0], rows[2], mask,
                                                                   64).numpy())

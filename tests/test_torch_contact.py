@@ -3,21 +3,25 @@ CUDA kernel's wrapper; the kernel itself is in test_torch_cuda.py) vs the
 JAX package's ``contact_substep_pallas`` (interpret mode) and ``jkr_substep``.
 
 Tolerances:
-- against the interpreted TPU kernel (uniform law): each kept pair's force
-  term is XLA:CPU's bit for bit (``ops.jkr._pair_uniform`` mirrors the
-  compiled body), so the terms summed as the interpreted kernel sums them
-  (``tpu_grouping_sum``: per chunk of 256 lanes, run and 32-lane window of
-  the sorted rows, from where the block's span starts) equal its forces bit
-  for bit. The port sums each run in walk order and then the runs, a
-  grouping that does not depend on where the rows lie in the sorted order
-  (tiles must equal the single engine, ROADMAP C8): its forces agree to
-  rtol 1e-5, atol 1e-6 x max|F|, and bit for bit on every row whose kept
-  terms of each run lie in one window;
-- against ``jkr_substep`` (the XLA path, general law): the cube root is
-  PyTorch's ``pow`` where XLA:CPU calls glibc's ``powf``, and XLA sums each
-  window in 32-wide partial sums (ROADMAP C7): rtol 1e-5, atol 1e-6 x
-  max|F|;
-- bond sets and degrees are integer bookkeeping and must be equal.
+- against the interpreted TPU kernel, on the uniform and the general law:
+  bit for bit (``assert_array_equal``). Each kept pair's force term is
+  XLA:CPU's (``ops.jkr._pair_uniform`` and ``_pair_general`` mirror the
+  compiled body, the general law's cube root glibc's ``powf``,
+  ``ops.xla_f32.powf``), and the plain version adds them as the
+  interpreted kernel does (``neighbors.grouped_sum``: per chunk of lanes,
+  run and 32-lane window of the sorted rows, from where the block's span
+  starts). ``tpu_grouping_sum``, written from the kernel independently of
+  the port, sums the port's terms in that grouping and must give the same
+  bits. The states include runs that straddle a 32-lane window and a chunk
+  (``dense``) and spans whose starts the capacity clips (``clip``);
+- against ``jkr_substep`` (the XLA path, the general law, which the port
+  does not follow): its pair law takes a square root and divides by it
+  where the TPU kernels multiply by XLA's ``rsqrt``, and XLA sums each
+  window in 32-wide partial sums of the padded window: rtol 1e-5, atol
+  1e-6 x max|F|;
+- bond sets and degrees are integer bookkeeping and must be equal; the
+  new partner lists follow the TPU kernel's chunk-major order entry for
+  entry.
 """
 
 import dataclasses
@@ -43,13 +47,13 @@ LAW = dict(radius=BIO.jkr_radius, adhesion_const=BIO.adhesion_const,
            poisson=BIO.poisson, youngs=BIO.youngs, break_d=BIO.jkr_break_d)
 
 
-def _setup(K, C=256, n=230, seed=0):
+def _setup(K, C=256, n=230, seed=0, box=BOX):
     """A packed colony (slot == id) with bonds from one JAX substep at
     slightly different positions, so some bonds lie beyond the search radius
     and some break."""
     rs = np.random.default_rng(seed)
     locs = np.zeros((C, 3), np.float32)
-    locs[:n] = rs.random((n, 3)).astype(np.float32) * np.asarray(BOX, np.float32)
+    locs[:n] = rs.random((n, 3)).astype(np.float32) * np.asarray(box, np.float32)
     locs[:, 2] = 0.0
     alive = np.zeros(C, bool)
     alive[:n] = True
@@ -141,47 +145,118 @@ def _assert_sets_equal(got, want):
         assert set(got[i][got[i] >= 0].tolist()) == set(want[i][want[i] >= 0].tolist()), i
 
 
+# the states of the interpreted-kernel comparisons: (capacity, live agents,
+# box, chunk, span cap or None for the smallest that holds every block)
+STATES = {
+    "sparse": (256, 230, (150.0, 150.0, 0.0), 128, None),
+    # ~44 agents per contact bin: runs straddle 32-lane windows and chunks
+    "dense": (1024, 1000, (150.0, 150.0, 0.0), 256, None),
+    # the last blocks' span starts clipped to capacity - span
+    "clip": (1024, 1000, (150.0, 150.0, 0.0), 256, 512),
+}
+
+
+def pallas_plan(jspec, sorted_flat, C, chunk, span=None):
+    """``(starts, needs, span)`` of the interpreted kernels' span plan
+    (``block_span_plan``, block 128) at the span cap ``span`` (default: the
+    smallest chunk multiple that holds every block's candidates)."""
+    if span is None:
+        _, _, needed, _ = jnbr.block_span_plan(jspec, sorted_flat, 128, span=C, capacity=C,
+                                               chunk=C)
+        span = min(-(-int(needed) // chunk) * chunk, C)
+    starts, needs, needed, _ = jnbr.block_span_plan(jspec, sorted_flat, 128, span=span,
+                                                    capacity=C, chunk=chunk)
+    assert int(needed) <= span
+    return starts, needs, span
+
+
+def assert_live_starts(grouping, starts, bounds, block=128):
+    """The port's span starts equal the JAX plan's (whose last row is
+    padding) on every block whose first row is alive at the build: a block
+    of dead rows starts where no row reads its start."""
+    b = bounds.view(bounds.shape[0], -1, 2)
+    live = (b[::block, b.shape[1] // 2, 1] > 0).numpy()
+    assert live.any()
+    np.testing.assert_array_equal(grouping.starts.numpy()[:, live],
+                                  np.asarray(starts)[:-1][:, live])
+
+
+def port_grouping(bounds, starts, span, C, chunk):
+    """The port's grouping of sorted rows, checked against the JAX plan's
+    span starts."""
+    grouping = tnbr.grouping_of_bounds(bounds, span, C, chunk)
+    assert_live_starts(grouping, starts, bounds)
+    return grouping
+
+
+@pytest.mark.parametrize("state", sorted(STATES))
+@pytest.mark.parametrize("law", ["uniform", "general"])
 @pytest.mark.parametrize("K", [8, 40])
-def test_plain_matches_pallas_interpret(K):
-    locs, radii, ids, alive, partner_ids, jspec = _setup(K)
-    C = locs.shape[0]
+def test_plain_matches_pallas_interpret(K, law, state):
+    C, n, box, chunk, span = STATES[state]
+    locs, radii, ids, alive, partner_ids, jspec = _setup(K, C=C, n=n, box=box)
+    uniform = BIO.max_radius if law == "uniform" else None
+    if uniform is None:
+        radii = np.random.default_rng(5).uniform(BIO.min_radius, BIO.max_radius,
+                                                 C).astype(np.float32)
     jgrid = jnbr.build_grid(jspec, jnp.asarray(locs), jnp.asarray(ids), jnp.asarray(alive))
     packed = jjkr.pack_physics(jnp.asarray(locs), jnp.asarray(radii), jnp.asarray(ids),
                                jnp.asarray(alive))
     srt_pack = packed[jgrid.order].at[:, 6].set(jgrid.sorted_flat.astype(jnp.float32))
     srt_bonds = jnp.asarray(partner_ids.astype(np.float32))[jgrid.order]
-    _, _, span_needed, _ = jnbr.block_span_plan(jspec, jgrid.sorted_flat, 128, span=C,
-                                                capacity=C, chunk=C)
-    span = min(-(-int(span_needed) // 128) * 128, C)
-    starts, needs, _, _ = jnbr.block_span_plan(jspec, jgrid.sorted_flat, 128, span=span,
-                                               capacity=C, chunk=128)
+    starts, needs, span = pallas_plan(jspec, jgrid.sorted_flat, C, chunk, span)
     force_deg, new_bonds = contact_substep_pallas(
         srt_pack, srt_bonds, starts, needs, block=128, span=span,
-        run_offs=jspec.flat_run_offsets, chunk=128,
-        uniform_radius=BIO.max_radius, interpret=True, **LAW)
+        run_offs=jspec.flat_run_offsets, chunk=chunk,
+        uniform_radius=uniform, interpret=True, **LAW)
 
     grid, args = _sorted_inputs(locs, radii, ids, alive, partner_ids, jspec)
     np.testing.assert_array_equal(grid.order.numpy(), np.asarray(jgrid.order))
+    grouping = port_grouping(args[3], starts, span, C, chunk)
     force, degree, new_partners = tcontact.contact_substep_plain(
-        *args, uniform_radius=BIO.max_radius, **LAW)
+        *args, uniform_radius=uniform, grouping=grouping, **LAW)
 
     want_f = np.asarray(force_deg[:, :3])
-    scale = np.abs(want_f).max()
-    assert scale > 0 and int((new_partners >= 0).sum()) > C
-    # the pair terms, summed as the interpreted kernel sums them: bit for bit
+    assert np.abs(want_f).max() > 0 and int((new_partners >= 0).sum()) > C
+    np.testing.assert_array_equal(force.numpy(), want_f)
+    np.testing.assert_array_equal(degree.numpy(), np.asarray(force_deg[:, 3]).astype(np.int32))
+    np.testing.assert_array_equal(new_partners.numpy(), np.asarray(new_bonds).astype(np.int32))
+    # the pair terms summed by the test's own reading of the kernel
     xyzr, t_ids, t_alive, bounds, partners = args
     pos, valid = tnbr.bounds_window(bounds)
     bonded = tjkr._is_bonded(partners, t_ids[pos])
     terms, keep = tjkr.pair_terms(bonded, xyzr, t_ids, t_alive, None, pos, valid,
-                                  uniform_radius=BIO.max_radius, **LAW)
-    np.testing.assert_array_equal(tpu_grouping_sum(terms, keep, pos, 3, starts), want_f)
-    # the port's own grouping: bit for bit where it is the kernel's
-    same = one_window_rows(keep, pos, 3)
-    assert same.sum() > C // 2
-    np.testing.assert_array_equal(force.numpy()[same], want_f[same])
-    np.testing.assert_allclose(force.numpy(), want_f, rtol=1e-5, atol=1e-6 * scale)
-    np.testing.assert_array_equal(degree.numpy(), np.asarray(force_deg[:, 3]).astype(np.int32))
-    _assert_sets_equal(new_partners.numpy(), np.asarray(new_bonds).astype(np.int64))
+                                  uniform_radius=uniform, **LAW)
+    np.testing.assert_array_equal(tpu_grouping_sum(terms, keep, pos, 3, starts, chunk=chunk),
+                                  want_f)
+    if state != "sparse":  # the grouping differs from walk order on these rows
+        assert (~one_window_rows(keep, pos, 3)).sum() > C // 4
+
+
+@pytest.mark.parametrize("state", ["dense", "clip"])
+def test_grouped_sum_matches_tpu_grouping_sum(state):
+    """``neighbors.grouped_sum`` against the test's own reading of the TPU
+    kernels' grouping, on random terms and keep sets over a dense window
+    (runs across 32-lane windows and 256-lane chunks) and over the clipped
+    starts, at chunks of 128 and 256 lanes."""
+    C, n, box, chunk, span = STATES[state]
+    locs, radii, ids, alive, partner_ids, jspec = _setup(8, C=C, n=n, box=box)
+    grid, args = _sorted_inputs(locs, radii, ids, alive, partner_ids, jspec)
+    bounds = args[3]
+    pos, valid = tnbr.bounds_window(bounds)
+    rs = np.random.default_rng(7)
+    terms = torch.from_numpy(rs.normal(0, 1, pos.shape + (3,)).astype(np.float32))
+    keep = valid & torch.from_numpy(rs.random(pos.shape) < 0.5)
+    for c in (128, chunk):
+        starts, _, sp = pallas_plan(jspec, jnp.asarray(grid.sorted_flat.numpy()), C, c, span)
+        grouping = port_grouping(bounds, starts, sp, C, c)
+        lanes = tnbr.plain_lanes(bounds, pos, grouping)
+        got = tnbr.grouped_sum(terms, keep, lanes).numpy()
+        np.testing.assert_array_equal(got, tpu_grouping_sum(terms, keep, pos, 3, starts,
+                                                            chunk=c))
+        assert not np.array_equal(got, tnbr.grouped_sum(terms, keep).numpy())
+    if state == "clip":
+        assert int(starts[0].max()) == C - span
 
 
 @pytest.mark.parametrize("K", [8, 40])

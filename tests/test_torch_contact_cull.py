@@ -7,9 +7,10 @@ of every candidate only if each dropped pair is one the law breaks. Here the
 plain mirror of the cut runs on pairs placed from 1e-2 um inside to 1e-2 um
 outside the cut (or within 1e-3 of it, relatively, at the extreme radii),
 over radii from min_radius / 2 to 2 * max_radius, equal, very unequal, zero,
-and from 1e-12 to 1e12 um: every pair it drops must break under the port's
-plain law (``ops.jkr._pair_jkr``) and under the JAX package's
-(``hipsc_abm_tpu.ops.jkr._pair_jkr``) on the same numpy inputs, and the cut
+and from 1e-12 to 1e12 um: every pair it drops must break under the law
+the kernels run, the TPU kernels' (``ops.jkr._pair_general``), and under
+the XLA path's, the port's and the JAX package's (``ops.jkr._pair_jkr``,
+``hipsc_abm_tpu.ops.jkr._pair_jkr``), on the same numpy inputs, and the cut
 must drop the pairs beyond it (more than 1e-4 um, or 1e-6 relatively, away)
 and keep those inside. Exact comparisons: the cut and the law decide each
 pair, no tolerance.
@@ -25,7 +26,7 @@ import torch
 
 from hipsc_abm_tpu.ops import jkr as jjkr
 from hipsc_abm_tpu_torch.ops import contact
-from hipsc_abm_tpu_torch.ops.jkr import _pair_jkr
+from hipsc_abm_tpu_torch.ops.jkr import _pair_general, _pair_jkr
 from hipsc_abm_tpu_torch.params import BiologyParams
 
 BIO = BiologyParams()
@@ -98,6 +99,11 @@ def test_cull_drops_only_pairs_the_law_breaks(family, dims):
                break_d=BIO.jkr_break_d)
     _, survive = _pair_jkr(torch.from_numpy(me), torch.from_numpy(other), t_ri, t_rj, **law)
     assert not bool((culled & survive).any()), "a pair the cut drops survives the law"
+    d = torch.from_numpy(me - other)
+    _, d_tpu, _ = _pair_general(d[:, 0], d[:, 1], d[:, 2], t_ri, t_rj, BIO.adhesion_const,
+                                BIO.poisson, BIO.youngs)
+    assert not bool((culled & (d_tpu > BIO.jkr_break_d)).any()), (
+        "a pair the cut drops survives the kernels' law")
     _, j_survive = jjkr._pair_jkr(jnp.asarray(me), jnp.asarray(other), jnp.asarray(ri),
                                   jnp.asarray(rj), **law)
     assert not bool((culled.numpy() & np.asarray(j_survive)).any()), (

@@ -8,17 +8,17 @@ imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: the contact kernels on the uniform law, the bio moments in every
-mode, the update, FTCS, the deposit's fixed-order sum, the draws and an
-ensemble's replicates (against their solo runs) are held bit-equal to their
-plain versions, and an engine step on the card to the CPU's: both run the
-same float32 operations in the same order (``ops.xla_f32``, the runs' sums
-of ``neighbors.walk_sum``). On the general law the card's ``powf`` differs
-from the CPU's ``pow`` in the last bit of some cube roots (forces rtol 1e-5,
-atol 1e-6 x max|F|; ROADMAP C7); bond sets, degrees and span-mask words are
-exact there too. The probes sum their lanes in another order than the plain
-versions (P1 rtol 1e-5, atol 1e-5; P2, with the card's rsqrtf against
-torch.rsqrt, rtol 1e-4, atol 1e-4 x max|out|).
+Tolerances: the contact kernels on both pair laws, the bio moments in every
+mode, the update, FTCS, the deposit's fixed-order sum, the draws, the
+device twin of glibc's ``powf`` and an ensemble's replicates (against
+their solo runs) are held bit-equal to their plain versions, and an engine
+step on the card to the CPU's: both run the same float32 operations in the
+same order (``ops.xla_f32``, the general law's cube root glibc's ``powf``
+on both sides, the sums in the TPU kernels' grouping of
+``neighbors.grouped_sum``); partner lists, degrees and span-mask words are
+equal entry for entry. The probes sum their lanes in another order than
+the plain versions (P1 rtol 1e-5, atol 1e-5; P2, with the card's rsqrtf
+against torch.rsqrt, rtol 1e-4, atol 1e-4 x max|out|).
 """
 
 import dataclasses
@@ -30,7 +30,7 @@ import torch
 
 from hipsc_abm_tpu_torch import colonies, convert, kernels
 from hipsc_abm_tpu_torch.engine import HipscEngine
-from hipsc_abm_tpu_torch.ops import bio_moments, contact, diffusion, ftcs, span_mask
+from hipsc_abm_tpu_torch.ops import bio_moments, contact, diffusion, ftcs, span_mask, xla_f32
 from hipsc_abm_tpu_torch.ops import neighbors as nbr
 from hipsc_abm_tpu_torch.ops.jkr import pack_physics
 from hipsc_abm_tpu_torch.params import (
@@ -124,9 +124,78 @@ def test_contact_kernel_matches_plain(dev, K, uniform):
     assert kernels.launch_counts["contact_substep"] == before + 1
     scale = float(fp.abs().max())
     assert scale > 0 and int((pp >= 0).sum()) > args[0].shape[0]
-    _check_contact(fk, dk, fp, dp, exact=uniform is not None)
-    for a, b in zip(pk.cpu().numpy(), pp.cpu().numpy()):
-        assert set(a[a >= 0].tolist()) == set(b[b >= 0].tolist())
+    _check_contact(fk, dk, fp, dp)
+    assert torch.equal(pk, pp)  # the lists, entry for entry
+
+
+def test_powf_kernel_matches_the_mirror(dev):
+    """The device twin of glibc's ``powf`` (``xla_f32.powf_cuda``, the
+    contact kernels' ``powf_glibc``) at y = float32(1/3), against the plain
+    mirror's float64 operations (``xla_f32._powf``) at every float32 in
+    [2^-25, 2^-13), run on the card (each rounded once, as on the CPU) and,
+    on a sample, on the CPU; and at special values. ``powf`` of a CUDA
+    tensor launches the twin."""
+    third = float(np.float32(1.0 / 3.0))
+    for e in range(-25, -13):
+        bits = torch.arange(1 << 23, dtype=torch.int64, device=dev) + ((e + 127) << 23)
+        x = bits.to(torch.int32).view(torch.float32)
+        got = xla_f32.powf_cuda(x, third)
+        assert torch.equal(got, xla_f32._powf(x, third)), e
+        pick = torch.randint(0, 1 << 23, (4096,), generator=torch.Generator().manual_seed(e))
+        assert torch.equal(got.cpu()[pick], xla_f32.powf(x.cpu()[pick], third)), e
+    special = torch.tensor([0.0, -0.0, float("inf"), -2.0, 1.0, 2.0 ** -140, 3.0e38],
+                           device=dev)
+    got, want = xla_f32.powf_cuda(special, third).cpu(), xla_f32.powf(special.cpu(), third)
+    assert torch.equal(xla_f32.powf(special[4:], third), xla_f32.powf_cuda(special[4:], third))
+    nan = torch.isnan(want)
+    assert int(nan.sum()) == 1 and torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+    assert bool(torch.isnan(xla_f32.powf_cuda(torch.tensor([float("nan")], device=dev),
+                                              third)).all())
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("uniform", [None, BIO.max_radius])
+def test_kernels_follow_the_grouping(dev, dims, uniform):
+    """B6, the seed (B2), the masked substep (B1) and the moments (B4)
+    against their plain versions under groupings that the default does not
+    give: the JAX engine's span caps clipping the blocks' starts, chunks of
+    128 lanes, and rows placed at other positions of a larger colony
+    (``gpos``, as a domain engine's tile passes them). A dense colony, so
+    that runs cross 32-lane windows and chunks."""
+    box = (300.0, 300.0, 0.0) if dims == 2 else BOX3D
+    C, n = (2048, 1900) if dims == 2 else (768, 700)
+    args = [a.to(dev) for a in _contact_inputs(24, C=C, n=n, box=box, skin=14.0,
+                                               unequal=uniform is None)]
+    law = dict(uniform_radius=uniform, **LAW)
+    bounds = args[3]
+    shifted = torch.arange(C, dtype=torch.int32, device=dev) + 200
+    wide = nbr.grouping_of_bounds(torch.cat([bounds[:256], bounds]), None, C + 256, 256)
+    groupings = [nbr.grouping_of_bounds(bounds, 256, C, 256),
+                 nbr.grouping_of_bounds(bounds, 512, C, 128),
+                 wide._replace(gpos=shifted)]
+    pos0 = bio_moments.positions(args[0][:, :3])
+    feats = [(torch.arange(C, device=dev, dtype=torch.int32) * k) % 3 for k in (1, 2, 5)]
+    for g in groupings:
+        fk, dk, pk = contact.contact_substep_cuda(*args, grouping=g, **law)
+        fp, dp, pp = contact.contact_substep_plain(*args, grouping=g, **law)
+        torch.cuda.synchronize()
+        _check_contact(fk, dk, fp, dp)
+        assert torch.equal(pk, pp)
+        f_k, d_k, m_k = span_mask.contact_seed_cuda(*args, grouping=g, **law)
+        f_p, d_p, m_p = span_mask.contact_seed_plain(*args, grouping=g, **law)
+        _check_contact(f_k, d_k, f_p, d_p)
+        assert torch.equal(m_k, m_p)
+        rows = (_moved(args), *args[1:4])
+        m_k, m_p = m_p.clone(), m_p.clone()
+        f_k, d_k, _ = span_mask.contact_masked_cuda(*rows, m_k, grouping=g, **law)
+        f_p, d_p, _ = span_mask.contact_masked_plain(*rows, m_p, grouping=g, **law)
+        _check_contact(f_k, d_k, f_p, d_p)
+        assert torch.equal(m_k, m_p)
+        a = (pos0, args[2], bounds, rows[0][:, :3].contiguous(), *feats)
+        got = bio_moments.bio_moments_cuda(*a, radius=15.0, mode="full", grouping=g)
+        want = bio_moments.bio_moments_plain(*a, radius=15.0, mode="full", grouping=g)
+        assert torch.equal(got, want) and float(want[:, 4:7].abs().max()) > 0
 
 
 def test_contact_kernel_rejects_a_partner_block_past_shared_memory(dev):
@@ -151,16 +220,10 @@ def _moved(args, seed=5):
     return xyzr
 
 
-def _check_contact(f_k, d_k, f_p, d_p, exact=True):
-    """Degrees equal; forces bit-equal (``exact``: the uniform law) or, on
-    the general law, within the cube root's rounding (the module
-    docstring)."""
-    scale = float(f_p.abs().max())
-    assert scale > 0
-    if exact:
-        assert torch.equal(f_k, f_p), float((f_k - f_p).abs().max())
-    else:
-        torch.testing.assert_close(f_k, f_p, rtol=1e-5, atol=1e-6 * scale)
+def _check_contact(f_k, d_k, f_p, d_p):
+    """Forces bit-equal (on either law) and degrees equal."""
+    assert float(f_p.abs().max()) > 0
+    assert torch.equal(f_k, f_p), float((f_k - f_p).abs().max())
     assert torch.equal(d_k, d_p)
 
 
@@ -174,15 +237,16 @@ def test_contact_seed_kernel_matches_plain(dev, K, uniform):
     f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **law)
     torch.cuda.synchronize()
     assert kernels.launch_counts["contact_seed"] == before + 1
-    _check_contact(f_k, d_k, f_p, d_p, exact=uniform is not None)
+    _check_contact(f_k, d_k, f_p, d_p)
     assert m_k.shape == m_p.shape and m_p.shape[0] >= 2 and torch.equal(m_k, m_p)
     assert int(d_p.sum()) > args[0].shape[0]
 
 
 @pytest.mark.parametrize("K", [8, 24, 40])
-def test_contact_masked_kernel_matches_plain(dev, K):
-    args = [a.to(dev) for a in _contact_inputs(K, skin=14.0)]
-    law = dict(uniform_radius=BIO.max_radius, **LAW)
+@pytest.mark.parametrize("uniform", [None, BIO.max_radius])
+def test_contact_masked_kernel_matches_plain(dev, K, uniform):
+    args = [a.to(dev) for a in _contact_inputs(K, skin=14.0, unequal=uniform is None)]
+    law = dict(uniform_radius=uniform, **LAW)
     _, _, mask = span_mask.contact_seed_plain(*args, **law)
     rows = (_moved(args), *args[1:4])
     m_k, m_p = mask.clone(), mask.clone()
@@ -280,17 +344,12 @@ def test_contact_seed_kernel_keeps_a_bond_beyond_the_search_radius(dev, dims):
 GENERAL = dict(uniform_radius=None, **LAW)
 
 
-def _sets_equal(a, b):
-    return all(set(x[x >= 0].tolist()) == set(y[y >= 0].tolist())
-               for x, y in zip(a.cpu().numpy(), b.cpu().numpy()))
-
-
 @pytest.mark.parametrize("K", [8, 40])
 @pytest.mark.parametrize("dims", [2, 3])
 def test_general_law_kernels_match_plain(dev, dims, K):
     """B6, then B2 (seed) -> B1 (masked, positions moved) -> B3 on unequal
-    radii, each against its plain version: forces to the file's tolerance,
-    degrees, partner sets, mask words and compacted ids exact."""
+    radii, each against its plain version: forces, degrees, partner lists,
+    mask words and compacted ids exact."""
     box = (420.0, 420.0, 0.0) if dims == 2 else BOX3D
     C, n = (2048, 1900) if dims == 2 else (768, 700)
     args = [a.to(dev) for a in _contact_inputs(K, C=C, n=n, box=box, skin=14.0,
@@ -303,19 +362,19 @@ def test_general_law_kernels_match_plain(dev, dims, K):
     fk, dk, pk = contact.contact_substep_cuda(*args, **GENERAL)
     fp, dp, pp = contact.contact_substep_plain(*args, **GENERAL)
     torch.cuda.synchronize()
-    _check_contact(fk, dk, fp, dp, exact=False)
-    assert _sets_equal(pk, pp) and int(dp.sum()) > n
+    _check_contact(fk, dk, fp, dp)
+    assert torch.equal(pk, pp) and int(dp.sum()) > n
     f_k, d_k, m_k = span_mask.contact_seed_cuda(*args, **GENERAL)
     f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **GENERAL)
     torch.cuda.synchronize()
-    _check_contact(f_k, d_k, f_p, d_p, exact=False)
+    _check_contact(f_k, d_k, f_p, d_p)
     assert torch.equal(m_k, m_p)
     rows = (_moved(args), *args[1:4])
     m_k, m_p = m_p.clone(), m_p.clone()
     f_k, d_k, _ = span_mask.contact_masked_cuda(*rows, m_k, **GENERAL)
     f_p, d_p, _ = span_mask.contact_masked_plain(*rows, m_p, **GENERAL)
     torch.cuda.synchronize()
-    _check_contact(f_k, d_k, f_p, d_p, exact=False)
+    _check_contact(f_k, d_k, f_p, d_p)
     assert torch.equal(m_k, m_p)
     assert torch.equal(span_mask.mask_compact_cuda(args[1], args[3], m_p, K),
                        span_mask.mask_compact_plain(args[1], args[3], m_p, K))
@@ -336,7 +395,8 @@ def _break_reach(ri, rj):
 def test_general_law_kernels_at_the_break_distance(dev, dims):
     """Bonded pairs of unequal radii from 4e-3 um inside to 4e-3 um past
     their own break distance (offsets within 1e-4 um left out: there the
-    card's powf and the CPU's pow may round apart): B6, the seed (B2) and
+    float32 law may decide otherwise than the float64 break distance that
+    places the pairs): B6, the seed (B2) and
     the masked substep (B1, from the seed's mask) against their plain
     versions, and only the pairs inside keep their bond."""
     off = np.linspace(-4e-3, 4e-3, 240)
@@ -356,14 +416,14 @@ def test_general_law_kernels_at_the_break_distance(dev, dims):
     f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **GENERAL)
     torch.cuda.synchronize()
     for got, plain in (((fk, dk), (fp, dp)), ((f_k, d_k), (f_p, d_p))):
-        _check_contact(*got, *plain, exact=False)
+        _check_contact(*got, *plain)
         assert int(plain[1].sum()) == want
-    assert _sets_equal(pk, pp) and torch.equal(m_k, m_p)
+    assert torch.equal(pk, pp) and torch.equal(m_k, m_p)
     m_k, m_p = m_p.clone(), m_p.clone()
     f_k, d_k, _ = span_mask.contact_masked_cuda(*args[:4], m_k, **GENERAL)
     f_p, d_p, _ = span_mask.contact_masked_plain(*args[:4], m_p, **GENERAL)
     torch.cuda.synchronize()
-    _check_contact(f_k, d_k, f_p, d_p, exact=False)
+    _check_contact(f_k, d_k, f_p, d_p)
     assert torch.equal(m_k, m_p) and int(d_p.sum()) == want
 
 
@@ -377,7 +437,8 @@ def test_general_law_kernels_at_the_cull_distance(dev, dims, K):
     them, and every fourth pair a row of 0.01-0.1 um beside a grown one, for
     which r_hat nears its bound ri / 1e6 and the law's break lies within the
     window; offsets within 1e-4 um of a pair's own break distance are left
-    out (the card's powf and the CPU's pow may round apart there). Plus 32
+    out (the float32 law may decide them otherwise than the float64 break
+    distance). Plus 32
     bonded pairs well inside their break distance."""
     off = np.linspace(-1e-2, 1e-2, 240)
     n = len(off)
@@ -419,9 +480,9 @@ def test_general_law_kernels_at_the_cull_distance(dev, dims, K):
     f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **GENERAL)
     torch.cuda.synchronize()
     for got, plain in (((fk, dk), (fp, dp)), ((f_k, d_k), (f_p, d_p))):
-        _check_contact(*got, *plain, exact=False)
+        _check_contact(*got, *plain)
         assert int(plain[1].sum()) == want
-    assert _sets_equal(pk, pp) and torch.equal(m_k, m_p)
+    assert torch.equal(pk, pp) and torch.equal(m_k, m_p)
     for name in ("contact_substep", "contact_seed"):
         key = name + suffix
         assert kernels.launch_counts[key] == before.get(key, 0) + 1, key
@@ -574,7 +635,7 @@ def test_uniform_law_kernels_are_bit_equal_to_plain(dev, state):
     fp, dp, pp = contact.contact_substep_plain(*args, **law)
     torch.cuda.synchronize()
     _check_contact(fk, dk, fp, dp)
-    assert _sets_equal(pk, pp)
+    assert torch.equal(pk, pp)
     f_k, d_k, m_k = span_mask.contact_seed_cuda(*args, **law)
     f_p, d_p, m_p = span_mask.contact_seed_plain(*args, **law)
     torch.cuda.synchronize()
@@ -1188,7 +1249,8 @@ def test_run_steps_graph_replays_match_eager_blocks(dev, contact_path):
                                rtol=0, atol=1e-6)
     for p, info in zip(probes, infos):
         np.testing.assert_array_equal(np.asarray(info.num_agents), p[:, 0].numpy())
-        np.testing.assert_array_equal(np.asarray(info.jkr_rebuilds), p[:, -1].numpy())
+        rebuilds = engine_mod.StepInfo._fields.index("jkr_rebuilds")
+        np.testing.assert_array_equal(np.asarray(info.jkr_rebuilds), p[:, rebuilds].numpy())
 
 
 @pytest.mark.parametrize("contact_path", ["id_list", "span_mask"])

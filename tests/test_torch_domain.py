@@ -3,23 +3,24 @@ the CPU, every tile on the CPU.
 
 - against the port's single engine over 5 steps: integers, floats and bond
   sets bit-equal by agent id, for 4 stripes and the tile grids (2, 2),
-  (2, 4) and (1, 4), in 3D, and with diffusion and the optional phases
-  (the lattice within 1e-5: the tiles' deposits are summed in tile order,
-  the single engine deposits straight onto the lattice);
+  (2, 4) and (1, 4), in 3D, in a dense colony (sums across the TPU
+  kernels' lane windows and chunks, also with every span start clipped),
+  and with diffusion and the optional phases (the lattice within 1e-5: the
+  tiles' deposits are summed in tile order, the single engine deposits
+  straight onto the lattice). A tile sums in the single engine's grouping:
+  its rows' positions in the colony's sorted order and the blocks' span
+  starts come from the tiles' summed per-bin counts;
 - the id-list and span-mask contact paths give the same decomposed colony;
 - against the JAX ``DomainHipscEngine(use_pallas=False)`` on the 8-device
   CPU mesh of ``tests/conftest.py``, one step from the same state (the
-  convention of ``test_torch_step.py``), the port on the XLA path's law
-  (the general one): integers and bond sets equal by id, lattices within
-  1e-5, and positions bit-equal to the port's single engine stepping the
-  same flat state. Against the JAX package the positions part by less than
-  one float32 spacing of the largest coordinate (0.016 and 0.0005 measured)
-  and are held to 1: the port mirrors XLA:CPU's rounding of the step
-  (``ops.xla_f32``: the fused update and pair law), which took this gap
-  from 10 spacings (agent 36, whose motility-only update XLA:CPU fuses),
-  but its cube root is float64's where XLA:CPU calls glibc's ``powf``, and
-  the XLA path sums each row's window in 32-wide partial sums over its
-  padded width where the port sums run by run (ROADMAP C7). The decomposed
+  convention of ``test_torch_step.py``), the port on the general law:
+  integers and bond sets equal by id, lattices within 1e-5, and positions
+  bit-equal to the port's single engine stepping the same flat state.
+  Against the JAX package the positions are held to one float32 spacing of
+  the largest coordinate: the port follows the TPU kernels' general law
+  (``rsqrt``, ``ops.jkr._pair_general``) and their sums' grouping, where
+  the XLA path takes a square root and divides by it and sums each row's
+  padded window in 32-wide partial sums (ROADMAP A11). The decomposed
   state converts between the packages (``convert.domain_state_from_numpy``);
 - migration re-homes agents (along y and diagonally too) and keeps every
   agent in the tile that owns its bin column and row;
@@ -143,6 +144,76 @@ def test_domain_matches_single_engine_3d(grid, size):
     dom, single = make_engines(n=900, gata6=90, size=size, **grid)
     ds, ss = run_both(dom, single, seed=17, steps=3)
     assert_bit_equal(flat(dom, ds), by_id(convert.state_to_numpy(ss)))
+
+
+@pytest.mark.parametrize("spans", ["default", "capacity"])
+def test_dense_domain_matches_single_engine(spans):
+    """A dense colony, whose rows' candidates cross the TPU kernels' 32-lane
+    windows and chunks, so that the sums' grouping matters; with spans as
+    wide as the capacity every block's span start is clipped to 0. Tiles
+    equal the single engine bit for bit."""
+    dom, single = make_engines(n=1500, gata6=150, box=900.0, tiles=(2, 2))
+    if spans == "capacity":
+        cap = dom.cfg.base.capacity
+        dom.cfg = dataclasses.replace(dom.cfg, base=dataclasses.replace(
+            dom.cfg.base, jkr_span=cap, nbr_span=cap))
+    ds, ss = run_both(dom, single, seed=5, steps=2)
+    assert_bit_equal(flat(dom, ds), by_id(convert.state_to_numpy(ss)))
+
+
+@pytest.mark.parametrize("grid,size", [({"n_stripes": 4}, None), ({"tiles": (2, 2)}, None),
+                                       ({"tiles": (2, 2)}, (700.0, 700.0, 250.0))],
+                         ids=["stripes4", "2x2", "3d-2x2"])
+def test_tile_positions_are_the_single_engines(grid, size):
+    """The order of a tile's float sums (``domain_engine._tile_grouping``):
+    from the tiles' summed per-bin counts, every own row's position in the
+    colony's sorted order equals its position in the single engine's sorted
+    order, by agent id, on the contact and the radius-15 lattices, and the
+    blocks' span starts are the single engine's (``window_grouping``). A
+    tile's rows here are its own and every agent its local lattice holds."""
+    from hipsc_abm_tpu_torch.ops import neighbors as nbr_ops
+    from hipsc_abm_tpu_torch.parallel.domain_engine import _bin_counts, _tile_grouping
+
+    dom, _ = make_engines(n=900 if size else 1200, gata6=90 if size else 120, size=size,
+                          **grid)
+    ds = dom.init_state(seed=11)
+    cfg, base = dom.cfg, dom.cfg.base
+    colony = dom.to_cell_state(ds)
+    loc, ids, alive = colony.arrays["locations"], colony.arrays["ids"], colony.alive
+    consts = dom._stripe_consts(cfg)
+    for spec, spec_l, offs, span in (
+            (base.jkr_spec, cfg.jkr_spec_local, ("col_off_jkr", "row_off_jkr"), base.jkr_span),
+            (base.nbr_spec, cfg.nbr_spec_local, ("col_off_nbr", "row_off_nbr"), base.nbr_span)):
+        whole = nbr_ops.build_grid(spec, loc, ids, alive)
+        n_live = int(alive.sum())
+        position = {int(i): p for p, i in enumerate(ids[whole.order][:n_live].tolist())}
+        # the single engine's grouping at its capacity (window_grouping)
+        span_c = nbr_ops.span_cap(span, base.capacity)
+        want = nbr_ops.grouping_of_bounds(nbr_ops.run_bounds(spec, whole.sorted_flat), span_c,
+                                          base.capacity, nbr_ops.effective_chunk(span_c))
+        counts = sum(_bin_counts(spec, a["locations"], live)
+                     for a, live in zip(ds.arrays, ds.alive))
+        checked = 0
+        for s, c in enumerate(consts):
+            own_ids = ds.arrays[s]["ids"][ds.alive[s]]
+            others = ~torch.isin(ids, own_ids) & alive
+            rows_loc = torch.cat([ds.arrays[s]["locations"][ds.alive[s]], loc[others]])
+            rows_ids = torch.cat([own_ids, ids[others]])
+            n_own = own_ids.shape[0]
+            flat, coords = nbr_ops.local_flat(
+                spec_l, nbr_ops._bin_coords(spec, rows_loc), getattr(c, offs[0]),
+                getattr(c, offs[1]), torch.ones_like(rows_ids, dtype=torch.bool))
+            g = nbr_ops.grid_from_flat_coords(flat, coords, rows_ids)
+            grouping = _tile_grouping(spec, counts, rows_loc[g.order], g.sorted_flat, spec_l,
+                                      span, base.capacity, cfg.n_stripes * cfg.per_stripe)
+            own = g.order < n_own
+            got = grouping.gpos[own].tolist()
+            assert got == [position[int(i)] for i in rows_ids[g.order][own].tolist()], s
+            live_blocks = -(-n_live // nbr_ops.GROUP_BLOCK)
+            assert torch.equal(grouping.starts[:, :live_blocks], want.starts[:, :live_blocks])
+            assert grouping.chunk == want.chunk
+            checked += len(got)
+        assert checked == n_live
 
 
 def test_domain_diffusion_and_optional_phases_match_single():

@@ -13,15 +13,16 @@ JAX package on identical inputs.
   to 4e-3 um past their own break distance;
 - one ``hipsc_step`` with the three flags and diffusion on, on both contact
   paths, and two 3D spheroid ``safe_step``s, against the JAX engine (its XLA
-  path): integer state exact by agent id, radii within 1 ulp (see
+  path): integer state and radii exact by agent id (see
   ``_assert_same_radii``).
 
-Tolerances: forces are float32 sums in another order and, in the Pallas
-kernels, with ``mag`` from an rsqrt: rtol 1e-4, atol 1e-13 N (the JAX
-package's own for chunk-reordered sums, ``tests/test_pallas.py``);
-positions after a step 1e-3 um in 2D, 1e-4 um in 3D (``test_torch_step.py``,
-``test_torch_3d.py``); the lattice 1e-6; degrees, bond sets and every
-integer field exact.
+Tolerances: the substeps' forces equal the Pallas kernels' bit for bit
+(the general law as XLA:CPU compiles the kernels' body, ``ops.jkr.
+_pair_general``, with glibc's ``powf``, summed in the kernels' grouping,
+``neighbors.grouped_sum``); positions after a step against the JAX
+engine's XLA path (its own pair law and window sums) 1e-3 um in 2D, 1e-4
+um in 3D (``test_torch_step.py``, ``test_torch_3d.py``); the lattice
+1e-6; degrees, bond sets and every integer field exact.
 """
 
 import dataclasses
@@ -51,6 +52,7 @@ from hipsc_abm_tpu_torch.ops import jkr as tjkr
 from hipsc_abm_tpu_torch.ops import neighbors as tnbr
 from hipsc_abm_tpu_torch.ops import span_mask
 from test_torch_3d import _spheroid
+from test_torch_contact import assert_live_starts
 from test_torch_step import _agents, _assert_same_colony, _bench_like, _j, _key, _t
 
 BIO = BiologyParams()
@@ -74,14 +76,17 @@ def seeded_radii(n: int, seed: int) -> np.ndarray:
 
 
 def test_cell_growth_matches_jax():
-    """Bit-equal, with radii below, at and past max_radius (no clamp: a
-    radius passes max_radius by up to one increment, as in the reference)."""
+    """Bit-equal to the JAX function compiled as the engine compiles it
+    (under ``jax.jit``, which fuses ``growth * dc + min_radius``), with radii
+    below, at and past max_radius (no clamp: a radius passes max_radius by
+    up to one increment, as in the reference)."""
     a, alive, _ = _agents(6)
     rs = np.random.default_rng(6)
     radii = seeded_radii(300, 6)
     radii[rs.choice(300, 40, replace=False)] = BIO.max_radius
     a["div_counters"] = rs.integers(0, BIO.diff_div_thresh + 1, 300).astype(np.int32)
-    want = jbio.cell_growth(_j(radii), _j(a["states"]), _j(a["div_counters"]), _j(alive), BIO)
+    want = jax.jit(lambda *x: jbio.cell_growth(*x, BIO))(
+        _j(radii), _j(a["states"]), _j(a["div_counters"]), _j(alive))
     got = tbio.cell_growth(_t(radii), _t(a["states"]), _t(a["div_counters"]), _t(alive), TBIO)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     grown = got.numpy()
@@ -226,12 +231,15 @@ def _pallas(colony, K):
     out["B2"] = (fd2, None)
     out["B1"] = (fd1, compact_mask_bonds(srt_pack(moved), m2, starts, needs, bond_cap=K,
                                          interpret=True, **plan))
+    out["plan"] = (np.asarray(starts), span)
     return order, out
 
 
-def _port(colony, K):
+def _port(colony, K, plan):
     """The port's wrappers on CPU tensors (their plain versions), general
-    law, on the same sorted rows: ``(order, {name: (force, degree, bonds)})``."""
+    law, on the same sorted rows, summing in the grouping of the Pallas
+    ``plan`` (its span starts and span, chunk 128): ``(order, {name:
+    (force, degree, bonds)})``."""
     locs, moved, radii, ids, alive, partner_ids, box = colony
     _, tspec = _specs(box)
     grid = tnbr.build_grid(tspec, torch.from_numpy(locs), torch.from_numpy(ids),
@@ -245,7 +253,10 @@ def _port(colony, K):
     def xyzr(xyz):
         return tjkr.pack_physics(torch.from_numpy(xyz)[o], torch.from_numpy(radii)[o])
 
-    law = dict(uniform_radius=None, **LAW)
+    starts, span = plan
+    grouping = tnbr.grouping_of_bounds(bounds, span, locs.shape[0], 128)
+    assert_live_starts(grouping, starts, bounds)
+    law = dict(uniform_radius=None, grouping=grouping, **LAW)
     out = {"B6": tcontact.contact_substep_cuda(xyzr(locs), *rows, partners, **law)}
     f2, d2, mask = span_mask.contact_seed_cuda(xyzr(locs), *rows, partners, **law)
     f1, d1, _ = span_mask.contact_masked_cuda(xyzr(moved), *rows, mask, **law)
@@ -259,15 +270,14 @@ def _sets(rows):
 
 
 def _assert_matches_pallas(colony, K):
-    """Each substep's forces to rtol 1e-4, atol 1e-13 N, degrees exact, and
-    the bond sets of rows within K exact; returns the port's outputs."""
+    """Each substep's forces and degrees exact, and the bond sets of rows
+    within K exact; returns the port's outputs."""
     order, want = _pallas(colony, K)
-    t_order, got = _port(colony, K)
+    t_order, got = _port(colony, K, want["plan"])
     np.testing.assert_array_equal(t_order, order)
     for name in ("B6", "B2", "B1"):
         (fd, jbonds), (f, d, bonds) = want[name], got[name]
-        np.testing.assert_allclose(f.numpy(), np.asarray(fd[:, :3]), rtol=1e-4, atol=1e-13,
-                                   err_msg=name)
+        np.testing.assert_array_equal(f.numpy(), np.asarray(fd[:, :3]), err_msg=name)
         np.testing.assert_array_equal(d.numpy(), np.asarray(fd[:, 3]).astype(np.int32),
                                       err_msg=name)
         if jbonds is not None:
@@ -320,15 +330,14 @@ def _with(state, arrays):
 
 
 def _assert_same_radii(jstate, tstate, label):
-    """Radii by agent id within 1 ulp: XLA's CPU compiler contracts growth's
-    ``pluri_growth * dc + min_radius`` into one FMA inside the jitted step
-    (eager, as in ``test_cell_growth_matches_jax``, it does not), where the
-    port, like the reference, rounds the product and the sum apart."""
+    """Radii by agent id, bit for bit: growth's ``pluri_growth * dc +
+    min_radius`` is one FMA in the port, as XLA:CPU fuses it inside the
+    JAX engine's jitted step."""
     a, b = convert.numpy_from_jax_state(jstate), convert.state_to_numpy(tstate)
     ia, ib = (np.argsort(x["arrays"]["ids"][x["alive"]]) for x in (a, b))
     got, want = b["arrays"]["radii"][b["alive"]][ib], a["arrays"]["radii"][a["alive"]][ia]
     assert got.shape == want.shape, label
-    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    np.testing.assert_array_equal(got, want, err_msg=label)
 
 
 def _flagged_state():

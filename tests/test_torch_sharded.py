@@ -12,10 +12,13 @@
   ``load_domain_sharded`` (every leaf equal) and resumes in JAX's
   ``DomainHipscEngine`` (8-device CPU mesh of ``tests/conftest.py``), and a
   JAX shard set resumes in the port, each then stepped beside the other
-  package, the port on the general pair law (the JAX XLA path's): integers
-  and bond sets equal by id, positions within one float32 spacing of the
-  largest coordinate and lattices within 1e-5 (the convention and the
-  causes of ``test_torch_domain.py``).
+  package, the port on the general pair law: integers and bond sets equal
+  by id, positions within ``XLA_SPACINGS`` float32 spacings of the largest
+  coordinate (measured 1 after one step, 2 after two) and lattices within
+  1e-5. The JAX domain engine runs its XLA path, whose pair law takes a
+  square root and divides by it where the TPU kernels, which the port
+  follows, multiply by ``rsqrt``, and which sums each row's padded window
+  in 32-wide partial sums (``test_torch_domain.py``).
 - At step 0 the port's value shards are byte-equal to JAX's (the same
   partition and slot order), and their merge equals the flat
   ``write_values_csv`` of the colony.
@@ -78,6 +81,11 @@ def assert_bits(a: dict, b: dict, lattice_atol=None):
     colonies.assert_same(a, b, "shards", lattice_atol=lattice_atol)
 
 
+# positions against the JAX XLA path, in float32 spacings of the largest
+# coordinate (module docstring)
+XLA_SPACINGS = 4
+
+
 def assert_close_to_jax(port: dict, jax_state: dict):
     a, b = colonies.by_id(jax_state), colonies.by_id(port)
     for k in ("ids", "FGF4", "FGFR", "ERK", "GATA6", "NANOG", "states", "death_counters",
@@ -85,7 +93,8 @@ def assert_close_to_jax(port: dict, jax_state: dict):
         np.testing.assert_array_equal(b[k], a[k], err_msg=k)
     assert colonies.bond_rows_apart(b["bonds"], a["bonds"]) == 0
     spacing = float(np.spacing(np.abs(a["locations"]).max().astype(np.float32)))
-    np.testing.assert_allclose(b["locations"], a["locations"], rtol=0, atol=spacing)
+    np.testing.assert_allclose(b["locations"], a["locations"], rtol=0,
+                               atol=XLA_SPACINGS * spacing)
     np.testing.assert_allclose(port["gradients"]["fgf4_values"],
                                jax_state["gradients"]["fgf4_values"], rtol=0, atol=1e-5)
 

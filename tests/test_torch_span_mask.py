@@ -5,12 +5,12 @@ in test_torch_cuda.py) vs the JAX package's span-mask Pallas kernels
 ``compact_mask_bonds``, interpret mode), its ``_physics_scan_pallas`` and its
 engine with ``use_pallas=True``.
 
-Tolerances: forces are float32 sums over a row's partners that the Pallas
-kernels take in (chunk, run, lane) order, so they agree to rtol 1e-4 and
-atol 1e-13 N (the JAX package's own tolerance for chunk-reordered sums,
-``tests/test_pallas.py``); positions after a scan or a step to 1e-4 um
-(``tests/test_pallas.py``'s engine tolerance); degrees, bond sets and all
-integer state are exact.
+Tolerances: against the Pallas kernels in interpret mode, forces are equal
+bit for bit on the uniform and the general law: the port's pair terms are
+XLA:CPU's and it adds them in the kernels' (chunk, run, 32-lane window)
+grouping (``neighbors.grouped_sum``); positions after a scan or a step to
+1e-4 um (``tests/test_pallas.py``'s engine tolerance); degrees, bond sets
+and all integer state are exact.
 """
 
 import dataclasses
@@ -38,6 +38,7 @@ from hipsc_abm_tpu_torch.engine import HipscEngine
 from hipsc_abm_tpu_torch.ops import jkr as tjkr
 from hipsc_abm_tpu_torch.ops import neighbors as tnbr
 from hipsc_abm_tpu_torch.ops import span_mask
+from test_torch_contact import assert_live_starts
 from test_torch_step import _assert_same_colony
 
 BIO = BiologyParams()
@@ -48,10 +49,10 @@ LAW = dict(radius=BIO.jkr_radius, adhesion_const=BIO.adhesion_const,
            poisson=BIO.poisson, youngs=BIO.youngs, break_d=BIO.jkr_break_d)
 
 
-def _colony(K, seed=0, C=256, n=230):
+def _colony(K, seed=0, C=256, n=230, general=False):
     """Scrambled ids, a few dead slots, and bonds from one JAX substep at
     earlier positions, so some bonds lie beyond the search radius and some
-    break."""
+    break; ``general``: radii drawn between the smallest and the largest."""
     rs = np.random.default_rng(seed)
     locs = np.zeros((C, 3), np.float32)
     locs[:n, :2] = rs.random((n, 2)).astype(np.float32) * np.float32(BOX[0])
@@ -60,6 +61,8 @@ def _colony(K, seed=0, C=256, n=230):
     alive[rs.choice(n, 10, replace=False)] = False
     ids = rs.permutation(4 * C)[:C].astype(np.int32)
     radii = np.full(C, BIO.max_radius, np.float32)
+    if general:
+        radii = rs.uniform(BIO.min_radius, BIO.max_radius, C).astype(np.float32)
     jspec = jnbr.GridSpec.from_box(BOX, CELL, run_cap=64)
     earlier = locs.copy()
     earlier[:n, :2] -= rs.normal(0.0, 1.2, (n, 2)).astype(np.float32)
@@ -80,11 +83,13 @@ def _sets(rows):
     return [frozenset(r[r >= 0].tolist()) for r in np.asarray(rows).astype(np.int64)]
 
 
+@pytest.mark.parametrize("law", ["uniform", "general"])
 @pytest.mark.parametrize("K", [8, 40])
-def test_seed_masked_compact_match_pallas_interpret(K):
+def test_seed_masked_compact_match_pallas_interpret(K, law):
     """seed -> masked (positions moved, window frozen) -> compact, against
     the three Pallas kernels on the same sorted rows."""
-    locs, moved, radii, ids, alive, partner_ids, jspec = _colony(K)
+    uniform = BIO.max_radius if law == "uniform" else None
+    locs, moved, radii, ids, alive, partner_ids, jspec = _colony(K, general=uniform is None)
     C = locs.shape[0]
     jgrid = jnbr.build_grid(jspec, jnp.asarray(locs), jnp.asarray(ids), jnp.asarray(alive))
     order = np.asarray(jgrid.order)
@@ -101,7 +106,7 @@ def test_seed_masked_compact_match_pallas_interpret(K):
     starts, needs, _, _ = jnbr.block_span_plan(jspec, jgrid.sorted_flat, block, span=span,
                                                capacity=C, chunk=chunk)
     pkw = dict(block=block, span=span, run_offs=jspec.flat_run_offsets, chunk=chunk,
-               uniform_radius=BIO.max_radius, interpret=True, **LAW)
+               uniform_radius=uniform, interpret=True, **LAW)
     fd1, m1 = contact_substep_ids_to_mask(
         srt_pack(locs), jnp.asarray(partner_ids.astype(np.float32))[order], starts,
         needs, **pkw)
@@ -122,22 +127,24 @@ def test_seed_masked_compact_match_pallas_interpret(K):
     def xyzr(xyz):
         return tjkr.pack_physics(torch.from_numpy(xyz)[o], torch.from_numpy(radii)[o])
 
+    grouping = tnbr.grouping_of_bounds(bounds, span, C, chunk)
+    assert_live_starts(grouping, starts, bounds)
     before = dict(kernels.launch_counts)
     f1, d1, mask = span_mask.contact_seed_cuda(
         xyzr(locs), *rows, torch.from_numpy(partner_ids)[o].contiguous(),
-        uniform_radius=BIO.max_radius, **LAW)
+        uniform_radius=uniform, grouping=grouping, **LAW)
     assert mask.shape == (span_mask.mask_words(bounds), C) and mask.dtype == torch.int32
     f2, d2, mask2 = span_mask.contact_masked_cuda(xyzr(moved), *rows, mask,
-                                                  uniform_radius=BIO.max_radius, **LAW)
+                                                  uniform_radius=uniform, grouping=grouping,
+                                                  **LAW)
     assert mask2 is mask  # updated in place
     bonds = span_mask.mask_compact_cuda(rows[0], bounds, mask, K)
     assert dict(kernels.launch_counts) == before  # CPU tensors: plain versions
 
     for f, d, fd in ((f1, d1, fd1), (f2, d2, fd2)):
         want = np.asarray(fd[:, :3])
-        scale = np.abs(want).max()
-        assert scale > 0
-        np.testing.assert_allclose(f.numpy(), want, rtol=1e-4, atol=1e-13)
+        assert np.abs(want).max() > 0
+        np.testing.assert_array_equal(f.numpy(), want)
         np.testing.assert_array_equal(d.numpy(), np.asarray(fd[:, 3]).astype(np.int32))
     assert int(d2.sum()) > C
     # rows within K hold the same set; past K the two truncate in their own
@@ -147,14 +154,15 @@ def test_seed_masked_compact_match_pallas_interpret(K):
     got, want = _sets(bonds.numpy()), _sets(jbonds)
     assert [g for g, w in zip(got, within) if w] == [g for g, w in zip(want, within) if w]
     assert all(len(g) == K for g, w in zip(got, within) if not w)
-    # the masked substep kept bonds that only membership can explain
+    # the masked substep kept bonds that only membership can explain (at
+    # the largest radius, whose bonds outlast the search radius)
     loc1 = xyzr(moved)[:, :2]
     beyond = 0
     for i, s in enumerate(_sets(bonds.numpy())):
         for pid in s:
             pj = int(np.flatnonzero(rows[0].numpy() == pid)[0])
             beyond += float(((loc1[i] - loc1[pj]) ** 2).sum()) > BIO.jkr_radius ** 2
-    assert beyond > 0
+    assert beyond > 0 or uniform is None
 
 
 def _one_row_mask(n_bits):
@@ -185,11 +193,12 @@ def _one_row_mask(n_bits):
 
 def test_compact_truncates_in_walk_order():
     """More set bits than K: the compaction keeps the first K candidates in
-    the port's walk order (run, then sorted position), the order the id-list
-    kernel appends in. The Pallas compaction truncates in its (chunk, run,
-    lane) order instead (``tests/test_pallas.py``), a layout artifact. Either
-    way the substeps' degree probe exceeds K, so ``safe_step`` grows K and
-    re-executes before any accepted step depends on which K were kept."""
+    candidate order (run, then sorted position). The Pallas compaction, and
+    the id-list substep's list (the TPU kernel's chunk-major walk), truncate
+    in (chunk, run, lane) order instead (``tests/test_pallas.py``), a layout
+    artifact. Either way the substeps' degree probe exceeds K, so
+    ``safe_step`` grows K and re-executes before any accepted step depends
+    on which K were kept."""
     K = 8
     sids, bounds, mask, row, kept = _one_row_mask(K + 4)
     got = span_mask.mask_compact_cuda(sids, bounds, mask, K).numpy()
@@ -235,7 +244,8 @@ def _scan_inputs(skin, seed=2):
         bond_cap=d["partners"].shape[1])
     tcfg = teng_mod.EngineConfig.create(
         gen.size, capacity=C, bio=TBIO, verlet_skin=skin, uniform_radius=BIO.max_radius,
-        bond_cap=d["partners"].shape[1], contact_path="span_mask", mask_bits=C)
+        bond_cap=d["partners"].shape[1], contact_path="span_mask", mask_bits=C,
+        jkr_span=C, nbr_span=C)
     assert jcfg.capacity == tcfg.capacity
     assert dataclasses.asdict(jcfg.jkr_spec) | {"run_cap": 0} == dataclasses.asdict(tcfg.jkr_spec)
     return gen, d, jcfg, tcfg
@@ -255,7 +265,7 @@ def test_scan_matches_physics_scan_pallas(skin):
     ts = convert.state_from_numpy(d, "cpu")
     tout = teng_mod._physics_scan_span_mask(
         tcfg, TBIO, ts.arrays, ts.alive, ts.bonds, torch.tensor(gen.size), dts)
-    loc, bonds, _, deg, move, rebuilds, _ = tout
+    loc, bonds, _, deg, move, rebuilds, _, _ = tout
     assert (rebuilds > 0) == (skin < 14.0)
     alive = d["alive"]
     np.testing.assert_allclose(loc.numpy()[alive], np.asarray(jout[0])[alive], rtol=0,
@@ -430,7 +440,7 @@ def test_seed_keeps_a_bond_beyond_the_search_radius(dims):
         tjkr.pack_physics(torch.from_numpy(locs)[o], torch.from_numpy(radii)[o]), sids,
         torch.from_numpy(alive)[o].contiguous(), bounds,
         torch.from_numpy(partner_ids)[o].contiguous(), uniform_radius=BIO.max_radius, **LAW)
-    np.testing.assert_allclose(f.numpy(), fd[:, :3], rtol=1e-4, atol=1e-13)
+    np.testing.assert_array_equal(f.numpy(), fd[:, :3])
     np.testing.assert_array_equal(d.numpy(), fd[:, 3].astype(np.int32))
     inv = np.argsort(order)
     np.testing.assert_array_equal(d.numpy()[inv][:8], [1, 1, 0, 0, 0, 0, 1, 1])

@@ -2,33 +2,27 @@
 package, compared by agent id (``__graft_entry__._by_id``'s canonical form).
 
 Tolerances and their causes:
-- everything is exact on the uniform law (every radius equal, growth off:
-  the engine's default) against the JAX engine's TPU path run in interpret
-  mode (``use_pallas=True``, ``pallas_interpret=True``): ids, integer state,
-  bond sets, positions and the morphogen lattice, over single steps and five
-  in a row. The port mirrors what XLA:CPU compiles that path to on an
-  x86-64 machine with FMA (``ops.xla_f32``): the pair law with XLA's
-  ``rsqrt`` and its fused and folded forms, the Stokes update's fused
-  multiply-add, the squared distances and norms, FTCS's fused stencil, the
+- everything is exact against the JAX engine's TPU path run in interpret
+  mode (``use_pallas=True``, ``pallas_interpret=True``), on the uniform law
+  (every radius equal, growth off: the engine's default) and on the
+  general law (growth on), in 2D and 3D: ids, integer state, bond sets,
+  positions and the morphogen lattice, over single steps and five in a
+  row. The port mirrors what XLA:CPU compiles that path to on an x86-64
+  machine with FMA and glibc 2.36 (``ops.xla_f32``): the pair laws with
+  XLA's ``rsqrt`` and their fused and folded forms, the general law's cube
+  root glibc's ``powf``, the Stokes update's and growth's fused
+  multiply-adds, the squared distances and norms, FTCS's fused stencil, the
   deposit's reciprocal; the draws are bit-equal already
-  (``tests/test_torch_rng.py``). Force and moment sums add each run's terms
-  in walk order, then the runs, as the TPU kernels add their lane sums;
-  where a run's candidates straddle one of the interpreted kernel's 32-lane
-  windows of the sorted rows, the TPU kernel groups them otherwise. That
-  grouping depends on where the rows lie in the whole sorted order, so the
-  port, whose tiles must equal the single engine, does not follow it
-  (ROADMAP C8). The 2D colonies here are sparse enough that it never
-  splits two kept terms of a run; the 3D ball's runs are long, and its
-  positions part by a few spacings (``GROUPING_SPACINGS``) while its
-  integer state and bond sets stay equal. ``tests/test_torch_contact.py``
-  and ``tests/test_torch_3d.py`` hold the pair terms, summed in the TPU
-  kernels' grouping, to the interpreted kernels bit for bit.
-- the general law (growth on) against the JAX engine's XLA path
-  (``use_pallas=False``): integers and bond sets exact, positions within
-  ``GENERAL_SPACINGS`` float32 spacings of the largest coordinate. The cube
-  root is PyTorch's ``pow`` where XLA:CPU calls glibc's ``powf`` (1.2% of
-  inputs a last bit apart), and the XLA path sums each row's window in
-  32-wide partial sums over its padded width (ROADMAP C7).
+  (``tests/test_torch_rng.py``). Force and moment sums follow the TPU
+  kernels' grouping (per chunk and run, 32-lane windows of the sorted
+  rows, ``neighbors.grouped_sum``), which the port reads from the JAX
+  engine's span caps, carried across with the capacities.
+- against the JAX engine's XLA path (``use_pallas=False``, the general
+  law): integers and bond sets exact, positions within
+  ``GENERAL_SPACINGS`` float32 spacings of the largest coordinate. That
+  path's pair law takes a square root and divides by it where the TPU
+  kernels, which the port follows, multiply by ``rsqrt``, and it sums each
+  row's padded window in 32-wide partial sums.
 - motility is held against the JAX function compiled as the engine
   compiles it (under ``jax.jit``).
 """
@@ -250,16 +244,13 @@ def _bench_like(n):
     return gen, xp, diff
 
 
-# positions in float32 spacings of the largest coordinate (module docstring):
-# the general law's, and the uniform law's in 3D, where a run's kept terms
-# straddle the TPU kernels' 32-lane windows
+# positions in float32 spacings of the largest coordinate against the JAX
+# engine's XLA path (module docstring)
 GENERAL_SPACINGS = 8
-GROUPING_SPACINGS = 4
 
 
 def _interpreted(jeng):
-    """The JAX engine's TPU path in interpret mode, the uniform law's
-    reference."""
+    """The JAX engine's TPU path in interpret mode, the port's reference."""
     jeng.cfg = dataclasses.replace(jeng.cfg, pallas_interpret=True)
     return jeng
 
@@ -445,50 +436,83 @@ def _spheroid_like(n=400):
     return gen, xp, ball
 
 
+# the bond and daughter capacities of the general-law five steps, wide
+# enough that no step regrows them: the interpreted kernels rebuild at each
+# grown shape (minutes on a CPU)
+FIVE_STEP_CAPS = {2: dict(bond_cap=16), 3: dict(bond_cap=24)}
+
+
 @pytest.mark.parametrize("dims", [2, 3])
 @pytest.mark.parametrize("law", ["uniform", "general"])
 def test_five_steps_match_jax(dims, law):
-    """Five ``safe_step``s from one state, compared after each: the uniform
-    law against the JAX engine's TPU path in interpret mode, bit for bit in
-    2D, in 3D to ``GROUPING_SPACINGS`` (measured 3 after five steps); the
-    general law (growth on, radii seeded below max_radius) against its XLA
-    path to ``GENERAL_SPACINGS`` (measured 2.5 in 2D, 4 in 3D). Integer
-    state and bond sets exact throughout (module docstring)."""
+    """Five ``safe_step``s from one state, compared after each, against the
+    JAX engine's TPU path in interpret mode, bit for bit: integer state,
+    bond sets, positions and the lattice, on the uniform law and on the
+    general law (growth on, radii seeded below max_radius; the bond and
+    daughter capacities set at the start so that no step regrows them).
+    The spans of the JAX kernels are carried across with the capacities:
+    they set the sums' grouping near the end of the sorted order."""
     uniform = law == "uniform"
     growth = dict(enable_growth=not uniform)
     if dims == 2:
         gen, xp, diff = _bench_like(400)
-        jeng = JaxEngine(gen, xp, diff=diff, enable_diffusion=True, use_pallas=uniform,
+        jeng = JaxEngine(gen, xp, diff=diff, enable_diffusion=True, use_pallas=True,
                          **growth)
         js = jeng.init_state(seed=3)
     else:
         gen, xp, ball = _spheroid_like()
         diff = None
-        jeng = JaxEngine(gen, xp, use_pallas=uniform, **growth)
+        jeng = JaxEngine(gen, xp, use_pallas=True, **growth)
         js = jeng.init_state(seed=3, locations=jnp.asarray(ball))
-    if uniform:
-        _interpreted(jeng)
-    else:
+    _interpreted(jeng)
+    if not uniform:
         rs = np.random.default_rng(3)
         radii = rs.uniform(BIO.min_radius, BIO.max_radius, js.capacity).astype(np.float32)
         js = js._replace(arrays={**js.arrays, "radii": jnp.asarray(radii)})
+        jeng.cfg = dataclasses.replace(jeng.cfg, div_cap=jeng.cfg.capacity,
+                                       **FIVE_STEP_CAPS[dims])
+        js = JaxEngine.repad_state(js, jeng.cfg)
     teng = HipscEngine(*(convert.params_from_jax(p) for p in (gen, xp)),
                        diff=None if diff is None else convert.params_from_jax(diff),
                        enable_diffusion=diff is not None, device="cpu", **growth)
     ts = convert.state_from_numpy(convert.numpy_from_jax_state(js), "cpu")
+    caps = ("capacity", "bond_cap", "div_cap", "jkr_span", "nbr_span")
+    cfg0 = [getattr(jeng.cfg, k) for k in caps]
     for step in range(5):
-        js, _ = jeng.safe_step(js)
-        teng.cfg = dataclasses.replace(teng.cfg, capacity=jeng.cfg.capacity,
-                                       bond_cap=jeng.cfg.bond_cap, div_cap=jeng.cfg.div_cap)
-        ts, _ = teng.safe_step(ts)
+        js, jinfo = jeng.safe_step(js)
+        teng.cfg = dataclasses.replace(
+            teng.cfg, capacity=jeng.cfg.capacity, bond_cap=jeng.cfg.bond_cap,
+            div_cap=jeng.cfg.div_cap, jkr_span=jeng.cfg.jkr_span, nbr_span=jeng.cfg.nbr_span)
+        ts, tinfo = teng.safe_step(ts)
         assert (teng.cfg.uniform_radius is None) != uniform
-        label = f"{dims}D {law} step {step + 1}"
-        if uniform and dims == 2:
-            _assert_same_colony(js, ts, label, exact=True)
-        elif uniform:
-            _assert_same_colony(js, ts, label, spacings=GROUPING_SPACINGS)
-        else:
-            _assert_same_colony(js, ts, label, spacings=GENERAL_SPACINGS)
+        _assert_same_colony(js, ts, f"{dims}D {law} step {step + 1}", exact=True)
+        # the JAX kernels' span probes, which grow the spans in both engines
+        assert (tinfo.jkr_block_span, tinfo.nbr_block_span) == (
+            int(jinfo.jkr_span_needed), int(jinfo.nbr_span_needed))
+    if not uniform:
+        assert [getattr(jeng.cfg, k) for k in caps] == cfg0  # nothing regrew
+
+
+def test_span_growth_matches_jax():
+    """Both engines start from span caps of 128 that the 2D colony's blocks
+    outgrow: the JAX engine grows its DMA spans and re-executes the step,
+    and the port, its spans not carried across, grows them by the same
+    rule and reaches the same colony bit for bit."""
+    gen, xp, diff = _bench_like(400)
+    jeng = _interpreted(JaxEngine(gen, xp, diff=diff, enable_diffusion=True, use_pallas=True))
+    js = jeng.init_state(seed=3)
+    jeng.cfg = dataclasses.replace(jeng.cfg, jkr_span=128, nbr_span=128)
+    teng = _torch_engine_like(jeng, gen, xp, diff)
+    teng.cfg = dataclasses.replace(teng.cfg, jkr_span=128, nbr_span=128)
+    assert teng.cfg.capacity == jeng.cfg.capacity
+    ts = convert.state_from_numpy(convert.numpy_from_jax_state(js), "cpu")
+    js, jinfo = jeng.safe_step(js)
+    ts, tinfo = teng.safe_step(ts)
+    assert (teng.cfg.jkr_span, teng.cfg.nbr_span) == (jeng.cfg.jkr_span, jeng.cfg.nbr_span)
+    assert teng.cfg.jkr_span > 128 and teng.cfg.nbr_span > 128
+    assert (tinfo.jkr_block_span, tinfo.nbr_block_span) == (
+        int(jinfo.jkr_span_needed), int(jinfo.nbr_span_needed))
+    _assert_same_colony(js, ts, "grown spans", exact=True)
 
 
 def _update_inputs(seed, C=4000):
