@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -80,6 +81,7 @@ from hipsc_abm_tpu_torch.params import (
     ExperimentalParams,
     GeneralParams,
 )
+from hipsc_abm_tpu_torch.utils import profiling
 
 
 class CellState(NamedTuple):
@@ -362,9 +364,9 @@ def take_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """``x[index]`` along the rows; an integer or bool (C, K) table (the bond
     lists, K >= 2) goes through a gather of its flat elements: on the card
     PyTorch gathers rows of such tables with a kernel of its own
-    (``vectorized_gather_kernel``) that is several times slower than the
-    gather of their flat elements (``tools/step_profile.py`` shows both).
-    The values are the same."""
+    (``vectorized_gather_kernel``) that took several times the device time
+    of the gather of their flat elements at the 100k and 500k shapes. The
+    values are the same."""
     if x.dim() != 2 or x.shape[1] < 2 or x.dtype == torch.float32:
         return x[index]
     k = x.shape[1]
@@ -403,7 +405,13 @@ def hipsc_step(
     host. The deposit keeps its fixed-order kernel on the card, so a
     checkpoint's recompute replays the forward bit for bit (no gradient
     reaches it: its terms are constants of the discrete states).
-    The span-mask contact path has no plain form here."""
+    The span-mask contact path has no plain form here.
+
+    Under ``profiling.tracing()`` the step marks its phases in the open
+    block (``profiling.phase``): ``sort``, ``biology``, ``diffusion`` (when
+    it runs), ``biology`` again (motility), then the contact scan's
+    ``window`` and ``contact`` phases and ``finish``."""
+    profiling.phase("sort")
     arrays = dict(state.arrays)
     alive = state.alive
     bonds = state.bonds
@@ -427,6 +435,7 @@ def hipsc_step(
     arrays, alive, bonds = _sort_state_rows(arrays, alive, bonds, nbr_grid.order)
     nbr_bounds = nbr_ops.run_bounds(cfg.nbr_spec, nbr_grid.sorted_flat)
     nbr_grouping = window_grouping(nbr_bounds, cfg.nbr_span)
+    profiling.phase("biology")
     # the graph stays the build window, re-masked by the liveness of each
     # call: agents killed earlier in the step stop contributing
     # (cell_methods.py:47); the build-time positions are packed once
@@ -499,6 +508,7 @@ def hipsc_step(
 
     # --- FGF4 secretion and FTCS diffusion ---
     if cfg.enable_diffusion and diff is not None:
+        profiling.phase("diffusion")
         np_dts = diffusion_ops.diffusion_dts(bio.step_dt, diff.diffuse_dt)
         for gname in sorted(gradients):
             grid = gradients[gname]
@@ -515,6 +525,7 @@ def hipsc_step(
                 grid, np_dts, diff.diffuse_const, diff.spat_res2,
                 diff.max_concentration, diff.degradation,
             )
+        profiling.phase("biology")
 
     # --- cell_motility (post-fate moments, post-division locations) ---
     m3 = bio_moments(alive, "motility", arrays["locations"], arrays["GATA6"],
@@ -746,6 +757,7 @@ def _scan_result(rows, probes):
     """The rows back in slot order: ``(locations, bonds, widest run, max
     degree, max substep move, rebuilds after the entry build, widest row,
     JAX span probe)``."""
+    profiling.phase("finish")
     perm = rows["perm"]
     locations = torch.empty_like(rows["loc"])
     locations[perm] = rows["loc"]
@@ -765,8 +777,10 @@ def _id_list_substep(cfg, law, contact, update, size, identity, s, stale, dt, ro
     move, max squared drift, stale)``, the last two for the next
     substep."""
     if stale is not None:
+        profiling.phase("window")
         rows, bounds, ref, grouping = _rebuild_where(stale, cfg, rows, bounds, ref, identity,
                                                      grouping=grouping)
+    profiling.phase("contact")
     rows, probes = contact_substep_rows(law, contact, update, s, size, dt, rows, bounds, ref,
                                         grouping=grouping)
     return rows, bounds, ref, grouping, probes
@@ -807,6 +821,7 @@ def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
     and one Stokes update, rematerialised under ``cfg.remat_substeps``; the
     rows go back to the state's layout at the end. Returns
     ``_scan_result``'s tuple."""
+    profiling.phase("window")
     rows = _scan_rows(arrays, alive, bonds)
     law = _contact_law(cfg, bio)
     contact = contact_substep_plain if plain else contact_substep_cuda
@@ -846,6 +861,7 @@ def _physics_scan_dense(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
     ``_scan_result``'s tuple, with no window: widest run and row 0, no
     rebuilds."""
     del plain
+    profiling.phase("contact")
     ids, radii, C = arrays["ids"], arrays["radii"], alive.shape[0]
     device = alive.device
     r = np.float32(bio.jkr_radius)
@@ -876,6 +892,7 @@ def _physics_scan_dense(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
                                               pair_ok, radii, mot, alive)
         degs.append(deg)
         moves2.append(move2)
+    profiling.phase("finish")
     partners, _ = _compact_bonds(ids[None, :].expand(C, C), bmask, bonds.partners.shape[1])
     zero = torch.zeros((), dtype=torch.int64, device=device)
     return (locations, BondState.from_ids(partners), zero, torch.stack(degs).max(),
@@ -914,6 +931,7 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts, plain=Fal
     if plain:
         raise ValueError("hipsc_step(plain=True) runs the id-list or the dense contact path, "
                          "not contact_path='span_mask'")
+    profiling.phase("window")
     rows = _scan_rows(arrays, alive, bonds)
     law = _contact_law(cfg, bio)
     K = rows["partners"].shape[1]
@@ -928,12 +946,14 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts, plain=Fal
     for s, dt in enumerate(dts):
         rebuild = None
         if s > 0:
+            profiling.phase("window")
             rebuild = stale.to(torch.int32).reshape(1)
             span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K, pred=rebuild,
                                         out=rows["partners"])
             rows, bounds, ref, grouping = _rebuild_where(stale, cfg, rows, bounds, ref,
                                                          identity, grouping=grouping)
             probes.rebuilds = probes.rebuilds + stale
+        profiling.phase("contact")
         probes.window(bounds)
         probes.spans.append(grouping.needed)
         deg, move2, _, stale = span_mask_substep(law, update, s, size, dt, rows, bounds, ref,
@@ -1149,46 +1169,65 @@ class HipscEngine:
         the (k, 16) probes fetched, and on overflow the config grown by the
         block's worst probes and the block re-executed from the re-padded
         input state; raises after 16 attempts. Returns the final state and
-        the probe rows (lists of floats)."""
-        for attempt in range(1, 17):
-            self.block_attempts = attempt
-            cfg = self._cfg_for_state(state)
-            table, keys = step_inputs(state.key, state.step, k)
-            if self.device.type == "cuda":
-                new_state, probes = self._graph_for(cfg, k, state).run(state, table)
-            else:
-                new_state, probes = _run_block(self, cfg, state, table)
-            rows = probes.tolist()
-            infos = _probes_from_host(rows, stacked=True)
-            self.window_rebuilds += int(infos.jkr_rebuilds.sum())
-            grown_cfg = self._grown_cfg(cfg, StepInfo(*(np.max(f) for f in infos)))
-            if grown_cfg is None:
-                return new_state._replace(key=keys[-1], step=state.step + k), rows
-            self.cfg = grown_cfg
-            state = self.repad_state(state, grown_cfg)
+        the probe rows (lists of floats). Traced as the call ``run_steps``
+        (``utils.profiling``)."""
+        with profiling.span("run_steps"):
+            for attempt in range(1, 17):
+                with profiling.span("attempt"):
+                    self.block_attempts = attempt
+                    profiling.count("attempts")
+                    cfg = self._cfg_for_state(state)
+                    with profiling.span("inputs"):
+                        table, keys = step_inputs(state.key, state.step, k)
+                    if self.device.type == "cuda":
+                        with profiling.span("graph.lookup"):
+                            graph = self._graph_for(cfg, k, state)
+                        new_state, probes = graph.run(state, table)
+                        # a growth drops the graph: its pool goes before the next capture
+                        del graph
+                    else:
+                        new_state, probes = _run_block(self, cfg, state, table)
+                    with profiling.span("growth.check"):
+                        rows = probes.tolist()
+                        infos = _probes_from_host(rows, stacked=True)
+                        rebuilds = int(infos.jkr_rebuilds.sum())
+                        self.window_rebuilds += rebuilds
+                        profiling.count("rebuilds", rebuilds)
+                        grown_cfg = self._grown_cfg(cfg, StepInfo(*(np.max(f) for f in infos)))
+                    if grown_cfg is None:
+                        profiling.count("steps", k)
+                        return new_state._replace(key=keys[-1], step=state.step + k), rows
+                    self.cfg = grown_cfg
+                    with profiling.span("growth.repad"):
+                        state = self.repad_state(state, grown_cfg)
         raise RuntimeError("capacity growth failed to converge")
 
     def _graph_for(self, cfg: EngineConfig, k: int, state: CellState) -> "_BlockGraph":
         """The captured block of ``k`` steps under ``cfg`` and the engine's
         parameters, whose values the graph holds as launch constants; graphs
         of another config or other parameters are dropped with their memory
-        pools."""
+        pools. Program tracing is part of the key: a graph captured with it
+        off holds no timing marks, and one captured with it on is kept
+        beside it."""
         fixed = (cfg, self.gen, self.xp, self.bio, self.diff)
         graphs = self._graphs
-        for key in [key for key in graphs if key[1:] != fixed]:
+        for key in [key for key in graphs if key[2:] != fixed]:
             del graphs[key]
-        if (k,) + fixed not in graphs:
+        key = (k, profiling.tracing_on()) + fixed
+        if key not in graphs:
             torch.cuda.empty_cache()  # return the dropped pools
-            graphs[(k,) + fixed] = _BlockGraph(self, cfg, k, state)
-        return graphs[(k,) + fixed]
+            graphs[key] = _BlockGraph(self, cfg, k, state)
+        return graphs[key]
 
     def block_graphs(self) -> list:
-        """The captured blocks held: ``{"k", "capture_s", "pool_mib",
-        "launches"}`` each (``pool_mib``: device memory reserved by the
-        capture, graph pool included; ``launches``: kernel launches per
-        replay)."""
-        return [dict(k=key[0], capture_s=g.capture_s, pool_mib=g.pool_bytes / 2**20,
-                     launches=dict(g.launches)) for key, g in self._graphs.items()]
+        """The captured blocks held: ``{"k", "traced", "capture_s",
+        "pool_mib", "launches", "nodes"}`` each (``traced``: captured under
+        program tracing; ``pool_mib``: device memory reserved by the
+        capture, graph pool included; ``launches``: the hand-written
+        kernels' launches per replay; ``nodes``: the graph's nodes by kind,
+        ``kernels.graph_nodes``)."""
+        return [dict(k=key[0], traced=key[1], **g.summary())
+                for key, g in self._graphs.items()]
 
     def _grown_cfg(self, cfg: EngineConfig, info: StepInfo) -> Optional[EngineConfig]:
         """The config the step's overflow probes demand, or None. Raises
@@ -1280,13 +1319,16 @@ def _run_block(params, cfg: EngineConfig, state: CellState, table):
     replicate's parameters): the final state (its key and step as the last
     row left them) and the (k, 16) float64 probes, on the device. What
     ``_BlockGraph`` captures; on the CPU, what ``safe_step`` and
-    ``run_steps`` run."""
+    ``run_steps`` run. One ``profiling.block``, whose steps mark their
+    phases."""
     rows = []
-    for t in range(table.shape[0]):
-        state, info = hipsc_step(state, cfg, params.gen, params.xp, params.bio, params.diff,
-                                 StepInputs(table[t], state.key))
-        rows.append(_probe_row(info))
-    return state, torch.stack(rows)
+    with profiling.block(state.alive.device):
+        for t in range(table.shape[0]):
+            state, info = hipsc_step(state, cfg, params.gen, params.xp, params.bio,
+                                     params.diff, StepInputs(table[t], state.key))
+            rows.append(_probe_row(info))
+        probes = torch.stack(rows)
+    return state, probes
 
 
 def _device_tensors(state: CellState) -> list:
@@ -1321,6 +1363,17 @@ def _wait_for_device(deadline_s: float, what: str) -> None:
         time.sleep(5e-5)
 
 
+def _graph_nodes(graph: torch.cuda.CUDAGraph) -> dict:
+    """``kernels.graph_nodes`` of a captured graph, or {} with a warning
+    when the query fails: a count for the measurements never stops a
+    capture."""
+    try:
+        return kernels.graph_nodes(graph)
+    except (RuntimeError, OSError, AttributeError) as error:
+        warnings.warn(f"graph nodes not counted: {error}", RuntimeWarning, stacklevel=2)
+        return {}
+
+
 class _CapturedGraph:
     """Work on a state captured as one CUDA graph (``torch.cuda.graph``):
     ``block(state, table)`` returns the new state and the probes, on the
@@ -1331,37 +1384,61 @@ class _CapturedGraph:
     clones of its outputs (the next replay overwrites them) and the probes
     on the host. ``warm_up`` runs before the capture: one eager step that
     loads every kernel of the path. The kernels launched in the capture are
-    counted once per replay (``kernels.capturing``). ``capture_s`` and
-    ``pool_bytes`` (device memory the capture reserved) are recorded for
-    the measurements."""
+    counted once per replay (``kernels.capturing``). ``capture_s``,
+    ``pool_bytes`` (device memory the capture reserved) and ``nodes`` (the
+    graph's nodes by kind, counted once after ``capture_s`` is taken; {}
+    when the count fails) are recorded for the measurements.
+    Under program tracing the capture keeps its blocks' timelines
+    (``profiling.capturing``), whose marks every replay records again and
+    ``run`` reads after the probe fetch."""
 
     def __init__(self, device, block, state: CellState, table_shape: tuple, warm_up):
-        t0 = time.perf_counter()
-        warm_up()
-        reserved = torch.cuda.memory_reserved(device)
-        self.state = _with_device_tensors(state, [t.clone() for t in _device_tensors(state)])
-        self.table = torch.zeros(table_shape, dtype=torch.int64, device=device)
-        self.graph = torch.cuda.CUDAGraph()
-        with kernels.capturing() as tally, torch.cuda.graph(self.graph):
-            self.out_state, self.out_probes = block(self.state, self.table)
-        torch.cuda.synchronize(device)
-        self.launches = dict(tally)
-        self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        with profiling.span("graph.capture"):
+            t0 = time.perf_counter()
+            warm_up()
+            reserved = torch.cuda.memory_reserved(device)
+            self.state = _with_device_tensors(
+                state, [t.clone() for t in _device_tensors(state)])
+            self.table = torch.zeros(table_shape, dtype=torch.int64, device=device)
+            # the raw graph is kept after its instantiation, for its nodes
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with (kernels.capturing() as tally, profiling.capturing() as timelines,
+                  torch.cuda.graph(self.graph)):
+                self.out_state, self.out_probes = block(self.state, self.table)
+            self.graph.instantiate()
+            torch.cuda.synchronize(device)
+            self.timelines = timelines
+            self.launches = dict(tally)
+            self.capture_s = time.perf_counter() - t0
+            self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+            self.nodes = _graph_nodes(self.graph)
+            for kind, n in self.nodes.items():
+                profiling.count(f"graph.nodes.{kind}", n)
+
+    def summary(self) -> dict:
+        """``capture_s``, ``pool_mib``, ``launches`` and ``nodes``."""
+        return dict(capture_s=self.capture_s, pool_mib=self.pool_bytes / 2**20,
+                    launches=dict(self.launches), nodes=dict(self.nodes))
 
     def run(self, state: CellState, table: torch.Tensor, deadline_s: Optional[float] = None):
         """One replay from ``state`` with the inputs of ``table``; with
         ``deadline_s``, raise rather than wait longer for the replay."""
-        for static, src in zip(_device_tensors(self.state), _device_tensors(state)):
-            static.copy_(src)
-        self.table.copy_(table.pin_memory(), non_blocking=True)
-        self.graph.replay()
-        out = _with_device_tensors(
-            self.out_state, [t.clone() for t in _device_tensors(self.out_state)])
-        if deadline_s is not None:
-            _wait_for_device(deadline_s, "graph replay")
+        with profiling.span("graph.copy_in"):
+            for static, src in zip(_device_tensors(self.state), _device_tensors(state)):
+                static.copy_(src)
+            self.table.copy_(table.pin_memory(), non_blocking=True)
+        with profiling.span("graph.launch"):
+            self.graph.replay()
+        with profiling.span("graph.copy_out"):
+            out = _with_device_tensors(
+                self.out_state, [t.clone() for t in _device_tensors(self.out_state)])
+        with profiling.span("probes.fetch"):
+            if deadline_s is not None:
+                _wait_for_device(deadline_s, "graph replay")
+            probes = self.out_probes.cpu()
+        profiling.replayed(self.timelines)
         kernels.launch_counts.update(self.launches)
-        return out, self.out_probes.cpu()
+        return out, probes
 
 
 class _BlockGraph(_CapturedGraph):

@@ -158,6 +158,8 @@ def library() -> ctypes.CDLL:
             lib.hipsc_device_limits.restype = ctypes.c_int
             lib.hipsc_cuda_error_string.argtypes = (ctypes.c_int,)
             lib.hipsc_cuda_error_string.restype = ctypes.c_char_p
+            lib.hipsc_graph_nodes.argtypes = (_P, ctypes.POINTER(ctypes.c_longlong))
+            lib.hipsc_graph_nodes.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -206,6 +208,22 @@ def device_limits() -> dict:
                                f"({lib.hipsc_cuda_error_string(rc).decode()})")
         _limits[dev] = dict(n_sm=n_sm.value, smem_optin=smem.value)
     return _limits[dev]
+
+
+# the kinds of ``graph_nodes``, in the order the C function counts them
+GRAPH_NODE_KINDS = ("kernel", "memcpy", "memset", "event_record", "other")
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> dict:
+    """The nodes of a captured graph (``CUDAGraph(keep_graph=True)``, before
+    or after ``instantiate``) by kind: ``GRAPH_NODE_KINDS`` to counts."""
+    lib = library()
+    counts = (ctypes.c_longlong * len(GRAPH_NODE_KINDS))()
+    rc = lib.hipsc_graph_nodes(ctypes.c_void_p(graph.raw_cuda_graph()), counts)
+    if rc != 0:
+        raise RuntimeError(f"hipsc_graph_nodes: CUDA error {rc} "
+                           f"({lib.hipsc_cuda_error_string(rc).decode()})")
+    return dict(zip(GRAPH_NODE_KINDS, counts))
 
 
 def counted_name(name: str, n_runs: int) -> str:

@@ -78,6 +78,7 @@ from hipsc_abm_tpu_torch.engine import (
 )
 from hipsc_abm_tpu_torch.ops import ftcs
 from hipsc_abm_tpu_torch.ops.jkr import BondState
+from hipsc_abm_tpu_torch.utils import profiling
 
 # Scalar parameters a sweep may vary per replicate, as in the JAX package:
 # consumed by the step only through arithmetic and comparisons, never to
@@ -158,24 +159,29 @@ def _ensemble_block(params: Sequence[StepParams], cfg: EngineConfig, states: Cel
     replicate's step runs on its own stream, forked from the current stream
     and joined back to it, and the FTCS launches run one after another
     (``ftcs.serialized``): what the ensemble's graph captures. Without,
-    the steps run one after another."""
+    the steps run one after another. One ``profiling.block`` on the current
+    stream, from before the fork to the stacked outputs after the join,
+    holds the replicates' blocks, which mark nothing of their own."""
     outs = []
-    if streams is None:
-        for i, p in enumerate(params):
-            outs.append(_run_block(p, cfg, EnsembleEngine.replicate(states, i), table[i:i + 1]))
-    else:
-        fork = torch.cuda.current_stream()
-        with ftcs.serialized():
-            for i, (p, stream) in enumerate(zip(params, streams)):
-                stream.wait_stream(fork)
-                with torch.cuda.stream(stream):
-                    outs.append(_run_block(p, cfg, EnsembleEngine.replicate(states, i),
-                                           table[i:i + 1]))
-        for stream in streams:
-            fork.wait_stream(stream)
-    probes = torch.cat([p for _, p in outs])
-    return (_stack([s for s, _ in outs]),
-            torch.cat([probes, probes.max(dim=0, keepdim=True).values]))
+    with profiling.block(states.alive.device):
+        if streams is None:
+            for i, p in enumerate(params):
+                outs.append(_run_block(p, cfg, EnsembleEngine.replicate(states, i),
+                                       table[i:i + 1]))
+        else:
+            fork = torch.cuda.current_stream()
+            with ftcs.serialized():
+                for i, (p, stream) in enumerate(zip(params, streams)):
+                    stream.wait_stream(fork)
+                    with torch.cuda.stream(stream):
+                        outs.append(_run_block(p, cfg, EnsembleEngine.replicate(states, i),
+                                               table[i:i + 1]))
+            for stream in streams:
+                fork.wait_stream(stream)
+        probes = torch.cat([p for _, p in outs])
+        out = (_stack([s for s, _ in outs]),
+               torch.cat([probes, probes.max(dim=0, keepdim=True).values]))
+    return out
 
 
 class EnsembleEngine:
@@ -335,28 +341,36 @@ class EnsembleEngine:
 
         ``ShardedStates`` step group by group, each group's attempt on its
         device, and the groups' worst probes are max-reduced into the one
-        growth decision; the result is ``ShardedStates`` again."""
+        growth decision; the result is ``ShardedStates`` again. Traced as
+        the call ``ensemble.safe_step`` (``utils.profiling``)."""
         eng = self.engine
         sharded = isinstance(states, ShardedStates)
         groups = list(states.groups) if sharded else [states]
         params = self.replicate_params(sum(g.alive.shape[0] for g in groups))
-        for attempt in range(1, 17):
-            self.attempts = attempt
-            outs, first = [], 0
-            for g, group in enumerate(groups):
-                n = group.alive.shape[0]
-                outs.append(self.attempt(group, params[first:first + n],
-                                         group=g if sharded else None))
-                first += n
-            worst = np.max([rows[-1] for _, rows, _ in outs], axis=0)
-            grown_cfg = eng._grown_cfg(outs[0][2], _probes_from_host(worst.tolist()))
-            if grown_cfg is None:
-                infos = _probes_from_host([r for _, rows, _ in outs for r in rows[:-1]],
-                                          stacked=True)
-                new = [s for s, _, _ in outs]
-                return (ShardedStates(tuple(new)) if sharded else new[0]), infos
-            eng.cfg = grown_cfg
-            groups = [self.repad_states(g, grown_cfg) for g in groups]
+        with profiling.span("ensemble.safe_step"):
+            for attempt in range(1, 17):
+                self.attempts = attempt
+                profiling.count("attempts")
+                outs, first = [], 0
+                for g, group in enumerate(groups):
+                    n = group.alive.shape[0]
+                    with profiling.span("attempt"):
+                        outs.append(self.attempt(group, params[first:first + n],
+                                                 group=g if sharded else None))
+                    first += n
+                with profiling.span("growth.check"):
+                    worst = np.max([rows[-1] for _, rows, _ in outs], axis=0)
+                    grown_cfg = eng._grown_cfg(outs[0][2], _probes_from_host(worst.tolist()))
+                    infos = _probes_from_host([r for _, rows, _ in outs for r in rows[:-1]],
+                                              stacked=True)
+                    profiling.count("rebuilds", int(infos.jkr_rebuilds.sum()))
+                if grown_cfg is None:
+                    profiling.count("steps")
+                    new = [s for s, _, _ in outs]
+                    return (ShardedStates(tuple(new)) if sharded else new[0]), infos
+                eng.cfg = grown_cfg
+                with profiling.span("growth.repad"):
+                    groups = [self.repad_states(g, grown_cfg) for g in groups]
         raise RuntimeError("capacity growth failed to converge")
 
     def attempt(self, states: CellState, params: Sequence[StepParams], group=None):
@@ -370,13 +384,15 @@ class EnsembleEngine:
         apart from the other groups'); the attempt runs on the states'
         device."""
         cfg = self._cfg_for_states(states)
-        inputs = [step_inputs(key, states.step) for key in states.key]
-        table = torch.cat([t for t, _ in inputs])
+        with profiling.span("inputs"):
+            inputs = [step_inputs(key, states.step) for key in states.key]
+            table = torch.cat([t for t, _ in inputs])
         dev = states.alive.device
         if dev.type == "cuda":
             with torch.cuda.device(dev):
-                new_states, probes = self._graph_for(cfg, params, states, group).run(
-                    states, table, deadline_s=REPLAY_DEADLINE_S)
+                with profiling.span("graph.lookup"):
+                    graph = self._graph_for(cfg, params, states, group)
+                new_states, probes = graph.run(states, table, deadline_s=REPLAY_DEADLINE_S)
         else:
             new_states, probes = _ensemble_block(params, cfg, states, table)
         keys = torch.stack([k[-1] for _, k in inputs])
@@ -388,14 +404,15 @@ class EnsembleEngine:
         ``cfg`` and the replicates' parameters (the graph holds their values
         as launch constants), on the states' device, for ``group``; the
         group's graphs of other keys are dropped with their memory pools, as
-        ``HipscEngine._graph_for`` drops them."""
+        ``HipscEngine._graph_for`` drops them; program tracing is part of
+        the key, as there."""
         dev = states.alive.device
         fixed = (cfg, params)
         graphs = self._graphs
-        for key in [key for key in graphs if key[0] == group and key[2:] != fixed]:
+        for key in [key for key in graphs if key[0] == group and key[3:] != fixed]:
             del graphs[key]
         R = len(params)
-        key = (group, R) + fixed
+        key = (group, R, profiling.tracing_on()) + fixed
         if key not in graphs:
             torch.cuda.empty_cache()  # return the dropped pools
             streams = [torch.cuda.Stream(dev) for _ in range(R)]
@@ -411,10 +428,11 @@ class EnsembleEngine:
         return graphs[key]
 
     def graphs(self) -> list:
-        """The captured ensembles held: ``{"replicates", "capture_s",
-        "pool_mib", "launches"}`` each (as ``HipscEngine.block_graphs``)."""
-        return [dict(replicates=key[1], capture_s=g.capture_s, pool_mib=g.pool_bytes / 2**20,
-                     launches=dict(g.launches)) for key, g in self._graphs.items()]
+        """The captured ensembles held: ``{"replicates", "traced",
+        "capture_s", "pool_mib", "launches", "nodes"}`` each (as
+        ``HipscEngine.block_graphs``)."""
+        return [dict(replicates=key[1], traced=key[2], **g.summary())
+                for key, g in self._graphs.items()]
 
     @staticmethod
     def repad_states(states: CellState, cfg: EngineConfig) -> CellState:

@@ -7,10 +7,9 @@ for its plain version::
     python -m hipsc_abm_tpu_torch.tools.dynslice_probe [modes]
     python -m hipsc_abm_tpu_torch.tools.dynslice_probe2 --device cpu full
 
-On the card, ``python -m hipsc_abm_tpu_torch.tools.step_profile`` lists the
-kernels of the main paths' step by device time, and ``python -m
-hipsc_abm_tpu_torch.tools.sync_probe`` the synchronising calls (host reads)
-of a step and of a ``run_steps`` block.
+On the card, ``python -m hipsc_abm_tpu_torch.tools.sync_probe`` lists the
+synchronising calls (host reads) of a step and of a ``run_steps`` block.
+A step's device time by phase, in graph replays, is ``utils.profiling``'s.
 
 This module holds what the tools and ``chip_smoke.py`` share: the command
 line, the timing, the device-time profile of a call, and the recording of

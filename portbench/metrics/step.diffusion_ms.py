@@ -1,0 +1,10 @@
+"""Device ms per step of the step's ``diffusion`` phase: the FGF4 secretion and
+deposit and the FTCS subcycles (B5). Read from the program's timing marks in
+graph replays (``portbench/spans.py``); the six step phases tile the step.
+Nothing on the CPU."""
+
+from portbench.spans import phase_ms_per_step
+
+
+def read(run):
+    return phase_ms_per_step(run, "diffusion")
