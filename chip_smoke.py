@@ -1265,6 +1265,116 @@ def step_launches(n_cells: int) -> dict:
     return out
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn`` replayed from one CUDA graph of ``reps``
+    calls (CUDA events around each of 3 replays; the least), free of the
+    host's launch time, as in the step's graph."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    best = []
+    for _ in range(3):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best.append(start.elapsed_time(end) / reps)
+    del graph
+    torch.cuda.empty_cache()
+    return min(best)
+
+
+def window_entry(dims: int, n_cells: int, capacity=None, reps: int = 20) -> dict:
+    """The contact window's rebuild kernels (``ops.window``) at the bench
+    colony (2D) or the spheroid (3D) after one ``safe_step`` (re-padded to
+    ``capacity`` rows where given): the scan's entry build, every live row
+    moved by a normal step of 3 um (clamped to the box), then the kernels
+    taken and skipped against ``engine._rebuild_where`` (the window bit for
+    bit; skipped, every buffer's bytes kept), and each one's device ms per
+    call as the step's graph replays it (``graph_ms``, in turns: kernels
+    taken, skipped, ``_rebuild_where``, kernels taken)."""
+    from hipsc_abm_tpu_torch import engine as engine_mod
+    from hipsc_abm_tpu_torch.ops import window
+
+    eng, state = engine_for(dims, n_cells, "cuda", "id_list")
+    state, _ = eng.safe_step(state)
+    cfg = eng._cfg_for_state(state)
+    if capacity is not None:
+        cfg = dataclasses.replace(cfg, capacity=capacity)
+        state = eng.repad_state(state, cfg)
+    rows = engine_mod._scan_rows(state.arrays, state.alive, state.bonds)
+    rows, bounds, grouping = engine_mod._build_window(cfg, rows)
+    ref = rows["loc"].clone()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step = torch.randn(rows["loc"].shape, generator=gen, device="cuda") * 3.0
+    if dims == 2:
+        step[:, 2] = 0.0
+    size = torch.tensor(eng.gen.size, dtype=torch.float32, device="cuda")
+    # the live rows move, as the substeps' update moves them; dead rows stay
+    moved = torch.minimum(torch.clamp(rows["loc"] + step, min=0.0), size)
+    rows["loc"] = torch.where(rows["alive"][:, None], moved, rows["loc"])
+    C = rows["ids"].shape[0]
+    identity = torch.arange(C, device="cuda")
+    buf = window.buffers(cfg.jkr_spec, rows, 3)
+    out = dict(dims=dims, cells=n_cells, rows=C, n_live=int(rows["alive"].sum()),
+               bins=cfg.jkr_spec.num_bins, launches_per_rebuild=len(window.LAUNCHES))
+
+    def copies():
+        return ({k: v.clone() for k, v in rows.items()}, bounds.clone(), ref.clone(),
+                grouping._replace(starts=grouping.starts.clone()))
+
+    for taken in (True, False):
+        stale = torch.tensor(taken, device="cuda")
+        w_rows, w_bounds, w_ref, w_grouping = engine_mod._rebuild_where(
+            stale, cfg, rows, bounds, ref, identity, grouping=grouping)
+        k_rows, k_bounds, k_ref, k_grouping = copies()
+        window.rebuild_cuda(stale, cfg.jkr_spec, cfg.jkr_span, k_rows, k_bounds, k_ref,
+                            k_grouping, buf.needed[1], buf)
+        torch.cuda.synchronize()
+        apart = [k for k in rows if not torch.equal(k_rows[k], w_rows[k])]
+        apart += [name for name, a, b in (
+            ("bounds", k_bounds, w_bounds), ("ref", k_ref, w_ref),
+            ("starts", k_grouping.starts, w_grouping.starts),
+            ("needed", buf.needed[1], w_grouping.needed)) if not torch.equal(a, b)]
+        if apart or buf.counts.any():
+            raise AssertionError(f"window phase {dims}D {n_cells} taken={taken}: {apart} apart")
+        out["equal_taken" if taken else "equal_skipped"] = True
+
+    work = copies()
+    flags = {t: torch.tensor(t, device="cuda") for t in (True, False)}
+
+    def kernels_call(taken):
+        return lambda: window.rebuild_cuda(flags[taken], cfg.jkr_spec, cfg.jkr_span, *work,
+                                           buf.needed[1], buf)
+
+    def where_call():
+        engine_mod._rebuild_where(flags[True], cfg, rows, bounds, ref, identity,
+                                  grouping=grouping)
+
+    times = {"taken": [], "skipped": [], "where": []}
+    for label, fn in (("taken", kernels_call(True)), ("skipped", kernels_call(False)),
+                      ("where", where_call), ("taken", kernels_call(True))):
+        times[label].append(graph_ms(fn, reps))
+    out.update({f"{k}_ms": round(min(v), 5) for k, v in times.items()})
+    print(f"window phase [{dims}D, {n_cells}]: kernels bit-equal to _rebuild_where taken and "
+          f"skipped; per rebuild: taken {out['taken_ms']:.4f} ms, skipped "
+          f"{out['skipped_ms']:.4f} ms, _rebuild_where {out['where_ms']:.4f} ms "
+          f"({out['n_live']} live of {C} rows, {out['bins']} bins)")
+    del eng, state, rows, work, buf
+    torch.cuda.empty_cache()
+    return out
+
+
+def window_phase() -> list:
+    """``window_entry`` at the 550k bench colony in the benchmark's 550k
+    cell's 1,430,016 rows, the 2D 100k colony and the 3D 99k spheroid."""
+    return [window_entry(2, N_LARGE, capacity=1_430_016), window_entry(2, N_MAIN),
+            window_entry(3, N_MAIN_3D)]
+
+
 def ftcs_args(eng, lattice) -> tuple:
     """The arguments of the step's FTCS call on ``lattice``."""
     from hipsc_abm_tpu_torch.ops import diffusion
@@ -4016,6 +4126,7 @@ def main() -> int:
     for dims, n in ((2, N_MAIN), (3, N_MAIN_3D)):
         results += phase(f"kernels {dims}D", kernels_at, dims, n)
     results += phase("deposit 500k", deposit_large_phase)
+    print(json.dumps({"window": phase("window", window_phase)}))
     results += phase("probes", probe_phase)
     print(json.dumps({"draws": phase("draws", draws_phase)}))
 

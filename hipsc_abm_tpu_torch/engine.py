@@ -61,6 +61,7 @@ from hipsc_abm_tpu_torch.models import biology
 from hipsc_abm_tpu_torch.ops import diffusion as diffusion_ops
 from hipsc_abm_tpu_torch.ops import neighbors as nbr_ops
 from hipsc_abm_tpu_torch.ops import rng, span_mask
+from hipsc_abm_tpu_torch.ops import window as window_ops
 from hipsc_abm_tpu_torch.ops.bio_moments import bio_moments_cuda, bio_moments_plain
 from hipsc_abm_tpu_torch.ops.bio_moments import positions as bio_positions
 from hipsc_abm_tpu_torch.ops.contact import contact_substep_cuda, contact_substep_plain
@@ -684,6 +685,37 @@ def _rebuild_where(stale, cfg, rows, bounds, ref, identity, window=contact_windo
     return rows, bounds, torch.where(stale, rows["loc"], ref), grouping
 
 
+class _WindowRebuild(NamedTuple):
+    """The rebuild of a single-colony scan on the card
+    (``ops.window.rebuild_cuda``): kernels that return at once while the
+    drift flag is false and otherwise write the rebuilt window into the
+    scan's own buffers, the values ``_rebuild_where`` selects. The CPU and
+    ``plain`` (autograd, ``_remat``) keep ``_rebuild_where``, and so does
+    the domain engine, whose window is tile-local. Each substep's span probe
+    gets a slot of its own (``Buffers.needed``), since the scan's probes
+    hold every substep's by reference."""
+
+    spec: GridSpec
+    span: int
+    buffers: window_ops.Buffers
+
+    @classmethod
+    def of(cls, cfg: EngineConfig, rows, n_substeps: int, plain: bool):
+        """The scan's rebuild on the card, or None (``_rebuild_where``)."""
+        if plain or rows["ids"].device.type != "cuda":
+            return None
+        return cls(cfg.jkr_spec, cfg.jkr_span,
+                   window_ops.buffers(cfg.jkr_spec, rows, n_substeps))
+
+    def __call__(self, s, stale, rows, bounds, ref, grouping):
+        """Substep ``s``'s rebuild under ``stale``, in place: ``(rows,
+        bounds, ref, grouping)`` as ``_rebuild_where`` returns them."""
+        needed = self.buffers.needed[s]
+        window_ops.rebuild_cuda(stale, self.spec, self.span, rows, bounds, ref, grouping,
+                                needed, self.buffers)
+        return rows, bounds, ref, grouping._replace(needed=needed)
+
+
 class _ScanProbes:
     """The scan's probes, gathered on the device: the widest run and row of
     each substep's window and its JAX span probe, the largest degree and
@@ -768,18 +800,26 @@ def _scan_result(rows, probes):
             probes.rebuilds, torch.stack(probes.cands).max(), torch.stack(probes.spans).max())
 
 
-def _id_list_substep(cfg, law, contact, update, size, identity, s, stale, dt, rows, bounds,
-                     ref, grouping):
+def _rebuild(rebuild, s, stale, cfg, rows, bounds, ref, identity, grouping):
+    """Substep ``s``'s window rebuild under ``stale``: the card's
+    ``_WindowRebuild``, or ``_rebuild_where`` where ``rebuild`` is None."""
+    if rebuild is None:
+        return _rebuild_where(stale, cfg, rows, bounds, ref, identity, grouping=grouping)
+    return rebuild(s, stale, rows, bounds, ref, grouping)
+
+
+def _id_list_substep(cfg, law, contact, update, size, rebuild, identity, s, stale, dt, rows,
+                     bounds, ref, grouping):
     """Substep ``s`` of ``_physics_scan``: the rebuild that the previous
-    substep's drift flag ``stale`` selects (None on the first substep), then
-    ``contact_substep_rows``. Returns the new ``(rows, bounds, ref,
-    grouping)`` and the substep's probes ``(widest run, widest row, max degree, max squared
-    move, max squared drift, stale)``, the last two for the next
-    substep."""
+    substep's drift flag ``stale`` selects (None on the first substep;
+    ``_rebuild``), then ``contact_substep_rows``. Returns the new ``(rows,
+    bounds, ref, grouping)`` and the substep's probes ``(widest run, widest
+    row, max degree, max squared move, max squared drift, stale)``, the last
+    two for the next substep."""
     if stale is not None:
         profiling.phase("window")
-        rows, bounds, ref, grouping = _rebuild_where(stale, cfg, rows, bounds, ref, identity,
-                                                     grouping=grouping)
+        rows, bounds, ref, grouping = _rebuild(rebuild, s, stale, cfg, rows, bounds, ref,
+                                               identity, grouping)
     profiling.phase("contact")
     rows, probes = contact_substep_rows(law, contact, update, s, size, dt, rows, bounds, ref,
                                         grouping=grouping)
@@ -815,12 +855,13 @@ def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
     order and the per-row run bounds built. Before every later substep the
     drift test runs on the device, and the rebuild (re-sort, new bounds)
     takes effect where an agent has drifted more than skin/2 from where the
-    runs were built: it is computed on every substep and selected
-    (``_rebuild_where``). Each substep is one contact-kernel launch (forces,
-    degrees and the new partner lists; the plain version under ``plain``)
-    and one Stokes update, rematerialised under ``cfg.remat_substeps``; the
-    rows go back to the state's layout at the end. Returns
-    ``_scan_result``'s tuple."""
+    runs were built: on the card its kernels return at once unless the
+    flag is set (``_WindowRebuild``); on the CPU and under ``plain`` it is
+    computed on every substep and selected (``_rebuild_where``). Each
+    substep is one contact-kernel launch (forces, degrees and the new
+    partner lists; the plain version under ``plain``) and one Stokes
+    update, rematerialised under ``cfg.remat_substeps``; the rows go back to
+    the state's layout at the end. Returns ``_scan_result``'s tuple."""
     profiling.phase("window")
     rows = _scan_rows(arrays, alive, bonds)
     law = _contact_law(cfg, bio)
@@ -829,12 +870,14 @@ def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
     probes = _ScanProbes(alive.device)
     rows, bounds, grouping = _build_window(cfg, rows)
     ref = rows["loc"]
-    identity = torch.arange(alive.shape[0], device=alive.device)
+    rebuild = _WindowRebuild.of(cfg, rows, len(dts), plain)
+    identity = None if rebuild is not None else torch.arange(alive.shape[0],
+                                                             device=alive.device)
     stale = None
     for s, dt in enumerate(dts):
         rows, bounds, ref, grouping, (run, cands, deg, move2, _, stale_next) = _remat(
-            cfg, _id_list_substep, cfg, law, contact, update, size, identity, s, stale,
-            float(dt), rows, bounds, ref, grouping)
+            cfg, _id_list_substep, cfg, law, contact, update, size, rebuild, identity, s,
+            stale, float(dt), rows, bounds, ref, grouping)
         if stale is not None:
             probes.rebuilds = probes.rebuilds + stale
         stale = stale_next
@@ -924,10 +967,10 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts, plain=Fal
     holds, the masked substep reads and rewrites the mask in place. The seed
     and the masked substep are both launched into the same force, degree and
     mask buffers, each returning at once unless its branch is taken (the
-    re-sort is computed and selected, as in ``_physics_scan``). At exit the
-    mask is compacted once more and the rows go back to slot order. Returns
-    ``_scan_result``'s tuple. It has no plain form on the card, and raises
-    under ``plain``."""
+    re-sort is ``_physics_scan``'s: kernels under the flag on the card,
+    computed and selected on the CPU). At exit the mask is compacted once
+    more and the rows go back to slot order. Returns ``_scan_result``'s
+    tuple. It has no plain form on the card, and raises under ``plain``."""
     if plain:
         raise ValueError("hipsc_step(plain=True) runs the id-list or the dense contact path, "
                          "not contact_path='span_mask'")
@@ -941,7 +984,8 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts, plain=Fal
     probes = _ScanProbes(device)
     rows, bounds, grouping = _build_window(cfg, rows)
     ref = rows["loc"]
-    identity = torch.arange(C, device=device)
+    window_rebuild = _WindowRebuild.of(cfg, rows, len(dts), plain)
+    identity = None if window_rebuild is not None else torch.arange(C, device=device)
     stale = None
     for s, dt in enumerate(dts):
         rebuild = None
@@ -950,8 +994,8 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts, plain=Fal
             rebuild = stale.to(torch.int32).reshape(1)
             span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K, pred=rebuild,
                                         out=rows["partners"])
-            rows, bounds, ref, grouping = _rebuild_where(stale, cfg, rows, bounds, ref,
-                                                         identity, grouping=grouping)
+            rows, bounds, ref, grouping = _rebuild(window_rebuild, s, stale, cfg, rows, bounds,
+                                                   ref, identity, grouping)
             probes.rebuilds = probes.rebuilds + stale
         profiling.phase("contact")
         probes.window(bounds)

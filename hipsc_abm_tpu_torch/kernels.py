@@ -76,6 +76,7 @@ _SIGNATURES = {
     "hipsc_draw_unit_vectors": (_P, _P, _P, _L, _I, _I, _P),
     "hipsc_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _F, _P),
     "hipsc_fma": (_P, _P, _F, _P, _F, _P, _L, _P),
+    "hipsc_window_rebuild": (*(_P,) * 25, _I, _I, _I, _F, *(_I,) * 8, _P),
 }
 # stencil runs per row: 3 in 2D, 9 in 3D (the kernels' N_RUNS)
 RUN_COUNTS = (3, 9)
@@ -160,6 +161,8 @@ def library() -> ctypes.CDLL:
             lib.hipsc_cuda_error_string.restype = ctypes.c_char_p
             lib.hipsc_graph_nodes.argtypes = (_P, ctypes.POINTER(ctypes.c_longlong))
             lib.hipsc_graph_nodes.restype = ctypes.c_int
+            lib.hipsc_window_tile_bins.argtypes = ()
+            lib.hipsc_window_tile_bins.restype = ctypes.c_int
             _lib = lib
         return _lib
 

@@ -1,0 +1,376 @@
+"""The contact window's rebuild inside a scan (``ops.window``,
+``csrc/window.cu``): what its kernels rely on, held on the CPU at every
+rebuild of real scans, the placement's mirror (``rebuild_plain``) against
+``engine._rebuild_where``, and, on the card, the kernels against
+``_rebuild_where`` and the scans that run them against the CPU's.
+
+The card tests are marked ``cuda`` and skip without an NVIDIA GPU. The file
+imports no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_window.py -q
+
+Every comparison is exact: the kernels move rows and integers and compute
+the bins with the plain version's float32 product.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from hipsc_abm_tpu_torch import colonies, convert, kernels
+from hipsc_abm_tpu_torch import engine as engine_mod
+from hipsc_abm_tpu_torch.engine import EngineConfig, HipscEngine
+from hipsc_abm_tpu_torch.ops import window
+from hipsc_abm_tpu_torch.params import BiologyParams, ExperimentalParams, GeneralParams
+
+BIO = BiologyParams()
+
+
+def _engine(path, dims, deaths, device="cpu", n=300):
+    """A small colony on ``path``: the 2D template density with a skin of 2
+    um, so that windows go stale every step, or a 3D spheroid. ``deaths``:
+    every pluripotent agent is lonely and a third are one step from death,
+    so rows die in the step before the scan, amid the live ones."""
+    if dims == 2:
+        side = 2000.0 * (n / 5000.0) ** 0.5
+        gen = GeneralParams(num_to_start=n, end_step=20, size=(side, side, 0.0))
+        xp = ExperimentalParams(num_gata6=n // 10, dox_step=1)
+        ball = None
+    else:
+        gen, xp, ball = colonies.spheroid(n, 3)
+    if deaths:
+        xp = dataclasses.replace(xp, lonely_thresh=100)
+    eng = HipscEngine(gen, xp, device=device, contact_path=path)
+    if dims == 2:
+        skin = 2.0
+        reach = BIO.jkr_radius + 2.0 * BIO.jkr_break_band + skin
+        eng.cfg = dataclasses.replace(eng.cfg, verlet_skin=skin,
+                                      jkr_spec=engine_mod.GridSpec.from_box(gen.size, reach, 0))
+    state = eng.init_state(seed=5, locations=ball)
+    if deaths:
+        a = state.arrays
+        doomed = (a["ids"] % 3 == 0).to(torch.int32) * (BIO.death_thresh - 1)
+        state = state._replace(arrays={**a, "death_counters": doomed})
+    return eng, state
+
+
+def _clone(rows, bounds, ref, grouping):
+    return ({k: v.clone() for k, v in rows.items()}, bounds.clone(), ref.clone(),
+            grouping._replace(starts=grouping.starts.clone()))
+
+
+def _same(a, b) -> bool:
+    """Equal dtypes, shapes and bytes (float32 as its bits)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _assert_rebuilt(got, want, label):
+    """``(rows, bounds, ref, grouping)`` of two rebuilds, byte for byte."""
+    (rows, bounds, ref, grouping), (w_rows, w_bounds, w_ref, w_grouping) = got, want
+    for k in w_rows:
+        assert _same(rows[k], w_rows[k]), f"{label}: rows[{k!r}]"
+    assert _same(bounds, w_bounds), f"{label}: bounds"
+    assert _same(ref, w_ref), f"{label}: ref"
+    assert _same(grouping.starts, w_grouping.starts), f"{label}: span starts"
+    assert _same(grouping.needed, w_grouping.needed), f"{label}: span probe"
+
+
+def _mirror(stale, cfg, rows, bounds, ref, grouping, seed):
+    """``rebuild_plain`` into copies of the window, its arrivals shuffled
+    from ``seed``."""
+    rows, bounds, ref, grouping = _clone(rows, bounds, ref, grouping)
+    needed = torch.empty((), dtype=torch.int32, device=bounds.device)
+    window.rebuild_plain(stale, cfg.jkr_spec, cfg.jkr_span, rows, bounds, ref, grouping,
+                         needed, arrival_seed=seed)
+    return rows, bounds, ref, grouping._replace(needed=needed)
+
+
+@pytest.mark.parametrize("deaths", [False, True], ids=["colony", "deaths"])
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("path", ["id_list", "span_mask"])
+def test_every_rebuild_permutes_only_the_live_prefix(path, dims, deaths, monkeypatch):
+    """At every rebuild of two steps' scans: ``alive`` is the entry build's,
+    its dead rows are exactly the tail ``[n_live, C)``, which has not moved
+    since the build, and ``build_grid``'s order is the identity there; and the placement's mirror, its arrivals
+    shuffled, equals ``_rebuild_where`` with the flag set and with it clear."""
+    eng, state = _engine(path, dims, deaths)
+    real_build, real_rebuild = engine_mod._build_window, engine_mod._rebuild_where
+    entry, seen = [], {"calls": 0, "taken": 0, "dead_in_prefix_at_entry": 0}
+
+    def build(cfg, rows):
+        out = real_build(cfg, rows)
+        entry.append(out[0]["alive"].clone())
+        alive = rows["alive"]
+        seen["dead_in_prefix_at_entry"] += int((~alive[:int(alive.sum())]).sum())
+        return out
+
+    def rebuild_where(stale, cfg, rows, bounds, ref, identity, window=None, *, grouping):
+        assert window is None
+        alive, C = rows["alive"], rows["alive"].shape[0]
+        n_live = int(alive.sum())
+        assert torch.equal(alive, entry[-1])
+        assert bool(alive[:n_live].all()) and not bool(alive[n_live:].any())
+        # dead rows do not move: the drift reference's tail is the rows'
+        assert torch.equal(ref[n_live:], rows["loc"][n_live:])
+        order, _, _ = engine_mod.contact_window(cfg, rows)
+        assert torch.equal(order[n_live:], torch.arange(n_live, C))
+        for flag in (True, False):
+            flag_t = torch.tensor(flag)
+            want = real_rebuild(flag_t, cfg, rows, bounds, ref, identity, grouping=grouping)
+            got = _mirror(flag_t, cfg, rows, bounds, ref, grouping, seed=seen["calls"])
+            _assert_rebuilt(got, want, f"call {seen['calls']}, flag {flag}")
+        seen["calls"] += 1
+        seen["taken"] += bool(stale)
+        return real_rebuild(stale, cfg, rows, bounds, ref, identity, grouping=grouping)
+
+    monkeypatch.setattr(engine_mod, "_build_window", build)
+    monkeypatch.setattr(engine_mod, "_rebuild_where", rebuild_where)
+    state, info = eng.run_steps(state, 2)
+    n_sub = len(engine_mod._physics_dts(eng.bio))
+    assert seen["calls"] == 2 * (n_sub - 1) and len(entry) == 2
+    assert seen["taken"] == int(np.sum(info.jkr_rebuilds)) > 0
+    if deaths:
+        assert int(np.sum(info.num_removed)) > 0
+        # the deaths lie amid the live rows in the state's order at entry
+        assert seen["dead_in_prefix_at_entry"] > 0
+
+
+BOX = {2: (200.0, 200.0, 0.0), 3: (120.0, 120.0, 120.0)}
+
+
+def _window_inputs(dims, C, n_live, seed=0, K=8, device="cpu"):
+    """``(cfg, rows, bounds, ref, grouping)``: an entry build over C rows (a
+    capacity past 512 that is not a multiple of 128, so that span starts
+    clip), n_live of them alive at random slots, then every live row moved:
+    48 of them into one bin, 24 onto or past the box's faces (clamped into
+    its edge bins), the rest by a normal step of 0.6 bins. Ids are unique
+    and unordered."""
+    rs = np.random.default_rng(seed)
+    box = BOX[dims]
+    cfg = EngineConfig.create(box, capacity=1024, bio=BIO)
+    cell = cfg.jkr_spec.cell_size
+    loc = np.zeros((C, 3), np.float32)
+    loc[:, :dims] = rs.uniform(0.0, box[0], (C, dims))
+    alive = np.zeros(C, bool)
+    alive[rs.permutation(C)[:n_live]] = True
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    rows = {
+        "loc": t(loc), "rad": t(rs.uniform(4.0, 6.0, C).astype(np.float32)),
+        "mot": t(rs.normal(size=(C, 3)).astype(np.float32)),
+        "ids": t(rs.permutation(50 * C)[:C].astype(np.int32)), "alive": t(alive),
+        "partners": t(rs.integers(-1, 50 * C, (C, K)).astype(np.int32)),
+        "perm": torch.arange(C, dtype=torch.int64, device=device),
+    }
+    rows, bounds, grouping = engine_mod._build_window(cfg, rows)
+    ref = rows["loc"].clone()
+    x = rows["loc"][:n_live].cpu().numpy()
+    x[:, :dims] += rs.normal(0.0, 0.6 * cell, (n_live, dims)).astype(np.float32)
+    k = min(48, n_live)
+    x[:k, :dims] = rs.uniform(1.2 * cell, 1.8 * cell, (k, dims))
+    e = min(k + 24, n_live)
+    x[k:e, 0] = rs.choice(np.float32([0.0, box[0], -7.5, box[0] + 40.0]), e - k)
+    x[:, :dims] = np.clip(x[:, :dims], -10.0, box[0] + 50.0)
+    rows["loc"] = rows["loc"].clone()
+    rows["loc"][:n_live] = t(x)
+    return cfg, rows, bounds, ref, grouping
+
+
+@pytest.mark.parametrize("n_live", [0, 700, 1000])
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_placement_mirror_equals_rebuild_where(seed, dims, n_live):
+    """The mirror (bins counted, their exclusive prefix, rank by key within
+    a bin, arrivals shuffled from a seed) against ``_rebuild_where`` with
+    the flag set, over a dense bin, clamped edges, no live row and no dead
+    one; with the flag clear it changes nothing and carries the probe."""
+    cfg, rows, bounds, ref, grouping = _window_inputs(dims, 1000, n_live, seed)
+    n_bin = torch.bincount(engine_mod.nbr_ops.build_grid(
+        cfg.jkr_spec, rows["loc"], rows["ids"], rows["alive"]).sorted_flat)
+    if n_live:
+        assert int(n_bin[:cfg.jkr_spec.num_bins].max()) >= 40
+    for flag in (True, False):
+        stale = torch.tensor(flag)
+        want = engine_mod._rebuild_where(stale, cfg, rows, bounds, ref,
+                                         torch.arange(1000), grouping=grouping)
+        got = _mirror(stale, cfg, rows, bounds, ref, grouping, seed=seed + 10)
+        _assert_rebuilt(got, want, f"flag {flag}")
+        if not flag:
+            _assert_rebuilt(got, (rows, bounds, ref, grouping), "skipped")
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run on the card)")
+    return torch.device("cuda")
+
+
+def _on_card(cfg, rows, bounds, ref, grouping, dev):
+    rows = {k: v.to(dev) for k, v in rows.items()}
+    grouping = grouping._replace(starts=grouping.starts.to(dev),
+                                 needed=grouping.needed.to(dev))
+    return cfg, rows, bounds.to(dev), ref.to(dev), grouping
+
+
+def _kernel_rebuild(stale, cfg, rows, bounds, ref, grouping, n_substeps=3):
+    """``rebuild_cuda`` into copies of the window (substep 1's slot)."""
+    rows, bounds, ref, grouping = _clone(rows, bounds, ref, grouping)
+    buf = window.buffers(cfg.jkr_spec, rows, n_substeps)
+    window.rebuild_cuda(stale, cfg.jkr_spec, cfg.jkr_span, rows, bounds, ref, grouping,
+                        buf.needed[1], buf)
+    return (rows, bounds, ref, grouping._replace(needed=buf.needed[1])), buf
+
+
+@pytest.mark.cuda
+def test_only_the_cards_unplain_scans_take_the_kernels(dev):
+    """A scan on the card takes the kernels' rebuild; under ``plain`` (the
+    calibrator's autograd path) and on the CPU it keeps ``_rebuild_where``."""
+    cfg, rows, *_ = _window_inputs(2, 1000, 700)
+    on_card = {k: v.to(dev) for k, v in rows.items()}
+    assert isinstance(engine_mod._WindowRebuild.of(cfg, on_card, 11, plain=False),
+                      engine_mod._WindowRebuild)
+    assert engine_mod._WindowRebuild.of(cfg, on_card, 11, plain=True) is None
+    assert engine_mod._WindowRebuild.of(cfg, rows, 11, plain=False) is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taken", [True, False], ids=["taken", "skipped"])
+@pytest.mark.parametrize("n_live", [0, 700, 1000])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_rebuild_kernels_match_rebuild_where(dev, dims, n_live, taken):
+    """The six launches against ``_rebuild_where`` on the card: taken, every
+    buffer holds the rebuilt window, and the counts are left zero for the
+    next rebuild; skipped, every buffer keeps its bytes and the probe slot
+    takes the held window's."""
+    cfg, rows, bounds, ref, grouping = _on_card(*_window_inputs(dims, 1000, n_live), dev)
+    stale = torch.tensor(taken, device=dev)
+    before = dict(kernels.launch_counts)
+    got, buf = _kernel_rebuild(stale, cfg, rows, bounds, ref, grouping)
+    torch.cuda.synchronize()
+    want = engine_mod._rebuild_where(stale, cfg, rows, bounds, ref,
+                                     torch.arange(1000, device=dev), grouping=grouping)
+    _assert_rebuilt(got, want, "kernels")
+    if not taken:
+        _assert_rebuilt(got, (rows, bounds, ref, grouping), "skipped")
+    assert not bool(buf.counts.any())
+    n_runs = 3 if dims == 2 else 9
+    for name in window.LAUNCHES:
+        key = kernels.counted_name(name, n_runs)
+        assert kernels.launch_counts[key] == before.get(key, 0) + 1, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [2, 3])
+def test_rebuild_kernels_at_550k_rows_and_a_capacity_off_128(dev, dims):
+    """At the 550k cell's row count (1,430,016 rows) and at 1,430,016 - 37,
+    the moved colony's rebuild against ``_rebuild_where``, twice in a row
+    (the second over the first's output: the counts came back zero)."""
+    for C in (1_430_016, 1_430_016 - 37):
+        box = (21_000.0, 21_000.0, 0.0) if dims == 2 else (1_200.0, 1_200.0, 1_200.0)
+        rs = np.random.default_rng(C)
+        cfg = EngineConfig.create(box, capacity=C, bio=BIO)
+        n_live = 550_000
+        loc = np.zeros((C, 3), np.float32)
+        loc[:, :dims] = rs.uniform(0.0, box[0], (C, dims))
+        rows = {"loc": torch.from_numpy(loc).to(dev),
+                "rad": torch.full((C,), BIO.max_radius, device=dev),
+                "mot": torch.zeros((C, 3), device=dev),
+                "ids": torch.from_numpy(rs.permutation(C).astype(np.int32)).to(dev),
+                "alive": torch.arange(C, device=dev) < n_live,
+                "partners": torch.full((C, 8), -1, dtype=torch.int32, device=dev),
+                "perm": torch.arange(C, dtype=torch.int64, device=dev)}
+        rows, bounds, grouping = engine_mod._build_window(cfg, rows)
+        ref = rows["loc"].clone()
+        stale = torch.tensor(True, device=dev)
+        buf = window.buffers(cfg.jkr_spec, rows, 3)
+        for s in (1, 2):
+            step = torch.from_numpy(rs.normal(0.0, 9.0, (C, 3)).astype(np.float32)).to(dev)
+            if dims == 2:
+                step[:, 2] = 0.0
+            # the live rows move, the dead ones stay (the substeps' update)
+            moved = (rows["loc"] + step).clamp(0.0, box[0])
+            rows["loc"] = torch.where(rows["alive"][:, None], moved, rows["loc"])
+            want = engine_mod._rebuild_where(stale, cfg, rows, bounds, ref,
+                                             torch.arange(C, device=dev), grouping=grouping)
+            window.rebuild_cuda(stale, cfg.jkr_spec, cfg.jkr_span, rows, bounds, ref,
+                                grouping, buf.needed[s], buf)
+            grouping = grouping._replace(needed=buf.needed[s])
+            _assert_rebuilt((rows, bounds, ref, grouping), want, f"C {C}, rebuild {s}")
+            assert not bool(buf.counts.any())
+
+
+@pytest.mark.cuda
+def test_rebuild_graph_holds_only_its_kernels(dev):
+    """A rebuild captured alone in a CUDA graph: its six kernels and no
+    other node, so a later substep's window phase launches no PyTorch
+    kernel; replayed skipped and taken, it gives ``_rebuild_where``'s
+    window."""
+    cfg, rows, bounds, ref, grouping = _on_card(*_window_inputs(2, 1000, 700), dev)
+    work = _clone(rows, bounds, ref, grouping)
+    buf = window.buffers(cfg.jkr_spec, work[0], 3)
+    stale = torch.zeros((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with kernels.capturing() as tally, torch.cuda.graph(graph):
+        window.rebuild_cuda(stale, cfg.jkr_spec, cfg.jkr_span, *work, buf.needed[1], buf)
+    graph.instantiate()
+    nodes = kernels.graph_nodes(graph)
+    assert nodes["kernel"] == len(window.LAUNCHES) == sum(tally.values())
+    assert sum(nodes.values()) == nodes["kernel"], nodes
+    for flag in (False, True):
+        stale.fill_(flag)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = engine_mod._rebuild_where(stale, cfg, rows, bounds, ref,
+                                         torch.arange(1000, device=dev), grouping=grouping)
+        _assert_rebuilt((*work[:3], work[3]._replace(needed=buf.needed[1])), want,
+                        f"replay, flag {flag}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("path", ["id_list", "span_mask"])
+def test_run_steps_with_kernel_rebuilds_equal_the_cpu(dev, path, dims):
+    """A 5-step ``run_steps`` block on the card (the scans rebuild with the
+    kernels) against the same block on the CPU (``_rebuild_where``), by
+    agent id: integer state, positions and bonds bit-equal, the rebuilds
+    taken equal; each replay runs the six rebuild kernels on each of a
+    step's 10 later substeps."""
+    cpu, state = _engine(path, dims, deaths=False, n=3000)
+    card, _ = _engine(path, dims, deaths=False, device=dev, n=3000)
+    state, _ = cpu.safe_step(state)
+    d = convert.state_to_numpy(state)
+    a, a_info = cpu.run_steps(convert.state_from_numpy(d, "cpu"), 5)
+    card.run_steps(convert.state_from_numpy(d, dev), 5)  # the capture
+    kernels.launch_counts.clear()
+    b, b_info = card.run_steps(convert.state_from_numpy(d, dev), 5)
+    n_runs = 3 if dims == 2 else 9
+    n_later = len(engine_mod._physics_dts(card.bio)) - 1
+    for name in window.LAUNCHES:
+        assert kernels.launch_counts[kernels.counted_name(name, n_runs)] == 5 * n_later, name
+    np.testing.assert_array_equal(b_info.jkr_rebuilds, a_info.jkr_rebuilds)
+    assert int(np.sum(b_info.jkr_rebuilds)) > 0
+    a, b = convert.state_to_numpy(a), convert.state_to_numpy(b)
+
+    def by_id(x):
+        o = np.argsort(x["arrays"]["ids"][x["alive"]])
+        return ({k: v[x["alive"]][o] for k, v in x["arrays"].items()},
+                {k: x[k][x["alive"]][o] for k in ("partners", "bond_mask")})
+
+    (arr_a, bonds_a), (arr_b, bonds_b) = by_id(a), by_id(b)
+    for k in arr_a:
+        np.testing.assert_array_equal(arr_b[k], arr_a[k], err_msg=k)
+    for k in bonds_a:
+        np.testing.assert_array_equal(bonds_b[k], bonds_a[k], err_msg=k)
