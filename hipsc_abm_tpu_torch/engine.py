@@ -655,9 +655,24 @@ def contact_window(cfg: EngineConfig, rows):
 
 def _build_window(cfg, rows, window=contact_window):
     """Re-sort the rows into the contact grid's canonical order and build
-    their run bounds and sum order: ``(rows, bounds, grouping)``."""
+    their run bounds and sum order: ``(rows, bounds, grouping)``. Under
+    program tracing a step's block counts the window's candidates and live
+    rows (``_tally_window``)."""
     order, bounds, grouping = window(cfg, rows)
-    return {k: take_rows(v, order) for k, v in rows.items()}, bounds, grouping
+    rows = {k: take_rows(v, order) for k, v in rows.items()}
+    _tally_window(bounds, rows)
+    return rows, bounds, grouping
+
+
+def _tally_window(bounds: torch.Tensor, rows) -> None:
+    """Where ``profiling.tallying()``: the candidates the window's rows walk
+    (the widths of their runs; dead rows' runs are empty) and its live
+    rows, as the counters ``contact.candidates`` and ``contact.live_rows``,
+    summed on the device."""
+    if profiling.tallying():
+        widths = torch.clamp(bounds[:, 1::2] - bounds[:, 0::2], min=0)
+        profiling.tally("contact.candidates", widths.sum(dtype=torch.int64))
+        profiling.tally("contact.live_rows", rows["alive"].sum(dtype=torch.int64))
 
 
 def _select_grouping(stale, fresh: nbr_ops.Grouping, held: nbr_ops.Grouping):

@@ -41,6 +41,13 @@ engines mark themselves with:
   their graphs by ``tracing_on()``).
 - ``count(name, n)``: a counter of the call (``steps``, ``attempts``,
   ``rebuilds``, and ``graph.nodes.<kind>`` at a capture).
+- ``tally(name, value)``: a counter summed on the device, in the open
+  block (``contact.candidates`` and ``contact.live_rows``, at each step's
+  entry window build). The block's timeline holds the running sum, so a
+  captured block holds its additions as graph nodes that every replay makes
+  again; it is read into the call's counters with the marks, when the call
+  ends. The caller computes ``value`` only where ``tallying()`` is true, so
+  a graph captured with tracing off holds no node of it.
 
 To see where a call's time goes::
 
@@ -135,6 +142,8 @@ class Timeline:
         self.device = device
         self.stamps: list = [self._stamp()]
         self.names: List[Optional[str]] = [None]
+        # device sums of ``tally`` by counter name
+        self.tallies: Dict[str, torch.Tensor] = {}
 
     def _stamp(self):
         if self.device.type != "cuda":
@@ -154,6 +163,11 @@ class Timeline:
 
     def close(self) -> None:
         self.stamps.append(self._stamp())
+
+    def tally(self, name: str, value: torch.Tensor) -> None:
+        """Add the device scalar ``value`` to counter ``name``."""
+        held = self.tallies.get(name)
+        self.tallies[name] = value if held is None else held + value
 
     def intervals(self) -> List[tuple]:
         """``(phase, ms)`` of each interval, in order (the card's events
@@ -178,12 +192,12 @@ class Call:
     """One traced engine call (``run_steps`` or ``ensemble.safe_step``):
     its host wall seconds; ``counts`` (``steps`` completed, ``attempts``,
     window ``rebuilds`` of its step attempts, ``graph.nodes.<kind>`` of the
-    graphs it captured); ``block_ms``, the first-to-last mark of its blocks
-    (on the card: the device time of its replays), and ``phase_ms`` by
-    phase, which sum to it when every interval has a phase; ``span_s``,
-    host seconds by span path (``run_steps/attempt/graph.launch``);
-    ``device_clock``, whether the marks were CUDA events (else the host
-    clock)."""
+    graphs it captured, and its blocks' ``tally`` counters); ``block_ms``,
+    the first-to-last mark of its blocks (on the card: the device time of
+    its replays), and ``phase_ms`` by phase, which sum to it when every
+    interval has a phase; ``span_s``, host seconds by span path
+    (``run_steps/attempt/graph.launch``); ``device_clock``, whether the
+    marks were CUDA events (else the host clock)."""
 
     name: str
     wall_s: float = 0.0
@@ -249,6 +263,8 @@ class Recorder:
             for name, ms in timeline.intervals():
                 if name is not None:
                     call.phase_ms[name] += ms
+            for name, value in timeline.tallies.items():
+                call.counts[name] += int(value)
             call.device_clock = timeline.device.type == "cuda"
 
     def report(self) -> str:
@@ -302,6 +318,20 @@ def phase(name: str) -> None:
     no block is open, or the innermost block lies inside another)."""
     if _recorder is not None and _recorder._depth == 1:
         _recorder._open.mark(name)
+
+
+def tallying() -> bool:
+    """Whether ``tally`` counts here: tracing is on and the innermost open
+    block is the outermost (as for ``phase``)."""
+    return _recorder is not None and _recorder._depth == 1
+
+
+def tally(name: str, value: torch.Tensor) -> None:
+    """Add the device scalar ``value`` to counter ``name`` of the open
+    block, where ``tallying()`` (the caller checks it before computing
+    ``value``)."""
+    if tallying():
+        _recorder._open.tally(name, value)
 
 
 def count(name: str, n: int = 1) -> None:

@@ -13,8 +13,9 @@ a replay of a graph captured with its timing marks equals a replay without,
 bit for bit; the phases sum to the replay's device time, which lies within
 the host's events around the call; under ``torch.profiler`` no event of
 the card's timeline carries a span's name; a traced graph holds one
-event-record node per mark and the same kernel, memcpy and memset nodes as
-the untraced one, which holds no event-record node; an ensemble's traced
+event-record node per mark and, but for the nodes of the entry window's
+tally (``engine._tally_window``), the same kernel, memcpy and memset nodes
+as the untraced one, which holds no event-record node; an ensemble's traced
 graph holds two (its replicates mark nothing)::
 
     python -m pytest --noconftest -m cuda tests/test_torch_tracing.py -q
@@ -376,7 +377,7 @@ def test_card_spans_leave_no_device_event(dev):
 
 
 @pytest.mark.cuda
-def test_card_event_nodes_equal_the_marks(dev):
+def test_card_event_nodes_equal_the_marks(dev, monkeypatch):
     eng = _engine(dev, n=3000)
     state = eng.init_state(seed=3)
     eng.run_steps(state, 2)
@@ -385,14 +386,20 @@ def test_card_event_nodes_equal_the_marks(dev):
     assert off.nodes["event_record"] == 0 and off.timelines == []
     marks = sum(len(t.stamps) for t in on.timelines)
     assert on.nodes["event_record"] == marks == 2 * len(_step_phases()) + 1
-    for kind in ("kernel", "memcpy", "memset", "other"):
-        assert on.nodes[kind] == off.nodes[kind], kind
-    assert off.nodes["kernel"] > 0
+    assert on.nodes["kernel"] > off.nodes["kernel"] > 0  # the window tally's
     counts = rec.calls[0].counts
     assert "run_steps/attempt/graph.lookup/graph.capture" in rec.calls[0].span_s
     assert {k: counts[f"graph.nodes.{k}"] for k in on.nodes} == on.nodes
     listed = {g["traced"]: g["nodes"] for g in eng.block_graphs()}
     assert listed == {False: off.nodes, True: on.nodes}
+    # without the tally the traced graph's work nodes are the untraced one's
+    monkeypatch.setattr(engine_mod, "_tally_window", lambda bounds, rows: None)
+    bare = _engine(dev, n=3000)
+    _traced(lambda: bare.run_steps(state, 2))
+    untallied = _graph(bare, True)
+    assert untallied.nodes["event_record"] == on.nodes["event_record"]
+    for kind in ("kernel", "memcpy", "memset", "other"):
+        assert untallied.nodes[kind] == off.nodes[kind], kind
 
 
 @pytest.mark.cuda
