@@ -499,6 +499,45 @@ def contact_flops(bounds, alive, degree) -> float:
     return DIST_FLOPS * candidates + PAIR_FLOPS * int(degree.sum())
 
 
+def check_probes(name, launch, bounds, degree) -> None:
+    """The substep probes a contact kernel reduces (``probes=``: the widest
+    run, the widest row, the largest degree) against the PyTorch glue's on
+    the same bounds and degrees (``engine._window_widths``, ``max``)."""
+    from hipsc_abm_tpu_torch.engine import _window_widths
+
+    probes = torch.zeros(3, dtype=torch.int32, device=bounds.device)
+    launch(probes)
+    run, cands = _window_widths(bounds)
+    want = [int(run), int(cands), int(degree.max())]
+    if probes.tolist() != want:
+        raise AssertionError(f"{name}: probes {probes.tolist()} against the glue's {want}")
+    print(f"kernel {name} probes: widest run, widest row, max degree {want}, equal to the "
+          f"glue's")
+
+
+def check_packed_update(eng, args, force) -> None:
+    """The update kernel's packed rows (``xyzr=``) against ``pack_physics``
+    of its new locations, bit for bit on every row, dead rows included."""
+    from hipsc_abm_tpu_torch.engine import drift_threshold
+    from hipsc_abm_tpu_torch.ops import integrate
+    from hipsc_abm_tpu_torch.ops.jkr import pack_physics
+
+    loc, rad, alive = args[0][:, :3].contiguous(), args[0][:, 3].contiguous(), args[2]
+    size = torch.tensor(eng.gen.size, dtype=torch.float32, device=loc.device)
+    xyzr = torch.full_like(args[0], float("nan"))
+    new, *_ = integrate.update_cuda(
+        loc, rad, force, torch.zeros_like(force), alive, loc, size, stokes=eng.bio.stokes,
+        dt=float(eng.bio.move_dt), folded=False,
+        threshold=drift_threshold(eng.cfg.verlet_skin),
+        scratch=integrate.update_scratch(1, loc.device)[0], xyzr=xyzr)
+    want = pack_physics(new, rad)
+    if not torch.equal(xyzr.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"update: packed rows differ on "
+                             f"{int((xyzr != want).any(dim=1).sum())} rows")
+    print(f"kernel update packed rows: {xyzr.shape[0]} rows ({int(alive.sum())} live) "
+          f"bit-equal to pack_physics of the new locations")
+
+
 def check_contact(name, f_k, d_k, f_p, d_p) -> tuple:
     """Forces and degrees bit-equal (the kernel and the plain version run
     the same float32 operations in the same order); returns (max |F|, max
@@ -599,6 +638,9 @@ def kernel_phase(eng, state):
     bad = sum(x != y for x, y in zip(sets_k, sets_p))
     if bad:
         raise AssertionError(f"contact: bond sets differ on {bad} rows")
+    check_probes(kernels.counted_name("contact_substep", n_runs),
+                 lambda p: contact.contact_substep_cuda(*args, **law, probes=p), args[3], d_p)
+    check_packed_update(eng, args, f_p)
     # per row: xyzr, alive, bounds (B6 also reads the row's id; B1 and B2
     # take the row itself by position)
     row_bytes = 16 + 1 + 8 * n_runs
@@ -626,6 +668,8 @@ def kernel_phase(eng, state):
     f_scale, f_err = check_contact("contact_seed", f_k, d_k, f_p, d_p)
     if m_k.shape != m_p.shape or not torch.equal(m_k, m_p):
         raise AssertionError("contact_seed: mask words differ")
+    check_probes(kernels.counted_name("contact_seed", n_runs),
+                 lambda p: span_mask.contact_seed_cuda(*args, **law, probes=p), args[3], d_p)
     W = m_p.shape[0]
     seed_mask = m_p.clone()
     # the seed reads the K partner ids of a row, and a candidate's id, only
@@ -655,6 +699,9 @@ def kernel_phase(eng, state):
     f_scale, f_err = check_contact("contact_masked", f_k, d_k, f_p, d_p)
     if not torch.equal(m_k, m_p):
         raise AssertionError("contact_masked: mask words differ")
+    check_probes(kernels.counted_name("contact_masked", n_runs),
+                 lambda p: span_mask.contact_masked_cuda(*margs, seed_mask.clone(), **law,
+                                                         probes=p), margs[3], d_p)
     m_time = seed_mask.clone()
     name = entry(
         "contact_masked", "contact_mask.cu", "hipsc_abm_tpu/ops/pallas_contact.py:481",

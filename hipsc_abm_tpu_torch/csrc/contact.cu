@@ -67,12 +67,17 @@
 // One thread per row rather than one warp per row: a row has 3 (2D) to 25
 // (3D) candidates per run, too few to keep 32 lanes busy, and a thread per
 // row keeps the first-K compaction a plain sequential append.
+//
+// Given `probes`, the kernel also reduces the substep's probes (widest run,
+// widest row, largest degree; probes.cuh) from the bounds it reads and the
+// degrees it writes, so that the scan launches nothing else to read them.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "group_sum.cuh"
 #include "jkr_pair.cuh"
+#include "probes.cuh"
 
 namespace {
 
@@ -88,7 +93,7 @@ __global__ void __launch_bounds__(kThreads) contact_substep_kernel(
     const unsigned char* __restrict__ alive, const int* __restrict__ bounds,
     const int* __restrict__ partners, float* __restrict__ force,
     int* __restrict__ degree, int* __restrict__ new_partners, int C, int K,
-    int pitch, PairLaw law, hipsc::Grouping grp) {
+    int pitch, PairLaw law, hipsc::Grouping grp, int* __restrict__ probes) {
   extern __shared__ int in_lists[];              // kThreads x pitch
   int* out_lists = in_lists + kThreads * pitch;  // kThreads x pitch
   const int t = threadIdx.x;
@@ -169,6 +174,8 @@ __global__ void __launch_bounds__(kThreads) contact_substep_kernel(
     force[(size_t)row * 3 + 2] = sum.z;
     degree[row] = count;
   }
+  if (probes != nullptr)
+    hipsc::reduce_probes<kThreads, N_RUNS>(bounds, row, t < rows && alive[row], count, probes);
   __syncthreads();
   int* block_out = new_partners + (size_t)row0 * K;
   for (int e = t; e < n_ids; e += kThreads) {
@@ -180,14 +187,16 @@ __global__ void __launch_bounds__(kThreads) contact_substep_kernel(
 }  // namespace
 
 // `pitch` (odd, >= K) and `smem_bytes` are the shared-memory layout of
-// ops/contact.py `contact_layout`.
+// ops/contact.py `contact_layout`; `probes` (3 ints, or null) the substep's
+// probes, reduced into by atomicMax.
 extern "C" int hipsc_contact_substep(
     const void* xyzr, const void* ids, const void* alive, const void* bounds,
     const void* partners, void* force, void* degree, void* new_partners, int C,
     int K, int n_runs, int pitch, int smem_bytes, float radius2, float break_d,
     int uniform, float two_r, float inv_scale, float fpre, float scale_c,
     const void* rsqrt_tab, const void* starts,
-    const void* gpos, int nblocks, int chunk_shift, int block_shift, void* stream) {
+    const void* gpos, int nblocks, int chunk_shift, int block_shift, void* probes,
+    void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if (n_runs != 3 && n_runs != 9) return (int)cudaErrorInvalidValue;
   if (K < 1 || pitch < K) return (int)cudaErrorInvalidValue;
@@ -207,7 +216,7 @@ extern "C" int hipsc_contact_substep(
   kernel<<<(C + kThreads - 1) / kThreads, kThreads, smem_bytes, (cudaStream_t)stream>>>(
       (const float4*)xyzr, (const int*)ids, (const unsigned char*)alive,
       (const int*)bounds, (const int*)partners, (float*)force, (int*)degree,
-      (int*)new_partners, C, K, pitch, law, grp);
+      (int*)new_partners, C, K, pitch, law, grp, (int*)probes);
   return (int)cudaGetLastError();
 }
 

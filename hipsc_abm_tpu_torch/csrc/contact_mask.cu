@@ -56,7 +56,10 @@
 // the first, the compaction and the seed under that flag and the masked
 // substep under its negation: exactly one of the two substeps writes the
 // force, degree and mask buffers they share, and no host read takes the
-// decision (the JAX engine's lax.cond).
+// decision (the JAX engine's lax.cond). Given `probes` as well, the substep
+// that runs reduces the substep's probes (widest run, widest row, largest
+// degree; probes.cuh) from the bounds it reads and the degrees it writes; a
+// substep that returns under its predicate writes none.
 //
 // What bounds the compaction: its output. A row's K ids are mostly padding
 // (a mean degree of 2.5 against K = 24 in the 3D spheroid, 8 in 2D), and
@@ -129,6 +132,7 @@
 
 #include "group_sum.cuh"
 #include "jkr_pair.cuh"
+#include "probes.cuh"
 
 namespace {
 
@@ -147,106 +151,109 @@ __global__ void __launch_bounds__(kThreads) contact_mask_kernel(
     const int* __restrict__ partners,  // seed: (C, K) partner ids
     unsigned* mask,                    // (W, C) words; masked: read and written in place
     float* __restrict__ force, int* __restrict__ degree, int C, int K, int W,
-    PairLaw law, const int* __restrict__ pred, hipsc::Grouping grp) {
+    PairLaw law, const int* __restrict__ pred, hipsc::Grouping grp,
+    int* __restrict__ probes) {
   if (pred != nullptr && *pred == 0) return;  // the other branch runs
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= C) return;
-
-  hipsc::GroupSum3 sum;
   int count = 0;
-  int n_words = 0;  // words holding the row's candidates
-  if (alive[row]) {
-    const float4 me = xyzr[row];
-    const int* b = bounds + (size_t)row * 2 * N_RUNS;
-    const int* my_partners = kSeed ? partners + (size_t)row * K : nullptr;
-    const float reach = kGeneral ? hipsc::cull_reach(law, me.w) : 0.f;
-    const float cut2 = kGeneral ? 0.f : hipsc::uniform_cut2(law);
-    const int blk = hipsc::row_block(grp, row);
-    // the chunks the row's runs reach, and its candidate count
-    int c_first = 0x7fffffff, c_last = -1, n_cand = 0;
-    for (int r = 0; r < N_RUNS; ++r) {
-      const int lo = b[2 * r], hi = b[2 * r + 1];
-      if (hi <= lo) continue;
-      const hipsc::RunLanes run(grp, r, blk, lo, hi);
-      c_first = min(c_first, run.chunk_of(lo, grp.chunk_shift));
-      c_last = max(c_last, run.chunk_of(hi - 1, grp.chunk_shift));
-      n_cand += hi - lo;
-    }
-    n_words = min((n_cand + 31) >> 5, W);
-    // One chunk: the walk is in candidate order and every word is entered
-    // once, in order. Several: the chunk-major walk revisits words, so the
-    // seed clears the row's words first and every entered word is read.
-    const bool in_order = c_first == c_last;
-    if (kSeed && !in_order)
-      for (int w = 0; w < n_words; ++w) mask[(size_t)w * C + row] = 0u;
-    int cur_w = -1;     // the word held in `word`
-    unsigned word = 0;  // the seed's new bits; masked: new bits where visited, old elsewhere
-    for (int ch = c_first; ch <= c_last; ++ch) {
-      int j_run = 0;  // the candidate index of the run's first position
+  if (row < C) {
+    hipsc::GroupSum3 sum;
+    int n_words = 0;  // words holding the row's candidates
+    if (alive[row]) {
+      const float4 me = xyzr[row];
+      const int* b = bounds + (size_t)row * 2 * N_RUNS;
+      const int* my_partners = kSeed ? partners + (size_t)row * K : nullptr;
+      const float reach = kGeneral ? hipsc::cull_reach(law, me.w) : 0.f;
+      const float cut2 = kGeneral ? 0.f : hipsc::uniform_cut2(law);
+      const int blk = hipsc::row_block(grp, row);
+      // the chunks the row's runs reach, and its candidate count
+      int c_first = 0x7fffffff, c_last = -1, n_cand = 0;
       for (int r = 0; r < N_RUNS; ++r) {
         const int lo = b[2 * r], hi = b[2 * r + 1];
         if (hi <= lo) continue;
         const hipsc::RunLanes run(grp, r, blk, lo, hi);
-        const int end = run.begin(ch + 1, grp.chunk_shift);
-        for (int p0 = run.begin(ch, grp.chunk_shift); p0 < end; p0 += kAhead) {
-          float4 cand[kAhead];
+        c_first = min(c_first, run.chunk_of(lo, grp.chunk_shift));
+        c_last = max(c_last, run.chunk_of(hi - 1, grp.chunk_shift));
+        n_cand += hi - lo;
+      }
+      n_words = min((n_cand + 31) >> 5, W);
+      // One chunk: the walk is in candidate order and every word is entered
+      // once, in order. Several: the chunk-major walk revisits words, so the
+      // seed clears the row's words first and every entered word is read.
+      const bool in_order = c_first == c_last;
+      if (kSeed && !in_order)
+        for (int w = 0; w < n_words; ++w) mask[(size_t)w * C + row] = 0u;
+      int cur_w = -1;     // the word held in `word`
+      unsigned word = 0;  // the seed's new bits; masked: new bits where visited, old elsewhere
+      for (int ch = c_first; ch <= c_last; ++ch) {
+        int j_run = 0;  // the candidate index of the run's first position
+        for (int r = 0; r < N_RUNS; ++r) {
+          const int lo = b[2 * r], hi = b[2 * r + 1];
+          if (hi <= lo) continue;
+          const hipsc::RunLanes run(grp, r, blk, lo, hi);
+          const int end = run.begin(ch + 1, grp.chunk_shift);
+          for (int p0 = run.begin(ch, grp.chunk_shift); p0 < end; p0 += kAhead) {
+            float4 cand[kAhead];
 #pragma unroll
-          for (int u = 0; u < kAhead; ++u) cand[u] = xyzr[min(p0 + u, end - 1)];
+            for (int u = 0; u < kAhead; ++u) cand[u] = xyzr[min(p0 + u, end - 1)];
 #pragma unroll
-          for (int u = 0; u < kAhead; ++u) {
-            const int p = p0 + u;
-            if (p >= end) break;
-            const int j = j_run + (p - lo);
-            if ((j >> 5) != cur_w) {  // enter the word of j, writing back the one held
-              if (cur_w >= 0 && cur_w < W) mask[(size_t)cur_w * C + row] = word;
-              cur_w = j >> 5;
-              word = (cur_w < W && !(kSeed && in_order)) ? mask[(size_t)cur_w * C + row] : 0u;
-            }
-            const unsigned bit = 1u << (j & 31);
-            const float4 c = cand[u];
-            const float dx = __fsub_rn(me.x, c.x);
-            const float dy = __fsub_rn(me.y, c.y);
-            const float dz = __fsub_rn(me.z, c.z);
-            const float dist2 = hipsc::pair_dist2(dx, dy, dz);
-            float tx, ty, tz;
-            bool keep;
-            if (kSeed) {
-              // the pair breaks: no force, no bit, whether bonded or not
-              if (kGeneral ? hipsc::certainly_breaks(reach, c.w, dist2) : dist2 > cut2) continue;
-              const hipsc::PairOverlap o = hipsc::jkr_overlap(law, me, c, dist2);
-              if (!(o.d > law.break_d)) continue;
-              if (p == row) continue;  // the row itself passes both tests above
-              keep = dist2 <= law.radius2;
-              if (!keep) {
-                const int cid = ids[p];
-                for (int k = 0; k < K && !keep; ++k) keep = my_partners[k] == cid;
+            for (int u = 0; u < kAhead; ++u) {
+              const int p = p0 + u;
+              if (p >= end) break;
+              const int j = j_run + (p - lo);
+              if ((j >> 5) != cur_w) {  // enter the word of j, writing back the one held
+                if (cur_w >= 0 && cur_w < W) mask[(size_t)cur_w * C + row] = word;
+                cur_w = j >> 5;
+                word = (cur_w < W && !(kSeed && in_order)) ? mask[(size_t)cur_w * C + row] : 0u;
               }
-              if (keep) hipsc::jkr_force(law, o, dx, dy, dz, tx, ty, tz);
-            } else {
-              keep = (dist2 <= law.radius2 || (word & bit)) && p != row &&
-                     hipsc::jkr_pair(law, me, c, dx, dy, dz, dist2, tx, ty, tz);
-              word &= ~bit;
-            }
-            if (keep) {
-              word |= bit;
-              sum.add(run.g_lo + (p - lo), tx, ty, tz);
-              ++count;
+              const unsigned bit = 1u << (j & 31);
+              const float4 c = cand[u];
+              const float dx = __fsub_rn(me.x, c.x);
+              const float dy = __fsub_rn(me.y, c.y);
+              const float dz = __fsub_rn(me.z, c.z);
+              const float dist2 = hipsc::pair_dist2(dx, dy, dz);
+              float tx, ty, tz;
+              bool keep;
+              if (kSeed) {
+                // the pair breaks: no force, no bit, whether bonded or not
+                if (kGeneral ? hipsc::certainly_breaks(reach, c.w, dist2) : dist2 > cut2) continue;
+                const hipsc::PairOverlap o = hipsc::jkr_overlap(law, me, c, dist2);
+                if (!(o.d > law.break_d)) continue;
+                if (p == row) continue;  // the row itself passes both tests above
+                keep = dist2 <= law.radius2;
+                if (!keep) {
+                  const int cid = ids[p];
+                  for (int k = 0; k < K && !keep; ++k) keep = my_partners[k] == cid;
+                }
+                if (keep) hipsc::jkr_force(law, o, dx, dy, dz, tx, ty, tz);
+              } else {
+                keep = (dist2 <= law.radius2 || (word & bit)) && p != row &&
+                       hipsc::jkr_pair(law, me, c, dx, dy, dz, dist2, tx, ty, tz);
+                word &= ~bit;
+              }
+              if (keep) {
+                word |= bit;
+                sum.add(run.g_lo + (p - lo), tx, ty, tz);
+                ++count;
+              }
             }
           }
+          sum.close();
+          j_run += hi - lo;
         }
-        sum.close();
-        j_run += hi - lo;
       }
+      if (cur_w >= 0 && cur_w < W) mask[(size_t)cur_w * C + row] = word;
     }
-    if (cur_w >= 0 && cur_w < W) mask[(size_t)cur_w * C + row] = word;
+    // zeros past the row's candidates: a dead or short row leaves no stale
+    // bits for a later masked substep or compaction to read
+    for (int w = n_words; w < W; ++w) mask[(size_t)w * C + row] = 0u;
+    force[(size_t)row * 3 + 0] = sum.x;
+    force[(size_t)row * 3 + 1] = sum.y;
+    force[(size_t)row * 3 + 2] = sum.z;
+    degree[row] = count;
   }
-  // zeros past the row's candidates: a dead or short row leaves no stale
-  // bits for a later masked substep or compaction to read
-  for (int w = n_words; w < W; ++w) mask[(size_t)w * C + row] = 0u;
-  force[(size_t)row * 3 + 0] = sum.x;
-  force[(size_t)row * 3 + 1] = sum.y;
-  force[(size_t)row * 3 + 2] = sum.z;
-  degree[row] = count;
+  if (probes != nullptr)
+    hipsc::reduce_probes<kThreads, N_RUNS>(bounds, row, row < C && alive[row], count, probes);
 }
 
 // One thread per row, kThreads rows per block; the block's output rows are
@@ -325,7 +332,7 @@ extern "C" int hipsc_contact_seed(
     int W, int n_runs, float radius2, float break_d, int uniform, float two_r,
     float inv_scale, float fpre, float scale_c,
     const void* rsqrt_tab, const void* pred, const void* starts, const void* gpos,
-    int nblocks, int chunk_shift, int block_shift, void* stream) {
+    int nblocks, int chunk_shift, int block_shift, void* probes, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if ((n_runs != 3 && n_runs != 9) || W < 1) return (int)cudaErrorInvalidValue;
   if (nblocks < 1 || chunk_shift < 5 || chunk_shift > 30 || block_shift < 0 || block_shift > 30)
@@ -341,7 +348,7 @@ extern "C" int hipsc_contact_seed(
   kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)xyzr, (const int*)ids, (const unsigned char*)alive,
       (const int*)bounds, (const int*)partners, (unsigned*)mask,
-      (float*)force, (int*)degree, C, K, W, law, (const int*)pred, grp);
+      (float*)force, (int*)degree, C, K, W, law, (const int*)pred, grp, (int*)probes);
   return (int)cudaGetLastError();
 }
 
@@ -351,7 +358,7 @@ extern "C" int hipsc_contact_masked(
     float break_d, int uniform, float two_r, float inv_scale, float fpre,
     float scale_c, const void* rsqrt_tab, const void* pred,
     const void* starts, const void* gpos, int nblocks, int chunk_shift, int block_shift,
-    void* stream) {
+    void* probes, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if ((n_runs != 3 && n_runs != 9) || W < 1) return (int)cudaErrorInvalidValue;
   if (nblocks < 1 || chunk_shift < 5 || chunk_shift > 30 || block_shift < 0 || block_shift > 30)
@@ -365,7 +372,7 @@ extern "C" int hipsc_contact_masked(
   kernel<<<blocks_for(C), kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)xyzr, nullptr, (const unsigned char*)alive,
       (const int*)bounds, nullptr, (unsigned*)mask,
-      (float*)force, (int*)degree, C, 0, W, law, (const int*)pred, grp);
+      (float*)force, (int*)degree, C, 0, W, law, (const int*)pred, grp, (int*)probes);
   return (int)cudaGetLastError();
 }
 

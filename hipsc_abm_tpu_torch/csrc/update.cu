@@ -23,11 +23,16 @@
 // the order of the CTAs. The last CTA to finish (a ticket in the scratch)
 // writes the flag drift^2 > threshold as its fourth word. So nothing is
 // allocated or read on the host, and the launch can sit in a CUDA graph.
+// Given `xyzr`, it also writes every row's packed (x, y, z, r), the new
+// location beside the radius, for the next substep's contact launch: the
+// rows ops/jkr.py `pack_physics` gives, dead rows included, without a
+// PyTorch concatenation of its own.
 //
 // What bounds it on the card: bytes. A row reads 3 locations, the radius,
 // 6 force components, liveness (and the counted flag), 3 reference
-// coordinates and writes 3 locations: ~65 bytes per row, ~6.5 MB at 100k
-// rows, ~2 us at 3.35 TB/s; at that size the launch itself is most of it.
+// coordinates and writes 3 locations (and the 16-byte packed row): ~65
+// (~81) bytes per row, ~6.5 MB at 100k rows, ~2 us at 3.35 TB/s; at that
+// size the launch itself is most of it.
 
 #include <cuda_runtime.h>
 
@@ -56,8 +61,8 @@ __global__ void __launch_bounds__(kThreads) update_kernel(
     const float* __restrict__ force, const float* __restrict__ mot,
     const unsigned char* __restrict__ alive, const unsigned char* __restrict__ counted,
     const float* __restrict__ ref, const float* __restrict__ size,
-    float* __restrict__ out, int* __restrict__ scratch, int C, float fric,
-    float step, int folded, float threshold) {
+    float* __restrict__ out, float4* __restrict__ xyzr, int* __restrict__ scratch, int C,
+    float fric, float step, int folded, float threshold) {
   __shared__ float smem[2][kThreads / 32];
   const int i = blockIdx.x * kThreads + threadIdx.x;
   float move2 = 0.f, drift2 = 0.f;
@@ -65,7 +70,7 @@ __global__ void __launch_bounds__(kThreads) update_kernel(
     const bool a = alive[i] != 0;
     const float r = rad[i];
     const float friction = r > 0.f ? __fmul_rn(r, fric) : 1.f;
-    float dm[3], dr[3];
+    float nl[3], dm[3], dr[3];
     for (int d = 0; d < 3; ++d) {
       const float l = loc[3 * i + d];
       const float v = __fdiv_rn(__fadd_rn(force[3 * i + d], mot[3 * i + d]), friction);
@@ -74,9 +79,11 @@ __global__ void __launch_bounds__(kThreads) update_kernel(
       n = fminf(n, size[d]);
       n = a ? n : l;
       out[3 * i + d] = n;
+      nl[d] = n;
       dm[d] = __fsub_rn(n, l);
       dr[d] = __fsub_rn(n, ref[3 * i + d]);
     }
+    if (xyzr != nullptr) xyzr[i] = make_float4(nl[0], nl[1], nl[2], r);
     const bool c = counted ? counted[i] != 0 : a;
     if (c) {
       move2 = sq3(dm[0], dm[1], dm[2]);
@@ -101,13 +108,14 @@ __global__ void __launch_bounds__(kThreads) update_kernel(
 
 extern "C" int hipsc_update(const void* loc, const void* rad, const void* force,
                             const void* mot, const void* alive, const void* counted,
-                            const void* ref, const void* size, void* out, void* scratch,
-                            int C, float fric, float step, int folded, float threshold,
-                            void* stream) {
+                            const void* ref, const void* size, void* out, void* xyzr,
+                            void* scratch, int C, float fric, float step, int folded,
+                            float threshold, void* stream) {
   if (C <= 0) return (int)cudaErrorInvalidValue;
   update_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)loc, (const float*)rad, (const float*)force, (const float*)mot,
       (const unsigned char*)alive, (const unsigned char*)counted, (const float*)ref,
-      (const float*)size, (float*)out, (int*)scratch, C, fric, step, folded, threshold);
+      (const float*)size, (float*)out, (float4*)xyzr, (int*)scratch, C, fric, step, folded,
+      threshold);
   return (int)cudaGetLastError();
 }

@@ -46,7 +46,9 @@
 //      for the first row of a block, the block's span starts
 //      (block_starts: rounded down to `align`, clipped at max_start).
 //   6. write back: the scratch rows over the live prefix of the scan's
-//      rows, and the span probe (block_span_needed) by an atomic max.
+//      rows, with their packed (x, y, z, r) rows where the scan carries them
+//      (`xyzr`, which the update kernel keeps for the contact launches), and
+//      the span probe (block_span_needed) by an atomic max.
 //
 // What bounds it on the card, taken: bytes, ~0.35 KB a live row over the six
 // launches (the rows' 72 bytes at K = 8 read, scattered, read and written
@@ -260,7 +262,8 @@ __global__ void __launch_bounds__(kThreads) place_kernel(
 template <int N_RUNS>
 __global__ void __launch_bounds__(kThreads) write_back_kernel(
     const unsigned char* __restrict__ stale, int K, int num_bins,
-    const int* __restrict__ table, Rows src, Rows rows, Window win, int* __restrict__ needed) {
+    const int* __restrict__ table, Rows src, Rows rows, float4* __restrict__ xyzr, Window win,
+    int* __restrict__ needed) {
   if (*stale == 0) return;
   __shared__ int smem[kThreads / 32];
   const int n_live = table[num_bins];
@@ -270,12 +273,15 @@ __global__ void __launch_bounds__(kThreads) write_back_kernel(
   for (int base = blockIdx.x * kThreads; base < n_live; base += stride) {
     const int p = base + threadIdx.x;
     if (p < n_live) {
+      float l[3];
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
-        rows.loc[3 * p + d] = src.loc[3 * p + d];
+        l[d] = src.loc[3 * p + d];
+        rows.loc[3 * p + d] = l[d];
         rows.mot[3 * p + d] = src.mot[3 * p + d];
       }
       rows.rad[p] = src.rad[p];
+      if (xyzr != nullptr) xyzr[p] = make_float4(l[0], l[1], l[2], src.rad[p]);
       rows.ids[p] = src.ids[p];
       rows.perm[p] = src.perm[p];
       for (int k = 0; k < K; ++k) rows.partners[(size_t)p * K + k] = src.partners[(size_t)p * K + k];
@@ -294,8 +300,8 @@ template <int N_RUNS>
 void launch_all(cudaStream_t stream, int grid, const unsigned char* stale,
                 const unsigned char* alive, int C, int K, Bins g, int* bin, int* arrival,
                 int* counts, int* tile_sums, int n_tiles, int* table,
-                unsigned long long* slot_key, Rows rows, Rows scratch, float* ref, Window win,
-                const int* needed_prev, int* needed) {
+                unsigned long long* slot_key, Rows rows, Rows scratch, float* ref, float4* xyzr,
+                Window win, const int* needed_prev, int* needed) {
   const int tiles_grid = n_tiles < grid ? n_tiles : grid;
   count_kernel<<<grid, kThreads, 0, stream>>>(stale, rows.loc, alive, C, g, bin, arrival,
                                               counts, needed_prev, needed);
@@ -308,7 +314,7 @@ void launch_all(cudaStream_t stream, int grid, const unsigned char* stale,
   place_kernel<N_RUNS><<<grid, kThreads, 0, stream>>>(stale, alive, C, K, g, bin, table,
                                                       slot_key, rows, scratch, ref, win);
   write_back_kernel<N_RUNS><<<grid, kThreads, 0, stream>>>(stale, K, g.num_bins, table,
-                                                           scratch, rows, win, needed);
+                                                           scratch, rows, xyzr, win, needed);
 }
 
 }  // namespace
@@ -316,14 +322,15 @@ void launch_all(cudaStream_t stream, int grid, const unsigned char* stale,
 // One rebuild under the flag `stale`: six launches on `stream`. `rows` are
 // the scan's loc (C, 3), rad (C,), mot (C, 3), ids (C,), partners (C, K)
 // and perm (C,) int64, rewritten in place, `scratch` their like-shaped
-// buffers; `counts` (num_bins,) zero on entry and on return, `table`
-// (num_bins + 1,), `tile_sums` (ceil(num_bins / kTile),), `bin` and
+// buffers; `xyzr` (C, 4) the rows' packed (x, y, z, r), rewritten where the
+// rows move, or null; `counts` (num_bins,) zero on entry and on return,
+// `table` (num_bins + 1,), `tile_sums` (ceil(num_bins / kTile),), `bin` and
 // `arrival` (C,), `slot_key` (C,) uint64. `grid` is the blocks of the
 // grid-stride launches.
 extern "C" int hipsc_window_rebuild(
     const void* stale, const void* alive, void* loc, void* rad, void* mot, void* ids,
     void* partners, void* perm, void* s_loc, void* s_rad, void* s_mot, void* s_ids,
-    void* s_partners, void* s_perm, void* ref, void* bounds, void* starts,
+    void* s_partners, void* s_perm, void* ref, void* xyzr, void* bounds, void* starts,
     const void* needed_prev, void* needed, void* counts, void* table, void* tile_sums,
     void* bin, void* arrival, void* slot_key, int C, int K, int n_runs, float inv,
     int nx, int ny, int nz, int nblocks, int block_shift, int align, int max_start,
@@ -342,8 +349,8 @@ extern "C" int hipsc_window_rebuild(
   auto all = n_runs == 3 ? launch_all<3> : launch_all<9>;
   all((cudaStream_t)stream, grid, (const unsigned char*)stale, (const unsigned char*)alive, C,
       K, g, (int*)bin, (int*)arrival, (int*)counts, (int*)tile_sums, n_tiles, (int*)table,
-      (unsigned long long*)slot_key, r, s, (float*)ref, w, (const int*)needed_prev,
-      (int*)needed);
+      (unsigned long long*)slot_key, r, s, (float*)ref, (float4*)xyzr, w,
+      (const int*)needed_prev, (int*)needed);
   return (int)cudaGetLastError();
 }
 

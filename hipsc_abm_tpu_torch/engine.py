@@ -67,7 +67,7 @@ from hipsc_abm_tpu_torch.ops.bio_moments import positions as bio_positions
 from hipsc_abm_tpu_torch.ops.contact import contact_substep_cuda, contact_substep_plain
 from hipsc_abm_tpu_torch.ops.ftcs import ftcs_diffuse_cuda
 from hipsc_abm_tpu_torch.ops.integrate import (
-    stokes_integrate_unfused, update_cuda, update_plain, update_scratch)
+    contact_probes, stokes_integrate_unfused, update_cuda, update_plain, update_scratch)
 from hipsc_abm_tpu_torch.ops.jkr import (
     BondState,
     _compact_bonds,
@@ -708,7 +708,9 @@ class _WindowRebuild(NamedTuple):
     ``plain`` (autograd, ``_remat``) keep ``_rebuild_where``, and so does
     the domain engine, whose window is tile-local. Each substep's span probe
     gets a slot of its own (``Buffers.needed``), since the scan's probes
-    hold every substep's by reference."""
+    hold every substep's by reference. Where it runs, the scan's rows carry
+    their packed form (``_pack_rows``) and its contact kernels reduce the
+    substep's probes."""
 
     spec: GridSpec
     span: int
@@ -734,11 +736,15 @@ class _WindowRebuild(NamedTuple):
 class _ScanProbes:
     """The scan's probes, gathered on the device: the widest run and row of
     each substep's window and its JAX span probe, the largest degree and
-    move, the rebuilds."""
+    move, the rebuilds. ``scratch``: where the scan's kernels reduce each
+    substep's widest run and row, largest degree and move (the update's
+    ``update_scratch``, where the rows carry their packed form), else
+    None."""
 
     def __init__(self, device):
         self.bins, self.cands, self.degs, self.moves2, self.spans = [], [], [], [], []
         self.rebuilds = torch.zeros((), dtype=torch.int64, device=device)
+        self.scratch = None
 
     def window(self, bounds):
         run, cands = _window_widths(bounds)
@@ -764,14 +770,22 @@ class _Update(NamedTuple):
                    drift_threshold(cfg.verlet_skin),
                    update_scratch(n_substeps, device) if on_card else None)
 
+    def probes(self, s):
+        """Substep ``s``'s contact probes in the scratch (``contact_probes``):
+        the widest run, widest row and largest degree, zero until the
+        substep's contact kernel reduces them."""
+        return contact_probes(self.scratch[s])
+
     def __call__(self, s, rows, force, size, dt, ref, counted=None):
         """Substep ``s``'s update of ``rows``: ``(new locations, max squared
-        move, max squared drift from ref, stale)``. The first substep's dt is
-        a literal of the JAX program (``ops.integrate``, ``folded``)."""
+        move, max squared drift from ref, stale)``; rows that carry their
+        packed form get it rewritten (``_pack_rows``). The first substep's dt
+        is a literal of the JAX program (``ops.integrate``, ``folded``)."""
         return self.fn(rows["loc"], rows["rad"], force, rows["mot"], rows["alive"], ref,
                        size, stokes=self.stokes, dt=float(dt), folded=s == 0,
                        threshold=self.threshold, counted=counted,
-                       scratch=None if self.scratch is None else self.scratch[s])
+                       scratch=None if self.scratch is None else self.scratch[s],
+                       xyzr=rows.get(window_ops.PACKED))
 
 
 def _remat(cfg: EngineConfig, substep, *args):
@@ -803,16 +817,26 @@ def _remat(cfg: EngineConfig, substep, *args):
 def _scan_result(rows, probes):
     """The rows back in slot order: ``(locations, bonds, widest run, max
     degree, max substep move, rebuilds after the entry build, widest row,
-    JAX span probe)``."""
+    JAX span probe)``. Where the kernels reduced the probes into
+    ``probes.scratch``, one reduction takes its columns' maxima, a row of
+    the same layout (the move's float32 bits are non-negative, so they
+    order as the floats do)."""
     profiling.phase("finish")
     perm = rows["perm"]
     locations = torch.empty_like(rows["loc"])
     locations[perm] = rows["loc"]
     partners = torch.empty_like(rows["partners"])
     partners[perm] = rows["partners"]
-    return (locations, BondState.from_ids(partners), torch.stack(probes.bins).max(),
-            torch.stack(probes.degs).max(), torch.sqrt(torch.stack(probes.moves2).max()),
-            probes.rebuilds, torch.stack(probes.cands).max(), torch.stack(probes.spans).max())
+    if probes.scratch is None:
+        run, deg, cands = (torch.stack(probes.bins).max(), torch.stack(probes.degs).max(),
+                           torch.stack(probes.cands).max())
+        move2 = torch.stack(probes.moves2).max()
+    else:
+        maxima = probes.scratch.view(torch.int32).amax(dim=0).view(torch.uint8)
+        run, cands, deg = contact_probes(maxima).unbind()
+        move2 = maxima[:4].view(torch.float32)[0]
+    return (locations, BondState.from_ids(partners), run, deg, torch.sqrt(move2),
+            probes.rebuilds, cands, torch.stack(probes.spans).max())
 
 
 def _rebuild(rebuild, s, stale, cfg, rows, bounds, ref, identity, grouping):
@@ -841,6 +865,15 @@ def _id_list_substep(cfg, law, contact, update, size, rebuild, identity, s, stal
     return rows, bounds, ref, grouping, probes
 
 
+def _pack_rows(rows):
+    """The rows of a single-colony scan on the card (``_WindowRebuild``)
+    with their packed form ``rows["xyzr"]`` (``pack_physics``), made once
+    after the entry build: from then on the update kernel writes it with the
+    new locations and a taken rebuild moves it, so a substep's contact
+    launch reads it as it stands and makes no pack of its own."""
+    return dict(rows, **{window_ops.PACKED: pack_physics(rows["loc"], rows["rad"])})
+
+
 def contact_substep_rows(law, contact, update, s, size, dt, rows, bounds, ref, width=None,
                          counted=None, grouping=None):
     """One id-list contact substep over the window ``bounds`` the caller
@@ -851,7 +884,18 @@ def contact_substep_rows(law, contact, update, s, size, dt, rows, bounds, ref, w
     the alive rows) and ``width`` (the plain version's run width) serve the
     domain engine; ``grouping`` is the window's sum order. Returns the new rows and the substep's probes ``(widest
     run, widest row, max degree, max squared move, max squared drift,
-    stale)``."""
+    stale)``. Rows that carry their packed form (``_pack_rows``) take it
+    as the kernel's input, and the kernel reduces the first three probes
+    into the update's scratch (views of it come back); other rows are packed
+    here and probed in PyTorch."""
+    if window_ops.PACKED in rows:
+        probes = update.probes(s)
+        force, _, partners = contact(
+            rows[window_ops.PACKED], rows["ids"], rows["alive"], bounds, rows["partners"],
+            **law, grouping=grouping, probes=probes)
+        new_loc, move2, drift2, stale = update(s, rows, force, size, dt, ref)
+        return dict(rows, loc=new_loc, partners=partners), (*probes.unbind(), move2, drift2,
+                                                            stale)
     run, cands = _window_widths(bounds)
     force, degree, partners = contact(
         pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
@@ -875,8 +919,11 @@ def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
     computed on every substep and selected (``_rebuild_where``). Each
     substep is one contact-kernel launch (forces, degrees and the new
     partner lists; the plain version under ``plain``) and one Stokes
-    update, rematerialised under ``cfg.remat_substeps``; the rows go back to
-    the state's layout at the end. Returns ``_scan_result``'s tuple."""
+    update, rematerialised under ``cfg.remat_substeps``; on the card the
+    rows carry their packed form (``_pack_rows``), and the kernel reduces
+    the substep's window and degree probes, so that a substep launches no
+    PyTorch kernel. The rows go back to the state's layout at the end.
+    Returns ``_scan_result``'s tuple."""
     profiling.phase("window")
     rows = _scan_rows(arrays, alive, bonds)
     law = _contact_law(cfg, bio)
@@ -888,6 +935,9 @@ def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
     rebuild = _WindowRebuild.of(cfg, rows, len(dts), plain)
     identity = None if rebuild is not None else torch.arange(alive.shape[0],
                                                              device=alive.device)
+    if rebuild is not None:
+        rows = _pack_rows(rows)
+        probes.scratch = update.scratch
     stale = None
     for s, dt in enumerate(dts):
         rows, bounds, ref, grouping, (run, cands, deg, move2, _, stale_next) = _remat(
@@ -1001,6 +1051,9 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts, plain=Fal
     ref = rows["loc"]
     window_rebuild = _WindowRebuild.of(cfg, rows, len(dts), plain)
     identity = None if window_rebuild is not None else torch.arange(C, device=device)
+    if window_rebuild is not None:
+        rows = _pack_rows(rows)
+        probes.scratch = update.scratch
     stale = None
     for s, dt in enumerate(dts):
         rebuild = None
@@ -1013,7 +1066,8 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts, plain=Fal
                                                    ref, identity, grouping)
             probes.rebuilds = probes.rebuilds + stale
         profiling.phase("contact")
-        probes.window(bounds)
+        if probes.scratch is None:
+            probes.window(bounds)
         probes.spans.append(grouping.needed)
         deg, move2, _, stale = span_mask_substep(law, update, s, size, dt, rows, bounds, ref,
                                                  mask, rebuild, grouping=grouping)
@@ -1034,19 +1088,28 @@ def span_mask_substep(law, update, s, size, dt, rows, bounds, ref, mask, rebuild
     caller compacted the mask before) against the masked substep (B1). Both
     write the same force and degree buffers. ``width``, ``counted`` and
     ``grouping`` as in ``contact_substep_rows``. Returns the substep's ``(max degree, max
-    squared move, max squared drift, stale)``."""
+    squared move, max squared drift, stale)``. Rows that carry their packed
+    form (``_pack_rows``) take it as the kernels' input, and the launch that
+    runs reduces the substep's widest run and row and largest degree into
+    the update's scratch (the degree comes back as a view of it); other
+    rows are packed here and the degree probed in PyTorch."""
     C, device = bounds.shape[0], bounds.device
     force = torch.empty((C, 3), dtype=torch.float32, device=device)
     degree = torch.empty((C,), dtype=torch.int32, device=device)
-    xyzr = pack_physics(rows["loc"], rows["rad"])
+    packed = window_ops.PACKED in rows
+    xyzr = rows[window_ops.PACKED] if packed else pack_physics(rows["loc"], rows["rad"])
+    probes = update.probes(s) if packed else None
     span_mask.contact_seed_cuda(xyzr, rows["ids"], rows["alive"], bounds, rows["partners"],
                                 pred=rebuild, out=(force, degree, mask), **law, width=width,
-                                grouping=grouping)
+                                grouping=grouping, probes=probes)
     if rebuild is not None:
         span_mask.contact_masked_cuda(xyzr, rows["ids"], rows["alive"], bounds, mask,
                                       pred=1 - rebuild, out=(force, degree), **law,
-                                      width=width, grouping=grouping)
-    deg = degree.max() if counted is None else torch.where(counted, degree, 0).max()
+                                      width=width, grouping=grouping, probes=probes)
+    if packed:
+        deg = probes[2]
+    else:
+        deg = degree.max() if counted is None else torch.where(counted, degree, 0).max()
     rows["loc"], move2, drift2, stale = update(s, rows, force, size, dt, ref, counted)
     return deg, move2, drift2, stale
 

@@ -57,26 +57,26 @@ _SIGNATURES = {
     "hipsc_deposit": (_P, _P, _P, _P, _L, _I, _P),
     "hipsc_contact_substep": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _F, _F, _I, _F, _F, _F, _F, _P,
-                              _P, _P, _I, _I, _I, _P),
+                              _P, _P, _I, _I, _I, _P, _P),
     "hipsc_bio_moments": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I,
                           _P, _P, _I, _I, _I, _P),
     "hipsc_ftcs_diffuse": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _P),
     "hipsc_contact_seed": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _F, _I, _F, _F, _F, _F, _P, _P,
-                           _P, _P, _I, _I, _I, _P),
+                           _P, _P, _I, _I, _I, _P, _P),
     "hipsc_contact_masked": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _F, _F, _I, _F, _F, _F, _F, _P, _P,
-                             _P, _P, _I, _I, _I, _P),
+                             _P, _P, _I, _I, _I, _P, _P),
     "hipsc_powf": (_P, _P, _F, _L, _P),
     "hipsc_mask_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "hipsc_dynslice_probe": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "hipsc_dynslice_probe2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "hipsc_draw_normal": (_P, _P, _P, _L, _I, _P),
     "hipsc_draw_unit_vectors": (_P, _P, _P, _L, _I, _I, _P),
-    "hipsc_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _F, _P),
+    "hipsc_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _F, _P),
     "hipsc_fma": (_P, _P, _F, _P, _F, _P, _L, _P),
-    "hipsc_window_rebuild": (*(_P,) * 25, _I, _I, _I, _F, *(_I,) * 8, _P),
+    "hipsc_window_rebuild": (*(_P,) * 26, _I, _I, _I, _F, *(_I,) * 8, _P),
 }
 # stencil runs per row: 3 in 2D, 9 in 3D (the kernels' N_RUNS)
 RUN_COUNTS = (3, 9)

@@ -106,6 +106,25 @@ def certainly_breaks(reach: torch.Tensor, rj: torch.Tensor,
     return (rj > 0) & (dist2 > cut * cut)
 
 
+def fold_probes(probes: torch.Tensor, bounds: torch.Tensor, degree: torch.Tensor) -> None:
+    """Plain mirror of the contact kernels' probe reduction
+    (``csrc/probes.cuh``): ``probes``, a (3,) int32 tensor, takes in place
+    its maximum with the widest run and the widest row of ``bounds`` (dead
+    rows' runs are empty) and the largest ``degree``."""
+    widths = torch.clamp(bounds[:, 1::2] - bounds[:, 0::2], min=0)
+    got = torch.stack([widths.max(), widths.sum(dim=1).max(), degree.max()])
+    torch.maximum(probes, got.to(torch.int32), out=probes)
+
+
+def check_probes(probes: Optional[torch.Tensor]):
+    """The kernels' probe pointer: null without ``probes``, else the (3,)
+    int32 tensor's, checked."""
+    if probes is None:
+        return None
+    kernels.check_cuda("probes", probes, torch.int32, (3,))
+    return probes.data_ptr()
+
+
 # rows per CTA of the kernel (csrc/contact.cu kThreads)
 ROWS_PER_CTA = 128
 
@@ -121,18 +140,23 @@ def contact_layout(K: int) -> dict:
 def contact_substep_cuda(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None, width=None,
-    grouping: Optional[Grouping] = None,
+    grouping: Optional[Grouping] = None, probes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The contact substep. A CPU tensor runs the plain version (``width``
     is the plain version's); a CUDA tensor launches the kernel (or raises,
     also when the CTA's partner block does not fit in the card's shared
-    memory). ``grouping`` as in the plain version. The launch counts as
-    ``contact_substep`` in 2D and ``contact_substep_3d`` in 3D."""
+    memory). ``grouping`` as in the plain version. Given ``probes`` ((3,)
+    int32), the widest run, widest row and largest degree are max-reduced
+    into it (``fold_probes``). The launch counts as ``contact_substep`` in
+    2D and ``contact_substep_3d`` in 3D."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius,
               grouping=grouping)
     if xyzr.device.type == "cpu":
-        return contact_substep_plain(xyzr, ids, alive, bounds, partners, **kw, width=width)
+        out = contact_substep_plain(xyzr, ids, alive, bounds, partners, **kw, width=width)
+        if probes is not None:
+            fold_probes(probes, bounds, out[1])
+        return out
     C, K = partners.shape
     kernels.check_cuda("xyzr", xyzr, torch.float32, (C, 4))
     kernels.check_cuda("ids", ids, torch.int32, (C,))
@@ -159,6 +183,7 @@ def contact_substep_cuda(
         *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
                        uniform_radius),
         xla_f32.rsqrt_table(xyzr.device).data_ptr(), *grouping_args(bounds, grouping),
+        check_probes(probes),
     )
     kernels.count_launch(kernels.counted_name("contact_substep", n_runs))
     return force, degree, new_partners

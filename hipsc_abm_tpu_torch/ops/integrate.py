@@ -88,16 +88,19 @@ def stokes_integrate_unfused(locations, radii, jkr_forces, motility_forces, aliv
 
 def update_plain(loc, rad, force, mot, alive, ref, size, *, stokes: float, dt: float,
                  folded: bool, threshold: float, counted: Optional[torch.Tensor] = None,
-                 scratch=None) -> Tuple[torch.Tensor, ...]:
+                 scratch=None, xyzr: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """One substep's update: ``(new locations (C, 3), largest squared move
     (), largest squared drift (), stale ())`` over the ``alive`` rows, or
     the rows ``counted``. The drift is from ``ref``, where the window was
     built, and ``stale`` the next substep's drift test, ``drift^2 >
     threshold``. The squared norms are ``xla_f32.row_sq_sum``'s, as the JAX
     engine's probes compute them. ``scratch`` is the kernel's and is not
-    read here."""
+    read here. Given ``xyzr`` ((C, 4) float32), the new locations beside the
+    radii are written into it (``ops.jkr.pack_physics``'s rows)."""
     del scratch
     new = stokes_integrate(loc, rad, force, mot, alive, stokes, size, dt, folded)
+    if xyzr is not None:
+        xyzr.copy_(torch.cat([new, rad[:, None]], dim=1))
     zero = torch.zeros((), dtype=torch.float32, device=loc.device)
     rows = alive if counted is None else counted
     move2 = torch.where(rows, xla_f32.row_sq_sum(new - loc), zero).max()
@@ -105,30 +108,42 @@ def update_plain(loc, rad, force, mot, alive, ref, size, *, stokes: float, dt: f
     return new, move2, drift2, drift2 > threshold
 
 
-# bytes of one substep's row of the kernel's scratch: the largest squared
-# move and drift (float32 bits, atomicMax), the CTAs' ticket, the stale flag
-SCRATCH_BYTES = 16
+# bytes of one substep's row of the scan's scratch: the update's largest
+# squared move and drift (float32 bits, atomicMax), the CTAs' ticket and the
+# stale flag (bytes 0-15), then the contact kernels' probes (bytes 16-27,
+# ``contact_probes``) and 4 bytes of padding
+SCRATCH_BYTES = 32
 
 
 def update_scratch(n_substeps: int, device) -> torch.Tensor:
-    """The kernel's zeroed scratch for ``n_substeps`` launches, (n, 16)
+    """The kernels' zeroed scratch for ``n_substeps`` substeps, (n, 32)
     uint8: one row per substep, zeroed once (one memset) where the scan
     starts."""
     return torch.zeros((n_substeps, SCRATCH_BYTES), dtype=torch.uint8, device=device)
 
 
+def contact_probes(scratch: torch.Tensor) -> torch.Tensor:
+    """The contact kernels' probes in one scratch row (a (32,) uint8 row of
+    ``update_scratch``): a (3,) int32 view of the substep's widest run,
+    widest row and largest degree, which the contact kernels reduce into
+    (``csrc/probes.cuh``)."""
+    return scratch[16:28].view(torch.int32)
+
+
 def update_cuda(loc, rad, force, mot, alive, ref, size, *, stokes: float, dt: float,
                 folded: bool, threshold: float, counted: Optional[torch.Tensor] = None,
-                scratch: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+                scratch: Optional[torch.Tensor] = None,
+                xyzr: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """The substep's update (``update_plain``'s outputs). A CPU tensor runs
     the plain version; a CUDA tensor launches the kernel (or raises), which
-    writes the new locations and, in ``scratch`` (one (16,) uint8 row of
-    ``update_scratch``, zero before the launch), the maxima and the flag;
-    the move and the flag come back as views of it, so nothing is read on
-    the host. Counted as ``update``."""
+    writes the new locations, the packed rows into ``xyzr`` where given,
+    and, in ``scratch`` (one (32,) uint8 row of ``update_scratch``, zero
+    before the launch), the maxima and the flag; the move and the flag come
+    back as views of it, so nothing is read on the host. Counted as
+    ``update``."""
     if loc.device.type == "cpu":
         return update_plain(loc, rad, force, mot, alive, ref, size, stokes=stokes, dt=dt,
-                            folded=folded, threshold=threshold, counted=counted)
+                            folded=folded, threshold=threshold, counted=counted, xyzr=xyzr)
     C = loc.shape[0]
     for name, t in (("loc", loc), ("force", force), ("mot", mot), ("ref", ref)):
         kernels.check_cuda(name, t, torch.float32, (C, 3))
@@ -140,12 +155,15 @@ def update_cuda(loc, rad, force, mot, alive, ref, size, *, stokes: float, dt: fl
     if scratch is None:
         raise ValueError("update_cuda: a zeroed scratch row (update_scratch) is needed")
     kernels.check_cuda("scratch", scratch, torch.uint8, (SCRATCH_BYTES,))
+    if xyzr is not None:
+        kernels.check_cuda("xyzr", xyzr, torch.float32, (C, 4))
     new = torch.empty_like(loc)
     step = xla_f32.fold(dt, 1e6) if folded else xla_f32.f32(dt)
     kernels.launch("hipsc_update", loc.data_ptr(), rad.data_ptr(), force.data_ptr(),
                    mot.data_ptr(), alive.data_ptr(),
                    None if counted is None else counted.data_ptr(), ref.data_ptr(),
-                   size.data_ptr(), new.data_ptr(), scratch.data_ptr(), C,
+                   size.data_ptr(), new.data_ptr(), None if xyzr is None else xyzr.data_ptr(),
+                   scratch.data_ptr(), C,
                    friction_const(stokes), step, int(folded), float(np.float32(threshold)))
     kernels.count_launch("update")
     maxima = scratch[:8].view(torch.float32)

@@ -77,7 +77,7 @@ import torch
 from hipsc_abm_tpu_torch import kernels
 from hipsc_abm_tpu_torch.ops import jkr as jkr_ops
 from hipsc_abm_tpu_torch.ops import xla_f32
-from hipsc_abm_tpu_torch.ops.contact import pair_law_args
+from hipsc_abm_tpu_torch.ops.contact import check_probes, fold_probes, pair_law_args
 from hipsc_abm_tpu_torch.ops.neighbors import Grouping, bounds_window, grouping_args, plain_lanes
 
 
@@ -270,16 +270,20 @@ def contact_seed_cuda(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
     pred: Optional[torch.Tensor] = None, out=None, width=None,
-    grouping: Optional[Grouping] = None,
+    grouping: Optional[Grouping] = None, probes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The seed substep. A CPU tensor runs the plain version (``width`` is
     the plain version's); a CUDA tensor launches the kernel (or raises). Without ``out`` the mask gets
-    ``mask_words(bounds)`` words (a host read)."""
+    ``mask_words(bounds)`` words (a host read). ``probes`` as in
+    ``ops.contact.contact_substep_cuda``, untouched where ``pred`` skips."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius,
               pred=pred, out=out, grouping=grouping)
     if xyzr.device.type == "cpu":
-        return contact_seed_plain(xyzr, ids, alive, bounds, partners, **kw, width=width)
+        out = contact_seed_plain(xyzr, ids, alive, bounds, partners, **kw, width=width)
+        if probes is not None and not _skipped(pred):
+            fold_probes(probes, bounds, out[1])
+        return out
     C, n_runs = _check_rows(xyzr, ids, alive, bounds)
     K = partners.shape[1] if partners.dim() == 2 else 0
     kernels.check_cuda("partners", partners, torch.int32, (C, K))
@@ -294,7 +298,7 @@ def contact_seed_cuda(
         C, K, mask.shape[0], n_runs, *pair_law_args(radius, adhesion_const, poisson,
                                                     youngs, break_d, uniform_radius),
         xla_f32.rsqrt_table(xyzr.device).data_ptr(), _pred_ptr(pred),
-        *grouping_args(bounds, grouping),
+        *grouping_args(bounds, grouping), check_probes(probes),
     )
     kernels.count_launch(kernels.counted_name("contact_seed", n_runs))
     return force, degree, mask
@@ -304,16 +308,20 @@ def contact_masked_cuda(
     xyzr, ids, alive, bounds, mask, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
     pred: Optional[torch.Tensor] = None, out=None, width=None,
-    grouping: Optional[Grouping] = None,
+    grouping: Optional[Grouping] = None, probes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The masked substep; the mask is updated in place and returned. A CPU
     tensor runs the plain version (``width`` is the plain version's); a CUDA
-    tensor launches the kernel (or raises)."""
+    tensor launches the kernel (or raises). ``probes`` as in
+    ``contact_seed_cuda``."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius,
               pred=pred, out=out, grouping=grouping)
     if xyzr.device.type == "cpu":
-        return contact_masked_plain(xyzr, ids, alive, bounds, mask, **kw, width=width)
+        out = contact_masked_plain(xyzr, ids, alive, bounds, mask, **kw, width=width)
+        if probes is not None and not _skipped(pred):
+            fold_probes(probes, bounds, out[1])
+        return out
     C, n_runs = _check_rows(xyzr, ids, alive, bounds)
     W = _check_mask(mask, C)
     force, degree = _outputs(out, C, xyzr.device)
@@ -324,7 +332,7 @@ def contact_masked_cuda(
         *pair_law_args(radius, adhesion_const, poisson, youngs, break_d,
                        uniform_radius),
         xla_f32.rsqrt_table(xyzr.device).data_ptr(), _pred_ptr(pred),
-        *grouping_args(bounds, grouping),
+        *grouping_args(bounds, grouping), check_probes(probes),
     )
     kernels.count_launch(kernels.counted_name("contact_masked", n_runs))
     return force, degree, mask

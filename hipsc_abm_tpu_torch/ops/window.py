@@ -32,8 +32,11 @@ from hipsc_abm_tpu_torch.ops import neighbors as nbr_ops
 from hipsc_abm_tpu_torch.ops import xla_f32
 
 # the rows a scan carries and a rebuild moves; "alive" stays (true on the
-# whole live prefix)
+# whole live prefix). A scan on the card also carries "xyzr", the rows'
+# packed (x, y, z, r), which the rebuild writes from the moved "loc" and
+# "rad" (``PACKED``)
 MOVED = ("loc", "rad", "mot", "ids", "partners", "perm")
+PACKED = "xyzr"
 # the kernels of one rebuild, in launch order (``kernels.launch_counts`` keys)
 LAUNCHES = ("window_count", "window_tile_sums", "window_scan", "window_scatter",
             "window_place", "window_write_back")
@@ -100,6 +103,9 @@ def _check(stale, spec: nbr_ops.GridSpec, rows, bounds, ref, grouping: nbr_ops.G
         kernels.check_cuda(name, rows[name], dtype, shape)
         if name in MOVED:
             kernels.check_cuda(f"scratch {name}", buf.rows[name], dtype, shape)
+    packed = [rows[PACKED]] if PACKED in rows else []
+    for t in packed:
+        kernels.check_cuda(PACKED, t, torch.float32, (C, 4))
     kernels.check_cuda("ref", ref, torch.float32, (C, 3))
     kernels.check_cuda("bounds", bounds, torch.int32, (C, 2 * n_runs))
     nblocks = -(-C // grouping.block)
@@ -119,10 +125,11 @@ def _check(stale, spec: nbr_ops.GridSpec, rows, bounds, ref, grouping: nbr_ops.G
     block = grouping.block
     if block < 1 or block & (block - 1):
         raise ValueError(f"rebuild: the grouping's block must be a power of two, not {block}")
-    outputs = [rows[k] for k in MOVED] + [ref, bounds, grouping.starts, needed]
-    if len({t.data_ptr() for t in outputs + list(buf.rows.values())}) != 2 * len(MOVED) + 4:
-        raise ValueError("rebuild: the rows, their scratch, ref, bounds, the starts and the "
-                         "probe slot must be separate buffers")
+    outputs = [rows[k] for k in MOVED] + packed + [ref, bounds, grouping.starts, needed]
+    if (len({t.data_ptr() for t in outputs + list(buf.rows.values())})
+            != 2 * len(MOVED) + len(packed) + 4):
+        raise ValueError("rebuild: the rows, their scratch, the packed rows, ref, bounds, the "
+                         "starts and the probe slot must be separate buffers")
     if needed.data_ptr() == grouping.needed.data_ptr():
         raise ValueError("rebuild: the probe slot must not be the held window's")
     return C, K, n_runs
@@ -131,11 +138,11 @@ def _check(stale, spec: nbr_ops.GridSpec, rows, bounds, ref, grouping: nbr_ops.G
 def rebuild_cuda(stale, spec: nbr_ops.GridSpec, span: int, rows, bounds, ref,
                  grouping: nbr_ops.Grouping, needed, buf: Buffers) -> None:
     """The rebuild under the 0-d bool device flag ``stale``, in place: when
-    it is true, ``rows`` (``MOVED``), ``bounds``, ``ref``,
-    ``grouping.starts`` and the probe slot ``needed`` (0-d int32) become
-    what ``engine._rebuild_where`` gives with the flag true; when it is
-    false, they keep their values and ``needed`` takes
-    ``grouping.needed``'s. ``span`` is ``EngineConfig.jkr_span``. Six
+    it is true, ``rows`` (``MOVED``, and ``PACKED`` where the rows carry
+    it), ``bounds``, ``ref``, ``grouping.starts`` and the probe slot
+    ``needed`` (0-d int32) become what ``engine._rebuild_where`` gives with
+    the flag true; when it is false, they keep their values and ``needed``
+    takes ``grouping.needed``'s. ``span`` is ``EngineConfig.jkr_span``. Six
     launches; a CPU tensor runs ``rebuild_plain``."""
     if rows["ids"].device.type == "cpu":
         rebuild_plain(stale, spec, span, rows, bounds, ref, grouping, needed)
@@ -145,7 +152,8 @@ def rebuild_cuda(stale, spec: nbr_ops.GridSpec, span: int, rows, bounds, ref,
     kernels.launch(
         "hipsc_window_rebuild", stale.data_ptr(), rows["alive"].data_ptr(),
         *(rows[k].data_ptr() for k in MOVED), *(buf.rows[k].data_ptr() for k in MOVED),
-        ref.data_ptr(), bounds.data_ptr(), grouping.starts.data_ptr(),
+        ref.data_ptr(), rows[PACKED].data_ptr() if PACKED in rows else None,
+        bounds.data_ptr(), grouping.starts.data_ptr(),
         grouping.needed.data_ptr(), needed.data_ptr(), buf.counts.data_ptr(),
         buf.table.data_ptr(), buf.tile_sums.data_ptr(), buf.bin.data_ptr(),
         buf.arrival.data_ptr(), buf.slot_key.data_ptr(), C, K, n_runs,
@@ -163,8 +171,9 @@ def rebuild_plain(stale, spec: nbr_ops.GridSpec, span: int, rows, bounds, ref,
     shuffled from ``arrival_seed``, as the kernel's atomics may give any),
     their exclusive prefix, each live row's key ``(id, row)`` scattered into
     its bin's slots at its arrival, its place its bin's start plus the keys
-    there below its own; then the moved rows, ``ref``, the run bounds, the
-    span starts of the blocks whose first row moved, and the span probe."""
+    there below its own; then the moved rows (and their packed rows, where
+    the rows carry ``PACKED``), ``ref``, the run bounds, the span starts of
+    the blocks whose first row moved, and the span probe."""
     if not bool(stale):
         needed.copy_(grouping.needed)
         return
@@ -195,6 +204,8 @@ def rebuild_plain(stale, spec: nbr_ops.GridSpec, span: int, rows, bounds, ref,
     ref[p] = rows["loc"][live]
     for name in MOVED:
         rows[name][p] = rows[name][live].clone()
+    if PACKED in rows:
+        rows[PACKED][p] = torch.cat([rows["loc"][p], rows["rad"][p, None]], dim=1)
     first, plus, _ = nbr_ops._run_index(spec, device)
     at = torch.clamp(b[:, None] + first, 0, spec.num_bins - 3) + plus
     bounds[p] = table[at].to(torch.int32)

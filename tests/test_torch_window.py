@@ -2,7 +2,11 @@
 ``csrc/window.cu``): what its kernels rely on, held on the CPU at every
 rebuild of real scans, the placement's mirror (``rebuild_plain``) against
 ``engine._rebuild_where``, and, on the card, the kernels against
-``_rebuild_where`` and the scans that run them against the CPU's.
+``_rebuild_where`` and the scans that run them against the CPU's. Also the
+rows' packed form that such a scan carries (``engine._pack_rows``, kept by
+the update and the rebuild) and the substep probes its contact kernels
+reduce, held at every substep, on the CPU through the plain mirrors and on
+the card through the kernels.
 
 The card tests are marked ``cuda`` and skip without an NVIDIA GPU. The file
 imports no JAX:
@@ -22,7 +26,8 @@ import torch
 from hipsc_abm_tpu_torch import colonies, convert, kernels
 from hipsc_abm_tpu_torch import engine as engine_mod
 from hipsc_abm_tpu_torch.engine import EngineConfig, HipscEngine
-from hipsc_abm_tpu_torch.ops import window
+from hipsc_abm_tpu_torch.ops import integrate, span_mask, window
+from hipsc_abm_tpu_torch.ops.jkr import BondState, pack_physics
 from hipsc_abm_tpu_torch.params import BiologyParams, ExperimentalParams, GeneralParams
 
 BIO = BiologyParams()
@@ -205,6 +210,273 @@ def test_placement_mirror_equals_rebuild_where(seed, dims, n_live):
             _assert_rebuilt(got, (rows, bounds, ref, grouping), "skipped")
 
 
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("n_live", [0, 700, 1000])
+def test_rebuild_mirror_moves_the_packed_rows(dims, n_live):
+    """Rows that carry their packed form (``window.PACKED``): the mirror's
+    rebuild, taken, leaves it ``pack_physics`` of the moved rows bit for
+    bit, which is what ``_rebuild_where`` gathers from the packed rows of
+    the rows before; skipped, it keeps its bytes."""
+    cfg, rows, bounds, ref, grouping = _window_inputs(dims, 1000, n_live)
+    rows = engine_mod._pack_rows(rows)
+    for flag in (True, False):
+        stale = torch.tensor(flag)
+        got = _mirror(stale, cfg, rows, bounds, ref, grouping, seed=3)
+        want = engine_mod._rebuild_where(stale, cfg, rows, bounds, ref, torch.arange(1000),
+                                         grouping=grouping)
+        _assert_rebuilt(got, want, f"flag {flag}")
+        assert _same(got[0][window.PACKED], pack_physics(got[0]["loc"], got[0]["rad"]))
+        if not flag:
+            assert _same(got[0][window.PACKED], rows[window.PACKED])
+
+
+def test_plain_mirrors_fold_the_probes_and_write_the_packed_rows():
+    """The CPU forms of the kernels' new outputs: each contact substep given
+    ``probes`` folds in the widest run, the widest row and the largest
+    degree (a predicated substep that does not run folds nothing), and the
+    update given ``xyzr`` writes ``pack_physics`` of its new locations."""
+    from hipsc_abm_tpu_torch.engine import _contact_law, _window_widths, drift_threshold
+    from hipsc_abm_tpu_torch.ops import contact
+
+    cfg, rows, bounds, ref, grouping = _window_inputs(2, 1000, 700)
+    rows["loc"] = ref  # the window's own positions
+    law = _contact_law(cfg, BIO)
+    xyzr = pack_physics(rows["loc"], rows["rad"])
+    run, cands = _window_widths(bounds)
+    args = (xyzr, rows["ids"], rows["alive"], bounds)
+    for name, fn, last in (("B6", contact.contact_substep_cuda, rows["partners"]),
+                           ("seed", span_mask.contact_seed_cuda, rows["partners"])):
+        probes = torch.tensor([0, 0, 10_000], dtype=torch.int32)
+        _, degree, _ = fn(*args, last, **law, grouping=grouping, probes=probes)
+        assert probes.tolist() == [int(run), int(cands), 10_000], name
+        probes.zero_()
+        fn(*args, last, **law, grouping=grouping, probes=probes)
+        assert probes.tolist() == [int(run), int(cands), int(degree.max())], name
+        assert int(degree.max()) > 0
+    _, _, mask = span_mask.contact_seed_cuda(*args, rows["partners"], **law, grouping=grouping)
+    probes = torch.zeros(3, dtype=torch.int32)
+    span_mask.contact_masked_cuda(*args, mask.clone(), **law, grouping=grouping,
+                                  pred=torch.zeros(1, dtype=torch.int32), probes=probes)
+    assert probes.tolist() == [0, 0, 0]
+    _, degree, _ = span_mask.contact_masked_cuda(*args, mask, **law, grouping=grouping,
+                                                 probes=probes)
+    assert probes.tolist() == [int(run), int(cands), int(degree.max())]
+    force = torch.full((1000, 3), 1e-9)
+    packed = torch.full((1000, 4), float("nan"))
+    size = torch.tensor(BOX[2], dtype=torch.float32)
+    new, *_ = integrate.update_cuda(rows["loc"], rows["rad"], force, rows["mot"] * 1e-9,
+                                    rows["alive"], ref, size, stokes=BIO.stokes,
+                                    dt=float(BIO.move_dt), folded=False,
+                                    threshold=drift_threshold(2.0), xyzr=packed)
+    assert _same(packed, pack_physics(new, rows["rad"]))
+
+
+def _substep_checks(monkeypatch, seen):
+    """Wrap the scans' substeps (``contact_substep_rows``,
+    ``span_mask_substep``): where the rows carry their packed form, it
+    equals ``pack_physics`` of the rows on entry (after the substep's
+    rebuild, taken or not) and after the update, and the probes the contact
+    launch reduced equal ``_window_widths`` of the bounds it read and the
+    largest degree it wrote. ``seen`` counts the substeps and those that
+    carried packed rows."""
+    real_rows, real_mask = engine_mod.contact_substep_rows, engine_mod.span_mask_substep
+    real_seed = span_mask.contact_seed_cuda
+    degrees = []
+
+    def packed_ok(rows, label):
+        if window.PACKED not in rows:
+            return False
+        assert _same(rows[window.PACKED], pack_physics(rows["loc"], rows["rad"])), label
+        return True
+
+    def probes_ok(probes, bounds, degree, label):
+        run, cands = engine_mod._window_widths(bounds)
+        want = [int(run), int(cands), int(degree.max())]
+        assert [int(v) for v in probes] == want, label
+
+    def rows_substep(law, contact, update, s, size, dt, rows, bounds, ref, **kw):
+        label = f"id-list substep {s}"
+        packed = packed_ok(rows, label + " entry")
+
+        def recording(*a, **k):
+            out = contact(*a, **k)
+            degrees.append(out[1])
+            return out
+
+        rows, probes = real_rows(law, recording, update, s, size, dt, rows, bounds, ref, **kw)
+        if packed:
+            assert packed_ok(rows, label + " exit")
+            probes_ok(probes[:3], bounds, degrees[-1], label)
+        seen["substeps"] += 1
+        seen["packed"] += packed
+        return rows, probes
+
+    def seed(*a, out=None, **k):
+        degrees.append(out[1])
+        return real_seed(*a, out=out, **k)
+
+    def mask_substep(law, update, s, size, dt, rows, bounds, ref, mask, rebuild=None, **kw):
+        label = f"span-mask substep {s}"
+        packed = packed_ok(rows, label + " entry")
+        out = real_mask(law, update, s, size, dt, rows, bounds, ref, mask, rebuild, **kw)
+        if packed:
+            assert packed_ok(rows, label + " exit")
+            probes_ok(update.probes(s), bounds, degrees[-1], label)
+            assert int(out[0]) == int(degrees[-1].max())
+        seen["substeps"] += 1
+        seen["packed"] += packed
+        return out
+
+    monkeypatch.setattr(engine_mod, "contact_substep_rows", rows_substep)
+    monkeypatch.setattr(engine_mod, "span_mask_substep", mask_substep)
+    monkeypatch.setattr(span_mask, "contact_seed_cuda", seed)
+
+
+def _update_mirror(*args, scratch, **kw):
+    """``update_plain`` with the kernel's scratch words: the move's and the
+    drift's float32 bits and the flag, as views (``update_cuda``)."""
+    new, move2, drift2, stale = integrate.update_plain(*args, **kw)
+    words = scratch[:16].view(torch.int32)
+    words[0] = torch.maximum(words[0], move2.view(torch.int32))
+    words[1] = torch.maximum(words[1], drift2.view(torch.int32))
+    words[3] = stale.to(torch.int32)
+    maxima = scratch[:8].view(torch.float32)
+    return new, maxima[0], maxima[1], scratch[12:13].view(torch.bool)[0]
+
+
+def _emulate_card_scan(monkeypatch):
+    """The card's single-colony scan on the CPU: ``_WindowRebuild`` (whose
+    ``rebuild_cuda`` runs the mirror on a CPU tensor) and an update with the
+    kernel's scratch, so that the rows carry their packed form and the
+    probes come back through the scratch."""
+    real_update_of = engine_mod._Update.of
+
+    def rebuild_of(cls, cfg, rows, n_substeps, plain):
+        if plain:
+            return None
+        return cls(cfg.jkr_spec, cfg.jkr_span, window.buffers(cfg.jkr_spec, rows, n_substeps))
+
+    def update_of(cls, cfg, bio, n_substeps, device, plain=False):
+        if plain:
+            return real_update_of(cfg, bio, n_substeps, device, plain)
+        return cls(_update_mirror, bio.stokes, engine_mod.drift_threshold(cfg.verlet_skin),
+                   integrate.update_scratch(n_substeps, device))
+
+    monkeypatch.setattr(engine_mod._WindowRebuild, "of", classmethod(rebuild_of))
+    monkeypatch.setattr(engine_mod._Update, "of", classmethod(update_of))
+
+
+def _small_bond_cap(eng, state, K=2):
+    """The state with room for K partners a row (its bonds are still
+    empty), so that rows' degrees pass K."""
+    C = state.capacity
+    assert not bool(state.bonds.mask.any())
+    return state._replace(bonds=BondState.empty(C, K, device=state.alive.device))
+
+
+def _assert_same_step(got, want):
+    """Two ``(state, StepInfo)`` of one step: every field of the info equal,
+    and the states bit for bit (arrays, liveness, bonds, key)."""
+    (a, a_info), (b, b_info) = got, want
+    for name, x, y in zip(engine_mod.StepInfo._fields, a_info, b_info):
+        assert _same(torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu()), name
+    a, b = convert.state_to_numpy(a), convert.state_to_numpy(b)
+    for k in b["arrays"]:
+        np.testing.assert_array_equal(a["arrays"][k], b["arrays"][k], err_msg=k)
+    for k in ("alive", "partners", "bond_mask", "key"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("path", ["id_list", "span_mask"])
+def test_emulated_card_scan_carries_packed_rows_and_equals_the_glue(path, dims, monkeypatch):
+    """The card's single-colony scan emulated on the CPU through the plain
+    mirrors: at every substep the packed rows are ``pack_physics`` of the
+    rows (also right after a taken rebuild) and the folded probes equal the
+    PyTorch probes; two steps equal the CPU's own scan, which packs and
+    probes in PyTorch, bit for bit, with rebuilds taken and degrees past K."""
+    eng, state = _engine(path, dims, deaths=False)
+    state = _small_bond_cap(eng, state)
+    glue = [eng.step(state)]
+    glue.append(eng.step(glue[0][0]))
+    seen = {"substeps": 0, "packed": 0}
+    _substep_checks(monkeypatch, seen)
+    _emulate_card_scan(monkeypatch)
+    got = eng.step(state)
+    _assert_same_step(got, glue[0])
+    _assert_same_step(eng.step(got[0]), glue[1])
+    n_sub = len(engine_mod._physics_dts(eng.bio))
+    assert seen["substeps"] == seen["packed"] == 2 * n_sub
+    assert sum(int(info.jkr_rebuilds) for _, info in glue) > 0
+    assert max(int(info.jkr_max_degree) for _, info in glue) > 2
+
+
+def _glue_record(monkeypatch):
+    """Record, for every contact launch, whether it was given probes (the
+    single-colony card scan's kernels), and count the PyTorch packs of the
+    rows."""
+    from hipsc_abm_tpu_torch.parallel import domain_engine
+
+    record = {"probes": [], "packs": 0}
+
+    def wrap(fn):
+        def wrapped(*a, **k):
+            record["probes"].append(k.get("probes") is not None)
+            return fn(*a, **k)
+        return wrapped
+
+    real_pack = engine_mod.pack_physics
+
+    def pack(*a):
+        record["packs"] += 1
+        return real_pack(*a)
+
+    for name in ("contact_substep_cuda", "contact_substep_plain"):
+        monkeypatch.setattr(engine_mod, name, wrap(getattr(engine_mod, name)))
+    monkeypatch.setattr(domain_engine, "contact_substep_cuda",
+                        wrap(domain_engine.contact_substep_cuda))
+    monkeypatch.setattr(span_mask, "contact_seed_cuda", wrap(span_mask.contact_seed_cuda))
+    monkeypatch.setattr(span_mask, "contact_masked_cuda", wrap(span_mask.contact_masked_cuda))
+    monkeypatch.setattr(engine_mod, "pack_physics", pack)
+    return record
+
+
+def _glue_paths(device):
+    """``(label, step)`` of the single-colony steps on both paths, the
+    ``plain`` step and the domain engine's step, on ``device``."""
+    from hipsc_abm_tpu_torch.parallel import DomainHipscEngine
+
+    out = []
+    for path in ("id_list", "span_mask"):
+        eng, state = _engine(path, 2, deaths=False, device=device)
+        out.append((path, lambda e=eng, st=state: e.step(st)))
+    eng, state = _engine("id_list", 2, deaths=False, device=device)
+    cfg = eng._cfg_for_state(state)
+    out.append(("plain", lambda: engine_mod.hipsc_step(state, cfg, eng.gen, eng.xp, eng.bio,
+                                                       eng.diff, plain=True)))
+    for path in ("id_list", "span_mask"):
+        gen = GeneralParams(num_to_start=600, end_step=4, size=(1200.0, 1200.0, 0.0))
+        dom = DomainHipscEngine(gen, ExperimentalParams(num_gata6=60, dox_step=1),
+                                tiles=(2, 1), device=device, contact_path=path)
+        dstate = dom.init_state(seed=3)
+        out.append((f"domain {path}", lambda d=dom, st=dstate: d.safe_step(st)))
+    return out
+
+
+def test_cpu_plain_and_domain_scans_keep_the_torch_glue(monkeypatch):
+    """On the CPU every scan (both paths, ``plain``, the domain engine)
+    packs its rows and probes its windows in PyTorch on every substep: no
+    contact launch is given probes and no update writes packed rows."""
+    record = _glue_record(monkeypatch)
+    n_sub = len(engine_mod._physics_dts(BIO))
+    for label, step in _glue_paths("cpu"):
+        record["probes"].clear()
+        record["packs"] = 0
+        step()
+        assert record["probes"] and not any(record["probes"]), label
+        assert record["packs"] >= n_sub, label
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -374,3 +646,114 @@ def test_run_steps_with_kernel_rebuilds_equal_the_cpu(dev, path, dims):
         np.testing.assert_array_equal(arr_b[k], arr_a[k], err_msg=k)
     for k in bonds_a:
         np.testing.assert_array_equal(bonds_b[k], bonds_a[k], err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("path", ["id_list", "span_mask"])
+def test_card_scan_probes_and_packed_rows_equal_the_cpu(dev, path, dims, monkeypatch):
+    """Two eager steps on the card, whose scans carry packed rows and take
+    the probes from their contact kernels: at every substep the kernels'
+    widest run, widest row and largest degree equal ``_window_widths`` of
+    the bounds and the largest degree on the same buffers, and the packed
+    rows equal ``pack_physics`` of the rows on all C rows, right after a
+    taken rebuild too; the steps' infos and states equal the CPU's bit for
+    bit, with rebuilds taken and degrees past K."""
+    cpu, state = _engine(path, dims, deaths=False, n=3000)
+    card, _ = _engine(path, dims, deaths=False, device=dev, n=3000)
+    state = _small_bond_cap(cpu, state)
+    want = [cpu.step(state)]
+    want.append(cpu.step(want[0][0]))
+    seen = {"substeps": 0, "packed": 0}
+    _substep_checks(monkeypatch, seen)
+    got = card.step(convert.state_from_numpy(convert.state_to_numpy(state), dev))
+    _assert_same_step(got, want[0])
+    _assert_same_step(card.step(got[0]), want[1])
+    n_sub = len(engine_mod._physics_dts(card.bio))
+    assert seen["substeps"] == seen["packed"] == 2 * n_sub
+    assert sum(int(info.jkr_rebuilds) for _, info in want) > 0
+    assert max(int(info.jkr_max_degree) for _, info in want) > 2
+
+
+@pytest.mark.cuda
+def test_only_the_cards_single_colony_scans_take_the_kernel_probes(dev, monkeypatch):
+    """On the card the single-colony scans give every contact launch the
+    probes and pack their rows once, at the entry build; under ``plain``
+    and in the domain engine every substep packs and probes in PyTorch."""
+    record = _glue_record(monkeypatch)
+    n_sub = len(engine_mod._physics_dts(BIO))
+    for label, step in _glue_paths("cuda"):
+        record["probes"].clear()
+        record["packs"] = 0
+        step()
+        assert record["probes"], label
+        if label in ("id_list", "span_mask"):
+            assert all(record["probes"]) and record["packs"] == 1, label
+        else:
+            assert not any(record["probes"]) and record["packs"] >= n_sub, label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taken", [True, False], ids=["taken", "skipped"])
+@pytest.mark.parametrize("n_live", [0, 700, 1000])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_rebuild_kernels_move_the_packed_rows(dev, dims, n_live, taken):
+    """Rows that carry their packed form: the write-back leaves it
+    ``pack_physics`` of the moved rows, as ``_rebuild_where`` gathers it;
+    skipped, the packed rows keep their bytes."""
+    cfg, rows, bounds, ref, grouping = _on_card(*_window_inputs(dims, 1000, n_live), dev)
+    rows = engine_mod._pack_rows(rows)
+    stale = torch.tensor(taken, device=dev)
+    got, _ = _kernel_rebuild(stale, cfg, rows, bounds, ref, grouping)
+    torch.cuda.synchronize()
+    want = engine_mod._rebuild_where(stale, cfg, rows, bounds, ref,
+                                     torch.arange(1000, device=dev), grouping=grouping)
+    _assert_rebuilt(got, want, "kernels")
+    assert _same(got[0][window.PACKED], pack_physics(got[0]["loc"], got[0]["rad"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [2, 3])
+def test_kernel_probes_and_packed_update_equal_the_mirrors(dev, dims):
+    """B6, the seed (B2) and the masked substep (B1) given ``probes``, on
+    1000 rows (a partial last CTA) with 300 dead: the probes equal the plain
+    fold's, a masked launch skipped by its predicate leaves them; the
+    update given ``xyzr`` writes the plain update's packed rows."""
+    from hipsc_abm_tpu_torch.engine import _contact_law, drift_threshold
+    from hipsc_abm_tpu_torch.ops import contact
+
+    cfg, rows, bounds, ref, grouping = _on_card(*_window_inputs(dims, 1000, 700), dev)
+    law = _contact_law(cfg, BIO)
+    args = (pack_physics(ref, rows["rad"]), rows["ids"], rows["alive"], bounds)
+
+    def probed(fn, last, **kw):
+        got = torch.zeros(3, dtype=torch.int32, device=dev)
+        out = fn(*args, last, **law, grouping=grouping, probes=got, **kw)
+        want = torch.zeros(3, dtype=torch.int32)
+        contact.fold_probes(want, bounds.cpu(), out[1].cpu())
+        assert got.tolist() == want.tolist(), fn.__name__
+        assert int(out[1].max()) > 0
+        return out
+
+    probed(contact.contact_substep_cuda, rows["partners"])
+    _, _, mask = probed(span_mask.contact_seed_cuda, rows["partners"])
+    skipped = torch.zeros(3, dtype=torch.int32, device=dev)
+    span_mask.contact_masked_cuda(*args, mask.clone(), **law, grouping=grouping,
+                                  pred=torch.zeros(1, dtype=torch.int32, device=dev),
+                                  probes=skipped)
+    assert skipped.tolist() == [0, 0, 0]
+    probed(span_mask.contact_masked_cuda, mask)
+    force = torch.full((1000, 3), 1e-9, device=dev)
+    size = torch.tensor(BOX[dims], dtype=torch.float32, device=dev)
+    kw = dict(stokes=BIO.stokes, dt=float(BIO.move_dt), folded=False,
+              threshold=drift_threshold(2.0))
+    packed = torch.full((1000, 4), float("nan"), device=dev)
+    new, *_ = integrate.update_cuda(rows["loc"], rows["rad"], force, rows["mot"] * 1e-9,
+                                    rows["alive"], ref, size, xyzr=packed,
+                                    scratch=integrate.update_scratch(1, dev)[0], **kw)
+    want = torch.full((1000, 4), float("nan"))
+    integrate.update_plain(rows["loc"].cpu(), rows["rad"].cpu(), force.cpu(),
+                           rows["mot"].cpu() * 1e-9, rows["alive"].cpu(), ref.cpu(),
+                           size.cpu(), xyzr=want, **kw)
+    assert _same(packed.cpu(), want)
+    assert _same(packed.cpu(), pack_physics(new.cpu(), rows["rad"].cpu()))
