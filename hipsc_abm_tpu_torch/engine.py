@@ -34,10 +34,15 @@ the all-pairs ``_physics_scan_dense`` for calibration-sized colonies.
 The engine has an explicit ``device``. On a CUDA device the neighbour
 moments, the contact substeps and the FTCS subcycles run the hand-written
 kernels of ``ops.bio_moments``, ``ops.contact`` or ``ops.span_mask`` and
-``ops.ftcs``; on the CPU the same wrappers run their plain versions.
-``hipsc_step(plain=True)`` runs the plain versions on any device: the path
-of reverse-mode autograd (``calibrate.Calibrator``), whose contact substeps
-``EngineConfig.remat_substeps`` rematerialises.
+``ops.ftcs``; on the CPU the same wrappers run their plain versions. The
+route of a contact scan does not depend on the device: the rows carry their
+packed form, the window is rebuilt in place (``_WindowRebuild``) and the
+substeps' probes reduce into the update's scratch on the card and on the
+CPU alike. ``hipsc_step(plain=True)`` runs the plain versions on any
+device: the path of reverse-mode autograd (``calibrate.Calibrator``), whose
+scans select their rebuild (``_RebuildWhere``) and pack their rows on every
+substep, and whose contact substeps ``EngineConfig.remat_substeps``
+rematerialises.
 
 A box with ``size[2] > 0`` runs the same step in 3D: nine stencil runs per
 row instead of three (``neighbors.run_bounds``), the z lanes of the
@@ -700,29 +705,36 @@ def _rebuild_where(stale, cfg, rows, bounds, ref, identity, window=contact_windo
     return rows, bounds, torch.where(stale, rows["loc"], ref), grouping
 
 
+class _RebuildWhere(NamedTuple):
+    """``_rebuild_where`` as a scan's rebuild, called as ``_WindowRebuild``
+    is: the ``plain`` scans' (autograd cannot go through the in-place
+    rebuild) and the domain engine's, over its tile-local ``window``."""
+
+    cfg: EngineConfig
+    identity: torch.Tensor
+    window: object = contact_window
+
+    def __call__(self, s, stale, rows, bounds, ref, grouping):
+        """Substep ``s``'s rebuild under ``stale``: ``(rows, bounds, ref,
+        grouping)``."""
+        del s
+        return _rebuild_where(stale, self.cfg, rows, bounds, ref, self.identity, self.window,
+                              grouping=grouping)
+
+
 class _WindowRebuild(NamedTuple):
-    """The rebuild of a single-colony scan on the card
-    (``ops.window.rebuild_cuda``): kernels that return at once while the
-    drift flag is false and otherwise write the rebuilt window into the
-    scan's own buffers, the values ``_rebuild_where`` selects. The CPU and
-    ``plain`` (autograd, ``_remat``) keep ``_rebuild_where``, and so does
-    the domain engine, whose window is tile-local. Each substep's span probe
-    gets a slot of its own (``Buffers.needed``), since the scan's probes
-    hold every substep's by reference. Where it runs, the scan's rows carry
-    their packed form (``_pack_rows``) and its contact kernels reduce the
-    substep's probes."""
+    """The rebuild of a single-colony scan that is not ``plain``
+    (``ops.window.rebuild_cuda``), in place, the values ``_rebuild_where``
+    selects: on the card, kernels that return at once while the drift flag
+    is false and otherwise write the rebuilt window into the scan's own
+    buffers; on the CPU their plain mirror (``rebuild_plain``), which reads
+    the flag on the host. Each substep's span probe gets a slot of its own
+    (``Buffers.needed``), since the scan's probes hold every substep's by
+    reference."""
 
     spec: GridSpec
     span: int
     buffers: window_ops.Buffers
-
-    @classmethod
-    def of(cls, cfg: EngineConfig, rows, n_substeps: int, plain: bool):
-        """The scan's rebuild on the card, or None (``_rebuild_where``)."""
-        if plain or rows["ids"].device.type != "cuda":
-            return None
-        return cls(cfg.jkr_spec, cfg.jkr_span,
-                   window_ops.buffers(cfg.jkr_spec, rows, n_substeps))
 
     def __call__(self, s, stale, rows, bounds, ref, grouping):
         """Substep ``s``'s rebuild under ``stale``, in place: ``(rows,
@@ -733,47 +745,51 @@ class _WindowRebuild(NamedTuple):
         return rows, bounds, ref, grouping._replace(needed=needed)
 
 
+def _scan_rebuild(cfg: EngineConfig, rows, n_substeps: int, plain: bool):
+    """The rebuild of a single-colony scan over its entry rows, chosen once,
+    by ``plain`` alone: ``_RebuildWhere`` under ``plain`` (autograd,
+    ``_remat``), else ``_WindowRebuild`` on every device."""
+    if plain:
+        return _RebuildWhere(cfg, torch.arange(rows["ids"].shape[0], device=rows["ids"].device))
+    return _WindowRebuild(cfg.jkr_spec, cfg.jkr_span,
+                          window_ops.buffers(cfg.jkr_spec, rows, n_substeps))
+
+
 class _ScanProbes:
-    """The scan's probes, gathered on the device: the widest run and row of
-    each substep's window and its JAX span probe, the largest degree and
-    move, the rebuilds. ``scratch``: where the scan's kernels reduce each
-    substep's widest run and row, largest degree and move (the update's
-    ``update_scratch``, where the rows carry their packed form), else
-    None."""
+    """The scan's probes, gathered on the device: ``scratch``, the update's
+    (``_Update.scratch``), where each substep's contact launch reduces its
+    window's widest run and row and its largest degree and its update the
+    largest move; each substep's JAX span probe (``spans``); the
+    rebuilds."""
 
-    def __init__(self, device):
-        self.bins, self.cands, self.degs, self.moves2, self.spans = [], [], [], [], []
-        self.rebuilds = torch.zeros((), dtype=torch.int64, device=device)
-        self.scratch = None
-
-    def window(self, bounds):
-        run, cands = _window_widths(bounds)
-        self.bins.append(run)
-        self.cands.append(cands)
+    def __init__(self, scratch: torch.Tensor):
+        self.scratch = scratch
+        self.spans = []
+        self.rebuilds = torch.zeros((), dtype=torch.int64, device=scratch.device)
 
 
 class _Update(NamedTuple):
     """The substep update of a scan (``ops.integrate``): the function
     (``update_cuda``, or ``update_plain`` under ``plain``), its constants,
-    and the kernel's scratch, one zeroed row per substep (None on the
-    CPU)."""
+    and its scratch, one zeroed row per substep, where the update writes
+    the substep's largest move and drift and its drift flag, and the contact
+    launches given ``probes`` reduce theirs (the kernels on the card, the
+    plain versions elsewhere)."""
 
     fn: object
     stokes: float
     threshold: float
-    scratch: Optional[torch.Tensor]
+    scratch: torch.Tensor
 
     @classmethod
     def of(cls, cfg, bio, n_substeps, device, plain=False) -> "_Update":
-        on_card = device.type == "cuda" and not plain
         return cls(update_plain if plain else update_cuda, bio.stokes,
-                   drift_threshold(cfg.verlet_skin),
-                   update_scratch(n_substeps, device) if on_card else None)
+                   drift_threshold(cfg.verlet_skin), update_scratch(n_substeps, device))
 
     def probes(self, s):
         """Substep ``s``'s contact probes in the scratch (``contact_probes``):
         the widest run, widest row and largest degree, zero until the
-        substep's contact kernel reduces them."""
+        substep's contact launch reduces them."""
         return contact_probes(self.scratch[s])
 
     def __call__(self, s, rows, force, size, dt, ref, counted=None):
@@ -783,8 +799,7 @@ class _Update(NamedTuple):
         is a literal of the JAX program (``ops.integrate``, ``folded``)."""
         return self.fn(rows["loc"], rows["rad"], force, rows["mot"], rows["alive"], ref,
                        size, stokes=self.stokes, dt=float(dt), folded=s == 0,
-                       threshold=self.threshold, counted=counted,
-                       scratch=None if self.scratch is None else self.scratch[s],
+                       threshold=self.threshold, counted=counted, scratch=self.scratch[s],
                        xyzr=rows.get(window_ops.PACKED))
 
 
@@ -817,93 +832,93 @@ def _remat(cfg: EngineConfig, substep, *args):
 def _scan_result(rows, probes):
     """The rows back in slot order: ``(locations, bonds, widest run, max
     degree, max substep move, rebuilds after the entry build, widest row,
-    JAX span probe)``. Where the kernels reduced the probes into
-    ``probes.scratch``, one reduction takes its columns' maxima, a row of
-    the same layout (the move's float32 bits are non-negative, so they
-    order as the floats do)."""
+    JAX span probe)``. One reduction takes the maxima of the columns of
+    ``probes.scratch``, a row of the same layout (the move's float32 bits
+    are non-negative, so they order as the floats do)."""
     profiling.phase("finish")
     perm = rows["perm"]
     locations = torch.empty_like(rows["loc"])
     locations[perm] = rows["loc"]
     partners = torch.empty_like(rows["partners"])
     partners[perm] = rows["partners"]
-    if probes.scratch is None:
-        run, deg, cands = (torch.stack(probes.bins).max(), torch.stack(probes.degs).max(),
-                           torch.stack(probes.cands).max())
-        move2 = torch.stack(probes.moves2).max()
-    else:
-        maxima = probes.scratch.view(torch.int32).amax(dim=0).view(torch.uint8)
-        run, cands, deg = contact_probes(maxima).unbind()
-        move2 = maxima[:4].view(torch.float32)[0]
+    maxima = probes.scratch.view(torch.int32).amax(dim=0).view(torch.uint8)
+    run, cands, deg = contact_probes(maxima).unbind()
+    move2 = maxima[:4].view(torch.float32)[0]
     return (locations, BondState.from_ids(partners), run, deg, torch.sqrt(move2),
             probes.rebuilds, cands, torch.stack(probes.spans).max())
 
 
-def _rebuild(rebuild, s, stale, cfg, rows, bounds, ref, identity, grouping):
-    """Substep ``s``'s window rebuild under ``stale``: the card's
-    ``_WindowRebuild``, or ``_rebuild_where`` where ``rebuild`` is None."""
-    if rebuild is None:
-        return _rebuild_where(stale, cfg, rows, bounds, ref, identity, grouping=grouping)
-    return rebuild(s, stale, rows, bounds, ref, grouping)
+def _open_scan(cfg, bio, arrays, alive, bonds, n_substeps: int, plain: bool):
+    """The opening of both single-colony scans: the update and the probes in
+    its scratch, the rows sorted into the contact grid's canonical order
+    with their window (``_build_window``), the drift reference, the rebuild
+    (``_scan_rebuild``) and the pair law. Unless ``plain``, the rows carry
+    their packed form from here on (``_pack_rows``). Returns ``(rows,
+    bounds, ref, grouping, law, update, rebuild, probes)``."""
+    profiling.phase("window")
+    rows = _scan_rows(arrays, alive, bonds)
+    update = _Update.of(cfg, bio, n_substeps, alive.device, plain)
+    probes = _ScanProbes(update.scratch)
+    rows, bounds, grouping = _build_window(cfg, rows)
+    ref = rows["loc"]
+    rebuild = _scan_rebuild(cfg, rows, n_substeps, plain)
+    if not plain:
+        rows = _pack_rows(rows)
+    return rows, bounds, ref, grouping, _contact_law(cfg, bio), update, rebuild, probes
 
 
-def _id_list_substep(cfg, law, contact, update, size, rebuild, identity, s, stale, dt, rows,
-                     bounds, ref, grouping):
-    """Substep ``s`` of ``_physics_scan``: the rebuild that the previous
-    substep's drift flag ``stale`` selects (None on the first substep;
-    ``_rebuild``), then ``contact_substep_rows``. Returns the new ``(rows,
-    bounds, ref, grouping)`` and the substep's probes ``(widest run, widest
-    row, max degree, max squared move, max squared drift, stale)``, the last
-    two for the next substep."""
+def _id_list_substep(law, contact, update, size, rebuild, s, stale, dt, rows, bounds, ref,
+                     grouping):
+    """Substep ``s`` of ``_physics_scan``: the scan's ``rebuild`` under the
+    previous substep's drift flag ``stale`` (None on the first substep),
+    then ``contact_substep_rows`` with the probes in the update's scratch.
+    Returns the new ``(rows, bounds, ref, grouping)`` and the flag for the
+    next substep."""
     if stale is not None:
         profiling.phase("window")
-        rows, bounds, ref, grouping = _rebuild(rebuild, s, stale, cfg, rows, bounds, ref,
-                                               identity, grouping)
+        rows, bounds, ref, grouping = rebuild(s, stale, rows, bounds, ref, grouping)
     profiling.phase("contact")
-    rows, probes = contact_substep_rows(law, contact, update, s, size, dt, rows, bounds, ref,
-                                        grouping=grouping)
-    return rows, bounds, ref, grouping, probes
+    rows, _, _, _, stale = contact_substep_rows(law, contact, update, s, size, dt, rows, bounds,
+                                                ref, probes=update.probes(s), grouping=grouping)
+    return rows, bounds, ref, grouping, stale
 
 
 def _pack_rows(rows):
-    """The rows of a single-colony scan on the card (``_WindowRebuild``)
-    with their packed form ``rows["xyzr"]`` (``pack_physics``), made once
-    after the entry build: from then on the update kernel writes it with the
-    new locations and a taken rebuild moves it, so a substep's contact
-    launch reads it as it stands and makes no pack of its own."""
+    """The rows of a single-colony scan that is not ``plain`` with their
+    packed form ``rows["xyzr"]`` (``pack_physics``), made once after the
+    entry build: from then on the update writes it with the new locations
+    and a taken rebuild moves it, so a substep's contact launch reads it as
+    it stands and makes no pack of its own."""
     return dict(rows, **{window_ops.PACKED: pack_physics(rows["loc"], rows["rad"])})
 
 
-def contact_substep_rows(law, contact, update, s, size, dt, rows, bounds, ref, width=None,
-                         counted=None, grouping=None):
+def _packed(rows):
+    """The rows' packed form: the one they carry (``_pack_rows``), or one
+    made here (``pack_physics``) where they carry none (``plain``, the
+    domain engine)."""
+    if window_ops.PACKED in rows:
+        return rows[window_ops.PACKED]
+    return pack_physics(rows["loc"], rows["rad"])
+
+
+def contact_substep_rows(law, contact, update, s, size, dt, rows, bounds, ref, probes=None,
+                         width=None, counted=None, grouping=None):
     """One id-list contact substep over the window ``bounds`` the caller
     holds (built where the rows stood at ``ref``): one ``contact`` call
-    (``contact_substep_cuda``, B6, or its plain version) on the sorted rows
-    and the update (an ``_Update``, substep ``s``). ``counted`` (a (C,)
-    bool of the rows whose degree, move and drift the probes read; default:
-    the alive rows) and ``width`` (the plain version's run width) serve the
-    domain engine; ``grouping`` is the window's sum order. Returns the new rows and the substep's probes ``(widest
-    run, widest row, max degree, max squared move, max squared drift,
-    stale)``. Rows that carry their packed form (``_pack_rows``) take it
-    as the kernel's input, and the kernel reduces the first three probes
-    into the update's scratch (views of it come back); other rows are packed
-    here and probed in PyTorch."""
-    if window_ops.PACKED in rows:
-        probes = update.probes(s)
-        force, _, partners = contact(
-            rows[window_ops.PACKED], rows["ids"], rows["alive"], bounds, rows["partners"],
-            **law, grouping=grouping, probes=probes)
-        new_loc, move2, drift2, stale = update(s, rows, force, size, dt, ref)
-        return dict(rows, loc=new_loc, partners=partners), (*probes.unbind(), move2, drift2,
-                                                            stale)
-    run, cands = _window_widths(bounds)
+    (``contact_substep_cuda``, B6, or its plain version) on the sorted rows'
+    packed form (``_packed``) and the update (an ``_Update``, substep
+    ``s``). Given ``probes`` ((3,) int32, ``_Update.probes``), the launch
+    reduces the window's widest run and row and the largest degree into
+    them. ``counted`` (a (C,) bool of the rows whose move and drift the
+    update reads; default: the alive rows) and ``width`` (the plain
+    version's run width) serve the domain engine; ``grouping`` is the
+    window's sum order. Returns the new rows, the (C,) degree and the
+    update's ``(max squared move, max squared drift, stale)``."""
     force, degree, partners = contact(
-        pack_physics(rows["loc"], rows["rad"]), rows["ids"], rows["alive"],
-        bounds, rows["partners"], **law, width=width, grouping=grouping,
-    )
+        _packed(rows), rows["ids"], rows["alive"], bounds, rows["partners"], **law,
+        width=width, grouping=grouping, probes=probes)
     new_loc, move2, drift2, stale = update(s, rows, force, size, dt, ref, counted)
-    deg = degree.max() if counted is None else torch.where(counted, degree, 0).max()
-    return dict(rows, loc=new_loc, partners=partners), (run, cands, deg, move2, drift2, stale)
+    return dict(rows, loc=new_loc, partners=partners), degree, move2, drift2, stale
 
 
 def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
@@ -911,46 +926,32 @@ def _physics_scan(cfg, bio, arrays, alive, bonds, size, dts, plain=False):
     partner-id lists (``contact_path="id_list"``).
 
     At entry the physics rows are sorted into the contact grid's canonical
-    order and the per-row run bounds built. Before every later substep the
-    drift test runs on the device, and the rebuild (re-sort, new bounds)
-    takes effect where an agent has drifted more than skin/2 from where the
-    runs were built: on the card its kernels return at once unless the
-    flag is set (``_WindowRebuild``); on the CPU and under ``plain`` it is
-    computed on every substep and selected (``_rebuild_where``). Each
-    substep is one contact-kernel launch (forces, degrees and the new
-    partner lists; the plain version under ``plain``) and one Stokes
-    update, rematerialised under ``cfg.remat_substeps``; on the card the
-    rows carry their packed form (``_pack_rows``), and the kernel reduces
-    the substep's window and degree probes, so that a substep launches no
-    PyTorch kernel. The rows go back to the state's layout at the end.
-    Returns ``_scan_result``'s tuple."""
-    profiling.phase("window")
-    rows = _scan_rows(arrays, alive, bonds)
-    law = _contact_law(cfg, bio)
+    order and the per-row run bounds built (``_open_scan``). Before every
+    later substep the drift test runs on the device, and the rebuild
+    (re-sort, new bounds) takes effect where an agent has drifted more than
+    skin/2 from where the runs were built: in place, returning at once
+    unless the flag is set (``_WindowRebuild``: kernels on the card, their
+    plain mirror on the CPU), or, under ``plain``, computed on every
+    substep and selected (``_RebuildWhere``). Each substep is one contact
+    launch (forces, degrees and the new partner lists; the plain version
+    under ``plain``) and one Stokes update, rematerialised under
+    ``cfg.remat_substeps``; the launch reduces the substep's window and
+    degree probes into the update's scratch, and, unless ``plain``, the
+    rows carry their packed form (``_pack_rows``), so that on the card a
+    substep launches no PyTorch kernel. The rows go back to the state's
+    layout at the end. Returns ``_scan_result``'s tuple."""
+    rows, bounds, ref, grouping, law, update, rebuild, probes = _open_scan(
+        cfg, bio, arrays, alive, bonds, len(dts), plain)
     contact = contact_substep_plain if plain else contact_substep_cuda
-    update = _Update.of(cfg, bio, len(dts), alive.device, plain)
-    probes = _ScanProbes(alive.device)
-    rows, bounds, grouping = _build_window(cfg, rows)
-    ref = rows["loc"]
-    rebuild = _WindowRebuild.of(cfg, rows, len(dts), plain)
-    identity = None if rebuild is not None else torch.arange(alive.shape[0],
-                                                             device=alive.device)
-    if rebuild is not None:
-        rows = _pack_rows(rows)
-        probes.scratch = update.scratch
     stale = None
     for s, dt in enumerate(dts):
-        rows, bounds, ref, grouping, (run, cands, deg, move2, _, stale_next) = _remat(
-            cfg, _id_list_substep, cfg, law, contact, update, size, rebuild, identity, s,
-            stale, float(dt), rows, bounds, ref, grouping)
+        rows, bounds, ref, grouping, stale_next = _remat(
+            cfg, _id_list_substep, law, contact, update, size, rebuild, s, stale, float(dt),
+            rows, bounds, ref, grouping)
         if stale is not None:
             probes.rebuilds = probes.rebuilds + stale
         stale = stale_next
-        probes.bins.append(run)
-        probes.cands.append(cands)
         probes.spans.append(grouping.needed)
-        probes.degs.append(deg)
-        probes.moves2.append(move2)
     return _scan_result(rows, probes)
 
 
@@ -1021,84 +1022,66 @@ def _physics_scan_span_mask(cfg, bio, arrays, alive, bonds, size, dts, plain=Fal
     window (``contact_path="span_mask"``; the JAX engine's
     ``_physics_scan_pallas`` design).
 
-    At entry the rows are sorted, the run bounds built and the mask seeded
-    from the (C, K) partner ids (``span_mask.contact_seed``, which also
-    evaluates substep 0). The mask is one (W, C) buffer of the static width
-    ``cfg.mask_bits / 32``. Before each later substep the drift test of
-    ``_physics_scan`` runs on the device, and its flag predicates the
-    launches: when the window is stale, the compaction writes the mask back
-    to partner ids (the only bond form that survives a re-sort), the rows
-    (ids riding along) are re-sorted and the new window is seeded; when it
-    holds, the masked substep reads and rewrites the mask in place. The seed
-    and the masked substep are both launched into the same force, degree and
-    mask buffers, each returning at once unless its branch is taken (the
-    re-sort is ``_physics_scan``'s: kernels under the flag on the card,
-    computed and selected on the CPU). At exit the mask is compacted once
-    more and the rows go back to slot order. Returns ``_scan_result``'s
+    At entry the rows are sorted and the run bounds built (``_open_scan``),
+    and the mask seeded from the (C, K) partner ids
+    (``span_mask.contact_seed``, which also evaluates substep 0). The mask
+    is one (W, C) buffer of the static width ``cfg.mask_bits / 32``. Before
+    each later substep the drift test of ``_physics_scan`` runs on the
+    device, and its flag predicates the launches: when the window is stale,
+    the compaction writes the mask back to partner ids (the only bond form
+    that survives a re-sort), the rows (ids riding along) are re-sorted and
+    the new window is seeded; when it holds, the masked substep reads and
+    rewrites the mask in place. The seed and the masked substep are both
+    launched into the same force, degree and mask buffers, each returning at
+    once unless its branch is taken, and the one that runs reduces the
+    substep's probes into the update's scratch; the re-sort is
+    ``_physics_scan``'s ``_WindowRebuild``. At exit the mask is compacted
+    once more and the rows go back to slot order. Returns ``_scan_result``'s
     tuple. It has no plain form on the card, and raises under ``plain``."""
     if plain:
         raise ValueError("hipsc_step(plain=True) runs the id-list or the dense contact path, "
                          "not contact_path='span_mask'")
-    profiling.phase("window")
-    rows = _scan_rows(arrays, alive, bonds)
-    law = _contact_law(cfg, bio)
+    rows, bounds, ref, grouping, law, update, rebuild, probes = _open_scan(
+        cfg, bio, arrays, alive, bonds, len(dts), plain)
     K = rows["partners"].shape[1]
-    C, device = alive.shape[0], alive.device
-    mask = torch.empty((mask_words_of(cfg), C), dtype=torch.int32, device=device)
-    update = _Update.of(cfg, bio, len(dts), device)
-    probes = _ScanProbes(device)
-    rows, bounds, grouping = _build_window(cfg, rows)
-    ref = rows["loc"]
-    window_rebuild = _WindowRebuild.of(cfg, rows, len(dts), plain)
-    identity = None if window_rebuild is not None else torch.arange(C, device=device)
-    if window_rebuild is not None:
-        rows = _pack_rows(rows)
-        probes.scratch = update.scratch
+    mask = torch.empty((mask_words_of(cfg), alive.shape[0]), dtype=torch.int32,
+                       device=alive.device)
     stale = None
     for s, dt in enumerate(dts):
-        rebuild = None
+        pred = None
         if s > 0:
             profiling.phase("window")
-            rebuild = stale.to(torch.int32).reshape(1)
-            span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K, pred=rebuild,
+            pred = stale.to(torch.int32).reshape(1)
+            span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K, pred=pred,
                                         out=rows["partners"])
-            rows, bounds, ref, grouping = _rebuild(window_rebuild, s, stale, cfg, rows, bounds,
-                                                   ref, identity, grouping)
+            rows, bounds, ref, grouping = rebuild(s, stale, rows, bounds, ref, grouping)
             probes.rebuilds = probes.rebuilds + stale
         profiling.phase("contact")
-        if probes.scratch is None:
-            probes.window(bounds)
         probes.spans.append(grouping.needed)
-        deg, move2, _, stale = span_mask_substep(law, update, s, size, dt, rows, bounds, ref,
-                                                 mask, rebuild, grouping=grouping)
-        probes.degs.append(deg)
-        probes.moves2.append(move2)
+        *_, stale = span_mask_substep(law, update, s, size, dt, rows, bounds, ref, mask, pred,
+                                      probes=update.probes(s), grouping=grouping)
     rows["partners"] = span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K)
     return _scan_result(rows, probes)
 
 
 def span_mask_substep(law, update, s, size, dt, rows, bounds, ref, mask, rebuild=None,
-                      width=None, counted=None, grouping=None):
+                      probes=None, width=None, counted=None, grouping=None):
     """One span-mask contact substep over the window ``bounds`` (built where
-    the rows stood at ``ref``) and the (W, C) ``mask`` the caller holds,
-    and the update (an ``_Update``, substep ``s``) of ``rows["loc"]`` (in
-    place in the dict). ``rebuild`` None: the scan's
-    first substep, the seed (B2) from the partner ids; else a (1,) int32
-    device flag predicating the seed (the window was just rebuilt, and the
-    caller compacted the mask before) against the masked substep (B1). Both
-    write the same force and degree buffers. ``width``, ``counted`` and
-    ``grouping`` as in ``contact_substep_rows``. Returns the substep's ``(max degree, max
-    squared move, max squared drift, stale)``. Rows that carry their packed
-    form (``_pack_rows``) take it as the kernels' input, and the launch that
-    runs reduces the substep's widest run and row and largest degree into
-    the update's scratch (the degree comes back as a view of it); other
-    rows are packed here and the degree probed in PyTorch."""
+    the rows stood at ``ref``) and the (W, C) ``mask`` the caller holds, on
+    the rows' packed form (``_packed``), and the update (an ``_Update``,
+    substep ``s``) of ``rows["loc"]`` (in place in the dict). ``rebuild``
+    None: the scan's first substep, the seed (B2) from the partner ids;
+    else a (1,) int32 device flag predicating the seed (the window was just
+    rebuilt, and the caller compacted the mask before) against the masked
+    substep (B1). Both write the same force and degree buffers, and the one
+    that runs reduces its probes into ``probes``. ``probes``, ``width``,
+    ``counted`` and ``grouping`` as in ``contact_substep_rows``. Returns the
+    (C,) degree and the update's ``(max squared move, max squared drift,
+    stale)``."""
     C, device = bounds.shape[0], bounds.device
     force = torch.empty((C, 3), dtype=torch.float32, device=device)
     degree = torch.empty((C,), dtype=torch.int32, device=device)
-    packed = window_ops.PACKED in rows
-    xyzr = rows[window_ops.PACKED] if packed else pack_physics(rows["loc"], rows["rad"])
-    probes = update.probes(s) if packed else None
+    xyzr = _packed(rows)
     span_mask.contact_seed_cuda(xyzr, rows["ids"], rows["alive"], bounds, rows["partners"],
                                 pred=rebuild, out=(force, degree, mask), **law, width=width,
                                 grouping=grouping, probes=probes)
@@ -1106,12 +1089,8 @@ def span_mask_substep(law, update, s, size, dt, rows, bounds, ref, mask, rebuild
         span_mask.contact_masked_cuda(xyzr, rows["ids"], rows["alive"], bounds, mask,
                                       pred=1 - rebuild, out=(force, degree), **law,
                                       width=width, grouping=grouping, probes=probes)
-    if packed:
-        deg = probes[2]
-    else:
-        deg = degree.max() if counted is None else torch.where(counted, degree, 0).max()
     rows["loc"], move2, drift2, stale = update(s, rows, force, size, dt, ref, counted)
-    return deg, move2, drift2, stale
+    return degree, move2, drift2, stale
 
 
 _PHYSICS_SCANS = {"id_list": _physics_scan, "span_mask": _physics_scan_span_mask}

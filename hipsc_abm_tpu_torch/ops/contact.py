@@ -34,20 +34,24 @@ from hipsc_abm_tpu_torch.ops.neighbors import (Grouping, bounds_window, grouping
 def contact_substep_plain(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None, width=None,
-    grouping: Optional[Grouping] = None,
+    grouping: Optional[Grouping] = None, probes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch contact substep: returns ``(force (C, 3) float32,
     degree (C,) int32, new partners (C, K) int32)``. ``uniform_radius``
     selects the uniform law, None the general law, as in the kernel.
     ``width``: ``neighbors.bounds_window``'s. The forces are summed in the
     TPU kernels' grouping (``neighbors.Grouping``; default: the rows are
-    the colony's sorted order, ``grouping_of_bounds``)."""
+    the colony's sorted order, ``grouping_of_bounds``). Given ``probes``
+    ((3,) int32), the widest run, widest row and largest degree are
+    max-reduced into it (``fold_probes``), as the kernel reduces them."""
     pos, valid = bounds_window(bounds, width)
     force, new_partners, degree = jkr_ops.jkr_substep(
         partners, xyzr, ids, alive, None, pos, valid, radius,
         adhesion_const, poisson, youngs, break_d, uniform_radius,
         plain_lanes(bounds, pos, grouping),
     )
+    if probes is not None:
+        fold_probes(probes, bounds, degree)
     return force, degree, new_partners
 
 
@@ -147,16 +151,14 @@ def contact_substep_cuda(
     also when the CTA's partner block does not fit in the card's shared
     memory). ``grouping`` as in the plain version. Given ``probes`` ((3,)
     int32), the widest run, widest row and largest degree are max-reduced
-    into it (``fold_probes``). The launch counts as ``contact_substep`` in
-    2D and ``contact_substep_3d`` in 3D."""
+    into it. The launch counts as ``contact_substep`` in 2D and
+    ``contact_substep_3d`` in 3D."""
     kw = dict(radius=radius, adhesion_const=adhesion_const, poisson=poisson,
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius,
               grouping=grouping)
     if xyzr.device.type == "cpu":
-        out = contact_substep_plain(xyzr, ids, alive, bounds, partners, **kw, width=width)
-        if probes is not None:
-            fold_probes(probes, bounds, out[1])
-        return out
+        return contact_substep_plain(xyzr, ids, alive, bounds, partners, **kw, width=width,
+                                     probes=probes)
     C, K = partners.shape
     kernels.check_cuda("xyzr", xyzr, torch.float32, (C, 4))
     kernels.check_cuda("ids", ids, torch.int32, (C,))

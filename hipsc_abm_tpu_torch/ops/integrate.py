@@ -88,16 +88,22 @@ def stokes_integrate_unfused(locations, radii, jkr_forces, motility_forces, aliv
 
 def update_plain(loc, rad, force, mot, alive, ref, size, *, stokes: float, dt: float,
                  folded: bool, threshold: float, counted: Optional[torch.Tensor] = None,
-                 scratch=None, xyzr: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+                 scratch: Optional[torch.Tensor] = None,
+                 xyzr: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """One substep's update: ``(new locations (C, 3), largest squared move
     (), largest squared drift (), stale ())`` over the ``alive`` rows, or
     the rows ``counted``. The drift is from ``ref``, where the window was
     built, and ``stale`` the next substep's drift test, ``drift^2 >
     threshold``. The squared norms are ``xla_f32.row_sq_sum``'s, as the JAX
-    engine's probes compute them. ``scratch`` is the kernel's and is not
-    read here. Given ``xyzr`` ((C, 4) float32), the new locations beside the
-    radii are written into it (``ops.jkr.pack_physics``'s rows)."""
-    del scratch
+    engine's probes compute them. Given ``scratch`` (a (32,) uint8 row of
+    ``update_scratch``), the kernel's words are written into it, detached:
+    the move's and the drift's float32 bits by max, and the flag. The
+    values come back as computed, not as views of the scratch (as
+    ``update_cuda`` returns them): autograd saves the flag (a checkpointed
+    substep's input, ``torch.where``'s condition), and the later substeps'
+    writes to the scratch would change a view under it. Given ``xyzr``
+    ((C, 4) float32), the new locations beside the radii are written into
+    it (``ops.jkr.pack_physics``'s rows)."""
     new = stokes_integrate(loc, rad, force, mot, alive, stokes, size, dt, folded)
     if xyzr is not None:
         xyzr.copy_(torch.cat([new, rad[:, None]], dim=1))
@@ -105,7 +111,13 @@ def update_plain(loc, rad, force, mot, alive, ref, size, *, stokes: float, dt: f
     rows = alive if counted is None else counted
     move2 = torch.where(rows, xla_f32.row_sq_sum(new - loc), zero).max()
     drift2 = torch.where(rows, xla_f32.row_sq_sum(new - ref), zero).max()
-    return new, move2, drift2, drift2 > threshold
+    stale = drift2 > threshold
+    if scratch is not None:
+        words = scratch[:16].view(torch.int32)
+        maxima = torch.stack([move2, drift2]).detach().view(torch.int32)
+        torch.maximum(words[:2], maxima, out=words[:2])
+        words[3] = stale.to(torch.int32)
+    return new, move2, drift2, stale
 
 
 # bytes of one substep's row of the scan's scratch: the update's largest
@@ -143,7 +155,8 @@ def update_cuda(loc, rad, force, mot, alive, ref, size, *, stokes: float, dt: fl
     ``update``."""
     if loc.device.type == "cpu":
         return update_plain(loc, rad, force, mot, alive, ref, size, stokes=stokes, dt=dt,
-                            folded=folded, threshold=threshold, counted=counted, xyzr=xyzr)
+                            folded=folded, threshold=threshold, counted=counted,
+                            scratch=scratch, xyzr=xyzr)
     C = loc.shape[0]
     for name, t in (("loc", loc), ("force", force), ("mot", mot), ("ref", ref)):
         kernels.check_cuda(name, t, torch.float32, (C, 3))

@@ -157,14 +157,15 @@ def contact_seed_plain(
     xyzr, ids, alive, bounds, partners, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
     pred: Optional[torch.Tensor] = None, out=None, width=None,
-    grouping: Optional[Grouping] = None,
+    grouping: Optional[Grouping] = None, probes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain seed substep: returns ``(force (C, 3) float32, degree (C,)
     int32, mask (W, C) int32)``, written into ``out`` when given (``W`` is
     then its mask's, else ``mask_words(bounds)``); ``pred`` as in the module
     docstring; ``width`` is ``neighbors.bounds_window``'s. ``uniform_radius``
     selects the uniform law, None the general law, as in the kernel.
-    ``grouping``: the forces' sum order, as in ``ops.contact``."""
+    ``grouping``: the forces' sum order, and ``probes``, folded into where
+    the substep runs, as in ``ops.contact.contact_substep_plain``."""
     if out is None:
         C, dev = xyzr.shape[0], xyzr.device
         out = (torch.zeros((C, 3), dtype=torch.float32, device=dev),
@@ -180,6 +181,8 @@ def contact_seed_plain(
     out[0].copy_(force)
     out[1].copy_(degree)
     out[2].copy_(_pack(keep, j, out[2].shape[0]))
+    if probes is not None:
+        fold_probes(probes, bounds, degree)
     return out
 
 
@@ -187,13 +190,13 @@ def contact_masked_plain(
     xyzr, ids, alive, bounds, mask, *, radius, adhesion_const, poisson,
     youngs, break_d, uniform_radius: Optional[float] = None,
     pred: Optional[torch.Tensor] = None, out=None, width=None,
-    grouping: Optional[Grouping] = None,
+    grouping: Optional[Grouping] = None, probes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain masked substep: returns ``(force, degree, mask)``, the mask
     being the given tensor with the new keep set written into it and force
     and degree written into ``out`` when given; ``pred`` as in the module
-    docstring; ``width`` is ``neighbors.bounds_window``'s; ``uniform_radius``
-    and ``grouping`` as in ``contact_seed_plain``."""
+    docstring; ``width`` is ``neighbors.bounds_window``'s; ``uniform_radius``,
+    ``grouping`` and ``probes`` as in ``contact_seed_plain``."""
     if out is None:
         C, dev = xyzr.shape[0], xyzr.device
         out = (torch.zeros((C, 3), dtype=torch.float32, device=dev),
@@ -207,6 +210,8 @@ def contact_masked_plain(
     mask.copy_(_pack(keep, j, mask.shape[0]))
     out[0].copy_(force)
     out[1].copy_(degree)
+    if probes is not None:
+        fold_probes(probes, bounds, degree)
     return (*out, mask)
 
 
@@ -280,10 +285,8 @@ def contact_seed_cuda(
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius,
               pred=pred, out=out, grouping=grouping)
     if xyzr.device.type == "cpu":
-        out = contact_seed_plain(xyzr, ids, alive, bounds, partners, **kw, width=width)
-        if probes is not None and not _skipped(pred):
-            fold_probes(probes, bounds, out[1])
-        return out
+        return contact_seed_plain(xyzr, ids, alive, bounds, partners, **kw, width=width,
+                                  probes=probes)
     C, n_runs = _check_rows(xyzr, ids, alive, bounds)
     K = partners.shape[1] if partners.dim() == 2 else 0
     kernels.check_cuda("partners", partners, torch.int32, (C, K))
@@ -318,10 +321,8 @@ def contact_masked_cuda(
               youngs=youngs, break_d=break_d, uniform_radius=uniform_radius,
               pred=pred, out=out, grouping=grouping)
     if xyzr.device.type == "cpu":
-        out = contact_masked_plain(xyzr, ids, alive, bounds, mask, **kw, width=width)
-        if probes is not None and not _skipped(pred):
-            fold_probes(probes, bounds, out[1])
-        return out
+        return contact_masked_plain(xyzr, ids, alive, bounds, mask, **kw, width=width,
+                                    probes=probes)
     C, n_runs = _check_rows(xyzr, ids, alive, bounds)
     W = _check_mask(mask, C)
     force, degree = _outputs(out, C, xyzr.device)

@@ -17,8 +17,9 @@ and dead rows do not move (``ref``'s tail is theirs). So a rebuild permutes
 only the live prefix into ``build_grid``'s ``(flat bin,
 id)`` order: each live row's place is its bin's start in the exclusive
 prefix of the bin counts plus the number of its bin's rows of smaller key
-``(id, row)``. ``rebuild_plain`` is that algorithm in PyTorch (the CPU
-form of the wrapper, and the tests' mirror of the kernels' placement).
+``(id, row)``. ``rebuild_plain`` is that algorithm in PyTorch: the CPU
+form of the wrapper, which the CPU's single-colony scans run, and the
+tests' mirror of the kernels' placement.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from hipsc_abm_tpu_torch.ops import neighbors as nbr_ops
 from hipsc_abm_tpu_torch.ops import xla_f32
 
 # the rows a scan carries and a rebuild moves; "alive" stays (true on the
-# whole live prefix). A scan on the card also carries "xyzr", the rows'
+# whole live prefix). A single-colony scan also carries "xyzr", the rows'
 # packed (x, y, z, r), which the rebuild writes from the moved "loc" and
 # "rad" (``PACKED``)
 MOVED = ("loc", "rad", "mot", "ids", "partners", "perm")

@@ -105,12 +105,12 @@ from hipsc_abm_tpu_torch.engine import (
     CellState,
     EngineConfig,
     HipscEngine,
+    _RebuildWhere,
     _Update,
     _build_window,
     _contact_law,
     _masked_max,
     _physics_dts,
-    _rebuild_where,
     _round_up,
     _window_widths,
     config_from_meta,
@@ -875,7 +875,7 @@ def _tile_physics(t: _Tile, arrays, alive, bonds, size, plain: bool):
     rows, bounds, grouping = _build_window(base, rows, window)
     inv = _inverse(rows["perm"])
     ref = rows["loc"]
-    identity = torch.arange(C, device=dev)
+    rebuild = _RebuildWhere(base, torch.arange(C, device=dev), window)
     K = rows["partners"].shape[1]
     mask = None
     if span:
@@ -891,19 +891,18 @@ def _tile_physics(t: _Tile, arrays, alive, bonds, size, plain: bool):
         if Ty > 1:
             out = torch.maximum(out, torch.maximum(c.y_lo - y, y - c.y_hi))
         exceeds.append(_masked_max(out, own_alive))
-        rebuild = None
+        pred = None
         if s > 0:
             # the previous substep's update measured its own rows' drift
             stale = (yield _Reduce("max", drift2)) > threshold
             if span:
-                rebuild = stale.to(torch.int32).reshape(1)
-                span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K, pred=rebuild,
+                pred = stale.to(torch.int32).reshape(1)
+                span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K, pred=pred,
                                             out=rows["partners"])
             frz, band = yield from exchange_and_update(frz, stale)
             bands.append(band)
             counts = yield own_counts()
-            rows, bounds, ref, grouping = _rebuild_where(stale, base, rows, bounds, ref,
-                                                         identity, window, grouping=grouping)
+            rows, bounds, ref, grouping = rebuild(s, stale, rows, bounds, ref, grouping)
             inv = _inverse(rows["perm"])
             rebuilds = rebuilds + stale
         run, widest_row = _window_widths(bounds)
@@ -913,14 +912,14 @@ def _tile_physics(t: _Tile, arrays, alive, bonds, size, plain: bool):
         width = int((yield _Reduce("max", run))) if plain else None
         counted = rows["alive"] & (rows["perm"] < P)
         if span:
-            deg, move2, drift2, _ = span_mask_substep(law, update, s, size, dt, rows, bounds,
-                                                      ref, mask, rebuild, width=width,
-                                                      counted=counted, grouping=grouping)
+            degree, move2, drift2, _ = span_mask_substep(law, update, s, size, dt, rows, bounds,
+                                                         ref, mask, pred, width=width,
+                                                         counted=counted, grouping=grouping)
         else:
-            rows, (_, _, deg, move2, drift2, _) = contact_substep_rows(
+            rows, degree, move2, drift2, _ = contact_substep_rows(
                 law, contact_substep_cuda, update, s, size, dt, rows, bounds, ref,
                 width=width, counted=counted, grouping=grouping)
-        degs.append(deg)
+        degs.append(torch.where(counted, degree, 0).max())
         moves2.append(move2)
     if span:
         rows["partners"] = span_mask.mask_compact_cuda(rows["ids"], bounds, mask, K)

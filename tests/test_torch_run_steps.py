@@ -213,14 +213,20 @@ def _substep_rebuilds(events, substeps):
 
 def _port_rebuild_recorder(monkeypatch):
     """The port's drift decisions, one list per scan (every substep after
-    the first)."""
+    the first), recorded where the scan calls the rebuild it chose
+    (``_scan_rebuild``), whichever form it is."""
     scans = []
-    real = teng_mod._rebuild_where
+    real = teng_mod._scan_rebuild
 
-    def rebuild_where(stale, *args, **kw):
-        # the drift flag of the update before this substep (ops.integrate)
-        scans[-1].append(bool(stale))
-        return real(stale, *args, **kw)
+    def scan_rebuild(*args):
+        rebuild = real(*args)
+
+        def recorded(s, stale, *rest):
+            # the drift flag of the update before this substep (ops.integrate)
+            scans[-1].append(bool(stale))
+            return rebuild(s, stale, *rest)
+
+        return recorded
 
     real_build = teng_mod._build_window
 
@@ -228,7 +234,7 @@ def _port_rebuild_recorder(monkeypatch):
         scans.append([])
         return real_build(cfg, rows)
 
-    monkeypatch.setattr(teng_mod, "_rebuild_where", rebuild_where)
+    monkeypatch.setattr(teng_mod, "_scan_rebuild", scan_rebuild)
     monkeypatch.setattr(teng_mod, "_build_window", build)
     return scans
 

@@ -3,19 +3,12 @@
 rebuild of real scans, the placement's mirror (``rebuild_plain``) against
 ``engine._rebuild_where``, and, on the card, the kernels against
 ``_rebuild_where`` and the scans that run them against the CPU's. Also the
-rows' packed form that such a scan carries (``engine._pack_rows``, kept by
-the update and the rebuild) and the substep probes its contact kernels
-reduce, held at every substep, on the CPU through the plain mirrors and on
-the card through the kernels.
-
-The card tests are marked ``cuda`` and skip without an NVIDIA GPU. The file
-imports no JAX:
-
-    python -m pytest --noconftest -m cuda tests/test_torch_window.py -q
-
-Every comparison is exact: the kernels move rows and integers and compute
-the bins with the plain version's float32 product.
-"""
+rows' packed form that a single-colony scan carries (``engine._pack_rows``,
+kept by the update and the rebuild) and the substep probes its contact
+launches reduce into the update's scratch, held at every substep, on the
+CPU through the plain mirrors and on the card through the kernels, and the
+split of the scans' routes: every single-colony scan that is not ``plain``
+takes the route the card runs, on any device."""
 
 import dataclasses
 
@@ -100,10 +93,12 @@ def _mirror(stale, cfg, rows, bounds, ref, grouping, seed):
 def test_every_rebuild_permutes_only_the_live_prefix(path, dims, deaths, monkeypatch):
     """At every rebuild of two steps' scans: ``alive`` is the entry build's,
     its dead rows are exactly the tail ``[n_live, C)``, which has not moved
-    since the build, and ``build_grid``'s order is the identity there; and the placement's mirror, its arrivals
-    shuffled, equals ``_rebuild_where`` with the flag set and with it clear."""
+    since the build, and ``build_grid``'s order is the identity there; and
+    the placement's mirror, its arrivals shuffled, equals ``_rebuild_where``
+    with the flag set and with it clear. The checks run where the scan
+    calls the rebuild it chose (``_scan_rebuild``)."""
     eng, state = _engine(path, dims, deaths)
-    real_build, real_rebuild = engine_mod._build_window, engine_mod._rebuild_where
+    real_build, real_choice = engine_mod._build_window, engine_mod._scan_rebuild
     entry, seen = [], {"calls": 0, "taken": 0, "dead_in_prefix_at_entry": 0}
 
     def build(cfg, rows):
@@ -113,8 +108,7 @@ def test_every_rebuild_permutes_only_the_live_prefix(path, dims, deaths, monkeyp
         seen["dead_in_prefix_at_entry"] += int((~alive[:int(alive.sum())]).sum())
         return out
 
-    def rebuild_where(stale, cfg, rows, bounds, ref, identity, window=None, *, grouping):
-        assert window is None
+    def check(cfg, stale, rows, bounds, ref, grouping):
         alive, C = rows["alive"], rows["alive"].shape[0]
         n_live = int(alive.sum())
         assert torch.equal(alive, entry[-1])
@@ -125,15 +119,24 @@ def test_every_rebuild_permutes_only_the_live_prefix(path, dims, deaths, monkeyp
         assert torch.equal(order[n_live:], torch.arange(n_live, C))
         for flag in (True, False):
             flag_t = torch.tensor(flag)
-            want = real_rebuild(flag_t, cfg, rows, bounds, ref, identity, grouping=grouping)
+            want = engine_mod._rebuild_where(flag_t, cfg, rows, bounds, ref, torch.arange(C),
+                                             grouping=grouping)
             got = _mirror(flag_t, cfg, rows, bounds, ref, grouping, seed=seen["calls"])
             _assert_rebuilt(got, want, f"call {seen['calls']}, flag {flag}")
         seen["calls"] += 1
         seen["taken"] += bool(stale)
-        return real_rebuild(stale, cfg, rows, bounds, ref, identity, grouping=grouping)
+
+    def choice(cfg, rows, n_substeps, plain):
+        rebuild = real_choice(cfg, rows, n_substeps, plain)
+
+        def checked(s, stale, *window):
+            check(cfg, stale, *window)
+            return rebuild(s, stale, *window)
+
+        return checked
 
     monkeypatch.setattr(engine_mod, "_build_window", build)
-    monkeypatch.setattr(engine_mod, "_rebuild_where", rebuild_where)
+    monkeypatch.setattr(engine_mod, "_scan_rebuild", choice)
     state, info = eng.run_steps(state, 2)
     n_sub = len(engine_mod._physics_dts(eng.bio))
     assert seen["calls"] == 2 * (n_sub - 1) and len(entry) == 2
@@ -233,8 +236,11 @@ def test_rebuild_mirror_moves_the_packed_rows(dims, n_live):
 def test_plain_mirrors_fold_the_probes_and_write_the_packed_rows():
     """The CPU forms of the kernels' new outputs: each contact substep given
     ``probes`` folds in the widest run, the widest row and the largest
-    degree (a predicated substep that does not run folds nothing), and the
-    update given ``xyzr`` writes ``pack_physics`` of its new locations."""
+    degree (a predicated substep that does not run folds nothing), the
+    update given ``xyzr`` writes ``pack_physics`` of its new locations, and
+    the update given a scratch row writes the kernel's words into it (the
+    largest move and drift by max, and the flag) and returns the values
+    those words hold."""
     from hipsc_abm_tpu_torch.engine import _contact_law, _window_widths, drift_threshold
     from hipsc_abm_tpu_torch.ops import contact
 
@@ -245,7 +251,9 @@ def test_plain_mirrors_fold_the_probes_and_write_the_packed_rows():
     run, cands = _window_widths(bounds)
     args = (xyzr, rows["ids"], rows["alive"], bounds)
     for name, fn, last in (("B6", contact.contact_substep_cuda, rows["partners"]),
-                           ("seed", span_mask.contact_seed_cuda, rows["partners"])):
+                           ("B6 plain", contact.contact_substep_plain, rows["partners"]),
+                           ("seed", span_mask.contact_seed_cuda, rows["partners"]),
+                           ("seed plain", span_mask.contact_seed_plain, rows["partners"])):
         probes = torch.tensor([0, 0, 10_000], dtype=torch.int32)
         _, degree, _ = fn(*args, last, **law, grouping=grouping, probes=probes)
         assert probes.tolist() == [int(run), int(cands), 10_000], name
@@ -264,11 +272,27 @@ def test_plain_mirrors_fold_the_probes_and_write_the_packed_rows():
     force = torch.full((1000, 3), 1e-9)
     packed = torch.full((1000, 4), float("nan"))
     size = torch.tensor(BOX[2], dtype=torch.float32)
-    new, *_ = integrate.update_cuda(rows["loc"], rows["rad"], force, rows["mot"] * 1e-9,
-                                    rows["alive"], ref, size, stokes=BIO.stokes,
-                                    dt=float(BIO.move_dt), folded=False,
-                                    threshold=drift_threshold(2.0), xyzr=packed)
+    kw = dict(stokes=BIO.stokes, dt=float(BIO.move_dt), folded=False)
+    upd = (rows["loc"], rows["rad"], force, rows["mot"] * 1e-9, rows["alive"], ref, size)
+    new, *_ = integrate.update_cuda(*upd, **kw, threshold=drift_threshold(2.0), xyzr=packed)
     assert _same(packed, pack_physics(new, rows["rad"]))
+    # the scratch words: the move's and the drift's float32 bits by max, the
+    # flag, as the kernel writes them; the values come back as computed
+    scratch = integrate.update_scratch(3, "cpu")
+    want = integrate.update_plain(*upd, **kw, threshold=0.0)
+    for s, threshold in ((0, 0.0), (1, float("inf"))):
+        got = integrate.update_cuda(*upd, **kw, threshold=threshold, scratch=scratch[s])
+        words = scratch[s, :16].view(torch.int32)
+        assert _same(got[0], new) and float(got[1]) > 0.0
+        assert [int(w) for w in words[:2]] == [int(v.view(torch.int32)) for v in want[1:3]]
+        assert _same(scratch[s, :8].view(torch.float32), torch.stack(got[1:3]))
+        assert int(words[3]) == int(got[3]) == (s == 0)
+        assert not scratch[s, 16:].any()
+    still = integrate.update_plain(*upd[:2], force * 0.0, upd[3] * 0.0, *upd[4:], **kw,
+                                   threshold=0.0, scratch=scratch[0])
+    assert float(still[1]) == 0.0 and float(scratch[0, :8].view(torch.float32)[0]) == float(
+        want[1])
+    assert not scratch[2].any()
 
 
 def _substep_checks(monkeypatch, seen):
@@ -280,8 +304,6 @@ def _substep_checks(monkeypatch, seen):
     largest degree it wrote. ``seen`` counts the substeps and those that
     carried packed rows."""
     real_rows, real_mask = engine_mod.contact_substep_rows, engine_mod.span_mask_substep
-    real_seed = span_mask.contact_seed_cuda
-    degrees = []
 
     def packed_ok(rows, label):
         if window.PACKED not in rows:
@@ -294,76 +316,33 @@ def _substep_checks(monkeypatch, seen):
         want = [int(run), int(cands), int(degree.max())]
         assert [int(v) for v in probes] == want, label
 
-    def rows_substep(law, contact, update, s, size, dt, rows, bounds, ref, **kw):
+    def rows_substep(law, contact, update, s, size, dt, rows, bounds, ref, probes=None, **kw):
         label = f"id-list substep {s}"
         packed = packed_ok(rows, label + " entry")
-
-        def recording(*a, **k):
-            out = contact(*a, **k)
-            degrees.append(out[1])
-            return out
-
-        rows, probes = real_rows(law, recording, update, s, size, dt, rows, bounds, ref, **kw)
+        out = real_rows(law, contact, update, s, size, dt, rows, bounds, ref, probes=probes,
+                        **kw)
         if packed:
-            assert packed_ok(rows, label + " exit")
-            probes_ok(probes[:3], bounds, degrees[-1], label)
+            assert packed_ok(out[0], label + " exit")
+            probes_ok(probes, bounds, out[1], label)
         seen["substeps"] += 1
         seen["packed"] += packed
-        return rows, probes
+        return out
 
-    def seed(*a, out=None, **k):
-        degrees.append(out[1])
-        return real_seed(*a, out=out, **k)
-
-    def mask_substep(law, update, s, size, dt, rows, bounds, ref, mask, rebuild=None, **kw):
+    def mask_substep(law, update, s, size, dt, rows, bounds, ref, mask, rebuild=None,
+                     probes=None, **kw):
         label = f"span-mask substep {s}"
         packed = packed_ok(rows, label + " entry")
-        out = real_mask(law, update, s, size, dt, rows, bounds, ref, mask, rebuild, **kw)
+        out = real_mask(law, update, s, size, dt, rows, bounds, ref, mask, rebuild,
+                        probes=probes, **kw)
         if packed:
             assert packed_ok(rows, label + " exit")
-            probes_ok(update.probes(s), bounds, degrees[-1], label)
-            assert int(out[0]) == int(degrees[-1].max())
+            probes_ok(probes, bounds, out[0], label)
         seen["substeps"] += 1
         seen["packed"] += packed
         return out
 
     monkeypatch.setattr(engine_mod, "contact_substep_rows", rows_substep)
     monkeypatch.setattr(engine_mod, "span_mask_substep", mask_substep)
-    monkeypatch.setattr(span_mask, "contact_seed_cuda", seed)
-
-
-def _update_mirror(*args, scratch, **kw):
-    """``update_plain`` with the kernel's scratch words: the move's and the
-    drift's float32 bits and the flag, as views (``update_cuda``)."""
-    new, move2, drift2, stale = integrate.update_plain(*args, **kw)
-    words = scratch[:16].view(torch.int32)
-    words[0] = torch.maximum(words[0], move2.view(torch.int32))
-    words[1] = torch.maximum(words[1], drift2.view(torch.int32))
-    words[3] = stale.to(torch.int32)
-    maxima = scratch[:8].view(torch.float32)
-    return new, maxima[0], maxima[1], scratch[12:13].view(torch.bool)[0]
-
-
-def _emulate_card_scan(monkeypatch):
-    """The card's single-colony scan on the CPU: ``_WindowRebuild`` (whose
-    ``rebuild_cuda`` runs the mirror on a CPU tensor) and an update with the
-    kernel's scratch, so that the rows carry their packed form and the
-    probes come back through the scratch."""
-    real_update_of = engine_mod._Update.of
-
-    def rebuild_of(cls, cfg, rows, n_substeps, plain):
-        if plain:
-            return None
-        return cls(cfg.jkr_spec, cfg.jkr_span, window.buffers(cfg.jkr_spec, rows, n_substeps))
-
-    def update_of(cls, cfg, bio, n_substeps, device, plain=False):
-        if plain:
-            return real_update_of(cfg, bio, n_substeps, device, plain)
-        return cls(_update_mirror, bio.stokes, engine_mod.drift_threshold(cfg.verlet_skin),
-                   integrate.update_scratch(n_substeps, device))
-
-    monkeypatch.setattr(engine_mod._WindowRebuild, "of", classmethod(rebuild_of))
-    monkeypatch.setattr(engine_mod._Update, "of", classmethod(update_of))
 
 
 def _small_bond_cap(eng, state, K=2):
@@ -389,32 +368,36 @@ def _assert_same_step(got, want):
 
 @pytest.mark.parametrize("dims", [2, 3])
 @pytest.mark.parametrize("path", ["id_list", "span_mask"])
-def test_emulated_card_scan_carries_packed_rows_and_equals_the_glue(path, dims, monkeypatch):
-    """The card's single-colony scan emulated on the CPU through the plain
+def test_cpu_scan_carries_packed_rows_and_equals_rebuild_where(path, dims, monkeypatch):
+    """The CPU's own single-colony scan, the card's route through the plain
     mirrors: at every substep the packed rows are ``pack_physics`` of the
-    rows (also right after a taken rebuild) and the folded probes equal the
-    PyTorch probes; two steps equal the CPU's own scan, which packs and
-    probes in PyTorch, bit for bit, with rebuilds taken and degrees past K."""
+    rows (also right after a taken rebuild) and the probes folded into the
+    update's scratch equal ``_window_widths`` and the largest degree; two
+    steps equal, bit for bit, those of the same scan whose rebuild selects
+    (``_RebuildWhere``), with rebuilds taken and degrees past K."""
     eng, state = _engine(path, dims, deaths=False)
     state = _small_bond_cap(eng, state)
-    glue = [eng.step(state)]
-    glue.append(eng.step(glue[0][0]))
+    with monkeypatch.context() as m:
+        # swapped in where the rebuild is chosen; the rows still carry their
+        # packed form
+        m.setattr(engine_mod, "_scan_rebuild", lambda cfg, rows, n_substeps, plain:
+                  engine_mod._RebuildWhere(cfg, torch.arange(rows["ids"].shape[0])))
+        want = [eng.step(state)]
+        want.append(eng.step(want[0][0]))
     seen = {"substeps": 0, "packed": 0}
     _substep_checks(monkeypatch, seen)
-    _emulate_card_scan(monkeypatch)
     got = eng.step(state)
-    _assert_same_step(got, glue[0])
-    _assert_same_step(eng.step(got[0]), glue[1])
+    _assert_same_step(got, want[0])
+    _assert_same_step(eng.step(got[0]), want[1])
     n_sub = len(engine_mod._physics_dts(eng.bio))
     assert seen["substeps"] == seen["packed"] == 2 * n_sub
-    assert sum(int(info.jkr_rebuilds) for _, info in glue) > 0
-    assert max(int(info.jkr_max_degree) for _, info in glue) > 2
+    assert sum(int(info.jkr_rebuilds) for _, info in want) > 0
+    assert max(int(info.jkr_max_degree) for _, info in want) > 2
 
 
-def _glue_record(monkeypatch):
-    """Record, for every contact launch, whether it was given probes (the
-    single-colony card scan's kernels), and count the PyTorch packs of the
-    rows."""
+def _route_record(monkeypatch):
+    """Record, for every contact launch, whether it was given probes, and
+    count the PyTorch packs of the rows."""
     from hipsc_abm_tpu_torch.parallel import domain_engine
 
     record = {"probes": [], "packs": 0}
@@ -441,7 +424,7 @@ def _glue_record(monkeypatch):
     return record
 
 
-def _glue_paths(device):
+def _route_paths(device):
     """``(label, step)`` of the single-colony steps on both paths, the
     ``plain`` step and the domain engine's step, on ``device``."""
     from hipsc_abm_tpu_torch.parallel import DomainHipscEngine
@@ -463,18 +446,36 @@ def _glue_paths(device):
     return out
 
 
-def test_cpu_plain_and_domain_scans_keep_the_torch_glue(monkeypatch):
-    """On the CPU every scan (both paths, ``plain``, the domain engine)
-    packs its rows and probes its windows in PyTorch on every substep: no
-    contact launch is given probes and no update writes packed rows."""
-    record = _glue_record(monkeypatch)
+def _assert_route_split(monkeypatch, device):
+    """The scans' routes on ``device``: the single-colony scans give every
+    contact launch probes and pack their rows once, at the entry build;
+    ``plain`` gives every launch probes and packs on every substep; the
+    domain engine gives none and packs on every substep."""
+    record = _route_record(monkeypatch)
     n_sub = len(engine_mod._physics_dts(BIO))
-    for label, step in _glue_paths("cpu"):
+    for label, step in _route_paths(device):
         record["probes"].clear()
         record["packs"] = 0
         step()
-        assert record["probes"] and not any(record["probes"]), label
-        assert record["packs"] >= n_sub, label
+        assert record["probes"], label
+        if label.startswith("domain"):
+            assert not any(record["probes"]) and record["packs"] >= n_sub, label
+        else:
+            assert all(record["probes"]), label
+            assert record["packs"] == (n_sub if label == "plain" else 1), label
+
+
+def test_cpu_plain_and_domain_scans_keep_the_torch_glue(monkeypatch):
+    """On the CPU only ``plain`` and the domain engine pack their rows in
+    PyTorch on every substep, and only the domain engine probes its
+    windows in PyTorch; the single-colony scans take the card's route
+    (``_assert_route_split``): their rebuild is the in-place one."""
+    cfg, rows, *_ = _window_inputs(2, 1000, 700)
+    assert isinstance(engine_mod._scan_rebuild(cfg, rows, 11, plain=False),
+                      engine_mod._WindowRebuild)
+    assert isinstance(engine_mod._scan_rebuild(cfg, rows, 11, plain=True),
+                      engine_mod._RebuildWhere)
+    _assert_route_split(monkeypatch, "cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -507,14 +508,21 @@ def _kernel_rebuild(stale, cfg, rows, bounds, ref, grouping, n_substeps=3):
 
 @pytest.mark.cuda
 def test_only_the_cards_unplain_scans_take_the_kernels(dev):
-    """A scan on the card takes the kernels' rebuild; under ``plain`` (the
-    calibrator's autograd path) and on the CPU it keeps ``_rebuild_where``."""
-    cfg, rows, *_ = _window_inputs(2, 1000, 700)
-    on_card = {k: v.to(dev) for k, v in rows.items()}
-    assert isinstance(engine_mod._WindowRebuild.of(cfg, on_card, 11, plain=False),
-                      engine_mod._WindowRebuild)
-    assert engine_mod._WindowRebuild.of(cfg, on_card, 11, plain=True) is None
-    assert engine_mod._WindowRebuild.of(cfg, rows, 11, plain=False) is None
+    """A scan on the card that is not ``plain`` takes the in-place rebuild
+    (``_WindowRebuild``), whose call launches the six kernels; under
+    ``plain`` (the calibrator's autograd path) it takes ``_RebuildWhere``,
+    which launches none of them."""
+    cfg, rows, bounds, ref, grouping = _on_card(*_window_inputs(2, 1000, 700), dev)
+    stale = torch.tensor(True, device=dev)
+    for plain, kind, launched in ((False, engine_mod._WindowRebuild, 1),
+                                  (True, engine_mod._RebuildWhere, 0)):
+        rebuild = engine_mod._scan_rebuild(cfg, rows, 11, plain=plain)
+        assert isinstance(rebuild, kind)
+        before = dict(kernels.launch_counts)
+        rebuild(1, stale, *_clone(rows, bounds, ref, grouping))
+        for name in window.LAUNCHES:
+            key = kernels.counted_name(name, 3)
+            assert kernels.launch_counts[key] == before.get(key, 0) + launched, (plain, key)
 
 
 @pytest.mark.cuda
@@ -616,7 +624,7 @@ def test_rebuild_graph_holds_only_its_kernels(dev):
 @pytest.mark.parametrize("path", ["id_list", "span_mask"])
 def test_run_steps_with_kernel_rebuilds_equal_the_cpu(dev, path, dims):
     """A 5-step ``run_steps`` block on the card (the scans rebuild with the
-    kernels) against the same block on the CPU (``_rebuild_where``), by
+    kernels) against the same block on the CPU (``rebuild_plain``), by
     agent id: integer state, positions and bonds bit-equal, the rebuilds
     taken equal; each replay runs the six rebuild kernels on each of a
     step's 10 later substeps."""
@@ -677,20 +685,11 @@ def test_card_scan_probes_and_packed_rows_equal_the_cpu(dev, path, dims, monkeyp
 
 @pytest.mark.cuda
 def test_only_the_cards_single_colony_scans_take_the_kernel_probes(dev, monkeypatch):
-    """On the card the single-colony scans give every contact launch the
-    probes and pack their rows once, at the entry build; under ``plain``
-    and in the domain engine every substep packs and probes in PyTorch."""
-    record = _glue_record(monkeypatch)
-    n_sub = len(engine_mod._physics_dts(BIO))
-    for label, step in _glue_paths("cuda"):
-        record["probes"].clear()
-        record["packs"] = 0
-        step()
-        assert record["probes"], label
-        if label in ("id_list", "span_mask"):
-            assert all(record["probes"]) and record["packs"] == 1, label
-        else:
-            assert not any(record["probes"]) and record["packs"] >= n_sub, label
+    """On the card, as on the CPU: the single-colony scans give every
+    contact launch the probes and pack their rows once, at the entry build;
+    ``plain`` gives its plain launches probes and packs on every substep;
+    the domain engine gives none and packs on every substep."""
+    _assert_route_split(monkeypatch, "cuda")
 
 
 @pytest.mark.cuda
